@@ -1,0 +1,286 @@
+"""K-Means estimator with Spark-MLlib-compatible parameters: the port of
+the JAX package's ``models/kmeans.py`` (its in-memory, single-device,
+uncheckpointed route).
+
+``KMeans(...).fit(x)`` runs table -> init (random | k-means||) -> Lloyd
+loop on the fused Hopper kernel (ops/cuda/kmeans_kernel.lloyd_run_kernel)
+-> :class:`KMeansModel`.  It runs on ``device="cuda"`` unless the caller
+passes ``device="cpu"``, where the kernel wrapper takes its plain
+version; a missing card raises.  ``distance_measure="cosine"`` runs the
+numpy reference (fallback/kmeans_np.py) with ``accelerated=False``, as
+the JAX package does.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.data.table import DenseTable
+from oap_mllib_tpu_torch.fallback.kmeans_np import _sq_dists, lloyd_np, predict_np
+from oap_mllib_tpu_torch.ops import kmeans_ops
+from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel
+from oap_mllib_tpu_torch.utils import precision as psn
+from oap_mllib_tpu_torch.utils.dispatch import resolve_device
+from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
+
+INIT_RANDOM = "random"
+INIT_PARALLEL = "k-means||"
+
+
+class KMeansSummary:
+    """Training summary.  ``kernels`` counts the CUDA kernel launches of
+    the fit by kernel name (0 on the CPU, where the plain versions run)."""
+
+    def __init__(self, training_cost: float, num_iter: int, timings: Timings,
+                 accelerated: bool, cluster_sizes: Optional[np.ndarray] = None,
+                 kernels: Optional[dict] = None, precision: str = "f32"):
+        self.training_cost = training_cost
+        self.num_iter = num_iter
+        self.timings = timings
+        self.accelerated = accelerated
+        self.cluster_sizes = cluster_sizes
+        self.kernels = dict(kernels or {})
+        self.precision = precision
+
+    def __repr__(self) -> str:
+        return (
+            f"KMeansSummary(cost={self.training_cost:.6g}, iters={self.num_iter}, "
+            f"accelerated={self.accelerated}, kernels={self.kernels})"
+        )
+
+
+def _as_float_tensor(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    a = np.asarray(x, dtype=np.float32)
+    if not a.flags.writeable:  # torch.from_numpy needs a writable array
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+class KMeansModel:
+    def __init__(self, cluster_centers, distance_measure: str = "euclidean",
+                 summary: Optional[KMeansSummary] = None,
+                 device: Optional[str] = None):
+        if isinstance(cluster_centers, torch.Tensor):
+            cluster_centers = cluster_centers.cpu().numpy()
+        self.cluster_centers_ = np.asarray(cluster_centers)
+        self.distance_measure = distance_measure
+        self.summary = summary
+        # None = Config.device, resolved at the first scoring call
+        self.device = device
+        self._staged = None  # (key, centers tensor) of the last device
+
+    @property
+    def k(self) -> int:
+        return self.cluster_centers_.shape[0]
+
+    def _score_chunk_rows(self) -> int:
+        return kmeans_ops.rows_per_chunk(self.k, self.cluster_centers_.shape[1])
+
+    def _centers_dev(self, dev: torch.device) -> torch.Tensor:
+        """The centers on ``dev``, staged once per (device, centers array)."""
+        key = (str(dev), id(self.cluster_centers_))
+        if self._staged is None or self._staged[0] != key:
+            self._staged = (key, _as_float_tensor(self.cluster_centers_, dev))
+        return self._staged[1]
+
+    def _chunks(self, x):
+        """(device centers, row chunks of x as f32 tensors on the device)."""
+        dev = resolve_device(self.device)
+        c = self._centers_dev(dev)
+        rows = self._score_chunk_rows()
+        return c, (
+            _as_float_tensor(x[lo:lo + rows], dev)
+            for lo in range(0, len(x), rows)
+        )
+
+    def predict(self, x) -> np.ndarray:
+        """Nearest-center label of every row."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        if self.distance_measure != "euclidean":
+            return predict_np(_host(x), self.cluster_centers_, self.distance_measure)
+        if len(x) == 0:
+            return np.zeros((0,), np.int64)
+        c, chunks = self._chunks(x)
+        return np.concatenate([
+            torch.argmin(kmeans_ops.pairwise_sq_dists(xc, c), dim=1).cpu().numpy()
+            for xc in chunks
+        ])
+
+    def transform(self, x) -> np.ndarray:
+        return self.predict(x)
+
+    def compute_cost(self, x) -> float:
+        """Sum of squared distances of the rows to their nearest center."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        if self.distance_measure != "euclidean":
+            d = _sq_dists(_host(x), self.cluster_centers_, self.distance_measure)
+            return float(np.sum(np.min(d, axis=1)))
+        c, chunks = self._chunks(x)
+        return float(sum(
+            float(torch.sum(kmeans_ops.min_sq_dists(xc, c))) for xc in chunks
+        ))
+
+    # -- persistence: the JAX package's format (metadata.json + centers.npy) --
+    def save(self, path: str) -> None:
+        """Atomic per-file writes, metadata last."""
+        from oap_mllib_tpu_torch.data import io as _io
+
+        os.makedirs(path, exist_ok=True)
+        _io.atomic_save_npy(os.path.join(path, "centers.npy"), self.cluster_centers_)
+        _io.atomic_write_json(
+            os.path.join(path, "metadata.json"),
+            {"type": "KMeansModel",
+             "distance_measure": self.distance_measure,
+             "k": int(self.k),
+             "shape": [int(v) for v in self.cluster_centers_.shape],
+             "version": 1},
+        )
+
+    @classmethod
+    def load(cls, path: str, device: Optional[str] = None) -> "KMeansModel":
+        with open(os.path.join(path, "metadata.json")) as f:
+            meta = json.load(f)
+        if meta.get("type") != "KMeansModel":
+            raise ValueError(f"not a KMeansModel directory: {path}")
+        cpath = os.path.join(path, "centers.npy")
+        centers = np.load(cpath)
+        expect = meta.get("shape", [meta["k"], None])
+        if centers.ndim != 2 or int(centers.shape[0]) != int(expect[0]) or (
+                expect[1] is not None
+                and int(centers.shape[1]) != int(expect[1])):
+            raise ValueError(
+                f"{cpath}: centers have shape {tuple(centers.shape)}, "
+                f"metadata expects {tuple(expect)}: the model directory "
+                "is torn or mixed from two saves"
+            )
+        return cls(centers, meta["distance_measure"], device=device)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class KMeans:
+    """K-Means estimator.  Parameters and defaults as Spark ML's: k=2,
+    max_iter=20, tol=1e-4, init_mode="k-means||", init_steps=2,
+    distance_measure="euclidean"; ``seed`` None takes ``Config.seed``;
+    ``device`` None takes ``Config.device`` ("cuda")."""
+
+    def __init__(
+        self,
+        k: int = 2,
+        max_iter: int = 20,
+        tol: float = 1e-4,
+        seed: Optional[int] = None,
+        init_mode: str = INIT_PARALLEL,
+        init_steps: int = 2,
+        distance_measure: str = "euclidean",
+        device: Optional[str] = None,
+    ):
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        if max_iter < 0:
+            raise ValueError("max_iter must be >= 0")
+        if init_mode not in (INIT_RANDOM, INIT_PARALLEL):
+            raise ValueError(f"init_mode must be '{INIT_RANDOM}' or '{INIT_PARALLEL}'")
+        if distance_measure not in ("euclidean", "cosine"):
+            raise ValueError("distance_measure must be 'euclidean' or 'cosine'")
+        if init_steps < 1:
+            raise ValueError("init_steps must be >= 1")
+        self.k = k
+        self.max_iter = max_iter
+        self.tol = tol
+        self.seed = get_config().seed if seed is None else seed
+        self.init_mode = init_mode
+        self.init_steps = init_steps
+        self.distance_measure = distance_measure
+        self.device = device
+
+    def fit(self, x, sample_weight=None) -> KMeansModel:
+        """Fit on ``x`` (an (n, d) ndarray or tensor), optionally with row
+        weights."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        if x.ndim != 2:
+            raise ValueError(f"expected 2-D data, got shape {tuple(x.shape)}")
+        if x.shape[0] < 1:
+            raise ValueError("empty input")
+        if self.distance_measure != "euclidean":
+            return self._fit_fallback(_host(x), sample_weight)
+        return self._fit_device(x, sample_weight, resolve_device(self.device))
+
+    def _fit_device(self, x, sample_weight, dev: torch.device) -> KMeansModel:
+        cfg = get_config()
+        pol = psn.resolve("kmeans")
+        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        psn.apply_matmul_flags(tier)
+        timings = Timings("kmeans.fit")
+        before = dict(kmeans_kernel.LAUNCHES)
+        with phase_timer(timings, "table_convert", dev):
+            table = DenseTable.from_numpy(x, dev)
+            weights = table.mask
+            if sample_weight is not None:
+                weights = table.align_weights(sample_weight)
+        with phase_timer(timings, "init_centers", dev):
+            if self.init_mode == INIT_RANDOM:
+                centers0 = kmeans_ops.init_random(
+                    table.data, table.n_rows, self.k, self.seed,
+                    index_map=table.valid_to_padded,
+                )
+            else:
+                centers0 = kmeans_ops.init_kmeans_parallel(
+                    table.data, weights, table.n_rows, self.k, self.seed,
+                    self.init_steps, index_map=table.valid_to_padded,
+                )
+            centers0 = _as_float_tensor(centers0, dev).contiguous()
+        with phase_timer(timings, "lloyd_loop", dev):
+            centers, n_iter, cost, counts = kmeans_kernel.lloyd_run_kernel(
+                table.data, weights, centers0, self.max_iter, self.tol, mode=tier,
+            )
+            centers = centers.cpu().numpy()
+            cost = float(cost)
+            counts = counts.cpu().numpy()
+        kernels = {
+            name: kmeans_kernel.LAUNCHES[name] - before.get(name, 0)
+            for name in kmeans_kernel.LAUNCHES
+        }
+        summary = KMeansSummary(
+            cost, int(n_iter), timings, accelerated=True,
+            cluster_sizes=counts, kernels=kernels, precision=pol,
+        )
+        return KMeansModel(centers, self.distance_measure, summary, device=self.device)
+
+    # -- numpy reference path (cosine distance) ------------------------------
+    def _fit_fallback(self, x: np.ndarray, sample_weight) -> KMeansModel:
+        timings = Timings("kmeans.fit")
+        x = x.astype(np.float64)
+        if sample_weight is not None:
+            sample_weight = _host(sample_weight)
+        with phase_timer(timings, "init_centers"):
+            if self.init_mode == INIT_RANDOM:
+                centers0 = kmeans_ops.init_random(x, x.shape[0], self.k, self.seed)
+            else:
+                # host k-means++ over full data as the || analog (small-data path)
+                rng = np.random.default_rng(self.seed)
+                w = np.ones(x.shape[0]) if sample_weight is None else np.asarray(sample_weight)
+                centers0 = kmeans_ops._weighted_kmeans_pp(x, w, self.k, rng)
+        with phase_timer(timings, "lloyd_loop"):
+            centers, n_iter, cost = lloyd_np(
+                x, centers0, self.max_iter, self.tol, sample_weight, self.distance_measure
+            )
+        assign = predict_np(x, centers, self.distance_measure)
+        w = np.ones(len(x)) if sample_weight is None else np.asarray(sample_weight)
+        sizes = np.zeros(self.k)
+        np.add.at(sizes, assign, w)
+        summary = KMeansSummary(cost, n_iter, timings, accelerated=False, cluster_sizes=sizes)
+        return KMeansModel(centers, self.distance_measure, summary, device=self.device)

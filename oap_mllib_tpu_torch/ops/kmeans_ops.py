@@ -1,0 +1,328 @@
+"""K-Means in plain PyTorch: distances, the plain Lloyd route, the loop
+skeleton and initialisation.  The port of the JAX package's
+``ops/kmeans_ops.py`` (the single-device functions).
+
+Eager code: the Lloyd loop is a Python loop that reads the convergence
+flag once per iteration, where the JAX package ran a ``lax.while_loop``
+inside one jitted program.  The hot loop of a fit runs the Hopper kernel
+(ops/cuda/kmeans_kernel.lloyd_run_kernel); :func:`lloyd_run` here is the
+plain route of the JAX package's XLA Lloyd, kept as a reference.
+
+Initialisation: ``init_random`` and the host side of k-means|| draw from
+``np.random.default_rng(seed)`` exactly as the JAX package does, so a
+random-init fit starts from the same centers in both packages.  The
+k-means|| sampling rounds draw from a ``torch.Generator`` seeded from
+``seed`` where the JAX package used ``jax.random``: the draws differ.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from oap_mllib_tpu_torch.ops.cuda._tiers import check_mode, tiered_dot
+
+# live-buffer element budget of every row-chunking site (training
+# accumulate, predict/cost scoring): 32M f32 = 128 MB
+SCORE_BUDGET_ELEMS = 1 << 25
+
+
+def rows_per_chunk(*widths: int, budget: int = SCORE_BUDGET_ELEMS) -> int:
+    """Rows per chunk such that the SUM of live (rows, width) buffers
+    stays within ``budget`` elements."""
+    return max(1, budget // max(1, sum(widths)))
+
+
+def auto_row_chunks(n: int, k: int, budget_elems: int = SCORE_BUDGET_ELEMS) -> int:
+    """Chunk count (a power of two) keeping the live (chunk, k) distance
+    buffer under ``budget_elems``; :func:`lloyd_run` pads the rows."""
+    chunks = 1
+    while chunks < max(n, 1) and (-(-n // chunks)) * k > budget_elems:
+        chunks *= 2
+    return chunks
+
+
+def _assign_prec(precision: str) -> str:
+    """The assignment matmul of the "high" tier runs at bf16 (argmin is a
+    discrete decision); "highest" stays f32 throughout."""
+    return "default" if precision == "high" else precision
+
+
+def pairwise_sq_dists(x: torch.Tensor, centers: torch.Tensor,
+                      precision: str = "highest") -> torch.Tensor:
+    """(n, k) squared euclidean distances via ``|x|^2 + |c|^2 - 2 x.c``."""
+    x_sq = torch.sum(x * x, dim=1, keepdim=True)
+    c_sq = torch.sum(centers * centers, dim=1)
+    cross = tiered_dot(x, centers.T, precision)
+    return torch.clamp_min(x_sq + c_sq[None, :] - 2.0 * cross, 0.0)
+
+
+def _accumulate(x, weights, centers, precision: str = "highest",
+                need_cost: bool = True):
+    """One assignment pass: ``(sums (k, d), counts (k,), cost)``.  Loop
+    mode (``need_cost=False``) ranks on the half-score
+    ``|c|^2 / 2 - x.c`` and returns a zero cost."""
+    precision = check_mode(precision)
+    k = centers.shape[0]
+    if need_cost:
+        d2 = pairwise_sq_dists(x, centers, _assign_prec(precision))
+        assign = torch.argmin(d2, dim=1)
+        min_d2 = d2.gather(1, assign[:, None])[:, 0]
+        cost = torch.sum(min_d2 * weights)
+    else:
+        c_sq = torch.sum(centers * centers, dim=1)
+        cross = tiered_dot(x, centers.T, _assign_prec(precision))
+        assign = torch.argmin(0.5 * c_sq[None, :] - cross, dim=1)
+        cost = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    one_hot = (
+        torch.nn.functional.one_hot(assign, k).to(weights.dtype)
+        * weights[:, None]
+    )
+    sums = tiered_dot(one_hot.T, x, precision)
+    counts = torch.sum(one_hot, dim=0)
+    return sums, counts, cost
+
+
+def _accumulate_chunked(x, weights, centers, row_chunks: int,
+                        precision: str = "highest", need_cost: bool = True):
+    """:func:`_accumulate` over ``row_chunks`` equal row chunks, summed in
+    chunk order, so the (rows, k) buffers stay bounded."""
+    n = x.shape[0]
+    if n % row_chunks != 0:
+        raise ValueError(f"rows {n} not divisible by row_chunks={row_chunks}")
+    cs = n // row_chunks
+    sums = counts = cost = None
+    for lo in range(0, n, cs):
+        s, c, t = _accumulate(
+            x[lo:lo + cs], weights[lo:lo + cs], centers, precision, need_cost
+        )
+        if sums is None:
+            sums, counts, cost = s, c, t
+        else:
+            sums, counts, cost = sums + s, counts + c, cost + t
+    return sums, counts, cost
+
+
+def _lloyd_loop(accum: Callable, init_centers: torch.Tensor, max_iter: int,
+                tol: float):
+    """Lloyd loop skeleton shared by the kernel route and the plain route.
+
+    Stop when every center's squared move is <= tol^2 (f32), or at
+    ``max_iter``.  Empty clusters keep their previous center.
+    ``accum(centers, final)`` returns ``(sums, counts, cost)``: loop passes
+    have ``final=False``; one pass with ``final=True`` after the loop
+    computes cost and counts against the returned centers at full
+    precision.  Returns ``(centers, n_iter, cost, counts)``."""
+    centers = init_centers
+    tol_t = torch.tensor(tol, dtype=torch.float32, device=centers.device)
+    tol_sq = tol_t * tol_t
+    n_iter = 0
+    while n_iter < max_iter:
+        sums, counts, _ = accum(centers, False)
+        cc = counts[:, None]
+        new_centers = torch.where(
+            cc > 0, sums / torch.clamp_min(cc, 1e-30), centers
+        )
+        moved_sq = torch.sum((new_centers - centers) ** 2, dim=1)
+        centers = new_centers
+        n_iter += 1
+        # the loop's one host read per iteration
+        if bool(torch.all(moved_sq <= tol_sq)):
+            break
+    _, counts, cost = accum(centers, True)
+    return centers, n_iter, cost, counts
+
+
+def lloyd_run(x, weights, init_centers, max_iter: int, tol: float,
+              row_chunks: int = 1, precision: str = "highest"
+              ) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
+    """The plain Lloyd route: ``(centers, n_iter, cost, counts)``.  Rows
+    that do not divide ``row_chunks`` are padded with weight-0 rows."""
+    precision = check_mode(precision)
+    pad = (-x.shape[0]) % row_chunks
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        weights = torch.cat([weights, weights.new_zeros((pad,))])
+
+    def accum(centers, final):
+        p = "highest" if final else precision
+        if row_chunks > 1:
+            return _accumulate_chunked(x, weights, centers, row_chunks, p, final)
+        return _accumulate(x, weights, centers, p, final)
+
+    return _lloyd_loop(accum, init_centers, max_iter, tol)
+
+
+def total_cost(x, weights, centers) -> torch.Tensor:
+    return _accumulate(x, weights, centers)[2]
+
+
+def min_sq_dists(x, centers) -> torch.Tensor:
+    return torch.min(pairwise_sq_dists(x, centers), dim=1).values
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def _gather_rows(x, idx: np.ndarray) -> np.ndarray:
+    """Rows ``x[idx]`` on the host, for a tensor or an ndarray."""
+    if isinstance(x, torch.Tensor):
+        sel = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
+        return x[sel].cpu().numpy()
+    return np.asarray(x[idx])
+
+
+def init_random(x, n_valid: int, k: int, seed: int, index_map=None) -> np.ndarray:
+    """Sample k distinct valid rows uniformly (numpy-seeded, so the same
+    rows as the JAX package's ``init_random`` for the same seed)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(n_valid, size=min(k, n_valid), replace=False)
+    if len(idx) < k:  # fewer points than clusters: duplicate (degenerate case)
+        idx = np.resize(idx, k)
+    if index_map is not None:
+        idx = index_map(idx)
+    return _gather_rows(x, idx)
+
+
+def _slot_chunk_size(cap: int, target: int = 1024) -> int:
+    """Largest divisor of ``cap`` that is <= target."""
+    if cap <= target:
+        return max(cap, 1)
+    best = 1
+    d = 1
+    while d * d <= cap:
+        if cap % d == 0:
+            if best < d <= target:
+                best = d
+            q = cap // d
+            if best < q <= target:
+                best = q
+        d += 1
+    return best
+
+
+def _pll_round(x, w, dmin, amin, base_id: int, generator, l: float,
+               cap: int, chunk: int):
+    """One k-means|| sampling round: sample each row with probability
+    ``min(l * cost / phi, 1)``, place the picked rows into ``cap`` slots
+    by their picked-prefix position (overflow dropped), then fold the new
+    slots into the running (min distance, nearest candidate) state, slot
+    chunk by slot chunk and row chunk by row chunk.
+    Returns ``(slots, slot_valid, dmin, amin, phi)``."""
+    n, d = x.shape
+    cost = dmin * w
+    phi = torch.sum(cost)
+    prob = torch.clamp_max(l * cost / torch.clamp_min(phi, 1e-30), 1.0)
+    draws = torch.rand(
+        dmin.shape, generator=generator, dtype=dmin.dtype, device=dmin.device
+    )
+    picked = draws < prob
+    pos = torch.cumsum(picked.to(torch.int64), dim=0) - 1
+    keep = picked & (pos < cap)
+    slots = x.new_zeros((cap, d))
+    slot_valid = x.new_zeros((cap,))
+    slots[pos[keep]] = x[keep]
+    slot_valid[pos[keep]] = 1.0
+
+    rows = rows_per_chunk(chunk, d)
+    dmin, amin = dmin.clone(), amin.clone()
+    for q0 in range(0, cap, chunk):
+        s, v = slots[q0:q0 + chunk], slot_valid[q0:q0 + chunk]
+        for lo in range(0, n, rows):
+            d2 = pairwise_sq_dists(x[lo:lo + rows], s)
+            d2 = torch.where(v[None, :] > 0, d2, torch.inf)
+            ca = torch.argmin(d2, dim=1)
+            cm = d2.gather(1, ca[:, None])[:, 0]
+            ca = ca + (base_id + q0)
+            better = cm < dmin[lo:lo + rows]
+            dmin[lo:lo + rows] = torch.where(better, cm, dmin[lo:lo + rows])
+            amin[lo:lo + rows] = torch.where(better, ca, amin[lo:lo + rows])
+    return slots, slot_valid, dmin, amin, phi
+
+
+def _candidate_weights(w, amin, n_cand: int) -> np.ndarray:
+    """Total row weight owned by each candidate, summed on the host in
+    row order so that the result, and the k-means++ draws it weights,
+    do not depend on the order of device atomics."""
+    return np.bincount(
+        amin.cpu().numpy(), weights=w.cpu().numpy().astype(np.float64),
+        minlength=n_cand,
+    )
+
+
+def init_kmeans_parallel(x, weights, n_valid: int, k: int, seed: int,
+                         init_steps: int = 2, index_map=None) -> np.ndarray:
+    """k-means|| (Bahmani et al.) with oversampling l = 2k, Spark defaults:
+    the sampling rounds on the device, then a weighted k-means++ on the
+    host over the candidates, each weighted by the row weight it owns."""
+    rng = np.random.default_rng(seed)
+    n, d = x.shape
+
+    first = np.asarray([rng.integers(n_valid)])
+    if index_map is not None:
+        first = np.asarray(index_map(first))
+    c0 = _gather_rows(x, first)  # (1, d)
+
+    l = 2.0 * k
+    cap = 4 * k
+    chunk = _slot_chunk_size(cap)
+    generator = torch.Generator(device=x.device)
+    generator.manual_seed(int(seed))
+
+    dmin = pairwise_sq_dists(x, torch.as_tensor(c0, device=x.device))[:, 0]
+    amin = torch.zeros((n,), dtype=torch.int64, device=x.device)
+
+    all_slots = [c0]
+    all_valid = [np.ones((1,), np.float32)]
+    base = 1
+    for _ in range(init_steps):
+        slots, slot_valid, dmin, amin, phi = _pll_round(
+            x, weights, dmin, amin, base, generator, l, cap, chunk,
+        )
+        if float(phi) <= 0.0:
+            break
+        all_slots.append(slots.cpu().numpy())
+        all_valid.append(slot_valid.cpu().numpy())
+        base += cap
+
+    cand = np.concatenate(all_slots, axis=0)
+    valid = np.concatenate(all_valid, axis=0) > 0
+    cand_w = _candidate_weights(weights, amin, base)[: len(cand)]
+    cand, cand_w = cand[valid], cand_w[valid]
+
+    if cand.shape[0] <= k:
+        # not enough candidates: top up with random rows
+        extra = init_random(x, n_valid, k - cand.shape[0] + 1, seed + 1, index_map)
+        cand = np.concatenate([cand, extra], axis=0)[: max(k, 1)]
+        return (
+            cand[:k]
+            if cand.shape[0] >= k
+            else np.resize(cand, (k, cand.shape[1]))
+        )
+
+    return _weighted_kmeans_pp(cand, cand_w, k, rng)
+
+
+def _weighted_kmeans_pp(points: np.ndarray, weights: np.ndarray, k: int, rng) -> np.ndarray:
+    """Host-side weighted k-means++ over the small candidate set."""
+    n = points.shape[0]
+    total = weights.sum()
+    if total <= 0:
+        weights = np.ones(n)
+        total = float(n)
+    centers = [points[rng.choice(n, p=weights / total)]]
+    d2 = np.sum((points - centers[0]) ** 2, axis=1)
+    for _ in range(1, k):
+        p = d2 * weights
+        s = p.sum()
+        if s <= 0:
+            idx = int(rng.integers(n))
+        else:
+            idx = int(rng.choice(n, p=p / s))
+        centers.append(points[idx])
+        d2 = np.minimum(d2, np.sum((points - points[idx]) ** 2, axis=1))
+    return np.stack(centers)
