@@ -1,5 +1,5 @@
 """Configuration of the port: the fields of the JAX package's ``Config``
-that the K-Means route reads, plus the device.
+that the K-Means, PCA and ALS routes read, plus the device.
 
 Env mapping, as in the JAX package: field ``foo_bar`` <- env
 ``OAP_MLLIB_TPU_FOO_BAR``.
@@ -10,9 +10,18 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``seed``: the seed of estimators that do not set one.
 - ``matmul_precision``: the f32 policy's kernel tier ("highest", "high",
   "default").
-- ``compute_precision`` / ``kmeans_precision``: the compute-precision
-  policy ("f32", "tf32", "bf16"; "auto" resolves to "f32"); the per-
-  algorithm override is empty to inherit.
+- ``compute_precision`` / ``kmeans_precision`` / ``pca_precision`` /
+  ``als_precision``: the compute-precision policy ("f32", "tf32",
+  "bf16"; "auto" resolves to "f32"); a per-algorithm override is empty
+  to inherit.
+- ``pca_solver``: "auto" or "eigh" (the full eigendecomposition);
+  "randomized" is not ported yet and raises.
+- ``als_kernel``: the ALS normal-equation layout, "auto" (grouped unless
+  its padding blows up, as in the JAX package), "grouped" or "coo".
+
+The JAX package's ``pca_kernel`` and ``als_solve_kernel`` choose between
+Pallas and XLA; the port has one device route, its CUDA kernels, so it
+has neither field.
 """
 
 from __future__ import annotations
@@ -32,6 +41,10 @@ class Config:
     matmul_precision: str = "highest"
     compute_precision: str = "f32"
     kmeans_precision: str = ""
+    pca_precision: str = ""
+    als_precision: str = ""
+    pca_solver: str = "auto"
+    als_kernel: str = "auto"
 
     @classmethod
     def from_env(cls) -> "Config":

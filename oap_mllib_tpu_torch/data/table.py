@@ -16,6 +16,17 @@ import numpy as np
 import torch
 
 
+def as_float_tensor(x, device) -> torch.Tensor:
+    """``x`` (an ndarray, array-like or tensor) as a float32 tensor on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    a = np.asarray(x, dtype=np.float32)
+    if not a.flags.writeable:  # torch.from_numpy needs a writable array
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
 @dataclasses.dataclass
 class DenseTable:
     data: torch.Tensor  # (n, d) float32

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
-from oap_mllib_tpu_torch.data.table import DenseTable
+from oap_mllib_tpu_torch.data.table import DenseTable, as_float_tensor
 from oap_mllib_tpu_torch.fallback.kmeans_np import _sq_dists, lloyd_np, predict_np
 from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel
@@ -55,15 +55,6 @@ class KMeansSummary:
         )
 
 
-def _as_float_tensor(x, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    a = np.asarray(x, dtype=np.float32)
-    if not a.flags.writeable:  # torch.from_numpy needs a writable array
-        a = a.copy()
-    return torch.from_numpy(a).to(device)
-
-
 class KMeansModel:
     def __init__(self, cluster_centers, distance_measure: str = "euclidean",
                  summary: Optional[KMeansSummary] = None,
@@ -88,7 +79,7 @@ class KMeansModel:
         """The centers on ``dev``, staged once per (device, centers array)."""
         key = (str(dev), id(self.cluster_centers_))
         if self._staged is None or self._staged[0] != key:
-            self._staged = (key, _as_float_tensor(self.cluster_centers_, dev))
+            self._staged = (key, as_float_tensor(self.cluster_centers_, dev))
         return self._staged[1]
 
     def _chunks(self, x):
@@ -97,7 +88,7 @@ class KMeansModel:
         c = self._centers_dev(dev)
         rows = self._score_chunk_rows()
         return c, (
-            _as_float_tensor(x[lo:lo + rows], dev)
+            as_float_tensor(x[lo:lo + rows], dev)
             for lo in range(0, len(x), rows)
         )
 
@@ -242,7 +233,7 @@ class KMeans:
                     table.data, weights, table.n_rows, self.k, self.seed,
                     self.init_steps, index_map=table.valid_to_padded,
                 )
-            centers0 = _as_float_tensor(centers0, dev).contiguous()
+            centers0 = as_float_tensor(centers0, dev).contiguous()
         with phase_timer(timings, "lloyd_loop", dev):
             centers, n_iter, cost, counts = kmeans_kernel.lloyd_run_kernel(
                 table.data, weights, centers0, self.max_iter, self.tol, mode=tier,

@@ -1,0 +1,179 @@
+"""PCA estimator with Spark-MLlib-compatible parameters: the port of the
+JAX package's ``models/pca.py`` (its in-memory, single-device route).
+
+``PCA(k).fit(x)`` runs table -> covariance (two passes of the Hopper
+moments kernel, ops/cuda/pca_kernel) -> eigh -> :class:`PCAModel`, whose
+``components_`` are the (d, k) principal axes and
+``explained_variance_`` the top-k variance ratios over the total
+variance.  ``transform`` projects without centering (Spark parity).  It
+runs on ``device="cuda"`` unless the caller passes ``device="cpu"``,
+where the kernel wrapper takes its plain version; a missing card raises.
+The JAX package's d < 65535 guard raises here: there is no numpy route
+to fall back to.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.data.table import DenseTable, as_float_tensor
+from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops
+from oap_mllib_tpu_torch.ops.cuda import pca_kernel
+from oap_mllib_tpu_torch.utils import precision as psn
+from oap_mllib_tpu_torch.utils.dispatch import MAX_PCA_FEATURES, resolve_device
+from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
+
+
+class PCAModel:
+    def __init__(self, components, explained_variance,
+                 summary: Optional[dict] = None, device: Optional[str] = None):
+        # components: (d, k), columns are principal axes (Spark's `pc`)
+        self.components_ = np.asarray(components)
+        self.explained_variance_ = np.asarray(explained_variance)
+        self.summary = summary or {}
+        # None = Config.device, resolved at the first transform
+        self.device = device
+        self._staged = None  # (key, components tensor) of the last device
+
+    @property
+    def k(self) -> int:
+        return self.components_.shape[1]
+
+    def transform(self, x) -> np.ndarray:
+        """Project rows into the component basis (no centering), chunked
+        over rows on the model's device."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        dev = resolve_device(self.device)
+        key = (str(dev), id(self.components_))
+        if self._staged is None or self._staged[0] != key:
+            self._staged = (key, as_float_tensor(self.components_, dev))
+        comp = self._staged[1]
+        if len(x) == 0:
+            return np.zeros((0, self.k), np.float32)
+        rows = kmeans_ops.rows_per_chunk(self.k, self.components_.shape[0])
+        return np.concatenate([
+            pca_ops.project(as_float_tensor(x[lo:lo + rows], dev), comp).cpu().numpy()
+            for lo in range(0, len(x), rows)
+        ])
+
+    # -- persistence: the JAX package's format (metadata.json + .npy) -------
+    def save(self, path: str) -> None:
+        """Atomic per-file writes, metadata last."""
+        from oap_mllib_tpu_torch.data import io as _io
+
+        os.makedirs(path, exist_ok=True)
+        _io.atomic_save_npy(os.path.join(path, "components.npy"), self.components_)
+        _io.atomic_save_npy(os.path.join(path, "explained_variance.npy"),
+                            self.explained_variance_)
+        _io.atomic_write_json(
+            os.path.join(path, "metadata.json"),
+            {"type": "PCAModel", "k": int(self.k),
+             "shape": [int(v) for v in self.components_.shape],
+             "version": 1},
+        )
+
+    @classmethod
+    def load(cls, path: str, device: Optional[str] = None) -> "PCAModel":
+        with open(os.path.join(path, "metadata.json")) as f:
+            meta = json.load(f)
+        if meta.get("type") != "PCAModel":
+            raise ValueError(f"not a PCAModel directory: {path}")
+        cpath = os.path.join(path, "components.npy")
+        comps = np.load(cpath)
+        var = np.load(os.path.join(path, "explained_variance.npy"))
+        expect = meta.get("shape", [None, meta["k"]])
+        if comps.ndim != 2 or int(comps.shape[1]) != int(expect[1]) or (
+                expect[0] is not None and int(comps.shape[0]) != int(expect[0])):
+            raise ValueError(
+                f"{cpath}: components have shape {tuple(comps.shape)}, "
+                f"metadata expects {tuple(expect)}: the model directory "
+                "is torn or mixed from two saves"
+            )
+        if var.shape[0] != comps.shape[1]:
+            raise ValueError(
+                f"{os.path.join(path, 'explained_variance.npy')}: "
+                f"{var.shape[0]} variance ratios for {comps.shape[1]} "
+                "components: the model directory is torn or mixed from two saves"
+            )
+        return cls(comps, var, device=device)
+
+
+def _pca_solver_cfg() -> str:
+    """Validated ``Config.pca_solver``: "auto" and "eigh" run the full
+    eigendecomposition; "randomized" is not ported yet."""
+    solver = get_config().pca_solver
+    if solver == "randomized":
+        raise NotImplementedError(
+            "pca_solver='randomized' is not ported yet (ROADMAP A2, the "
+            "randomized top-k solver); use 'auto' or 'eigh'"
+        )
+    if solver not in ("auto", "eigh"):
+        raise ValueError(f"pca_solver must be auto|eigh|randomized, got {solver!r}")
+    return "eigh"
+
+
+class PCA:
+    """PCA estimator.  Param parity: k (number of components); ``device``
+    None takes ``Config.device`` ("cuda")."""
+
+    def __init__(self, k: int, device: Optional[str] = None):
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        self.k = k
+        self.device = device
+
+    def fit(self, x) -> PCAModel:
+        """Fit on ``x``, an (n, d) ndarray or tensor."""
+        solver = _pca_solver_cfg()
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        if x.ndim != 2:
+            raise ValueError(f"expected 2-D data, got shape {tuple(x.shape)}")
+        n, d = x.shape
+        if n < 1:
+            raise ValueError("empty input")
+        if self.k > d:
+            raise ValueError(f"k={self.k} exceeds n_features={d}")
+        if d >= MAX_PCA_FEATURES:
+            raise ValueError(
+                f"n_features={d} is not below MAX_PCA_FEATURES="
+                f"{MAX_PCA_FEATURES}, the PCA feature-count guard (the "
+                "replicated (d, d) covariance); the port has no numpy route"
+            )
+        return self._fit_device(x, resolve_device(self.device), solver)
+
+    def _fit_device(self, x, dev: torch.device, solver: str) -> PCAModel:
+        cfg = get_config()
+        pol = psn.resolve("pca")
+        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        psn.apply_matmul_flags(tier)
+        timings = Timings("pca.fit")
+        before = dict(pca_kernel.LAUNCHES)
+        with phase_timer(timings, "table_convert", dev):
+            table = DenseTable.from_numpy(x, dev)
+        with phase_timer(timings, "covariance", dev):
+            cov, _ = pca_ops.covariance(table.data, table.mask, table.n_rows, tier)
+        with phase_timer(timings, "eigh", dev):
+            vals, vecs = pca_ops.eigh_descending(cov)
+            vals = vals.cpu().numpy()
+            vecs = vecs[:, : self.k].cpu().numpy()
+        total = float(vals.sum())
+        ratio = vals[: self.k] / total if total > 0 else np.zeros(self.k)
+        summary = {
+            "timings": timings,
+            "accelerated": True,
+            "pca_solver": solver,
+            "precision": pol,
+            "kernels": {
+                name: pca_kernel.LAUNCHES[name] - before.get(name, 0)
+                for name in pca_kernel.LAUNCHES
+            },
+        }
+        return PCAModel(vecs, ratio, summary, device=self.device)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 
 MODES = ("highest", "high", "default")
+# the `mode` argument of the CUDA kernels' C entry points
+MODE_CODE = {"highest": 0, "high": 1, "default": 2}
 MODE_ALIASES = {"f32": "highest", "tf32": "high", "bf16": "default"}
 
 

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._tiers import bf16_round, check_mode, split_bf16
+from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, bf16_round, check_mode, split_bf16
 from oap_mllib_tpu_torch.ops.kmeans_ops import _lloyd_loop, rows_per_chunk
 
 KERNEL = "kmeans_accumulate"
@@ -36,7 +36,6 @@ KERNEL = "kmeans_accumulate"
 # launch and nowhere else (the plain version on CPU tensors counts none)
 LAUNCHES = {KERNEL: 0}
 
-_MODE_CODE = {"highest": 0, "high": 1, "default": 2}
 # the kernel's stable counting sort keeps (k, ranges) integer counts;
 # ranges shrink as k grows so the table stays under this many entries
 _RANK_TABLE_ELEMS = 1 << 24
@@ -232,7 +231,7 @@ def _launch(x, w, c, mode: str, need_cost: bool):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.kmeans_accumulate(
             x.data_ptr(), w.data_ptr(), c.data_ptr(), n, d, k,
-            _MODE_CODE[mode], int(need_cost), range_rows, ranges, parts,
+            MODE_CODE[mode], int(need_cost), range_rows, ranges, parts,
             csq.data_ptr(), labels.data_ptr(), cost_part.data_ptr(),
             counts_i.data_ptr(), rank.data_ptr(), perm.data_ptr(),
             psums.data_ptr(), pcounts.data_ptr(), sums.data_ptr(),

@@ -16,6 +16,9 @@ from oap_mllib_tpu_torch.config import get_config
 
 DEVICES = ("cuda", "cpu")
 HOPPER = (9, 0)
+# PCA feature-count guard, the reference's numFeatures < 65535 (the
+# bound on the replicated (d, d) covariance), as in the JAX package
+MAX_PCA_FEATURES = 65535
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:

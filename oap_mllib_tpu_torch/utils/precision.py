@@ -1,13 +1,19 @@
 """Compute-precision policy of a fit, and its kernel tier.
 
 The policy (``Config.compute_precision``, overridden per algorithm by
-``Config.kmeans_precision``) is one of ``f32``, ``tf32`` or ``bf16``;
+``Config.kmeans_precision``, ``pca_precision`` or ``als_precision``) is
+one of ``f32``, ``tf32`` or ``bf16``;
 ``auto`` resolves to ``f32`` (the port has no measured parity bound for
 the reduced tiers yet).  :func:`kernel_tier` maps it onto the kernels'
 tiers: ``f32`` keeps ``Config.matmul_precision``, ``tf32`` is the
 bf16 hi/lo-split ``high`` tier, ``bf16`` the single-pass ``default``
 tier.  The names keep the JAX package's vocabulary: its "tf32" tier is a
 bf16_3x split, not NVIDIA's TF32.
+
+:func:`pdot` and :func:`peinsum` are the policy-aware products of the
+JAX package's ``utils/precision.py``: f32 accumulation under every
+policy, bf16 operands under ``bf16``, hi/lo splits under ``tf32``.  Grams
+and solves stay f32 whatever the policy (their callers pin ``highest``).
 """
 
 from __future__ import annotations
@@ -15,10 +21,12 @@ from __future__ import annotations
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.ops.cuda._tiers import bf16_round, split_bf16, tiered_dot
 
 TIERS = ("f32", "tf32", "bf16")
 CHOICES = TIERS + ("auto",)
 MATMUL_TIERS = ("highest", "high", "default")
+ALGOS = ("kmeans", "pca", "als")
 
 
 def _check(field: str, value: str, choices) -> str:
@@ -29,13 +37,14 @@ def _check(field: str, value: str, choices) -> str:
 
 def resolve(algo: str = "kmeans", cfg=None) -> str:
     """The resolved policy name of ``algo``'s next fit."""
-    if algo != "kmeans":
-        raise ValueError(f"unknown algorithm {algo!r}; the port has 'kmeans'")
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algorithm {algo!r}; expected one of {ALGOS}")
     cfg = cfg or get_config()
     _check("matmul_precision", cfg.matmul_precision, MATMUL_TIERS)
     requested = _check("compute_precision", cfg.compute_precision, CHOICES)
-    if cfg.kmeans_precision:
-        requested = _check("kmeans_precision", cfg.kmeans_precision, CHOICES)
+    field = f"{algo}_precision"
+    if getattr(cfg, field):
+        requested = _check(field, getattr(cfg, field), CHOICES)
     return "f32" if requested == "auto" else requested
 
 
@@ -54,3 +63,28 @@ def apply_matmul_flags(tier: str) -> None:
     if tier == "highest":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+def pdot(a: torch.Tensor, b: torch.Tensor, policy: str = "f32",
+         tier: str = "highest") -> torch.Tensor:
+    """``a @ b`` under a policy, f32 accumulation always: ``f32`` runs at
+    ``tier``, ``tf32`` at the hi/lo-split ``high`` tier, ``bf16`` on
+    bf16-rounded operands (the JAX package's ``pdot``)."""
+    return tiered_dot(a, b, kernel_tier(policy, tier))
+
+
+def peinsum(subscripts: str, a: torch.Tensor, b: torch.Tensor,
+            policy: str = "f32") -> torch.Tensor:
+    """Two-operand einsum under a policy (the JAX package's ``peinsum``,
+    the ALS moment products): ``f32`` is full f32, ``tf32`` the hi/lo
+    split, ``bf16`` rounds both operands; f32 accumulation always."""
+    mode = kernel_tier(policy, "highest")
+    if mode == "highest":
+        return torch.einsum(subscripts, a, b)
+    if mode == "default":
+        return torch.einsum(subscripts, bf16_round(a), bf16_round(b))
+    a_hi, a_lo = split_bf16(a)
+    b_hi, b_lo = split_bf16(b)
+    return (torch.einsum(subscripts, a_hi, b_hi)
+            + torch.einsum(subscripts, a_hi, b_lo)
+            + torch.einsum(subscripts, a_lo, b_hi))

@@ -208,7 +208,8 @@ class TestWrapperRules:
         assert "oap_mllib_tpu/ops/pallas/kmeans_kernel.py" in src
         assert "_tile_update" in src
         assert 'extern "C"' in src and "cudaGetLastError" in src
-        assert _build.kernel_names() == ["kmeans_accumulate"]
+        assert _build.kernel_names() == [
+            "als_factor_gram", "als_solve", "kmeans_accumulate", "pca_moments"]
         assert len(_build.sources_hash()) == 16
 
     def test_build_without_nvcc_raises(self, monkeypatch):
