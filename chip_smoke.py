@@ -407,15 +407,17 @@ def pca_data(n, d, dev, seed):
 
 def pca_bound(n, d, mode, need_gram):
     """Least time of one moments pass: x, mask and mean read once, the
-    outputs written once; the Gram's 2 n d^2 products at the tier's
-    rate (high: three bf16 products), the sums' 2 n d on FP32."""
+    outputs written once; the symmetric Gram's n d (d + 1) operations
+    (its d (d + 1) / 2 distinct entries, 2 n each) at the tier's rate
+    (high: three bf16 products), the sums' 2 n d on FP32."""
     nbytes = 4.0 * (n * d + n + d + (d * d if need_gram else d + 1))
     if not need_gram:
         return _bound(2.0 * n * d / PEAK_FP32, nbytes / PEAK_BYTES)
+    ops = float(n) * d * (d + 1)
     if mode == "highest":
-        return _bound(2.0 * n * d * d / PEAK_FP32, nbytes / PEAK_BYTES)
+        return _bound(ops / PEAK_FP32, nbytes / PEAK_BYTES)
     passes = 3 if mode == "high" else 1
-    return _bound(passes * 2.0 * n * d * d / PEAK_BF16, nbytes / PEAK_BYTES)
+    return _bound(passes * ops / PEAK_BF16, nbytes / PEAK_BYTES)
 
 
 def pca_variants(x, mask, mode, dev, reps):
@@ -537,15 +539,19 @@ def als_data(cfg):
 
 
 def solve_bound(n, r, gram):
-    """Least time of the solve: the whole system read once as the TPU
-    sheet holds it (r^2 + r + 1 floats) plus the Gram, the factors
-    written once; Cholesky and substitutions at the FP32 rate."""
-    nbytes = 4.0 * (n * (r * r + 2 * r + 1) + (r * r if gram else 0))
+    """Least time of the solve: per system the lower triangle of A
+    (r (r + 1) / 2 floats, all the solve reads), b and n_reg read once
+    and the factors written once, plus the Gram's lower triangle;
+    Cholesky and substitutions at the FP32 rate."""
+    tri = r * (r + 1) // 2
+    nbytes = 4.0 * (n * (tri + 2 * r + 1) + (tri if gram else 0))
     return _bound(n * (r ** 3 / 3.0 + 2.0 * r * r + r) / PEAK_FP32, nbytes / PEAK_BYTES)
 
 
 def gram_bound(n, r):
-    return _bound(2.0 * n * r * r / PEAK_FP32, 4.0 * (n * r + r * r) / PEAK_BYTES)
+    """F read once and the (r, r) Gram written once; the symmetric
+    Gram's n r (r + 1) operations on FP32."""
+    return _bound(float(n) * r * (r + 1) / PEAK_FP32, 4.0 * (n * r + r * r) / PEAK_BYTES)
 
 
 def phase_als_kernels(cfg, data, dev, reps):
@@ -579,14 +585,14 @@ def phase_als_kernels(cfg, data, dev, reps):
                 "max_abs_err": float(torch.max(torch.abs(w - w_p))), "deterministic": same,
                 "ms": time_ms(lambda: als_kernel.solve_normal_eq(a, b, n_reg, reg, gm), dev, reps),
                 "plain_ms": time_ms(lambda: als_kernel.solve_plain(a, b, n_reg, reg, gm), dev, 2),
-                "library_ms": None, "library_call": None,
+                "library_call": "torch.linalg.solve(A, b) on the assembled A",
             }
             v["bound_ms"], v["bound_by"] = solve_bound(int(b.shape[0]), r, gm is not None)
+            full = a + reg * n_reg[:, None, None] * torch.eye(r, device=dev)[None]
             if gm is not None:
-                eye = torch.eye(r, device=dev)
-                full = gm[None] + (a + reg * n_reg[:, None, None] * eye[None])
-                v["library_ms"] = time_ms(lambda: torch.linalg.solve(full, b), dev, reps)
-                v["library_call"] = "torch.linalg.solve(A, b) on the assembled A"
+                full = gm[None] + full
+            v["library_ms"] = time_ms(lambda: torch.linalg.solve(full, b), dev, reps)
+            del full
             solves.append(v)
             emit("als_solve_variant", v)
         gk = als_kernel.factor_gram(xf)

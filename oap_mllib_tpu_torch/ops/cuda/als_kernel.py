@@ -24,8 +24,8 @@ from typing import Optional
 
 import torch
 
+from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry
 from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, check_mode, tiered_dot
-from oap_mllib_tpu_torch.ops.cuda.pca_kernel import gram_geometry
 
 SOLVE = "als_solve"
 GRAM = "als_factor_gram"

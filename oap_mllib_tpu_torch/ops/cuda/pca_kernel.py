@@ -15,9 +15,9 @@ masked column sums and the mask total, f32 at every tier; ``gram`` is the
 centered masked Gram ``((x - mean) * mask)^T ((x - mean) * mask)`` at a
 precision tier, centering in f32 before any rounding.  The kernel masks
 ragged rows itself, so the JAX package's 512-row and 128-lane padding
-is not needed.  :func:`gram_geometry` also sizes the factor-Gram kernel
-of ``als_kernel``, which shares this kernel's Gram routine
-(``csrc/gram_tile.cuh``).
+is not needed.  The Gram pass runs the routine of ``csrc/gram_tile.cuh``,
+sized by ``_gram.gram_geometry``, which the factor-Gram kernel of
+``als_kernel`` shares.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry
 from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, check_mode, tiered_dot
 
 KERNEL = "pca_moments"
@@ -35,13 +36,6 @@ KERNEL = "pca_moments"
 # launch and nowhere else (the plain version on CPU tensors counts none)
 LAUNCHES = {KERNEL: 0}
 
-# Gram pass: enough (tile, slice) blocks to fill the card a few times
-# over (132 SMs), slices of at least this many rows, and slice partials
-# of at most this many floats
-_TARGET_BLOCKS = 4 * 132
-_MIN_SLICE_ROWS = 256
-_PARTIAL_ELEMS = 1 << 25
-_BK = 16  # rows per shared-memory stage of the Gram kernel
 # mean pass: rows per slice, and at most this many slices
 _SUM_SLICE_ROWS = 1024
 _MAX_SUM_SLICES = 4096
@@ -50,19 +44,6 @@ _MAX_SUM_SLICES = 4096
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def gram_geometry(n: int, d: int) -> Tuple[int, int, int, int]:
-    """``(tm, m, slices, slice_rows)`` of the Gram kernel: 16 * tm output
-    tiles, m tiles per side (m (m + 1) / 2 computed), row slices."""
-    tm = 8 if d > 64 else 4 if d > 32 else 2 if d > 16 else 1
-    m = -(-d // (16 * tm))
-    tiles = m * (m + 1) // 2
-    slices = max(1, min(-(-_TARGET_BLOCKS // tiles),
-                        -(-n // _MIN_SLICE_ROWS),
-                        _PARTIAL_ELEMS // (d * d)))
-    slice_rows = -(-(-(-n // slices)) // _BK) * _BK
-    return tm, m, -(-n // slice_rows), slice_rows
 
 
 def sums_geometry(n: int) -> Tuple[int, int]:

@@ -14,7 +14,7 @@ import torch
 
 from oap_mllib_tpu.ops.pallas import pca_kernel as jax_kernel
 from oap_mllib_tpu_torch.ops import pca_ops
-from oap_mllib_tpu_torch.ops.cuda import _build, pca_kernel
+from oap_mllib_tpu_torch.ops.cuda import _build, _gram, pca_kernel
 
 # not multiples of the JAX kernel's 512-row block or 128 lanes
 N, D = 1337, 37
@@ -125,10 +125,10 @@ class TestWrapperRules:
     @pytest.mark.parametrize("n,d", [(1, 1), (N, D), (1 << 20, 128), (1 << 18, 1024),
                                      (5000, 20000), (162541, 10)])
     def test_gram_geometry_covers_rows_and_bounds_scratch(self, n, d):
-        tm, m, slices, slice_rows = pca_kernel.gram_geometry(n, d)
+        tm, m, slices, slice_rows = _gram.gram_geometry(n, d)
         assert tm in (1, 2, 4, 8) and m * 16 * tm >= d > (m - 1) * 16 * tm
         assert slice_rows % 16 == 0 and slices * slice_rows >= n > (slices - 1) * slice_rows
-        assert slices == 1 or slices * d * d <= pca_kernel._PARTIAL_ELEMS
+        assert slices == 1 or slices * d * d <= _gram._PARTIAL_ELEMS
         s_slices, s_rows = pca_kernel.sums_geometry(n)
         assert s_slices * s_rows >= n and s_slices <= pca_kernel._MAX_SUM_SLICES
 
