@@ -38,6 +38,21 @@ Phases, each a hard check (any failure exits non-zero):
    against a plain-version fit from the same initial factors in
    prediction space; an explicit fit (no Gram launch); top-10
    recommendations for a slice of users.
+10. ring_kernels: the ring allreduce kernel against its plain version,
+   bit for bit, for worlds 2 and 4 and segments 1 and 2, at the sharded
+   fit's packed buffer (1000, 130), a ragged (13, 37) and (65536, 256)
+   (64 MB a rank); two launches bit-equal; times against the bound, the
+   plain ring and a library yardstick (``torch.sum(torch.stack(parts),
+   0)`` on one card, ``torch.cuda.nccl.all_reduce`` across cards).
+11. sharded_fit (the model-sharded K-Means path): on a (data 2, model 2)
+   mesh of four ranks, on four distinct cards when the machine has four,
+   else all on the one card: ``lloyd_run_model_sharded`` against the
+   one-device ``lloyd_run_kernel`` from the same initial centers near the
+   blob centers (equal iterations, centers within 1e-4, cost within
+   1e-5), then
+   ``KMeans(k=1000, max_iter=20).fit(x)`` at 2^20 x 256 through the mesh
+   route with the counts zeroed just before: ``ring_reduce`` launches
+   equal to (num_iter + 1) * model * data * 2 (data - 1).
 
 The last three lines are the kernels JSON, the card from nvidia-smi and
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs every phase on
@@ -48,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -56,13 +72,14 @@ import time
 import numpy as np
 import torch
 
-from oap_mllib_tpu_torch import ALS, PCA, KMeans
+from oap_mllib_tpu_torch import ALS, PCA, KMeans, get_mesh, set_config
+from oap_mllib_tpu_torch.data.table import ShardedTable
 from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
 from oap_mllib_tpu_torch.ops import als_ops, kmeans_ops, pca_ops
-from oap_mllib_tpu_torch.ops.cuda import _build, als_kernel, kmeans_kernel, pca_kernel
-from oap_mllib_tpu_torch.utils.dispatch import resolve_device
+from oap_mllib_tpu_torch.ops.cuda import _build, als_kernel, kmeans_kernel, pca_kernel, ring_kernel
+from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
 
 FULL = {"n": 1 << 20, "d": 256, "k": 1000}
 TINY = {"n": 4133, "d": 29, "k": 11}
@@ -80,6 +97,17 @@ REPLACES = "oap_mllib_tpu/ops/pallas/kmeans_kernel.py:90"
 PCA_REPLACES = "oap_mllib_tpu/ops/pallas/pca_kernel.py:58"
 SOLVE_REPLACES = "oap_mllib_tpu/ops/pallas/als_kernel.py:65"
 GRAM_REPLACES = "oap_mllib_tpu/ops/pallas/als_kernel.py:318"
+RING_REPLACES = "oap_mllib_tpu/ops/pallas/ring_reduce.py:105"
+# the ring: the sharded fit's packed (k, d / model + 2) buffer, a ragged
+# one and a bandwidth-sized one; the sharded fit on a (2, 2) mesh
+RING_FULL = {"shapes": [(1000, 130), (13, 37), (65536, 256)], "worlds": (2, 4),
+             "segments": (1, 2)}
+RING_TINY = {"shapes": [(1000, 130), (13, 37), (512, 256)], "worlds": (2, 4),
+             "segments": (1, 2)}
+SHARDED_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "data": 2, "model": 2}
+SHARDED_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "data": 2, "model": 2}
+# NVLink between two H100 SXM cards of one host: 450 GB/s each way
+PEAK_NVLINK = 450e9
 # PCA: the JAX bench's headline shape, and a wide one that tiles the
 # output; ALS: the JAX bench's ML-25M scale (bench.py bench_als_large)
 PCA_FULL = {"shapes": [(1 << 20, 128), (1 << 18, 1024)], "k": 16}
@@ -340,7 +368,7 @@ def phase_loop_parity(x, dev, cfg, max_iter):
             return kmeans_kernel.lloyd_accumulate_plain(x, ones, centers, "highest", True)
         return kmeans_kernel.lloyd_accumulate_plain(x, ones, centers, "highest", False)
 
-    _, it2, cost2, _ = kmeans_ops._lloyd_loop(plain, c0, max_iter, 1e-4)
+    _, it2, cost2, _ = kmeans_ops._lloyd_loop(plain, lambda m: m, c0, max_iter, 1e-4)
     err = abs(float(cost1) - float(cost2)) / float(cost2)
     check(it1 == it2, f"loop parity: kernel {it1} iterations, plain {it2}")
     check(err <= 1e-4, f"loop parity: cost rel err {err:.3g}")
@@ -751,6 +779,190 @@ def phase_small_slices(dev):
                                                                "als explicit"]})
 
 
+# -- ring and the sharded K-Means fit ----------------------------------------
+
+def mesh_devices(dev, world):
+    """``world`` ranks: distinct cards when the machine has that many,
+    else every rank on ``dev``."""
+    if dev.type == "cuda" and torch.cuda.device_count() >= world:
+        return [torch.device("cuda", i) for i in range(world)]
+    return [dev] * world
+
+
+def sync_all(devs):
+    for d in dict.fromkeys(devs):
+        sync(d)
+
+
+def time_ms_all(fn, devs, reps, warm=1):
+    """Mean ms per call: CUDA events when every rank is on one card, the
+    host clock between synchronisations of every card otherwise."""
+    if len(set(devs)) == 1:
+        return time_ms(fn, devs[0], reps, warm)
+    for _ in range(warm):
+        fn()
+    sync_all(devs)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync_all(devs)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def ring_bound(rows, cols, world, distinct):
+    """Least time of one allreduce of ``world`` f32 (rows, cols) buffers:
+    on one card every input read and every result written once over HBM;
+    across cards the 2 (W - 1) / W of a buffer that any allreduce brings
+    into each card over NVLink, or each card's read and write over HBM,
+    whichever is longer.  The (W - 1) adds per element on FP32."""
+    nbytes = 4.0 * rows * cols
+    t_ops = (world - 1) * rows * cols / PEAK_FP32
+    if distinct:
+        t_bytes = max(2.0 * (world - 1) / world * nbytes / PEAK_NVLINK,
+                      2.0 * nbytes / PEAK_BYTES)
+        return _bound(t_ops / world, t_bytes)
+    return _bound(t_ops, 2.0 * world * nbytes / PEAK_BYTES)
+
+
+def phase_ring_kernels(cfg, dev, reps):
+    """The ring kernel against the plain ring, bit for bit, at every
+    shape, world and segment count; times, bounds, yardsticks."""
+    variants = []
+    for world in cfg["worlds"]:
+        devs = mesh_devices(dev, world)
+        distinct = len(set(devs)) > 1
+        layout = "distinct cards" if distinct else f"all on {devs[0]}"
+        for rows, cols in cfg["shapes"]:
+            g = torch.Generator()
+            g.manual_seed(rows * cols + world)
+            parts = [(torch.randn((rows, cols), generator=g) * 10.0).to(d) for d in devs]
+            for segs in cfg["segments"]:
+                tag = f"ring world={world} {rows}x{cols} segments={segs}"
+                out = ring_kernel.ring_allreduce(parts, segs)
+                again = ring_kernel.ring_allreduce(parts, segs)
+                plain = ring_kernel.ring_allreduce_plain(parts, segs)
+                sync_all(devs)
+                same = all(torch.equal(a, b) for a, b in zip(out, again))
+                exact = all(torch.equal(a, b) for a, b in zip(out, plain))
+                ranks_equal = all(torch.equal(out[0], o.to(out[0].device)) for o in out)
+                check(same, f"{tag}: two launches differ")
+                check(exact, f"{tag}: kernel differs from the plain ring")
+                check(ranks_equal, f"{tag}: ranks hold different sums")
+                ref = torch.sum(torch.stack([p.double().to(devs[0]) for p in parts]), 0)
+                v = {
+                    "world": world, "shape": [rows, cols], "segments": segs,
+                    "layout": layout, "bit_equal_to_plain": exact, "deterministic": same,
+                    "max_abs_err": max(float(torch.max(torch.abs(a - b.to(a.device))))
+                                       for a, b in zip(out, plain)),
+                    "err_vs_f64_sum": float(torch.max(torch.abs(out[0].double() - ref))),
+                    "ms": time_ms_all(lambda: ring_kernel.ring_allreduce(parts, segs),
+                                      devs, reps),
+                    "plain_ms": time_ms_all(
+                        lambda: ring_kernel.ring_allreduce_plain(parts, segs), devs,
+                        max(1, reps // 4)),
+                }
+                v["bound_ms"], v["bound_by"] = ring_bound(rows, cols, world, distinct)
+                if dev.type == "cuda":
+                    # the step launches alone, on padded buffers made once
+                    bufs = [torch.zeros(ring_kernel.padded_shape(rows, cols, world, segs),
+                                        device=d) for d in devs]
+                    v["steps_ms"] = time_ms_all(
+                        lambda: ring_kernel._ring_launch(bufs, segs), devs, reps)
+                    del bufs
+                if not distinct:
+                    v["library_call"] = "torch.sum(torch.stack(parts), 0)"
+                    v["library_ms"] = time_ms_all(
+                        lambda: torch.sum(torch.stack(parts), 0), devs, reps)
+                elif torch.cuda.nccl.is_available(parts):
+                    bufs = [torch.zeros_like(p) for p in parts]
+                    v["library_call"] = "torch.cuda.nccl.all_reduce (in place)"
+                    v["library_ms"] = time_ms_all(
+                        lambda: torch.cuda.nccl.all_reduce(bufs), devs, reps)
+                else:
+                    v["library_call"], v["library_ms"] = None, None
+                variants.append(v)
+                emit("ring_variant", v)
+            del parts
+    return variants
+
+
+def phase_sharded_fit(cfg, dev):
+    """The model-sharded K-Means path on a (data, model) mesh: its Lloyd
+    loop against the one-device kernel loop from the same centers, then
+    the estimator through the mesh route with the counts zeroed just
+    before."""
+    n, d, k, it = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"]
+    world = cfg["data"] * cfg["model"]
+    devs = mesh_devices(dev, world)
+    layout = ",".join(str(x) for x in devs)
+    emit("sharded_layout", {"devices": layout, "distinct_cards": len(set(devs)) > 1,
+                            "mesh": {"data": cfg["data"], "model": cfg["model"]}})
+    set_config(model_parallel=cfg["model"])
+    try:
+        mesh = get_mesh(devices=resolve_devices(layout))
+        # from centers near the blob centers: every row lies far from a
+        # Voronoi boundary, so the two routes' products (the kernel's FP32
+        # sums and cuBLAS's, in other orders) give the same labels; from
+        # random rows, near-ties flip a few labels of small clusters
+        x, _, c0 = blobs(n, d, k, devs[0], seed=0)
+        ones = torch.ones(n, device=devs[0])
+        d_pad = -(-d // cfg["model"]) * cfg["model"]
+        x_pad = torch.nn.functional.pad(x, (0, d_pad - d))
+        table = ShardedTable.from_numpy(x_pad, mesh)
+        c1, it1, cost1, _ = kmeans_kernel.lloyd_run_kernel(x, ones, c0.contiguous(), it, 1e-4)
+        c2, it2, cost2, _ = kmeans_ops.lloyd_run_model_sharded(
+            table.tiles, table.mask, torch.nn.functional.pad(c0, (0, d_pad - d)), it, 1e-4,
+            mesh, "data", "model")
+        c_err = _rel_err(c2[:, :d].to(c1.device), c1)
+        cost_err = abs(float(cost2) - float(cost1)) / float(cost1)
+        check(it1 == it2, f"sharded loop: {it2} iterations, one-device kernel loop {it1}")
+        check(c_err <= 1e-4, f"sharded loop: centers rel err {c_err:.3g}")
+        check(cost_err <= 1e-5, f"sharded loop: cost rel err {cost_err:.3g}")
+        del table, c1, c2, ones
+
+        kmeans_kernel.reset_launches()
+        ring_kernel.reset_launches()
+        for x_dev in set(devs):
+            if x_dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(x_dev)
+        t0 = time.perf_counter()
+        model = KMeans(k=k, max_iter=it, tol=1e-4, seed=0, device=layout).fit(x)
+        wall = time.perf_counter() - t0
+        launches = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+    finally:
+        set_config(model_parallel=1)
+    s = model.summary
+    dd, mm = cfg["data"], cfg["model"]
+    expect = (s.num_iter + 1) * mm * dd * 2 * (dd - 1) if dev.type == "cuda" else 0
+    check(s.kernels == launches, f"summary kernels {s.kernels} != counters {launches}")
+    check(launches[ring_kernel.KERNEL] == expect,
+          f"ring_reduce launched {launches[ring_kernel.KERNEL]} times, expected "
+          f"(num_iter + 1) * model * data * 2 (data - 1) = {expect}")
+    check(launches[kmeans_kernel.KERNEL] == 0, "the mesh route launched the one-device kernel")
+    check(s.mesh == {"data": dd, "model": mm} and s.ring is True,
+          f"summary mesh {s.mesh}, ring {s.ring}")
+    check(np.isfinite(s.training_cost) and model.cluster_centers_.shape == (k, d)
+          and np.all(np.isfinite(model.cluster_centers_)),
+          "sharded fit: non-finite cost or centers, or wrong center shape")
+    check(abs(float(np.sum(s.cluster_sizes)) - n) <= 1e-3 * n,
+          "sharded fit: cluster sizes do not add up to the rows")
+    cost = model.compute_cost(x)
+    check(abs(cost - s.training_cost) <= 1e-4 * s.training_cost,
+          f"sharded fit: compute_cost {cost} vs training cost {s.training_cost}")
+    phases = s.timings.as_dict()
+    fit = {
+        "devices": layout, "mesh": s.mesh, "ring": s.ring, "shape": [n, d], "k": k,
+        "num_iter": s.num_iter, "training_cost": s.training_cost, "compute_cost": cost,
+        "wall_s": wall, "phases_s": phases,
+        "iters_per_s": s.num_iter / phases["lloyd_loop"], "launches": launches,
+        "loop_parity": {"n_iter": it2, "centers_rel_err": c_err, "cost_rel_err": cost_err},
+        "peak_mem_gb": ({str(x_dev): torch.cuda.max_memory_allocated(x_dev) / 1e9
+                         for x_dev in set(devs)} if dev.type == "cuda" else None),
+    }
+    emit("sharded_fit", fit)
+    return fit
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -769,6 +981,7 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             paths = _build.build_all()
             emit("build", {"seconds": time.perf_counter() - t0,
+                           "sources_hash": _build.sources_hash(), "cwd": os.getcwd(),
                            "libraries": {k: str(v) for k, v in paths.items()}})
             for name in paths:
                 log = (_build.BUILD_DIR / f"{name}.ptxas.log")
@@ -794,6 +1007,10 @@ def main(argv=None) -> int:
         data = als_data(als_cfg)
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
         als_fit = phase_als_fit(als_cfg, data, dev)
+        del data
+        ring_cfg = RING_TINY if args.rehearse else RING_FULL
+        rings = phase_ring_kernels(ring_cfg, dev, reps)
+        sharded = phase_sharded_fit(SHARDED_TINY if args.rehearse else SHARDED_FULL, dev)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -831,6 +1048,22 @@ def main(argv=None) -> int:
             "library_ms": v["library_ms"], "library_call": v["library_call"],
             "shape": shape, "variants": all_v,
         })
+    # the ring at the shape, world and layout the sharded fit gives it
+    main_ring = next(v for v in rings if v["shape"] == list(ring_cfg["shapes"][0])
+                     and v["world"] == SHARDED_FULL["data"] and v["segments"] == 1)
+    entries.append({
+        "name": ring_kernel.KERNEL, "route": "cuda",
+        "source": "oap_mllib_tpu_torch/csrc/ring_reduce.cu", "replaces": RING_REPLACES,
+        "launches": sharded["launches"][ring_kernel.KERNEL],
+        "max_abs_err": main_ring["max_abs_err"], "ms": main_ring["ms"],
+        "plain_ms": main_ring["plain_ms"], "bound_ms": main_ring["bound_ms"],
+        "bound_by": main_ring["bound_by"], "library_ms": main_ring["library_ms"],
+        "library_call": main_ring["library_call"],
+        "shape": {"rows": main_ring["shape"][0], "cols": main_ring["shape"][1],
+                  "world": main_ring["world"], "segments": 1,
+                  "layout": main_ring["layout"]},
+        "variants": rings,
+    })
     if args.rehearse:
         # host-clock numbers of the plain versions: no device metric
         print("rehearsal passed (CPU, plain versions; times are host times)")

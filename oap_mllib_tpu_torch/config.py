@@ -7,6 +7,17 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``device``: ``"cuda"`` (default) or ``"cpu"``.  Entry points run on the
   card unless the caller asks for the CPU; a missing card raises
   (utils/dispatch.resolve_device), it is never a reason to run elsewhere.
+  A comma-separated list (``"cuda:0,cuda:1,cuda:2,cuda:3"``,
+  ``"cuda:0,cuda:0,cuda:0,cuda:0"``, ``"cpu,cpu,cpu,cpu"``) names the
+  ranks of a device mesh, the counterpart of the JAX package's
+  ``jax.devices()`` world (utils/dispatch.resolve_devices).
+- ``data_axis`` / ``model_axis``: the mesh's axis names; ``model_parallel``
+  the size of its model axis (parallel/mesh.get_mesh).  A K-Means fit on
+  a mesh with ``model_parallel > 1`` shards the features over the model
+  axis (ops/kmeans_ops.lloyd_run_model_sharded).
+- ``ring_reduction``: "auto" / "on" reduce the per-pass K-Means moments
+  over the data axis with one ring (ops/cuda/ring_kernel.ring_allreduce)
+  when that axis has two ranks or more; "off" keeps three psums.
 - ``seed``: the seed of estimators that do not set one.
 - ``matmul_precision``: the f32 policy's kernel tier ("highest", "high",
   "default").
@@ -45,6 +56,10 @@ class Config:
     als_precision: str = ""
     pca_solver: str = "auto"
     als_kernel: str = "auto"
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
+    ring_reduction: str = "auto"
 
     @classmethod
     def from_env(cls) -> "Config":

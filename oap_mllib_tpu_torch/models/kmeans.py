@@ -1,6 +1,6 @@
 """K-Means estimator with Spark-MLlib-compatible parameters: the port of
-the JAX package's ``models/kmeans.py`` (its in-memory, single-device,
-uncheckpointed route).
+the JAX package's ``models/kmeans.py`` (its in-memory, uncheckpointed
+routes on one device and on a model-sharded mesh).
 
 ``KMeans(...).fit(x)`` runs table -> init (random | k-means||) -> Lloyd
 loop on the fused Hopper kernel (ops/cuda/kmeans_kernel.lloyd_run_kernel)
@@ -9,6 +9,14 @@ passes ``device="cpu"``, where the kernel wrapper takes its plain
 version; a missing card raises.  ``distance_measure="cosine"`` runs the
 numpy reference (fallback/kmeans_np.py) with ``accelerated=False``, as
 the JAX package does.
+
+A device list (``device="cuda:0,cuda:1,cuda:2,cuda:3"``) with
+``Config.model_parallel > 1`` fits on a (data, model) mesh: features
+zero-pad to a multiple of the model axis, init runs on the full table
+on the mesh's first device, and the Lloyd loop is
+ops/kmeans_ops.lloyd_run_model_sharded, whose moments reduce over the
+data axis with the ring kernel (ops/cuda/ring_kernel.py).  The model it
+returns scores on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -21,12 +29,13 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
-from oap_mllib_tpu_torch.data.table import DenseTable, as_float_tensor
+from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
 from oap_mllib_tpu_torch.fallback.kmeans_np import _sq_dists, lloyd_np, predict_np
 from oap_mllib_tpu_torch.ops import kmeans_ops
-from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel
+from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
+from oap_mllib_tpu_torch.parallel.mesh import get_mesh
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import resolve_device
+from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 INIT_RANDOM = "random"
@@ -35,11 +44,15 @@ INIT_PARALLEL = "k-means||"
 
 class KMeansSummary:
     """Training summary.  ``kernels`` counts the CUDA kernel launches of
-    the fit by kernel name (0 on the CPU, where the plain versions run)."""
+    the fit by kernel name (0 on the CPU, where the plain versions run).
+    A fit on a mesh records its shape (``mesh``, axis name -> size) and
+    whether the ring reduced its moments (``ring``); both are None on one
+    device."""
 
     def __init__(self, training_cost: float, num_iter: int, timings: Timings,
                  accelerated: bool, cluster_sizes: Optional[np.ndarray] = None,
-                 kernels: Optional[dict] = None, precision: str = "f32"):
+                 kernels: Optional[dict] = None, precision: str = "f32",
+                 mesh: Optional[dict] = None, ring: Optional[bool] = None):
         self.training_cost = training_cost
         self.num_iter = num_iter
         self.timings = timings
@@ -47,6 +60,8 @@ class KMeansSummary:
         self.cluster_sizes = cluster_sizes
         self.kernels = dict(kernels or {})
         self.precision = precision
+        self.mesh = mesh
+        self.ring = ring
 
     def __repr__(self) -> str:
         return (
@@ -208,7 +223,23 @@ class KMeans:
             raise ValueError("empty input")
         if self.distance_measure != "euclidean":
             return self._fit_fallback(_host(x), sample_weight)
-        return self._fit_device(x, sample_weight, resolve_device(self.device))
+        devices = resolve_devices(self.device)
+        if len(devices) > 1 or get_config().model_parallel > 1:
+            return self._fit_mesh(x, sample_weight, devices)
+        return self._fit_device(x, sample_weight, devices[0])
+
+    def _init_centers(self, table: DenseTable, weights, dev) -> torch.Tensor:
+        if self.init_mode == INIT_RANDOM:
+            centers0 = kmeans_ops.init_random(
+                table.data, table.n_rows, self.k, self.seed,
+                index_map=table.valid_to_padded,
+            )
+        else:
+            centers0 = kmeans_ops.init_kmeans_parallel(
+                table.data, weights, table.n_rows, self.k, self.seed,
+                self.init_steps, index_map=table.valid_to_padded,
+            )
+        return as_float_tensor(centers0, dev).contiguous()
 
     def _fit_device(self, x, sample_weight, dev: torch.device) -> KMeansModel:
         cfg = get_config()
@@ -223,17 +254,7 @@ class KMeans:
             if sample_weight is not None:
                 weights = table.align_weights(sample_weight)
         with phase_timer(timings, "init_centers", dev):
-            if self.init_mode == INIT_RANDOM:
-                centers0 = kmeans_ops.init_random(
-                    table.data, table.n_rows, self.k, self.seed,
-                    index_map=table.valid_to_padded,
-                )
-            else:
-                centers0 = kmeans_ops.init_kmeans_parallel(
-                    table.data, weights, table.n_rows, self.k, self.seed,
-                    self.init_steps, index_map=table.valid_to_padded,
-                )
-            centers0 = as_float_tensor(centers0, dev).contiguous()
+            centers0 = self._init_centers(table, weights, dev)
         with phase_timer(timings, "lloyd_loop", dev):
             centers, n_iter, cost, counts = kmeans_kernel.lloyd_run_kernel(
                 table.data, weights, centers0, self.max_iter, self.tol, mode=tier,
@@ -250,6 +271,59 @@ class KMeans:
             cluster_sizes=counts, kernels=kernels, precision=pol,
         )
         return KMeansModel(centers, self.distance_measure, summary, device=self.device)
+
+    def _fit_mesh(self, x, sample_weight, devices) -> KMeansModel:
+        """The mesh route of the JAX package's ``_fit_tpu_inner`` /
+        ``_run_lloyd``: the model-sharded Lloyd on a (data, model) mesh."""
+        cfg = get_config()
+        pol = psn.resolve("kmeans")
+        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        psn.apply_matmul_flags(tier)
+        kmeans_ops.ring_mode_cfg(cfg)  # a typo raises on every mesh fit
+        mesh = get_mesh(devices=devices)
+        n_model = mesh.shape[cfg.model_axis]
+        if n_model == 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh.size} devices with model_parallel=1 is the "
+                "data-parallel mesh route (ROADMAP A7), not ported yet; set "
+                "model_parallel > 1 or name one device"
+            )
+        first = mesh.device((0, 0))
+        timings = Timings("kmeans.fit")
+        before = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+        d_orig = x.shape[1]
+        with phase_timer(timings, "table_convert", mesh.distinct_devices()):
+            if d_orig % n_model:
+                # zero feature columns add nothing to distances or moves,
+                # and their center entries stay 0; sliced off below
+                pad = (-d_orig) % n_model
+                x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
+                     else np.pad(x, ((0, 0), (0, pad))))
+            table = DenseTable.from_numpy(x, first)
+            sharded = ShardedTable.from_numpy(table.data, mesh)
+            weights, tile_weights = table.mask, sharded.mask
+            if sample_weight is not None:
+                weights = table.align_weights(sample_weight)
+                tile_weights = sharded.align_weights(weights)
+        with phase_timer(timings, "init_centers", first):
+            centers0 = self._init_centers(table, weights, first)
+            del table, weights
+        with phase_timer(timings, "lloyd_loop", mesh.distinct_devices()):
+            centers, n_iter, cost, counts = kmeans_ops.lloyd_run_model_sharded(
+                sharded.tiles, tile_weights, centers0, self.max_iter, self.tol, mesh,
+                cfg.data_axis, cfg.model_axis, precision=tier, policy=pol,
+            )
+            centers = centers[:, :d_orig].cpu().numpy()
+            cost = float(cost)
+            counts = counts.cpu().numpy()
+        after = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+        summary = KMeansSummary(
+            cost, int(n_iter), timings, accelerated=True, cluster_sizes=counts,
+            kernels={name: after[name] - before.get(name, 0) for name in after},
+            precision=pol, mesh=dict(mesh.shape),
+            ring=kmeans_ops.ring_enabled(mesh, cfg.data_axis),
+        )
+        return KMeansModel(centers, self.distance_measure, summary, device=str(first))
 
     # -- numpy reference path (cosine distance) ------------------------------
     def _fit_fallback(self, x: np.ndarray, sample_weight) -> KMeansModel:

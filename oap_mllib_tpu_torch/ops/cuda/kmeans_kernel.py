@@ -272,4 +272,4 @@ def lloyd_run_kernel(x, w, init_centers, max_iter: int, tol: float,
             return lloyd_accumulate(x, w, centers, "highest", True)
         return lloyd_accumulate(x, w, centers, mode, False)
 
-    return _lloyd_loop(accum, init_centers, max_iter, tol)
+    return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol)

@@ -1,6 +1,6 @@
 """K-Means in plain PyTorch: distances, the plain Lloyd route, the loop
-skeleton and initialisation.  The port of the JAX package's
-``ops/kmeans_ops.py`` (the single-device functions).
+skeleton, the model-sharded Lloyd on a mesh and initialisation.  The
+port of the JAX package's ``ops/kmeans_ops.py``.
 
 Eager code: the Lloyd loop is a Python loop that reads the convergence
 flag once per iteration, where the JAX package ran a ``lax.while_loop``
@@ -17,12 +17,16 @@ k-means|| sampling rounds draw from a ``torch.Generator`` seeded from
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch.ops.cuda import ring_kernel
 from oap_mllib_tpu_torch.ops.cuda._tiers import check_mode, tiered_dot
+from oap_mllib_tpu_torch.parallel import collective
+from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
+from oap_mllib_tpu_torch.utils import precision as psn
 
 # live-buffer element budget of every row-chunking site (training
 # accumulate, predict/cost scoring): 32M f32 = 128 MB
@@ -105,31 +109,51 @@ def _accumulate_chunked(x, weights, centers, row_chunks: int,
     return sums, counts, cost
 
 
-def _lloyd_loop(accum: Callable, init_centers: torch.Tensor, max_iter: int,
-                tol: float):
-    """Lloyd loop skeleton shared by the kernel route and the plain route.
+def _each(fn, *args):
+    """``fn`` over per-rank values: rank by rank for ``{rank: tensor}``
+    dictionaries, once for tensors."""
+    if isinstance(args[0], dict):
+        return {r: fn(*(a[r] for a in args)) for r in args[0]}
+    return fn(*args)
+
+
+def _new_centers(sums, counts, centers):
+    cc = counts[:, None]
+    return torch.where(cc > 0, sums / torch.clamp_min(cc, 1e-30), centers)
+
+
+def _moved_sq(new_centers, centers):
+    return torch.sum((new_centers - centers) ** 2, dim=1)
+
+
+def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
+                max_iter: int, tol: float):
+    """Lloyd loop skeleton shared by the kernel route, the plain route and
+    the model-sharded route.
 
     Stop when every center's squared move is <= tol^2 (f32), or at
     ``max_iter``.  Empty clusters keep their previous center.
     ``accum(centers, final)`` returns ``(sums, counts, cost)``: loop passes
     have ``final=False``; one pass with ``final=True`` after the loop
     computes cost and counts against the returned centers at full
-    precision.  Returns ``(centers, n_iter, cost, counts)``."""
+    precision.  ``moved_reduce`` completes the per-center move (the
+    identity, or a psum over the model axis for feature-sharded centers).
+    Centers, sums and counts are tensors, or ``{rank: tensor}`` on a mesh,
+    where every rank updates its own block.  Returns
+    ``(centers, n_iter, cost, counts)``."""
     centers = init_centers
-    tol_t = torch.tensor(tol, dtype=torch.float32, device=centers.device)
-    tol_sq = tol_t * tol_t
+    tol_sq = float(np.float32(tol) * np.float32(tol))
     n_iter = 0
     while n_iter < max_iter:
         sums, counts, _ = accum(centers, False)
-        cc = counts[:, None]
-        new_centers = torch.where(
-            cc > 0, sums / torch.clamp_min(cc, 1e-30), centers
-        )
-        moved_sq = torch.sum((new_centers - centers) ** 2, dim=1)
+        new_centers = _each(_new_centers, sums, counts, centers)
+        moved_sq = moved_reduce(_each(_moved_sq, new_centers, centers))
         centers = new_centers
         n_iter += 1
-        # the loop's one host read per iteration
-        if bool(torch.all(moved_sq <= tol_sq)):
+        # the loop's one host read per iteration (per rank on a mesh,
+        # where every rank holds the same flag)
+        moves = moved_sq.values() if isinstance(moved_sq, dict) else [moved_sq]
+        if all(bool(torch.all(m <= tol_sq)) for m in moves):
             break
     _, counts, cost = accum(centers, True)
     return centers, n_iter, cost, counts
@@ -152,7 +176,135 @@ def lloyd_run(x, weights, init_centers, max_iter: int, tol: float,
             return _accumulate_chunked(x, weights, centers, row_chunks, p, final)
         return _accumulate(x, weights, centers, p, final)
 
-    return _lloyd_loop(accum, init_centers, max_iter, tol)
+    return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol)
+
+
+def ring_mode_cfg(cfg=None) -> str:
+    """Validated ``Config.ring_reduction``; every K-Means fit on a mesh
+    reads it, so a typo raises whether or not the ring would run."""
+    from oap_mllib_tpu_torch.config import get_config
+
+    mode = (cfg or get_config()).ring_reduction
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"ring_reduction must be auto|on|off, got {mode!r}")
+    return mode
+
+
+def ring_enabled(mesh: Mesh, data_axis: str, dtype=torch.float32, cfg=None) -> bool:
+    """Whether the moments reduce with the ring: "auto" and "on" run it
+    when the data axis has two ranks or more and the table is f32 (the
+    ring packs f32); below that, or with "off", three psums."""
+    return (ring_mode_cfg(cfg) != "off" and mesh.shape[data_axis] >= 2
+            and dtype == torch.float32)
+
+
+def _sharded_accumulate(x, w, c, mesh: Mesh, dax: str, max_: str, final: bool,
+                        precision: str, policy: str, ring: bool,
+                        ring_segments: int):
+    """One pass of the model-sharded Lloyd over per-rank tiles ``x``
+    (n_loc, d_loc), weights ``w`` (n_loc,) and center blocks ``c``
+    (k, d_loc): ``(sums, counts, cost)`` per rank, reduced over the data
+    axis.  Loop passes (``final`` False) rank on the half score at the
+    fit's precision; the final pass ranks on d2 at ``highest``."""
+    aprec, sprec, pol = (("highest", "highest", "f32") if final
+                         else (_assign_prec(precision), precision, policy))
+    part = {}
+    for r in mesh.ranks:
+        c_sq = torch.sum(c[r] * c[r], dim=1)
+        cross = psn.pdot(x[r], c[r].T, pol, aprec)
+        if final:
+            x_sq = torch.sum(x[r] * x[r], dim=1, keepdim=True)
+            part[r] = x_sq + c_sq[None, :] - 2.0 * cross
+        else:
+            part[r] = 0.5 * c_sq[None, :] - cross
+        del cross
+    # one psum over the model axis carries every feature block's share
+    score = collective.psum(part, mesh, max_)
+    del part
+    sums, counts, cost = {}, {}, {}
+    for r in mesh.ranks:
+        k = c[r].shape[0]
+        if final:
+            d2 = torch.clamp_min(score[r], 0.0)
+            assign = torch.argmin(d2, dim=1)
+            cost[r] = torch.sum(d2.gather(1, assign[:, None])[:, 0] * w[r])
+            del d2
+        else:
+            assign = torch.argmin(score[r], dim=1)
+            cost[r] = torch.zeros((), dtype=w[r].dtype, device=w[r].device)
+        # one_hot(assign) * w, made in place: w where the row's label is
+        one_hot = torch.zeros((x[r].shape[0], k), dtype=w[r].dtype, device=w[r].device)
+        one_hot.scatter_(1, assign[:, None], w[r][:, None])
+        sums[r] = psn.pdot(one_hot.T, x[r], pol, sprec)  # (k, d_loc)
+        counts[r] = torch.sum(one_hot, dim=0)
+        del one_hot
+    del score
+    if not ring:
+        sums = collective.psum(sums, mesh, dax)
+        counts = collective.psum(counts, mesh, dax)
+        if final:
+            cost = collective.psum(cost, mesh, dax)
+        return sums, counts, cost
+    # ONE packed ring reduction per model column instead of three psums:
+    # columns [0, d_loc) sums, d_loc counts, d_loc + 1 the cost (row 0,
+    # zero elsewhere so the sum is exact)
+    packed = {}
+    for r in mesh.ranks:
+        extra = torch.zeros((counts[r].shape[0], 2), dtype=torch.float32,
+                            device=counts[r].device)
+        extra[:, 0] = counts[r]
+        if final:
+            extra[0, 1] = cost[r]
+        packed[r] = torch.cat([sums[r], extra], dim=1)
+    for group in mesh.groups(dax):
+        reduced = ring_kernel.ring_allreduce(
+            [packed[r] for r in group], ring_segments, axis=dax)
+        for r, red in zip(group, reduced):
+            d_loc = red.shape[1] - 2
+            sums[r], counts[r] = red[:, :d_loc], red[:, d_loc]
+            if final:
+                cost[r] = red[0, d_loc + 1]
+    return sums, counts, cost
+
+
+def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, torch.Tensor],
+                            init_centers, max_iter: int, tol: float, mesh: Mesh,
+                            data_axis: str, model_axis: str, precision: str = "highest",
+                            policy: str = "f32", ring_segments: int = 1
+                            ) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
+    """Lloyd loop with the centers feature-sharded over the model axis:
+    ``(centers, n_iter, cost, counts)`` on the mesh's first device, the
+    return contract of :func:`lloyd_run`.
+
+    Rank ``(i, j)`` holds the tile ``x[(i, j)]`` (rows of shard ``i``,
+    features of shard ``j``; ``d`` a multiple of the model axis, the
+    estimator zero-pads), its rows' ``weights[(i, j)]`` and the centers'
+    feature block ``j``.  Squared distances add up over feature blocks,
+    so the assignment needs one psum of the (n_loc, k) partial scores
+    over the model axis; the sums stay feature-local and reduce over
+    the data axis: with one ring per model column of the packed
+    ``[sums | counts | cost]`` buffer when :func:`ring_enabled`, else
+    with three psums.  The per-center move completes with a psum over
+    the model axis.  The JAX package's ``_build_lloyd_model_sharded``,
+    step for step."""
+    precision = check_mode(precision)
+    ring = ring_enabled(mesh, data_axis)
+    ring_segments = max(1, int(ring_segments)) if ring else 1
+    n_model = mesh.shape[model_axis]
+    c0 = torch.as_tensor(init_centers, dtype=torch.float32)
+    d_loc = c0.shape[1] // n_model
+    centers = {(i, j): c0[:, j * d_loc:(j + 1) * d_loc].to(mesh.device((i, j))).contiguous()
+               for i, j in mesh.ranks}
+
+    def accum(c, final):
+        return _sharded_accumulate(x, weights, c, mesh, data_axis, model_axis, final,
+                                   precision, policy, ring, ring_segments)
+
+    centers, n_iter, cost, counts = _lloyd_loop(
+        accum, lambda m: collective.psum(m, mesh, model_axis), centers, max_iter, tol)
+    first = mesh.device((0, 0))
+    full = torch.cat([centers[(0, j)].to(first) for j in range(n_model)], dim=1)
+    return full, n_iter, cost[(0, 0)], counts[(0, 0)]
 
 
 def total_cost(x, weights, centers) -> torch.Tensor:

@@ -4,11 +4,14 @@ The JAX package falls back to its numpy path when the accelerator is
 missing.  The port does not: ``"cuda"`` needs a CUDA device of compute
 capability 9.0 (Hopper) and raises ``RuntimeError`` naming what is
 missing; the CPU runs only when the caller asks for ``"cpu"``.
+:func:`resolve_devices` reads a comma-separated list of devices, the
+ranks of a mesh, and requires peer access between every two distinct
+cards of it: nothing falls back to copies through the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -24,6 +27,11 @@ MAX_PCA_FEATURES = 65535
 def resolve_device(device: Optional[str] = None) -> torch.device:
     """The torch device for ``device`` (None = ``Config.device``)."""
     name = get_config().device if device is None else str(device)
+    if "," in name:
+        raise ValueError(
+            f"device {name!r} names a mesh; this route runs on one device "
+            "(only the K-Means fit runs on a mesh)"
+        )
     if name == "cpu":
         return torch.device("cpu")
     if name.split(":")[0] != "cuda":
@@ -44,3 +52,29 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
             f"and need capability {HOPPER}"
         )
     return torch.device("cuda", index)
+
+
+def resolve_devices(device: Optional[str] = None) -> List[torch.device]:
+    """The torch devices of a comma-separated list (None =
+    ``Config.device``), one per rank; a device may repeat.  Every CUDA
+    entry passes :func:`resolve_device`'s Hopper check, and every two
+    distinct cards must reach each other's memory
+    (``torch.cuda.can_device_access_peer``, both ways): a pair that
+    cannot raises, naming the pair."""
+    names = get_config().device if device is None else str(device)
+    devs = [resolve_device(n.strip()) for n in names.split(",") if n.strip()]
+    if not devs:
+        raise ValueError(f"no device named in {names!r}")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"a mesh lies on the CPU or on cards, not both: {names!r}")
+    cards = sorted({d.index for d in devs if d.type == "cuda"})
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise RuntimeError(
+                    f"cuda:{a} cannot access the memory of cuda:{b} "
+                    "(torch.cuda.can_device_access_peer is False); the "
+                    "ring reads its neighbours' buffers directly and "
+                    "needs peer access between every two cards of the mesh"
+                )
+    return devs

@@ -35,12 +35,13 @@ class Timings:
 
 @contextlib.contextmanager
 def phase_timer(timings: Timings, phase: str, device=None):
-    """Time one phase; on a CUDA ``device`` the phase ends in a device
-    synchronisation."""
+    """Time one phase; on a CUDA ``device`` (or a list of devices, a
+    mesh's) the phase ends in a synchronisation of each."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        for dev in (device if isinstance(device, (list, tuple)) else [device]):
+            if dev is not None and torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
         timings.add(phase, time.perf_counter() - t0)

@@ -209,7 +209,8 @@ class TestWrapperRules:
         assert "_tile_update" in src
         assert 'extern "C"' in src and "cudaGetLastError" in src
         assert _build.kernel_names() == [
-            "als_factor_gram", "als_solve", "kmeans_accumulate", "pca_moments"]
+            "als_factor_gram", "als_solve", "kmeans_accumulate", "pca_moments",
+            "ring_reduce"]
         assert len(_build.sources_hash()) == 16
 
     def test_build_without_nvcc_raises(self, monkeypatch):
