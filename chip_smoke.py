@@ -23,7 +23,11 @@ Phases, each a hard check (any failure exits non-zero):
    same initial centers.
 6. pca_kernels: the PCA moments kernel at 2^20 x 128 and 2^18 x 1024,
    every tier, both passes, against its plain version; two launches
-   bit-equal; times, bounds, ``torch.matmul(xc.T, xc)`` as yardstick.
+   bit-equal, the Gram bit-symmetric; the Gram's route (``wgmma`` for
+   the bf16 tiers, ``simt`` at highest); times, bounds,
+   ``torch.matmul(xc.T, xc)`` as yardstick.  The build phase prints how
+   many HGMMA (tensor-core wgmma) instructions the built
+   ``libpca_moments`` holds (``cuobjdump -sass``) and fails on none.
 7. pca_fit (the PCA path): ``PCA(k=16).fit(x)`` at 2^20 x 128 with the
    counts zeroed just before: 2 launches (mean pass, Gram pass); the
    components and ratios against a fit through the plain version.
@@ -41,9 +45,10 @@ Phases, each a hard check (any failure exits non-zero):
 10. ring_kernels: the ring allreduce kernel against its plain version,
    bit for bit, for worlds 2 and 4 and segments 1 and 2, at the sharded
    fit's packed buffer (1000, 130), a ragged (13, 37) and (65536, 256)
-   (64 MB a rank); two launches bit-equal; times against the bound, the
-   plain ring and a library yardstick (``torch.sum(torch.stack(parts),
-   0)`` on one card, ``torch.cuda.nccl.all_reduce`` across cards).
+   (64 MB a rank); two launches bit-equal; one launch per card per
+   ring; times against the bound, the plain ring and a library
+   yardstick (``torch.sum(torch.stack(parts), 0)`` on one card,
+   ``torch.cuda.nccl.all_reduce`` across cards).
 11. sharded_fit (the model-sharded K-Means path): on a (data 2, model 2)
    mesh of four ranks, on four distinct cards when the machine has four,
    else all on the one card: ``lloyd_run_model_sharded`` against the
@@ -52,7 +57,8 @@ Phases, each a hard check (any failure exits non-zero):
    1e-5), then
    ``KMeans(k=1000, max_iter=20).fit(x)`` at 2^20 x 256 through the mesh
    route with the counts zeroed just before: ``ring_reduce`` launches
-   equal to (num_iter + 1) * model * data * 2 (data - 1).
+   equal to (num_iter + 1) * model * (cards in a ring): one launch per
+   card per ring, one ring per model column per pass.
 
 The last three lines are the kernels JSON, the card from nvidia-smi and
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs every phase on
@@ -78,7 +84,8 @@ from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
 from oap_mllib_tpu_torch.ops import als_ops, kmeans_ops, pca_ops
-from oap_mllib_tpu_torch.ops.cuda import _build, als_kernel, kmeans_kernel, pca_kernel, ring_kernel
+from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kernel, pca_kernel,
+                                          ring_kernel)
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
 
 FULL = {"n": 1 << 20, "d": 256, "k": 1000}
@@ -112,6 +119,10 @@ PEAK_NVLINK = 450e9
 # output; ALS: the JAX bench's ML-25M scale (bench.py bench_als_large)
 PCA_FULL = {"shapes": [(1 << 20, 128), (1 << 18, 1024)], "k": 16}
 PCA_TINY = {"shapes": [(3001, 37), (777, 140)], "k": 5}
+# small ragged tables over both Gram routes: SIMT below d = 64 and at
+# highest, wgmma at the bf16 tiers from d = 64 (4-byte copies where d is
+# not a multiple of 4), one and several output tiles
+PCA_SMALL = ((1000, 5), (3001, 37), (4099, 64), (2000, 67), (777, 140), (513, 300))
 ALS_FULL = {"n_users": 162_541, "n_items": 59_047, "nnz": 25_000_000,
             "rank": 10, "alpha": 40.0, "reg": 0.1, "max_iter": 10,
             "explicit_iter": 3, "ranks": (10, 32)}
@@ -149,6 +160,16 @@ def nvidia_smi():
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def count_sass(lib, opcode):
+    """Instructions of ``opcode`` in a built library's SASS, from the
+    toolkit's ``cuobjdump`` beside nvcc."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr.strip()[:500]}")
+    return sum(1 for line in out.stdout.splitlines() if re.search(rf"\b{opcode}\b", line))
 
 
 def sync(dev):
@@ -486,6 +507,7 @@ def pca_variants(x, mask, mode, dev, reps):
     a = xc if mode == "highest" else xc.to(torch.bfloat16)
     gram_v = {
         "pass": "gram", "mode": mode, "shape": [n, d], "rel_err": err,
+        "route": _gram.pca_gram_route(mode, d),
         "max_abs_err": float(torch.max(torch.abs(g - g_p))), "deterministic": same,
         "ms": time_ms(lambda: k(x, mask, mean, mode, need_sums=False), dev, reps),
         "plain_ms": time_ms(lambda: plain(x, mask, mean, mode, need_sums=False), dev, reps),
@@ -723,7 +745,8 @@ def phase_small_slices(dev):
     every tier, and small fits against their numpy oracles."""
     g = torch.Generator(device=dev)
     g.manual_seed(11)
-    for n, d in ((1000, 5), (3001, 37), (513, 300)):
+    routes = set()
+    for n, d in PCA_SMALL:
         x = torch.randn((n, d), generator=g, device=dev) * 2.0 + 1.5
         mask = (torch.rand((n,), generator=g, device=dev) > 0.1).float()
         for mode in TIERS:
@@ -733,11 +756,15 @@ def phase_small_slices(dev):
                   f"small pca sums {n}x{d} {mode}")
             mean = cs / cnt
             gk, _, _ = pca_kernel.pca_moments(x, mask, mean, mode, need_sums=False)
+            gk2, _, _ = pca_kernel.pca_moments(x, mask, mean, mode, need_sums=False)
             gp, _, _ = pca_kernel.pca_moments_plain(x, mask, mean, mode, need_sums=False)
+            route = _gram.pca_gram_route(mode, d)
+            routes.add(route)
             # the kernel's Gram is bit-symmetric (the plain one need not be)
-            check(_rel_err(gk, gp) <= PCA_GRAM_RTOL[mode]
+            check(_rel_err(gk, gp) <= PCA_GRAM_RTOL[mode] and torch.equal(gk, gk2)
                   and (dev.type != "cuda" or torch.equal(gk, gk.T)),
-                  f"small pca gram {n}x{d} {mode}: {_rel_err(gk, gp):.3g}")
+                  f"small pca gram {n}x{d} {mode} ({route}): {_rel_err(gk, gp):.3g}, "
+                  f"deterministic {torch.equal(gk, gk2)}")
     for r in (1, 7, 32, 70):
         f = torch.randn((2049, r), generator=g, device=dev)
         for mode in TIERS:
@@ -774,7 +801,8 @@ def phase_small_slices(dev):
         err = np.linalg.norm(model.user_factors_ @ model.item_factors_.T - xr @ yr.T) / (
             np.linalg.norm(xr @ yr.T))
         check(err <= 1e-3, f"small ALS fit (implicit={implicit}) vs numpy oracle: {err:.3g}")
-    emit("small_slices", {"pca_shapes": 3, "gram_ranks": [1, 7, 32, 70],
+    emit("small_slices", {"pca_shapes": [list(sh) for sh in PCA_SMALL],
+                          "pca_routes": sorted(routes), "gram_ranks": [1, 7, 32, 70],
                           "solve_ranks": [1, 10, 32], "fits": ["pca", "als implicit",
                                                                "als explicit"]})
 
@@ -862,13 +890,12 @@ def phase_ring_kernels(cfg, dev, reps):
                         max(1, reps // 4)),
                 }
                 v["bound_ms"], v["bound_by"] = ring_bound(rows, cols, world, distinct)
-                if dev.type == "cuda":
-                    # the step launches alone, on padded buffers made once
-                    bufs = [torch.zeros(ring_kernel.padded_shape(rows, cols, world, segs),
-                                        device=d) for d in devs]
-                    v["steps_ms"] = time_ms_all(
-                        lambda: ring_kernel._ring_launch(bufs, segs), devs, reps)
-                    del bufs
+                ring_kernel.reset_launches()
+                ring_kernel.ring_allreduce(parts, segs)
+                v["launches_per_ring"] = ring_kernel.LAUNCHES[ring_kernel.KERNEL]
+                want = len(set(devs)) if dev.type == "cuda" else 0
+                check(v["launches_per_ring"] == want,
+                      f"{tag}: {v['launches_per_ring']} launches, expected one per card ({want})")
                 if not distinct:
                     v["library_call"] = "torch.sum(torch.stack(parts), 0)"
                     v["library_ms"] = time_ms_all(
@@ -933,11 +960,13 @@ def phase_sharded_fit(cfg, dev):
         set_config(model_parallel=1)
     s = model.summary
     dd, mm = cfg["data"], cfg["model"]
-    expect = (s.num_iter + 1) * mm * dd * 2 * (dd - 1) if dev.type == "cuda" else 0
+    # one launch per card per ring, one ring per model column per pass
+    ring_cards = sum(len({mesh.device(r) for r in group}) for group in mesh.groups("data"))
+    expect = (s.num_iter + 1) * ring_cards if dev.type == "cuda" else 0
     check(s.kernels == launches, f"summary kernels {s.kernels} != counters {launches}")
     check(launches[ring_kernel.KERNEL] == expect,
           f"ring_reduce launched {launches[ring_kernel.KERNEL]} times, expected "
-          f"(num_iter + 1) * model * data * 2 (data - 1) = {expect}")
+          f"(num_iter + 1) * (cards of every ring) = {expect}")
     check(launches[kmeans_kernel.KERNEL] == 0, "the mesh route launched the one-device kernel")
     check(s.mesh == {"data": dd, "model": mm} and s.ring is True,
           f"summary mesh {s.mesh}, ring {s.ring}")
@@ -989,6 +1018,10 @@ def main(argv=None) -> int:
                     for line in log.read_text().splitlines():
                         if "registers" in line or "spill" in line:
                             print(f"ptxas {name}: {line.strip()}")
+            hgmma = count_sass(paths[pca_kernel.KERNEL], "HGMMA")
+            print(f"sass {paths[pca_kernel.KERNEL].name}: {hgmma} HGMMA instructions "
+                  "(the bf16 Gram tiers on the tensor cores)", flush=True)
+            check(hgmma > 0, "the PCA moments library holds no HGMMA instruction")
         phase_small(dev)
         phase_small_slices(dev)
         x, w, c = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)

@@ -14,23 +14,33 @@
 //
 // What bounds it on an H100 SXM (data sheet: 67 TFLOP/s FP32, 989
 // TFLOP/s bf16 dense, 3.35 TB/s).  The mean pass reads x once: at
-// n = 2^20, d = 128 that is 537 MB, ~0.16 ms.  The Gram pass is
-// 2 n d^2 operations: 34.4 GFLOP at d = 128, ~0.51 ms at the FP32 peak;
-// 550 GFLOP at n = 2^18, d = 1024, ~8.2 ms.  Both passes on the TPU
-// accumulated into one resident block across a sequential grid; here
-// blocks run in parallel and in no order, so both are split into fixed
-// row slices whose partials a second kernel sums in slice order.  No
-// float atomics anywhere: two launches give the same bits.
+// n = 2^20, d = 128 that is 537 MB, ~0.16 ms.  The Gram pass needs the
+// symmetric Gram's n d (d + 1) operations (its distinct entries): 17.3
+// GFLOP at d = 128, ~0.26 ms on FP32 at highest, far less on the tensor
+// cores, where the one read of x (0.16 ms) bounds it; 275 GFLOP at
+// n = 2^18, d = 1024, ~4.1 ms on FP32, ~0.28 ms per bf16 product.  Both
+// passes on the TPU accumulated into one resident block across a
+// sequential grid; here blocks run in parallel and in no order, so both
+// are split into fixed row slices whose partials a second kernel sums
+// in slice order.  No float atomics anywhere: two launches give the
+// same bits.
 //
 // Design against that bound.  Mean pass: one thread per column per row
 // slice, each warp reading consecutive columns of a row; Kahan sums per
 // slice and across slices, so large-mean data keeps f32 accuracy.  Gram
-// pass: gram_tile.cuh, a SIMT register-tiled product of the upper-
-// triangle output tiles only (about half the work at large d), mirrored
-// into a bit-symmetric result; the masked, centered operand is formed
-// while staging into shared memory and never written to device memory.
-// The Gram runs on the FP32 pipe at every tier, so the bf16 tiers sit
-// far above their tensor-core bound; wgmma and TMA are later work.
+// pass, two routes chosen by the wrapper from (tier, d), both computing
+// only the output tiles on and above the diagonal, mirrored into a
+// bit-symmetric result, with the masked, centered operand formed in
+// shared memory and never written to device memory:
+//   - gram_wgmma.cuh, the default and high tiers at d >= 64: bf16
+//     operands on the tensor cores (wgmma, f32 accumulators), raw rows
+//     staged with cp.async three stages ahead;
+//   - gram_simt.cuh, the highest tier (f32 products on the FP32 pipe,
+//     as the plain version computes them) and the bf16 tiers below
+//     d = 64: register tiles, upper triangle only inside diagonal
+//     tiles, cp.async double-buffered staging.
+// The factor-Gram kernel (als_factor_gram.cu) keeps gram_tile.cuh's
+// routine; this kernel uses that header's tile order and slice sum.
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every
@@ -39,7 +49,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gram_simt.cuh"
 #include "gram_tile.cuh"
+#include "gram_wgmma.cuh"
 
 namespace {
 
@@ -102,22 +114,28 @@ __global__ void colsum_finish_kernel(const float* __restrict__ psum,
 
 extern "C" {
 
-// One moments pass over x (n, d) f32, contiguous on the device.
+// One moments pass over x (n, d) f32, contiguous on device `dev` (made
+// current here: this library's runtime keeps its own current device).
 //   mask: (n) row weights, or null for all ones.
 //   need_sums: colsum (d) and count (1) from `sum_slices` slices of
 //     `sum_slice_rows` rows; scratch psum (sum_slices * d), pcount
 //     (sum_slices).
-//   need_gram: gram (d, d) of (x - mean) * mask, mean (d); `tm` in
-//     {1, 2, 4, 8} sets the 16 * tm output tile, `m` tiles per side,
+//   need_gram: gram (d, d) of (x - mean) * mask, mean (d); `route` 0
+//     (SIMT: `tm` in {1, 2, 4, 8} sets the 16 * tm output tile) or 1
+//     (wgmma, 128-wide tiles, bf16 tiers only), `m` tiles per side,
 //     `gram_slices` slices of `gram_slice_rows` rows; scratch gram_part
 //     (gram_slices * d * d).
-// Returns cudaGetLastError() after the launches.
-int pca_moments(const float* x, const float* mask, const float* mean, int n,
-                int d, int mode, int need_sums, int need_gram,
+// Returns a cudaError_t: cudaGetLastError() after the launches, or the
+// refusal of a route, tile and tier that do not go together.
+int pca_moments(int dev, const float* x, const float* mask,
+                const float* mean, int n, int d, int mode, int need_sums,
+                int need_gram,
                 int sum_slices, int sum_slice_rows, float* psum,
-                float* pcount, float* colsum, float* count, int tm, int m,
-                int gram_slices, int gram_slice_rows, float* gram_part,
-                float* gram, void* stream) {
+                float* pcount, float* colsum, float* count, int route,
+                int tm, int m, int gram_slices, int gram_slice_rows,
+                float* gram_part, float* gram, void* stream) {
+  const cudaError_t set = cudaSetDevice(dev);
+  if (set != cudaSuccess) return (int)set;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (need_sums) {
     const int threads = d < 256 ? ((d + 31) / 32) * 32 : 256;
@@ -128,10 +146,16 @@ int pca_moments(const float* x, const float* mask, const float* mean, int n,
         psum, pcount, d, sum_slices, colsum, count);
   }
   if (need_gram) {
-    const int err = gram::launch<true>(x, mask, mean, n, d, mode, tm, m,
-                                       gram_slices, gram_slice_rows,
-                                       gram_part, gram, st);
+    const int err =
+        route == 1
+            ? gram_wg::launch(x, mask, mean, n, d, mode, m, gram_slices,
+                              gram_slice_rows, gram_part, st)
+            : gram_simt::launch(x, mask, mean, n, d, mode, tm, m,
+                                gram_slices, gram_slice_rows, gram_part, st);
     if (err != 0) return err;
+    const long long elems = (long long)d * d;
+    gram::sum_slices_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(
+        gram_part, gram_slices, elems, gram);
   }
   return (int)cudaGetLastError();
 }

@@ -1,43 +1,44 @@
-// Ring allreduce step for Hopper (sm_90a): one rank's share of one step
-// of a bidirectional ring reduce-scatter / all-gather, pulling from its
-// neighbours' buffers through peer pointers.
+// Ring allreduce for Hopper (sm_90a): the sum of one (rows, cols) f32
+// buffer per rank, folded in the ring schedule's order, in one launch
+// per card.
 //
 // Replaces the TPU kernel oap_mllib_tpu/ops/pallas/ring_reduce.py
 // `_make_ring_kernel` (reached through `_ring_pallas`; entries
-// `ring_allreduce` and `stacked_ring_fn`).  Same function and schedule:
-// every rank's (rows, cols) f32 buffer, padded to world * seg rows and
-// an even multiple of 128 columns, splits into `world` row segments;
-// the columns [0, half) travel clockwise (rank r receives from r - 1)
-// and [half, cols) counter-clockwise (from r + 1).  World - 1
-// reduce-scatter steps add the arriving segment into the running copy
-// (`cur + recv`), world - 1 all-gather steps copy the reduced segments
-// around; every segment's additions happen in a fixed ring order, so
-// the result is the same on every rank and the same bits as the plain
-// version (oap_mllib_tpu_torch/ops/cuda/ring_kernel.py) and as the JAX
-// package's ppermute schedule.
+// `ring_allreduce` and `stacked_ring_fn`).  Same function and bits:
+// every rank's buffer, padded to world * seg rows and an even multiple
+// of 128 columns, splits into `world` row segments (per segment group);
+// the columns [0, half) travel clockwise and [half, cols)
+// counter-clockwise.  Each element's additions happen in an order the
+// schedule fixes: an element of segment j in the clockwise half ends as
+// x[j+W-1] + (... + (x[j+1] + x[j])) in rank indices mod W, the
+// counter-clockwise half mirrors it, and every rank receives a copy.
+// The host derives that order from the written schedule
+// (ring_kernel.fold_order) and passes it as `order[dir][segment]`.
 //
-// Design.  The TPU kernel pushed segments with remote DMAs from VMEM
-// staging buffers under DMA semaphores and a neighbour barrier.  Here a
-// step is one launch per rank on that rank's device and stream: the
-// kernel reads the left neighbour's segment of the clockwise half and
-// the right neighbour's segment of the other half directly through
-// their device pointers (over NVLink when the neighbour is another
-// card; peer access is enabled by `ring_enable_peer`), and adds into or
-// overwrites its own buffer in place.  A rank writes a different
-// segment from the one its neighbours read in the same step, so a step
-// needs no lock; between steps the host orders each rank after both
-// neighbours' previous step with CUDA events (the neighbour barrier of
-// the TPU kernel), and never synchronises.  16-byte loads and stores, a
-// grid-stride loop over the two half segments, no shared memory.
+// Design.  The TPU kernel pushed segments around the ring with remote
+// DMAs, 2 (W - 1) steps.  Here no step is needed: a thread reads every
+// rank's value of its element, through device pointers (peer loads over
+// NVLink when a rank lives on another card), folds them with __fadd_rn
+// in the schedule's order, and stores the sum into every rank's output.
+// So the result is the plain ring's, bit for bit, with no padded copy,
+// no barrier and no intermediate write.  When the ranks share one card
+// the single launch covers every element; across C cards each card's
+// launch takes a contiguous 1/C share of the elements and writes its
+// sums into every rank's output, its own and the peers' (remote stores
+// over NVLink).  The host orders the launches with CUDA events: each
+// card starts after every card's inputs are ready and its outputs
+// allocated, and every card's stream waits for every launch to end, so
+// no input is reused while a peer still reads it.
 //
 // What bounds it on an H100 SXM (3.35 TB/s HBM, NVLink 450 GB/s each
-// way per card).  Ranks on one card: HBM bytes.  The function must read
-// every rank's buffer once and write every rank's result once (2 W B
-// bytes for W ranks of B bytes); the schedule moves more, 5 (W - 1) B
-// (a reduce-scatter step reads two segments and writes one, an
-// all-gather step reads one and writes one).  Ranks on distinct cards:
-// NVLink, the 2 (W - 1) / W B that any allreduce must bring into each
-// card, half from each neighbour, against 2 B of HBM traffic per card.
+// way per card).  Ranks on one card: HBM bytes, every input read once
+// and every output written once, 2 W B for W ranks of B bytes, which is
+// exactly what this kernel moves.  Ranks on distinct cards: NVLink, the
+// 2 (W - 1) / W B that any allreduce must bring into each card (here
+// half as peer loads of the inputs, half as the peers' stores of their
+// shares).  16-byte loads and stores in a grid-stride loop; a 4-element
+// chunk whose elements fold in different orders (it straddles a row,
+// half or segment edge) folds element by element.
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).
@@ -46,49 +47,126 @@
 
 namespace {
 
+constexpr int kMaxWorld = 16;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
 
-// own[seg rows at row_cw, cols [0, half)]   (+)= left[same]
-// own[seg rows at row_ccw, cols [half, cols)] (+)= right[same]
-__global__ void ring_step_kernel(float* own, const float* left,
-                                 const float* right, long long row_cw,
-                                 long long row_ccw, int seg, int cols,
-                                 int add) {
-  const int half = cols / 2;
-  const long long q = half / 4;  // float4s in one half row
-  const long long per_half = static_cast<long long>(seg) * q;
-  const long long total = 2 * per_half;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       t < total; t += stride) {
-    const bool ccw = t >= per_half;
-    const long long u = ccw ? t - per_half : t;
-    const long long row = (ccw ? row_ccw : row_cw) + u / q;
-    const long long off = row * cols + (ccw ? half : 0) + (u % q) * 4;
-    const float4 recv =
-        *reinterpret_cast<const float4*>((ccw ? right : left) + off);
-    float4* dst = reinterpret_cast<float4*>(own + off);
-    if (add) {
-      float4 cur = *dst;
-      cur.x = cur.x + recv.x;
-      cur.y = cur.y + recv.y;
-      cur.z = cur.z + recv.z;
-      cur.w = cur.w + recv.w;
-      *dst = cur;
+struct RingArgs {
+  const float* in[kMaxWorld];
+  float* out[kMaxWorld];
+  // order[dir][j][t]: the rank whose value the t-th fold of an element of
+  // segment j adds (dir 0 clockwise, 1 counter-clockwise)
+  unsigned char order[2][kMaxWorld][kMaxWorld];
+  int world, cols, half, seg_rows, seg;
+  int lo, hi;  // this launch's share of the flat elements, [lo, hi)
+};
+
+// dir * kMaxWorld + segment of the element at (row, col)
+__device__ __forceinline__ int fold_class(int row, int col, const RingArgs& a) {
+  return (col >= a.half) * kMaxWorld + (row % a.seg_rows) / a.seg;
+}
+
+__device__ __forceinline__ int fold_class(int e, const RingArgs& a) {
+  const int row = e / a.cols;
+  return fold_class(row, e - row * a.cols, a);
+}
+
+__device__ __forceinline__ float fold_one(int e, const RingArgs& a) {
+  const unsigned char* o = &a.order[0][0][0] + fold_class(e, a) * kMaxWorld;
+  float acc = a.in[o[0]][e];
+  for (int t = 1; t < a.world; ++t) acc = __fadd_rn(a.in[o[t]][e], acc);
+  return acc;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+ring_fold_kernel(const __grid_constant__ RingArgs a) {
+  const int W = a.world;
+  const int stride = gridDim.x * blockDim.x * 4;
+  for (int e = a.lo + 4 * (blockIdx.x * blockDim.x + threadIdx.x); e < a.hi;
+       e += stride) {
+    const int row = e / a.cols;
+    const int col = e - row * a.cols;
+    if (VEC && e + 3 < a.hi && col + 3 < a.cols &&
+        (col >= a.half || col + 3 < a.half)) {
+      // one row and one half, so one segment: one fold order for all four
+      const unsigned char* o =
+          &a.order[0][0][0] + fold_class(row, col, a) * kMaxWorld;
+      float4 v[kMaxWorld];
+#pragma unroll
+      for (int t = 0; t < kMaxWorld; ++t)
+        if (t < W) v[t] = *reinterpret_cast<const float4*>(a.in[o[t]] + e);
+      float4 acc = v[0];
+#pragma unroll
+      for (int t = 1; t < kMaxWorld; ++t) {
+        if (t < W) {
+          acc.x = __fadd_rn(v[t].x, acc.x);
+          acc.y = __fadd_rn(v[t].y, acc.y);
+          acc.z = __fadd_rn(v[t].z, acc.z);
+          acc.w = __fadd_rn(v[t].w, acc.w);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kMaxWorld; ++r)
+        if (r < W) *reinterpret_cast<float4*>(a.out[r] + e) = acc;
     } else {
-      *dst = recv;
+      const int end = min(e + 4, a.hi);
+      for (int f = e; f < end; ++f) {
+        const float s = fold_one(f, a);
+        for (int r = 0; r < W; ++r) a.out[r][f] = s;
+      }
     }
   }
+}
+
+// The events that order one card's launch against the other cards'
+// (before: inputs ready, outputs allocated; after: all folds stored),
+// made once per device.  A wait takes the event's state when it is
+// enqueued, so one event per device serves every ring.
+cudaError_t card_events(int dev, cudaEvent_t** ev) {
+  static cudaEvent_t events[64][2];
+  static bool made[64];
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!made[dev]) {
+    for (int k = 0; k < 2; ++k) {
+      const cudaError_t err =
+          cudaEventCreateWithFlags(&events[dev][k], cudaEventDisableTiming);
+      if (err != cudaSuccess) return err;
+    }
+    made[dev] = true;
+  }
+  *ev = events[dev];
+  return cudaSuccess;
+}
+
+// Every stream waits on every other card's event `k`, recorded now.
+cudaError_t cross_wait(int cards, const int* devs, void* const* streams,
+                       int k) {
+  cudaEvent_t* ev[16];
+  for (int c = 0; c < cards; ++c) {
+    cudaError_t err = cudaSetDevice(devs[c]);
+    if (err == cudaSuccess) err = card_events(devs[c], &ev[c]);
+    if (err == cudaSuccess)
+      err = cudaEventRecord(ev[c][k], static_cast<cudaStream_t>(streams[c]));
+    if (err != cudaSuccess) return err;
+  }
+  for (int c = 0; c < cards; ++c) {
+    cudaError_t err = cudaSetDevice(devs[c]);
+    for (int o = 0; o < cards && err == cudaSuccess; ++o)
+      if (o != c)
+        err = cudaStreamWaitEvent(static_cast<cudaStream_t>(streams[c]),
+                                  ev[o][k], 0);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Let `dev` read `peer`'s memory; an access already enabled is success.
-// Returns a cudaError_t.
+// Let `dev` read and write `peer`'s memory; an access already enabled is
+// success.  Returns a cudaError_t.
 int ring_enable_peer(int dev, int peer) {
   cudaError_t err = cudaSetDevice(dev);
   if (err != cudaSuccess) return err;
@@ -100,26 +178,59 @@ int ring_enable_peer(int dev, int peer) {
   return err;
 }
 
-// One ring step of one rank on device `dev` and `stream`: `own`, `left`
-// and `right` are (rows, cols) f32 row-major buffers of this rank and
-// its neighbours, `cols` a multiple of 8 and every buffer 16-byte
-// aligned; the clockwise half of `seg` rows starting at row `row_cw`
-// pulls from `left`, the other half at `row_ccw` from `right`; `add`
-// selects reduce-scatter (add) or all-gather (copy).  Returns
-// cudaGetLastError() after the launch.
-int ring_step(int dev, float* own, const float* left, const float* right,
-              long long row_cw, long long row_ccw, int seg, int cols,
-              int add, void* stream) {
-  cudaError_t err = cudaSetDevice(dev);
-  if (err != cudaSuccess) return err;
-  const long long work = 2LL * seg * (cols / 8);
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  ring_step_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      own, left, right, row_cw, row_ccw, seg, cols, add);
-  return cudaGetLastError();
+// One ring of `world` (rows, cols) f32 row-major buffers: one launch on
+// each of `cards` cards, card c (device devs[c], stream streams[c])
+// folding the flat elements [los[c], his[c]).  `ptrs` holds the ranks'
+// input pointers, then their output pointers (any card, peer access
+// enabled), `order` the 2 * world * world bytes order[dir][segment][t];
+// `cols`, `half` (first counter-clockwise column of the padded buffer),
+// `seg_rows` (rows of a segment group) and `seg` (rows of a segment)
+// place an element in its fold order.  `vec` allows 16-byte accesses
+// (every pointer 16-byte aligned, every los[c] a multiple of 4).  With
+// more than one card, every card's launch waits for every card's stream
+// as it stands, and afterwards every card's stream waits for every
+// launch.  Returns a cudaError_t (invalid value for a world or a card
+// count out of range).
+int ring_fold(int cards, const int* devs, void* const* streams,
+              const int* los, const int* his, float* const* ptrs,
+              const unsigned char* order, int world, int cols, int half,
+              int seg_rows, int seg, int vec) {
+  if (world < 1 || world > kMaxWorld || cards < 1 || cards > kMaxWorld)
+    return cudaErrorInvalidValue;
+  RingArgs a = {};
+  for (int r = 0; r < world; ++r) {
+    a.in[r] = ptrs[r];
+    a.out[r] = ptrs[world + r];
+  }
+  for (int dir = 0; dir < 2; ++dir)
+    for (int j = 0; j < world; ++j)
+      for (int t = 0; t < world; ++t)
+        a.order[dir][j][t] = order[(dir * world + j) * world + t];
+  a.world = world;
+  a.cols = cols;
+  a.half = half;
+  a.seg_rows = seg_rows;
+  a.seg = seg;
+  cudaError_t err = cudaSuccess;
+  if (cards > 1 && (err = cross_wait(cards, devs, streams, 0)) != cudaSuccess)
+    return err;
+  for (int c = 0; c < cards; ++c) {
+    if ((err = cudaSetDevice(devs[c])) != cudaSuccess) return err;
+    a.lo = los[c];
+    a.hi = his[c];
+    const long long chunks = (static_cast<long long>(a.hi - a.lo) + 3) / 4;
+    long long blocks = (chunks + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    if (blocks < 1) blocks = 1;
+    cudaStream_t st = static_cast<cudaStream_t>(streams[c]);
+    if (vec)
+      ring_fold_kernel<true><<<static_cast<int>(blocks), kThreads, 0, st>>>(a);
+    else
+      ring_fold_kernel<false><<<static_cast<int>(blocks), kThreads, 0, st>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (cards > 1) err = cross_wait(cards, devs, streams, 1);
+  return err;
 }
 
 }  // extern "C"

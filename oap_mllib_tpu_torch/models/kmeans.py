@@ -44,10 +44,12 @@ INIT_PARALLEL = "k-means||"
 
 class KMeansSummary:
     """Training summary.  ``kernels`` counts the CUDA kernel launches of
-    the fit by kernel name (0 on the CPU, where the plain versions run).
-    A fit on a mesh records its shape (``mesh``, axis name -> size) and
-    whether the ring reduced its moments (``ring``); both are None on one
-    device."""
+    the fit by kernel name (0 on the CPU, where the plain versions run);
+    ``ring_reduce`` launches once per card per ring, and a mesh fit runs
+    one ring per model column per pass, so (num_iter + 1) * model when
+    every rank shares one card.  A fit on a mesh records its shape
+    (``mesh``, axis name -> size) and whether the ring reduced its
+    moments (``ring``); both are None on one device."""
 
     def __init__(self, training_cost: float, num_iter: int, timings: Timings,
                  accelerated: bool, cluster_sizes: Optional[np.ndarray] = None,

@@ -15,9 +15,11 @@ masked column sums and the mask total, f32 at every tier; ``gram`` is the
 centered masked Gram ``((x - mean) * mask)^T ((x - mean) * mask)`` at a
 precision tier, centering in f32 before any rounding.  The kernel masks
 ragged rows itself, so the JAX package's 512-row and 128-lane padding
-is not needed.  The Gram pass runs the routine of ``csrc/gram_tile.cuh``,
-sized by ``_gram.gram_geometry``, which the factor-Gram kernel of
-``als_kernel`` shares.
+is not needed.  The Gram pass takes one of two hand-written routes,
+chosen by ``_gram.pca_gram_route`` from the tier and the width: the
+tensor cores (``csrc/gram_wgmma.cuh``, sized by ``_gram.wgmma_geometry``)
+for the bf16 tiers at d >= 64, else the FP32 pipe
+(``csrc/gram_simt.cuh``, sized by ``_gram.gram_geometry``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry
+from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry, pca_gram_route, wgmma_geometry
 from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, check_mode, tiered_dot
 
 KERNEL = "pca_moments"
@@ -95,7 +97,7 @@ def _check_operands(x, mask, mean):
 def _bind(lib):
     fn = lib.pca_moments
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([ptr, ptr, ptr] + [i32] * 7 + [ptr] * 4 + [i32] * 4
+    fn.argtypes = ([i32, ptr, ptr, ptr] + [i32] * 7 + [ptr] * 4 + [i32] * 5
                    + [ptr, ptr, ptr])
     fn.restype = i32
     return lib
@@ -127,7 +129,12 @@ def _launch(x, mask, mean, mode, need_gram, need_sums):
         return torch.empty(size, dtype=torch.float32, device=dev)
 
     sum_slices, sum_rows = sums_geometry(n)
-    tm, m, g_slices, g_rows = gram_geometry(n, d)
+    route = pca_gram_route(mode, d)
+    if route == "wgmma":
+        tm = 0
+        m, g_slices, g_rows = wgmma_geometry(n, d)
+    else:
+        tm, m, g_slices, g_rows = gram_geometry(n, d)
     psum = pcount = colsum = count = part = gram = None
     if need_sums:
         psum, pcount, colsum, count = empty(sum_slices, d), empty(sum_slices), empty(d), empty()
@@ -138,10 +145,10 @@ def _launch(x, mask, mean, mode, need_gram, need_sums):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pca_moments(
-            x.data_ptr(), _ptr(mask), _ptr(mean), n, d, MODE_CODE[mode],
+            dev.index, x.data_ptr(), _ptr(mask), _ptr(mean), n, d, MODE_CODE[mode],
             int(need_sums), int(need_gram), sum_slices, sum_rows,
             _ptr(psum), _ptr(pcount), _ptr(colsum), _ptr(count),
-            tm, m, g_slices, g_rows, _ptr(part), _ptr(gram), stream,
+            int(route == "wgmma"), tm, m, g_slices, g_rows, _ptr(part), _ptr(gram), stream,
         )
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")

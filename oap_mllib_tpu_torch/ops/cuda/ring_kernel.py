@@ -9,8 +9,8 @@
   ``chip_smoke.py`` holds the kernel to it on the card.
 - :func:`ring_allreduce` is the wrapper of the hand-written Hopper kernel
   ``csrc/ring_reduce.cu``.  CPU tensors take the plain version; CUDA
-  tensors launch the kernel, one launch per rank per ring step, or
-  raise.  There is no fallback from one to the other.
+  tensors launch the kernel, one launch per card per ring, or raise.
+  There is no fallback from one to the other.
 
 Contract, as in the JAX package: every rank's buffer is a (rows, cols)
 f32 tensor; rows pad to a multiple of ``world * segments`` and columns
@@ -20,20 +20,25 @@ counter-clockwise half ``[half:]`` split where JAX splits them; each of
 ``cur + recv``, so every rank ends with the same bits.  A world of one
 returns its tensor unchanged, through psum.
 
-On the card, rank ``r``'s step waits (``Stream.wait_event``) on the
-events of both neighbours' previous step: the neighbour barrier of the
-TPU kernel.  It covers the read of what a neighbour just wrote and, in
-a world of two, the write over a segment a neighbour is still reading.
-After the last step every rank waits on its neighbours once more, so
+On the card the schedule runs no steps.  It fixes, for each element, the
+order in which the ranks' values are added (:func:`fold_order`, derived
+from :func:`launch_plan`), and the kernel folds every element in that
+order and writes the sum to every rank's output: the plain ring's bits,
+without its padded copies.  Ranks on one card take one launch; across
+cards, each card's launch folds its share of the elements and stores
+them on every rank.  Each card's launch waits (CUDA events, in the C
+entry) until every card's inputs are ready and outputs allocated, and
+after the launches every card's stream waits on every other card's, so
 work the caller puts on a rank's stream, including the caching
-allocator's reuse of that rank's buffer, comes after the neighbours'
-last reads of it.  The host never synchronises.
+allocator's reuse of its input, comes after the peers' last reads of
+it.  The host never synchronises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from functools import lru_cache
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,11 +46,12 @@ from oap_mllib_tpu_torch.parallel import collective
 
 KERNEL = "ring_reduce"
 
-# launches of the CUDA kernel (one per rank per ring step); the wrapper
-# adds one per launch and nowhere else (the plain version counts none)
+# launches of the CUDA kernel (one per card per ring); the wrapper adds
+# one per launch and nowhere else (the plain version counts none)
 LAUNCHES = {KERNEL: 0}
 
 LANE = 128  # the column multiple of the JAX ring (two halves of lanes)
+MAX_WORLD = 16  # ranks one kernel launch folds (csrc/ring_reduce.cu)
 
 _peers_enabled = set()
 _lib = None
@@ -114,6 +120,35 @@ def launch_plan(world: int, segments: int, rows_pad: int):
             ]
 
 
+@lru_cache(maxsize=64)
+def fold_order(world: int, segments: int, rows_pad: int) -> Tuple[Tuple[Tuple[int, ...], ...], ...]:
+    """``order[dir][j]``: the ranks whose values an element of segment
+    ``j`` adds, in the order :func:`launch_plan`'s reduce-scatter adds
+    them (dir 0 the clockwise half, 1 the other).  The first is the rank
+    that starts the segment's chain, each next one the rank whose step
+    adds its own value to what arrived: ``x[o[-1]] + (... + (x[o[1]] +
+    x[o[0]]))``.  Every segment group runs the same chains; a plan that
+    did not would raise."""
+    chains = {}
+    for _, launches in launch_plan(world, segments, rows_pad):
+        for r, left, right, row_cw, row_ccw, add in launches:
+            if not add:
+                continue
+            for dirn, row, src in ((0, row_cw, left), (1, row_ccw, right)):
+                chain = chains.setdefault((row // (rows_pad // segments), dirn,
+                                           row % (rows_pad // segments)), [])
+                if not chain:
+                    chain.append(src)
+                chain.append(r)
+    seg = rows_pad // segments // world
+    order = tuple(tuple(tuple(chains[(0, dirn, j * seg)]) for j in range(world))
+                  for dirn in (0, 1))
+    for (g, dirn, row), chain in chains.items():
+        if tuple(chain) != order[dirn][row // seg]:
+            raise AssertionError(f"segment group {g} folds in another order")
+    return order
+
+
 # -- plain version -------------------------------------------------------------
 
 
@@ -174,25 +209,23 @@ def _library():
         from oap_mllib_tpu_torch.ops.cuda import _build
 
         lib = _build.load(KERNEL)
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ring_enable_peer.argtypes = [i32, i32]
         lib.ring_enable_peer.restype = i32
-        lib.ring_step.argtypes = [i32, ptr, ptr, ptr, i64, i64, i32, i32, i32, ptr]
-        lib.ring_step.restype = i32
+        lib.ring_fold.argtypes = [i32] + [ptr] * 6 + [i32] * 6
+        lib.ring_fold.restype = i32
         _lib = lib
     return _lib
 
 
-def _enable_peers(lib, devices) -> None:
+def _enable_peers(lib, cards) -> None:
     """Peer access between every two distinct cards of the ring, once per
     ordered pair; a failure raises."""
-    cards = sorted({d.index for d in devices})
     for a in cards:
         for b in cards:
             if a == b or (a, b) in _peers_enabled:
                 continue
-            with torch.cuda.device(a):
-                err = lib.ring_enable_peer(a, b)
+            err = lib.ring_enable_peer(a, b)
             if err != 0:
                 raise RuntimeError(
                     f"{KERNEL}: cudaDeviceEnablePeerAccess(cuda:{a} -> cuda:{b}) "
@@ -201,42 +234,64 @@ def _enable_peers(lib, devices) -> None:
             _peers_enabled.add((a, b))
 
 
-def _record(stream: torch.cuda.Stream) -> torch.cuda.Event:
-    ev = torch.cuda.Event()
-    ev.record(stream)
-    return ev
+@lru_cache(maxsize=64)
+def _geometry(rows: int, cols: int, world: int, segments: int):
+    """``(order, half, seg_rows, seg)`` of the kernel's launch: the fold
+    order as ``order[dir][segment][t]`` bytes, the padded buffer's first
+    counter-clockwise column, and the rows of a segment group and of a
+    segment."""
+    rows_pad, cols_pad = padded_shape(rows, cols, world, segments)
+    order = bytes(r for dirn in fold_order(world, segments, rows_pad)
+                  for chain in dirn for r in chain)
+    seg_rows = rows_pad // segments
+    return order, cols_pad // 2, seg_rows, seg_rows // world
 
 
-def _ring_launch(bufs, segments: int) -> None:
-    """The ring on CUDA buffers, in place: one launch per rank per step,
-    each after both neighbours' previous step."""
+def _shares(total: int, cards: int):
+    """Each card's ``[lo, hi)`` of the flat elements: contiguous, in
+    whole 4-element chunks but for the last card's end."""
+    chunks = -(-total // 4)
+    return [(4 * (c * chunks // cards), min(total, 4 * ((c + 1) * chunks // cards)))
+            for c in range(cards)]
+
+
+def _ring_launch(parts, segments: int) -> List[torch.Tensor]:
+    """The ring of CUDA tensors: fresh ``(rows, cols)`` outputs, one
+    launch per card."""
+    world = len(parts)
+    if world > MAX_WORLD:
+        raise ValueError(f"{KERNEL}: the kernel folds at most {MAX_WORLD} ranks, got {world}")
+    rows, cols = parts[0].shape
+    total = rows * cols
+    if total >= 2 ** 31 - 2 ** 20:
+        raise ValueError(f"{KERNEL}: {rows} x {cols} is past the kernel's 32-bit indices")
     lib = _library()
-    world = len(bufs)
-    devs = [b.device for b in bufs]
-    _enable_peers(lib, devs)
-    rows_pad, cols = bufs[0].shape
-    streams = [torch.cuda.current_stream(d) for d in devs]
-    events = [_record(s) for s in streams]  # the padded copies are made
-    for seg, launches in launch_plan(world, segments, rows_pad):
-        done = []
-        for r, left, right, row_cw, row_ccw, add in launches:
-            with torch.cuda.device(devs[r]):
-                streams[r].wait_event(events[left])
-                streams[r].wait_event(events[right])
-                err = lib.ring_step(
-                    devs[r].index, bufs[r].data_ptr(), bufs[left].data_ptr(),
-                    bufs[right].data_ptr(), row_cw, row_ccw, seg, cols, int(add),
-                    streams[r].cuda_stream,
-                )
-                if err != 0:
-                    raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
-                LAUNCHES[KERNEL] += 1
-                done.append(_record(streams[r]))
-        events = done
-    for r in range(world):  # the neighbours' last reads of this rank's buffer
-        with torch.cuda.device(devs[r]):
-            streams[r].wait_event(events[(r - 1) % world])
-            streams[r].wait_event(events[(r + 1) % world])
+    parts = [p.contiguous() for p in parts]
+    order, half, seg_rows, seg = _geometry(rows, cols, world, segments)
+    devs = [p.device for p in parts]
+    cards = list(dict.fromkeys(devs))
+    outs = [None] * world  # one allocation per card
+    for card in cards:
+        mine = [r for r, d in enumerate(devs) if d == card]
+        for r, t in zip(mine, torch.empty((len(mine), rows, cols), dtype=torch.float32,
+                                          device=card).unbind(0)):
+            outs[r] = t
+    addr = [p.data_ptr() for p in parts] + [o.data_ptr() for o in outs]
+    ptrs = (ctypes.c_void_p * (2 * world))(*addr)  # the inputs, then the outputs
+    vec = int(all(a % 16 == 0 for a in addr))
+    n = len(cards)
+    if n > 1:
+        _enable_peers(lib, [c.index for c in cards])
+    los, his = zip(*_shares(total, n))
+    ints = ctypes.c_int * n
+    err = lib.ring_fold(
+        n, ints(*(c.index for c in cards)),
+        (ctypes.c_void_p * n)(*(torch.cuda.current_stream(c).cuda_stream for c in cards)),
+        ints(*los), ints(*his), ptrs, order, world, cols, half, seg_rows, seg, vec)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
+    LAUNCHES[KERNEL] += n  # one launch per card
+    return outs
 
 
 def ring_allreduce(parts: Sequence[torch.Tensor], segments: int = 1,
@@ -251,8 +306,4 @@ def ring_allreduce(parts: Sequence[torch.Tensor], segments: int = 1,
         return ring_allreduce_plain(parts, segments, axis)
     if parts[0].device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {parts[0].device}")
-    segments = max(1, int(segments))
-    rows, cols = parts[0].shape
-    bufs = _padded_copies(parts, *padded_shape(rows, cols, len(parts), segments))
-    _ring_launch(bufs, segments)
-    return [b[:rows, :cols] for b in bufs]
+    return _ring_launch(parts, max(1, int(segments)))

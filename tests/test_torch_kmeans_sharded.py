@@ -25,6 +25,7 @@ from oap_mllib_tpu_torch.data.table import ShardedTable
 from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.utils import dispatch
+from torch_ring_fold import emulate_fold
 
 CPU8 = ",".join(["cpu"] * 8)
 DATA, MODEL = 4, 2
@@ -124,6 +125,40 @@ class TestCensus:
         n_iter = self._run("off")
         assert collective.emitted("ring_allreduce") == 0
         assert collective.emitted("psum", "data") == MODEL * (2 * n_iter + 3)
+
+
+class TestKernelFoldInTheLoop:
+    """The ring kernel folds each element in the schedule's order
+    (tests/torch_ring_fold.py emulates its indexing); run in place of
+    the plain ring, it leaves the sharded loop's result bit for bit
+    unchanged, with one ring per model column per pass: on a card that
+    is one launch each, (n_iter + 1) * model when the ranks share it."""
+
+    @pytest.mark.parametrize("segments", [1, 2])
+    def test_same_bits_as_the_plain_ring(self, segments, monkeypatch):
+        x, w, c0 = _blobs(4, n=1337, d=10, k=6)
+        port_config.set_config(model_parallel=MODEL)
+        mesh = get_mesh(devices=dispatch.resolve_devices(CPU8))
+        table = ShardedTable.from_numpy(x, mesh)
+
+        def run():
+            return kmeans_ops.lloyd_run_model_sharded(
+                table.tiles, table.align_weights(w), c0, 30, 1e-4, mesh, "data", "model",
+                ring_segments=segments)
+
+        ref = run()
+        rings = []
+
+        def fold(parts, segs=1, axis=None):
+            rings.append(len(parts))
+            return emulate_fold(parts, segs)
+
+        monkeypatch.setattr(kmeans_ops.ring_kernel, "ring_allreduce", fold)
+        got = run()
+        assert got[1] == ref[1]
+        for a, b in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+        assert rings == [DATA] * ((ref[1] + 1) * MODEL)
 
 
 class TestMeshFitMatchesJax:

@@ -15,6 +15,7 @@ import torch
 from oap_mllib_tpu.ops.pallas import pca_kernel as jax_kernel
 from oap_mllib_tpu_torch.ops import pca_ops
 from oap_mllib_tpu_torch.ops.cuda import _build, _gram, pca_kernel
+from oap_mllib_tpu_torch.ops.cuda._tiers import check_mode
 
 # not multiples of the JAX kernel's 512-row block or 128 lanes
 N, D = 1337, 37
@@ -137,3 +138,86 @@ class TestWrapperRules:
         assert "oap_mllib_tpu/ops/pallas/pca_kernel.py" in src and "_tile_moments" in src
         assert 'extern "C"' in src and "cudaGetLastError" in src
         assert '#include "gram_tile.cuh"' in src
+        assert '#include "gram_simt.cuh"' in src and '#include "gram_wgmma.cuh"' in src
+        assert "wgmma.mma_async" in (_build.CSRC / "gram_wgmma.cuh").read_text()
+
+
+class TestGramRoutes:
+    """The Gram pass's two hand-written routes: ``wgmma`` (tensor cores)
+    for the bf16 tiers from d = 64, ``simt`` (FP32 pipe) below that and
+    at highest at every width."""
+
+    @pytest.mark.parametrize("d", [1, 37, 63, 64, 67, 128, 140, 1024])
+    @pytest.mark.parametrize("mode", ["highest", "high", "default", "f32", "bf16"])
+    def test_route_by_tier_and_width(self, mode, d):
+        tier = check_mode(mode)
+        want = "wgmma" if tier != "highest" and d >= _gram.WGMMA_MIN_D else "simt"
+        assert _gram.pca_gram_route(tier, d) == want
+
+    @pytest.mark.parametrize("n,d", [(1, 64), (4099, 64), (2000, 67), (777, 140), (513, 300),
+                                     (1 << 20, 128), (1 << 18, 1024), (5000, 20000)])
+    def test_wgmma_geometry_covers_rows_and_bounds_scratch(self, n, d):
+        m, slices, slice_rows = _gram.wgmma_geometry(n, d)
+        assert m * 128 >= d > (m - 1) * 128
+        assert slice_rows % 32 == 0 and slices * slice_rows >= n > (slices - 1) * slice_rows
+        assert slices == 1 or slices * d * d <= _gram._PARTIAL_ELEMS
+
+    @pytest.mark.parametrize("n,d,blocks", [(1 << 20, 128, 132), (1 << 18, 1024, 396)])
+    def test_wgmma_grid_fills_the_card_in_whole_waves(self, n, d, blocks):
+        m, slices, _ = _gram.wgmma_geometry(n, d)
+        assert m * (m + 1) // 2 * slices == blocks
+
+    @pytest.mark.parametrize("m", [1, 2, 3, 8])
+    def test_tiles_are_the_upper_triangle(self, m):
+        """Block t computes tile ``tile_of(t, m)`` (gram_tile.cuh): every
+        tile on and above the diagonal once, none below."""
+        tiles = [_tile_of(t, m) for t in range(m * (m + 1) // 2)]
+        assert sorted(tiles) == [(i, j) for i in range(m) for j in range(i, m)]
+
+    @pytest.mark.parametrize("tm", [1, 2, 4, 8])
+    def test_simt_diagonal_tile_writes_each_entry_once(self, tm):
+        """Thread (ty, tx) of a diagonal SIMT tile (gram_simt.cuh
+        ``reg_line``, ``upper_pair``) keeps only the register pairs that
+        can reach the upper triangle and writes the entries a <= b: each
+        once (its mirror beside it), and the skipped pairs hold none."""
+        side = 16 * tm
+
+        def line(t, i):
+            return t * 4 + (i & 3) + 64 * (i >> 2) if tm == 8 else t + 16 * i
+
+        def upper(i, j):
+            return (j >> 2) >= (i >> 2) if tm == 8 else j >= i
+
+        hits = np.zeros((side, side), int)
+        for ty in range(16):
+            for tx in range(16):
+                for i in range(tm):
+                    for j in range(tm):
+                        a, b = line(ty, i), line(tx, j)
+                        if not upper(i, j):
+                            assert a > b
+                        elif a <= b:
+                            hits[a, b] += 1
+        assert np.array_equal(hits, np.triu(np.ones((side, side), int)))
+
+    def test_wgmma_diagonal_tile_writes_each_entry_once(self):
+        """The m64n128 accumulator layout of two warpgroups covers the
+        128 x 128 tile once; a diagonal tile writes the entries a <= b."""
+        hits = np.zeros((128, 128), int)
+        for wg in range(2):
+            for warp in range(4):
+                for lane in range(32):
+                    for i in range(64):
+                        a = 64 * wg + 16 * warp + lane // 4 + 8 * ((i >> 1) & 1)
+                        b = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)
+                        hits[a, b] += 1
+        assert np.all(hits == 1)
+
+
+def _tile_of(t, m):
+    """gram_tile.cuh ``tile_of``: upper-triangle tile t in row-major order."""
+    i = 0
+    while t >= m - i:
+        t -= m - i
+        i += 1
+    return i, i + t

@@ -19,12 +19,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from oap_mllib_tpu.ops.pallas._tiers import LANE as JAX_LANE, pad_to as jax_pad_to
 from oap_mllib_tpu.ops.pallas.ring_reduce import ring_allreduce as jax_ring
 from oap_mllib_tpu.utils.jax_compat import shard_map
 from oap_mllib_tpu_torch import config as port_config
 from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import ring_kernel
 from oap_mllib_tpu_torch.parallel import collective, get_mesh
+from torch_ring_fold import emulate_fold
 
 CPU = torch.device("cpu")
 # the shapes of the JAX package's ring test, and the K-Means fit's packed
@@ -140,6 +142,54 @@ class TestKernelLaunchPlan:
         assert ring_kernel.padded_shape(13, 37, 4, 2) == (16, 256)
         assert ring_kernel.padded_shape(1, 1, 8) == (8, 256)
         assert ring_kernel.padded_shape(40, 300, 2) == (40, 512)
+
+
+class TestKernelFoldOrder:
+    """The kernel folds each element in the order the schedule adds it
+    (``fold_order``, derived from ``launch_plan``) and runs no steps; its
+    indexing, emulated on the CPU, gives the plain ring's bits."""
+
+    @pytest.mark.parametrize("rows,cols", [(1000, 130), (13, 37), (1, 1)])
+    @pytest.mark.parametrize("segments", [1, 2, 3])
+    @pytest.mark.parametrize("world", [2, 3, 4, 8])
+    def test_fold_equals_the_plain_ring(self, world, segments, rows, cols):
+        parts = [torch.from_numpy(a) for a in _inputs(world, rows, cols, seed=11)]
+        ref = ring_kernel.ring_allreduce_plain(parts, segments)
+        out = emulate_fold(parts, segments)
+        for r in range(world):
+            assert torch.equal(out[r], ref[r]), f"rank {r} differs"
+
+    @pytest.mark.parametrize("segments", [1, 2, 3])
+    @pytest.mark.parametrize("world", [2, 3, 4, 8])
+    def test_order_is_the_ring_order(self, world, segments):
+        """Clockwise, segment j folds x[j], x[j+1], ...; the other half
+        x[j], x[j-1], ...: each chain visits every rank once."""
+        rows_pad, _ = ring_kernel.padded_shape(1000, 130, world, segments)
+        cw, ccw = ring_kernel.fold_order(world, segments, rows_pad)
+        for j in range(world):
+            assert cw[j] == tuple((j + t) % world for t in range(world))
+            assert ccw[j] == tuple((j - t) % world for t in range(world))
+
+    @pytest.mark.parametrize("cards", [1, 2, 3, 4])
+    @pytest.mark.parametrize("total", [1, 7, 130_000, 16_777_216])
+    def test_shares_split_the_elements(self, total, cards):
+        """Each card's launch folds a contiguous share, starting on a
+        whole 16-byte chunk; the shares cover every element once."""
+        shares = ring_kernel._shares(total, cards)
+        assert len(shares) == cards and shares[0][0] == 0 and shares[-1][1] == total
+        for (lo, hi), (nxt, _) in zip(shares, shares[1:]):
+            assert lo <= hi == nxt and lo % 4 == 0
+
+    @pytest.mark.parametrize("segments", [1, 2, 3])
+    @pytest.mark.parametrize("world", [2, 4, 8])
+    @pytest.mark.parametrize("rows,cols", [(1000, 130), (13, 37), (1, 1), (40, 300),
+                                           (65536, 256), (7, 513)])
+    def test_padded_shape_is_the_jax_rings(self, rows, cols, world, segments):
+        """The fold order reads the row segments and the column halves of
+        the padded buffer, so the padding must stay the JAX ring's."""
+        rows_pad, cols_pad = ring_kernel.padded_shape(rows, cols, world, segments)
+        assert rows_pad == jax_pad_to(max(rows, world * segments), world * segments)
+        assert cols_pad == jax_pad_to(max(cols, 2 * JAX_LANE), 2 * JAX_LANE)
 
 
 class TestWrapperRules:
