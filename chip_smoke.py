@@ -10,8 +10,9 @@ Phases, each a hard check (any failure exits non-zero):
 2. build: every kernel under ``oap_mllib_tpu_torch/csrc`` with nvcc, one
    process per source, all started together.
 3. small: each kernel against its plain version at small ragged shapes,
-   every tier and mode; the kernel Lloyd loop against the numpy
-   reference, and small PCA and ALS fits against their numpy oracles.
+   every tier and mode (the ALS solve bit for bit); the kernel Lloyd
+   loop against the numpy reference, and small PCA and ALS fits against
+   their numpy oracles.
 4. kernels: the K-Means kernel at the main path's shapes (n = 2^20 rows,
    d = 256, k = 1000, f32 blobs): agreement with its plain version,
    determinism of two launches, times (CUDA events), the bound from the
@@ -33,8 +34,10 @@ Phases, each a hard check (any failure exits non-zero):
    components and ratios against a fit through the plain version.
 8. als_kernels: the ALS solve and factor-Gram kernels at the ML-25M
    user side (162,541 systems), r = 10 and r = 32, from moments built on
-   the card, against their plain versions; times, bounds, yardsticks
-   ``torch.linalg.solve`` and ``torch.matmul(F.T, F)``.
+   the card, against their plain versions: the solve bit-equal on the
+   valid rows, the Gram deterministic and bit-symmetric and one CUDA
+   kernel per call (counted by torch.profiler); times, bounds,
+   yardsticks ``torch.linalg.solve`` and ``torch.matmul(F.T, F)``.
 9. als_fit (the ALS path): implicit ``ALS(rank=10, max_iter=10,
    alpha=40, reg_param=0.1)`` on ML-25M-scale synthetic ratings (162,541
    users x 59,047 items, 25M ratings, zipf(1.3) items, numpy seed) with
@@ -428,6 +431,34 @@ def device_breakdown(fn, dev, top=12):
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
 
+def profile_calls(fn, dev, reps=10, tries=3):
+    """The CUDA kernels that ``reps`` calls of ``fn`` launch, by
+    torch.profiler, after a warm call (which builds the kernel and fills
+    the wrapper's caches): ``(names of one call's kernels, device ms per
+    call)``; None on the CPU.  A profile that records no kernel is taken
+    again, up to ``tries`` times (the tracer has dropped a session's
+    kernels on the card)."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(dev)
+    evs = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync(dev)
+        evs = [ev for ev in prof.events() if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+        if evs:
+            break
+    per_call = round(len(evs) / reps)
+    names = sorted({ev.name[:80] for ev in evs})
+    mean_us = sum(ev.time_range.elapsed_us() for ev in evs) / max(1, len(evs))
+    return [names[i % len(names)] for i in range(per_call)], mean_us * per_call / 1e3
+
+
 def _bound(t_ops, t_bytes):
     """(bound ms, what bounds it) from the two least times in seconds."""
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -625,13 +656,16 @@ def phase_als_kernels(cfg, data, dev, reps):
             same = torch.equal(w, als_kernel.solve_normal_eq(a, b, n_reg, reg, gm))
             w_p = als_kernel.solve_plain(a, b, n_reg, reg, gm)
             err = _rel_err(w[valid], w_p[valid])
+            bit_equal = torch.equal(w[valid], w_p[valid])
             check(same, f"{tag}: two launches differ")
             check(bool(torch.all(w[~valid] == 0)), f"{tag}: rows with n_reg = 0 are not 0")
             check(bool(torch.all(torch.isfinite(w))) and err <= SOLVE_RTOL,
                   f"{tag}: rel err {err:.3g}")
+            check(bit_equal, f"{tag}: not bit-equal to the plain version (rel err {err:.3g})")
             v = {
                 "r": r, "gram": gm is not None, "n": int(b.shape[0]),
-                "empty_rows": int((~valid).sum()), "rel_err": err,
+                "group": als_kernel.solve_group(r),
+                "empty_rows": int((~valid).sum()), "rel_err": err, "bit_equal": bit_equal,
                 "max_abs_err": float(torch.max(torch.abs(w - w_p))), "deterministic": same,
                 "ms": time_ms(lambda: als_kernel.solve_normal_eq(a, b, n_reg, reg, gm), dev, reps),
                 "plain_ms": time_ms(lambda: als_kernel.solve_plain(a, b, n_reg, reg, gm), dev, 2),
@@ -642,6 +676,8 @@ def phase_als_kernels(cfg, data, dev, reps):
             if gm is not None:
                 full = gm[None] + full
             v["library_ms"] = time_ms(lambda: torch.linalg.solve(full, b), dev, reps)
+            v["device_ms"] = (profile_calls(
+                lambda: als_kernel.solve_normal_eq(a, b, n_reg, reg, gm), dev) or (None, None))[1]
             del full
             solves.append(v)
             emit("als_solve_variant", v)
@@ -652,8 +688,20 @@ def phase_als_kernels(cfg, data, dev, reps):
         check(same and (dev.type != "cuda" or torch.equal(gk, gk.T)),
               f"als_factor_gram r={r}: not deterministic or not bit-symmetric")
         check(err <= 1e-5, f"als_factor_gram r={r}: rel err {err:.3g}")
+        launched, device = profile_calls(lambda: als_kernel.factor_gram(xf), dev) or (None, None)
+        check(launched is None or len(launched) == 1,
+              f"als_factor_gram r={r}: one call launched {launched}, expected one kernel")
+        # the same grid over 8 rows a block: the launch and the in-kernel
+        # grid sum, with next to no rows to read
+        blocks = als_kernel.factor_gram_geometry(n_users, r).blocks
+        few = xf[:8 * blocks].contiguous()
+        fixed = (profile_calls(lambda: als_kernel.factor_gram(few), dev) or (None, None))[1]
         v = {
             "r": r, "n": n_users, "rel_err": err, "deterministic": same,
+            "geometry": als_kernel.factor_gram_geometry(n_users, r)._asdict(),
+            "kernels_per_call": None if launched is None else len(launched),
+            "kernel_names": launched, "device_ms": device,
+            "fixed_device_ms": fixed, "fixed_rows": int(few.shape[0]),
             "max_abs_err": float(torch.max(torch.abs(gk - gp))),
             "ms": time_ms(lambda: als_kernel.factor_gram(xf), dev, reps),
             "plain_ms": time_ms(lambda: als_kernel.factor_gram_plain(xf), dev, reps),
@@ -768,8 +816,12 @@ def phase_small_slices(dev):
     for r in (1, 7, 32, 70):
         f = torch.randn((2049, r), generator=g, device=dev)
         for mode in TIERS:
-            err = _rel_err(als_kernel.factor_gram(f, mode), als_kernel.factor_gram_plain(f, mode))
+            gk = als_kernel.factor_gram(f, mode)
+            err = _rel_err(gk, als_kernel.factor_gram_plain(f, mode))
             check(err <= PCA_GRAM_RTOL[mode], f"small factor gram r={r} {mode}: {err:.3g}")
+            check(torch.equal(gk, als_kernel.factor_gram(f, mode))
+                  and (dev.type != "cuda" or torch.equal(gk, gk.T)),
+                  f"small factor gram r={r} {mode}: not deterministic or not bit-symmetric")
     for r in (1, 10, 32):
         n = 777
         y = torch.randn((n, 3 * r, r), generator=g, device=dev)
@@ -785,6 +837,8 @@ def phase_small_slices(dev):
             w_p = als_kernel.solve_plain(*views, 0.1, gm)
             err = _rel_err(w, w_p)
             check(err <= SOLVE_RTOL, f"small solve r={r} gram={gm is not None}: {err:.3g}")
+            check(torch.equal(w, w_p), f"small solve r={r} gram={gm is not None}: "
+                                       "not bit-equal to the plain version")
     rng = np.random.default_rng(12)
     xs = (rng.normal(size=(3000, 12)) * (0.8 ** np.arange(12))).astype(np.float32) + 2.0
     model = PCA(k=4, device=str(dev)).fit(xs)

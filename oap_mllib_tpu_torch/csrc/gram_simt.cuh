@@ -7,7 +7,7 @@
 // the slice and columns past d are staged as zeros, so ragged shapes
 // need no padding in device memory.
 //
-// Work split (as gram_tile.cuh, whose helpers it uses).  The (d, d)
+// Work split (gram_tile.cuh's tile order and slice sum).  The (d, d)
 // output is cut into T x T tiles (T = 16 * TM); only tiles on and above
 // the diagonal are computed, and each block owns one tile over one fixed
 // slice of rows, with a TM x TM register tile per thread (256 threads,
@@ -18,7 +18,7 @@
 // atomics: two launches give the same bits, and every entry is computed
 // once and mirrored, so the result is bit-symmetric.
 //
-// What this routine adds to gram_tile.cuh's.  (1) A diagonal tile skips
+// What it adds to a plain tiled Gram.  (1) A diagonal tile skips
 // the register pairs that hold only entries below its diagonal, and
 // writes each entry a <= b once, with its mirror.  Below TM = 8 the
 // thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j, and keeps

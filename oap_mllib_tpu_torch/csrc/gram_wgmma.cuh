@@ -8,8 +8,9 @@
 // adds hi hi, hi lo and lo hi into one f32 accumulator.  Products of
 // bf16 values are exact; the tensor core sums them in f32.
 //
-// Work split.  As gram_tile.cuh: the (d, d) output is cut into 128 x 128
-// tiles, only tiles on and above the diagonal are computed, and each
+// Work split.  As gram_simt.cuh: the (d, d) output is cut into 128 x 128
+// tiles, only tiles on and above the diagonal are computed (in
+// gram_tile.cuh's tile_of order), and each
 // block owns one tile over one fixed slice of rows; its tile (and the
 // mirror image) goes into the slice's (d, d) partial, and
 // gram::sum_slices_kernel sums the partials in slice order.  No float

@@ -39,8 +39,8 @@
 //     as the plain version computes them) and the bf16 tiers below
 //     d = 64: register tiles, upper triangle only inside diagonal
 //     tiles, cp.async double-buffered staging.
-// The factor-Gram kernel (als_factor_gram.cu) keeps gram_tile.cuh's
-// routine; this kernel uses that header's tile order and slice sum.
+// Both routes take their tile order, and this kernel its slice sum,
+// from gram_tile.cuh.
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every

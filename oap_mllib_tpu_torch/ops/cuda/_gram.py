@@ -1,14 +1,13 @@
-"""Launch geometry of the hand-written Gram routines.
+"""Launch geometry of the PCA moments kernel's Gram routes.
 
-Every route cuts the (d, d) output into square tiles, computes only the
+Each route cuts the (d, d) output into square tiles, computes only the
 tiles on and above the diagonal, gives each block one tile over a fixed
 slice of rows, and sums the slice partials in slice order with a second
-kernel:
+kernel (the ALS factor Gram sizes its own one-launch grid,
+``als_kernel.factor_gram_geometry``):
 
-- ``csrc/gram_tile.cuh`` (the ALS factor Gram, ``als_kernel``) and
-  ``csrc/gram_simt.cuh`` (the PCA moments kernel at the highest tier and
-  at narrow tables, ``pca_kernel``): SIMT tiles of 16 * tm, sized by
-  :func:`gram_geometry`;
+- ``csrc/gram_simt.cuh`` (the highest tier and narrow tables): SIMT
+  tiles of 16 * tm, sized by :func:`gram_geometry`;
 - ``csrc/gram_wgmma.cuh`` (the PCA moments kernel at the bf16 tiers for
   d >= :data:`WGMMA_MIN_D`): 128-wide tensor-core tiles, one block per
   SM, sized by :func:`wgmma_geometry` so the grid fills the card in

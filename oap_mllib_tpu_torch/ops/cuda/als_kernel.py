@@ -4,10 +4,14 @@
 - :func:`solve_normal_eq` wraps ``csrc/als_solve.cu`` (``_solve_tile``):
   per system, the lower triangle of ``gram + (a + reg * n_reg * I)``, an
   unrolled Cholesky, both substitutions, ``nan_to_num``, and zero
-  factors where ``n_reg == 0``; rank r <= 32, f32 at every tier.
+  factors where ``n_reg == 0``; rank r <= 32, f32 at every tier.  A
+  group of :func:`solve_group` lanes solves one system, the triangle's
+  rows in the lanes' registers; bit-equal to :func:`solve_plain`.
 - :func:`factor_gram` wraps ``csrc/als_factor_gram.cu``
-  (``factor_gram_pallas``): ``F^T F`` at a precision tier, which shares
-  the PCA kernel's Gram routine (``csrc/gram_tile.cuh``).
+  (``factor_gram_pallas``): ``F^T F`` at a precision tier in one launch,
+  sized by :func:`factor_gram_geometry`; the blocks' partials are summed
+  in a fixed order inside the launch, behind atomic tickets kept zeroed
+  per device and stream.
 
 Each has a plain PyTorch version beside it (:func:`solve_plain`,
 :func:`factor_gram_plain`).  A CPU tensor takes the plain version; a
@@ -20,16 +24,18 @@ a copy.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from functools import lru_cache
+from typing import NamedTuple, Optional
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry
 from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, check_mode, tiered_dot
 
 SOLVE = "als_solve"
 GRAM = "als_factor_gram"
 MAX_RANK = 32  # the unrolled-solve bound, as in the JAX package
+MAX_GRAM_RANK = 1024  # the factor Gram's staged rows fit shared memory
 
 # launches of the CUDA kernels, by kernel name; each wrapper adds one per
 # launch and nowhere else (the plain versions on CPU tensors count none)
@@ -80,6 +86,59 @@ def factor_gram_plain(f: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     return tiered_dot(f.T, f, check_mode(mode))
 
 
+# the fit's rank, which the solve kernel instantiates exactly: r lanes a
+# system, three systems to a warp
+EXACT_RANK = 10
+
+
+def solve_group(r: int) -> int:
+    """Lanes per system of the solve kernel: r itself at
+    :data:`EXACT_RANK`, else the smallest power of two >= r (1 .. 32);
+    32 // g systems share a warp."""
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} outside 1..{MAX_RANK}")
+    return r if r == EXACT_RANK else 1 << (r - 1).bit_length()
+
+
+# the factor Gram's launch: blocks (two per SM of an H100 SXM's 132), rows
+# a block stages at once (in floats of F), and a block's rows a multiple
+# of this
+_GRAM_BLOCKS = 2 * 132
+_GRAM_STAGE_FLOATS = 4096
+_GRAM_ROW_ALIGN = 4  # 16-byte copies need a block's rows to start at a multiple of 4 floats
+
+
+class GramGeometry(NamedTuple):
+    blocks: int       # blocks of the one launch
+    block_rows: int   # rows per block, contiguous (the last block ragged)
+    stage_rows: int   # rows per staged copy
+    group_size: int   # consecutive blocks per ticket group
+    groups: int       # ticket groups
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@lru_cache(maxsize=256)
+def factor_gram_geometry(n: int, r: int) -> GramGeometry:
+    """The factor Gram's one launch for an (n, r) table: two blocks per
+    SM over contiguous row ranges, stages of about 16 KB of F, and
+    groups of ~sqrt(blocks) blocks for the kernel's two-level sum."""
+    block_rows = _round_up(-(-n // _GRAM_BLOCKS), _GRAM_ROW_ALIGN)
+    blocks = -(-n // block_rows)
+    stage_rows = min(block_rows, max(_GRAM_ROW_ALIGN, _GRAM_STAGE_FLOATS // r
+                                     // _GRAM_ROW_ALIGN * _GRAM_ROW_ALIGN))
+    group_size = math.isqrt(blocks - 1) + 1  # ceil(sqrt(blocks))
+    return GramGeometry(blocks, block_rows, stage_rows, group_size, -(-blocks // group_size))
+
+
+def gram_packed(r: int) -> int:
+    """Floats of one packed partial of the factor Gram: the r (r + 1) / 2
+    entries a <= b, rounded up to a multiple of 4."""
+    return _round_up(r * (r + 1) // 2, 4)
+
+
 def _check_solve(a, b, n_reg, gram):
     for name, t, ndim in (("a", a, 3), ("b", b, 2), ("n_reg", n_reg, 1)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
@@ -120,19 +179,42 @@ def _library(name: str):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == SOLVE:
             lib.als_solve.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, ptr,
-                                      i64, ptr, ctypes.c_float, i32, i32, ptr,
-                                      ptr]
+                                      i64, ptr, ctypes.c_float, i32, i32, i32,
+                                      ptr, ptr]
             lib.als_solve.restype = i32
         else:
-            lib.als_factor_gram.argtypes = [ptr, i32, i32, i32, i32, i32, i32,
-                                            i32, ptr, ptr, ptr]
+            lib.als_factor_gram.argtypes = [i32, ptr, i32, i32, i32, i32, i32,
+                                            i32, i32, i32, ptr, ptr, ptr, ptr]
             lib.als_factor_gram.restype = i32
+            lib.als_factor_gram_tickets.argtypes = []
+            lib.als_factor_gram_tickets.restype = i32
         _libs[name] = lib
     return lib
 
 
+# per (device index, stream): the factor Gram's zeroed tickets and its
+# partials' scratch, grown as needed.  Calls on one stream run in order,
+# so they can share both; the kernel leaves the tickets zeroed.
+_gram_work = {}
+
+
+def _gram_workspace(dev: torch.device, stream: int, floats: int):
+    key = (dev.index, stream)
+    work = _gram_work.get(key)
+    if work is None or work[1].numel() < floats:
+        tickets = (work[0] if work is not None else
+                   torch.zeros(_library(GRAM).als_factor_gram_tickets(), dtype=torch.int32,
+                               device=dev))
+        work = _gram_work[key] = (tickets, torch.empty(floats, dtype=torch.float32, device=dev))
+    return work
+
+
 def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of PyTorch's current stream on ``dev``: the value of
+    ``torch.cuda.current_stream(dev).cuda_stream`` without building a
+    Stream object, which costs several microseconds of host time a call
+    (the factor Gram's whole call takes a few tens)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
@@ -153,7 +235,7 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
             a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
             n_reg.data_ptr(), n_reg.stride(0),
             None if gram is None else gram.data_ptr(), float(reg), n, r,
-            out.data_ptr(), _stream(b.device),
+            solve_group(r), out.data_ptr(), _stream(b.device),
         )
     if err != 0:
         raise RuntimeError(f"{SOLVE}: CUDA launch failed with error {err}")
@@ -163,7 +245,7 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
 
 def factor_gram(f: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     """``F^T F`` (r, r) of an (n, r) f32 contiguous table at a tier: CPU
-    takes the plain version, CUDA the Hopper kernel."""
+    takes the plain version, CUDA the Hopper kernel (one launch)."""
     mode = check_mode(mode)
     if not isinstance(f, torch.Tensor) or f.dtype != torch.float32 or f.dim() != 2:
         raise TypeError("factors must be a 2-D float32 torch.Tensor")
@@ -172,19 +254,20 @@ def factor_gram(f: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     n, r = f.shape
     if n < 1 or r < 1 or n >= 2 ** 31 - 2 ** 16:
         raise ValueError(f"factor table shape {tuple(f.shape)} out of range")
-    if f.device.type == "cpu":
+    dev = f.device
+    if dev.type == "cpu":
         return factor_gram_plain(f, mode)
-    if f.device.type != "cuda":
-        raise ValueError(f"{GRAM}: unsupported device {f.device}")
-    lib = _library(GRAM)
-    tm, m, slices, slice_rows = gram_geometry(n, r)
-    part = torch.empty((slices, r, r), dtype=torch.float32, device=f.device)
-    gram = torch.empty((r, r), dtype=torch.float32, device=f.device)
-    with torch.cuda.device(f.device):
-        err = lib.als_factor_gram(
-            f.data_ptr(), n, r, MODE_CODE[mode], tm, m, slices, slice_rows,
-            part.data_ptr(), gram.data_ptr(), _stream(f.device),
-        )
+    if dev.type != "cuda":
+        raise ValueError(f"{GRAM}: unsupported device {dev}")
+    if r > MAX_GRAM_RANK:
+        raise ValueError(f"{GRAM}: rank {r} above the kernel's {MAX_GRAM_RANK}")
+    fn = _library(GRAM).als_factor_gram
+    geo = factor_gram_geometry(n, r)
+    stream = _stream(dev)
+    tickets, scratch = _gram_workspace(dev, stream, (geo.blocks + geo.groups) * gram_packed(r))
+    gram = f.new_empty((r, r))
+    err = fn(dev.index, f.data_ptr(), n, r, MODE_CODE[mode], *geo, scratch.data_ptr(),
+             tickets.data_ptr(), gram.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{GRAM}: CUDA launch failed with error {err}")
     LAUNCHES[GRAM] += 1
