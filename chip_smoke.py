@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # on a machine with the card
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, tiny
+    python3 chip_smoke.py --mesh       # only the phases whose ranks span cards
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -15,8 +16,15 @@ Phases, each a hard check (any failure exits non-zero):
    their numpy oracles.
 4. kernels: the K-Means kernel at the main path's shapes (n = 2^20 rows,
    d = 256, k = 1000, f32 blobs): agreement with its plain version,
-   determinism of two launches, times (CUDA events), the bound from the
-   H100 SXM data sheet, and one PyTorch call as a yardstick.
+   determinism of two launches, the assignment's route (``wgmma``, the
+   tensor cores, at every tier for d <= 256), times (CUDA events), the
+   bound from the H100 SXM data sheet (highest counted as the six bf16
+   products of an f32-accurate split), one PyTorch call as a yardstick,
+   and the device time per CUDA kernel of one pass at highest and at
+   default (torch.profiler).  The build phase prints how many HGMMA
+   instructions the built ``libkmeans_accumulate`` holds and fails on
+   none.  With more than one card, the kernel also runs on the last
+   card against its plain version.
 5. fit (the K-Means path): ``KMeans(k=1000, max_iter=20, tol=1e-4,
    init_mode="k-means||", seed=0).fit(x)``, with every launch count set
    to 0 just before and read just after; then predict and compute_cost,
@@ -44,11 +52,14 @@ Phases, each a hard check (any failure exits non-zero):
    the counts zeroed just before: 20 solve and 20 Gram launches; the fit
    against a plain-version fit from the same initial factors in
    prediction space; an explicit fit (no Gram launch); top-10
-   recommendations for a slice of users.
+   recommendations for a slice of users.  The small phase adds an
+   implicit fit at rank 1030 on a tiny table: the factor Gram above the
+   kernel's rank bound takes the ``matmul`` route, named in the summary.
 10. ring_kernels: the ring allreduce kernel against its plain version,
    bit for bit, for worlds 2 and 4 and segments 1 and 2, at the sharded
    fit's packed buffer (1000, 130), a ragged (13, 37) and (65536, 256)
-   (64 MB a rank); two launches bit-equal; one launch per card per
+   (64 MB a rank), and for world 17 (every rank on the one card) at
+   (1000, 130); two launches bit-equal; one launch per card per
    ring; times against the bound, the plain ring and a library
    yardstick (``torch.sum(torch.stack(parts), 0)`` on one card,
    ``torch.cuda.nccl.all_reduce`` across cards).
@@ -111,9 +122,9 @@ RING_REPLACES = "oap_mllib_tpu/ops/pallas/ring_reduce.py:105"
 # the ring: the sharded fit's packed (k, d / model + 2) buffer, a ragged
 # one and a bandwidth-sized one; the sharded fit on a (2, 2) mesh
 RING_FULL = {"shapes": [(1000, 130), (13, 37), (65536, 256)], "worlds": (2, 4),
-             "segments": (1, 2)}
+             "segments": (1, 2), "wide": (17, (1000, 130))}
 RING_TINY = {"shapes": [(1000, 130), (13, 37), (512, 256)], "worlds": (2, 4),
-             "segments": (1, 2)}
+             "segments": (1, 2), "wide": (17, (1000, 130))}
 SHARDED_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "data": 2, "model": 2}
 SHARDED_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "data": 2, "model": 2}
 # NVLink between two H100 SXM cards of one host: 450 GB/s each way
@@ -265,18 +276,25 @@ def compare(x, w, c, mode, need_cost):
 
 
 def bound(n, d, k, mode):
-    ops = 2.0 * n * k * d + 2.0 * n * d
+    """Least time of one pass, whatever runs it: x, w and the centers read
+    once, the sums written once; the cross term at the tensor-core peak,
+    at highest as the six bf16 products of an f32-accurate split (the
+    fastest f32-accurate product on this card), one product at the bf16
+    tiers."""
+    products = 6 if mode == "highest" else 1
+    ops = products * 2.0 * n * k * d + 2.0 * n * d
     nbytes = 4.0 * (n * d + n + 2 * k * d)
-    t_ops = ops / (PEAK_FP32 if mode == "highest" else PEAK_BF16)
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops / PEAK_BF16, nbytes / PEAK_BYTES)
 
 
 def phase_small(dev):
     """Short first calls: ragged shapes, every tier and mode, and the
     kernel loop against the numpy reference."""
     results = []
-    for n, d, k in ((5000, 16, 8), (3001, 37, 13), (777, 300, 70)):
+    # wgmma at d <= 256 (one and many center tiles, ragged rows, 4-byte
+    # copies where d is no multiple of 4), SIMT at d = 300
+    for n, d, k in ((5000, 16, 8), (3001, 37, 13), (4099, 256, 1000), (2000, 64, 300),
+                    (777, 300, 70)):
         x, w, c = blobs(n, d, k, dev, seed=n)
         for mode in TIERS:
             for need_cost in (True, False):
@@ -299,6 +317,7 @@ def phase_kernels(x, w, c, dev, reps):
     for mode in TIERS:
         for need_cost in (False, True):
             v = compare(x, w, c, mode, need_cost)
+            v["route"] = kmeans_kernel.assign_route(d)
             v["ms"] = time_ms(lambda: run_kernel(x, w, c, mode, need_cost), dev, reps)
             v["plain_ms"] = time_ms(
                 lambda: kmeans_kernel.lloyd_accumulate_plain(x, w, c, mode, need_cost),
@@ -315,17 +334,17 @@ def phase_kernels(x, w, c, dev, reps):
     return variants
 
 
-def kernel_breakdown(x, w, c, dev):
-    """Device time per CUDA kernel of one wrapper call (highest, loop
-    mode), from torch.profiler over three calls; empty where the
-    profiler records no device time."""
+def kernel_breakdown(x, w, c, dev, mode):
+    """Device time per CUDA kernel of one wrapper call (loop mode) at a
+    tier, from torch.profiler over three calls; empty where the profiler
+    records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    run_kernel(x, w, c, "highest", False)
+    run_kernel(x, w, c, mode, False)
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            run_kernel(x, w, c, "highest", False)
+            run_kernel(x, w, c, mode, False)
         sync(dev)
     out = {}
     for ev in prof.key_averages():
@@ -335,8 +354,22 @@ def kernel_breakdown(x, w, c, dev):
         m = re.search(r"(\w+_kernel)(<[^>]*>)?|Memset", ev.key)
         if us and m:
             out[m.group(0)] = out.get(m.group(0), 0.0) + us / 3e3
-    emit("breakdown_ms", out)
+    emit("breakdown_ms", {"mode": mode, "kernels": out})
     return out
+
+
+def phase_last_card(dev):
+    """With more than one card: the kernel on the last card (the wrapper
+    sets that card as the library's device) against its plain version."""
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if count < 2:
+        return None
+    last = torch.device("cuda", count - 1)
+    x, w, c = blobs(1 << 16, 256, 1000, last, seed=9)
+    v = compare(x, w, c, "highest", True)
+    v["device"] = str(last)
+    emit("last_card", v)
+    return v
 
 
 def phase_fit(x, dev, cfg, max_iter):
@@ -848,6 +881,7 @@ def phase_small_slices(dev):
           "small PCA fit differs from the numpy oracle")
     u, i = rng.integers(60, size=900), rng.integers(40, size=900)
     rt = (rng.random(900) * 4 + 1).astype(np.float32)
+    wide = als_wide_rank(dev, rng)
     for implicit in (True, False):
         model = ALS(rank=4, max_iter=4, implicit_prefs=implicit, alpha=5.0, seed=2,
                     device=str(dev)).fit(u, i, rt, 60, 40)
@@ -858,7 +892,32 @@ def phase_small_slices(dev):
     emit("small_slices", {"pca_shapes": [list(sh) for sh in PCA_SMALL],
                           "pca_routes": sorted(routes), "gram_ranks": [1, 7, 32, 70],
                           "solve_ranks": [1, 10, 32], "fits": ["pca", "als implicit",
-                                                               "als explicit"]})
+                                                               "als explicit"],
+                          "als_wide_rank": wide})
+
+
+def als_wide_rank(dev, rng, rank=1030):
+    """An implicit fit at a rank above the factor Gram kernel's bound on a
+    tiny table: the Gram takes the ``matmul`` route (the summary says so,
+    no Gram launch), the solve ``torch.linalg``; held against the numpy
+    oracle."""
+    u, i = rng.integers(30, size=200), rng.integers(20, size=200)
+    rt = (rng.random(200) * 4 + 1).astype(np.float32)
+    als_kernel.reset_launches()
+    model = ALS(rank=rank, max_iter=2, implicit_prefs=True, alpha=5.0, seed=2,
+                device=str(dev)).fit(u, i, rt, 30, 20)
+    s = model.summary
+    check(s["gram_route"] == "matmul" and s["solve_kernel"] == "torch.linalg",
+          f"ALS rank {rank}: gram route {s['gram_route']}, solve {s['solve_kernel']}")
+    check(s["kernels"] == {als_kernel.SOLVE: 0, als_kernel.GRAM: 0},
+          f"ALS rank {rank}: kernel launches {s['kernels']}")
+    pred = model.user_factors_ @ model.item_factors_.T
+    xr, yr = als_np.als_np(u, i, rt, 30, 20, rank, 2, 0.1, 5.0, True, seed=2)
+    err = float(np.linalg.norm(pred - xr @ yr.T) / np.linalg.norm(xr @ yr.T))
+    check(np.all(np.isfinite(pred)) and err <= 1e-3,
+          f"ALS rank {rank} vs numpy oracle: {err:.3g}")
+    return {"rank": rank, "gram_route": s["gram_route"], "kernels": s["kernels"],
+            "rel_err_vs_numpy": err}
 
 
 # -- ring and the sharded K-Means fit ----------------------------------------
@@ -910,11 +969,14 @@ def phase_ring_kernels(cfg, dev, reps):
     """The ring kernel against the plain ring, bit for bit, at every
     shape, world and segment count; times, bounds, yardsticks."""
     variants = []
-    for world in cfg["worlds"]:
+    wide, wide_shape = cfg["wide"]
+    cases = [(world, cfg["shapes"]) for world in cfg["worlds"]] + [(wide, [wide_shape])]
+    for world, shapes in cases:
+        # a world past the cards: every rank on the one card
         devs = mesh_devices(dev, world)
         distinct = len(set(devs)) > 1
         layout = "distinct cards" if distinct else f"all on {devs[0]}"
-        for rows, cols in cfg["shapes"]:
+        for rows, cols in shapes:
             g = torch.Generator()
             g.manual_seed(rows * cols + world)
             parts = [(torch.randn((rows, cols), generator=g) * 10.0).to(d) for d in devs]
@@ -1046,10 +1108,39 @@ def phase_sharded_fit(cfg, dev):
     return fit
 
 
+def phase_build(dev):
+    """Every kernel built from the sources; ptxas's registers and spills;
+    the HGMMA (tensor-core wgmma) instructions of the libraries that must
+    hold them.  Returns the nvidia-smi line."""
+    smi = nvidia_smi()
+    print(f"device {torch.cuda.get_device_name(dev)} | {smi}", flush=True)
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    emit("build", {"seconds": time.perf_counter() - t0,
+                   "sources_hash": _build.sources_hash(), "cwd": os.getcwd(),
+                   "libraries": {k: str(v) for k, v in paths.items()}})
+    for name in paths:
+        log = (_build.BUILD_DIR / f"{name}.ptxas.log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {name}: {line.strip()}")
+    for name, what in ((pca_kernel.KERNEL, "the bf16 Gram tiers"),
+                       (kmeans_kernel.KERNEL, "the Lloyd assignment, every tier")):
+        hgmma = count_sass(paths[name], "HGMMA")
+        print(f"sass {paths[name].name}: {hgmma} HGMMA instructions "
+              f"({what} on the tensor cores)", flush=True)
+        check(hgmma > 0, f"the {name} library holds no HGMMA instruction")
+    return smi
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the phases whose ranks span cards (the kernel on the last "
+                         "card, the ring kernels, the sharded fit); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1057,32 +1148,24 @@ def main(argv=None) -> int:
     try:
         dev = resolve_device("cpu" if args.rehearse else "cuda")
         cfg = TINY if args.rehearse else FULL
-        smi = None
-        if dev.type == "cuda":
-            smi = nvidia_smi()
-            print(f"device {torch.cuda.get_device_name(dev)} | {smi}", flush=True)
-            t0 = time.perf_counter()
-            paths = _build.build_all()
-            emit("build", {"seconds": time.perf_counter() - t0,
-                           "sources_hash": _build.sources_hash(), "cwd": os.getcwd(),
-                           "libraries": {k: str(v) for k, v in paths.items()}})
-            for name in paths:
-                log = (_build.BUILD_DIR / f"{name}.ptxas.log")
-                if log.exists():
-                    for line in log.read_text().splitlines():
-                        if "registers" in line or "spill" in line:
-                            print(f"ptxas {name}: {line.strip()}")
-            hgmma = count_sass(paths[pca_kernel.KERNEL], "HGMMA")
-            print(f"sass {paths[pca_kernel.KERNEL].name}: {hgmma} HGMMA instructions "
-                  "(the bf16 Gram tiers on the tensor cores)", flush=True)
-            check(hgmma > 0, "the PCA moments library holds no HGMMA instruction")
+        smi = phase_build(dev) if dev.type == "cuda" else None
+        if args.mesh:
+            phase_last_card(dev)
+            phase_ring_kernels(RING_TINY if args.rehearse else RING_FULL, dev,
+                               10 if dev.type == "cuda" else 1)
+            phase_sharded_fit(SHARDED_TINY if args.rehearse else SHARDED_FULL, dev)
+            print(f"mesh phases passed on {torch.cuda.device_count() if dev.type == 'cuda' else 0}"
+                  f" cards: {smi}", flush=True)
+            return 0
         phase_small(dev)
         phase_small_slices(dev)
         x, w, c = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)
         reps = 10 if dev.type == "cuda" else 1
         variants = phase_kernels(x, w, c, dev, reps)
-        breakdown = kernel_breakdown(x, w, c, dev) if dev.type == "cuda" else {}
+        breakdown = ({mode: kernel_breakdown(x, w, c, dev, mode) for mode in ("highest", "default")}
+                     if dev.type == "cuda" else {})
         del w, c
+        last_card = phase_last_card(dev)
         max_iter = 20 if dev.type == "cuda" else 5
         fit = phase_fit(x, dev, cfg, max_iter)
         phase_loop_parity(x, dev, cfg, max_iter)
@@ -1111,7 +1194,9 @@ def main(argv=None) -> int:
         "plain_ms": main_v["plain_ms"], "bound_ms": main_v["bound_ms"],
         "bound_by": main_v["bound_by"], "library_ms": main_v["library_ms"],
         "library_call": "torch.matmul(x, c.T): the cross product only",
+        "assign_route": main_v["route"],
         "shape": cfg, "variants": variants, "breakdown_ms": breakdown,
+        "last_card": last_card,
     }]
     # each kernel's headline: the variant its path's fit runs most
     headline = [

@@ -11,32 +11,40 @@
 //   sums[label] += w * x (one-hot stays 0/1), counts[label] += w
 // Ties go to the lowest center index, as jnp.argmax / jnp.argmin do.
 //
-// Tiers (`mode`): 0 highest = FP32 FMA on f32 operands, no TF32;
-// 1 high = cross term on bf16-rounded operands with FP32 accumulation,
-// sums as sum(bf16_hi(w x)) + sum(bf16_lo(w x)), counts likewise on w;
-// 2 default = the same cross term, sums as sum(bf16(w x)), counts split
-// like "high".  A product of two bf16 values is exact in FP32, so SIMT
-// FMA reproduces the tiers' arithmetic without tensor cores.
+// Tiers (`mode`): 0 highest = f32 operands; 1 high = cross term on
+// bf16-rounded operands with FP32 accumulation, sums as sum(bf16_hi(w x))
+// + sum(bf16_lo(w x)), counts likewise on w; 2 default = the same cross
+// term, sums as sum(bf16(w x)), counts split like "high".
 //
 // What bounds it on an H100 SXM (data sheet: 67 TFLOP/s FP32, 989 TFLOP/s
 // bf16 dense, 3.35 TB/s): per pass 2 n k d + 2 n d operations and
 // n d 4 + n 4 + 2 k d 4 bytes.  At n = 2^20, d = 256, k = 1000 that is
 // ~537 GFLOP against ~1.08 GB, so the pass is bound by operations:
-// ~8.0 ms at the FP32 peak, ~0.55 ms at the bf16 tensor-core peak.
+// ~0.55 ms at the bf16 tensor-core peak for the bf16 tiers, and ~3.26 ms
+// for highest, whose f32-accurate cross term is six bf16 products on the
+// tensor cores (8.0 ms if it ran on the FP32 pipe).
 //
-// Design, and how it stands against that bound.  The TPU kernel adds
-// into one resident (k, d) accumulator across a sequential grid; Hopper
-// blocks run in parallel and in no order, so the pass is split:
-//   1. csq      |c|^2 per center.
-//   2. assign   a 64x64 SIMT register-tiled product of a row tile with
-//               every 64-center tile in turn (the centers, k d 4 bytes,
-//               do not fit in shared memory), carrying a running
+// Design.  The TPU kernel adds into one resident (k, d) accumulator
+// across a sequential grid; Hopper blocks run in parallel and in no
+// order, so the pass is split:
+//   1. csq      |c|^2 per center (sequential IEEE adds).
+//   2. assign   the nearest center of every row, carrying a running
 //               (best score, lowest index) per row; writes labels and,
-//               in cost mode, one cost partial per block.
+//               in cost mode, one cost partial per block.  Route by
+//               depth: d <= 256 runs assign_wgmma.cuh (a prep kernel
+//               puts the centers in operand form, then wgmma on the
+//               tensor cores at every tier: one bf16 product for high
+//               and default, a three-part bf16 split at highest); wider
+//               rows run assign_kernel below (a 64x64 SIMT register tile
+//               on the FP32 pipe): the wgmma route keeps each row's
+//               operand parts in registers and shared memory for the
+//               whole pass, which bounds its depth.
 //   3. rank     a stable counting sort of the rows by label: one warp per
 //               row range counts labels (integers, so order-free) and
 //               gives each row its rank among equal labels in row order.
-//   4. scan     exclusive prefix over the (cluster, range) counts.
+//   4. scan     exclusive prefix over the (cluster, range) counts, spread
+//               over the card: per-block totals, then each block adds
+//               the totals before it and scans its own tile.
 //   5. scatter  perm[offset] = row: rows grouped by cluster, in row order.
 //   6. segsum   per (cluster, part): w x summed over the part's rows in
 //               fixed order; each cluster is cut into `parts` equal parts
@@ -44,10 +52,7 @@
 //   7. finalize parts summed in fixed order into sums and counts.
 //   8. cost     cost partials summed by one block in a fixed tree.
 // No float atomics anywhere: two launches on the same inputs give the
-// same bits.  The assignment is the 2 n k d term and runs on the FP32
-// pipe at every tier (SIMT, no wgmma, no TMA), so its floor is the 8.0 ms
-// FP32 bound even for the bf16 tiers; the sort and sums add about one
-// more read of x.  Tensor cores and TMA are later work.
+// same bits.
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every
@@ -57,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "assign_wgmma.cuh"
 
 namespace {
 
@@ -72,15 +79,18 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// (score, index) order: larger score first, then the lower index.
-__device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
-  return s > bs || (s == bs && i < bi);
-}
+using assign_wg::better;
 
-__global__ void csq_kernel(const float* __restrict__ c, int k, int d,
+// |c|^2 of centers [0, k), +inf for the padding [k, kpad) of the wgmma
+// route's last center tile.
+__global__ void csq_kernel(const float* __restrict__ c, int k, int kpad, int d,
                            float* __restrict__ csq) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= k) return;
+  if (j >= kpad) return;
+  if (j >= k) {
+    csq[j] = CUDART_INF_F;
+    return;
+  }
   const float* cj = c + (size_t)j * d;
   float s = 0.f;
   for (int t = 0; t < d; ++t) s = __fadd_rn(s, __fmul_rn(cj[t], cj[t]));
@@ -250,28 +260,78 @@ __global__ void rank_kernel(const int* __restrict__ labels, int n,
   }
 }
 
-// Exclusive prefix sum of m integers in one block of 1024 threads.
-__global__ void scan_kernel(int* __restrict__ a, int m) {
-  __shared__ int s[1024];
-  const int tid = threadIdx.x;
-  const int per = (m + 1023) / 1024;
-  const int lo = min(m, tid * per);
-  const int hi = min(m, lo + per);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += a[i];
-  s[tid] = sum;
+// Exclusive prefix sum of m integers over the card: block b owns the
+// tile [b SCAN_TILE, (b + 1) SCAN_TILE), SCAN_PER consecutive integers a
+// thread.  scan_sums_kernel writes each tile's total; scan_apply_kernel
+// adds the totals of the tiles before its own and scans its tile.
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_PER = 4;
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_PER;
+
+// The block's sum of one value a thread (every thread gets it).
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
-  for (int off = 1; off < 1024; off <<= 1) {
-    const int v = tid >= off ? s[tid - off] : 0;
-    __syncthreads();
-    s[tid] += v;
-    __syncthreads();
+  int t = threadIdx.x < SCAN_THREADS / 32 ? red[threadIdx.x] : 0;
+  if (threadIdx.x < 32)
+    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+  if (threadIdx.x == 0) red[0] = t;
+  __syncthreads();
+  const int total = red[0];
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_sums_kernel(const int* __restrict__ a, int m, int* __restrict__ tile_sum) {
+  __shared__ int red[SCAN_THREADS / 32];
+  const int base = blockIdx.x * SCAN_TILE + SCAN_PER * threadIdx.x;
+  int v = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_PER; ++j) v += base + j < m ? a[base + j] : 0;
+  v = block_sum(v, red);
+  if (threadIdx.x == 0) tile_sum[blockIdx.x] = v;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_apply_kernel(int* __restrict__ a, int m, const int* __restrict__ tile_sum) {
+  __shared__ int red[SCAN_THREADS / 32];
+  __shared__ int warp_pre[SCAN_THREADS / 32];
+  int before = 0;
+  for (int b = threadIdx.x; b < blockIdx.x; b += SCAN_THREADS) before += tile_sum[b];
+  const int offset = block_sum(before, red);
+
+  const int base = blockIdx.x * SCAN_TILE + SCAN_PER * threadIdx.x;
+  int v[SCAN_PER], mine = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_PER; ++j) {
+    v[j] = base + j < m ? a[base + j] : 0;
+    mine += v[j];
   }
-  int run = s[tid] - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int v = a[i];
-    a[i] = run;
-    run += v;
+  // inclusive scan of the threads' sums: in the warp, then the warps'
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int inc = mine;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += u;
+  }
+  if (lane == 31) warp_pre[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int t = warp_pre[lane], tinc = t;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, tinc, off);
+      if (lane >= off) tinc += u;
+    }
+    warp_pre[lane] = tinc - t;  // exclusive over the warps
+  }
+  __syncthreads();
+  int run = offset + warp_pre[warp] + inc - mine;
+#pragma unroll
+  for (int j = 0; j < SCAN_PER; ++j) {
+    if (base + j < m) a[base + j] = run;
+    run += v[j];
   }
 }
 
@@ -382,42 +442,71 @@ void launch_assign(int blocks, cudaStream_t st, const float* x,
 
 extern "C" {
 
-// Rows per assign block: the size of `cost_part` is ceil(n / this).
-int kmeans_assign_rows(void) { return BM; }
+// Rows per assign block of a route (0 SIMT, 1 wgmma): the size of
+// `cost_part` is ceil(n / this).
+int kmeans_assign_rows(int route) { return route == 1 ? assign_wg::BM : BM; }
 
-// One fused accumulate pass.  Inputs: x (n, d), w (n), c (k, d), all f32
-// contiguous on the device.  Scratch (sizes in elements): csq k,
-// labels n, cost_part ceil(n / 64), counts_i k * ranges, rank n, perm n,
-// psums k * parts * d, pcounts k * parts.  Outputs: sums (k, d),
-// counts (k), cost (1; written only when need_cost).  `range_rows` *
-// `ranges` must cover n.  Returns cudaGetLastError() after the launches.
-int kmeans_accumulate(const float* x, const float* w, const float* c, int n,
-                      int d, int k, int mode, int need_cost, int range_rows,
-                      int ranges, int parts, float* csq, int* labels,
-                      float* cost_part, int* counts_i, int* rank, int* perm,
-                      float* psums, float* pcounts, float* sums,
+// Bytes of the wgmma route's prepared centers at a tier, or -1 where
+// the route does not take d.
+long long kmeans_prep_bytes(int mode, int d, int k) {
+  if (d < 1 || d > assign_wg::MAX_D) return -1;
+  const int dpad = (d + assign_wg::CHUNK - 1) / assign_wg::CHUNK * assign_wg::CHUNK;
+  return mode == 0 ? assign_wg::prep_bytes<3>(k, dpad) : assign_wg::prep_bytes<1>(k, dpad);
+}
+
+// Floats of `csq`: k rounded up to whole tiles of the widest wgmma tile.
+int kmeans_csq_size(int k) { return (k + 127) / 128 * 128; }
+
+// Integers of the scan's tile totals for m counts.
+int kmeans_scan_tiles(int m) { return (m + SCAN_TILE - 1) / SCAN_TILE; }
+
+// One fused accumulate pass on device `dev`.  Inputs: x (n, d), w (n),
+// c (k, d), all f32 contiguous on the device.  `route` 1 assigns on the
+// tensor cores (d <= 256), 0 on the FP32 pipe.  Scratch (sizes in
+// elements): csq kmeans_csq_size(k), prep kmeans_prep_bytes bytes (route 1 only), labels
+// n, cost_part ceil(n / kmeans_assign_rows(route)), counts_i k * ranges,
+// scan_part kmeans_scan_tiles(k * ranges), rank n, perm n, psums
+// k * parts * d, pcounts k * parts.  Outputs: sums (k, d), counts (k),
+// cost (1; written only when need_cost).  `range_rows` * `ranges` must
+// cover n.  Returns a cudaError_t: cudaGetLastError() after the
+// launches, or the refusal of a route that does not take d.
+int kmeans_accumulate(int dev, const float* x, const float* w, const float* c, int n,
+                      int d, int k, int mode, int need_cost, int route, int range_rows,
+                      int ranges, int parts, float* csq, uint8_t* prep, int* labels,
+                      float* cost_part, int* counts_i, int* scan_part, int* rank,
+                      int* perm, float* psums, float* pcounts, float* sums,
                       float* counts, float* cost, void* stream) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      counts_i, 0, sizeof(int) * (size_t)k * (size_t)ranges, st);
+  err = cudaMemsetAsync(counts_i, 0, sizeof(int) * (size_t)k * (size_t)ranges, st);
   if (err != cudaSuccess) return (int)err;
 
-  csq_kernel<<<(k + 255) / 256, 256, 0, st>>>(c, k, d, csq);
+  const int kpad = kmeans_csq_size(k);
+  csq_kernel<<<(kpad + 255) / 256, 256, 0, st>>>(c, k, kpad, d, csq);
 
-  const int blocks = (n + BM - 1) / BM;
-  const bool bf16 = mode != 0;
-  if (bf16 && need_cost)
-    launch_assign<true, true>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-  else if (bf16)
-    launch_assign<true, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-  else if (need_cost)
-    launch_assign<false, true>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-  else
-    launch_assign<false, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
+  if (route == 1) {
+    err = assign_wg::launch(dev, st, mode, need_cost != 0, x, w, c, csq, n, d, k, prep,
+                            labels, cost_part);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const int blocks = (n + BM - 1) / BM;
+    const bool bf16 = mode != 0;
+    if (bf16 && need_cost)
+      launch_assign<true, true>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
+    else if (bf16)
+      launch_assign<true, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
+    else if (need_cost)
+      launch_assign<false, true>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
+    else
+      launch_assign<false, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
+  }
 
   rank_kernel<<<ranges, 32, 0, st>>>(labels, n, range_rows, ranges, counts_i,
                                      rank);
-  scan_kernel<<<1, 1024, 0, st>>>(counts_i, k * ranges);
+  const int m = k * ranges, tiles = kmeans_scan_tiles(m);
+  scan_sums_kernel<<<tiles, SCAN_THREADS, 0, st>>>(counts_i, m, scan_part);
+  scan_apply_kernel<<<tiles, SCAN_THREADS, 0, st>>>(counts_i, m, scan_part);
   scatter_kernel<<<(n + 255) / 256, 256, 0, st>>>(labels, counts_i, rank, n,
                                                   range_rows, ranges, perm);
 
@@ -433,7 +522,9 @@ int kmeans_accumulate(const float* x, const float* w, const float* c, int n,
     segsum_kernel<2><<<grid, cols, 0, st>>>(x, w, perm, counts_i, n, d, k,
                                             ranges, parts, psums, pcounts);
   finalize_kernel<<<k, cols, 0, st>>>(psums, pcounts, d, parts, sums, counts);
-  if (need_cost) cost_kernel<<<1, 1024, 0, st>>>(cost_part, blocks, cost);
+  if (need_cost)
+    cost_kernel<<<1, 1024, 0, st>>>(cost_part, (n + kmeans_assign_rows(route) - 1) /
+                                                   kmeans_assign_rows(route), cost);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,12 @@
 // x[j+W-1] + (... + (x[j+1] + x[j])) in rank indices mod W, the
 // counter-clockwise half mirrors it, and every rank receives a copy.
 // The host derives that order from the written schedule
-// (ring_kernel.fold_order) and passes it as `order[dir][segment]`.
+// (ring_kernel.fold_order) and passes it, with the ranks' pointers, in a
+// small device table that it fills before the launch:
+//   table[r]                      input of rank r
+//   table[W + r]                  output of rank r
+//   table[2 W + (dir W + j) W + t] rank of the t-th fold of segment j
+// so the world is bounded by nothing in the kernel.
 //
 // Design.  The TPU kernel pushed segments around the ring with remote
 // DMAs, 2 (W - 1) steps.  Here no step is needed: a thread reads every
@@ -47,34 +52,37 @@
 
 namespace {
 
-constexpr int kMaxWorld = 16;
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;
+constexpr int kMaxCards = 64;
 
 struct RingArgs {
-  const float* in[kMaxWorld];
-  float* out[kMaxWorld];
-  // order[dir][j][t]: the rank whose value the t-th fold of an element of
-  // segment j adds (dir 0 clockwise, 1 counter-clockwise)
-  unsigned char order[2][kMaxWorld][kMaxWorld];
+  const long long* table;  // pointers and fold order, laid out as above
   int world, cols, half, seg_rows, seg;
   int lo, hi;  // this launch's share of the flat elements, [lo, hi)
 };
 
-// dir * kMaxWorld + segment of the element at (row, col)
-__device__ __forceinline__ int fold_class(int row, int col, const RingArgs& a) {
-  return (col >= a.half) * kMaxWorld + (row % a.seg_rows) / a.seg;
+__device__ __forceinline__ const float* in_ptr(const RingArgs& a, int r) {
+  return reinterpret_cast<const float*>(__ldg(a.table + r));
 }
 
-__device__ __forceinline__ int fold_class(int e, const RingArgs& a) {
-  const int row = e / a.cols;
-  return fold_class(row, e - row * a.cols, a);
+__device__ __forceinline__ float* out_ptr(const RingArgs& a, int r) {
+  return reinterpret_cast<float*>(__ldg(a.table + a.world + r));
+}
+
+// The fold order of the element at (row, col): its row of the table.
+__device__ __forceinline__ const long long* fold_row(int row, int col,
+                                                    const RingArgs& a) {
+  const int cls = (col >= a.half) * a.world + (row % a.seg_rows) / a.seg;
+  return a.table + 2 * a.world + (size_t)cls * a.world;
 }
 
 __device__ __forceinline__ float fold_one(int e, const RingArgs& a) {
-  const unsigned char* o = &a.order[0][0][0] + fold_class(e, a) * kMaxWorld;
-  float acc = a.in[o[0]][e];
-  for (int t = 1; t < a.world; ++t) acc = __fadd_rn(a.in[o[t]][e], acc);
+  const int row = e / a.cols;
+  const long long* o = fold_row(row, e - row * a.cols, a);
+  float acc = in_ptr(a, (int)__ldg(o))[e];
+  for (int t = 1; t < a.world; ++t)
+    acc = __fadd_rn(in_ptr(a, (int)__ldg(o + t))[e], acc);
   return acc;
 }
 
@@ -89,31 +97,26 @@ ring_fold_kernel(const __grid_constant__ RingArgs a) {
     const int col = e - row * a.cols;
     if (VEC && e + 3 < a.hi && col + 3 < a.cols &&
         (col >= a.half || col + 3 < a.half)) {
-      // one row and one half, so one segment: one fold order for all four
-      const unsigned char* o =
-          &a.order[0][0][0] + fold_class(row, col, a) * kMaxWorld;
-      float4 v[kMaxWorld];
-#pragma unroll
-      for (int t = 0; t < kMaxWorld; ++t)
-        if (t < W) v[t] = *reinterpret_cast<const float4*>(a.in[o[t]] + e);
-      float4 acc = v[0];
-#pragma unroll
-      for (int t = 1; t < kMaxWorld; ++t) {
-        if (t < W) {
-          acc.x = __fadd_rn(v[t].x, acc.x);
-          acc.y = __fadd_rn(v[t].y, acc.y);
-          acc.z = __fadd_rn(v[t].z, acc.z);
-          acc.w = __fadd_rn(v[t].w, acc.w);
-        }
+      // one row and one half, so one segment: one fold order for all four;
+      // the loop runs `world` times, its loads independent of the adds
+      const long long* o = fold_row(row, col, a);
+      float4 acc = *reinterpret_cast<const float4*>(in_ptr(a, (int)__ldg(o)) + e);
+#pragma unroll 4
+      for (int t = 1; t < W; ++t) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(in_ptr(a, (int)__ldg(o + t)) + e);
+        acc.x = __fadd_rn(v.x, acc.x);
+        acc.y = __fadd_rn(v.y, acc.y);
+        acc.z = __fadd_rn(v.z, acc.z);
+        acc.w = __fadd_rn(v.w, acc.w);
       }
-#pragma unroll
-      for (int r = 0; r < kMaxWorld; ++r)
-        if (r < W) *reinterpret_cast<float4*>(a.out[r] + e) = acc;
+      for (int r = 0; r < W; ++r)
+        *reinterpret_cast<float4*>(out_ptr(a, r) + e) = acc;
     } else {
       const int end = min(e + 4, a.hi);
       for (int f = e; f < end; ++f) {
         const float s = fold_one(f, a);
-        for (int r = 0; r < W; ++r) a.out[r][f] = s;
+        for (int r = 0; r < W; ++r) out_ptr(a, r)[f] = s;
       }
     }
   }
@@ -124,9 +127,9 @@ ring_fold_kernel(const __grid_constant__ RingArgs a) {
 // made once per device.  A wait takes the event's state when it is
 // enqueued, so one event per device serves every ring.
 cudaError_t card_events(int dev, cudaEvent_t** ev) {
-  static cudaEvent_t events[64][2];
-  static bool made[64];
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  static cudaEvent_t events[kMaxCards][2];
+  static bool made[kMaxCards];
+  if (dev < 0 || dev >= kMaxCards) return cudaErrorInvalidDevice;
   if (!made[dev]) {
     for (int k = 0; k < 2; ++k) {
       const cudaError_t err =
@@ -142,7 +145,7 @@ cudaError_t card_events(int dev, cudaEvent_t** ev) {
 // Every stream waits on every other card's event `k`, recorded now.
 cudaError_t cross_wait(int cards, const int* devs, void* const* streams,
                        int k) {
-  cudaEvent_t* ev[16];
+  cudaEvent_t* ev[kMaxCards];
   for (int c = 0; c < cards; ++c) {
     cudaError_t err = cudaSetDevice(devs[c]);
     if (err == cudaSuccess) err = card_events(devs[c], &ev[c]);
@@ -180,32 +183,23 @@ int ring_enable_peer(int dev, int peer) {
 
 // One ring of `world` (rows, cols) f32 row-major buffers: one launch on
 // each of `cards` cards, card c (device devs[c], stream streams[c])
-// folding the flat elements [los[c], his[c]).  `ptrs` holds the ranks'
-// input pointers, then their output pointers (any card, peer access
-// enabled), `order` the 2 * world * world bytes order[dir][segment][t];
-// `cols`, `half` (first counter-clockwise column of the padded buffer),
-// `seg_rows` (rows of a segment group) and `seg` (rows of a segment)
-// place an element in its fold order.  `vec` allows 16-byte accesses
-// (every pointer 16-byte aligned, every los[c] a multiple of 4).  With
-// more than one card, every card's launch waits for every card's stream
-// as it stands, and afterwards every card's stream waits for every
-// launch.  Returns a cudaError_t (invalid value for a world or a card
+// folding the flat elements [los[c], his[c]).  `tables[c]` is card c's
+// copy of the table (inputs, outputs, fold order; see the top of this
+// file), in that card's memory and filled on its stream; the pointers in
+// it may be on any card, with peer access enabled.  `cols`, `half`
+// (first counter-clockwise column of the padded buffer), `seg_rows`
+// (rows of a segment group) and `seg` (rows of a segment) place an
+// element in its fold order.  `vec` allows 16-byte accesses (every
+// pointer 16-byte aligned, every los[c] a multiple of 4).  With more
+// than one card, every card's launch waits for every card's stream as it
+// stands, and afterwards every card's stream waits for every launch.
+// Returns a cudaError_t (invalid value for an empty world or a card
 // count out of range).
 int ring_fold(int cards, const int* devs, void* const* streams,
-              const int* los, const int* his, float* const* ptrs,
-              const unsigned char* order, int world, int cols, int half,
-              int seg_rows, int seg, int vec) {
-  if (world < 1 || world > kMaxWorld || cards < 1 || cards > kMaxWorld)
-    return cudaErrorInvalidValue;
+              const int* los, const int* his, const long long* const* tables,
+              int world, int cols, int half, int seg_rows, int seg, int vec) {
+  if (world < 1 || cards < 1 || cards > kMaxCards) return cudaErrorInvalidValue;
   RingArgs a = {};
-  for (int r = 0; r < world; ++r) {
-    a.in[r] = ptrs[r];
-    a.out[r] = ptrs[world + r];
-  }
-  for (int dir = 0; dir < 2; ++dir)
-    for (int j = 0; j < world; ++j)
-      for (int t = 0; t < world; ++t)
-        a.order[dir][j][t] = order[(dir * world + j) * world + t];
   a.world = world;
   a.cols = cols;
   a.half = half;
@@ -216,6 +210,7 @@ int ring_fold(int cards, const int* devs, void* const* streams,
     return err;
   for (int c = 0; c < cards; ++c) {
     if ((err = cudaSetDevice(devs[c])) != cudaSuccess) return err;
+    a.table = tables[c];
     a.lo = los[c];
     a.hi = his[c];
     const long long chunks = (static_cast<long long>(a.hi - a.lo) + 3) / 4;

@@ -268,6 +268,7 @@ class ALS:
             "accelerated": True,
             "als_kernel": "grouped" if grouped else "coo",
             "solve_kernel": "cuda" if self.rank <= als_kernel.MAX_RANK else "torch.linalg",
+            "gram_route": als_ops.gram_route(self.rank) if self.implicit_prefs else None,
             "precision": pol,
             "kernels": {
                 name: als_kernel.LAUNCHES[name] - before.get(name, 0)

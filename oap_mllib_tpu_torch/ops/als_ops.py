@@ -310,9 +310,19 @@ def regularized_solve(a, b, n_reg, reg: float, gram=None,
     return masked_solve(a, b, n_reg)
 
 
+def gram_route(rank: int) -> str:
+    """Where the implicit-feedback Gram of a rank runs: ``kernel`` (the K4
+    wrapper) up to ``als_kernel.MAX_GRAM_RANK``, ``matmul`` above it."""
+    return "kernel" if rank <= als_kernel.MAX_GRAM_RANK else "matmul"
+
+
 def _factor_gram(factors, gram: Callable = als_kernel.factor_gram) -> torch.Tensor:
     """The implicit-feedback Gram ``F^T F``, pinned to ``highest``: Grams
-    condition the solve and never run reduced."""
+    condition the solve and never run reduced.  Ranks above the kernel's
+    bound take one f32 library product (TF32 off, as the fit sets it),
+    as the JAX package leaves that product to XLA off its kernel route."""
+    if gram_route(factors.shape[1]) == "matmul":
+        return factors.T @ factors
     return gram(factors.contiguous(), "highest")
 
 

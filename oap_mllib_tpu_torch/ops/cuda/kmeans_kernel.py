@@ -8,7 +8,12 @@
 - :func:`lloyd_accumulate` is the wrapper of the hand-written Hopper
   kernel ``csrc/kmeans_accumulate.cu``.  A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises.  There is no
-  fallback from one to the other.
+  fallback from one to the other.  The assignment's route is fixed by
+  the depth (:func:`assign_route`): up to 256 features it runs on the
+  tensor cores at every tier (``csrc/assign_wgmma.cuh``; highest as a
+  three-part bf16 split, six products), wider rows on the FP32 pipe.
+  :func:`assign_geometry` sizes the launch and its scratch; the wrapper
+  checks it against the library's own figures when it loads it.
 - :func:`lloyd_run_kernel` is ``_lloyd_loop_padded`` / ``lloyd_run_pallas``:
   the Lloyd loop over the wrapper, then one cost pass at ``highest``.
 
@@ -23,7 +28,7 @@ itself, so the JAX package's padding and dummy centers are not needed.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,6 +49,17 @@ _RANGE_ROWS = 2048
 # bounded so the (k, parts, d) partials stay under this many floats
 _PARTIAL_ELEMS = 1 << 25
 _MAX_PARTS = 8
+# the assignment's routes (csrc/kmeans_accumulate.cu, assign_wgmma.cuh):
+# wgmma keeps each row's operand parts in registers and shared memory
+# for the whole pass, which bounds its depth; wider rows take the SIMT
+# tile
+ROUTE_CODE = {"simt": 0, "wgmma": 1}
+WGMMA_MAX_D = 256
+_ROWS = {"simt": 64, "wgmma": 128}
+# the wgmma route's prepared centers: tiles of BN centers by 64-deep
+# chunks, in PARTS bf16 parts of 128-byte rows (three parts at highest)
+_CHUNK = 64
+_SCAN_TILE = 4096
 
 
 def reset_launches() -> None:
@@ -171,6 +187,48 @@ def _check_operands(x, w, c):
         raise ValueError("n and k must fit the kernel's 32-bit indices")
 
 
+def assign_route(d: int) -> str:
+    """The assignment's route at depth ``d``: ``wgmma`` (tensor cores,
+    every tier) up to :data:`WGMMA_MAX_D`, else ``simt`` (FP32 pipe)."""
+    return "wgmma" if d <= WGMMA_MAX_D else "simt"
+
+
+class AssignGeometry(NamedTuple):
+    route: str
+    rows: int        # rows per assign block
+    blocks: int      # assign blocks: the cost partials
+    parts: int       # bf16 parts of each operand (wgmma)
+    tile: int        # centers per tile (wgmma)
+    prep_bytes: int  # the prepared centers (wgmma), 0 for simt
+
+
+def assign_geometry(n: int, k: int, d: int, mode: str) -> AssignGeometry:
+    """The assignment's launch: route, rows per block, blocks, and the
+    wgmma route's operand parts, center tile and prepared-center bytes
+    (whole tiles, whole 64-deep chunks, 128 bytes a part's row)."""
+    route = assign_route(d)
+    rows = _ROWS[route]
+    blocks = -(-n // rows)
+    if route == "simt":
+        return AssignGeometry(route, rows, blocks, 1, 64, 0)
+    parts = 3 if check_mode(mode) == "highest" else 1
+    tile = 64 if parts == 3 else 128
+    dpad = -(-d // _CHUNK) * _CHUNK
+    prep = -(-k // tile) * (dpad // _CHUNK) * parts * tile * 128
+    return AssignGeometry(route, rows, blocks, parts, tile, prep)
+
+
+def csq_size(k: int) -> int:
+    """Floats of the kernel's |c|^2 buffer: k rounded up to whole tiles of
+    the widest wgmma center tile (the padding holds +inf)."""
+    return -(-k // 128) * 128
+
+
+def scan_tiles(m: int) -> int:
+    """Tiles of the scan over ``m`` counts (one block each)."""
+    return -(-m // _SCAN_TILE)
+
+
 def _geometry(n: int, k: int, d: int):
     """(range_rows, ranges, parts) for the kernel's sort and sums passes."""
     ranges = -(-n // _RANGE_ROWS)
@@ -187,12 +245,29 @@ def _geometry(n: int, k: int, d: int):
 def _bind(lib):
     fn = lib.kmeans_accumulate
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-                   ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                   ptr]
+    fn.argtypes = [i32, ptr, ptr, ptr] + [i32] * 9 + [ptr] * 14
     fn.restype = i32
-    lib.kmeans_assign_rows.argtypes = []
+    lib.kmeans_assign_rows.argtypes = [i32]
     lib.kmeans_assign_rows.restype = i32
+    lib.kmeans_prep_bytes.argtypes = [i32, i32, i32]
+    lib.kmeans_prep_bytes.restype = ctypes.c_longlong
+    lib.kmeans_scan_tiles.argtypes = [i32]
+    lib.kmeans_scan_tiles.restype = i32
+    lib.kmeans_csq_size.argtypes = [i32]
+    lib.kmeans_csq_size.restype = i32
+    # the wrapper sizes every buffer from its own geometry: it must be the
+    # library's
+    for route, rows in _ROWS.items():
+        if lib.kmeans_assign_rows(ROUTE_CODE[route]) != rows:
+            raise RuntimeError(f"{KERNEL}: rows per block of the {route} route disagree")
+    for mode in MODE_CODE:
+        for d, k in ((1, 1), (29, 13), (256, 1000)):
+            if lib.kmeans_prep_bytes(MODE_CODE[mode], d, k) != assign_geometry(1, k, d, mode).prep_bytes:
+                raise RuntimeError(f"{KERNEL}: prepared-center bytes disagree at {mode}")
+    if lib.kmeans_scan_tiles(512_000) != scan_tiles(512_000):
+        raise RuntimeError(f"{KERNEL}: scan tiles disagree")
+    if lib.kmeans_csq_size(1000) != csq_size(1000):
+        raise RuntimeError(f"{KERNEL}: |c|^2 sizes disagree")
     return lib
 
 
@@ -215,28 +290,31 @@ def _launch(x, w, c, mode: str, need_cost: bool):
     n, d = x.shape
     k = c.shape[0]
     range_rows, ranges, parts = _geometry(n, k, d)
-    assign_blocks = -(-n // lib.kmeans_assign_rows())
+    geo = assign_geometry(n, k, d, mode)
     dev = x.device
     f32, i32 = torch.float32, torch.int32
 
     def empty(size, dtype=f32):
         return torch.empty(size, dtype=dtype, device=dev)
 
-    csq, labels = empty(k), empty(n, i32)
-    cost_part = empty(assign_blocks)
-    counts_i, rank, perm = empty(k * ranges, i32), empty(n, i32), empty(n, i32)
+    csq, labels = empty(csq_size(k)), empty(n, i32)
+    prep = empty(max(1, geo.prep_bytes), torch.uint8)
+    cost_part = empty(geo.blocks)
+    counts_i, scan_part = empty(k * ranges, i32), empty(scan_tiles(k * ranges), i32)
+    rank, perm = empty(n, i32), empty(n, i32)
     psums, pcounts = empty(k * parts * d), empty(k * parts)
     sums, counts, cost = empty((k, d)), empty(k), empty(())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.kmeans_accumulate(
-            x.data_ptr(), w.data_ptr(), c.data_ptr(), n, d, k,
-            MODE_CODE[mode], int(need_cost), range_rows, ranges, parts,
-            csq.data_ptr(), labels.data_ptr(), cost_part.data_ptr(),
-            counts_i.data_ptr(), rank.data_ptr(), perm.data_ptr(),
-            psums.data_ptr(), pcounts.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), cost.data_ptr(), stream,
-        )
+    # the library sets its own current device (the .so links cudart
+    # statically, so torch's current device is not its own)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.kmeans_accumulate(
+        dev.index, x.data_ptr(), w.data_ptr(), c.data_ptr(), n, d, k,
+        MODE_CODE[mode], int(need_cost), ROUTE_CODE[geo.route], range_rows, ranges,
+        parts, csq.data_ptr(), prep.data_ptr(), labels.data_ptr(), cost_part.data_ptr(),
+        counts_i.data_ptr(), scan_part.data_ptr(), rank.data_ptr(), perm.data_ptr(),
+        psums.data_ptr(), pcounts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        cost.data_ptr(), stream,
+    )
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += 1

@@ -37,6 +37,7 @@ it.  The host never synchronises.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple
 
@@ -51,10 +52,14 @@ KERNEL = "ring_reduce"
 LAUNCHES = {KERNEL: 0}
 
 LANE = 128  # the column multiple of the JAX ring (two halves of lanes)
-MAX_WORLD = 16  # ranks one kernel launch folds (csrc/ring_reduce.cu)
 
 _peers_enabled = set()
 _lib = None
+# device copies of the kernel's table, by (card, stream, contents): the
+# caching allocator hands a ring the same buffers call after call, so the
+# table repeats and its copy is made once
+_tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_MAX_TABLES = 64
 
 
 def reset_launches() -> None:
@@ -212,7 +217,7 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ring_enable_peer.argtypes = [i32, i32]
         lib.ring_enable_peer.restype = i32
-        lib.ring_fold.argtypes = [i32] + [ptr] * 6 + [i32] * 6
+        lib.ring_fold.argtypes = [i32] + [ptr] * 5 + [i32] * 6
         lib.ring_fold.restype = i32
         _lib = lib
     return _lib
@@ -237,14 +242,37 @@ def _enable_peers(lib, cards) -> None:
 @lru_cache(maxsize=64)
 def _geometry(rows: int, cols: int, world: int, segments: int):
     """``(order, half, seg_rows, seg)`` of the kernel's launch: the fold
-    order as ``order[dir][segment][t]`` bytes, the padded buffer's first
-    counter-clockwise column, and the rows of a segment group and of a
-    segment."""
+    order flattened as ``order[(dir * world + segment) * world + t]``,
+    the padded buffer's first counter-clockwise column, and the rows of a
+    segment group and of a segment."""
     rows_pad, cols_pad = padded_shape(rows, cols, world, segments)
-    order = bytes(r for dirn in fold_order(world, segments, rows_pad)
+    order = tuple(r for dirn in fold_order(world, segments, rows_pad)
                   for chain in dirn for r in chain)
     seg_rows = rows_pad // segments
     return order, cols_pad // 2, seg_rows, seg_rows // world
+
+
+def fold_table(ins: Sequence[int], outs: Sequence[int], order: Sequence[int]) -> List[int]:
+    """The kernel's table: the ranks' input addresses, their output
+    addresses, then the flattened fold order (``csrc/ring_reduce.cu``)."""
+    return [*ins, *outs, *order]
+
+
+def _device_table(card, stream: int, table: List[int]) -> torch.Tensor:
+    """The table on ``card``: a cached copy, or one copied now on the
+    card's current stream from pinned memory (ordered before the launch;
+    the host does not wait).  A table is used only on the stream it was
+    copied on, so an evicted one is reused only after its last launch."""
+    key = (card, stream, tuple(table))
+    t = _tables.get(key)
+    if t is None:
+        host = torch.tensor(table, dtype=torch.int64).pin_memory()
+        t = _tables[key] = host.to(card, non_blocking=True)
+        if len(_tables) > _MAX_TABLES:
+            _tables.popitem(last=False)
+    else:
+        _tables.move_to_end(key)
+    return t
 
 
 def _shares(total: int, cards: int):
@@ -259,8 +287,6 @@ def _ring_launch(parts, segments: int) -> List[torch.Tensor]:
     """The ring of CUDA tensors: fresh ``(rows, cols)`` outputs, one
     launch per card."""
     world = len(parts)
-    if world > MAX_WORLD:
-        raise ValueError(f"{KERNEL}: the kernel folds at most {MAX_WORLD} ranks, got {world}")
     rows, cols = parts[0].shape
     total = rows * cols
     if total >= 2 ** 31 - 2 ** 20:
@@ -276,18 +302,20 @@ def _ring_launch(parts, segments: int) -> List[torch.Tensor]:
         for r, t in zip(mine, torch.empty((len(mine), rows, cols), dtype=torch.float32,
                                           device=card).unbind(0)):
             outs[r] = t
-    addr = [p.data_ptr() for p in parts] + [o.data_ptr() for o in outs]
-    ptrs = (ctypes.c_void_p * (2 * world))(*addr)  # the inputs, then the outputs
-    vec = int(all(a % 16 == 0 for a in addr))
+    ins, addr_out = [p.data_ptr() for p in parts], [o.data_ptr() for o in outs]
+    vec = int(all(a % 16 == 0 for a in ins + addr_out))
+    table = fold_table(ins, addr_out, order)
+    streams = [torch.cuda.current_stream(c).cuda_stream for c in cards]
+    tables = [_device_table(c, st, table) for c, st in zip(cards, streams)]
     n = len(cards)
     if n > 1:
         _enable_peers(lib, [c.index for c in cards])
     los, his = zip(*_shares(total, n))
     ints = ctypes.c_int * n
     err = lib.ring_fold(
-        n, ints(*(c.index for c in cards)),
-        (ctypes.c_void_p * n)(*(torch.cuda.current_stream(c).cuda_stream for c in cards)),
-        ints(*los), ints(*his), ptrs, order, world, cols, half, seg_rows, seg, vec)
+        n, ints(*(c.index for c in cards)), (ctypes.c_void_p * n)(*streams),
+        ints(*los), ints(*his), (ctypes.c_void_p * n)(*(t.data_ptr() for t in tables)),
+        world, cols, half, seg_rows, seg, vec)
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += n  # one launch per card

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from oap_mllib_tpu_torch.ops import als_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from torch_als_schedules import emulate_factor_gram, emulate_solve, thread_tasks, tile_of
 
@@ -160,3 +161,34 @@ class TestFactorGramOrder:
         want = als_kernel.factor_gram_plain(torch.from_numpy(f), mode).numpy()
         assert np.array_equal(got, got.T)
         np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.max(np.abs(want)))
+
+
+class TestFactorGramRoute:
+    """Ranks above the factor Gram kernel's bound take one f32 library
+    product off the kernel route, as the JAX package leaves that product
+    to XLA; the kernel's own wrapper still refuses them."""
+
+    def test_rank_above_the_kernel_skips_it(self):
+        calls = []
+
+        def stub(f, mode):
+            calls.append(f.shape)
+            return torch.zeros(f.shape[1], f.shape[1])
+
+        rng = np.random.default_rng(21)
+        f = torch.from_numpy(rng.normal(size=(40, 1025)).astype(np.float32))
+        got = als_ops._factor_gram(f, stub)
+        assert calls == []
+        want = torch.from_numpy(f.double().numpy().T @ f.double().numpy())
+        err = float(torch.max(torch.abs(got.double() - want)) / torch.max(torch.abs(want)))
+        assert got.dtype == torch.float32 and got.shape == (1025, 1025)
+        assert err <= 1e-6
+        assert als_ops.gram_route(1025) == "matmul"
+
+    @pytest.mark.parametrize("r", [1, 10, als_kernel.MAX_GRAM_RANK])
+    def test_ranks_in_bound_take_the_kernel(self, r):
+        f = torch.ones(5, r)
+        seen = []
+        out = als_ops._factor_gram(f, lambda g, mode: seen.append(mode) or g.T @ g)
+        assert seen == ["highest"] and torch.equal(out, f.T @ f)
+        assert als_ops.gram_route(r) == "kernel"

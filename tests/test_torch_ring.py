@@ -151,7 +151,7 @@ class TestKernelFoldOrder:
 
     @pytest.mark.parametrize("rows,cols", [(1000, 130), (13, 37), (1, 1)])
     @pytest.mark.parametrize("segments", [1, 2, 3])
-    @pytest.mark.parametrize("world", [2, 3, 4, 8])
+    @pytest.mark.parametrize("world", [2, 3, 4, 8, 17, 24])
     def test_fold_equals_the_plain_ring(self, world, segments, rows, cols):
         parts = [torch.from_numpy(a) for a in _inputs(world, rows, cols, seed=11)]
         ref = ring_kernel.ring_allreduce_plain(parts, segments)
@@ -160,7 +160,7 @@ class TestKernelFoldOrder:
             assert torch.equal(out[r], ref[r]), f"rank {r} differs"
 
     @pytest.mark.parametrize("segments", [1, 2, 3])
-    @pytest.mark.parametrize("world", [2, 3, 4, 8])
+    @pytest.mark.parametrize("world", [2, 3, 4, 8, 17, 24])
     def test_order_is_the_ring_order(self, world, segments):
         """Clockwise, segment j folds x[j], x[j+1], ...; the other half
         x[j], x[j-1], ...: each chain visits every rank once."""
@@ -169,6 +169,23 @@ class TestKernelFoldOrder:
         for j in range(world):
             assert cw[j] == tuple((j + t) % world for t in range(world))
             assert ccw[j] == tuple((j - t) % world for t in range(world))
+
+    @pytest.mark.parametrize("world", [2, 17, 24])
+    def test_table_holds_pointers_then_order(self, world):
+        """The kernel's table: inputs, outputs, then order[dir][segment][t]
+        at 2 W + (dir W + segment) W + t, with no bound on the world."""
+        rows_pad, _ = ring_kernel.padded_shape(1000, 130, world, 1)
+        order, half, seg_rows, seg = ring_kernel._geometry(1000, 130, world, 1)
+        ins, outs = [100 + r for r in range(world)], [200 + r for r in range(world)]
+        table = ring_kernel.fold_table(ins, outs, order)
+        assert table[:world] == ins and table[world:2 * world] == outs
+        chains = ring_kernel.fold_order(world, 1, rows_pad)
+        for dirn in (0, 1):
+            for j in range(world):
+                at = 2 * world + (dirn * world + j) * world
+                assert tuple(table[at:at + world]) == chains[dirn][j]
+        assert len(table) == 2 * world + 2 * world * world
+        assert (half, seg_rows, seg) == (128, rows_pad, rows_pad // world)
 
     @pytest.mark.parametrize("cards", [1, 2, 3, 4])
     @pytest.mark.parametrize("total", [1, 7, 130_000, 16_777_216])

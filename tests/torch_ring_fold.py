@@ -1,11 +1,14 @@
 """The ring kernel's indexing (``csrc/ring_reduce.cu``) emulated with torch
 on the CPU, for the port's tests.
 
-Each element of the (rows, cols) buffers takes the fold order of its
-segment and column half from ``ring_kernel.fold_order``, exactly as the
-kernel places it (``fold_class``: the half from the column against the
-padded buffer's split, the segment from the row within its segment
-group), and the ranks' values are added in that order.
+The kernel reads everything it needs from one table
+(``ring_kernel.fold_table``): the ranks' inputs, their outputs, then the
+flattened fold order.  Each element of the (rows, cols) buffers takes the
+table row of its segment and column half exactly as the kernel places it
+(``fold_row``: the half from the column against the padded buffer's
+split, the segment from the row within its segment group), and the
+ranks' values are added in that row's order, one fold per rank, however
+large the world.
 """
 
 import torch
@@ -18,14 +21,15 @@ def emulate_fold(parts, segments=1):
     (rows, cols) tensor per rank."""
     world = len(parts)
     rows, cols = parts[0].shape
-    rows_pad, cols_pad = ring_kernel.padded_shape(rows, cols, world, segments)
-    seg_rows = rows_pad // segments
-    order = torch.tensor(ring_kernel.fold_order(world, segments, rows_pad))
+    order, half, seg_rows, seg = ring_kernel._geometry(rows, cols, world, segments)
+    # rank indices stand in for the addresses: table[r] is rank r's input
+    table = torch.tensor(ring_kernel.fold_table(range(world), range(world), order))
     flat = torch.stack([p.reshape(-1) for p in parts])
     e = torch.arange(rows * cols)
     row, col = e // cols, e % cols
-    o = order[(col >= cols_pad // 2).long(), (row % seg_rows) // (seg_rows // world)]
-    acc = flat[o[:, 0], e]
+    cls = (col >= half).long() * world + (row % seg_rows) // seg
+    base = 2 * world + cls * world
+    acc = flat[table[table[base]], e]
     for t in range(1, world):
-        acc = flat[o[:, t], e] + acc
+        acc = flat[table[table[base + t]], e] + acc
     return [acc.reshape(rows, cols).clone() for _ in range(world)]
