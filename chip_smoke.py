@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # on a machine with the card
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, tiny
     python3 chip_smoke.py --mesh       # only the phases whose ranks span cards
+                                       # (4's last card, 10-14)
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -13,7 +14,9 @@ Phases, each a hard check (any failure exits non-zero):
 3. small: each kernel against its plain version at small ragged shapes,
    every tier and mode (the ALS solve bit for bit); the kernel Lloyd
    loop against the numpy reference, and small PCA and ALS fits against
-   their numpy oracles.
+   their numpy oracles; a nonnegative ALS fit (factors >= 0, within 1e-6
+   of the numpy NNLS oracle); the host library's grouped edges bit-equal
+   to numpy's at ragged shapes.
 4. kernels: the K-Means kernel at the main path's shapes (n = 2^20 rows,
    d = 256, k = 1000, f32 blobs): agreement with its plain version,
    determinism of two launches, the assignment's route (``wgmma``, the
@@ -23,8 +26,8 @@ Phases, each a hard check (any failure exits non-zero):
    and the device time per CUDA kernel of one pass at highest and at
    default (torch.profiler).  The build phase prints how many HGMMA
    instructions the built ``libkmeans_accumulate`` holds and fails on
-   none.  With more than one card, the kernel also runs on the last
-   card against its plain version.
+   none.  With more than one card, K1, K2, K3 and K4 also run on the
+   last card against their plain versions.
 5. fit (the K-Means path): ``KMeans(k=1000, max_iter=20, tol=1e-4,
    init_mode="k-means||", seed=0).fit(x)``, with every launch count set
    to 0 just before and read just after; then predict and compute_cost,
@@ -52,7 +55,12 @@ Phases, each a hard check (any failure exits non-zero):
    the counts zeroed just before: 20 solve and 20 Gram launches; the fit
    against a plain-version fit from the same initial factors in
    prediction space; an explicit fit (no Gram launch); top-10
-   recommendations for a slice of users.  The small phase adds an
+   recommendations for a slice of users; ``table_convert`` split into
+   the host library's grouped build and the rest; one iteration's device
+   time by CUDA kernel with the moments formed through concatenated
+   operands (the JAX package's form) and with the copy-free ones
+   (torch.profiler; CUDA events for the wall).
+   The small phase adds an
    implicit fit at rank 1030 on a tiny table: the factor Gram above the
    kernel's rank bound takes the ``matmul`` route, named in the summary.
 10. ring_kernels: the ring allreduce kernel against its plain version,
@@ -73,6 +81,23 @@ Phases, each a hard check (any failure exits non-zero):
    route with the counts zeroed just before: ``ring_reduce`` launches
    equal to (num_iter + 1) * model * (cards in a ring): one launch per
    card per ring, one ring per model column per pass.
+12. als_block_fit (the block-parallel ALS path, run right after als_fit):
+   the same implicit fit on four ranks, against the one-device fit in
+   prediction space (4096 users x every item, 1e-4); K3 = K4 =
+   2 * 4 * max_iter launches; its phases (ratings_shuffle,
+   table_convert, als_iterations) and one iteration's device time per
+   card.
+13. dp_fit (the data-parallel K-Means path): on a (data 4, model 1) mesh,
+   its Lloyd loop against the one-device kernel loop from centers near
+   the blob centers (equal iterations, centers 1e-4, cost 1e-5), then
+   ``KMeans(k=1000, max_iter=20).fit(x)`` on the device list: K1
+   launches (num_iter + 1) * 4, no ring; iterations/s.
+14. pca_mesh_fit (the PCA path on a mesh): ``PCA(k=16)`` at 2^20 x 128
+   on (4, 1) and (2, 2) against the one-device fit (components 1e-4
+   sign-insensitively, ratios 1e-5): 8 and 0 K2 launches.
+
+Every mesh phase puts its four ranks on four distinct cards when the
+machine has four, else on the one card.
 
 The last three lines are the kernels JSON, the card from nvidia-smi and
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs every phase on
@@ -97,7 +122,7 @@ from oap_mllib_tpu_torch.data.table import ShardedTable
 from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
-from oap_mllib_tpu_torch.ops import als_ops, kmeans_ops, pca_ops
+from oap_mllib_tpu_torch.ops import als_block, als_ops, kmeans_ops, pca_ops
 from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kernel, pca_kernel,
                                           ring_kernel)
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
@@ -127,6 +152,9 @@ RING_TINY = {"shapes": [(1000, 130), (13, 37), (512, 256)], "worlds": (2, 4),
              "segments": (1, 2), "wide": (17, (1000, 130))}
 SHARDED_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "data": 2, "model": 2}
 SHARDED_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "data": 2, "model": 2}
+# the data-parallel K-Means path: the main shape on four ranks
+DP_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "data": 4}
+DP_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "data": 4}
 # NVLink between two H100 SXM cards of one host: 450 GB/s each way
 PEAK_NVLINK = 450e9
 # PCA: the JAX bench's headline shape, and a wide one that tiles the
@@ -359,8 +387,10 @@ def kernel_breakdown(x, w, c, dev, mode):
 
 
 def phase_last_card(dev):
-    """With more than one card: the kernel on the last card (the wrapper
-    sets that card as the library's device) against its plain version."""
+    """With more than one card: K1, K2, K3 and K4 on the last card (each
+    library sets that card as its device itself: its statically linked
+    runtime does not see the wrapper's current device) against their
+    plain versions, at the small phase's tolerances."""
     count = torch.cuda.device_count() if dev.type == "cuda" else 1
     if count < 2:
         return None
@@ -368,6 +398,34 @@ def phase_last_card(dev):
     x, w, c = blobs(1 << 16, 256, 1000, last, seed=9)
     v = compare(x, w, c, "highest", True)
     v["device"] = str(last)
+    g = torch.Generator(device=last)
+    g.manual_seed(13)
+    xp = torch.randn((1 << 16, 128), generator=g, device=last) * 2.0 + 1.5
+    mask = torch.ones(xp.shape[0], device=last)
+    _, cs, _ = pca_kernel.pca_moments(xp, mask, None, "highest", need_gram=False)
+    _, cs_p, _ = pca_kernel.pca_moments_plain(xp, mask, None, "highest", need_gram=False)
+    mean = cs / xp.shape[0]
+    gk, _, _ = pca_kernel.pca_moments(xp, mask, mean, "highest", need_sums=False)
+    gp, _, _ = pca_kernel.pca_moments_plain(xp, mask, mean, "highest", need_sums=False)
+    v["pca_moments"] = {"colsum_rel_err": _rel_err(cs, cs_p), "gram_rel_err": _rel_err(gk, gp)}
+    check(v["pca_moments"]["colsum_rel_err"] <= PCA_SUM_RTOL
+          and v["pca_moments"]["gram_rel_err"] <= PCA_GRAM_RTOL["highest"],
+          f"pca_moments on {last}: {v['pca_moments']}")
+    r, n = 10, 20_000
+    y = torch.randn((n, 3 * r, r), generator=g, device=last)
+    a = y.transpose(1, 2) @ y / (3 * r)
+    b = torch.randn((n, r), generator=g, device=last)
+    n_reg = torch.randint(0, 3, (n,), generator=g, device=last).float()
+    f = torch.randn((4099, r), generator=g, device=last)
+    gram = als_kernel.factor_gram(f)
+    gram_err = _rel_err(gram, als_kernel.factor_gram_plain(f))
+    w_k = als_kernel.solve_normal_eq(a, b, n_reg, 0.1, gram)
+    w_p = als_kernel.solve_plain(a, b, n_reg, 0.1, gram)
+    v["als_solve"] = {"bit_equal": bool(torch.equal(w_k, w_p)), "rel_err": _rel_err(w_k, w_p)}
+    v["als_factor_gram"] = {"rel_err": gram_err, "bit_symmetric": bool(torch.equal(gram, gram.T))}
+    check(v["als_solve"]["bit_equal"], f"als_solve on {last}: {v['als_solve']}")
+    check(gram_err <= 1e-5 and v["als_factor_gram"]["bit_symmetric"],
+          f"als_factor_gram on {last}: {v['als_factor_gram']}")
     emit("last_card", v)
     return v
 
@@ -464,13 +522,47 @@ def device_breakdown(fn, dev, top=12):
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
 
-def profile_calls(fn, dev, reps=10, tries=3):
+def mesh_breakdown(fn, devs):
+    """Device time of one call of ``fn`` per card of a mesh
+    (torch.profiler's kernel events by device index, from the second of
+    two profiled calls: the first starts the tracer): busy ms and
+    kernels on each card, and its idle share of the call's wall without
+    the profiler (``wall_ms``, the host clock between syncs of every
+    card; the profiled call's own wall beside it); None on the CPU or
+    where the profiler records no kernel."""
+    cards = sorted({d.index for d in devs if d.type == "cuda"})
+    if not cards:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = time_ms_all(fn, devs, reps=3)
+    for _ in range(2):
+        sync_all(devs)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync_all(devs)
+        profiled = (time.perf_counter() - t0) * 1e3
+    busy, kernels = {}, {}
+    for ev in prof.events():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        busy[ev.device_index] = busy.get(ev.device_index, 0.0) + ev.time_range.elapsed_us() / 1e3
+        kernels[ev.device_index] = kernels.get(ev.device_index, 0) + 1
+    if not busy:
+        return None
+    return {"wall_ms": wall, "profiled_wall_ms": profiled, "cards": {
+        f"cuda:{c}": {"busy_ms": busy.get(c, 0.0), "kernels": kernels.get(c, 0),
+                      "idle_share": max(0.0, 1.0 - busy.get(c, 0.0) / wall)} for c in cards}}
+
+
+def profile_calls(fn, dev, reps=10, tries=6):
     """The CUDA kernels that ``reps`` calls of ``fn`` launch, by
     torch.profiler, after a warm call (which builds the kernel and fills
     the wrapper's caches): ``(names of one call's kernels, device ms per
     call)``; None on the CPU.  A profile that records no kernel is taken
     again, up to ``tries`` times (the tracer has dropped a session's
-    kernels on the card)."""
+    kernels on the card, three sessions in a row once)."""
     if dev.type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
@@ -777,9 +869,34 @@ def phase_als_fit(cfg, data, dev):
     xp, yp = als_ops.run_sides(user_side, item_side, x0, y0, it, cfg["reg"], cfg["alpha"],
                                True, solve=als_kernel.solve_plain,
                                gram=als_kernel.factor_gram_plain)
-    # one iteration of the kernel loop, profiled (after the fit's counts)
-    breakdown = device_breakdown(lambda: als_ops.run_sides(
-        user_side, item_side, x0, y0, 1, cfg["reg"], cfg["alpha"], True), dev)
+    # one iteration of the kernel loop, profiled (after the fit's counts),
+    # with the moments through concatenated operands and with the
+    # copy-free ones
+    iteration = {}
+    for name, partials in (("concat_moments", partials_with_copies),
+                           ("copy_free_moments", als_ops.GroupedSide.partials)):
+        saved, als_ops.GroupedSide.partials = als_ops.GroupedSide.partials, partials
+        try:
+            def one_iteration():
+                return als_ops.run_sides(user_side, item_side, x0, y0, 1, cfg["reg"],
+                                         cfg["alpha"], True)
+            got = one_iteration()
+            calls = profile_calls(one_iteration, dev, reps=3)
+            recorded = calls is not None and len(calls[0]) > 0
+            iteration[name] = {
+                "device_ms": calls[1] if recorded else None,
+                "kernels_per_iteration": len(calls[0]) if recorded else None,
+                "ms": time_ms(one_iteration, dev, 3),
+                "breakdown": device_breakdown(one_iteration, dev),
+            }
+        finally:
+            als_ops.GroupedSide.partials = saved
+        iteration.setdefault("_results", []).append(got)
+    base, new = iteration.pop("_results")
+    moments_err = max(_rel_err(base[0], new[0]), _rel_err(base[1], new[1]))
+    check(moments_err <= 1e-4, f"one iteration, copy-free moments vs concatenated: {moments_err:.3g}")
+    iteration["rel_err_between"] = moments_err
+    breakdown = iteration["copy_free_moments"]["breakdown"]
     del user_side, item_side
     u = torch.as_tensor(users.astype(np.int64), device=dev)
     i = torch.as_tensor(items.astype(np.int64), device=dev)
@@ -815,10 +932,33 @@ def phase_als_fit(cfg, data, dev):
         "wall_s": wall, "phases_s": phases,
         "iters_per_s": it / phases["als_iterations"], "launches": launches,
         "pred_rel_err_vs_plain": err, "peak_mem_gb": peak, "iteration_breakdown": breakdown,
+        "iteration_moments": iteration,
+        "table_convert_split_s": {
+            "grouped_build": phases.get("grouped_build", 0.0),
+            "rest": phases["table_convert"] - phases.get("grouped_build", 0.0)},
         "explicit_phases_s": explicit.summary["timings"].as_dict(),
     }
     emit("als_fit", fit)
-    return fit
+    return fit, model
+
+
+def partials_with_copies(side, src_factors, alpha, implicit, policy="f32"):
+    """``GroupedSide.partials`` with the moments in the JAX package's form,
+    for the before/after device times: per block ``[Ys | 1]^T [a_w Ys |
+    b_w | n_w]`` through two concatenated operands (f32), one segment sum
+    of the (Gb, r+1, r+2) sheet."""
+    r = src_factors.shape[1]
+    m = torch.zeros((side.n_dst, r + 1, r + 2), dtype=torch.float32,
+                    device=src_factors.device)
+    for g0, g1, first, lengths in side.blocks:
+        src_b, conf_b, valid_b = side.src_g[g0:g1], side.conf_g[g0:g1], side.valid_g[g0:g1]
+        gb, p = src_b.shape
+        ys = src_factors.index_select(0, src_b.reshape(-1)).reshape(gb, p, r)
+        a_w, b_w, n_w = als_ops._weights(conf_b, valid_b, alpha, implicit)
+        lhs = torch.cat([ys, torch.ones_like(conf_b)[..., None]], dim=2)
+        rhs = torch.cat([ys * a_w[..., None], b_w[..., None], n_w[..., None]], dim=2)
+        als_ops._segment_add(m, torch.einsum("gpa,gpb->gab", lhs, rhs), first, lengths)
+    return m[:, :r, :r], m[:, :r, r], m[:, r, r + 1]
 
 
 def phase_small_slices(dev):
@@ -889,11 +1029,31 @@ def phase_small_slices(dev):
         err = np.linalg.norm(model.user_factors_ @ model.item_factors_.T - xr @ yr.T) / (
             np.linalg.norm(xr @ yr.T))
         check(err <= 1e-3, f"small ALS fit (implicit={implicit}) vs numpy oracle: {err:.3g}")
+    nonneg = ALS(rank=4, max_iter=3, implicit_prefs=True, alpha=5.0, seed=2, nonnegative=True,
+                 device=str(dev)).fit(u, i, rt, 60, 40)
+    xn, yn = als_np.als_np(u, i, rt, 60, 40, 4, 3, 0.1, 5.0, True, seed=2, nonnegative=True)
+    nn_err = max(float(np.max(np.abs(nonneg.user_factors_ - xn))),
+                 float(np.max(np.abs(nonneg.item_factors_ - yn))))
+    check(bool(np.all(nonneg.user_factors_ >= 0) and np.all(nonneg.item_factors_ >= 0))
+          and nn_err <= 1e-6 and nonneg.summary["accelerated"] is False
+          and nonneg.summary["reason"] == "nonnegative=True",
+          f"small nonnegative ALS: err {nn_err:.3g}, summary {nonneg.summary}")
+    # the host library's grouped layout at a ragged shape (destinations
+    # without edges, degrees off the group size) against numpy's
+    ru, ri = rng.integers(997, size=12_345), rng.integers(313, size=12_345)
+    rc = (rng.random(12_345) * 4 + 1).astype(np.float32)
+    for dst, src, n_dst in ((ru, ri, 1000), (ri, ru, 317)):
+        for p in (0, 8, 13):
+            native = als_ops.build_grouped_edges(dst, src, rc, n_dst, p)
+            plain = als_ops.build_grouped_edges_np(dst, src, rc, n_dst, p)
+            check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(native, plain)),
+                  f"grouped edges n_dst={n_dst} p={p}: the host library differs from numpy")
     emit("small_slices", {"pca_shapes": [list(sh) for sh in PCA_SMALL],
                           "pca_routes": sorted(routes), "gram_ranks": [1, 7, 32, 70],
                           "solve_ranks": [1, 10, 32], "fits": ["pca", "als implicit",
                                                                "als explicit"],
-                          "als_wide_rank": wide})
+                          "als_wide_rank": wide, "nonnegative_err": nn_err,
+                          "grouped_edges_bit_equal": True})
 
 
 def als_wide_rank(dev, rng, rank=1030):
@@ -1108,6 +1268,188 @@ def phase_sharded_fit(cfg, dev):
     return fit
 
 
+def phase_dp_fit(cfg, dev):
+    """The data-parallel K-Means path on a (data W, model 1) mesh: its
+    Lloyd loop against the one-device kernel loop from the same centers
+    near the blob centers (equal iterations, centers within 1e-4, cost
+    within 1e-5), then ``KMeans(k, max_iter).fit(x)`` on the device list
+    with the counts zeroed just before: K1 launches (num_iter + 1) * W,
+    one a rank a pass, no ring."""
+    n, d, k, it, world = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"], cfg["data"]
+    devs = mesh_devices(dev, world)
+    layout = ",".join(str(x) for x in devs)
+    set_config(model_parallel=1)
+    mesh = get_mesh(devices=resolve_devices(layout))
+    x, _, c0 = blobs(n, d, k, devs[0], seed=0)
+    ones = torch.ones(n, device=devs[0])
+    table = ShardedTable.from_numpy(x, mesh)
+    c1, it1, cost1, _ = kmeans_kernel.lloyd_run_kernel(x, ones, c0.contiguous(), it, 1e-4)
+    t0 = time.perf_counter()
+    c2, it2, cost2, _ = kmeans_ops.lloyd_run_data_parallel(
+        table.tiles, table.mask, c0, it, 1e-4, mesh, "data")
+    sync_all(devs)
+    loop_s = time.perf_counter() - t0
+    c_err = _rel_err(c2.to(c1.device), c1)
+    cost_err = abs(float(cost2) - float(cost1)) / float(cost1)
+    check(it1 == it2, f"data-parallel loop: {it2} iterations, one-device kernel loop {it1}")
+    check(c_err <= 1e-4, f"data-parallel loop: centers rel err {c_err:.3g}")
+    check(cost_err <= 1e-5, f"data-parallel loop: cost rel err {cost_err:.3g}")
+    del table, c1, c2, ones
+
+    kmeans_kernel.reset_launches()
+    ring_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model = KMeans(k=k, max_iter=it, tol=1e-4, seed=0, device=layout).fit(x)
+    wall = time.perf_counter() - t0
+    launches = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+    s = model.summary
+    expect = (s.num_iter + 1) * world if dev.type == "cuda" else 0
+    check(s.kernels == launches, f"summary kernels {s.kernels} != counters {launches}")
+    check(launches[kmeans_kernel.KERNEL] == expect,
+          f"kmeans_accumulate launched {launches[kmeans_kernel.KERNEL]} times on the "
+          f"data-parallel route, expected (num_iter + 1) * {world} = {expect}")
+    check(launches[ring_kernel.KERNEL] == 0 and s.ring is False,
+          "the data-parallel route ran the ring")
+    check(s.mesh == {"data": world, "model": 1}, f"summary mesh {s.mesh}")
+    check(np.isfinite(s.training_cost) and model.cluster_centers_.shape == (k, d)
+          and np.all(np.isfinite(model.cluster_centers_)),
+          "data-parallel fit: non-finite cost or centers, or wrong center shape")
+    check(abs(float(np.sum(s.cluster_sizes)) - n) <= 1e-3 * n,
+          "data-parallel fit: cluster sizes do not add up to the rows")
+    cost = model.compute_cost(x)
+    check(abs(cost - s.training_cost) <= 1e-4 * s.training_cost,
+          f"data-parallel fit: compute_cost {cost} vs training cost {s.training_cost}")
+    tiles = ShardedTable.from_numpy(x, mesh)
+    centers = {rk: torch.as_tensor(model.cluster_centers_, device=mesh.device(rk))
+               for rk in mesh.ranks}
+    iteration = mesh_breakdown(lambda: [
+        kmeans_kernel.lloyd_accumulate(tiles.tiles[rk], tiles.mask[rk], centers[rk],
+                                       "highest", False) for rk in mesh.ranks], devs)
+    del tiles
+    phases = s.timings.as_dict()
+    fit = {
+        "devices": layout, "mesh": s.mesh, "shape": [n, d], "k": k, "pass_by_card": iteration,
+        "num_iter": s.num_iter, "training_cost": s.training_cost, "wall_s": wall,
+        "phases_s": phases, "iters_per_s": s.num_iter / phases["lloyd_loop"],
+        "launches": launches,
+        "loop_parity": {"n_iter": it2, "centers_rel_err": c_err, "cost_rel_err": cost_err,
+                        "iters_per_s": it2 / loop_s},
+    }
+    emit("dp_fit", fit)
+    return fit
+
+
+def phase_pca_mesh_fit(cfg, dev):
+    """The PCA path on a device list, on a (data 4, model 1) and a
+    (data 2, model 2) mesh, counts zeroed just before each fit: K2
+    launches twice a rank on (4, 1) (the mean and the Gram pass) and not
+    at all on (2, 2) (the model-sharded Gram is a library product, as in
+    the JAX package); each fit against the one-device fit, components
+    sign-insensitively within 1e-4 and ratios within 1e-5."""
+    (n, d), k = cfg["shapes"][0], cfg["k"]
+    x = pca_data(n, d, dev, seed=d)
+    one = PCA(k=k, device=str(dev)).fit(x)
+    keep = one.explained_variance_ > 1e-5
+    out = []
+    for data, model in ((4, 1), (2, 2)):
+        devs = mesh_devices(dev, data * model)
+        layout = ",".join(str(v) for v in devs)
+        set_config(model_parallel=model)
+        try:
+            pca_kernel.reset_launches()
+            t0 = time.perf_counter()
+            fit = PCA(k=k, device=layout).fit(x)
+            wall = time.perf_counter() - t0
+            launches = dict(pca_kernel.LAUNCHES)
+        finally:
+            set_config(model_parallel=1)
+        s = fit.summary
+        expect = (2 * data if model == 1 else 0) if dev.type == "cuda" else 0
+        check(s["kernels"] == launches, f"summary kernels {s['kernels']} != counters {launches}")
+        check(launches[pca_kernel.KERNEL] == expect,
+              f"pca_moments launched {launches[pca_kernel.KERNEL]} times on ({data}, {model}), "
+              f"expected {expect}")
+        check(s["mesh_shape"] == {"data": data, "model": model}, f"mesh {s['mesh_shape']}")
+        comp_err = sign_err(fit.components_[:, keep], one.components_[:, keep])
+        ratio_err = float(np.max(np.abs(fit.explained_variance_ - one.explained_variance_)))
+        check(comp_err <= 1e-4 and ratio_err <= 1e-5,
+              f"pca on ({data}, {model}) vs one device: components {comp_err:.3g}, "
+              f"ratios {ratio_err:.3g}")
+        v = {"mesh": s["mesh_shape"], "devices": layout, "shape": [n, d], "k": k,
+             "wall_s": wall, "phases_s": s["timings"].as_dict(), "launches": launches,
+             "components_err": comp_err, "ratio_err": ratio_err}
+        emit("pca_mesh_fit", v)
+        out.append(v)
+    return out
+
+
+def phase_als_block_fit(cfg, data, dev, one_device):
+    """The block-parallel ALS path on four ranks (distinct cards when the
+    machine has four), counts zeroed just before: implicit
+    ``ALS(rank, max_iter, alpha, reg)`` at the ML-25M shape, held against
+    the one-device fit of ``als_fit`` in prediction space on its user
+    sample (rows 0..4095 of X Y^T) within 1e-4 relative.  Launches: every
+    iteration each of the W ranks solves its users (K3) with the Gram of
+    its copy of Y (K4), then every item (K3) with the psum of the W
+    X-block Grams (K4), so K3 = K4 = 2 W max_iter."""
+    users, items, ratings = data
+    n_users, n_items, r, it = cfg["n_users"], cfg["n_items"], cfg["rank"], cfg["max_iter"]
+    if one_device is None:
+        one_device = ALS(rank=r, max_iter=it, reg_param=cfg["reg"], implicit_prefs=True,
+                         alpha=cfg["alpha"], seed=0, device=str(dev)).fit(
+            users, items, ratings, n_users, n_items)
+    world = 4
+    devs = mesh_devices(dev, world)
+    layout = ",".join(str(v) for v in devs)
+    als_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model = ALS(rank=r, max_iter=it, reg_param=cfg["reg"], implicit_prefs=True,
+                alpha=cfg["alpha"], seed=0, device=layout).fit(
+        users, items, ratings, n_users, n_items)
+    wall = time.perf_counter() - t0
+    launches = dict(als_kernel.LAUNCHES)
+    s = model.summary
+    expect = 2 * world * it if dev.type == "cuda" else 0
+    check(s["kernels"] == launches, f"summary kernels {s['kernels']} != counters {launches}")
+    check(launches == {als_kernel.SOLVE: expect, als_kernel.GRAM: expect},
+          f"block ALS launches {launches}, expected 2 * {world} * {it} = {expect} of each")
+    check(s["block_parallel"] and s["num_user_blocks"] == world
+          and s["item_layout"] == "replicated", f"block summary {s}")
+    q = np.arange(min(4096, n_users))
+    on = torch.device(model.device)
+    got = (torch.as_tensor(model.user_factors_[q], device=on)
+           @ torch.as_tensor(model.item_factors_, device=on).T)
+    want = (torch.as_tensor(one_device.user_factors_[q], device=on)
+            @ torch.as_tensor(one_device.item_factors_, device=on).T)
+    err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    del got, want
+    check(np.all(np.isfinite(model.user_factors_)) and np.all(np.isfinite(model.item_factors_)),
+          "block ALS: non-finite factors")
+    check(err <= 1e-4, f"block ALS vs the one-device fit: prediction rel err {err:.3g}")
+    # one iteration of the block loop, profiled card by card
+    mesh = get_mesh(devices=resolve_devices(layout), model_parallel=1)
+    edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users)
+    sides = als_block.prepare_grouped_inputs(edges, mesh, n_items, r)
+    ranks = als_block.data_ranks(mesh)
+    x0 = {q: torch.zeros((edges.upb, r), device=mesh.device(q)) for q in ranks}
+    y0 = {q: torch.as_tensor(model.item_factors_, device=mesh.device(q)) for q in ranks}
+
+    def one_iteration():
+        return als_block.als_block_run_grouped(sides, x0, y0, 1, cfg["reg"], cfg["alpha"],
+                                               mesh, implicit=True)
+
+    one_iteration()
+    iteration = mesh_breakdown(one_iteration, devs)
+    del sides, edges
+    phases = s["timings"].as_dict()
+    fit = {"devices": layout, "world": world, "layout": s["als_kernel"], "wall_s": wall,
+           "phases_s": phases, "iters_per_s": it / phases["als_iterations"],
+           "launches": launches, "pred_rel_err_vs_one_device": err, "users_compared": len(q),
+           "iteration_by_card": iteration}
+    emit("als_block_fit", fit)
+    return fit
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -1139,8 +1481,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
     ap.add_argument("--mesh", action="store_true",
-                    help="only the phases whose ranks span cards (the kernel on the last "
-                         "card, the ring kernels, the sharded fit); prints no ok line")
+                    help="only the phases whose ranks span cards (K1-K4 on the last card, "
+                         "the ring kernels, the sharded, data-parallel, PCA-mesh and block-ALS "
+                         "fits); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1154,6 +1497,10 @@ def main(argv=None) -> int:
             phase_ring_kernels(RING_TINY if args.rehearse else RING_FULL, dev,
                                10 if dev.type == "cuda" else 1)
             phase_sharded_fit(SHARDED_TINY if args.rehearse else SHARDED_FULL, dev)
+            phase_dp_fit(DP_TINY if args.rehearse else DP_FULL, dev)
+            phase_pca_mesh_fit(PCA_TINY if args.rehearse else PCA_FULL, dev)
+            als_cfg = ALS_TINY if args.rehearse else ALS_FULL
+            phase_als_block_fit(als_cfg, als_data(als_cfg), dev, None)
             print(f"mesh phases passed on {torch.cuda.device_count() if dev.type == 'cuda' else 0}"
                   f" cards: {smi}", flush=True)
             return 0
@@ -1176,11 +1523,14 @@ def main(argv=None) -> int:
         pca_fit = phase_pca_fit(pca_cfg, dev)
         data = als_data(als_cfg)
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
-        als_fit = phase_als_fit(als_cfg, data, dev)
-        del data
+        als_fit, als_model = phase_als_fit(als_cfg, data, dev)
+        als_block = phase_als_block_fit(als_cfg, data, dev, als_model)
+        del data, als_model
         ring_cfg = RING_TINY if args.rehearse else RING_FULL
         rings = phase_ring_kernels(ring_cfg, dev, reps)
         sharded = phase_sharded_fit(SHARDED_TINY if args.rehearse else SHARDED_FULL, dev)
+        dp = phase_dp_fit(DP_TINY if args.rehearse else DP_FULL, dev)
+        pca_mesh = phase_pca_mesh_fit(pca_cfg, dev)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1236,6 +1586,23 @@ def main(argv=None) -> int:
                   "layout": main_ring["layout"]},
         "variants": rings,
     })
+    # every path's launches of each kernel, from the runs above
+    by_path = {
+        kmeans_kernel.KERNEL: {"fit": fit["launches"][kmeans_kernel.KERNEL],
+                               "dp_fit": dp["launches"][kmeans_kernel.KERNEL],
+                               "sharded_fit": sharded["launches"][kmeans_kernel.KERNEL]},
+        pca_kernel.KERNEL: {"pca_fit": pca_fit["launches"][pca_kernel.KERNEL],
+                            **{f"pca_mesh_fit {v['mesh']['data']}x{v['mesh']['model']}":
+                               v["launches"][pca_kernel.KERNEL] for v in pca_mesh}},
+        als_kernel.SOLVE: {"als_fit": als_fit["launches"][als_kernel.SOLVE],
+                           "als_block_fit": als_block["launches"][als_kernel.SOLVE]},
+        als_kernel.GRAM: {"als_fit": als_fit["launches"][als_kernel.GRAM],
+                          "als_block_fit": als_block["launches"][als_kernel.GRAM]},
+        ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
+                             "dp_fit": dp["launches"][ring_kernel.KERNEL]},
+    }
+    for entry in entries:
+        entry["launches_by_path"] = by_path[entry["name"]]
     if args.rehearse:
         # host-clock numbers of the plain versions: no device metric
         print("rehearsal passed (CPU, plain versions; times are host times)")

@@ -12,9 +12,10 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   ranks of a device mesh, the counterpart of the JAX package's
   ``jax.devices()`` world (utils/dispatch.resolve_devices).
 - ``data_axis`` / ``model_axis``: the mesh's axis names; ``model_parallel``
-  the size of its model axis (parallel/mesh.get_mesh).  A K-Means fit on
-  a mesh with ``model_parallel > 1`` shards the features over the model
-  axis (ops/kmeans_ops.lloyd_run_model_sharded).
+  the size of its model axis (parallel/mesh.get_mesh).  A K-Means or PCA
+  fit on a mesh with ``model_parallel > 1`` shards the features over the
+  model axis (ops/kmeans_ops.lloyd_run_model_sharded,
+  ops/pca_ops.covariance_model_sharded); with 1 it shards the rows.
 - ``ring_reduction``: "auto" / "on" reduce the per-pass K-Means moments
   over the data axis with one ring (ops/cuda/ring_kernel.ring_allreduce)
   when that axis has two ranks or more; "off" keeps three psums.
@@ -29,6 +30,10 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   "randomized" is not ported yet and raises.
 - ``als_kernel``: the ALS normal-equation layout, "auto" (grouped unless
   its padding blows up, as in the JAX package), "grouped" or "coo".
+- ``als_item_layout``: the item factors of an ALS fit on a mesh,
+  "replicated" (ops/als_block.py), "sharded" (the 2-D layout, not
+  ported yet: it raises) or "auto" (sharded only past the JAX
+  package's payload crossover, ``als_block.ITEM_SHARD_AUTO_BYTES``).
 
 The JAX package's ``pca_kernel`` and ``als_solve_kernel`` choose between
 Pallas and XLA; the port has one device route, its CUDA kernels, so it
@@ -56,6 +61,7 @@ class Config:
     als_precision: str = ""
     pca_solver: str = "auto"
     als_kernel: str = "auto"
+    als_item_layout: str = "auto"
     data_axis: str = "data"
     model_axis: str = "model"
     model_parallel: int = 1

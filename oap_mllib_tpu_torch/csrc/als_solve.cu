@@ -231,17 +231,20 @@ int als_solve_max_rank(void) { return MAX_RANK; }
 // >= r).  a: A[s][i][j] at a + s*sa_n + i*sa_i + j*sa_j (lower triangle
 // read); b: b[s][j] at b + s*sb_n + j*sb_j; nreg: n_reg[s] at nreg +
 // s*sn; gram: (r, r) contiguous or null; out: (n, r) contiguous.  All
-// f32 on the device; strides in elements.  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for an r or g the kernel
-// does not take.
-int als_solve(const float* a, long long sa_n, long long sa_i, long long sa_j,
-              const float* b, long long sb_n, long long sb_j,
+// f32 on device `dev` (made current here: this library's runtime keeps
+// its own current device); strides in elements.  Returns
+// cudaGetLastError() after the launch, the error of cudaSetDevice, or
+// cudaErrorInvalidValue for an r or g the kernel does not take.
+int als_solve(int dev, const float* a, long long sa_n, long long sa_i,
+              long long sa_j, const float* b, long long sb_n, long long sb_j,
               const float* nreg, long long sn, const float* gram, float reg,
               int n, int r, int g, float* out, void* stream) {
   const bool pow2 = g >= r && g <= MAX_RANK && (g & (g - 1)) == 0;
   if (r < 1 || r > MAX_RANK || !((r == 10 && g == 10) || pow2))
     return (int)cudaErrorInvalidValue;
   if (n < 1) return (int)cudaSuccess;
+  const cudaError_t set = cudaSetDevice(dev);
+  if (set != cudaSuccess) return (int)set;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ALS_SOLVE_ARGS a, sa_n, sa_i, sa_j, b, sb_n, sb_j, nreg, sn, gram, reg, n, r, out, st
   // r == g: loops bounded at compile time

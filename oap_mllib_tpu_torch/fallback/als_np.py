@@ -1,9 +1,10 @@
-"""NumPy ALS: the JAX package's ``fallback/als_np.py``, copied without
-its nonnegative (NNLS) solve, which the port does not support yet.
+"""NumPy ALS: a copy of the JAX package's ``fallback/als_np.py``.
 
 ``init_factors`` / ``init_factors_rows`` are the deterministic factor
 init every fit starts from (bit-identical to the JAX package's);
-``als_np`` is the oracle of the tests.
+``als_np`` is the oracle of the tests, and the route of
+``ALS(nonnegative=True)``, whose per-row solve is the NNLS of
+:func:`_nnls_spd` (Spark's ``nonnegative=true``).
 
 Covers both explicit ALS (the case the reference's DAL path declines —
 accelerated only when implicitPrefs, spark-3.1.1/ml/recommendation/
@@ -68,6 +69,27 @@ def init_factors(n: int, rank: int, seed: int) -> np.ndarray:
     return init_factors_rows(0, n, rank, seed)
 
 
+def _nnls_spd(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Nonnegative solve of the SPD normal-equation system a x = b
+    (min x^T a x - 2 b^T x s.t. x >= 0) — Spark's nonnegative=true NNLS
+    analog.  Reduced to standard NNLS via the Cholesky factor:
+    a = L L^T  =>  min ||L^T x - L^{-1} b||."""
+    try:
+        from scipy.optimize import nnls
+
+        l = np.linalg.cholesky(a)
+        d = np.linalg.solve(l, b)
+        x, _ = nnls(l.T, d)
+        return x
+    except ImportError:
+        # crude fallback: projected gradient on the quadratic
+        x = np.maximum(np.linalg.solve(a, b), 0.0)
+        step = 1.0 / np.linalg.eigvalsh(a).max()
+        for _ in range(200):
+            x = np.maximum(x - step * (a @ x - b), 0.0)
+        return x
+
+
 def _solve_side(
     dst_n: int,
     dst_idx: np.ndarray,
@@ -78,6 +100,7 @@ def _solve_side(
     reg: float,
     alpha: float,
     implicit: bool,
+    nonnegative: bool = False,
 ) -> np.ndarray:
     out = np.zeros((dst_n, rank), dtype=np.float32)
     eye = np.eye(rank, dtype=np.float64)
@@ -108,7 +131,10 @@ def _solve_side(
             n_reg = float(len(sel))
             a = ys.T @ ys + reg * n_reg * eye
             b = (rs[:, None] * ys).sum(axis=0)
-        out[u] = np.linalg.solve(a, b).astype(np.float32)
+        if nonnegative:
+            out[u] = _nnls_spd(a, b).astype(np.float32)
+        else:
+            out[u] = np.linalg.solve(a, b).astype(np.float32)
     return out
 
 
@@ -125,6 +151,7 @@ def als_np(
     implicit: bool = False,
     seed: int = 0,
     init: Tuple[np.ndarray, np.ndarray] = None,
+    nonnegative: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Alternating updates; returns (user_factors, item_factors)."""
     users = np.asarray(users, dtype=np.int64)
@@ -135,11 +162,13 @@ def als_np(
     else:
         x = init_factors(n_users, rank, seed)
         y = init_factors(n_items, rank, seed + 1)
+        if nonnegative:
+            x, y = np.abs(x), np.abs(y)
     for _ in range(max_iter):
         x = _solve_side(n_users, users, items, ratings, y, rank, reg, alpha,
-                        implicit)
+                        implicit, nonnegative)
         y = _solve_side(n_items, items, users, ratings, x, rank, reg, alpha,
-                        implicit)
+                        implicit, nonnegative)
     return x, y
 
 

@@ -1,6 +1,6 @@
 """ALS estimator with Spark-MLlib-compatible parameters: the port of the
-JAX package's ``models/als.py`` (its in-memory, single-device route, in
-both feedback modes).
+JAX package's ``models/als.py`` (its in-memory routes on one device and
+on a device mesh, in both feedback modes).
 
 ``ALS(...).fit(users, items, ratings)`` builds the grouped or the COO
 edge layout (the JAX package's choice, ``_grouped_ok_single``), runs the
@@ -11,6 +11,21 @@ passes ``device="cpu"``, where the kernel wrappers take their plain
 versions; a missing card raises.  Ids are dense non-negative ints;
 n_users / n_items default to max + 1.  Regularisation follows Spark's
 ALS-WR convention (lambda x each row's rating count).
+
+Routes, as in the JAX package:
+
+- a device list (``device="cuda:0,cuda:1,cuda:2,cuda:3"``) takes the
+  block-parallel route (ops/als_block.py): one user block per rank of
+  the data axis, ``num_user_blocks`` capping that axis, the item
+  factors replicated.  ``num_user_blocks=1`` (or one device) keeps the
+  single-device route, on the list's first device.  The 2-D item layout
+  raises.
+- ``nonnegative=True`` runs the numpy NNLS route
+  (fallback/als_np.als_np) with ``accelerated`` False and the reason
+  ``"nonnegative=True"`` in the summary: the reference accelerates only
+  the unconstrained solver.
+
+A fitted model scores on one device: a mesh fit's on the first rank's.
 """
 
 from __future__ import annotations
@@ -24,10 +39,11 @@ import torch
 
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.fallback import als_np
-from oap_mllib_tpu_torch.ops import als_ops, kmeans_ops
+from oap_mllib_tpu_torch.ops import als_block, als_ops, kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
+from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import resolve_device
+from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
@@ -201,11 +217,15 @@ class ALS:
     """ALS estimator.  Param parity with Spark ML ALS defaults: rank=10,
     max_iter=10, reg_param=0.1, implicit_prefs=False, alpha=1.0; ``seed``
     None takes ``Config.seed``; ``device`` None takes ``Config.device``
-    ("cuda")."""
+    ("cuda").  ``num_user_blocks`` caps the data axis of a mesh fit
+    (Spark's numUserBlocks); ``num_item_blocks`` is recorded in the
+    summary, the item layout being ``Config.als_item_layout``'s."""
 
     def __init__(self, rank: int = 10, max_iter: int = 10, reg_param: float = 0.1,
                  implicit_prefs: bool = False, alpha: float = 1.0,
                  seed: Optional[int] = None, nonnegative: bool = False,
+                 num_user_blocks: Optional[int] = None,
+                 num_item_blocks: Optional[int] = None,
                  device: Optional[str] = None):
         if rank < 1:
             raise ValueError("rank must be >= 1")
@@ -215,17 +235,19 @@ class ALS:
             raise ValueError("reg_param must be >= 0")
         if alpha < 0:
             raise ValueError("alpha must be >= 0")
-        if nonnegative:
-            raise NotImplementedError(
-                "nonnegative=True (the NNLS solve) is not ported yet "
-                "(ROADMAP A3, nonnegative ALS)"
-            )
+        if num_user_blocks is not None and num_user_blocks < 1:
+            raise ValueError("num_user_blocks must be >= 1")
+        if num_item_blocks is not None and num_item_blocks < 1:
+            raise ValueError("num_item_blocks must be >= 1")
         self.rank = rank
         self.max_iter = max_iter
         self.reg_param = reg_param
         self.implicit_prefs = implicit_prefs
         self.alpha = alpha
         self.seed = get_config().seed if seed is None else seed
+        self.nonnegative = nonnegative
+        self.num_user_blocks = num_user_blocks
+        self.num_item_blocks = num_item_blocks
         self.device = device
 
     def fit(self, users, items, ratings, n_users: Optional[int] = None,
@@ -235,13 +257,7 @@ class ALS:
         users, items, ratings, n_users, n_items = _validate_resolve(
             users, items, ratings, n_users, n_items)
         kernel = _als_kernel_cfg()
-        dev = resolve_device(self.device)
-        pol = psn.resolve("als")
-        # the Grams and solves are f32 under every policy, and the moment
-        # products' f32 (and bf16-split) operands need TF32 off
-        psn.apply_matmul_flags("highest")
-        timings = Timings("als.fit")
-        before = dict(als_kernel.LAUNCHES)
+        als_block.als_item_layout_cfg()  # a typo raises on every route
         if init is not None:
             x0, y0 = np.array(init[0], np.float32), np.array(init[1], np.float32)
             if x0.shape != (n_users, self.rank) or y0.shape != (n_items, self.rank):
@@ -250,23 +266,29 @@ class ALS:
                     f"needs ({n_users}, {self.rank}) and ({n_items}, {self.rank})"
                 )
         else:
-            x0 = als_np.init_factors(n_users, self.rank, self.seed)
-            y0 = als_np.init_factors(n_items, self.rank, self.seed + 1)
-        with phase_timer(timings, "table_convert", dev):
-            grouped = _grouped_ok_single(kernel, users, items, n_users, n_items)
-            user_side, item_side = als_ops.prepare_sides(
-                grouped, users, items, ratings, n_users, n_items, self.rank, dev)
-            x0, y0 = torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
-        with phase_timer(timings, "als_iterations", dev):
-            x, y = als_ops.run_sides(
-                user_side, item_side, x0, y0, self.max_iter, self.reg_param,
-                self.alpha if self.implicit_prefs else 0.0, self.implicit_prefs, pol,
-            )
-            x, y = x.cpu().numpy(), y.cpu().numpy()
-        summary = {
+            x0 = y0 = None
+        if self.nonnegative:
+            return self._fit_fallback_np(users, items, ratings, n_users, n_items, x0, y0)
+        devices = resolve_devices(self.device)
+        if len(devices) > 1 and self.num_user_blocks != 1:
+            mesh = get_mesh(devices=devices)
+            world = mesh.shape[mesh.axis_names[0]]
+            if self.num_user_blocks is not None and self.num_user_blocks < world:
+                # fewer user blocks = a smaller data axis, one block a rank
+                mp = mesh.shape[mesh.axis_names[1]]
+                mesh = get_mesh(devices=devices[: self.num_user_blocks * mp])
+                world = mesh.shape[mesh.axis_names[0]]
+            if world > 1:
+                return self._fit_block_parallel(users, items, ratings, n_users, n_items,
+                                                x0, y0, mesh, kernel)
+        return self._fit_single_device(users, items, ratings, n_users, n_items, x0, y0,
+                                       devices[0], kernel)
+
+    def _summary(self, timings, pol, before, extra) -> dict:
+        return {
             "timings": timings,
             "accelerated": True,
-            "als_kernel": "grouped" if grouped else "coo",
+            **extra,
             "solve_kernel": "cuda" if self.rank <= als_kernel.MAX_RANK else "torch.linalg",
             "gram_route": als_ops.gram_route(self.rank) if self.implicit_prefs else None,
             "precision": pol,
@@ -280,7 +302,144 @@ class ALS:
                 "seed": int(self.seed),
             },
         }
-        return ALSModel(x, y, summary, device=self.device)
+
+    def _fit_single_device(self, users, items, ratings, n_users, n_items, x0, y0,
+                           dev: torch.device, kernel: str) -> ALSModel:
+        pol = psn.resolve("als")
+        # the Grams and solves are f32 under every policy, and the moment
+        # products' f32 (and bf16-split) operands need TF32 off
+        psn.apply_matmul_flags("highest")
+        timings = Timings("als.fit")
+        before = dict(als_kernel.LAUNCHES)
+        if x0 is None:
+            x0 = als_np.init_factors(n_users, self.rank, self.seed)
+            y0 = als_np.init_factors(n_items, self.rank, self.seed + 1)
+        with phase_timer(timings, "table_convert", dev):
+            grouped = _grouped_ok_single(kernel, users, items, n_users, n_items)
+            user_side, item_side = als_ops.prepare_sides(
+                grouped, users, items, ratings, n_users, n_items, self.rank, dev, timings)
+            x0, y0 = torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
+        with phase_timer(timings, "als_iterations", dev):
+            x, y = als_ops.run_sides(
+                user_side, item_side, x0, y0, self.max_iter, self.reg_param,
+                self.alpha if self.implicit_prefs else 0.0, self.implicit_prefs, pol,
+            )
+            x, y = x.cpu().numpy(), y.cpu().numpy()
+        summary = self._summary(timings, pol, before, {
+            "als_kernel": "grouped" if grouped else "coo", **self._block_summary(1)})
+        return ALSModel(x, y, summary, device=self._scoring_device(dev))
+
+    def _scoring_device(self, dev) -> Optional[str]:
+        """The fitted model's device: the fit's own setting, or ``dev``
+        where that names a device list (a model scores on one device)."""
+        name = get_config().device if self.device is None else str(self.device)
+        return self.device if "," not in name else str(dev)
+
+    def _fit_fallback_np(self, users, items, ratings, n_users, n_items, x0, y0) -> ALSModel:
+        """The numpy route of ``nonnegative=True`` (the JAX package's
+        ``_fit_fallback_np``): the NNLS solve per row, from the absolute
+        values of the initial factors, so the factors are >= 0 even at
+        ``max_iter=0`` or from a signed init."""
+        timings = Timings("als.fit")
+        if x0 is None:
+            x0 = als_np.init_factors(n_users, self.rank, self.seed)
+            y0 = als_np.init_factors(n_items, self.rank, self.seed + 1)
+        x0, y0 = np.abs(x0), np.abs(y0)
+        with phase_timer(timings, "als_np"):
+            x, y = als_np.als_np(
+                users, items, ratings, n_users, n_items, self.rank, self.max_iter,
+                self.reg_param, self.alpha, self.implicit_prefs, self.seed,
+                init=(x0, y0), nonnegative=True,
+            )
+        summary = {"timings": timings, "accelerated": False, "reason": "nonnegative=True",
+                   "item_layout": "replicated", **self._block_summary(1)}
+        name = get_config().device if self.device is None else str(self.device)
+        return ALSModel(x, y, summary, device=self._scoring_device(name.split(",")[0].strip()))
+
+    def _block_summary(self, effective_user_blocks: int) -> dict:
+        """Requested and effective block layout, for the summary."""
+        out = {"num_user_blocks": effective_user_blocks}
+        if self.num_user_blocks is not None:
+            out["num_user_blocks_requested"] = self.num_user_blocks
+        if self.num_item_blocks is not None:
+            out["num_item_blocks_requested"] = self.num_item_blocks
+        return out
+
+    def _block_dispatch(self, users, items, n_users: int, n_items: int, world: int,
+                        kernel: str):
+        """``(item_sharded, use_grouped, sizes)``, the block route's one
+        decision point: the item layout, then the grouped-vs-COO guard
+        priced before the shuffle (``sizes`` its group sizes, None when
+        ``Config.als_kernel`` forces the layout)."""
+        item_sharded = als_block.item_layout_sharded(n_items, self.rank, world, n_users)
+        if kernel != "auto":
+            return item_sharded, kernel == "grouped", None
+        use_grouped, sizes = als_block.block_grouped_guard(users, items, n_users, n_items,
+                                                           world)
+        return item_sharded, use_grouped, sizes
+
+    def _place_block_factors(self, mesh: Mesh, offsets: np.ndarray, per: int,
+                             init_full: Optional[np.ndarray], seed: int):
+        """Each data rank's (per, rank) user block on its device: rows
+        ``[offsets[b], offsets[b + 1])`` of the given init, else of the
+        position-addressable init (bit-equal to the global
+        ``init_factors`` rows), zero below them."""
+        out = {}
+        for b, q in enumerate(als_block.data_ranks(mesh)):
+            lo, hi = int(offsets[b]), int(offsets[b + 1])
+            blk = np.zeros((per, self.rank), np.float32)
+            blk[: hi - lo] = (init_full[lo:hi] if init_full is not None
+                              else als_np.init_factors_rows(lo, hi, self.rank, seed))
+            out[q] = torch.from_numpy(blk).to(mesh.device(q))
+        return out
+
+    def _fit_block_parallel(self, users, items, ratings, n_users, n_items, x0, y0,
+                            mesh: Mesh, kernel: str) -> ALSModel:
+        """The block-parallel route (the JAX package's
+        ``_fit_block_parallel``, replicated item layout): the shuffle by
+        user block, each rank's edge layouts staged on its device, the
+        block-local user init, then ops/als_block's iterations.  The
+        capability-weighted block offsets of the JAX package return None
+        on a homogeneous world, which every mesh of H100s is: the blocks
+        are uniform."""
+        world = mesh.shape[mesh.axis_names[0]]
+        ranks = als_block.data_ranks(mesh)
+        devs = list(dict.fromkeys(mesh.device(q) for q in ranks))
+        pol = psn.resolve("als")
+        psn.apply_matmul_flags("highest")
+        item_sharded, use_grouped, sizes = self._block_dispatch(
+            users, items, n_users, n_items, world, kernel)
+        if item_sharded:
+            raise NotImplementedError(
+                "the 2-D ALS item layout (als_item_layout='sharded', or 'auto' past "
+                f"ITEM_SHARD_AUTO_BYTES for {n_items} items at rank {self.rank}) is "
+                "not ported yet (ROADMAP A7); set als_item_layout='replicated'"
+            )
+        timings = Timings("als.fit")
+        before = dict(als_kernel.LAUNCHES)
+        with phase_timer(timings, "ratings_shuffle", devs):
+            edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users)
+            if use_grouped:
+                sides = als_block.prepare_grouped_inputs(edges, mesh, n_items, self.rank, sizes)
+            else:
+                sides = als_block.prepare_coo_inputs(edges, mesh, n_items, self.rank)
+        with phase_timer(timings, "table_convert", devs):
+            x0_dev = self._place_block_factors(mesh, edges.offsets, edges.upb, x0, self.seed)
+            y0_host = (y0 if y0 is not None
+                       else als_np.init_factors(n_items, self.rank, self.seed + 1))
+            staged = {dev: torch.from_numpy(y0_host).to(dev) for dev in devs}
+            y0_dev = {q: staged[mesh.device(q)] for q in ranks}
+        run = als_block.als_block_run_grouped if use_grouped else als_block.als_block_run
+        with phase_timer(timings, "als_iterations", devs):
+            x_blocks, y = run(sides, x0_dev, y0_dev, self.max_iter, self.reg_param,
+                              self.alpha, mesh, implicit=self.implicit_prefs, policy=pol)
+            x = als_block.gather_user_factors(x_blocks, mesh, edges.offsets)
+            y = y[ranks[0]].cpu().numpy()
+        summary = self._summary(timings, pol, before, {
+            "block_parallel": True, "als_kernel": "grouped" if use_grouped else "coo",
+            "item_layout": "replicated", "mesh": dict(mesh.shape),
+            **self._block_summary(world)})
+        return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
 
 
 def _validate_resolve(users, items, ratings, n_users, n_items):

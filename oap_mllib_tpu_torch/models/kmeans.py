@@ -10,13 +10,20 @@ version; a missing card raises.  ``distance_measure="cosine"`` runs the
 numpy reference (fallback/kmeans_np.py) with ``accelerated=False``, as
 the JAX package does.
 
-A device list (``device="cuda:0,cuda:1,cuda:2,cuda:3"``) with
-``Config.model_parallel > 1`` fits on a (data, model) mesh: features
-zero-pad to a multiple of the model axis, init runs on the full table
-on the mesh's first device, and the Lloyd loop is
-ops/kmeans_ops.lloyd_run_model_sharded, whose moments reduce over the
-data axis with the ring kernel (ops/cuda/ring_kernel.py).  The model it
-returns scores on the mesh's first device.
+A device list (``device="cuda:0,cuda:1,cuda:2,cuda:3"``) fits on a
+(data, model) mesh, init running on the full table on the mesh's first
+device:
+
+- with ``Config.model_parallel`` 1 (the default) the rows shard over the
+  data axis and the centers are replicated: the Lloyd loop is
+  ops/kmeans_ops.lloyd_run_data_parallel, the fused kernel on every
+  rank's rows and the moments psum-ed over the data axis;
+- with ``model_parallel > 1`` features zero-pad to a multiple of the
+  model axis and the Lloyd loop is ops/kmeans_ops.lloyd_run_model_sharded,
+  whose moments reduce over the data axis with the ring kernel
+  (ops/cuda/ring_kernel.py).
+
+The model it returns scores on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -47,9 +54,11 @@ class KMeansSummary:
     the fit by kernel name (0 on the CPU, where the plain versions run);
     ``ring_reduce`` launches once per card per ring, and a mesh fit runs
     one ring per model column per pass, so (num_iter + 1) * model when
-    every rank shares one card.  A fit on a mesh records its shape
-    (``mesh``, axis name -> size) and whether the ring reduced its
-    moments (``ring``); both are None on one device."""
+    every rank shares one card; the data-parallel route launches the
+    accumulate once a rank a pass, (num_iter + 1) * data.  A fit on a
+    mesh records its shape (``mesh``, axis name -> size) and whether the
+    ring reduced its moments (``ring``, False on the data-parallel
+    route); both are None on one device."""
 
     def __init__(self, training_cost: float, num_iter: int, timings: Timings,
                  accelerated: bool, cluster_sizes: Optional[np.ndarray] = None,
@@ -276,7 +285,8 @@ class KMeans:
 
     def _fit_mesh(self, x, sample_weight, devices) -> KMeansModel:
         """The mesh route of the JAX package's ``_fit_tpu_inner`` /
-        ``_run_lloyd``: the model-sharded Lloyd on a (data, model) mesh."""
+        ``_run_lloyd`` on a (data, model) mesh: the data-parallel Lloyd on
+        a model axis of 1, the model-sharded one above it."""
         cfg = get_config()
         pol = psn.resolve("kmeans")
         tier = psn.kernel_tier(pol, cfg.matmul_precision)
@@ -284,12 +294,6 @@ class KMeans:
         kmeans_ops.ring_mode_cfg(cfg)  # a typo raises on every mesh fit
         mesh = get_mesh(devices=devices)
         n_model = mesh.shape[cfg.model_axis]
-        if n_model == 1:
-            raise NotImplementedError(
-                f"a mesh of {mesh.size} devices with model_parallel=1 is the "
-                "data-parallel mesh route (ROADMAP A7), not ported yet; set "
-                "model_parallel > 1 or name one device"
-            )
         first = mesh.device((0, 0))
         timings = Timings("kmeans.fit")
         before = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
@@ -311,10 +315,16 @@ class KMeans:
             centers0 = self._init_centers(table, weights, first)
             del table, weights
         with phase_timer(timings, "lloyd_loop", mesh.distinct_devices()):
-            centers, n_iter, cost, counts = kmeans_ops.lloyd_run_model_sharded(
-                sharded.tiles, tile_weights, centers0, self.max_iter, self.tol, mesh,
-                cfg.data_axis, cfg.model_axis, precision=tier, policy=pol,
-            )
+            if n_model == 1:
+                centers, n_iter, cost, counts = kmeans_ops.lloyd_run_data_parallel(
+                    sharded.tiles, tile_weights, centers0, self.max_iter, self.tol, mesh,
+                    cfg.data_axis, mode=tier,
+                )
+            else:
+                centers, n_iter, cost, counts = kmeans_ops.lloyd_run_model_sharded(
+                    sharded.tiles, tile_weights, centers0, self.max_iter, self.tol, mesh,
+                    cfg.data_axis, cfg.model_axis, precision=tier, policy=pol,
+                )
             centers = centers[:, :d_orig].cpu().numpy()
             cost = float(cost)
             counts = counts.cpu().numpy()
@@ -323,7 +333,7 @@ class KMeans:
             cost, int(n_iter), timings, accelerated=True, cluster_sizes=counts,
             kernels={name: after[name] - before.get(name, 0) for name in after},
             precision=pol, mesh=dict(mesh.shape),
-            ring=kmeans_ops.ring_enabled(mesh, cfg.data_axis),
+            ring=n_model > 1 and kmeans_ops.ring_enabled(mesh, cfg.data_axis),
         )
         return KMeansModel(centers, self.distance_measure, summary, device=str(first))
 

@@ -1,5 +1,6 @@
 """PCA estimator with Spark-MLlib-compatible parameters: the port of the
-JAX package's ``models/pca.py`` (its in-memory, single-device route).
+JAX package's ``models/pca.py`` (its in-memory routes on one device and
+on a device mesh).
 
 ``PCA(k).fit(x)`` runs table -> covariance (two passes of the Hopper
 moments kernel, ops/cuda/pca_kernel) -> eigh -> :class:`PCAModel`, whose
@@ -10,6 +11,14 @@ runs on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 where the kernel wrapper takes its plain version; a missing card raises.
 The JAX package's d < 65535 guard raises here: there is no numpy route
 to fall back to.
+
+A device list (``device="cuda:0,cuda:1,cuda:2,cuda:3"``) fits on a
+(data, model) mesh of ``Config.model_parallel`` model ranks: the rows
+shard over the data axis, and with ``model_parallel > 1`` the features
+over the model axis, zero-padded to a multiple of it and demoted before
+the eigensolve (ops/pca_ops.covariance_data_parallel and
+covariance_model_sharded).  The eigensolve runs on the mesh's first
+device, where the model it returns projects.
 """
 
 from __future__ import annotations
@@ -22,11 +31,12 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
-from oap_mllib_tpu_torch.data.table import DenseTable, as_float_tensor
+from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
 from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
+from oap_mllib_tpu_torch.parallel.mesh import get_mesh
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import MAX_PCA_FEATURES, resolve_device
+from oap_mllib_tpu_torch.utils.dispatch import MAX_PCA_FEATURES, resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
@@ -147,7 +157,10 @@ class PCA:
                 f"{MAX_PCA_FEATURES}, the PCA feature-count guard (the "
                 "replicated (d, d) covariance); the port has no numpy route"
             )
-        return self._fit_device(x, resolve_device(self.device), solver)
+        devices = resolve_devices(self.device)
+        if len(devices) > 1 or get_config().model_parallel > 1:
+            return self._fit_mesh(x, devices, solver)
+        return self._fit_device(x, devices[0], solver)
 
     def _fit_device(self, x, dev: torch.device, solver: str) -> PCAModel:
         cfg = get_config()
@@ -160,10 +173,19 @@ class PCA:
             table = DenseTable.from_numpy(x, dev)
         with phase_timer(timings, "covariance", dev):
             cov, _ = pca_ops.covariance(table.data, table.mask, table.n_rows, tier)
+        return self._finish(cov, x.shape[1], timings, dev, solver, pol, before, self.device)
+
+    def _finish(self, cov, d: int, timings, dev, solver, pol, before, device,
+                mesh_shape=None) -> PCAModel:
+        """The eigensolve of ``cov`` (with ``d`` genuine features; a wider
+        ``cov`` carries zero-padded ones, demoted below every genuine
+        eigenvalue first) and the model."""
         with phase_timer(timings, "eigh", dev):
+            if cov.shape[0] > d:
+                cov = pca_ops.mark_padded_features(cov, d)
             vals, vecs = pca_ops.eigh_descending(cov)
-            vals = vals.cpu().numpy()
-            vecs = vecs[:, : self.k].cpu().numpy()
+            vals = vals[:d].cpu().numpy()
+            vecs = vecs[:d, : self.k].cpu().numpy()
         total = float(vals.sum())
         ratio = vals[: self.k] / total if total > 0 else np.zeros(self.k)
         summary = {
@@ -171,9 +193,42 @@ class PCA:
             "accelerated": True,
             "pca_solver": solver,
             "precision": pol,
+            "mesh_shape": mesh_shape,
             "kernels": {
                 name: pca_kernel.LAUNCHES[name] - before.get(name, 0)
                 for name in pca_kernel.LAUNCHES
             },
         }
-        return PCAModel(vecs, ratio, summary, device=self.device)
+        return PCAModel(vecs, ratio, summary, device=device)
+
+    def _fit_mesh(self, x, devices, solver: str) -> PCAModel:
+        """The mesh route of the JAX package's ``_fit_tpu_inner``: the
+        table sharded over the mesh, the covariance of either mesh shape,
+        the eigensolve on the first device."""
+        cfg = get_config()
+        pol = psn.resolve("pca")
+        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        psn.apply_matmul_flags(tier)
+        mesh = get_mesh(devices=devices)
+        mp = mesh.shape[cfg.model_axis]
+        first = mesh.device((0, 0))
+        timings = Timings("pca.fit")
+        before = dict(pca_kernel.LAUNCHES)
+        n, d = x.shape
+        with phase_timer(timings, "table_convert", mesh.distinct_devices()):
+            if d % mp:
+                # zero feature columns: zero eigenvalues, demoted before eigh
+                pad = (-d) % mp
+                x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
+                     else np.pad(x, ((0, 0), (0, pad))))
+            table = ShardedTable.from_numpy(x, mesh)
+        with phase_timer(timings, "covariance", mesh.distinct_devices()):
+            if mp > 1:
+                cov, _ = pca_ops.covariance_model_sharded(
+                    table.tiles, table.mask, table.n_rows, mesh, tier, pol)
+            else:
+                cov, _ = pca_ops.covariance_data_parallel(
+                    table.tiles, table.mask, table.n_rows, mesh, tier)
+            del table
+        return self._finish(cov, d, timings, first, solver, pol, before, str(first),
+                            dict(mesh.shape))

@@ -1,0 +1,288 @@
+"""Block-parallel ALS on a device mesh: the port of the JAX package's
+``ops/als_block.py`` (its replicated item layout).
+
+The ratings are partitioned by USER BLOCK over the mesh's data axis:
+block ``b`` holds the users ``[offsets[b], offsets[b + 1])``, uniform
+blocks of ``ceil(n_users / world)`` ids, with user ids LOCAL to the
+block and item ids global (:func:`exchange_ratings`, the in-process
+counterpart of the JAX package's ``parallel/shuffle.exchange_ratings``).
+Rank ``b`` holds its block's user factors, ``upb`` rows of which those
+past the block's last user are padding (zero, as they have no ratings),
+and a replicated copy of the item factors.  One iteration
+(:func:`_block_body`, the JAX package's):
+
+- the user update is local: each rank solves its users from its edges
+  and its copy of Y, with Y's Gram for implicit feedback;
+- the item update: each rank forms the item partials (A, b, n_reg) of
+  every item from its edges, the partials and the ranks' X-block Grams
+  are psum-ed over the data axis (four sums, in rank order), and every
+  rank solves every item.
+
+Each rank runs the solve (K3) and factor-Gram (K4) kernels on its own
+card, so an implicit fit launches each ``2 * world * max_iter`` times
+(an explicit one no Gram).  The 2-D item layout (``als_item_layout=
+"sharded"``, or "auto" choosing it) is not ported and raises.  The
+JAX package runs a model axis above 1 as replicas of the data ranks;
+the port runs the data ranks of the mesh's first model column.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.ops import als_ops
+from oap_mllib_tpu_torch.ops.cuda import als_kernel
+from oap_mllib_tpu_torch.parallel import collective
+from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
+
+# "auto" shards the items once the replicated layout's per-iteration psum
+# payload (n_items * r * (r + 1) * 4 bytes) crosses this (the JAX
+# package's crossover; ML-25M at r = 10 is ~26 MB: replicated)
+ITEM_SHARD_AUTO_BYTES = 1 << 27
+
+
+def als_item_layout_cfg() -> str:
+    """Validated ``Config.als_item_layout``; every ALS fit reads it, so a
+    typo raises on one device too."""
+    layout = get_config().als_item_layout
+    if layout not in ("auto", "replicated", "sharded"):
+        raise ValueError(f"als_item_layout must be auto|replicated|sharded, got {layout!r}")
+    return layout
+
+
+def item_layout_sharded(n_items: int, r: int, world: int, n_users: int = 0) -> bool:
+    """Whether the item factors shard (the 2-D layout): as configured, or
+    under "auto" when the replicated psum payload crosses
+    :data:`ITEM_SHARD_AUTO_BYTES` and the sharded layout moves fewer
+    bytes (``n_users <= n_items (2r + 1)``)."""
+    layout = als_item_layout_cfg()
+    if layout != "auto":
+        return layout == "sharded"
+    return (world > 1 and n_items * r * (r + 1) * 4 > ITEM_SHARD_AUTO_BYTES
+            and n_users <= n_items * (2 * r + 1))
+
+
+def data_ranks(mesh: Mesh) -> List[Rank]:
+    """The ranks that hold user blocks: the data axis of the first model
+    column, in block order."""
+    return mesh.groups(mesh.axis_names[0])[0]
+
+
+# -- the shuffle ---------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockEdges:
+    """Ratings partitioned by user block: per block, local user ids,
+    global item ids and ratings (numpy), with the block boundaries and
+    the user rows per block."""
+
+    users: List[np.ndarray]
+    items: List[np.ndarray]
+    ratings: List[np.ndarray]
+    offsets: np.ndarray  # (world + 1,) global user-id boundaries
+    upb: int  # user rows per block, padding included
+
+
+def exchange_ratings(users, items, ratings, world: int, n_users: int):
+    """Partition the triples by user block: ``(blocks, offsets)`` where
+    ``blocks[b]`` is ``(users, items, ratings)`` of the ratings whose
+    user lies in block ``b`` (global user ids, input order kept), and
+    ``offsets`` the uniform boundaries ``min(b * ceil(n_users / world),
+    n_users)``.  Edges route to block ``min(u // kpb, world - 1)``, as in
+    the JAX package."""
+    users, items = np.asarray(users, np.int64), np.asarray(items, np.int64)
+    if n_users >= 2 ** 31 or (len(items) and int(np.max(items)) >= 2 ** 31):
+        raise ValueError("ids must fit int32 (the device index dtype)")
+    kpb = max(1, -(-n_users // world))
+    offsets = np.minimum(np.arange(world + 1) * kpb, n_users)
+    block = np.minimum(users // kpb, world - 1)
+    # a stable partition by block: numpy sorts 16-bit keys by radix, O(nnz)
+    key = block.astype(np.int16 if world < 2 ** 15 else np.int64)
+    order = np.argsort(key, kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(block, minlength=world))])
+    u, i, r = users[order], items[order], np.asarray(ratings, np.float32)[order]
+    blocks = [(u[bounds[b]:bounds[b + 1]], i[bounds[b]:bounds[b + 1]], r[bounds[b]:bounds[b + 1]])
+              for b in range(world)]
+    return blocks, offsets
+
+
+def prepare_block_inputs(users, items, ratings, world: int, n_users: int) -> BlockEdges:
+    """The shuffled block layout: user ids rebased to their block
+    (``id - offsets[b]``), ``upb`` the widest block (``n_users`` on one
+    block)."""
+    blocks, offsets = exchange_ratings(users, items, ratings, world, n_users)
+    upb = int(np.max(np.diff(offsets))) if world > 1 else n_users
+    return BlockEdges(
+        users=[u - offsets[b] for b, (u, _, _) in enumerate(blocks)],
+        items=[i for _, i, _ in blocks], ratings=[r for _, _, r in blocks],
+        offsets=offsets, upb=max(upb, 1),
+    )
+
+
+# -- the grouped-vs-COO guard ---------------------------------------------------
+
+
+def _group_sizes(nnz_global: int, world: int, users_per_block: int, n_items: int):
+    """(p_u, p_i): one derivation for the guard and the build."""
+    p_u = als_ops.auto_group_size(max(1, nnz_global), world * users_per_block)
+    p_i = als_ops.auto_group_size(max(1, nnz_global // world), n_items)
+    return p_u, p_i
+
+
+def _side_padded_per_block(ids: np.ndarray, kpb: int, world: int, p: int, n_ids: int):
+    """(world,) padded edge totals of one grouped side whose ids are
+    partitioned contiguously by ``kpb``: each block sums its ids'
+    ceil-paddings (per-id counts by bincount, where the JAX package
+    sorts with ``np.unique``; ids without edges pad to zero either
+    way)."""
+    counts = np.bincount(np.asarray(ids, np.int64), minlength=n_ids)
+    out = np.zeros((world,), np.int64)
+    np.add.at(out, np.minimum(np.arange(len(counts)) // kpb, world - 1),
+              -(counts // -p) * p)
+    return out
+
+
+def block_grouped_guard(users, items, n_users: int, n_items: int, world: int,
+                        max_blowup: float = als_ops.GROUPED_MAX_BLOWUP):
+    """The block route's grouped-vs-COO decision, before the shuffle:
+    ``(use_grouped, (p_u, p_i, nnz))``.  Priced as the JAX package prices
+    what its build realizes, every rank padded to the largest block:
+    ``world * (max_b padded_u_b + max_b padded_i_b)`` against
+    ``max_blowup * nnz``.  The user side pads per user; the item side
+    per (block, item) pair, since an item's edges split over blocks."""
+    nnz = len(users)
+    kpb = max(1, -(-n_users // world))
+    p_u, p_i = _group_sizes(nnz, world, kpb, n_items)
+    u = np.asarray(users, np.int64)
+    pu_b = _side_padded_per_block(u, kpb, world, p_u, n_users)
+    block = np.minimum(u // kpb, world - 1)
+    pair = np.bincount(block * n_items + np.asarray(items, np.int64),
+                       minlength=world * n_items).reshape(world, n_items)
+    pi_b = (-(pair // -p_i) * p_i).sum(axis=1)
+    total = world * (int(pu_b.max()) + int(pi_b.max()))
+    return total <= max_blowup * max(nnz, 1), (p_u, p_i, nnz)
+
+
+# -- staging ---------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BlockSides:
+    """Per data rank, both update directions staged on its device:
+    ``users[q]`` by local user (``upb`` destinations), ``items[q]`` by
+    global item (``n_items``), grouped or COO."""
+
+    users: Dict[Rank, object]
+    items: Dict[Rank, object]
+    grouped: bool
+
+
+def prepare_grouped_inputs(edges: BlockEdges, mesh: Mesh, n_items: int, rank: int,
+                           sizes: Optional[tuple] = None) -> BlockSides:
+    """Each block's grouped layouts, built on the host (the counting sort
+    of ops/host_prep.py) with the guard's group sizes, and staged on its
+    rank's device.  The JAX package pads every rank to the largest group
+    count for its static shapes; the eager port does not need to."""
+    world = len(edges.users)
+    if sizes is not None:
+        p_u, p_i = sizes[0], sizes[1]
+    else:
+        p_u, p_i = _group_sizes(sum(len(u) for u in edges.users), world, edges.upb, n_items)
+    users, items = {}, {}
+    for b, q in enumerate(data_ranks(mesh)):
+        dev = mesh.device(q)
+        u, i, r = edges.users[b], edges.items[b], edges.ratings[b]
+        users[q] = als_ops.prepare_grouped(
+            *als_ops.build_grouped_edges(u, i, r, edges.upb, p_u), edges.upb, rank, dev)
+        items[q] = als_ops.prepare_grouped(
+            *als_ops.build_grouped_edges(i, u, r, n_items, p_i), n_items, rank, dev)
+    return BlockSides(users, items, grouped=True)
+
+
+def prepare_coo_inputs(edges: BlockEdges, mesh: Mesh, n_items: int, rank: int) -> BlockSides:
+    """Each block's COO sides staged on its rank's device."""
+    users, items = {}, {}
+    for b, q in enumerate(data_ranks(mesh)):
+        dev = mesh.device(q)
+        u, i, r = edges.users[b], edges.items[b], edges.ratings[b]
+        valid = np.ones(len(u), np.float32)
+        users[q] = als_ops.prepare_coo(u, i, r, valid, edges.upb, rank, dev)
+        items[q] = als_ops.prepare_coo(i, u, r, valid, n_items, rank, dev)
+    return BlockSides(users, items, grouped=False)
+
+
+# -- the iteration -----------------------------------------------------------------
+
+
+def _block_body(sides: BlockSides, x: Dict[Rank, torch.Tensor], y: Dict[Rank, torch.Tensor],
+                reg: float, alpha: float, implicit: bool, axis: str, policy: str,
+                solve: Callable, gram: Callable):
+    """One alternating iteration: the user update local to each rank,
+    then the item partials and the X-block Grams psum-ed over ``axis``
+    and the item update on every rank.  Returns ``(x, y)``."""
+    ranks = list(sides.users)
+    x = {q: als_ops._half(sides.users[q], y[q], reg, alpha, implicit, policy, solve, gram)
+         for q in ranks}
+    parts = [sides.items[q].partials(x[q], alpha, implicit, policy) for q in ranks]
+    a_i, b_i, n_i = (collective.psum_group([p[j] for p in parts], axis) for j in range(3))
+    del parts
+    g_x = (collective.psum_group([als_ops._factor_gram(x[q], gram) for q in ranks], axis)
+           if implicit else [None] * len(ranks))
+    y = {q: als_ops.regularized_solve(a_i[k], b_i[k], n_i[k], reg, g_x[k], solve)
+         for k, q in enumerate(ranks)}
+    return x, y
+
+
+def _run(sides: BlockSides, x0, y0, max_iter: int, reg: float, alpha: float,
+         implicit: bool, axis: str, policy: str, solve: Callable, gram: Callable):
+    x, y = dict(x0), dict(y0)
+    for _ in range(max_iter):
+        x, y = _block_body(sides, x, y, reg, alpha, implicit, axis, policy, solve, gram)
+    return x, y
+
+
+def als_block_run(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
+                  y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float, alpha: float,
+                  mesh: Mesh, *, implicit: bool, policy: str = "f32",
+                  solve: Callable = als_kernel.solve_normal_eq,
+                  gram: Callable = als_kernel.factor_gram
+                  ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
+    """Block-parallel ALS (both feedback modes) on COO sides: ``(x
+    blocks, y copies)``, one per data rank.  ``x0[q]`` is rank ``q``'s
+    (upb, r) user block, ``y0[q]`` its (n_items, r) copy of the items;
+    ``solve`` and ``gram`` are the kernel wrappers (the card check passes
+    their plain versions)."""
+    if sides.grouped:
+        raise ValueError("als_block_run takes COO sides; grouped ones run "
+                         "als_block_run_grouped")
+    return _run(sides, x0, y0, max_iter, reg, alpha if implicit else 0.0, implicit,
+                mesh.axis_names[0], policy, solve, gram)
+
+
+def als_block_run_grouped(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
+                          y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float,
+                          alpha: float, mesh: Mesh, *, implicit: bool, policy: str = "f32",
+                          solve: Callable = als_kernel.solve_normal_eq,
+                          gram: Callable = als_kernel.factor_gram
+                          ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
+    """:func:`als_block_run` on grouped sides: the same iteration and
+    psums with the grouped moments."""
+    if not sides.grouped:
+        raise ValueError("als_block_run_grouped takes grouped sides")
+    return _run(sides, x0, y0, max_iter, reg, alpha if implicit else 0.0, implicit,
+                mesh.axis_names[0], policy, solve, gram)
+
+
+def gather_user_factors(x: Dict[Rank, torch.Tensor], mesh: Mesh, offsets: np.ndarray
+                        ) -> np.ndarray:
+    """The (n_users, r) user factors on the host: each block's real rows,
+    its padding rows dropped."""
+    rows = [x[q][: int(offsets[b + 1] - offsets[b])].cpu().numpy()
+            for b, q in enumerate(data_ranks(mesh))]
+    return np.concatenate(rows, axis=0)

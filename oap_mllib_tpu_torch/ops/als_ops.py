@@ -1,6 +1,7 @@
 """ALS in plain PyTorch around the solve and factor-Gram kernels: the
 port of the JAX package's ``ops/als_ops.py`` (its single-device
-functions; the block-parallel and streamed runners are not ported).
+functions; the block-parallel runners are in ops/als_block.py, the
+streamed ones are not ported).
 
 One half-update solves one side's factors from the other side's:
 
@@ -15,11 +16,15 @@ One half-update solves one side's factors from the other side's:
    Cholesky above that.
 
 The moments stay library calls, as the JAX package leaves them to XLA:
-a gather and a batched product per block of edges, then a segment sum
+a gather and batched products per block of edges, then a segment sum
 by destination.  Two layouts, as in the JAX package: "grouped" sorts
 edges by destination once and pads each destination's list to a
-multiple of P, so one batched (r+1, P) x (P, r+2) product per group
-yields A, b and n_reg together; "coo" forms per-edge outer products.
+multiple of P, so per group one batched (r, P) x (P, r) product gives
+A and a batched (1, P) x (P, r) product and a row sum give b and n_reg,
+each summed into its view of one (n_dst, r+1, r+2) moment sheet (no
+concatenated operand is built); "coo" forms per-edge outer products,
+which need no concatenation either: A's outer products and b's weighted
+rows are summed by destination straight into their own tensors.
 The segment sums run ``torch.segment_reduce`` with lengths over
 destination-sorted rows (the grouped ``group_dst`` is sorted; the COO
 edges are stably sorted by destination once per fit).  Each output row
@@ -28,21 +33,25 @@ where ``index_add_`` would add with float atomics in a varying order.
 Both layouts bound their live intermediates by processing edges in
 blocks, as ``_grouped_block_count`` and ``_edge_chunks`` do.
 
-The host-side grouped prep runs the JAX package's numpy route (its
-native C++ prep is not ported).  Nothing is padded for compile reuse:
-the port runs eagerly.
+The host-side grouped prep is the port's C++ counting sort
+(ops/host_prep.py, built with the host compiler at first use);
+:func:`build_grouped_edges_np` keeps the numpy route as its plain
+version.  Nothing is padded for compile reuse: the port runs eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch.ops import host_prep
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.utils import precision as psn
+from oap_mllib_tpu_torch.utils.timing import phase_timer
 
 # the grouped layout is taken only while its padded edge total stays
 # within this factor of the true edge count (the JAX package's guard)
@@ -62,19 +71,26 @@ def auto_group_size(nnz: int, n_dst: int) -> int:
 
 def grouped_padded_edges(dst, n_dst: int, group_size: int = 0) -> int:
     """Padded edge count the grouped layout would produce for one side,
-    from per-destination counts (a bincount, where the JAX package's
-    numpy route sorts with ``np.unique``; destinations without edges pad
-    to zero either way)."""
+    from per-destination counts: the host library's counting pass, as
+    the JAX package prefers its native one."""
     p = group_size or auto_group_size(len(dst), n_dst)
-    counts = np.bincount(np.asarray(dst, np.int64), minlength=n_dst)
-    return int((-(counts // -p) * p).sum())
+    return host_prep.grouped_total(dst, n_dst, p)
 
 
 def build_grouped_edges(dst, src, conf, n_dst: int, group_size: int = 0):
     """Host-side prep: edges sorted by ``dst`` (stable), each dst's list
     padded to a multiple of P.  Returns numpy ``(src_g (G, P) int32,
     conf_g (G, P) f32, valid_g (G, P) f32, group_dst (G,) int32)``;
-    padding entries carry src 0 and valid 0."""
+    padding entries carry src 0 and valid 0.  Runs the host library's
+    counting sort (ops/host_prep.group_edges), bit-equal to
+    :func:`build_grouped_edges_np`."""
+    p = group_size or auto_group_size(len(dst), n_dst)
+    return host_prep.group_edges(dst, src, conf, n_dst, p)
+
+
+def build_grouped_edges_np(dst, src, conf, n_dst: int, group_size: int = 0):
+    """:func:`build_grouped_edges` by numpy's stable argsort: the plain
+    version the host library is held against."""
     p = group_size or auto_group_size(len(dst), n_dst)
     dst = np.asarray(dst, np.int64)
     order = np.argsort(dst, kind="stable")
@@ -115,18 +131,19 @@ def _weights(conf, valid, alpha: float, implicit: bool):
 
 
 def grouped_block_moments(src_b, conf_b, valid_b, src_factors, alpha: float,
-                          implicit: bool, policy: str = "f32") -> torch.Tensor:
-    """(Gb, r+1, r+2) moment matrices of one block of groups:
-    ``[Ys | 1]^T [a_w Ys | b_w | n_w]`` per group, so A is ``[:r, :r]``,
-    b ``[:r, r]`` and n_reg ``[r, r+1]``.  The products follow the
-    policy (f32 accumulation always)."""
+                          implicit: bool, policy: str = "f32"):
+    """``(A (Gb, r, r), b (Gb, r), n_reg (Gb,))`` of one block of groups:
+    ``A = Ys^T (a_w Ys)`` by one batched product, ``b = b_w^T Ys`` by a
+    batched row product and ``n_reg`` the row sum of ``n_w``; no
+    concatenated operand.  The products follow the policy (f32
+    accumulation always); ``n_w`` is 0 or 1, so its sum is exact."""
     gb, p = src_b.shape
     r = src_factors.shape[1]
     ys = src_factors.index_select(0, src_b.reshape(-1)).reshape(gb, p, r)
     a_w, b_w, n_w = _weights(conf_b, valid_b, alpha, implicit)
-    lhs = torch.cat([ys, torch.ones_like(conf_b)[..., None]], dim=2)
-    rhs = torch.cat([ys * a_w[..., None], b_w[..., None], n_w[..., None]], dim=2)
-    return psn.peinsum("gpa,gpb->gab", lhs, rhs, policy)
+    a = psn.peinsum("gpa,gpb->gab", ys, ys * a_w[..., None], policy)
+    b = psn.peinsum("gp,gpa->ga", b_w, ys, policy)
+    return a, b, torch.sum(n_w, dim=1)
 
 
 def _segment_plan(keys: np.ndarray, lo: int, hi: int, device):
@@ -158,17 +175,20 @@ class GroupedSide:
 
     def partials(self, src_factors, alpha: float, implicit: bool, policy: str = "f32"):
         """``(a (n_dst, r, r), b (n_dst, r), n_reg (n_dst,))``: views into
-        one (n_dst, r+1, r+2) moment tensor."""
+        one (n_dst, r+1, r+2) moment sheet, each block's moments summed
+        into them by destination."""
         r = src_factors.shape[1]
         m = torch.zeros((self.n_dst, r + 1, r + 2), dtype=torch.float32,
                         device=src_factors.device)
+        views = (m[:, :r, :r], m[:, :r, r], m[:, r, r + 1])
         for g0, g1, first, lengths in self.blocks:
-            mom = grouped_block_moments(
+            moments = grouped_block_moments(
                 self.src_g[g0:g1], self.conf_g[g0:g1], self.valid_g[g0:g1],
                 src_factors, alpha, implicit, policy,
             )
-            _segment_add(m, mom, first, lengths)
-        return m[:, :r, :r], m[:, :r, r], m[:, r, r + 1]
+            for out, rows in zip(views, moments):
+                _segment_add(out, rows, first, lengths)
+        return views
 
 
 def prepare_grouped(src_g, conf_g, valid_g, group_dst, n_dst: int, rank: int,
@@ -266,12 +286,14 @@ def normal_eq_partials(dst_idx, src_idx, conf, valid, src_factors, n_dst: int,
 
 
 def prepare_sides(grouped: bool, users, items, ratings, n_users: int,
-                  n_items: int, rank: int, device):
+                  n_items: int, rank: int, device, timings=None):
     """Both update directions of a fit on ``device``: the grouped layout
-    (host prep by :func:`build_grouped_edges`) or COO."""
+    (host prep by :func:`build_grouped_edges`, timed as the phase
+    ``grouped_build`` when ``timings`` is given) or COO."""
     if grouped:
-        by_user = build_grouped_edges(users, items, ratings, n_users)
-        by_item = build_grouped_edges(items, users, ratings, n_items)
+        with phase_timer(timings, "grouped_build") if timings else contextlib.nullcontext():
+            by_user = build_grouped_edges(users, items, ratings, n_users)
+            by_item = build_grouped_edges(items, users, ratings, n_items)
         return (prepare_grouped(*by_user, n_users, rank, device),
                 prepare_grouped(*by_item, n_items, rank, device))
     valid = np.ones(len(users), np.float32)

@@ -178,7 +178,7 @@ def _library(name: str):
         lib = _build.load(name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == SOLVE:
-            lib.als_solve.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, ptr,
+            lib.als_solve.argtypes = [i32, ptr, i64, i64, i64, ptr, i64, i64, ptr,
                                       i64, ptr, ctypes.c_float, i32, i32, i32,
                                       ptr, ptr]
             lib.als_solve.restype = i32
@@ -230,13 +230,12 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
     lib = _library(SOLVE)
     n, r = b.shape
     out = torch.empty((n, r), dtype=torch.float32, device=b.device)
-    with torch.cuda.device(b.device):
-        err = lib.als_solve(
-            a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
-            n_reg.data_ptr(), n_reg.stride(0),
-            None if gram is None else gram.data_ptr(), float(reg), n, r,
-            solve_group(r), out.data_ptr(), _stream(b.device),
-        )
+    err = lib.als_solve(
+        b.device.index, a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
+        n_reg.data_ptr(), n_reg.stride(0),
+        None if gram is None else gram.data_ptr(), float(reg), n, r,
+        solve_group(r), out.data_ptr(), _stream(b.device),
+    )
     if err != 0:
         raise RuntimeError(f"{SOLVE}: CUDA launch failed with error {err}")
     LAUNCHES[SOLVE] += 1

@@ -1,6 +1,6 @@
 """K-Means in plain PyTorch: distances, the plain Lloyd route, the loop
-skeleton, the model-sharded Lloyd on a mesh and initialisation.  The
-port of the JAX package's ``ops/kmeans_ops.py``.
+skeleton, the data-parallel and model-sharded Lloyd on a mesh and
+initialisation.  The port of the JAX package's ``ops/kmeans_ops.py``.
 
 Eager code: the Lloyd loop is a Python loop that reads the convergence
 flag once per iteration, where the JAX package ran a ``lax.while_loop``
@@ -305,6 +305,46 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     first = mesh.device((0, 0))
     full = torch.cat([centers[(0, j)].to(first) for j in range(n_model)], dim=1)
     return full, n_iter, cost[(0, 0)], counts[(0, 0)]
+
+
+def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, torch.Tensor],
+                            init_centers, max_iter: int, tol: float, mesh: Mesh,
+                            data_axis: str, mode: str = "highest",
+                            accumulate: Callable = None
+                            ) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
+    """Lloyd loop with the rows sharded over the data axis and the centers
+    replicated: ``(centers, n_iter, cost, counts)`` on the first rank's
+    device, the return contract of :func:`lloyd_run`.
+
+    Rank ``(i, 0)`` of a mesh whose model axis is 1 holds the row tile
+    ``x[(i, 0)]`` and its weights.  Each pass runs the fused kernel
+    (``accumulate``, default ``kmeans_kernel.lloyd_accumulate``) on every
+    rank's tile, then sums, counts and, in the final pass, the cost are
+    psum-ed over the data axis in rank order: the JAX package's GSPMD
+    ``lloyd_run`` on a data-parallel mesh, whose psum is XLA's and not the
+    ring.  The center update and the tolerance test are
+    :func:`_lloyd_loop`'s, on every rank's copy of the centers."""
+    from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel
+
+    accumulate = accumulate or kmeans_kernel.lloyd_accumulate
+    mode = check_mode(mode)
+    if mesh.shape[mesh.axis_names[1]] != 1:
+        raise ValueError(f"the data-parallel Lloyd runs on a model axis of 1, got {mesh.shape}")
+    c0 = torch.as_tensor(init_centers, dtype=torch.float32)
+    centers = {r: c0.to(mesh.device(r)).contiguous() for r in mesh.ranks}
+
+    def accum(c, final):
+        part = {r: accumulate(x[r], weights[r], c[r], "highest" if final else mode, final)
+                for r in mesh.ranks}
+        sums = collective.psum({r: p[0] for r, p in part.items()}, mesh, data_axis)
+        counts = collective.psum({r: p[1] for r, p in part.items()}, mesh, data_axis)
+        cost = (collective.psum({r: p[2] for r, p in part.items()}, mesh, data_axis)
+                if final else None)
+        return sums, counts, cost
+
+    centers, n_iter, cost, counts = _lloyd_loop(accum, lambda m: m, centers, max_iter, tol)
+    first = mesh.ranks[0]
+    return centers[first], n_iter, cost[first], counts[first]
 
 
 def total_cost(x, weights, centers) -> torch.Tensor:

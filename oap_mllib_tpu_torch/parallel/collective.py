@@ -1,6 +1,6 @@
 """In-process collectives over a mesh: the counterparts of the JAX
-package's ``parallel/collective.py`` ``psum`` and ``ppermute``, which
-ran inside ``shard_map`` bodies.
+package's ``parallel/collective.py`` ``psum``, ``all_gather`` and
+``ppermute``, which ran inside ``shard_map`` bodies.
 
 The port's mesh is one process holding every rank (parallel/mesh.py),
 so a collective takes the per-rank tensors of a group, each on its
@@ -62,6 +62,23 @@ def psum(parts: Dict[Rank, torch.Tensor], mesh: Mesh, axis: str
     for group in mesh.groups(axis):
         for rank, t in zip(group, psum_group([parts[r] for r in group], axis)):
             out[rank] = t
+    return out
+
+
+def all_gather(parts: Dict[Rank, torch.Tensor], mesh: Mesh, axis: str, dim: int = 0
+               ) -> Dict[Rank, torch.Tensor]:
+    """``lax.all_gather(..., tiled=True)`` over ``axis``: every rank gets
+    its group's tensors concatenated along ``dim`` in rank order, on its
+    device.  Ranks of a group that share a device share the result."""
+    out = {}
+    for group in mesh.groups(axis):
+        note("all_gather", axis)
+        built = {}
+        for rank in group:
+            dev = parts[rank].device
+            if dev not in built:
+                built[dev] = torch.cat([parts[r].to(dev) for r in group], dim=dim)
+            out[rank] = built[dev]
     return out
 
 

@@ -30,7 +30,8 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     if "," in name:
         raise ValueError(
             f"device {name!r} names a mesh; this route runs on one device "
-            "(only the K-Means fit runs on a mesh)"
+            "(the K-Means, PCA and ALS fits read a device list; a fitted "
+            "model scores on one device)"
         )
     if name == "cpu":
         return torch.device("cpu")

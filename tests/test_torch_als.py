@@ -250,8 +250,18 @@ class TestRules:
             ALS(rank=2).fit(users, items, ratings)
 
     def test_nonnegative_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ALS(nonnegative=True)
+        """``nonnegative=True``, refused here once, now fits by the numpy
+        NNLS route: factors >= 0, equal to the numpy oracle, and the
+        summary names why the fit is not accelerated."""
+        users, items, ratings = _ratings(7, nnz=400)
+        model = ALS(rank=3, max_iter=2, implicit_prefs=True, nonnegative=True,
+                    device="cpu").fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert np.all(model.user_factors_ >= 0) and np.all(model.item_factors_ >= 0)
+        x, _ = als_np.als_np(users, items, ratings, N_USERS, N_ITEMS, 3, 2, 0.1, 1.0, True,
+                             seed=0, nonnegative=True)
+        np.testing.assert_array_equal(model.user_factors_, x)
+        assert model.summary["accelerated"] is False
+        assert model.summary["reason"] == "nonnegative=True"
 
     def test_bad_params_and_knobs_raise(self):
         for kw in ({"rank": 0}, {"max_iter": -1}, {"reg_param": -1.0}, {"alpha": -1.0}):

@@ -207,20 +207,38 @@ class TestIsolation:
             if _foreign(name)
         ]
         assert len(files) > 10 and bad == []
+        checked = {p.relative_to(PKG).as_posix() for p in files if PKG in p.parents}
+        assert {"ops/als_block.py", "ops/host_prep.py", "ops/pca_ops.py",
+                "parallel/collective.py"} <= checked
+        # the native sources include nothing of the JAX package's tree
+        native = sorted(PKG.glob("csrc/**/*.c*"))
+        assert any(p.name == "grouped_prep.cpp" for p in native)
+        includes = [line for p in native for line in p.read_text().splitlines()
+                    if line.lstrip().startswith("#include")]
+        assert includes and [line for line in includes if "oap_mllib_tpu" in line] == []
 
     def test_importing_the_port_loads_no_jax(self):
+        """Importing the port and chip_smoke, and loading the host
+        library through its ctypes binding, loads nothing of JAX; the
+        library loaded is the port's own build."""
         code = (
-            "import sys, oap_mllib_tpu_torch, chip_smoke\n"
+            "import sys, numpy as np, oap_mllib_tpu_torch, chip_smoke\n"
+            "from oap_mllib_tpu_torch.ops import als_block, host_prep\n"
+            "host_prep.group_edges(np.array([1, 0]), np.array([0, 1]),\n"
+            "                      np.ones(2, np.float32), 2, 8)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oap_mllib_tpu')]\n"
             "print(bad)\n"
+            "print(host_prep._lib._name)\n"
         )
         out = subprocess.run(
             [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
             text=True, timeout=120,
         )
         assert out.returncode == 0, out.stderr
-        assert out.stdout.strip() == "[]"
+        lines = out.stdout.strip().splitlines()
+        assert lines[0] == "[]"
+        assert Path(lines[1]).parent == PKG / "build"
 
 
 class TestChipSmokeRehearsal:

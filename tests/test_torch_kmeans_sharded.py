@@ -198,9 +198,18 @@ class TestMeshFitMatchesJax:
 
 class TestMeshRules:
     def test_data_parallel_mesh_is_not_ported(self):
+        """The data-parallel mesh this test once saw refused now fits: a
+        device list with ``model_parallel=1`` takes the row-sharded route
+        (the kernel wrapper on every rank, no ring) and agrees with the
+        one-device fit."""
         x, _, _ = _blobs(4, n=200)
-        with pytest.raises(NotImplementedError, match="A7"):
-            KMeans(k=3, device=CPU8).fit(x)
+        kw = dict(k=3, seed=2, init_mode="random")
+        mesh_fit = KMeans(device=CPU8, **kw).fit(x)
+        one = KMeans(device="cpu", **kw).fit(x)
+        assert mesh_fit.summary.mesh == {"data": 8, "model": 1}
+        assert mesh_fit.summary.ring is False
+        assert mesh_fit.summary.num_iter == one.summary.num_iter
+        np.testing.assert_allclose(mesh_fit.cluster_centers_, one.cluster_centers_, atol=1e-5)
 
     def test_ring_typo_raises_at_fit(self):
         x, _, _ = _blobs(5, n=200)
