@@ -4,7 +4,7 @@
     python3 chip_smoke.py              # on a machine with the card
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, tiny
     python3 chip_smoke.py --mesh       # only the phases whose ranks span cards
-                                       # (4's last card, 10-14)
+                                       # (4's last card, 10-14, 19)
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -95,6 +95,49 @@ Phases, each a hard check (any failure exits non-zero):
 14. pca_mesh_fit (the PCA path on a mesh): ``PCA(k=16)`` at 2^20 x 128
    on (4, 1) and (2, 2) against the one-device fit (components 1e-4
    sign-insensitively, ratios 1e-5): 8 and 0 K2 launches.
+15. stream_kmeans (the streamed K-Means path): the headline table as a
+   ``ChunkSource`` of 65,536 rows; ``lloyd_run_streamed`` against the
+   one-device ``lloyd_run_kernel`` from centers near the blob centers
+   (equal iterations, centers 1e-4, cost 1e-5), K1 launched chunks x
+   (iterations + 1) times; the table less its last 12,345 rows (a
+   padded last chunk): K1 on its first and last staged chunks against
+   the plain version, the padding of no weight (counts, and the cost of
+   the valid rows alone), and a streamed cost pass over it against the
+   one-device pass (sums 1e-4, counts equal, cost 1e-5); one pass's
+   wall, stage / transfer / compute split, the card's idle share
+   (torch.profiler) and bound (the larger of its bytes over the pinned
+   host-to-device rate this run measures, one 1 GB copy, and K1's
+   summed bound); the bare source walk (the first host copy); then ``KMeans(k=1000, max_iter=5).fit(source)``
+   with its phases and route.
+16. stream_route: ``KMeans.fit(ndarray)`` with ``memory_budget_hbm`` one
+   byte below the planner's estimate of the in-memory route streams and
+   gives the source fit's result; ``plan_kmeans`` / ``plan_pca`` of a
+   2^27 x 256 f32 table (128 GB) under the detected budget say
+   "streamed" (the planner alone).
+17. stream_pca: the PCA table as a source: K2 launched 2 x chunks times,
+   components within 1e-5 (sign-insensitive) and ratios within 1e-5 of
+   the in-memory fit; the same under the bf16 policy against the
+   in-memory bf16 fit, within the JAX package's registered bf16 bounds
+   (subspace 5e-2 rad, ratios 1e-2); at each policy K2 on the first and
+   the padded last staged chunk of the table less its last 12,345 rows,
+   both passes, against the plain version (the count equal to the valid
+   rows), and that table's streamed f32 fit against its in-memory fit
+   (1e-5); the two passes' split and bound.
+18. stream_als: the implicit ML-25M fit routed streamed by a card budget
+   one byte below the in-memory estimate: K3 = K4 = 20, within 1e-5 of
+   the in-memory fit in prediction space, iterations/s beside it, one
+   iteration's split and bound; a triples ``ChunkSource`` fit on a small
+   table against its array fit.
+19. als_block_2d (the 2-D ALS layout): rank 32 at the ML-25M shape on
+   four ranks with ``als_item_layout="auto"`` (the summary says
+   "sharded"), against the one-device rank-32 fit in prediction space
+   (1e-4); K3 = K4 = 2 x 4 x 10; K3 and K4 at its per-rank shapes (rank
+   0's user and item half-updates from the fitted factors) against their
+   plain versions, the solve bit-equal; iterations/s and each card's
+   peak memory beside the replicated layout's.  ``--mesh`` runs it on
+   four cards.
+20. sparse_input: a SciPy CSR table through ``KMeans.fit`` and
+   ``PCA.fit``, bit-equal to the fits of its dense copy.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -118,14 +161,19 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch import ALS, PCA, KMeans, get_mesh, set_config
+from oap_mllib_tpu_torch.data.prefetch import PrefetchStats
+from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import ShardedTable
 from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
-from oap_mllib_tpu_torch.ops import als_block, als_ops, kmeans_ops, pca_ops
+from oap_mllib_tpu_torch.ops import als_block, als_ops, als_stream, kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kernel, pca_kernel,
                                           ring_kernel)
+from oap_mllib_tpu_torch.utils import membudget
+from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.timing import Timings
 
 FULL = {"n": 1 << 20, "d": 256, "k": 1000}
 TINY = {"n": 4133, "d": 29, "k": 11}
@@ -167,10 +215,22 @@ PCA_TINY = {"shapes": [(3001, 37), (777, 140)], "k": 5}
 PCA_SMALL = ((1000, 5), (3001, 37), (4099, 64), (2000, 67), (777, 140), (513, 300))
 ALS_FULL = {"n_users": 162_541, "n_items": 59_047, "nnz": 25_000_000,
             "rank": 10, "alpha": 40.0, "reg": 0.1, "max_iter": 10,
-            "explicit_iter": 3, "ranks": (10, 32)}
+            "explicit_iter": 3, "ranks": (10, 32), "wide_rank": 32, "layout_2d": "auto"}
 ALS_TINY = {"n_users": 700, "n_items": 300, "nnz": 20_000, "rank": 10,
             "alpha": 40.0, "reg": 0.1, "max_iter": 3, "explicit_iter": 2,
-            "ranks": (10, 32)}
+            "ranks": (10, 32), "wide_rank": 32, "layout_2d": "sharded"}
+# the streamed paths: the headline K-Means table in 65,536-row chunks
+# (the default width), a five-iteration streamed fit (each pass walks
+# the 1 GB table through the host); the PCA table; the sparse table
+# the ragged checks drop the table's last ``cut`` rows, so its last chunk
+# is part padding (weight 0)
+STREAM_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "chunk_rows": 1 << 16, "fit_iter": 5,
+               "cut": 12_345}
+STREAM_TINY = {"n": 4133, "d": 29, "k": 11, "chunk_rows": 1024, "fit_iter": 3, "cut": 345}
+STREAM_PCA_FULL = {"shapes": [(1 << 20, 128)], "k": 16, "chunk_rows": 1 << 16, "cut": 12_345}
+STREAM_PCA_TINY = {"shapes": [(3001, 37)], "k": 5, "chunk_rows": 1024, "cut": 345}
+SPARSE_FULL = {"n": 1 << 16, "d": 256, "k": 100, "pca_k": 16}
+SPARSE_TINY = {"n": 2000, "d": 40, "k": 6, "pca_k": 4}
 # PCA moments: colsum/count against the plain version; the Gram by tier
 # against the array scale (default sums bf16-rounded products)
 PCA_SUM_RTOL = 1e-6
@@ -1450,6 +1510,612 @@ def phase_als_block_fit(cfg, data, dev, one_device):
     return fit
 
 
+# -- out of core: the streamed routes and the 2-D ALS layout ------------------
+
+def pinned_h2d_rate(dev, nbytes=1 << 30):
+    """Bytes per second of one ``nbytes`` copy from pinned host memory to
+    the card (CUDA events, the mean of three after a warm one); None in
+    a rehearsal."""
+    if dev.type != "cuda":
+        return None
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ms = time_ms(lambda: dst.copy_(host, non_blocking=True), dev, reps=3)
+    del host, dst
+    return nbytes / (ms / 1e3)
+
+
+def stream_profile(fn, dev):
+    """One call of ``fn`` under torch.profiler: the card's kernel time
+    (the compute stream's busy time), its copy time (the side stream's
+    host-to-device copies) and the compute stream's idle share of the
+    call's wall; None on the CPU or where the profiler records nothing."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        evs = [ev for ev in prof.events() if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+        if evs:
+            break
+    if not evs:
+        return None
+    copy = sum(ev.time_range.elapsed_us() for ev in evs if "memcpy" in ev.name.lower()) / 1e3
+    compute = sum(ev.time_range.elapsed_us() for ev in evs
+                  if "memcpy" not in ev.name.lower()) / 1e3
+    return {"profiled_wall_ms": wall, "kernel_ms": compute, "copy_ms": copy,
+            "idle_share": max(0.0, 1.0 - compute / wall)}
+
+
+def stream_pass(run, phase, dev, nbytes, kernel_bound_ms, rate):
+    """One streamed pass, ``run(timings)``: its wall, the prefetch split
+    it recorded under ``phase``, the card's idle share while it ran
+    (a second, profiled call), and its bound: the larger of its bytes
+    over the measured pinned host-to-device rate and the summed bound of
+    its kernel launches."""
+    t = Timings()
+    sync(dev)
+    t0 = time.perf_counter()
+    run(t)
+    sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    copy_ms = nbytes / rate * 1e3 if rate else None
+    return {"wall_ms": wall, "split_ms": {k: v * 1e3 for k, v in t.subphases(phase).items()},
+            "overlap_efficiency": t.overlap_efficiency(phase),
+            "profile": stream_profile(lambda: run(None), dev), "bytes": nbytes,
+            "bound_ms": max(copy_ms or 0.0, kernel_bound_ms),
+            "bound_by": ("host-to-device copy" if (copy_ms or 0.0) >= kernel_bound_ms
+                         else "kernels"),
+            "copy_bound_ms": copy_ms, "kernel_bound_ms": kernel_bound_ms}
+
+
+def source_walk_ms(src):
+    """Host ms of one bare walk of a source (its chunks copied into fresh
+    buffers, nothing staged): the first of the two host copies a pass
+    makes; the pinned copy is the prefetch ``transfer`` split."""
+    t0 = time.perf_counter()
+    for _ in src:
+        pass
+    return (time.perf_counter() - t0) * 1e3
+
+
+def pred_rel_err(model, ref, n_users, dev):
+    """Relative difference of two ALS fits in prediction space on users
+    0..4095 x every item, on the card."""
+    q = np.arange(min(4096, n_users))
+    got = (torch.as_tensor(model.user_factors_[q], device=dev)
+           @ torch.as_tensor(model.item_factors_, device=dev).T)
+    want = (torch.as_tensor(ref.user_factors_[q], device=dev)
+            @ torch.as_tensor(ref.item_factors_, device=dev).T)
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def staged_ends(src, dev, stage_dtype=torch.float32):
+    """The first and the last chunk of ``src`` as a streamed pass stages
+    them (pinned buffers, the side stream): ``[(x, w, n_valid), ...]``
+    on ``dev``, x widened to f32 as the kernels take it, cloned."""
+    last = -(-src.n_rows // src.chunk_rows) - 1
+    ends = []
+    with stream_ops._staged_chunks(src, None, dev, PrefetchStats(), stage_dtype) as pf:
+        for i, ((_, n_valid, _), (x, w)) in enumerate(pf):
+            if i in (0, last):
+                ends.append((stream_ops._f32(x).clone(), w.clone(), n_valid))
+    return ends
+
+
+def stream_chunk_checks(src, c, dev):
+    """K1 on a full and a ragged staged chunk against its plain version
+    (:func:`compare`, loop and cost mode at highest, as the streamed loop
+    and its cost pass run it); on the ragged one the padding must carry
+    no weight: the counts sum to its valid rows, and its cost is the
+    plain version's on the valid rows alone (1e-4, the highest tier's
+    cost gate)."""
+    out = []
+    for x, w, n_valid in staged_ends(src, dev):
+        for need_cost in (False, True):
+            v = compare(x, w, c, "highest", need_cost)
+            v.update(rows=int(x.shape[0]), n_valid=n_valid)
+            out.append(v)
+        _, counts, cost = kmeans_kernel.lloyd_accumulate(x, w, c, "highest", True)
+        _, _, ref = kmeans_kernel.lloyd_accumulate_plain(x[:n_valid], w[:n_valid], c,
+                                                         "highest", True)
+        err = abs(float(cost) - float(ref)) / max(abs(float(ref)), 1e-30)
+        check(float(counts.sum()) == n_valid and err <= 1e-4,
+              f"K1 on a chunk of {n_valid} valid rows: counts sum {float(counts.sum())}, "
+              f"cost {err:.3g} from the valid rows' cost")
+        out[-1]["cost_vs_valid_rows_rel_err"] = err
+    return out
+
+
+def phase_stream_kmeans(cfg, dev):
+    """The streamed K-Means path on the headline table as a
+    ``ChunkSource`` of ``chunk_rows`` rows: ``lloyd_run_streamed`` and the
+    one-device ``lloyd_run_kernel`` from the same centers near the blob
+    centers (equal iterations, centers within 1e-4, cost within 1e-5),
+    K1 launched chunks x (iterations + 1) times; one loop pass's split,
+    idle share and bound; then ``KMeans(...).fit(source)`` with its
+    phases and route.  Returns what the route and sparse phases reuse."""
+    n, d, k, rows = cfg["n"], cfg["d"], cfg["k"], cfg["chunk_rows"]
+    x, _, c0 = blobs(n, d, k, dev, seed=0)
+    host = x.cpu().numpy()
+    src = ChunkSource.from_array(host, chunk_rows=rows)
+    chunks = -(-n // src.chunk_rows)
+    ones = torch.ones(n, device=dev)
+    c1, it1, cost1, _ = kmeans_kernel.lloyd_run_kernel(x, ones, c0, 20, 1e-4)
+    kmeans_kernel.reset_launches()
+    t0 = time.perf_counter()
+    c2, it2, cost2, _ = stream_ops.lloyd_run_streamed(src, c0, 20, 1e-4)
+    sync(dev)
+    loop_s = time.perf_counter() - t0
+    launches = dict(kmeans_kernel.LAUNCHES)
+    expect = chunks * (it2 + 1) if dev.type == "cuda" else 0
+    c_err = _rel_err(c2, c1)
+    cost_err = abs(float(cost2) - float(cost1)) / float(cost1)
+    check(it1 == it2, f"streamed loop: {it2} iterations, one-device kernel loop {it1}")
+    check(c_err <= 1e-4, f"streamed loop: centers rel err {c_err:.3g}")
+    check(cost_err <= 1e-5, f"streamed loop: cost rel err {cost_err:.3g}")
+    check(launches[kmeans_kernel.KERNEL] == expect,
+          f"streamed loop: K1 launched {launches[kmeans_kernel.KERNEL]} times, expected "
+          f"chunks x (iterations + 1) = {expect}")
+    # a table whose length is no multiple of the chunk width: K1 on its
+    # first and its padded last chunk against the plain version, and a
+    # whole streamed cost pass against the one-device pass on its rows
+    nr = n - cfg["cut"]
+    ragged = ChunkSource.from_array(host[:nr], chunk_rows=rows)
+    chunk_checks = stream_chunk_checks(ragged, c2, dev)
+    s_r, n_r, t_r = stream_ops.streamed_accumulate(ragged, c2, "highest", True)
+    s_1, n_1, t_1 = kmeans_kernel.lloyd_accumulate(x[:nr], ones[:nr], c2, "highest", True)
+    ragged_pass = {"rows": nr,
+                   "tail_valid": nr - (nr - 1) // ragged.chunk_rows * ragged.chunk_rows,
+                   "sums_rel_err": _rel_err(s_r, s_1),
+                   "counts_equal": bool(torch.equal(n_r, n_1)),
+                   "cost_rel_err": abs(float(t_r) - float(t_1)) / float(t_1)}
+    check(ragged_pass["sums_rel_err"] <= RTOL["highest"] and ragged_pass["counts_equal"]
+          and ragged_pass["cost_rel_err"] <= 1e-5,
+          f"streamed pass over {nr} rows vs the one-device pass: {ragged_pass}")
+    del c1, ones, x, s_r, s_1
+    rate = pinned_h2d_rate(dev)
+    k_bound = chunks * bound(src.chunk_rows, d, k, "highest")[0]
+    lloyd_pass = stream_pass(
+        lambda t: stream_ops.streamed_accumulate(src, c2, "highest", False, timings=t,
+                                                 phase="pass"),
+        "pass", dev, chunks * src.chunk_rows * (d + 1) * 4, k_bound, rate)
+    walk = source_walk_ms(src)
+
+    kmeans_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model = KMeans(k=k, max_iter=cfg["fit_iter"], tol=1e-4, seed=0, device=str(dev)).fit(src)
+    wall = time.perf_counter() - t0
+    fit_launches = dict(kmeans_kernel.LAUNCHES)
+    s = model.summary
+    check(s.streamed and s.route["route"] == "streamed", f"streamed fit route {s.route}")
+    check(s.kernels == fit_launches, f"summary kernels {s.kernels} != counters {fit_launches}")
+    check(fit_launches[kmeans_kernel.KERNEL] == (chunks * (s.num_iter + 1)
+                                                 if dev.type == "cuda" else 0),
+          f"streamed fit: K1 launched {fit_launches[kmeans_kernel.KERNEL]} times")
+    check(np.isfinite(s.training_cost) and np.all(np.isfinite(model.cluster_centers_))
+          and abs(float(np.sum(s.cluster_sizes)) - n) <= 1e-3 * n,
+          "streamed fit: non-finite output or cluster sizes off")
+    phases = s.timings.as_dict()
+    out = {"shape": [n, d], "k": k, "chunk_rows": src.chunk_rows, "chunks": chunks,
+           "h2d_pinned_gb_s": rate / 1e9 if rate else None,
+           "loop": {"n_iter": it2, "centers_rel_err": c_err, "cost_rel_err": cost_err,
+                    "launches": launches, "iters_per_s": it2 / loop_s},
+           "chunk_checks": chunk_checks, "ragged_pass": ragged_pass,
+           "lloyd_pass": lloyd_pass, "source_walk_ms": walk,
+           "fit": {"wall_s": wall, "phases_s": phases, "num_iter": s.num_iter,
+                   "training_cost": s.training_cost, "launches": fit_launches,
+                   "route": s.route, "iters_per_s": s.num_iter / phases["lloyd_loop"],
+                   "init_split": s.timings.subphases("init_centers"),
+                   "lloyd_split": s.timings.subphases("lloyd_loop")}}
+    emit("stream_kmeans", out)
+    return out, host, model
+
+
+def phase_stream_route(cfg, host, streamed, dev):
+    """The route planner: ``KMeans.fit(ndarray)`` with the card budget one
+    byte below ``plan_kmeans``'s estimate of the natural route takes the
+    streamed route and gives the fit of the source fit (its chunks have
+    the same width); for a 2^27 x 256 f32 table (128 GB, beyond the
+    card) ``plan_kmeans`` and ``plan_pca`` under the detected budget say
+    "streamed" (the planner alone: nothing is allocated)."""
+    n, d, k = cfg["n"], cfg["d"], cfg["k"]
+    hint = kmeans_ops.auto_row_chunks(n, k)
+    plan = membudget.plan_kmeans(n, d, k, row_chunks_hint=hint, device=dev)
+    natural = plan.estimate_for(plan.natural).hbm_bytes
+    set_config(memory_budget_hbm=str(natural - 1))
+    try:
+        kmeans_kernel.reset_launches()
+        t0 = time.perf_counter()
+        model = KMeans(k=k, max_iter=cfg["fit_iter"], tol=1e-4, seed=0,
+                       device=str(dev)).fit(host)
+        wall = time.perf_counter() - t0
+        launches = dict(kmeans_kernel.LAUNCHES)
+    finally:
+        set_config(memory_budget_hbm="")
+    s = model.summary
+    check(s.streamed and s.route["route"] == "streamed" and s.route["degraded_scale"],
+          f"a budget below the in-memory estimate did not stream: {s.route}")
+    width = ChunkSource.from_array(host[:1], chunk_rows=s.route["chunk_rows"]).chunk_rows
+    if width != streamed.summary.route["chunk_rows"]:
+        # a rehearsal's source fit ran at another width: refit at this one
+        streamed = KMeans(k=k, max_iter=cfg["fit_iter"], tol=1e-4, seed=0, device=str(dev)).fit(
+            ChunkSource.from_array(host, chunk_rows=width))
+    ref = streamed.summary
+    c_err = float(np.max(np.abs(model.cluster_centers_ - streamed.cluster_centers_))
+                  / max(np.max(np.abs(streamed.cluster_centers_)), 1e-30))
+    check(s.num_iter == ref.num_iter and c_err <= 1e-6
+          and abs(s.training_cost - ref.training_cost) <= 1e-6 * ref.training_cost,
+          f"routed fit vs the source fit: {s.num_iter} / {ref.num_iter} iterations, "
+          f"centers {c_err:.3g}")
+    big = 1 << 27
+    km = membudget.plan_kmeans(big, d, k, row_chunks_hint=kmeans_ops.auto_row_chunks(big, k),
+                               device=dev)
+    pc = membudget.plan_pca(big, d, device=dev)
+    if dev.type == "cuda":
+        check(km.route == "streamed" and pc.route == "streamed",
+              f"a 128 GB table planned {km.route} / {pc.route}")
+    out = {"budget_hbm": natural - 1, "route": s.route, "wall_s": wall,
+           "phases_s": s.timings.as_dict(), "launches": launches,
+           "centers_rel_err_vs_source_fit": c_err,
+           "big_table": {"shape": [big, d], "kmeans": km.as_dict(), "pca": pc.as_dict()}}
+    emit("stream_route", out)
+    return out
+
+
+def pca_chunk_checks(src, dev, policy):
+    """K2 on a full and a ragged staged chunk (staged at the policy's
+    dtype) against its plain version at the policy's tier, both passes:
+    column sums and count within PCA_SUM_RTOL, the count equal to the
+    chunk's valid rows (the padding carries weight 0), the Gram about
+    the table's mean within PCA_GRAM_RTOL."""
+    tier = psn.kernel_tier(policy, "highest")
+    out = []
+    for x, w, n_valid in staged_ends(src, dev, psn.staging_dtype(policy)):
+        _, cs, cnt = pca_kernel.pca_moments(x, w, None, tier, need_gram=False)
+        _, cs_p, cnt_p = pca_kernel.pca_moments_plain(x, w, None, tier, need_gram=False)
+        mean = cs_p / max(float(cnt_p), 1.0)
+        g, _, _ = pca_kernel.pca_moments(x, w, mean, tier, need_sums=False)
+        g_p, _, _ = pca_kernel.pca_moments_plain(x, w, mean, tier, need_sums=False)
+        v = {"policy": policy, "tier": tier, "rows": int(x.shape[0]), "n_valid": n_valid,
+             "count": float(cnt), "colsum_rel_err": _rel_err(cs, cs_p),
+             "gram_rel_err": _rel_err(g, g_p),
+             "max_abs_err": float(torch.max(torch.abs(g - g_p)))}
+        check(v["colsum_rel_err"] <= PCA_SUM_RTOL and float(cnt) == n_valid
+              and v["gram_rel_err"] <= PCA_GRAM_RTOL[tier],
+              f"K2 on a staged chunk of {n_valid} valid rows: {v}")
+        out.append(v)
+    return out
+
+
+def phase_stream_pca(cfg, dev, rate):
+    """The streamed PCA path: the PCA table as a ``ChunkSource``, K2 on
+    every chunk of both passes (2 x chunks launches), components within
+    1e-5 sign-insensitively and ratios within 1e-5 of the in-memory fit;
+    the same under the bf16 policy against the in-memory bf16 fit, within
+    the JAX package's registered bf16 bounds for PCA (the subspace angle
+    5e-2 rad, the ratios 1e-2), which the in-memory bf16 fit also meets
+    against the f32 one."""
+    (n, d), k, rows = cfg["shapes"][0], cfg["k"], cfg["chunk_rows"]
+    x = pca_data(n, d, dev, seed=d)
+    host = x.cpu().numpy()
+    src = ChunkSource.from_array(host, chunk_rows=rows)
+    chunks = -(-n // src.chunk_rows)
+    nr = n - cfg["cut"]
+    ragged = ChunkSource.from_array(host[:nr], chunk_rows=rows)
+    out = {"shape": [n, d], "k": k, "chunk_rows": src.chunk_rows, "chunks": chunks}
+    for policy in ("f32", "bf16"):
+        set_config(compute_precision=policy)
+        try:
+            resident = PCA(k=k, device=str(dev)).fit(x)
+            pca_kernel.reset_launches()
+            t0 = time.perf_counter()
+            model = PCA(k=k, device=str(dev)).fit(src)
+            wall = time.perf_counter() - t0
+            launches = dict(pca_kernel.LAUNCHES)
+        finally:
+            set_config(compute_precision="f32")
+        s = model.summary
+        check(s["streamed"] and s["route"]["route"] == "streamed" and s["n_rows"] == n,
+              f"streamed PCA summary {s.get('route')}")
+        expect = 2 * chunks if dev.type == "cuda" else 0
+        check(launches[pca_kernel.KERNEL] == expect and s["kernels"] == launches,
+              f"streamed PCA: K2 launched {launches[pca_kernel.KERNEL]} times, expected {expect}")
+        keep = resident.explained_variance_ > 1e-5
+        comp_err = sign_err(model.components_[:, keep], resident.components_[:, keep])
+        ratio_err = float(np.max(np.abs(model.explained_variance_
+                                        - resident.explained_variance_)))
+        sv = np.linalg.svd(model.components_.T @ resident.components_, compute_uv=False)
+        angle = float(np.arccos(np.clip(sv.min(), 0.0, 1.0)))
+        if policy == "f32":
+            check(comp_err <= 1e-5 and ratio_err <= 1e-5,
+                  f"streamed PCA vs in-memory: components {comp_err:.3g}, ratios {ratio_err:.3g}")
+            f32_resident = resident
+        else:
+            sv32 = np.linalg.svd(resident.components_.T @ f32_resident.components_,
+                                 compute_uv=False)
+            angle32 = float(np.arccos(np.clip(sv32.min(), 0.0, 1.0)))
+            ratio32 = float(np.max(np.abs(resident.explained_variance_
+                                          - f32_resident.explained_variance_)))
+            check(angle <= 5e-2 and ratio_err <= 1e-2,
+                  f"streamed bf16 PCA vs in-memory bf16: angle {angle:.3g}, ratios {ratio_err:.3g}")
+            check(angle32 <= 5e-2 and ratio32 <= 1e-2,
+                  f"in-memory bf16 PCA vs f32: angle {angle32:.3g}, ratios {ratio32:.3g}")
+        v = {"wall_s": wall, "phases_s": s["timings"].as_dict(), "launches": launches,
+             "components_err": comp_err, "ratio_err": ratio_err, "subspace_rad": angle,
+             "route": s["route"], "resident_wall_s": sum(resident.summary["timings"]
+                                                         .as_dict().values())}
+        if policy == "bf16":
+            v.update(resident_vs_f32={"subspace_rad": angle32, "ratio_err": ratio32})
+        v["chunk_checks"] = pca_chunk_checks(ragged, dev, policy)
+        out[policy] = v
+    # the ragged table streamed against its in-memory fit, at the f32 gates
+    streamed_r = PCA(k=k, device=str(dev)).fit(ragged)
+    resident_r = PCA(k=k, device=str(dev)).fit(x[:nr])
+    keep = resident_r.explained_variance_ > 1e-5
+    out["ragged_fit"] = {
+        "rows": nr, "components_err": sign_err(streamed_r.components_[:, keep],
+                                               resident_r.components_[:, keep]),
+        "ratio_err": float(np.max(np.abs(streamed_r.explained_variance_
+                                         - resident_r.explained_variance_)))}
+    check(streamed_r.summary["n_rows"] == nr and out["ragged_fit"]["components_err"] <= 1e-5
+          and out["ragged_fit"]["ratio_err"] <= 1e-5,
+          f"streamed PCA of {nr} rows vs in-memory: {out['ragged_fit']}")
+    k_bound = chunks * (pca_bound(src.chunk_rows, d, "highest", False)[0]
+                        + pca_bound(src.chunk_rows, d, "highest", True)[0])
+    out["passes"] = stream_pass(
+        lambda t: stream_ops.covariance_streamed(src, "highest", t, device=dev),
+        "covariance_streamed", dev, 2 * chunks * src.chunk_rows * (d + 1) * 4, k_bound, rate)
+    emit("stream_pca", out)
+    return out
+
+
+def phase_stream_als(cfg, data, dev, resident, rate):
+    """The streamed ALS path: the implicit fit routed streamed by a card
+    budget one byte below the in-memory estimate, counts zeroed just
+    before: K3 and K4 twice an iteration; held against the in-memory fit
+    of ``als_fit`` (the same numpy-seeded init) in prediction space on
+    its user sample within 1e-5; iterations/s beside it; one
+    iteration's split, idle share and bound.  Then a triples
+    ``ChunkSource`` fit on a small table against its array fit."""
+    users, items, ratings = data
+    n_users, n_items, r, it = cfg["n_users"], cfg["n_items"], cfg["rank"], cfg["max_iter"]
+    plan = membudget.plan_als(len(users), n_users, n_items, r, device=dev)
+    budget = plan.estimate_for("in-memory").hbm_bytes - 1
+    set_config(memory_budget_hbm=str(budget))
+    try:
+        als_kernel.reset_launches()
+        t0 = time.perf_counter()
+        model = ALS(rank=r, max_iter=it, reg_param=cfg["reg"], implicit_prefs=True,
+                    alpha=cfg["alpha"], seed=0, device=str(dev)).fit(
+            users, items, ratings, n_users, n_items)
+        wall = time.perf_counter() - t0
+        launches = dict(als_kernel.LAUNCHES)
+    finally:
+        set_config(memory_budget_hbm="")
+    s = model.summary
+    check(s.get("streamed") and s["route"]["route"] == "streamed",
+          f"streamed ALS route {s.get('route')}")
+    expect = 2 * it if dev.type == "cuda" else 0
+    check(launches == {als_kernel.SOLVE: expect, als_kernel.GRAM: expect} == s["kernels"],
+          f"streamed ALS launches {launches}, expected {expect} of each")
+    err = pred_rel_err(model, resident, n_users, dev)
+    check(err <= 1e-5, f"streamed ALS vs in-memory: prediction rel err {err:.3g}")
+    bit_equal = bool(np.array_equal(model.user_factors_, resident.user_factors_)
+                     and np.array_equal(model.item_factors_, resident.item_factors_))
+    phases = s["timings"].as_dict()
+    rphases = resident.summary["timings"].as_dict()
+    by_user = als_ops.build_grouped_edges(users, items, ratings, n_users)
+    by_item = als_ops.build_grouped_edges(items, users, ratings, n_items)
+    x0, y0 = als_np.init_factors(n_users, r, 0), als_np.init_factors(n_items, r, 1)
+    nbytes = sum(a.nbytes for side in (by_user, by_item) for a in side[:3])
+    k_bound = (solve_bound(n_users, r, True)[0] + solve_bound(n_items, r, True)[0]
+               + gram_bound(n_users, r)[0] + gram_bound(n_items, r)[0])
+    iteration = stream_pass(
+        lambda t: als_stream.als_run_streamed(by_user, by_item, x0, y0, n_users, n_items, 1,
+                                              cfg["reg"], cfg["alpha"], True, t, device=dev),
+        "als_iterations", dev, nbytes, k_bound, rate)
+    del by_user, by_item
+
+    rng = np.random.default_rng(5)
+    su, si = rng.integers(700, size=20_000), rng.zipf(1.3, size=20_000) % 300
+    sr = (rng.random(20_000) * 4 + 1).astype(np.float32)
+    src = ChunkSource.from_array(np.stack([su, si, sr], 1).astype(np.float64),
+                                 chunk_rows=4096)
+    kw = dict(rank=r, max_iter=3, reg_param=cfg["reg"], implicit_prefs=True,
+              alpha=cfg["alpha"], seed=0, device=str(dev))
+    als_kernel.reset_launches()
+    sfit = ALS(**kw).fit(src, n_users=700, n_items=300)
+    src_launches = dict(als_kernel.LAUNCHES)
+    afit = ALS(**kw).fit(su, si, sr, 700, 300)
+    src_err = _rel_err(torch.as_tensor(sfit.user_factors_ @ sfit.item_factors_.T),
+                       torch.as_tensor(afit.user_factors_ @ afit.item_factors_.T))
+    check(sfit.summary.get("streamed") and src_err <= 1e-5,
+          f"triples source fit vs array fit: {src_err:.3g}")
+    out = {"n_users": n_users, "n_items": n_items, "nnz": len(users), "rank": r,
+           "budget_hbm": budget, "wall_s": wall, "phases_s": phases, "launches": launches,
+           "iters_per_s": it / phases["als_iterations"],
+           "resident_iters_per_s": it / rphases["als_iterations"],
+           "pred_rel_err_vs_resident": err, "bit_equal_to_resident": bit_equal,
+           "route": s["route"], "iteration": iteration,
+           "source_fit": {"pred_rel_err_vs_array_fit": src_err, "launches": src_launches}}
+    emit("stream_als", out)
+    return out
+
+
+def block_rows(table, offsets, per, dev):
+    """Rows ``[offsets[b], offsets[b + 1])`` of ``table`` as block b, zero
+    padded to ``per`` rows (the 2-D layout's factor blocks)."""
+    out = []
+    for b in range(len(offsets) - 1):
+        blk = np.zeros((per, table.shape[1]), np.float32)
+        blk[: offsets[b + 1] - offsets[b]] = table[offsets[b]:offsets[b + 1]]
+        out.append(torch.from_numpy(blk).to(dev))
+    return out
+
+
+def solve_check(tag, a, b, n_reg, reg, gram):
+    """K3 against its plain version on one rank's inputs, as
+    :func:`phase_als_kernels` holds it: two launches equal, the rows with
+    no ratings 0, bit-equal to the plain version on the rest."""
+    valid = n_reg > 0
+    w = als_kernel.solve_normal_eq(a, b, n_reg, reg, gram)
+    same = torch.equal(w, als_kernel.solve_normal_eq(a, b, n_reg, reg, gram))
+    w_p = als_kernel.solve_plain(a, b, n_reg, reg, gram)
+    err = _rel_err(w[valid], w_p[valid])
+    bit_equal = torch.equal(w[valid], w_p[valid])
+    check(same and bool(torch.all(w[~valid] == 0)), f"{tag}: launches differ or empty rows not 0")
+    check(bool(torch.all(torch.isfinite(w))) and err <= SOLVE_RTOL and bit_equal,
+          f"{tag}: rel err {err:.3g}, bit-equal {bit_equal}")
+    return {"systems": int(b.shape[0]), "r": int(b.shape[1]), "rel_err": err,
+            "bit_equal": bit_equal, "max_abs_err": float(torch.max(torch.abs(w - w_p)))}
+
+
+def gram_check(tag, f):
+    """K4 against its plain version on one rank's factor block (1e-5),
+    deterministic and bit-symmetric."""
+    g = als_kernel.factor_gram(f)
+    same = torch.equal(g, als_kernel.factor_gram(f))
+    g_p = als_kernel.factor_gram_plain(f)
+    err = _rel_err(g, g_p)
+    check(same and (f.device.type != "cuda" or torch.equal(g, g.T)) and err <= 1e-5,
+          f"{tag}: rel err {err:.3g}, deterministic {same}")
+    return {"rows": int(f.shape[0]), "r": int(f.shape[1]), "rel_err": err,
+            "max_abs_err": float(torch.max(torch.abs(g - g_p)))}
+
+
+def block_2d_kernel_checks(cfg, data, model, devs):
+    """K3 and K4 at the 2-D layout's per-rank shapes: the sides built as
+    the fit builds them (the shuffles by user and by item block), the
+    fitted factors cut into blocks; rank 0's user and item half-updates
+    (its destinations, the other side's gathered blocks, the psum of the
+    block Grams) against the plain versions."""
+    users, items, ratings = data
+    n_users, n_items, r, world = cfg["n_users"], cfg["n_items"], cfg["wide_rank"], len(devs)
+    mesh = get_mesh(devices=resolve_devices(",".join(str(v) for v in devs)), model_parallel=1)
+    by_user = als_block.prepare_block_inputs(users, items, ratings, world, n_users)
+    by_item = als_block.prepare_block_inputs(items, users, ratings, world, n_items)
+    grouped, sizes = als_block.block_grouped_guard_2d(users, items, n_users, n_items, world)
+    sides = (als_block.prepare_grouped_inputs_2d(by_user, by_item, mesh, r, sizes) if grouped
+             else als_block.prepare_coo_inputs_2d(by_user, by_item, mesh, r))
+    q0 = als_block.data_ranks(mesh)[0]
+    on = mesh.device(q0)
+    xb = block_rows(model.user_factors_, by_user.offsets, by_user.upb, on)
+    yb = block_rows(model.item_factors_, by_item.offsets, by_item.upb, on)
+    out = {"layout": "grouped" if grouped else "coo"}
+    for name, side, src in (("users", sides.users[q0], yb), ("items", sides.items[q0], xb)):
+        gram = sum(als_kernel.factor_gram_plain(f) for f in src)
+        a, b, n_reg = side.partials(torch.cat(src), cfg["alpha"], True, "f32")
+        out[name] = {"solve": solve_check(f"2-D rank 0 {name} solve", a, b, n_reg, cfg["reg"],
+                                          gram),
+                     "gram": gram_check(f"2-D rank 0 {name} source block Gram", src[0])}
+        del a, b, n_reg
+    del sides
+    return out
+
+
+def phase_als_block_2d(cfg, data, dev):
+    """The 2-D ALS item layout: implicit rank 32 at the ML-25M shape on four
+    ranks (distinct cards when the machine has four) with the default
+    ``als_item_layout="auto"``, which shards the items past the
+    crossover; counts zeroed just before: K3 = K4 = 2 x 4 x max_iter.
+    Held against the one-device rank-32 fit in prediction space on 4096
+    users within 1e-4 (the block phase's gate); iterations/s; the peak
+    memory of each card against the replicated layout's."""
+    users, items, ratings = data
+    n_users, n_items, r, it = cfg["n_users"], cfg["n_items"], cfg["wide_rank"], cfg["max_iter"]
+    kw = dict(rank=r, max_iter=it, reg_param=cfg["reg"], implicit_prefs=True,
+              alpha=cfg["alpha"], seed=0)
+    one = ALS(device=str(dev), **kw).fit(users, items, ratings, n_users, n_items)
+    devs = mesh_devices(dev, 4)
+    layout = ",".join(str(v) for v in devs)
+    cards = sorted({d.index for d in devs if d.type == "cuda"})
+    runs = {}
+    # the 2-D layout as the default "auto" picks it (a rehearsal's table is
+    # below the crossover and asks for it), then the replicated layout
+    for item_layout in (cfg["layout_2d"], "replicated"):
+        set_config(als_item_layout=item_layout)
+        try:
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            als_kernel.reset_launches()
+            t0 = time.perf_counter()
+            m = ALS(device=layout, **kw).fit(users, items, ratings, n_users, n_items)
+            runs[m.summary["item_layout"]] = {
+                "model": m, "wall_s": time.perf_counter() - t0,
+                "launches": dict(als_kernel.LAUNCHES),
+                "peak_mem_gb": {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 1e9
+                                for c in cards}}
+        finally:
+            set_config(als_item_layout="auto")
+    check(set(runs) == {"sharded", "replicated"}, f"item layouts {sorted(runs)}")
+    model, launches = runs["sharded"]["model"], runs["sharded"]["launches"]
+    s = model.summary
+    expect = 2 * 4 * it if dev.type == "cuda" else 0
+    check(launches == {als_kernel.SOLVE: expect, als_kernel.GRAM: expect} == s["kernels"],
+          f"2-D ALS launches {launches}, expected 2 * 4 * {it} = {expect} of each")
+    errs = {name: pred_rel_err(runs[name]["model"], one, n_users, dev) for name in runs}
+    check(np.all(np.isfinite(model.user_factors_)) and errs["sharded"] <= 1e-4,
+          f"2-D ALS vs the one-device fit: prediction rel err {errs['sharded']:.3g}")
+    kernel_checks = block_2d_kernel_checks(cfg, data, model, devs)
+    check(kernel_checks["layout"] == s["als_kernel"],
+          f"the checked layout {kernel_checks['layout']} is not the fit's {s['als_kernel']}")
+    phases = s["timings"].as_dict()
+    rphases = runs["replicated"]["model"].summary["timings"].as_dict()
+    peaks = {name: runs[name]["peak_mem_gb"] for name in runs}
+    out = {"devices": layout, "rank": r, "item_layout": s["item_layout"],
+           "layout": s["als_kernel"], "wall_s": runs["sharded"]["wall_s"], "phases_s": phases,
+           "launches": launches, "iters_per_s": it / phases["als_iterations"],
+           "replicated_iters_per_s": it / rphases["als_iterations"],
+           "replicated_phases_s": rphases, "pred_rel_err_vs_one_device": errs,
+           "peak_mem_gb_by_card": peaks, "kernel_checks": kernel_checks,
+           "one_device_iters_per_s": it / one.summary["timings"].as_dict()["als_iterations"]}
+    emit("als_block_2d", out)
+    return out
+
+
+def phase_sparse_input(cfg, dev):
+    """SciPy CSR input: ``KMeans.fit`` and ``PCA.fit`` of a CSR table equal
+    the fits of its dense copy (the same f32 table reaches the card, the
+    kernels are deterministic: equal bits); counts zeroed before each."""
+    import scipy.sparse as sp
+
+    n, d, k = cfg["n"], cfg["d"], cfg["k"]
+    rng = np.random.default_rng(11)
+    dense = rng.normal(size=(n, d)).astype(np.float32)
+    dense[rng.random((n, d)) < 0.9] = 0.0
+    dense[:, : d // 4] += rng.integers(k, size=(n, 1)).astype(np.float32)
+    csr = sp.csr_matrix(dense)
+    out = {"shape": [n, d], "density": csr.nnz / (n * d), "k": k}
+    kmeans_kernel.reset_launches()
+    pca_kernel.reset_launches()
+    fits = {}
+    for name, x in (("dense", dense), ("csr", csr)):
+        fits[name] = (KMeans(k=k, max_iter=10, seed=0, device=str(dev)).fit(x),
+                      PCA(k=cfg["pca_k"], device=str(dev)).fit(x))
+    launches = {**kmeans_kernel.LAUNCHES, **pca_kernel.LAUNCHES}
+    (kd, pd), (ks, ps) = fits["dense"], fits["csr"]
+    check(np.array_equal(ks.cluster_centers_, kd.cluster_centers_)
+          and ks.summary.training_cost == kd.summary.training_cost,
+          "KMeans: the CSR fit differs from the dense fit")
+    check(np.array_equal(ps.components_, pd.components_)
+          and np.array_equal(ps.explained_variance_, pd.explained_variance_),
+          "PCA: the CSR fit differs from the dense fit")
+    if dev.type == "cuda":
+        check(launches[kmeans_kernel.KERNEL] == 2 * (kd.summary.num_iter + 1)
+              and launches[pca_kernel.KERNEL] == 4, f"sparse_input launches {launches}")
+    out.update(launches=launches, num_iter=ks.summary.num_iter,
+               kmeans_phases_s=ks.summary.timings.as_dict())
+    emit("sparse_input", out)
+    return out
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -1482,8 +2148,8 @@ def main(argv=None) -> int:
                     help="run the phases on the CPU at a tiny size, plain versions only")
     ap.add_argument("--mesh", action="store_true",
                     help="only the phases whose ranks span cards (K1-K4 on the last card, "
-                         "the ring kernels, the sharded, data-parallel, PCA-mesh and block-ALS "
-                         "fits); prints no ok line")
+                         "the ring kernels, the sharded, data-parallel, PCA-mesh, block-ALS "
+                         "and 2-D ALS fits); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1500,7 +2166,9 @@ def main(argv=None) -> int:
             phase_dp_fit(DP_TINY if args.rehearse else DP_FULL, dev)
             phase_pca_mesh_fit(PCA_TINY if args.rehearse else PCA_FULL, dev)
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
-            phase_als_block_fit(als_cfg, als_data(als_cfg), dev, None)
+            als_data_ = als_data(als_cfg)
+            phase_als_block_fit(als_cfg, als_data_, dev, None)
+            phase_als_block_2d(als_cfg, als_data_, dev)
             print(f"mesh phases passed on {torch.cuda.device_count() if dev.type == 'cuda' else 0}"
                   f" cards: {smi}", flush=True)
             return 0
@@ -1525,7 +2193,18 @@ def main(argv=None) -> int:
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
         als_fit, als_model = phase_als_fit(als_cfg, data, dev)
         als_block = phase_als_block_fit(als_cfg, data, dev, als_model)
+        rate = pinned_h2d_rate(dev)
+        stream_als = phase_stream_als(als_cfg, data, dev, als_model, rate)
+        block_2d = phase_als_block_2d(als_cfg, data, dev)
         del data, als_model
+        stream_km, host, streamed_model = phase_stream_kmeans(
+            STREAM_TINY if args.rehearse else STREAM_FULL, dev)
+        route = phase_stream_route(STREAM_TINY if args.rehearse else STREAM_FULL, host,
+                                   streamed_model, dev)
+        del host, streamed_model
+        stream_pca = phase_stream_pca(STREAM_PCA_TINY if args.rehearse else STREAM_PCA_FULL,
+                                      dev, rate)
+        sparse = phase_sparse_input(SPARSE_TINY if args.rehearse else SPARSE_FULL, dev)
         ring_cfg = RING_TINY if args.rehearse else RING_FULL
         rings = phase_ring_kernels(ring_cfg, dev, reps)
         sharded = phase_sharded_fit(SHARDED_TINY if args.rehearse else SHARDED_FULL, dev)
@@ -1590,14 +2269,28 @@ def main(argv=None) -> int:
     by_path = {
         kmeans_kernel.KERNEL: {"fit": fit["launches"][kmeans_kernel.KERNEL],
                                "dp_fit": dp["launches"][kmeans_kernel.KERNEL],
-                               "sharded_fit": sharded["launches"][kmeans_kernel.KERNEL]},
+                               "sharded_fit": sharded["launches"][kmeans_kernel.KERNEL],
+                               "stream_kmeans loop":
+                                   stream_km["loop"]["launches"][kmeans_kernel.KERNEL],
+                               "stream_kmeans fit":
+                                   stream_km["fit"]["launches"][kmeans_kernel.KERNEL],
+                               "stream_route": route["launches"][kmeans_kernel.KERNEL],
+                               "sparse_input (two fits)":
+                                   sparse["launches"][kmeans_kernel.KERNEL]},
         pca_kernel.KERNEL: {"pca_fit": pca_fit["launches"][pca_kernel.KERNEL],
                             **{f"pca_mesh_fit {v['mesh']['data']}x{v['mesh']['model']}":
-                               v["launches"][pca_kernel.KERNEL] for v in pca_mesh}},
+                               v["launches"][pca_kernel.KERNEL] for v in pca_mesh},
+                            "stream_pca": stream_pca["f32"]["launches"][pca_kernel.KERNEL],
+                            "stream_pca bf16": stream_pca["bf16"]["launches"][pca_kernel.KERNEL],
+                            "sparse_input (two fits)": sparse["launches"][pca_kernel.KERNEL]},
         als_kernel.SOLVE: {"als_fit": als_fit["launches"][als_kernel.SOLVE],
-                           "als_block_fit": als_block["launches"][als_kernel.SOLVE]},
+                           "als_block_fit": als_block["launches"][als_kernel.SOLVE],
+                           "stream_als": stream_als["launches"][als_kernel.SOLVE],
+                           "als_block_2d": block_2d["launches"][als_kernel.SOLVE]},
         als_kernel.GRAM: {"als_fit": als_fit["launches"][als_kernel.GRAM],
-                          "als_block_fit": als_block["launches"][als_kernel.GRAM]},
+                          "als_block_fit": als_block["launches"][als_kernel.GRAM],
+                          "stream_als": stream_als["launches"][als_kernel.GRAM],
+                          "als_block_2d": block_2d["launches"][als_kernel.GRAM]},
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
                              "dp_fit": dp["launches"][ring_kernel.KERNEL]},
     }

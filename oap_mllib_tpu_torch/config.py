@@ -31,13 +31,26 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``als_kernel``: the ALS normal-equation layout, "auto" (grouped unless
   its padding blows up, as in the JAX package), "grouped" or "coo".
 - ``als_item_layout``: the item factors of an ALS fit on a mesh,
-  "replicated" (ops/als_block.py), "sharded" (the 2-D layout, not
-  ported yet: it raises) or "auto" (sharded only past the JAX
+  "replicated" (ops/als_block.py), "sharded" (the 2-D layout, both
+  factor tables block-sharded) or "auto" (sharded only past the JAX
   package's payload crossover, ``als_block.ITEM_SHARD_AUTO_BYTES``).
+- ``prefetch_depth``: chunks the streamed passes stage ahead of the
+  consumer (data/prefetch.py); 2 (default) overlaps the next chunk's
+  host staging and host-to-device copy with this chunk's kernel, 1 is
+  the serial loop.
+- ``memory_budget_hbm`` / ``memory_budget_host``: the budgets the route
+  planner prices a fit against (utils/membudget.py): "" detects them
+  (the card's memory, the host's RAM; 0 on the CPU, unbounded), "0" or
+  "unlimited" is unbounded, else bytes with an optional K/M/G/T suffix.
+- ``scale_policy``: "auto" takes the first route that fits the budgets
+  and warns when that is not the fit's natural one, "strict" raises
+  ``BudgetError`` instead, "pin:<route>" forces a route.
 
 The JAX package's ``pca_kernel`` and ``als_solve_kernel`` choose between
 Pallas and XLA; the port has one device route, its CUDA kernels, so it
-has neither field.
+has neither field.  Its ``shape_bucketing`` sizes compiled programs;
+the port compiles none per shape and buckets chunk widths at the JAX
+default (data/bucketing.py).
 """
 
 from __future__ import annotations
@@ -66,6 +79,10 @@ class Config:
     model_axis: str = "model"
     model_parallel: int = 1
     ring_reduction: str = "auto"
+    prefetch_depth: int = 2
+    memory_budget_hbm: str = ""
+    memory_budget_host: str = ""
+    scale_policy: str = "auto"
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -46,7 +46,15 @@ class DenseTable:
 
     @classmethod
     def from_numpy(cls, x, device, dtype=torch.float32) -> "DenseTable":
-        """Table of ``x`` (an ndarray or a tensor) on ``device``."""
+        """Table of ``x`` (an ndarray, a tensor or a SciPy sparse matrix,
+        densified block by block into the host table, data/sparse.py) on
+        ``device``."""
+        from oap_mllib_tpu_torch.data import sparse as _sparse
+
+        if _sparse.is_sparse(x):
+            host = np.zeros(x.shape, np.float32)
+            _sparse.densify_into(host, x, x.shape[0])
+            x = host
         t = torch.as_tensor(x) if not isinstance(x, torch.Tensor) else x
         if t.dim() != 2:
             raise ValueError(f"expected 2-D data, got shape {tuple(t.shape)}")

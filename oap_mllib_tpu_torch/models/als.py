@@ -18,12 +18,24 @@ Routes, as in the JAX package:
   block-parallel route (ops/als_block.py): one user block per rank of
   the data axis, ``num_user_blocks`` capping that axis, the item
   factors replicated.  ``num_user_blocks=1`` (or one device) keeps the
-  single-device route, on the list's first device.  The 2-D item layout
-  raises.
+  single-device route, on the list's first device.  With
+  ``Config.als_item_layout="sharded"`` (or "auto" past the JAX
+  package's crossover) the item factors are block-sharded too, the 2-D
+  layout (summary ``item_layout`` "sharded").
 - ``nonnegative=True`` runs the numpy NNLS route
   (fallback/als_np.als_np) with ``accelerated`` False and the reason
   ``"nonnegative=True"`` in the summary: the reference accelerates only
   the unconstrained solver.
+
+Out of core (the JAX package's ``ops/als_stream.py`` route): the route
+planner (utils/membudget.plan_als) prices the resident layouts against
+the card's budget, and a one-device fit it routes "streamed" keeps the
+grouped layouts in host memory and streams them through the card every
+half-iteration (K3 and K4 as in memory; summary ``streamed``).  ``fit``
+also takes a width-3 (user, item, rating) ``ChunkSource``, ingested to
+host arrays, whose natural route is that streamed one.  A source fit on
+a device list raises: the streamed block layout (the JAX package's
+``als_block_stream.py``) is not ported (ROADMAP A4).
 
 A fitted model scores on one device: a mesh fit's on the first rank's.
 """
@@ -38,12 +50,14 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.fallback import als_np
-from oap_mllib_tpu_torch.ops import als_block, als_ops, kmeans_ops
+from oap_mllib_tpu_torch.ops import als_block, als_ops, als_stream, kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
+from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
@@ -250,10 +264,24 @@ class ALS:
         self.num_item_blocks = num_item_blocks
         self.device = device
 
-    def fit(self, users, items, ratings, n_users: Optional[int] = None,
+    def fit(self, users, items=None, ratings=None, n_users: Optional[int] = None,
             n_items: Optional[int] = None, init: Optional[tuple] = None) -> ALSModel:
-        """Fit factors from (user, item, rating) triples.  ``init`` is an
-        optional (x0, y0) pair of initial factors."""
+        """Fit factors from (user, item, rating) triples: three arrays, or
+        ``users`` a width-3 ``ChunkSource`` of (user, item, rating) rows
+        (``items`` and ``ratings`` None).  ``init`` is an optional
+        (x0, y0) pair of initial factors."""
+        if isinstance(users, ChunkSource):
+            if items is not None or ratings is not None:
+                raise ValueError("pass EITHER a triples ChunkSource OR explicit "
+                                 "users/items/ratings arrays")
+            return self._fit_source(users, n_users, n_items, init)
+        if items is None or ratings is None:
+            raise TypeError("fit needs items and ratings arrays")
+        return self._fit_arrays(users, items, ratings, n_users, n_items, init)
+
+    def _fit_arrays(self, users, items, ratings, n_users, n_items, init,
+                    plan: Optional[membudget.RoutePlan] = None,
+                    devices=None) -> ALSModel:
         users, items, ratings, n_users, n_items = _validate_resolve(
             users, items, ratings, n_users, n_items)
         kernel = _als_kernel_cfg()
@@ -269,7 +297,7 @@ class ALS:
             x0 = y0 = None
         if self.nonnegative:
             return self._fit_fallback_np(users, items, ratings, n_users, n_items, x0, y0)
-        devices = resolve_devices(self.device)
+        devices = devices or resolve_devices(self.device)
         if len(devices) > 1 and self.num_user_blocks != 1:
             mesh = get_mesh(devices=devices)
             world = mesh.shape[mesh.axis_names[0]]
@@ -281,8 +309,45 @@ class ALS:
             if world > 1:
                 return self._fit_block_parallel(users, items, ratings, n_users, n_items,
                                                 x0, y0, mesh, kernel)
-        return self._fit_single_device(users, items, ratings, n_users, n_items, x0, y0,
-                                       devices[0], kernel)
+        if plan is None:
+            plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
+                                      device=devices[0])
+        model = self._fit_single_device(users, items, ratings, n_users, n_items, x0, y0,
+                                        devices[0], kernel, plan)
+        membudget.record_plan(model.summary, plan)
+        return model
+
+    def _fit_source(self, source: ChunkSource, n_users, n_items, init) -> ALSModel:
+        """The fit of a width-3 (user, item, rating) source (the JAX
+        package's ``_fit_source``, without its resilience ladder): the
+        triples are read to host arrays (host memory O(nnz), as the
+        reference's executors hold their partitions), then the route plan
+        with the source's natural route, streamed."""
+        if source.n_features != 3:
+            raise ValueError("ALS source must have width 3 (user, item, rating); "
+                             f"got {source.n_features}")
+        us, its, rs = [], [], []
+        for chunk, n_valid in source:
+            us.append(np.asarray(chunk[:n_valid, 0], np.int64))
+            its.append(np.asarray(chunk[:n_valid, 1], np.int64))
+            rs.append(np.asarray(chunk[:n_valid, 2], np.float32))
+        users = np.concatenate(us) if us else np.zeros((0,), np.int64)
+        items = np.concatenate(its) if its else np.zeros((0,), np.int64)
+        ratings = np.concatenate(rs) if rs else np.zeros((0,), np.float32)
+        if self.nonnegative:
+            return self._fit_arrays(users, items, ratings, n_users, n_items, init)
+        devices = resolve_devices(self.device)
+        if len(devices) > 1 and self.num_user_blocks != 1:
+            raise NotImplementedError(
+                "an ALS fit of a ChunkSource on a device list runs the streamed block "
+                "layout (the JAX package's ops/als_block_stream.py), which is not "
+                "ported yet (ROADMAP A4); fit it on one device, or pass arrays"
+            )
+        _, _, _, n_users, n_items = _validate_resolve(users, items, ratings, n_users, n_items)
+        plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
+                                  source_backing=source.backing, device=devices[0])
+        return self._fit_arrays(users, items, ratings, n_users, n_items, init, plan,
+                                devices[:1])
 
     def _summary(self, timings, pol, before, extra) -> dict:
         return {
@@ -304,7 +369,14 @@ class ALS:
         }
 
     def _fit_single_device(self, users, items, ratings, n_users, n_items, x0, y0,
-                           dev: torch.device, kernel: str) -> ALSModel:
+                           dev: torch.device, kernel: str,
+                           plan: membudget.RoutePlan) -> ALSModel:
+        """The one-device fit: the resident grouped or COO layouts, or, when
+        ``plan`` routes it "streamed", the host-resident grouped layouts
+        streamed every half-iteration (ops/als_stream.py).  Streaming is
+        grouped only: a degree distribution the grouped guard rejects
+        moves the plan back to in-memory, on the record (strict raises)."""
+        streamed = plan.route == membudget.ROUTE_STREAMED
         pol = psn.resolve("als")
         # the Grams and solves are f32 under every policy, and the moment
         # products' f32 (and bf16-split) operands need TF32 off
@@ -316,24 +388,38 @@ class ALS:
             y0 = als_np.init_factors(n_items, self.rank, self.seed + 1)
         with phase_timer(timings, "table_convert", dev):
             grouped = _grouped_ok_single(kernel, users, items, n_users, n_items)
-            user_side, item_side = als_ops.prepare_sides(
-                grouped, users, items, ratings, n_users, n_items, self.rank, dev, timings)
-            x0, y0 = torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
-        with phase_timer(timings, "als_iterations", dev):
-            x, y = als_ops.run_sides(
-                user_side, item_side, x0, y0, self.max_iter, self.reg_param,
-                self.alpha if self.implicit_prefs else 0.0, self.implicit_prefs, pol,
-            )
-            x, y = x.cpu().numpy(), y.cpu().numpy()
-        summary = self._summary(timings, pol, before, {
-            "als_kernel": "grouped" if grouped else "coo", **self._block_summary(1)})
+            if streamed and not grouped:
+                plan.downgrade(membudget.ROUTE_IN_MEMORY, "grouped guard rejected the "
+                               "degree distribution (COO streaming unsupported)")
+                streamed = False
+            if streamed:
+                by_user = als_ops.build_grouped_edges(users, items, ratings, n_users)
+                by_item = als_ops.build_grouped_edges(items, users, ratings, n_items)
+            else:
+                user_side, item_side = als_ops.prepare_sides(
+                    grouped, users, items, ratings, n_users, n_items, self.rank, dev, timings)
+                x0, y0 = torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
+        if streamed:
+            with phase_timer(timings, "als_iterations", dev):
+                x, y = als_stream.als_run_streamed(
+                    by_user, by_item, x0, y0, n_users, n_items, self.max_iter,
+                    self.reg_param, self.alpha, self.implicit_prefs, timings, pol, dev)
+        else:
+            with phase_timer(timings, "als_iterations", dev):
+                x, y = als_ops.run_sides(
+                    user_side, item_side, x0, y0, self.max_iter, self.reg_param,
+                    self.alpha if self.implicit_prefs else 0.0, self.implicit_prefs, pol,
+                )
+                x, y = x.cpu().numpy(), y.cpu().numpy()
+        extra = {"als_kernel": "grouped" if grouped else "coo", "item_layout": "replicated",
+                 **self._block_summary(1)}
+        if streamed:
+            extra["streamed"] = True
+        summary = self._summary(timings, pol, before, extra)
         return ALSModel(x, y, summary, device=self._scoring_device(dev))
 
     def _scoring_device(self, dev) -> Optional[str]:
-        """The fitted model's device: the fit's own setting, or ``dev``
-        where that names a device list (a model scores on one device)."""
-        name = get_config().device if self.device is None else str(self.device)
-        return self.device if "," not in name else str(dev)
+        return model_device(self.device, dev)
 
     def _fit_fallback_np(self, users, items, ratings, n_users, n_items, x0, y0) -> ALSModel:
         """The numpy route of ``nonnegative=True`` (the JAX package's
@@ -374,8 +460,9 @@ class ALS:
         item_sharded = als_block.item_layout_sharded(n_items, self.rank, world, n_users)
         if kernel != "auto":
             return item_sharded, kernel == "grouped", None
-        use_grouped, sizes = als_block.block_grouped_guard(users, items, n_users, n_items,
-                                                           world)
+        guard = (als_block.block_grouped_guard_2d if item_sharded
+                 else als_block.block_grouped_guard)
+        use_grouped, sizes = guard(users, items, n_users, n_items, world)
         return item_sharded, use_grouped, sizes
 
     def _place_block_factors(self, mesh: Mesh, offsets: np.ndarray, per: int,
@@ -396,12 +483,12 @@ class ALS:
     def _fit_block_parallel(self, users, items, ratings, n_users, n_items, x0, y0,
                             mesh: Mesh, kernel: str) -> ALSModel:
         """The block-parallel route (the JAX package's
-        ``_fit_block_parallel``, replicated item layout): the shuffle by
-        user block, each rank's edge layouts staged on its device, the
-        block-local user init, then ops/als_block's iterations.  The
-        capability-weighted block offsets of the JAX package return None
-        on a homogeneous world, which every mesh of H100s is: the blocks
-        are uniform."""
+        ``_fit_block_parallel``): the shuffle by user block (and, in the
+        2-D layout, a second one by item block), each rank's edge
+        layouts staged on its device, the block-local factor init, then
+        ops/als_block's iterations.  The capability-weighted block
+        offsets of the JAX package return None on a homogeneous world,
+        which every mesh of H100s is: the blocks are uniform."""
         world = mesh.shape[mesh.axis_names[0]]
         ranks = als_block.data_ranks(mesh)
         devs = list(dict.fromkeys(mesh.device(q) for q in ranks))
@@ -409,36 +496,51 @@ class ALS:
         psn.apply_matmul_flags("highest")
         item_sharded, use_grouped, sizes = self._block_dispatch(
             users, items, n_users, n_items, world, kernel)
-        if item_sharded:
-            raise NotImplementedError(
-                "the 2-D ALS item layout (als_item_layout='sharded', or 'auto' past "
-                f"ITEM_SHARD_AUTO_BYTES for {n_items} items at rank {self.rank}) is "
-                "not ported yet (ROADMAP A7); set als_item_layout='replicated'"
-            )
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
         with phase_timer(timings, "ratings_shuffle", devs):
             edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users)
-            if use_grouped:
+            if item_sharded:
+                # the second shuffle, by item block: the same exchange with
+                # the roles swapped (local item ids, global user ids)
+                by_item = als_block.prepare_block_inputs(items, users, ratings, world,
+                                                         n_items)
+                sides = (als_block.prepare_grouped_inputs_2d(edges, by_item, mesh, self.rank,
+                                                             sizes) if use_grouped
+                         else als_block.prepare_coo_inputs_2d(edges, by_item, mesh,
+                                                              self.rank))
+            elif use_grouped:
                 sides = als_block.prepare_grouped_inputs(edges, mesh, n_items, self.rank, sizes)
             else:
                 sides = als_block.prepare_coo_inputs(edges, mesh, n_items, self.rank)
         with phase_timer(timings, "table_convert", devs):
             x0_dev = self._place_block_factors(mesh, edges.offsets, edges.upb, x0, self.seed)
-            y0_host = (y0 if y0 is not None
-                       else als_np.init_factors(n_items, self.rank, self.seed + 1))
-            staged = {dev: torch.from_numpy(y0_host).to(dev) for dev in devs}
-            y0_dev = {q: staged[mesh.device(q)] for q in ranks}
-        run = als_block.als_block_run_grouped if use_grouped else als_block.als_block_run
+            if item_sharded:
+                # Y's blocks from the same rows the replicated init would
+                # hold, padding zero (which keeps the psum of block Grams
+                # exact)
+                y0_dev = self._place_block_factors(mesh, by_item.offsets, by_item.upb, y0,
+                                                   self.seed + 1)
+            else:
+                y0_host = (y0 if y0 is not None
+                           else als_np.init_factors(n_items, self.rank, self.seed + 1))
+                staged = {dev: torch.from_numpy(y0_host).to(dev) for dev in devs}
+                y0_dev = {q: staged[mesh.device(q)] for q in ranks}
+        if item_sharded:
+            run = (als_block.als_block_run_grouped_2d if use_grouped
+                   else als_block.als_block_run_2d)
+        else:
+            run = als_block.als_block_run_grouped if use_grouped else als_block.als_block_run
         with phase_timer(timings, "als_iterations", devs):
             x_blocks, y = run(sides, x0_dev, y0_dev, self.max_iter, self.reg_param,
                               self.alpha, mesh, implicit=self.implicit_prefs, policy=pol)
             x = als_block.gather_user_factors(x_blocks, mesh, edges.offsets)
-            y = y[ranks[0]].cpu().numpy()
+            y = (als_block.gather_user_factors(y, mesh, by_item.offsets) if item_sharded
+                 else y[ranks[0]].cpu().numpy())
         summary = self._summary(timings, pol, before, {
             "block_parallel": True, "als_kernel": "grouped" if use_grouped else "coo",
-            "item_layout": "replicated", "mesh": dict(mesh.shape),
-            **self._block_summary(world)})
+            "item_layout": "sharded" if item_sharded else "replicated",
+            "mesh": dict(mesh.shape), **self._block_summary(world)})
         return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
 
 

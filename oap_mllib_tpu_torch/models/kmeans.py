@@ -24,6 +24,18 @@ device:
   (ops/cuda/ring_kernel.py).
 
 The model it returns scores on the mesh's first device.
+
+Out of core (the JAX package's ``_fit_source``): ``fit`` takes a
+``ChunkSource`` (data/stream.py), and an ndarray whose in-memory
+working set the route planner (utils/membudget.plan_kmeans) prices past
+``Config.memory_budget_hbm`` streams the same way: init by reservoir
+sampling or the streamed k-means||, then the streamed Lloyd loop
+(ops/stream_ops.py), K1 on every chunk.  The summary records the plan
+(``route``) and ``streamed``.  A source fits on one device, a device
+list's first, as the JAX package streams on its default device; the
+planner runs on the one-device route.  SciPy sparse input stays sparse
+until a chunk or the device table is filled (data/sparse.py).
+``KMeansModel.predict`` and ``compute_cost`` take a source too.
 """
 
 from __future__ import annotations
@@ -36,13 +48,16 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.data import sparse as _sparse
+from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
 from oap_mllib_tpu_torch.fallback.kmeans_np import _sq_dists, lloyd_np, predict_np
-from oap_mllib_tpu_torch.ops import kmeans_ops
+from oap_mllib_tpu_torch.ops import kmeans_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 INIT_RANDOM = "random"
@@ -58,12 +73,15 @@ class KMeansSummary:
     accumulate once a rank a pass, (num_iter + 1) * data.  A fit on a
     mesh records its shape (``mesh``, axis name -> size) and whether the
     ring reduced its moments (``ring``, False on the data-parallel
-    route); both are None on one device."""
+    route); both are None on one device.  ``route`` is the route plan of
+    a one-device or streamed fit (utils/membudget.record_plan), None on
+    a mesh; ``streamed`` is True when the fit streamed its table."""
 
     def __init__(self, training_cost: float, num_iter: int, timings: Timings,
                  accelerated: bool, cluster_sizes: Optional[np.ndarray] = None,
                  kernels: Optional[dict] = None, precision: str = "f32",
-                 mesh: Optional[dict] = None, ring: Optional[bool] = None):
+                 mesh: Optional[dict] = None, ring: Optional[bool] = None,
+                 streamed: bool = False):
         self.training_cost = training_cost
         self.num_iter = num_iter
         self.timings = timings
@@ -73,6 +91,8 @@ class KMeansSummary:
         self.precision = precision
         self.mesh = mesh
         self.ring = ring
+        self.streamed = streamed
+        self.route = None
 
     def __repr__(self) -> str:
         return (
@@ -119,7 +139,12 @@ class KMeansModel:
         )
 
     def predict(self, x) -> np.ndarray:
-        """Nearest-center label of every row."""
+        """Nearest-center label of every row; a ``ChunkSource`` is scored
+        chunk by chunk (the labels are O(n) host memory)."""
+        if isinstance(x, ChunkSource):
+            parts = [self.predict(np.asarray(c[:v], self.cluster_centers_.dtype))
+                     for c, v in x]
+            return np.concatenate(parts) if parts else np.zeros((0,), np.int64)
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
         if self.distance_measure != "euclidean":
@@ -136,7 +161,10 @@ class KMeansModel:
         return self.predict(x)
 
     def compute_cost(self, x) -> float:
-        """Sum of squared distances of the rows to their nearest center."""
+        """Sum of squared distances of the rows to their nearest center (a
+        ``ChunkSource`` summed chunk by chunk)."""
+        if isinstance(x, ChunkSource):
+            return float(sum(self.compute_cost(c[:v]) for c, v in x))
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
         if self.distance_measure != "euclidean":
@@ -183,8 +211,17 @@ class KMeansModel:
         return cls(centers, meta["distance_measure"], device=device)
 
 
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def _host(x):
+    """``x`` on the host: a tensor's array, a sparse matrix as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return x if _sparse.is_sparse(x) else np.asarray(x)
+
+
+def _dense_host(x) -> np.ndarray:
+    """``x`` as a dense host array (a sparse matrix densified)."""
+    x = _host(x)
+    return x.toarray() if _sparse.is_sparse(x) else x
 
 
 class KMeans:
@@ -224,20 +261,86 @@ class KMeans:
         self.device = device
 
     def fit(self, x, sample_weight=None) -> KMeansModel:
-        """Fit on ``x`` (an (n, d) ndarray or tensor), optionally with row
-        weights."""
-        if not isinstance(x, torch.Tensor):
+        """Fit on ``x`` (an (n, d) ndarray, tensor, SciPy sparse matrix or
+        ``ChunkSource``), optionally with row weights (for a source, a
+        width-1 source chunked like it, or an array)."""
+        if isinstance(x, ChunkSource):
+            return self._fit_source(x, sample_weight)
+        if not isinstance(x, torch.Tensor) and not _sparse.is_sparse(x):
             x = np.asarray(x)
         if x.ndim != 2:
             raise ValueError(f"expected 2-D data, got shape {tuple(x.shape)}")
         if x.shape[0] < 1:
             raise ValueError("empty input")
         if self.distance_measure != "euclidean":
-            return self._fit_fallback(_host(x), sample_weight)
+            return self._fit_fallback(_dense_host(x), sample_weight)
         devices = resolve_devices(self.device)
         if len(devices) > 1 or get_config().model_parallel > 1:
-            return self._fit_mesh(x, sample_weight, devices)
-        return self._fit_device(x, sample_weight, devices[0])
+            return self._fit_mesh(_dense_host(x) if _sparse.is_sparse(x) else x,
+                                  sample_weight, devices)
+        # the route plan: an array whose working set exceeds the card's
+        # budget streams instead of assuming it fits
+        plan = membudget.plan_kmeans(
+            x.shape[0], x.shape[1], self.k,
+            row_chunks_hint=kmeans_ops.auto_row_chunks(x.shape[0], self.k), device=devices[0])
+        if plan.route == membudget.ROUTE_STREAMED:
+            source = ChunkSource.from_array(_host(x), chunk_rows=plan.chunk_rows)
+            return self._fit_source(source, sample_weight, plan=plan)
+        model = self._fit_device(x, sample_weight, devices[0])
+        membudget.record_plan(model.summary, plan)
+        return model
+
+    def _fit_source(self, source: ChunkSource, sample_weight, plan=None) -> KMeansModel:
+        """The streamed fit of a ``ChunkSource`` (the JAX package's
+        ``_fit_source``, without its resilience ladder and checkpoints):
+        device memory O(chunk), one pass per Lloyd iteration.
+        ``sample_weight``: a width-1 source chunked like ``source``, or
+        an array (wrapped)."""
+        if sample_weight is not None and not isinstance(sample_weight, ChunkSource):
+            sample_weight = ChunkSource.from_array(
+                np.asarray(_host(sample_weight)).reshape(-1, 1), chunk_rows=source.chunk_rows)
+        stream_ops._check_weight_source(source, sample_weight)
+        if self.distance_measure != "euclidean":
+            w = sample_weight.to_array().reshape(-1) if sample_weight is not None else None
+            return self._fit_fallback(source.to_array(), w)
+        dev = resolve_devices(self.device)[0]
+        if plan is None:
+            plan = membudget.plan_kmeans(source.n_rows, source.n_features, self.k,
+                                         source_backing=source.backing,
+                                         chunk_rows=source.chunk_rows, device=dev)
+        model = self._fit_stream_inner(source, sample_weight, dev)
+        membudget.record_plan(model.summary, plan)
+        return model
+
+    def _fit_stream_inner(self, source: ChunkSource, sample_weight, dev) -> KMeansModel:
+        cfg = get_config()
+        pol = psn.resolve("kmeans")
+        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        psn.apply_matmul_flags(tier)
+        timings = Timings("kmeans.fit")
+        before = dict(kmeans_kernel.LAUNCHES)
+        with phase_timer(timings, "init_centers", dev):
+            if self.init_mode == INIT_RANDOM:
+                centers0 = stream_ops.reservoir_sample(source, self.k, self.seed, timings)
+            else:
+                centers0 = stream_ops.init_kmeans_parallel_streamed(
+                    source, self.k, self.seed, self.init_steps, weights=sample_weight,
+                    validated=True, timings=timings, policy=pol, device=dev)
+        with phase_timer(timings, "lloyd_loop", dev):
+            centers, n_iter, cost, counts = stream_ops.lloyd_run_streamed(
+                source, as_float_tensor(centers0, dev), self.max_iter, self.tol, tier,
+                weights=sample_weight, validated=True, timings=timings, policy=pol)
+            centers = centers.cpu().numpy()
+            cost = float(cost)
+            counts = counts.cpu().numpy()
+        summary = KMeansSummary(
+            cost, int(n_iter), timings, accelerated=True, cluster_sizes=counts,
+            kernels={name: kmeans_kernel.LAUNCHES[name] - before.get(name, 0)
+                     for name in kmeans_kernel.LAUNCHES},
+            precision=pol, streamed=True,
+        )
+        return KMeansModel(centers, self.distance_measure, summary,
+                           device=model_device(self.device, dev))
 
     def _init_centers(self, table: DenseTable, weights, dev) -> torch.Tensor:
         if self.init_mode == INIT_RANDOM:

@@ -19,6 +19,15 @@ over the model axis, zero-padded to a multiple of it and demoted before
 the eigensolve (ops/pca_ops.covariance_data_parallel and
 covariance_model_sharded).  The eigensolve runs on the mesh's first
 device, where the model it returns projects.
+
+Out of core (the JAX package's ``_fit_source``): ``fit`` takes a
+``ChunkSource``, and an ndarray the route planner
+(utils/membudget.plan_pca) prices past the card's budget streams the
+same way: the two streamed moment passes of
+ops/stream_ops.covariance_streamed, K2 on every chunk of each, on one
+device (a device list's first).  SciPy sparse input stays sparse until
+a chunk or the device table is filled.  ``PCAModel.transform`` takes a
+source too.
 """
 
 from __future__ import annotations
@@ -31,12 +40,16 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.data import sparse as _sparse
+from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
-from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops
+from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import MAX_PCA_FEATURES, resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.dispatch import (MAX_PCA_FEATURES, model_device, resolve_device,
+                                                resolve_devices)
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
@@ -57,7 +70,11 @@ class PCAModel:
 
     def transform(self, x) -> np.ndarray:
         """Project rows into the component basis (no centering), chunked
-        over rows on the model's device."""
+        over rows on the model's device; a ``ChunkSource`` chunk by
+        chunk (the projection is O(n) host memory)."""
+        if isinstance(x, ChunkSource):
+            parts = [self.transform(np.asarray(c[:v], self.components_.dtype)) for c, v in x]
+            return np.concatenate(parts) if parts else np.zeros((0, self.k), np.float32)
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
         dev = resolve_device(self.device)
@@ -140,15 +157,36 @@ class PCA:
         self.device = device
 
     def fit(self, x) -> PCAModel:
-        """Fit on ``x``, an (n, d) ndarray or tensor."""
+        """Fit on ``x``, an (n, d) ndarray, tensor, SciPy sparse matrix or
+        ``ChunkSource``."""
         solver = _pca_solver_cfg()
-        if not isinstance(x, torch.Tensor):
+        if isinstance(x, ChunkSource):
+            return self._fit_source(x, solver)
+        if not isinstance(x, torch.Tensor) and not _sparse.is_sparse(x):
             x = np.asarray(x)
         if x.ndim != 2:
             raise ValueError(f"expected 2-D data, got shape {tuple(x.shape)}")
         n, d = x.shape
         if n < 1:
             raise ValueError("empty input")
+        self._check_width(d)
+        devices = resolve_devices(self.device)
+        if len(devices) > 1 or get_config().model_parallel > 1:
+            if _sparse.is_sparse(x):
+                x = x.toarray()
+            return self._fit_mesh(x, devices, solver)
+        # the route plan: a table whose working set exceeds the card's
+        # budget streams the two moment passes instead
+        plan = membudget.plan_pca(n, d, device=devices[0])
+        if plan.route == membudget.ROUTE_STREAMED:
+            host = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+            source = ChunkSource.from_array(host, chunk_rows=plan.chunk_rows)
+            return self._fit_source(source, solver, plan=plan)
+        model = self._fit_device(x, devices[0], solver)
+        membudget.record_plan(model.summary, plan)
+        return model
+
+    def _check_width(self, d: int) -> None:
         if self.k > d:
             raise ValueError(f"k={self.k} exceeds n_features={d}")
         if d >= MAX_PCA_FEATURES:
@@ -157,10 +195,30 @@ class PCA:
                 f"{MAX_PCA_FEATURES}, the PCA feature-count guard (the "
                 "replicated (d, d) covariance); the port has no numpy route"
             )
-        devices = resolve_devices(self.device)
-        if len(devices) > 1 or get_config().model_parallel > 1:
-            return self._fit_mesh(x, devices, solver)
-        return self._fit_device(x, devices[0], solver)
+
+    def _fit_source(self, source: ChunkSource, solver: str, plan=None) -> PCAModel:
+        """The streamed fit of a ``ChunkSource`` (the JAX package's
+        ``_fit_source``, without its resilience ladder and checkpoints):
+        device memory O(chunk + d^2)."""
+        d = source.n_features
+        self._check_width(d)
+        dev = resolve_devices(self.device)[0]
+        if plan is None:
+            plan = membudget.plan_pca(source.n_rows, d, source_backing=source.backing,
+                                      chunk_rows=source.chunk_rows, device=dev)
+        cfg = get_config()
+        pol = psn.resolve("pca")
+        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        psn.apply_matmul_flags(tier)
+        timings = Timings("pca.fit")
+        before = dict(pca_kernel.LAUNCHES)
+        with phase_timer(timings, "covariance_streamed", dev):
+            cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev)
+        model = self._finish(cov, d, timings, dev, solver, pol, before,
+                             model_device(self.device, dev))
+        model.summary.update(streamed=True, n_rows=n)
+        membudget.record_plan(model.summary, plan)
+        return model
 
     def _fit_device(self, x, dev: torch.device, solver: str) -> PCAModel:
         cfg = get_config()

@@ -18,12 +18,29 @@ and a replicated copy of the item factors.  One iteration
   are psum-ed over the data axis (four sums, in rank order), and every
   rank solves every item.
 
+The 2-D item layout (``als_item_layout="sharded"``, or "auto" past
+:data:`ITEM_SHARD_AUTO_BYTES`; :func:`_block_body_2d`, the JAX
+package's) shards the item factors too: the ratings are partitioned a
+second time, by ITEM block (the same exchange with the roles swapped),
+and rank ``b`` holds block ``b`` of both factor tables.  One iteration:
+
+- the item blocks are all-gathered over the data axis (concatenated in
+  rank order, so the gathered table is the padded global layout: with
+  uniform blocks, global item ``g`` sits at row ``g``); each rank forms
+  the moments of its users from its user-block edges and that table,
+  and solves them with the psum of the ranks' Y-block Grams;
+- the same with the roles swapped: the user blocks all-gathered, each
+  rank's item-block edges, the psum of the X-block Grams.
+
+Padding rows of either table are zero (no ratings, so the solve zeroes
+them), so the psum of block Grams is the exact Gram.  Per iteration:
+two all_gathers and, for implicit feedback, two psums.
+
 Each rank runs the solve (K3) and factor-Gram (K4) kernels on its own
 card, so an implicit fit launches each ``2 * world * max_iter`` times
-(an explicit one no Gram).  The 2-D item layout (``als_item_layout=
-"sharded"``, or "auto" choosing it) is not ported and raises.  The
-JAX package runs a model axis above 1 as replicas of the data ranks;
-the port runs the data ranks of the mesh's first model column.
+in either layout (an explicit one no Gram).  The JAX package runs a
+model axis above 1 as replicas of the data ranks; the port runs the
+data ranks of the mesh's first model column.
 """
 
 from __future__ import annotations
@@ -148,6 +165,29 @@ def _side_padded_per_block(ids: np.ndarray, kpb: int, world: int, p: int, n_ids:
     return out
 
 
+def _group_sizes_2d(nnz_global: int, world: int, upb: int, ipb: int):
+    """(p_u, p_i) of the 2-D layout: every destination's edges lie on one
+    rank on both sides, so both size from the global mean degree."""
+    p_u = als_ops.auto_group_size(max(1, nnz_global), world * upb)
+    p_i = als_ops.auto_group_size(max(1, nnz_global), world * ipb)
+    return p_u, p_i
+
+
+def block_grouped_guard_2d(users, items, n_users: int, n_items: int, world: int,
+                           max_blowup: float = als_ops.GROUPED_MAX_BLOWUP):
+    """The 2-D layout's grouped-vs-COO decision, before the shuffles:
+    ``(use_grouped, (p_u, p_i, nnz))``.  Both sides are partitioned by
+    id, so each realises ``world * max_b (block's padded total)``."""
+    nnz = len(users)
+    kpb_u = max(1, -(-n_users // world))
+    kpb_i = max(1, -(-n_items // world))
+    p_u, p_i = _group_sizes_2d(nnz, world, kpb_u, kpb_i)
+    pu_b = _side_padded_per_block(users, kpb_u, world, p_u, n_users)
+    pi_b = _side_padded_per_block(items, kpb_i, world, p_i, n_items)
+    total = world * (int(pu_b.max()) + int(pi_b.max()))
+    return total <= max_blowup * max(nnz, 1), (p_u, p_i, nnz)
+
+
 def block_grouped_guard(users, items, n_users: int, n_items: int, world: int,
                         max_blowup: float = als_ops.GROUPED_MAX_BLOWUP):
     """The block route's grouped-vs-COO decision, before the shuffle:
@@ -176,7 +216,8 @@ def block_grouped_guard(users, items, n_users: int, n_items: int, world: int,
 class BlockSides:
     """Per data rank, both update directions staged on its device:
     ``users[q]`` by local user (``upb`` destinations), ``items[q]`` by
-    global item (``n_items``), grouped or COO."""
+    global item (``n_items``) in the replicated layout, by local item
+    (``ipb``) in the 2-D one; grouped or COO."""
 
     users: Dict[Rank, object]
     items: Dict[Rank, object]
@@ -217,6 +258,45 @@ def prepare_coo_inputs(edges: BlockEdges, mesh: Mesh, n_items: int, rank: int) -
     return BlockSides(users, items, grouped=False)
 
 
+def prepare_grouped_inputs_2d(by_user: BlockEdges, by_item: BlockEdges, mesh: Mesh,
+                              rank: int, sizes: Optional[tuple] = None) -> BlockSides:
+    """The 2-D layout's grouped sides: ``users[q]`` groups rank ``q``'s
+    user-block edges by local user (sources: global item ids, rows of
+    the gathered Y), ``items[q]`` its item-block edges by local item
+    (sources: global user ids, rows of the gathered X).  ``by_item`` is
+    :func:`prepare_block_inputs` of ``(items, users, ratings)``: its
+    ``users`` hold local item ids and its ``items`` global user ids."""
+    world = len(by_user.users)
+    if sizes is not None:
+        p_u, p_i = sizes[0], sizes[1]
+    else:
+        p_u, p_i = _group_sizes_2d(sum(len(u) for u in by_user.users), world, by_user.upb,
+                                   by_item.upb)
+    users, items = {}, {}
+    for b, q in enumerate(data_ranks(mesh)):
+        dev = mesh.device(q)
+        users[q] = als_ops.prepare_grouped(
+            *als_ops.build_grouped_edges(by_user.users[b], by_user.items[b], by_user.ratings[b],
+                                         by_user.upb, p_u), by_user.upb, rank, dev)
+        items[q] = als_ops.prepare_grouped(
+            *als_ops.build_grouped_edges(by_item.users[b], by_item.items[b], by_item.ratings[b],
+                                         by_item.upb, p_i), by_item.upb, rank, dev)
+    return BlockSides(users, items, grouped=True)
+
+
+def prepare_coo_inputs_2d(by_user: BlockEdges, by_item: BlockEdges, mesh: Mesh,
+                          rank: int) -> BlockSides:
+    """The 2-D layout's COO sides (see :func:`prepare_grouped_inputs_2d`)."""
+    users, items = {}, {}
+    for b, q in enumerate(data_ranks(mesh)):
+        dev = mesh.device(q)
+        for out, e in ((users, by_user), (items, by_item)):
+            valid = np.ones(len(e.users[b]), np.float32)
+            out[q] = als_ops.prepare_coo(e.users[b], e.items[b], e.ratings[b], valid, e.upb,
+                                         rank, dev)
+    return BlockSides(users, items, grouped=False)
+
+
 # -- the iteration -----------------------------------------------------------------
 
 
@@ -239,11 +319,34 @@ def _block_body(sides: BlockSides, x: Dict[Rank, torch.Tensor], y: Dict[Rank, to
     return x, y
 
 
+def _block_body_2d(sides: BlockSides, x: Dict[Rank, torch.Tensor],
+                   y: Dict[Rank, torch.Tensor], reg: float, alpha: float, implicit: bool,
+                   axis: str, policy: str, solve: Callable, gram: Callable):
+    """One alternating iteration of the 2-D layout: each side's blocks
+    all-gathered, the other side's blocks solved from their own edges,
+    the Gram the psum of the block Grams.  Returns ``(x, y)`` blocks."""
+    ranks = list(sides.users)
+
+    def half(dst_sides, src):
+        full = collective.all_gather_group([src[q] for q in ranks], axis)
+        g = (collective.psum_group([als_ops._factor_gram(src[q], gram) for q in ranks], axis)
+             if implicit else [None] * len(ranks))
+        out = {}
+        for k, q in enumerate(ranks):
+            a, b, n = dst_sides[q].partials(full[k], alpha, implicit, policy)
+            out[q] = als_ops.regularized_solve(a, b, n, reg, g[k], solve)
+        return out
+
+    x = half(sides.users, y)
+    return x, half(sides.items, x)
+
+
 def _run(sides: BlockSides, x0, y0, max_iter: int, reg: float, alpha: float,
-         implicit: bool, axis: str, policy: str, solve: Callable, gram: Callable):
+         implicit: bool, axis: str, policy: str, solve: Callable, gram: Callable,
+         body: Callable = _block_body):
     x, y = dict(x0), dict(y0)
     for _ in range(max_iter):
-        x, y = _block_body(sides, x, y, reg, alpha, implicit, axis, policy, solve, gram)
+        x, y = body(sides, x, y, reg, alpha, implicit, axis, policy, solve, gram)
     return x, y
 
 
@@ -279,10 +382,42 @@ def als_block_run_grouped(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
                 mesh.axis_names[0], policy, solve, gram)
 
 
+def als_block_run_2d(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
+                     y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float, alpha: float,
+                     mesh: Mesh, *, implicit: bool, policy: str = "f32",
+                     solve: Callable = als_kernel.solve_normal_eq,
+                     gram: Callable = als_kernel.factor_gram
+                     ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
+    """The 2-D layout (:func:`_block_body_2d`) on COO sides from
+    :func:`prepare_coo_inputs_2d`: ``(x blocks, y blocks)``, ``x0[q]`` rank
+    ``q``'s (upb, r) user block and ``y0[q]`` its (ipb, r) item block."""
+    if sides.grouped:
+        raise ValueError("als_block_run_2d takes COO sides; grouped ones run "
+                         "als_block_run_grouped_2d")
+    return _run(sides, x0, y0, max_iter, reg, alpha if implicit else 0.0, implicit,
+                mesh.axis_names[0], policy, solve, gram, _block_body_2d)
+
+
+def als_block_run_grouped_2d(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
+                             y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float,
+                             alpha: float, mesh: Mesh, *, implicit: bool,
+                             policy: str = "f32",
+                             solve: Callable = als_kernel.solve_normal_eq,
+                             gram: Callable = als_kernel.factor_gram
+                             ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
+    """:func:`als_block_run_2d` on grouped sides from
+    :func:`prepare_grouped_inputs_2d`."""
+    if not sides.grouped:
+        raise ValueError("als_block_run_grouped_2d takes grouped sides")
+    return _run(sides, x0, y0, max_iter, reg, alpha if implicit else 0.0, implicit,
+                mesh.axis_names[0], policy, solve, gram, _block_body_2d)
+
+
 def gather_user_factors(x: Dict[Rank, torch.Tensor], mesh: Mesh, offsets: np.ndarray
                         ) -> np.ndarray:
-    """The (n_users, r) user factors on the host: each block's real rows,
-    its padding rows dropped."""
+    """The (n, r) factors of a block-sharded table on the host (the user
+    factors, or the item factors of the 2-D layout): each block's real
+    rows, its padding rows dropped."""
     rows = [x[q][: int(offsets[b + 1] - offsets[b])].cpu().numpy()
             for b, q in enumerate(data_ranks(mesh))]
     return np.concatenate(rows, axis=0)

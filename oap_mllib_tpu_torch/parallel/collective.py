@@ -9,6 +9,10 @@ These are plain torch code, as XLA's psum was compiled code and not a
 Pallas kernel; the ring reduction that replaces the moment psums is the
 hand-written kernel of ops/cuda/ring_kernel.py.
 
+:func:`psum_group` and :func:`all_gather_group` take one group's
+tensors as a list, for callers that run a subset of the mesh's ranks
+(the block ALS route runs the first model column).
+
 A census counts every collective by (op, axis), as the JAX package's
 ``_note_emitted`` counts the collectives emitted into its programs, so
 a test can count psums against ring reductions: :func:`emitted`,
@@ -72,13 +76,22 @@ def all_gather(parts: Dict[Rank, torch.Tensor], mesh: Mesh, axis: str, dim: int 
     device.  Ranks of a group that share a device share the result."""
     out = {}
     for group in mesh.groups(axis):
-        note("all_gather", axis)
-        built = {}
-        for rank in group:
-            dev = parts[rank].device
-            if dev not in built:
-                built[dev] = torch.cat([parts[r].to(dev) for r in group], dim=dim)
-            out[rank] = built[dev]
+        for rank, t in zip(group, all_gather_group([parts[r] for r in group], axis, dim)):
+            out[rank] = t
+    return out
+
+
+def all_gather_group(parts: Sequence[torch.Tensor], axis: Optional[str] = None,
+                     dim: int = 0) -> List[torch.Tensor]:
+    """One group's tensors concatenated along ``dim`` in rank order, on
+    every rank's device; ranks that share a device share the result."""
+    note("all_gather", axis)
+    built = {}
+    out = []
+    for p in parts:
+        if p.device not in built:
+            built[p.device] = torch.cat([q.to(p.device) for q in parts], dim=dim)
+        out.append(built[p.device])
     return out
 
 

@@ -79,3 +79,12 @@ def resolve_devices(device: Optional[str] = None) -> List[torch.device]:
                     "needs peer access between every two cards of the mesh"
                 )
     return devs
+
+
+def model_device(device: Optional[str], dev: torch.device) -> Optional[str]:
+    """The device a fitted model scores on: the fit's own ``device``
+    setting (None keeps following ``Config.device``), or ``dev``, the
+    device the fit ran on, where that setting names a device list (a
+    model scores on one device)."""
+    name = get_config().device if device is None else str(device)
+    return device if "," not in name else str(dev)

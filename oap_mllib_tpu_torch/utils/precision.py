@@ -54,6 +54,15 @@ def kernel_tier(name: str, matmul_tier: str) -> str:
     return {"f32": matmul_tier, "tf32": "high", "bf16": "default"}[name]
 
 
+def staging_dtype(name: str) -> torch.dtype:
+    """The dtype a streamed pass stages its data chunks at: bfloat16
+    under the ``bf16`` policy (half the bytes copied to the card; the
+    kernels read them back as f32), float32 otherwise, as the JAX
+    package's ``staging_dtype``."""
+    _check("compute precision tier", name, TIERS)
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
 def apply_matmul_flags(tier: str) -> None:
     """At the ``highest`` tier, turn TF32 off for torch's f32 matmuls and
     convolutions (``torch.backends.cuda.matmul.allow_tf32`` and

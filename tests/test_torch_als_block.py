@@ -1,5 +1,6 @@
-"""The port's block-parallel ALS (replicated item layout, a mesh held by
-one process) against the JAX package's block route, on the CPU.
+"""The port's block-parallel ALS (the replicated item layout and the 2-D
+layout, a mesh held by one process) against the JAX package's block
+route, on the CPU.
 
 The JAX package runs on this suite's 8-device CPU mesh, where an ALS fit
 takes its block-parallel route by default (world 8), and world 2 with
@@ -219,18 +220,35 @@ class TestIteration:
 
 class TestRules:
     def test_the_2d_item_layout_raises_naming_the_roadmap(self):
+        """The 2-D layout, once refused, now fits: a small sharded fit on
+        eight ranks matches the replicated fit (1e-5, prediction space)."""
         users, items, ratings = _ratings(12, nnz=300)
+        kw = dict(rank=2, max_iter=4, implicit_prefs=True, alpha=2.0, seed=1)
         port_config.set_config(als_item_layout="sharded")
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            ALS(rank=2, device=CPU8).fit(users, items, ratings, N_USERS, N_ITEMS)
+        sharded = ALS(device=CPU8, **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert sharded.summary["item_layout"] == "sharded"
+        assert sharded.item_factors_.shape == (N_ITEMS, 2)
         # one device has no item layout: the knob is validated, not used
-        ALS(rank=2, max_iter=1, device="cpu").fit(users, items, ratings, N_USERS, N_ITEMS)
+        one = ALS(device="cpu", **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert one.summary["item_layout"] == "replicated"
+        port_config.set_config(als_item_layout="replicated")
+        rep = ALS(device=CPU8, **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert _rel(_pred(sharded), _pred(rep)) <= 1e-5
 
     def test_auto_past_the_crossover_raises_too(self, monkeypatch):
+        """"auto" past a lowered crossover takes the 2-D layout, as the
+        JAX package's does, and matches the replicated fit."""
         users, items, ratings = _ratings(13, nnz=300)
+        kw = dict(rank=2, max_iter=4, seed=2)
         monkeypatch.setattr(als_block, "ITEM_SHARD_AUTO_BYTES", 16)
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            ALS(rank=2, device=CPU8).fit(users, items, ratings, N_USERS, N_ITEMS)
+        monkeypatch.setattr(jax_block, "ITEM_SHARD_AUTO_BYTES", 16)
+        auto = ALS(device=CPU8, **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        ref = JaxALS(**kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert auto.summary["item_layout"] == ref.summary["item_layout"] == "sharded"
+        port_config.set_config(als_item_layout="replicated")
+        rep = ALS(device=CPU8, **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert _rel(_pred(auto), _pred(rep)) <= 1e-5
+        assert _rel(_pred(auto), _pred(ref)) <= 1e-5
 
     def test_bad_knobs_raise(self):
         users, items, ratings = _ratings(14, nnz=300)
@@ -258,3 +276,85 @@ class TestRules:
                                          N_ITEMS, p_i), x, N_ITEMS, 2.0, True)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
+
+
+class TestItemLayout2D:
+    @pytest.mark.parametrize("layout", ["grouped", "coo"])
+    @pytest.mark.parametrize("implicit", [True, False])
+    def test_world_eight_matches_jax_and_the_replicated_fit(self, layout, implicit):
+        """``als_item_layout="sharded"`` on eight ranks: within 1e-5 of the
+        JAX package's sharded block fit and of the port's replicated fit,
+        in prediction space."""
+        users, items, ratings = _ratings(16)
+        kw = dict(rank=5, max_iter=4, reg_param=0.1, implicit_prefs=implicit, alpha=2.0,
+                  seed=4)
+        port_config.set_config(als_kernel=layout, als_item_layout="sharded")
+        jax_set_config(als_kernel=layout, als_item_layout="sharded")
+        ref = JaxALS(**kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        port = ALS(device=CPU8, **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        s = port.summary
+        assert s["item_layout"] == ref.summary["item_layout"] == "sharded"
+        assert s["als_kernel"] == ref.summary["als_kernel"] == layout
+        assert s["block_parallel"] and s["mesh"] == {"data": 8, "model": 1}
+        assert port.item_factors_.shape == (N_ITEMS, 5)
+        assert _rel(_pred(port), _pred(ref)) <= 1e-5
+        port_config.set_config(als_item_layout="replicated")
+        rep = ALS(device=CPU8, **kw).fit(users, items, ratings, N_USERS, N_ITEMS)
+        assert _rel(_pred(port), _pred(rep)) <= 1e-5
+
+    @pytest.mark.parametrize("implicit", [True, False])
+    def test_launches_gathers_and_psums_per_iteration(self, implicit):
+        """What _block_body_2d implies: every iteration each of the W ranks
+        solves its users and its items (K3 2 W a iteration) with the psum
+        of the W block Grams of the other side (K4 2 W, implicit only);
+        two all_gathers a iteration, and two Gram psums (implicit)."""
+        users, items, ratings = _ratings(17)
+        mesh = get_mesh(devices=dispatch.resolve_devices(CPU8))
+        by_user = als_block.prepare_block_inputs(users, items, ratings, 8, N_USERS)
+        by_item = als_block.prepare_block_inputs(items, users, ratings, 8, N_ITEMS)
+        sides = als_block.prepare_grouped_inputs_2d(by_user, by_item, mesh, 3)
+        counts = {"solve": 0, "gram": 0}
+
+        def solve(*a):
+            counts["solve"] += 1
+            return als_kernel.solve_plain(*a)
+
+        def gram(f, mode="highest"):
+            counts["gram"] += 1
+            return als_kernel.factor_gram_plain(f, mode)
+
+        ranks = als_block.data_ranks(mesh)
+        x0 = {q: torch.zeros((by_user.upb, 3)) for q in ranks}
+        y0 = {}
+        for b, q in enumerate(ranks):
+            lo, hi = by_item.offsets[b], by_item.offsets[b + 1]
+            blk = torch.zeros((by_item.upb, 3))
+            blk[: hi - lo] = torch.from_numpy(als_np.init_factors_rows(lo, hi, 3, 1))
+            y0[q] = blk
+        x, y = als_block.als_block_run_grouped_2d(sides, x0, y0, 3, 0.1, 2.0, mesh,
+                                                  implicit=implicit, solve=solve, gram=gram)
+        assert counts == {"solve": 2 * 8 * 3, "gram": 2 * 8 * 3 if implicit else 0}
+        assert collective.emitted("all_gather", "data") == 2 * 3
+        assert collective.emitted("psum", "data") == (2 * 3 if implicit else 0)
+        # padding rows stay zero, so the psum of block Grams is the Gram
+        for b, q in enumerate(ranks):
+            real = by_item.offsets[b + 1] - by_item.offsets[b]
+            assert torch.all(y[q][real:] == 0.0)
+        with pytest.raises(ValueError, match="grouped"):
+            als_block.als_block_run_2d(sides, x0, y0, 1, 0.1, 2.0, mesh, implicit=True)
+        with pytest.raises(ValueError, match="grouped"):
+            als_block.als_block_run_grouped_2d(
+                als_block.prepare_coo_inputs_2d(by_user, by_item, mesh, 3), x0, y0, 1, 0.1,
+                2.0, mesh, implicit=True)
+
+    @pytest.mark.parametrize("seed,world", [(18, 8), (19, 3)])
+    def test_guard_2d_prices_as_the_jax_guard(self, seed, world):
+        users, items, _ = _ratings(seed)
+        got = als_block.block_grouped_guard_2d(users, items, N_USERS, N_ITEMS, world)
+        ref = jax_block.block_grouped_guard_2d(users, items, N_USERS, N_ITEMS, world)
+        assert got[0] == ref[0] and tuple(got[1]) == tuple(ref[1])
+        for blowup in (0.5, 1.0, 2.0):
+            assert (als_block.block_grouped_guard_2d(users, items, N_USERS, N_ITEMS, world,
+                                                     blowup)[0]
+                    == jax_block.block_grouped_guard_2d(users, items, N_USERS, N_ITEMS,
+                                                        world, blowup)[0])

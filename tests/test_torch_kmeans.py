@@ -209,7 +209,9 @@ class TestIsolation:
         assert len(files) > 10 and bad == []
         checked = {p.relative_to(PKG).as_posix() for p in files if PKG in p.parents}
         assert {"ops/als_block.py", "ops/host_prep.py", "ops/pca_ops.py",
-                "parallel/collective.py"} <= checked
+                "parallel/collective.py", "data/stream.py", "data/bucketing.py",
+                "data/sparse.py", "data/io.py", "data/prefetch.py", "utils/membudget.py",
+                "ops/stream_ops.py", "ops/als_stream.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -218,12 +220,19 @@ class TestIsolation:
         assert includes and [line for line in includes if "oap_mllib_tpu" in line] == []
 
     def test_importing_the_port_loads_no_jax(self):
-        """Importing the port and chip_smoke, and loading the host
-        library through its ctypes binding, loads nothing of JAX; the
+        """Importing the port and chip_smoke, loading the host library
+        through its ctypes binding, and walking a source through the
+        prefetch pipeline and the planner load nothing of JAX; the
         library loaded is the port's own build."""
         code = (
             "import sys, numpy as np, oap_mllib_tpu_torch, chip_smoke\n"
-            "from oap_mllib_tpu_torch.ops import als_block, host_prep\n"
+            "from oap_mllib_tpu_torch.ops import als_block, als_stream, host_prep, stream_ops\n"
+            "from oap_mllib_tpu_torch.data import bucketing, io, prefetch, sparse, stream\n"
+            "from oap_mllib_tpu_torch.utils import membudget\n"
+            "src = stream.ChunkSource.from_array(np.ones((300, 3), np.float32), 128)\n"
+            "with prefetch.Prefetcher(src, depth=2) as pf:\n"
+            "    assert sum(v for _, v in pf) == 300\n"
+            "membudget.plan_pca(300, 3, source_backing=src.backing)\n"
             "host_prep.group_edges(np.array([1, 0]), np.array([0, 1]),\n"
             "                      np.ones(2, np.float32), 2, 8)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
