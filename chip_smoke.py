@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # on a machine with the card
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, tiny
     python3 chip_smoke.py --mesh       # only the phases whose ranks span cards
-                                       # (4's last card, 10-14, 19)
+                                       # (4's last card, 10-14, 19, 21)
+    python3 chip_smoke.py --mp         # only the build and the worlds (21)
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -138,6 +139,29 @@ Phases, each a hard check (any failure exits non-zero):
    four cards.
 20. sparse_input: a SciPy CSR table through ``KMeans.fit`` and
    ``PCA.fit``, bit-equal to the fits of its dense copy.
+21. The worlds of processes: the script runs itself with ``--mp-worker``
+   as the processes of a ``torch.distributed`` world (gloo on
+   127.0.0.1), each making only its own rows from the seed; world "a"
+   has one rank a process (two processes on the one card; four, a card
+   each, under ``--mesh``), world "b" two ranks a process (two
+   processes; two cards each under ``--mesh``).  mp_ring (world "a"):
+   K5 across the processes over CUDA IPC at the ring shapes, bit-equal
+   to the plain version across processes and to the one-process plain
+   ring, two launches bit-equal, one launch a process a ring, timed
+   against the plain version and the gloo host path; world "b" rings
+   with two members a process.  mp_kmeans: the headline fit on (2, 1)
+   (k-means||, K1 (iterations + 1) a local rank) and (2, 2) (random,
+   K5 one launch a process a ring), iterations/s and the host
+   collectives' seconds.  mp_pca: 2^20 x 128 on (2, 1) and (2, 2).
+   mp_stream: each process's half as a source of 65,536 rows, the
+   streamed Lloyd loop and PCA with their f32 moments through K5 (one
+   launch a pass).  mp_als: implicit ML-25M rank 10 on an uneven cut of
+   the ratings, two ranks a process (K3 = K4 = 2 x 2 x 10), and rank 32
+   in the 2-D layout under ``--mesh``.  Afterwards this process holds
+   every fit against the one-process fit of its shape (K-Means:
+   iterations equal, centers and cost 1e-5; PCA against one device,
+   components 1e-4, ratios 1e-5; streamed: centers 1e-4, cost 1e-5, PCA
+   1e-5; ALS 1e-4 in prediction space).  ``--mp`` runs only these.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -150,6 +174,8 @@ the CPU at tiny sizes and never prints the ok line.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
 import re
@@ -2116,6 +2142,684 @@ def phase_sparse_input(cfg, dev):
     return out
 
 
+# -- several processes ------------------------------------------------------------
+# Worlds of processes that this script spawns by running itself with
+# ``--mp-worker``: world "a", one rank a process (2 processes on the one
+# card; 4, one card each, under --mesh), and world "b", two ranks a
+# process (2 processes).  Each process makes only its own rows from the
+# seed; the parent holds every fit against the one-process fit of the
+# same shape afterwards.
+MP_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "pca": (1 << 20, 128),
+           "pca_k": 16, "chunk_rows": 1 << 16, "stream_iter": 5, "reps": 10,
+           "ring_shapes": [(1000, 130), (13, 37), (65536, 256)], "als": ALS_FULL,
+           "als_cut": 0.46}
+MP_TINY = {"n": 4096, "d": 29, "k": 11, "max_iter": 5, "pca": (3000, 37), "pca_k": 5,
+           "chunk_rows": 1024, "stream_iter": 3, "reps": 1,
+           "ring_shapes": [(1000, 130), (13, 37), (512, 256)], "als": ALS_TINY,
+           "als_cut": 0.46}
+MP_BLOCK = 1 << 16  # rows a seeded generator makes: any process makes its own
+MP_TIMEOUT_S = 900
+
+
+def blob_rows(n, lo, hi, d, k, seed, dev):
+    """Rows ``[lo, hi)`` of an n-row table of Gaussian blobs, and centers
+    near the blob centers: every block of ``MP_BLOCK`` rows comes from a
+    generator of its own, so a process makes its rows alone and the
+    whole table is the concatenation of every process's."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    true = torch.randn((k, d), generator=g, device=dev) * 2.0
+    c0 = true + 0.5 * torch.randn((k, d), generator=g, device=dev)
+    parts = []
+    for b in range(lo // MP_BLOCK, -(-hi // MP_BLOCK)):
+        b0, b1 = b * MP_BLOCK, min(n, (b + 1) * MP_BLOCK)
+        gb = torch.Generator(device=dev)
+        gb.manual_seed(seed * 1000003 + b + 1)
+        lab = torch.randint(0, k, (b1 - b0,), generator=gb, device=dev)
+        rows = true[lab] + torch.randn((b1 - b0, d), generator=gb, device=dev)
+        parts.append(rows[max(lo, b0) - b0:min(hi, b1) - b0])
+    return torch.cat(parts).contiguous(), c0.contiguous()
+
+
+def spectrum_rows(n, lo, hi, d, seed, dev):
+    """Rows ``[lo, hi)`` of ``pca_data``'s kind of table (a decaying
+    spectrum around a mean of 3), block by block as :func:`blob_rows`."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev))
+    scale = 10.0 * 0.85 ** torch.arange(d, device=dev, dtype=torch.float32)
+    parts = []
+    for b in range(lo // MP_BLOCK, -(-hi // MP_BLOCK)):
+        b0, b1 = b * MP_BLOCK, min(n, (b + 1) * MP_BLOCK)
+        gb = torch.Generator(device=dev)
+        gb.manual_seed(seed * 1000003 + b + 1)
+        z = torch.randn((b1 - b0, d), generator=gb, device=dev) * scale
+        parts.append((z @ q.T + 3.0)[max(lo, b0) - b0:min(hi, b1) - b0])
+    return torch.cat(parts).contiguous()
+
+
+def mp_local_devices(world, rank, mesh, rehearse):
+    """A worker's own devices: world "a" one, world "b" two; the one card
+    for every process, or under --mesh cards of its own."""
+    per = 1 if world == "a" else 2
+    if rehearse:
+        return ",".join(["cpu"] * per)
+    if mesh:
+        return ",".join(f"cuda:{rank * per + j}" for j in range(per))
+    return ",".join(["cuda:0"] * per)
+
+
+def mp_same(tag, value):
+    """Fail unless every process holds the same ``value`` (bytes)."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    digest = np.frombuffer(hashlib.sha256(value).digest(), np.uint8)
+    (all_d,) = collective.process_allgather([digest])
+    check(bool((all_d == all_d[0]).all()), f"{tag}: the processes hold different results")
+
+
+def mp_timed(fn, n, dev):
+    """Milliseconds a call of ``fn`` (a collective: every process times
+    it together), after one warm call and a barrier."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    fn()
+    sync(dev)
+    collective.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def gloo_bare(part):
+    """A bare gloo ``all_gather`` of ``part``'s bytes, already on the
+    host, into a buffer made beforehand: what the host path's transport
+    costs without the port's copies."""
+    import torch.distributed as dist
+
+    host = part.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    out = torch.empty((dist.get_world_size(), host.numel()), dtype=torch.uint8)
+    views = list(out.unbind(0))
+    return lambda: dist.all_gather(views, host)
+
+
+def mp_ring(cfg, dev, rank, nproc):
+    """K5 across the processes: a ring of one member a process (world "a")
+    at every shape, the kernel over IPC bit-equal to the plain version
+    across processes and to the one-process plain ring of the gathered
+    parts, two launches bit-equal, one launch a process a ring; times of
+    the kernel call (barriers included), the plain version and the gloo
+    host path (process_allgather, then a sum) for the same payload."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    out = []
+    groups, owner = [list(range(nproc))], (lambda m: m)
+    if dev.type == "cuda":
+        # a handle does not open in the process that made it: the hazard
+        # the wrapper steps round by using its own pointer
+        lib = ring_kernel._library()
+        ptr, handle = ctypes.c_void_p(), (ctypes.c_ubyte * 64)()
+        check(lib.ring_ws_alloc(dev.index, 1 << 20, ctypes.byref(ptr), handle) == 0,
+              "mp_ring: a test workspace")
+        mapped = ctypes.c_void_p()
+        own_err = lib.ring_ipc_open(dev.index, bytes(handle), ctypes.byref(mapped))
+        check(own_err != 0, "mp_ring: a process opened its own IPC handle")
+        check(lib.ring_ws_free(dev.index, ptr) == 0, "mp_ring: freeing the test workspace")
+    for rows, cols in cfg["ring_shapes"]:
+        g = torch.Generator()
+        g.manual_seed(rows * cols + 7 * rank)
+        part = (torch.randn((rows, cols), generator=g) * 10.0).to(dev)
+        mine = {rank: part}
+        ring_kernel.reset_launches()
+        got = ring_kernel.ring_allreduce_groups(mine, groups, owner)[rank]
+        launches = ring_kernel.LAUNCHES[ring_kernel.KERNEL]
+        again = ring_kernel.ring_allreduce_groups(mine, groups, owner)[rank]
+        plain = ring_kernel.ring_allreduce_groups_plain(mine, groups, owner)[rank]
+        (all_parts,) = collective.process_allgather([part])
+        one = ring_kernel.ring_allreduce_plain([torch.from_numpy(a) for a in all_parts])[0]
+        sync(dev)
+        tag = f"mp_ring world={nproc} {rows}x{cols}"
+        check(torch.equal(got, again), f"{tag}: two launches differ")
+        check(torch.equal(got, plain), f"{tag}: kernel differs from the plain version")
+        check(torch.equal(got.cpu(), one), f"{tag}: differs from the one-process plain ring")
+        want = 1 if dev.type == "cuda" else 0
+        check(launches == want, f"{tag}: {launches} launches in this process, expected {want}")
+        mp_same(tag, got.cpu().numpy().tobytes())
+        reps = cfg["reps"]
+        ring_kernel.reset_ipc_stats()
+        ms = mp_timed(lambda: ring_kernel.ring_allreduce_groups(mine, groups, owner), reps, dev)
+        stats = dict(ring_kernel.IPC_STATS)
+        n_gloo = max(1, reps // 2)
+        collective.reset_host_stats()
+        gloo_ms = mp_timed(lambda: torch.as_tensor(
+            collective.process_allgather([part])[0].sum(axis=0)).to(dev), n_gloo, dev)
+        host = dict(collective.HOST_STATS)
+        # the same payload's bytes through gloo alone, host to host
+        bare_ms = mp_timed(gloo_bare(part), n_gloo, dev)
+        plain_ms = mp_timed(lambda: ring_kernel.ring_allreduce_groups_plain(mine, groups, owner),
+                            max(1, reps // 4), dev)
+        distinct = dev.type == "cuda" and torch.cuda.device_count() >= nproc and nproc > 1 \
+            and MP_STATE.get("mesh", False)
+        bound_ms, bound_by = ring_bound(rows, cols, nproc, distinct)
+        v = {"world": nproc, "shape": [rows, cols], "layout": "distinct cards" if distinct
+             else f"all on {dev}", "bit_equal_to_plain": True, "launches_per_process": launches,
+             "max_abs_err": float(torch.max(torch.abs(got - plain))), "ms": ms,
+             "plain_ms": plain_ms, "gloo_host_ms": gloo_ms, "gloo_bare_ms": bare_ms,
+             # the host path's time inside gloo's all_gather and in all of
+             # process_allgather (copies included), a call
+             "gloo_host_gloo_ms": 1e3 * host["gloo_s"] / max(1, host["calls"]),
+             "gloo_host_exchange_ms": 1e3 * host["seconds"] / max(1, host["calls"]),
+             "payload_mb": rows * cols * 4 / 1e6, "bound_ms": bound_ms,
+             "bound_by": bound_by,
+             "barrier_ms_per_call": 1e3 * stats["barrier_s"] / max(1, stats["calls"]),
+             "host_ms_per_call": 1e3 * stats["total_s"] / max(1, stats["calls"])}
+        emit("mp_ring_variant", v)
+        out.append(v)
+    return out
+
+
+def mp_ring_members(dev, rank, nproc):
+    """World "b": rings whose processes hold two members each (one ring of
+    all the members, and a ring per column as the model-sharded fit
+    runs them), bit-equal to the one-process plain rings."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    rows, cols = 1000, 130
+    members = 2 * nproc
+    mine = {}
+    for m in (2 * rank, 2 * rank + 1):
+        g = torch.Generator()
+        g.manual_seed(31 * m + 5)
+        mine[m] = (torch.randn((rows, cols), generator=g) * 10.0).to(dev)
+    (gathered,) = collective.process_allgather([torch.stack([mine[2 * rank], mine[2 * rank + 1]])])
+    every = [torch.from_numpy(gathered[m // 2, m % 2]) for m in range(members)]
+    for groups in ([list(range(members))], [list(range(0, members, 2)),
+                                            list(range(1, members, 2))]):
+        ring_kernel.reset_launches()
+        got = ring_kernel.ring_allreduce_groups(mine, groups, lambda m: m // 2)
+        launches = ring_kernel.LAUNCHES[ring_kernel.KERNEL]
+        for g in groups:
+            one = ring_kernel.ring_allreduce_plain([every[m] for m in g])
+            for m, t in zip(g, one):
+                if m in got:
+                    check(torch.equal(got[m].cpu(), t),
+                          f"mp_ring {len(groups)} ring(s) of {len(g)}: member {m} differs "
+                          "from the one-process plain ring")
+        want = len(groups) if dev.type == "cuda" else 0
+        check(launches == want, f"mp_ring: {launches} launches for {len(groups)} rings")
+    return {"members_per_process": 2, "bit_equal": True}
+
+
+def _mp_save(out, rank, name, array):
+    np.save(os.path.join(out, f"rank{rank}_{name}.npy"), np.asarray(array))
+
+
+def mp_kmeans(cfg, dev, rank, nproc, model, out, init):
+    """The K-Means fit across the processes: this process's share of the
+    headline table, counts zeroed just before: K1 (iterations + 1) a
+    local rank, K5 one a process a ring on a model axis; iterations/s and
+    the share of the Lloyd loop spent in host collectives."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    n, d, k, it = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"]
+    lo, hi = rank * n // nproc, (rank + 1) * n // nproc
+    x, _ = blob_rows(n, lo, hi, d, k, 0, dev)
+    set_config(model_parallel=model)
+    try:
+        kmeans_kernel.reset_launches()
+        ring_kernel.reset_launches()
+        collective.reset_host_stats()
+        ring_kernel.reset_ipc_stats()
+        t0 = time.perf_counter()
+        m = KMeans(k=k, max_iter=it, tol=1e-4, seed=0, init_mode=init).fit(x)
+        wall = time.perf_counter() - t0
+        launches = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+        host = dict(collective.HOST_STATS)
+        ipc = dict(ring_kernel.IPC_STATS)
+    finally:
+        set_config(model_parallel=1)
+    s = m.summary
+    local = len(resolve_devices())
+    on_card = dev.type == "cuda"
+    check(s.kernels == launches, f"mp_kmeans: summary kernels {s.kernels} != {launches}")
+    # K1 runs on the data-parallel route (model 1); the sharded loop is
+    # plain torch around the ring, as in one process
+    k1_want = (s.num_iter + 1) * local if (on_card and model == 1) else 0
+    check(launches[kmeans_kernel.KERNEL] == k1_want,
+          f"mp_kmeans ({s.mesh}): K1 launched {launches[kmeans_kernel.KERNEL]} times, "
+          f"expected {k1_want}")
+    ring_want = (s.num_iter + 1) * model if (on_card and model > 1) else 0
+    check(launches[ring_kernel.KERNEL] == ring_want,
+          f"mp_kmeans ({s.mesh}): K5 launched {launches[ring_kernel.KERNEL]} times, "
+          f"expected {ring_want}")
+    check(s.processes == nproc and s.process_id == rank, "mp_kmeans: summary world")
+    check(np.all(np.isfinite(m.cluster_centers_)) and np.isfinite(s.training_cost),
+          "mp_kmeans: non-finite centers or cost")
+    mp_same(f"mp_kmeans {s.mesh}", m.cluster_centers_.tobytes())
+    tag = f"kmeans_{s.mesh['data']}x{s.mesh['model']}"
+    _mp_save(out, rank, tag, m.cluster_centers_)
+    loop = s.timings.as_dict()["lloyd_loop"]
+    v = {"mesh": s.mesh, "processes": nproc, "init": init, "shape": [n, d], "k": k,
+         "rows_here": hi - lo, "num_iter": s.num_iter, "training_cost": s.training_cost,
+         "wall_s": wall, "phases_s": s.timings.as_dict(), "iters_per_s": s.num_iter / loop,
+         "launches": launches, "host_collective_s": host["seconds"],
+         "host_collective_gloo_s": host["gloo_s"],
+         "host_collective_calls": host["calls"], "host_collective_bytes": host["bytes"],
+         "host_collective_share_of_fit": host["seconds"] / wall,
+         "ring_ipc_s": ipc["total_s"], "ring_barrier_s": ipc["barrier_s"], "tag": tag}
+    emit("mp_kmeans", v)
+    return v
+
+
+def mp_pca(cfg, dev, rank, nproc, model, out):
+    """PCA across the processes on (processes x local ranks / model,
+    model): K2 twice a local rank on a model axis of 1, none above."""
+    (n, d), k = cfg["pca"], cfg["pca_k"]
+    lo, hi = rank * n // nproc, (rank + 1) * n // nproc
+    x = spectrum_rows(n, lo, hi, d, d, dev)
+    set_config(model_parallel=model)
+    try:
+        pca_kernel.reset_launches()
+        t0 = time.perf_counter()
+        fit = PCA(k=k).fit(x)
+        wall = time.perf_counter() - t0
+        launches = dict(pca_kernel.LAUNCHES)
+    finally:
+        set_config(model_parallel=1)
+    s = fit.summary
+    local = len(resolve_devices())
+    want = (2 * local if model == 1 else 0) if dev.type == "cuda" else 0
+    check(launches[pca_kernel.KERNEL] == want,
+          f"mp_pca ({s['mesh_shape']}): K2 launched {launches[pca_kernel.KERNEL]}, want {want}")
+    mp_same(f"mp_pca {s['mesh_shape']}", fit.components_.tobytes())
+    tag = f"pca_{s['mesh_shape']['data']}x{s['mesh_shape']['model']}"
+    _mp_save(out, rank, tag + "_components", fit.components_)
+    _mp_save(out, rank, tag + "_ratios", fit.explained_variance_)
+    v = {"mesh": s["mesh_shape"], "processes": s["processes"], "shape": [n, d], "k": k,
+         "wall_s": wall, "phases_s": s["timings"].as_dict(), "launches": launches, "tag": tag}
+    emit("mp_pca", v)
+    return v
+
+
+def mp_stream(cfg, dev, rank, nproc, out):
+    """The streamed fits across the processes: this process's share of
+    the headline table as a ChunkSource; the streamed Lloyd loop from
+    centers near the blob centers and the streamed covariance, every
+    pass's f32 moments through K5 (one launch a process a pass)."""
+    n, d, k = cfg["n"], cfg["d"], cfg["k"]
+    lo, hi = rank * n // nproc, (rank + 1) * n // nproc
+    x, c0 = blob_rows(n, lo, hi, d, k, 0, dev)
+    src = ChunkSource.from_array(x.cpu().numpy(), chunk_rows=cfg["chunk_rows"])
+    del x
+    kmeans_kernel.reset_launches()
+    ring_kernel.reset_launches()
+    t0 = time.perf_counter()
+    with record_sheets() as km_sheets:
+        c, n_iter, cost, counts = stream_ops.lloyd_run_streamed(
+            src, c0, cfg["stream_iter"], 1e-4, "highest", device=dev)
+    wall = time.perf_counter() - t0
+    launches = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+    chunks = -(-(hi - lo) // cfg["chunk_rows"])
+    on_card = dev.type == "cuda"
+    check(launches[kmeans_kernel.KERNEL] == (chunks * (n_iter + 1) if on_card else 0),
+          f"mp_stream: K1 {launches[kmeans_kernel.KERNEL]}, expected chunks x (iterations + 1)")
+    check(launches[ring_kernel.KERNEL] == (n_iter + 1 if on_card else 0),
+          f"mp_stream: K5 {launches[ring_kernel.KERNEL]}, expected one a pass ({n_iter + 1})")
+    mp_same("mp_stream kmeans", c.cpu().numpy().tobytes())
+    _mp_save(out, rank, "stream_centers", c.cpu().numpy())
+    _mp_save(out, rank, "stream_cost", np.asarray([float(cost)]))
+    (pn, pd), pk = cfg["pca"], cfg["pca_k"]
+    plo, phi = rank * pn // nproc, (rank + 1) * pn // nproc
+    psrc = ChunkSource.from_array(spectrum_rows(pn, plo, phi, pd, pd, dev).cpu().numpy(),
+                                  chunk_rows=cfg["chunk_rows"])
+    pca_kernel.reset_launches()
+    ring_kernel.reset_launches()
+    t1 = time.perf_counter()
+    with record_sheets() as pca_sheets:
+        fit = PCA(k=pk).fit(psrc)
+    pwall = time.perf_counter() - t1
+    plaunch = {**pca_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+    check(fit.summary["n_rows"] == pn, f"mp_stream pca: {fit.summary['n_rows']} rows")
+    check(plaunch[ring_kernel.KERNEL] == (2 if on_card else 0),
+          f"mp_stream pca: K5 {plaunch[ring_kernel.KERNEL]}, expected one a pass (2)")
+    mp_same("mp_stream pca", fit.components_.tobytes())
+    _mp_save(out, rank, "stream_pca_components", fit.components_)
+    _mp_save(out, rank, "stream_pca_ratios", fit.explained_variance_)
+    # K5 at the sheets these passes packed, on the parts they passed
+    sheets = (stream_sheets("kmeans", km_sheets, cfg, dev, rank, nproc)
+              + stream_sheets("pca", pca_sheets, cfg, dev, rank, nproc))
+    v = {"processes": nproc, "rows_here": hi - lo, "chunk_rows": cfg["chunk_rows"],
+         "num_iter": n_iter, "wall_s": wall, "s_per_pass": wall / (n_iter + 1),
+         "launches": launches, "pca_wall_s": pwall, "pca_launches": plaunch,
+         "ring_sheets": sheets}
+    emit("mp_stream", v)
+    return v
+
+
+class record_sheets:
+    """Within the block, every call of ``ring_kernel.ring_allreduce_groups``
+    (the streamed passes' ring, stream_ops._ring_reduce_f32) keeps a copy
+    of this process's part of the first sheet of each shape; the calls
+    run as they would."""
+
+    def __enter__(self):
+        self.real = ring_kernel.ring_allreduce_groups
+        self.sheets = {}
+
+        def spy(parts, groups, owner, *args, **kwargs):
+            for t in parts.values():
+                self.sheets.setdefault(tuple(t.shape), t.detach().clone())
+            return self.real(parts, groups, owner, *args, **kwargs)
+
+        ring_kernel.ring_allreduce_groups = spy
+        return self.sheets
+
+    def __exit__(self, *exc):
+        ring_kernel.ring_allreduce_groups = self.real
+        return False
+
+
+def stream_sheets(fit, sheets, cfg, dev, rank, nproc):
+    """K5 across the processes on each sheet a streamed fit packed (its
+    recorded parts, one ring of the processes): bit-equal to the plain
+    version on the same parts, one launch a process; both timed.  These
+    launches come after the fit's counts were read."""
+    check(bool(sheets), f"mp_stream {fit}: no pass reduced through the ring")
+    groups, owner = [list(range(nproc))], (lambda p: p)
+    out = []
+    for shape in sorted(sheets):
+        mine = {rank: sheets[shape]}
+        ring_kernel.reset_launches()
+        got = ring_kernel.ring_allreduce_groups(mine, groups, owner)[rank]
+        launches = ring_kernel.LAUNCHES[ring_kernel.KERNEL]
+        plain = ring_kernel.ring_allreduce_groups_plain(mine, groups, owner)[rank]
+        sync(dev)
+        tag = f"mp_stream {fit} sheet {shape[0]}x{shape[1]}"
+        check(torch.equal(got, plain), f"{tag}: the kernel differs from the plain version")
+        want = 1 if dev.type == "cuda" else 0
+        check(launches == want, f"{tag}: {launches} launches in this process, expected {want}")
+        out.append({
+            "fit": fit, "shape": list(shape), "bit_equal_to_plain": True,
+            "max_abs_err": float(torch.max(torch.abs(got - plain))),
+            "launches_per_process": launches,
+            "ms": mp_timed(lambda: ring_kernel.ring_allreduce_groups(mine, groups, owner),
+                           cfg["reps"], dev),
+            "plain_ms": mp_timed(
+                lambda: ring_kernel.ring_allreduce_groups_plain(mine, groups, owner),
+                max(1, cfg["reps"] // 4), dev)})
+        emit("mp_stream_sheet", out[-1])
+    return out
+
+
+def mp_als(cfg, dev, rank, nproc, out):
+    """Implicit ALS across the processes: this process's uneven cut of the
+    ML-25M-shaped ratings on its two ranks (K3 = K4 = 2 x local ranks x
+    iterations), the shuffle across processes; and under --mesh rank 32
+    with the 2-D layout."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    a = cfg["als"]
+    u, i, r = als_data(a)
+    cut = int(len(u) * cfg["als_cut"])
+    sl = slice(0, cut) if rank == 0 else slice(cut, None)
+    runs = [(a["rank"], "replicated")]
+    if MP_STATE.get("mesh") or dev.type == "cpu":
+        runs.append((a["wide_rank"], "sharded"))
+    res = []
+    for rank_, layout in runs:
+        set_config(als_item_layout=layout)
+        try:
+            als_kernel.reset_launches()
+            collective.reset_host_stats()
+            t0 = time.perf_counter()
+            m = ALS(rank=rank_, max_iter=a["max_iter"], reg_param=a["reg"], alpha=a["alpha"],
+                    implicit_prefs=True).fit(u[sl], i[sl], r[sl], n_users=a["n_users"],
+                                            n_items=a["n_items"])
+            wall = time.perf_counter() - t0
+            launches = dict(als_kernel.LAUNCHES)
+            host = dict(collective.HOST_STATS)
+        finally:
+            set_config(als_item_layout="auto")
+        s = m.summary
+        local = len(resolve_devices())
+        want = 2 * local * a["max_iter"] if dev.type == "cuda" else 0
+        check(launches[als_kernel.SOLVE] == want and launches[als_kernel.GRAM] == want,
+              f"mp_als rank {rank_}: K3 {launches[als_kernel.SOLVE]}, K4 "
+              f"{launches[als_kernel.GRAM]}, expected {want} each")
+        check(s["item_layout"] == layout and s["processes"] == nproc, f"mp_als summary {s}")
+        mp_same(f"mp_als rank {rank_}", m.user_factors_.tobytes() + m.item_factors_.tobytes())
+        tag = f"als_r{rank_}_{layout}"
+        if rank == 0:
+            _mp_save(out, rank, tag + "_u", m.user_factors_[:4096])
+            _mp_save(out, rank, tag + "_i", m.item_factors_)
+        phases = s["timings"].as_dict()
+        v = {"rank": rank_, "layout": layout, "mesh": s["mesh"], "processes": nproc,
+             "ratings_here": int(sl.stop - sl.start) if sl.stop else len(u) - cut,
+             "wall_s": wall, "phases_s": phases,
+             "iters_per_s": a["max_iter"] / phases["als_iterations"], "launches": launches,
+             "host_collective_s": host["seconds"], "host_collective_gloo_s": host["gloo_s"],
+             "host_collective_calls": host["calls"], "host_collective_bytes": host["bytes"],
+             "tag": tag}
+        emit("mp_als", v)
+        res.append(v)
+    return res
+
+
+MP_STATE = {}
+
+
+def mp_worker(argv) -> int:
+    """One process of a world: join, run the world's phases, print one
+    ``MP_RESULT`` line."""
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
+    rank, nproc, port, world, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3], argv[4]
+    flags = set(argv[5:])
+    rehearse, mesh = "--rehearse" in flags, "--mesh" in flags
+    MP_STATE["mesh"] = mesh
+    cfg = MP_TINY if rehearse else MP_FULL
+    set_config(device=mp_local_devices(world, rank, mesh, rehearse), collective_timeout=600.0)
+    bootstrap.initialize_distributed(f"127.0.0.1:{port}", nproc, rank, launcher_store=True)
+    dev = resolve_devices()[0]
+    res = {"rank": rank, "world": world, "layout": bootstrap.world_layout()}
+    try:
+        if world == "a":
+            res["mp_ring"] = mp_ring(cfg, dev, rank, nproc)
+            res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 1, out, "k-means||")]
+            res["mp_pca"] = [mp_pca(cfg, dev, rank, nproc, 1, out)]
+            res["mp_stream"] = mp_stream(cfg, dev, rank, nproc, out)
+        else:
+            res["mp_ring_members"] = mp_ring_members(dev, rank, nproc)
+            res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 2, out, "random")]
+            res["mp_pca"] = [mp_pca(cfg, dev, rank, nproc, 2, out)]
+            res["mp_als"] = mp_als(cfg, dev, rank, nproc, out)
+    except Failed as e:
+        print(f"FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    finally:
+        bootstrap.shutdown()
+    print("MP_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def run_world(world, nproc, out, flags):
+    """Spawn a world of ``nproc`` worker processes and collect their
+    results; every process is stopped before this returns.  This process
+    hosts the world's store on a port the kernel assigns and holds it
+    until the workers end, so two runs on one machine never meet."""
+    import datetime
+
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, nproc, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker",
+                               str(r), str(nproc), str(store.port), world, out, *flags],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(nproc)]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, MP_TIMEOUT_S - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        raise Failed(f"world {world}: the workers did not end within {MP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        del store
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        for line in text.splitlines():
+            if not line.startswith("MP_RESULT "):
+                print(f"[{world}{r}] {line}", flush=True)
+        if p.returncode != 0:
+            raise Failed(f"world {world}: worker {r} exited {p.returncode}")
+        got = [ln for ln in text.splitlines() if ln.startswith("MP_RESULT ")]
+        check(bool(got), f"world {world}: worker {r} printed no result")
+        results.append(json.loads(got[-1][len("MP_RESULT "):]))
+    return results, time.perf_counter() - t0
+
+
+def _mp_load(out, name, nproc):
+    """A saved array, asserted identical on every process."""
+    arrays = [np.load(os.path.join(out, f"rank{r}_{name}.npy")) for r in range(nproc)]
+    check(all(np.array_equal(a, arrays[0]) for a in arrays), f"{name}: processes differ")
+    return arrays[0]
+
+
+def phase_mp(dev, mesh, rehearse):
+    """The fits across processes (worlds "a" and "b"), then each against
+    the one-process fit of the same shape in this process."""
+    cfg = MP_TINY if rehearse else MP_FULL
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "oap_mllib_tpu_torch",
+                       "build", "mp_smoke")
+    os.makedirs(out, exist_ok=True)
+    flags = (["--rehearse"] if rehearse else []) + (["--mesh"] if mesh else [])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    n_a = 4 if mesh else 2
+    a, wall_a = run_world("a", n_a, out, flags)
+    b, wall_b = run_world("b", 2, out, flags)
+    n, d, k, it = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"]
+    x, c0 = blob_rows(n, 0, n, d, k, 0, dev)
+    checks = {}
+    # K-Means: the one-process mesh fit of each world's shape
+    for v, layout_n, model, init in ((a[0]["mp_kmeans"][0], n_a, 1, "k-means||"),
+                                     (b[0]["mp_kmeans"][0], 4, 2, "random")):
+        devs = mesh_devices(dev, layout_n) if mesh else [dev] * layout_n
+        set_config(model_parallel=model)
+        try:
+            ref = KMeans(k=k, max_iter=it, tol=1e-4, seed=0, init_mode=init,
+                         device=",".join(str(q) for q in devs)).fit(x)
+        finally:
+            set_config(model_parallel=1)
+        got = _mp_load(out, v["tag"], n_a if model == 1 else 2)
+        c_err = float(np.max(np.abs(got - ref.cluster_centers_)))
+        cost_err = abs(v["training_cost"] - ref.summary.training_cost) / ref.summary.training_cost
+        check(v["num_iter"] == ref.summary.num_iter,
+              f"mp_kmeans {v['mesh']}: {v['num_iter']} iterations, one process "
+              f"{ref.summary.num_iter}")
+        check(c_err <= 1e-5 and cost_err <= 1e-5,
+              f"mp_kmeans {v['mesh']}: centers {c_err:.3g}, cost {cost_err:.3g} from one process")
+        one_loop = ref.summary.timings.as_dict()["lloyd_loop"]
+        checks[v["tag"]] = {"centers_abs_err": c_err, "cost_rel_err": cost_err,
+                            "bit_equal": bool(np.array_equal(got, ref.cluster_centers_)),
+                            "one_process_iters_per_s": ref.summary.num_iter / one_loop}
+    # PCA: the one-device fit
+    (pn, pd), pk = cfg["pca"], cfg["pca_k"]
+    px = spectrum_rows(pn, 0, pn, pd, pd, dev)
+    one = PCA(k=pk, device=str(dev)).fit(px)
+    keep = one.explained_variance_ > 1e-5
+    for v, nproc in ((a[0]["mp_pca"][0], n_a), (b[0]["mp_pca"][0], 2)):
+        comps = _mp_load(out, v["tag"] + "_components", nproc)
+        ratios = _mp_load(out, v["tag"] + "_ratios", nproc)
+        comp_err = sign_err(comps[:, keep], one.components_[:, keep])
+        ratio_err = float(np.max(np.abs(ratios - one.explained_variance_)))
+        check(comp_err <= 1e-4 and ratio_err <= 1e-5,
+              f"mp_pca {v['mesh']}: components {comp_err:.3g}, ratios {ratio_err:.3g}")
+        checks[v["tag"]] = {"components_err": comp_err, "ratio_err": ratio_err}
+    # streamed: the one-process streamed fits
+    src = ChunkSource.from_array(x.cpu().numpy(), chunk_rows=cfg["chunk_rows"])
+    c1, it1, cost1, _ = stream_ops.lloyd_run_streamed(src, c0, cfg["stream_iter"], 1e-4,
+                                                      "highest", device=dev)
+    sv = a[0]["mp_stream"]
+    sc = _mp_load(out, "stream_centers", n_a)
+    scost = float(_mp_load(out, "stream_cost", n_a)[0])
+    sc_err = float(np.max(np.abs(sc - c1.cpu().numpy())) / np.max(np.abs(c1.cpu().numpy())))
+    scost_err = abs(scost - float(cost1)) / float(cost1)
+    check(sv["num_iter"] == it1 and sc_err <= 1e-4 and scost_err <= 1e-5,
+          f"mp_stream kmeans: {sv['num_iter']} vs {it1} iterations, centers {sc_err:.3g}, "
+          f"cost {scost_err:.3g}")
+    psrc = ChunkSource.from_array(px.cpu().numpy(), chunk_rows=cfg["chunk_rows"])
+    pone = PCA(k=pk, device=str(dev)).fit(psrc)
+    pc = _mp_load(out, "stream_pca_components", n_a)
+    pr = _mp_load(out, "stream_pca_ratios", n_a)
+    pc_err = sign_err(pc[:, keep], pone.components_[:, keep])
+    pr_err = float(np.max(np.abs(pr - pone.explained_variance_)))
+    check(pc_err <= 1e-5 and pr_err <= 1e-5,
+          f"mp_stream pca: components {pc_err:.3g}, ratios {pr_err:.3g}")
+    checks["stream"] = {"centers_rel_err": sc_err, "cost_rel_err": scost_err,
+                        "pca_components_err": pc_err, "pca_ratio_err": pr_err}
+    del x, px, src, psrc
+    # ALS: the one-process four-rank block fit, in prediction space
+    acfg = cfg["als"]
+    u, i, r = als_data(acfg)
+    for v in b[0]["mp_als"]:
+        devs = mesh_devices(dev, 4) if mesh else [dev] * 4
+        set_config(als_item_layout=v["layout"])
+        try:
+            ref = ALS(rank=v["rank"], max_iter=acfg["max_iter"], reg_param=acfg["reg"],
+                      alpha=acfg["alpha"], implicit_prefs=True,
+                      device=",".join(str(q) for q in devs)).fit(
+                u, i, r, n_users=acfg["n_users"], n_items=acfg["n_items"])
+        finally:
+            set_config(als_item_layout="auto")
+        uf = np.load(os.path.join(out, f"rank0_{v['tag']}_u.npy"))
+        itf = np.load(os.path.join(out, f"rank0_{v['tag']}_i.npy"))
+        got = torch.as_tensor(uf, device=dev) @ torch.as_tensor(itf, device=dev).T
+        want = (torch.as_tensor(ref.user_factors_[:len(uf)], device=dev)
+                @ torch.as_tensor(ref.item_factors_, device=dev).T)
+        err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        check(err <= 1e-4, f"mp_als rank {v['rank']}: prediction rel err {err:.3g}")
+        checks[v["tag"]] = {"pred_rel_err": err, "bit_equal": bool(
+            np.array_equal(uf, ref.user_factors_[:len(uf)])
+            and np.array_equal(itf, ref.item_factors_)),
+            "one_process_iters_per_s": acfg["max_iter"]
+            / ref.summary["timings"].as_dict()["als_iterations"]}
+    result = {"worlds": {"a": {"processes": n_a, "wall_s": wall_a},
+                         "b": {"processes": 2, "wall_s": wall_b}},
+              "a": a, "b": b, "checks": checks}
+    emit("mp", {"checks": checks, "wall_s": {"a": wall_a, "b": wall_b}})
+    return result
+
+
+def mp_launches(mp):
+    """Each kernel's launches by path in the worlds (process 0's)."""
+    a, b = mp["a"][0], mp["b"][0]
+    return {
+        kmeans_kernel.KERNEL: {f"mp_kmeans {v['tag']} (a process)": v["launches"][
+            kmeans_kernel.KERNEL] for v in a["mp_kmeans"] + b["mp_kmeans"]} | {
+            "mp_stream kmeans (a process)": a["mp_stream"]["launches"][kmeans_kernel.KERNEL]},
+        pca_kernel.KERNEL: {f"mp_pca {v['tag']} (a process)": v["launches"][pca_kernel.KERNEL]
+                            for v in a["mp_pca"] + b["mp_pca"]} | {
+            "mp_stream pca (a process)": a["mp_stream"]["pca_launches"][pca_kernel.KERNEL]},
+        als_kernel.SOLVE: {f"mp_{v['tag']} (a process)": v["launches"][als_kernel.SOLVE]
+                           for v in b["mp_als"]},
+        als_kernel.GRAM: {f"mp_{v['tag']} (a process)": v["launches"][als_kernel.GRAM]
+                          for v in b["mp_als"]},
+        ring_kernel.KERNEL: {f"mp_kmeans {v['tag']} (a process)": v["launches"][
+            ring_kernel.KERNEL] for v in a["mp_kmeans"] + b["mp_kmeans"]} | {
+            "mp_stream kmeans (a process)": a["mp_stream"]["launches"][ring_kernel.KERNEL],
+            "mp_stream pca (a process)": a["mp_stream"]["pca_launches"][ring_kernel.KERNEL]},
+    }
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -2143,13 +2847,19 @@ def phase_build(dev):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mp-worker"]:
+        return mp_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
     ap.add_argument("--mesh", action="store_true",
                     help="only the phases whose ranks span cards (K1-K4 on the last card, "
                          "the ring kernels, the sharded, data-parallel, PCA-mesh, block-ALS "
-                         "and 2-D ALS fits); prints no ok line")
+                         "and 2-D ALS fits, the worlds of processes); prints no ok line")
+    ap.add_argument("--mp", action="store_true",
+                    help="only the build and the phases across processes (the worlds of "
+                         "--mesh with it); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2158,6 +2868,11 @@ def main(argv=None) -> int:
         dev = resolve_device("cpu" if args.rehearse else "cuda")
         cfg = TINY if args.rehearse else FULL
         smi = phase_build(dev) if dev.type == "cuda" else None
+        if args.mp:
+            mp = phase_mp(dev, args.mesh, args.rehearse)
+            emit("mp_launches", mp_launches(mp))
+            print(f"mp phases passed: {smi}", flush=True)
+            return 0
         if args.mesh:
             phase_last_card(dev)
             phase_ring_kernels(RING_TINY if args.rehearse else RING_FULL, dev,
@@ -2169,6 +2884,8 @@ def main(argv=None) -> int:
             als_data_ = als_data(als_cfg)
             phase_als_block_fit(als_cfg, als_data_, dev, None)
             phase_als_block_2d(als_cfg, als_data_, dev)
+            mp = phase_mp(dev, True, args.rehearse)
+            emit("mp_launches", mp_launches(mp))
             print(f"mesh phases passed on {torch.cuda.device_count() if dev.type == 'cuda' else 0}"
                   f" cards: {smi}", flush=True)
             return 0
@@ -2210,6 +2927,7 @@ def main(argv=None) -> int:
         sharded = phase_sharded_fit(SHARDED_TINY if args.rehearse else SHARDED_FULL, dev)
         dp = phase_dp_fit(DP_TINY if args.rehearse else DP_FULL, dev)
         pca_mesh = phase_pca_mesh_fit(pca_cfg, dev)
+        mp = phase_mp(dev, False, args.rehearse)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2264,6 +2982,13 @@ def main(argv=None) -> int:
                   "world": main_ring["world"], "segments": 1,
                   "layout": main_ring["layout"]},
         "variants": rings,
+        # across processes (IPC): the main ring of world "a" at the
+        # sharded fit's shape, and every shape's
+        "cross_process": next(v for v in mp["a"][0]["mp_ring"]
+                              if v["shape"] == list(ring_cfg["shapes"][0])),
+        "cross_process_variants": mp["a"][0]["mp_ring"],
+        # across processes at the sheets the streamed passes packed
+        "cross_process_stream_sheets": mp["a"][0]["mp_stream"]["ring_sheets"],
     })
     # every path's launches of each kernel, from the runs above
     by_path = {
@@ -2294,6 +3019,8 @@ def main(argv=None) -> int:
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
                              "dp_fit": dp["launches"][ring_kernel.KERNEL]},
     }
+    for name, paths in mp_launches(mp).items():
+        by_path[name].update(paths)
     for entry in entries:
         entry["launches_by_path"] = by_path[entry["name"]]
     if args.rehearse:

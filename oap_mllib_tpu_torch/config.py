@@ -45,6 +45,21 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``scale_policy``: "auto" takes the first route that fits the budgets
   and warns when that is not the fit's natural one, "strict" raises
   ``BudgetError`` instead, "pin:<route>" forces a route.
+- ``num_processes`` / ``process_id``: the world of processes a fit
+  spans (parallel/bootstrap.initialize_distributed); 1 is one process.
+  With more, every fit treats its input as this process's shard, and
+  ``device`` names this process's LOCAL devices.
+- ``coordinator_address`` / ``coordinator_port``: where process 0 hosts
+  the rendezvous (port 0 = 3000); empty on process 0 discovers its own
+  address and a free port, and a non-zero process without one raises.
+- ``bootstrap_timeout``: seconds the join retries a refused coordinator
+  connection before it raises.
+- ``collective_timeout``: seconds a cross-process collective may wait
+  for its peers before it raises (600 by default; 0 = the
+  torch.distributed default, 30 minutes for gloo).  It bounds the wait
+  of the peers of a process that fails outside a collective and lives
+  on; a process that exits closes its connections, and its peers'
+  collectives fail at once.
 
 The JAX package's ``pca_kernel`` and ``als_solve_kernel`` choose between
 Pallas and XLA; the port has one device route, its CUDA kernels, so it
@@ -61,6 +76,8 @@ import threading
 from typing import Optional
 
 _ENV_PREFIX = "OAP_MLLIB_TPU_"
+# env values read as the field's type (the annotations are strings here)
+_COERCE = {"int": int, int: int, "float": float, float: float}
 
 
 @dataclasses.dataclass
@@ -83,6 +100,12 @@ class Config:
     memory_budget_hbm: str = ""
     memory_budget_host: str = ""
     scale_policy: str = "auto"
+    num_processes: int = 1
+    process_id: int = 0
+    coordinator_address: str = ""
+    coordinator_port: int = 0
+    bootstrap_timeout: float = 60.0
+    collective_timeout: float = 600.0
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -91,7 +114,7 @@ class Config:
             raw = os.environ.get(_ENV_PREFIX + f.name.upper())
             if raw is None:
                 continue
-            setattr(cfg, f.name, int(raw) if f.type in ("int", int) else raw)
+            setattr(cfg, f.name, _COERCE.get(f.type, str)(raw))
         return cfg
 
 

@@ -45,10 +45,24 @@
 // chunk whose elements fold in different orders (it straddles a row,
 // half or segment edge) folds element by element.
 //
+// Across processes (a world of several, each holding some ranks) the
+// same kernel runs once per process on the pointers of a workspace every
+// process owns: one cudaMalloc per process, its cudaIpcMemHandle_t sent
+// to the peers, which open it with cudaIpcMemLazyEnablePeerAccess.  The
+// table then holds every rank's IPC-mapped input and output; each
+// process folds its share of the elements and stores the sums into every
+// rank's output, its own and the peers'.  The host orders the processes
+// (ring_kernel.py: copy in, synchronise, barrier, launch, synchronise,
+// barrier), so no event crosses a process.  The entries below make, map
+// and release the workspace; this library links cudart statically, so
+// each entry selects its device itself.
+//
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -226,6 +240,47 @@ int ring_fold(int cards, const int* devs, void* const* streams,
   }
   if (cards > 1) err = cross_wait(cards, devs, streams, 1);
   return err;
+}
+
+// A workspace of `bytes` on `dev` for peers to map: its pointer and its
+// 64-byte IPC handle.  Returns a cudaError_t.
+// A failed call also leaves its error as the runtime's last error, which
+// ring_fold's launch check (cudaGetLastError) would report as its own:
+// the entries below clear it before they return it.
+static int cleared(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+int ring_ws_alloc(int dev, long long bytes, void** ptr, void* handle) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  return cleared(err);
+}
+
+// Free a workspace made by ring_ws_alloc (every peer has closed it).
+int ring_ws_free(int dev, void* ptr) {
+  cudaError_t err = cudaSetDevice(dev);
+  return cleared(err == cudaSuccess ? cudaFree(ptr) : err);
+}
+
+// Map a peer's workspace (its 64-byte handle) into this process, on
+// `dev`: `*ptr` is its address here.  Fails inside the process that made
+// the handle.  Returns a cudaError_t.
+int ring_ipc_open(int dev, const void* handle, void** ptr) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return cleared(err);
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return cleared(cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+// Unmap a peer's workspace mapped by ring_ipc_open.
+int ring_ipc_close(int dev, void* ptr) {
+  cudaError_t err = cudaSetDevice(dev);
+  return cleared(err == cudaSuccess ? cudaIpcCloseMemHandle(ptr) : err);
 }
 
 }  // extern "C"

@@ -38,6 +38,16 @@ a device list raises: the streamed block layout (the JAX package's
 ``als_block_stream.py``) is not ported (ROADMAP A4).
 
 A fitted model scores on one device: a mesh fit's on the first rank's.
+
+In a world of several processes (``Config.num_processes > 1``) the
+triples passed to ``fit`` are THIS process's ratings: the id maxima are
+allgathered (``n_users`` / ``n_items`` default to the world's max + 1),
+the fit takes the block route on the mesh spanning every process's
+devices (either item layout), the shuffle moves each rating to the
+process that holds its user block (parallel/shuffle.py), and every
+process returns the same factors.  A source across processes raises
+(the streamed block layout is ROADMAP A4), and so does
+``nonnegative=True`` (its numpy route would fit one shard).
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.ops import als_block, als_ops, als_stream, kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
+from oap_mllib_tpu_torch.parallel import bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
 from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
@@ -296,8 +307,21 @@ class ALS:
         else:
             x0 = y0 = None
         if self.nonnegative:
+            if bootstrap.world_size() > 1:
+                raise NotImplementedError(
+                    "nonnegative=True runs the numpy NNLS route on one process's "
+                    "ratings; it does not fit across a world of processes")
             return self._fit_fallback_np(users, items, ratings, n_users, n_items, x0, y0)
         devices = devices or resolve_devices(self.device)
+        if bootstrap.world_size() > 1:
+            mesh = get_mesh(devices=devices)
+            world = mesh.shape[mesh.axis_names[0]]
+            if self.num_user_blocks is not None and self.num_user_blocks != world:
+                raise ValueError(
+                    f"num_user_blocks={self.num_user_blocks}: across processes the "
+                    f"block ALS runs one user block per data rank of the world ({world})")
+            return self._fit_block_parallel(users, items, ratings, n_users, n_items,
+                                            x0, y0, mesh, kernel)
         if len(devices) > 1 and self.num_user_blocks != 1:
             mesh = get_mesh(devices=devices)
             world = mesh.shape[mesh.axis_names[0]]
@@ -337,11 +361,12 @@ class ALS:
         if self.nonnegative:
             return self._fit_arrays(users, items, ratings, n_users, n_items, init)
         devices = resolve_devices(self.device)
-        if len(devices) > 1 and self.num_user_blocks != 1:
+        if (len(devices) > 1 and self.num_user_blocks != 1) or bootstrap.world_size() > 1:
             raise NotImplementedError(
-                "an ALS fit of a ChunkSource on a device list runs the streamed block "
-                "layout (the JAX package's ops/als_block_stream.py), which is not "
-                "ported yet (ROADMAP A4); fit it on one device, or pass arrays"
+                "an ALS fit of a ChunkSource on a device list or across processes runs "
+                "the streamed block layout (the JAX package's ops/als_block_stream.py), "
+                "which is not ported yet (ROADMAP A4); fit it on one device, or pass "
+                "arrays"
             )
         _, _, _, n_users, n_items = _validate_resolve(users, items, ratings, n_users, n_items)
         plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
@@ -452,17 +477,18 @@ class ALS:
         return out
 
     def _block_dispatch(self, users, items, n_users: int, n_items: int, world: int,
-                        kernel: str):
+                        kernel: str, mesh: Mesh):
         """``(item_sharded, use_grouped, sizes)``, the block route's one
         decision point: the item layout, then the grouped-vs-COO guard
         priced before the shuffle (``sizes`` its group sizes, None when
-        ``Config.als_kernel`` forces the layout)."""
+        ``Config.als_kernel`` forces the layout), on the world's counts
+        when the mesh spans processes."""
         item_sharded = als_block.item_layout_sharded(n_items, self.rank, world, n_users)
         if kernel != "auto":
             return item_sharded, kernel == "grouped", None
         guard = (als_block.block_grouped_guard_2d if item_sharded
                  else als_block.block_grouped_guard)
-        use_grouped, sizes = guard(users, items, n_users, n_items, world)
+        use_grouped, sizes = guard(users, items, n_users, n_items, world, mesh=mesh)
         return item_sharded, use_grouped, sizes
 
     def _place_block_factors(self, mesh: Mesh, offsets: np.ndarray, per: int,
@@ -472,7 +498,7 @@ class ALS:
         position-addressable init (bit-equal to the global
         ``init_factors`` rows), zero below them."""
         out = {}
-        for b, q in enumerate(als_block.data_ranks(mesh)):
+        for b, q in als_block._local_blocks(mesh):
             lo, hi = int(offsets[b]), int(offsets[b + 1])
             blk = np.zeros((per, self.rank), np.float32)
             blk[: hi - lo] = (init_full[lo:hi] if init_full is not None
@@ -490,21 +516,21 @@ class ALS:
         offsets of the JAX package return None on a homogeneous world,
         which every mesh of H100s is: the blocks are uniform."""
         world = mesh.shape[mesh.axis_names[0]]
-        ranks = als_block.data_ranks(mesh)
+        ranks = [q for q in als_block.data_ranks(mesh) if mesh.is_local(q)]
         devs = list(dict.fromkeys(mesh.device(q) for q in ranks))
         pol = psn.resolve("als")
         psn.apply_matmul_flags("highest")
         item_sharded, use_grouped, sizes = self._block_dispatch(
-            users, items, n_users, n_items, world, kernel)
+            users, items, n_users, n_items, world, kernel, mesh)
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
         with phase_timer(timings, "ratings_shuffle", devs):
-            edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users)
+            edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users, mesh)
             if item_sharded:
                 # the second shuffle, by item block: the same exchange with
                 # the roles swapped (local item ids, global user ids)
                 by_item = als_block.prepare_block_inputs(items, users, ratings, world,
-                                                         n_items)
+                                                         n_items, mesh)
                 sides = (als_block.prepare_grouped_inputs_2d(edges, by_item, mesh, self.rank,
                                                              sizes) if use_grouped
                          else als_block.prepare_coo_inputs_2d(edges, by_item, mesh,
@@ -540,13 +566,15 @@ class ALS:
         summary = self._summary(timings, pol, before, {
             "block_parallel": True, "als_kernel": "grouped" if use_grouped else "coo",
             "item_layout": "sharded" if item_sharded else "replicated",
-            "mesh": dict(mesh.shape), **self._block_summary(world)})
+            "mesh": dict(mesh.shape), "processes": mesh.processes,
+            "process_id": mesh.process, **self._block_summary(world)})
         return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
 
 
 def _validate_resolve(users, items, ratings, n_users, n_items):
-    """Triple validation and id-space resolution (the JAX package's, for
-    one process)."""
+    """Triple validation and id-space resolution (the JAX package's):
+    across processes the id maxima are the world's (one allgather), so
+    every process sizes the same factor tables."""
     users = np.asarray(users, dtype=np.int64)
     items = np.asarray(items, dtype=np.int64)
     ratings = np.asarray(ratings, dtype=np.float32)
@@ -556,6 +584,13 @@ def _validate_resolve(users, items, ratings, n_users, n_items):
         raise ValueError("empty ratings")
     if users.min() < 0 or items.min() < 0:
         raise ValueError("ids must be non-negative")
+    if bootstrap.world_size() > 1:
+        (maxes,) = collective.process_allgather(
+            [np.asarray([users.max(), items.max()], np.int64)])
+        if n_users is None:
+            n_users = int(maxes[:, 0].max()) + 1
+        if n_items is None:
+            n_items = int(maxes[:, 1].max()) + 1
     if n_users is None:
         n_users = int(users.max()) + 1
     elif int(users.max()) >= n_users:

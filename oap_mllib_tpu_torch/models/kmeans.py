@@ -36,6 +36,17 @@ list's first, as the JAX package streams on its default device; the
 planner runs on the one-device route.  SciPy sparse input stays sparse
 until a chunk or the device table is filled (data/sparse.py).
 ``KMeansModel.predict`` and ``compute_cost`` take a source too.
+
+In a world of several processes (``Config.num_processes > 1``, joined
+with parallel/bootstrap.initialize_distributed) ``fit(x)`` treats ``x``
+as THIS process's rows (the JAX package's ``from_process_local`` route):
+the mesh spans every process's devices, each process builds its tiles
+from its own rows (data/table.ShardedTable.from_process_local), the init
+draws from the table spanning the world, and sample weights are this
+process's, aligned to the per-process padding.  Every process returns
+the same model; the summary records ``processes``, ``process_id`` and
+the mesh shape.  ``fit(ChunkSource)`` streams this process's shard,
+every pass's moments reduced across the processes (ops/stream_ops.py).
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_te
 from oap_mllib_tpu_torch.fallback.kmeans_np import _sq_dists, lloyd_np, predict_np
 from oap_mllib_tpu_torch.ops import kmeans_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
+from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
 from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
@@ -93,6 +105,9 @@ class KMeansSummary:
         self.ring = ring
         self.streamed = streamed
         self.route = None
+        # the world the fit ran in (parallel/bootstrap.py)
+        self.processes = bootstrap.world_size()
+        self.process_id = bootstrap.process_index()
 
     def __repr__(self) -> str:
         return (
@@ -211,6 +226,16 @@ class KMeansModel:
         return cls(centers, meta["distance_measure"], device=device)
 
 
+def _one_process(what: str) -> None:
+    """Raise when a route that fits one process's data alone is asked
+    for in a world of several."""
+    if bootstrap.world_size() > 1:
+        raise NotImplementedError(
+            f"{what} runs the numpy reference on one process's data; in a world of "
+            f"{bootstrap.world_size()} processes it would fit this shard alone"
+        )
+
+
 def _host(x):
     """``x`` on the host: a tensor's array, a sparse matrix as it is."""
     if isinstance(x, torch.Tensor):
@@ -273,9 +298,11 @@ class KMeans:
         if x.shape[0] < 1:
             raise ValueError("empty input")
         if self.distance_measure != "euclidean":
+            _one_process("distance_measure='cosine'")
             return self._fit_fallback(_dense_host(x), sample_weight)
         devices = resolve_devices(self.device)
-        if len(devices) > 1 or get_config().model_parallel > 1:
+        if (len(devices) > 1 or get_config().model_parallel > 1
+                or bootstrap.world_size() > 1):
             return self._fit_mesh(_dense_host(x) if _sparse.is_sparse(x) else x,
                                   sample_weight, devices)
         # the route plan: an array whose working set exceeds the card's
@@ -299,8 +326,9 @@ class KMeans:
         if sample_weight is not None and not isinstance(sample_weight, ChunkSource):
             sample_weight = ChunkSource.from_array(
                 np.asarray(_host(sample_weight)).reshape(-1, 1), chunk_rows=source.chunk_rows)
-        stream_ops._check_weight_source(source, sample_weight)
+        stream_ops._checked_entry(lambda: stream_ops._check_weight_source(source, sample_weight))
         if self.distance_measure != "euclidean":
+            _one_process("distance_measure='cosine'")
             w = sample_weight.to_array().reshape(-1) if sample_weight is not None else None
             return self._fit_fallback(source.to_array(), w)
         dev = resolve_devices(self.device)[0]
@@ -345,12 +373,12 @@ class KMeans:
     def _init_centers(self, table: DenseTable, weights, dev) -> torch.Tensor:
         if self.init_mode == INIT_RANDOM:
             centers0 = kmeans_ops.init_random(
-                table.data, table.n_rows, self.k, self.seed,
+                table, table.n_rows, self.k, self.seed,
                 index_map=table.valid_to_padded,
             )
         else:
             centers0 = kmeans_ops.init_kmeans_parallel(
-                table.data, weights, table.n_rows, self.k, self.seed,
+                table, weights, table.n_rows, self.k, self.seed,
                 self.init_steps, index_map=table.valid_to_padded,
             )
         return as_float_tensor(centers0, dev).contiguous()
@@ -397,7 +425,7 @@ class KMeans:
         kmeans_ops.ring_mode_cfg(cfg)  # a typo raises on every mesh fit
         mesh = get_mesh(devices=devices)
         n_model = mesh.shape[cfg.model_axis]
-        first = mesh.device((0, 0))
+        first = mesh.device(mesh.local_ranks[0])
         timings = Timings("kmeans.fit")
         before = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
         d_orig = x.shape[1]
@@ -408,12 +436,19 @@ class KMeans:
                 pad = (-d_orig) % n_model
                 x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
                      else np.pad(x, ((0, 0), (0, pad))))
-            table = DenseTable.from_numpy(x, first)
-            sharded = ShardedTable.from_numpy(table.data, mesh)
+            if mesh.processes > 1:
+                # this process's rows: its part of the init's table and
+                # its ranks' tiles; weights are its rows' own
+                table = DenseTable.from_process_local(x, first)
+                sharded = ShardedTable.from_process_local(x, mesh)
+            else:
+                table = DenseTable.from_numpy(x, first)
+                sharded = ShardedTable.from_numpy(table.data, mesh)
             weights, tile_weights = table.mask, sharded.mask
             if sample_weight is not None:
                 weights = table.align_weights(sample_weight)
-                tile_weights = sharded.align_weights(weights)
+                tile_weights = sharded.align_weights(
+                    weights if mesh.processes == 1 else _host(sample_weight))
         with phase_timer(timings, "init_centers", first):
             centers0 = self._init_centers(table, weights, first)
             del table, weights

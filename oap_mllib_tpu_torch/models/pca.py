@@ -28,6 +28,14 @@ ops/stream_ops.covariance_streamed, K2 on every chunk of each, on one
 device (a device list's first).  SciPy sparse input stays sparse until
 a chunk or the device table is filled.  ``PCAModel.transform`` takes a
 source too.
+
+In a world of several processes (``Config.num_processes > 1``) ``fit(x)``
+treats ``x`` as this process's rows: the mesh spans every process's
+devices, each process's ranks hold tiles of its own rows
+(data/table.ShardedTable.from_process_local), the psums reach the other
+processes, and every process solves the same covariance (summary
+``processes``, ``process_id``, ``mesh_shape``).  ``fit(ChunkSource)``
+streams this process's shard, the moments reduced across processes.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
 from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
+from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
 from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
@@ -171,7 +180,8 @@ class PCA:
             raise ValueError("empty input")
         self._check_width(d)
         devices = resolve_devices(self.device)
-        if len(devices) > 1 or get_config().model_parallel > 1:
+        if (len(devices) > 1 or get_config().model_parallel > 1
+                or bootstrap.world_size() > 1):
             if _sparse.is_sparse(x):
                 x = x.toarray()
             return self._fit_mesh(x, devices, solver)
@@ -252,6 +262,8 @@ class PCA:
             "pca_solver": solver,
             "precision": pol,
             "mesh_shape": mesh_shape,
+            "processes": bootstrap.world_size(),
+            "process_id": bootstrap.process_index(),
             "kernels": {
                 name: pca_kernel.LAUNCHES[name] - before.get(name, 0)
                 for name in pca_kernel.LAUNCHES
@@ -269,7 +281,7 @@ class PCA:
         psn.apply_matmul_flags(tier)
         mesh = get_mesh(devices=devices)
         mp = mesh.shape[cfg.model_axis]
-        first = mesh.device((0, 0))
+        first = mesh.device(mesh.local_ranks[0])
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
         n, d = x.shape
@@ -279,7 +291,7 @@ class PCA:
                 pad = (-d) % mp
                 x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
                      else np.pad(x, ((0, 0), (0, pad))))
-            table = ShardedTable.from_numpy(x, mesh)
+            table = ShardedTable.from_process_local(x, mesh)
         with phase_timer(timings, "covariance", mesh.distinct_devices()):
             if mp > 1:
                 cov, _ = pca_ops.covariance_model_sharded(

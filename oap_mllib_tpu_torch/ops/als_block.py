@@ -41,6 +41,15 @@ card, so an implicit fit launches each ``2 * world * max_iter`` times
 in either layout (an explicit one no Gram).  The JAX package runs a
 model axis above 1 as replicas of the data ranks; the port runs the
 data ranks of the mesh's first model column.
+
+Across processes (a mesh whose data ranks span them, parallel/mesh.py)
+each process passes its own triples; the shuffle moves them to the
+processes that hold their blocks (parallel/shuffle.exchange_ratings,
+one all_to_all), the grouped-vs-COO guard and the group sizes price the
+world's counts (:func:`_global_sum`), each process stages and runs its
+own ranks, and the psums and all_gathers of an iteration reach the
+other processes' ranks.  :func:`gather_user_factors` is then a
+collective every process calls.
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ import torch
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.ops import als_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
-from oap_mllib_tpu_torch.parallel import collective
+from oap_mllib_tpu_torch.parallel import collective, shuffle
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
 
 # "auto" shards the items once the replicated layout's per-iteration psum
@@ -90,6 +99,28 @@ def data_ranks(mesh: Mesh) -> List[Rank]:
     return mesh.groups(mesh.axis_names[0])[0]
 
 
+def _cross(mesh: Optional[Mesh]) -> bool:
+    """Whether the block ranks of ``mesh`` lie in several processes."""
+    return mesh is not None and mesh.spans(data_ranks(mesh))
+
+
+def _global_sum(arr, mesh: Optional[Mesh] = None) -> np.ndarray:
+    """Elementwise int64 sum of a host array across the processes (the
+    identity in one): every cross-process count of this module."""
+    arr = np.asarray(arr, np.int64)
+    if not _cross(mesh):
+        return arr
+    return collective.process_allgather([arr])[0].sum(axis=0)
+
+
+def _global_max(arr, mesh: Optional[Mesh] = None) -> np.ndarray:
+    """Elementwise int64 max across the processes (the identity in one)."""
+    arr = np.asarray(arr, np.int64)
+    if not _cross(mesh):
+        return arr
+    return collective.process_allgather([arr])[0].max(axis=0)
+
+
 # -- the shuffle ---------------------------------------------------------------
 
 
@@ -99,11 +130,12 @@ class BlockEdges:
     global item ids and ratings (numpy), with the block boundaries and
     the user rows per block."""
 
-    users: List[np.ndarray]
-    items: List[np.ndarray]
-    ratings: List[np.ndarray]
+    users: List[Optional[np.ndarray]]  # None for a block of another process
+    items: List[Optional[np.ndarray]]
+    ratings: List[Optional[np.ndarray]]
     offsets: np.ndarray  # (world + 1,) global user-id boundaries
     upb: int  # user rows per block, padding included
+    nnz: int = 0  # the world's ratings
 
 
 def exchange_ratings(users, items, ratings, world: int, n_users: int):
@@ -129,17 +161,34 @@ def exchange_ratings(users, items, ratings, world: int, n_users: int):
     return blocks, offsets
 
 
-def prepare_block_inputs(users, items, ratings, world: int, n_users: int) -> BlockEdges:
+def prepare_block_inputs(users, items, ratings, world: int, n_users: int,
+                         mesh: Optional[Mesh] = None) -> BlockEdges:
     """The shuffled block layout: user ids rebased to their block
     (``id - offsets[b]``), ``upb`` the widest block (``n_users`` on one
-    block)."""
-    blocks, offsets = exchange_ratings(users, items, ratings, world, n_users)
+    block).  With a ``mesh`` whose block ranks span processes the
+    triples are this process's and the shuffle crosses the processes
+    (parallel/shuffle.exchange_ratings, a collective); the other
+    processes' blocks are None."""
+    if _cross(mesh):
+        held, offsets = shuffle.exchange_ratings(users, items, ratings, mesh,
+                                                 data_ranks(mesh), n_users)
+        blocks = [held.get(b) for b in range(world)]
+        nnz = int(_global_sum([len(users)], mesh)[0])
+    else:
+        blocks, offsets = exchange_ratings(users, items, ratings, world, n_users)
+        nnz = len(users)
     upb = int(np.max(np.diff(offsets))) if world > 1 else n_users
     return BlockEdges(
-        users=[u - offsets[b] for b, (u, _, _) in enumerate(blocks)],
-        items=[i for _, i, _ in blocks], ratings=[r for _, _, r in blocks],
-        offsets=offsets, upb=max(upb, 1),
+        users=[None if blk is None else blk[0] - offsets[b] for b, blk in enumerate(blocks)],
+        items=[None if blk is None else blk[1] for blk in blocks],
+        ratings=[None if blk is None else blk[2] for blk in blocks],
+        offsets=offsets, upb=max(upb, 1), nnz=nnz,
     )
+
+
+def _local_blocks(mesh: Mesh):
+    """``(block, rank)`` of the block ranks this process holds."""
+    return [(b, q) for b, q in enumerate(data_ranks(mesh)) if mesh.is_local(q)]
 
 
 # -- the grouped-vs-COO guard ---------------------------------------------------
@@ -152,13 +201,14 @@ def _group_sizes(nnz_global: int, world: int, users_per_block: int, n_items: int
     return p_u, p_i
 
 
-def _side_padded_per_block(ids: np.ndarray, kpb: int, world: int, p: int, n_ids: int):
+def _side_padded_per_block(ids: np.ndarray, kpb: int, world: int, p: int, n_ids: int,
+                           mesh: Optional[Mesh] = None):
     """(world,) padded edge totals of one grouped side whose ids are
     partitioned contiguously by ``kpb``: each block sums its ids'
     ceil-paddings (per-id counts by bincount, where the JAX package
     sorts with ``np.unique``; ids without edges pad to zero either
-    way)."""
-    counts = np.bincount(np.asarray(ids, np.int64), minlength=n_ids)
+    way), the counts the world's."""
+    counts = _global_sum(np.bincount(np.asarray(ids, np.int64), minlength=n_ids), mesh)
     out = np.zeros((world,), np.int64)
     np.add.at(out, np.minimum(np.arange(len(counts)) // kpb, world - 1),
               -(counts // -p) * p)
@@ -174,36 +224,42 @@ def _group_sizes_2d(nnz_global: int, world: int, upb: int, ipb: int):
 
 
 def block_grouped_guard_2d(users, items, n_users: int, n_items: int, world: int,
-                           max_blowup: float = als_ops.GROUPED_MAX_BLOWUP):
+                           max_blowup: float = als_ops.GROUPED_MAX_BLOWUP,
+                           mesh: Optional[Mesh] = None):
     """The 2-D layout's grouped-vs-COO decision, before the shuffles:
     ``(use_grouped, (p_u, p_i, nnz))``.  Both sides are partitioned by
-    id, so each realises ``world * max_b (block's padded total)``."""
-    nnz = len(users)
+    id, so each realises ``world * max_b (block's padded total)``.
+    Across processes (``mesh``) the triples are this process's and the
+    counts the world's."""
+    nnz = int(_global_sum([len(users)], mesh)[0])
     kpb_u = max(1, -(-n_users // world))
     kpb_i = max(1, -(-n_items // world))
     p_u, p_i = _group_sizes_2d(nnz, world, kpb_u, kpb_i)
-    pu_b = _side_padded_per_block(users, kpb_u, world, p_u, n_users)
-    pi_b = _side_padded_per_block(items, kpb_i, world, p_i, n_items)
+    pu_b = _side_padded_per_block(users, kpb_u, world, p_u, n_users, mesh)
+    pi_b = _side_padded_per_block(items, kpb_i, world, p_i, n_items, mesh)
     total = world * (int(pu_b.max()) + int(pi_b.max()))
     return total <= max_blowup * max(nnz, 1), (p_u, p_i, nnz)
 
 
 def block_grouped_guard(users, items, n_users: int, n_items: int, world: int,
-                        max_blowup: float = als_ops.GROUPED_MAX_BLOWUP):
+                        max_blowup: float = als_ops.GROUPED_MAX_BLOWUP,
+                        mesh: Optional[Mesh] = None):
     """The block route's grouped-vs-COO decision, before the shuffle:
     ``(use_grouped, (p_u, p_i, nnz))``.  Priced as the JAX package prices
     what its build realizes, every rank padded to the largest block:
     ``world * (max_b padded_u_b + max_b padded_i_b)`` against
     ``max_blowup * nnz``.  The user side pads per user; the item side
-    per (block, item) pair, since an item's edges split over blocks."""
-    nnz = len(users)
+    per (block, item) pair, since an item's edges split over blocks.
+    Across processes (``mesh``) the triples are this process's and the
+    counts the world's."""
+    nnz = int(_global_sum([len(users)], mesh)[0])
     kpb = max(1, -(-n_users // world))
     p_u, p_i = _group_sizes(nnz, world, kpb, n_items)
     u = np.asarray(users, np.int64)
-    pu_b = _side_padded_per_block(u, kpb, world, p_u, n_users)
+    pu_b = _side_padded_per_block(u, kpb, world, p_u, n_users, mesh)
     block = np.minimum(u // kpb, world - 1)
-    pair = np.bincount(block * n_items + np.asarray(items, np.int64),
-                       minlength=world * n_items).reshape(world, n_items)
+    pair = _global_sum(np.bincount(block * n_items + np.asarray(items, np.int64),
+                                   minlength=world * n_items), mesh).reshape(world, n_items)
     pi_b = (-(pair // -p_i) * p_i).sum(axis=1)
     total = world * (int(pu_b.max()) + int(pi_b.max()))
     return total <= max_blowup * max(nnz, 1), (p_u, p_i, nnz)
@@ -222,6 +278,10 @@ class BlockSides:
     users: Dict[Rank, object]
     items: Dict[Rank, object]
     grouped: bool
+    # the mesh and its block ranks, when they span processes (the
+    # collectives then reach the other processes' ranks)
+    mesh: Optional[Mesh] = None
+    group: Optional[List[Rank]] = None
 
 
 def prepare_grouped_inputs(edges: BlockEdges, mesh: Mesh, n_items: int, rank: int,
@@ -234,28 +294,34 @@ def prepare_grouped_inputs(edges: BlockEdges, mesh: Mesh, n_items: int, rank: in
     if sizes is not None:
         p_u, p_i = sizes[0], sizes[1]
     else:
-        p_u, p_i = _group_sizes(sum(len(u) for u in edges.users), world, edges.upb, n_items)
+        p_u, p_i = _group_sizes(edges.nnz, world, edges.upb, n_items)
     users, items = {}, {}
-    for b, q in enumerate(data_ranks(mesh)):
+    for b, q in _local_blocks(mesh):
         dev = mesh.device(q)
         u, i, r = edges.users[b], edges.items[b], edges.ratings[b]
         users[q] = als_ops.prepare_grouped(
             *als_ops.build_grouped_edges(u, i, r, edges.upb, p_u), edges.upb, rank, dev)
         items[q] = als_ops.prepare_grouped(
             *als_ops.build_grouped_edges(i, u, r, n_items, p_i), n_items, rank, dev)
-    return BlockSides(users, items, grouped=True)
+    return _sides(users, items, True, mesh)
+
+
+def _sides(users, items, grouped: bool, mesh: Mesh) -> BlockSides:
+    cross = _cross(mesh)
+    return BlockSides(users, items, grouped, mesh if cross else None,
+                      data_ranks(mesh) if cross else None)
 
 
 def prepare_coo_inputs(edges: BlockEdges, mesh: Mesh, n_items: int, rank: int) -> BlockSides:
     """Each block's COO sides staged on its rank's device."""
     users, items = {}, {}
-    for b, q in enumerate(data_ranks(mesh)):
+    for b, q in _local_blocks(mesh):
         dev = mesh.device(q)
         u, i, r = edges.users[b], edges.items[b], edges.ratings[b]
         valid = np.ones(len(u), np.float32)
         users[q] = als_ops.prepare_coo(u, i, r, valid, edges.upb, rank, dev)
         items[q] = als_ops.prepare_coo(i, u, r, valid, n_items, rank, dev)
-    return BlockSides(users, items, grouped=False)
+    return _sides(users, items, False, mesh)
 
 
 def prepare_grouped_inputs_2d(by_user: BlockEdges, by_item: BlockEdges, mesh: Mesh,
@@ -270,10 +336,9 @@ def prepare_grouped_inputs_2d(by_user: BlockEdges, by_item: BlockEdges, mesh: Me
     if sizes is not None:
         p_u, p_i = sizes[0], sizes[1]
     else:
-        p_u, p_i = _group_sizes_2d(sum(len(u) for u in by_user.users), world, by_user.upb,
-                                   by_item.upb)
+        p_u, p_i = _group_sizes_2d(by_user.nnz, world, by_user.upb, by_item.upb)
     users, items = {}, {}
-    for b, q in enumerate(data_ranks(mesh)):
+    for b, q in _local_blocks(mesh):
         dev = mesh.device(q)
         users[q] = als_ops.prepare_grouped(
             *als_ops.build_grouped_edges(by_user.users[b], by_user.items[b], by_user.ratings[b],
@@ -281,20 +346,20 @@ def prepare_grouped_inputs_2d(by_user: BlockEdges, by_item: BlockEdges, mesh: Me
         items[q] = als_ops.prepare_grouped(
             *als_ops.build_grouped_edges(by_item.users[b], by_item.items[b], by_item.ratings[b],
                                          by_item.upb, p_i), by_item.upb, rank, dev)
-    return BlockSides(users, items, grouped=True)
+    return _sides(users, items, True, mesh)
 
 
 def prepare_coo_inputs_2d(by_user: BlockEdges, by_item: BlockEdges, mesh: Mesh,
                           rank: int) -> BlockSides:
     """The 2-D layout's COO sides (see :func:`prepare_grouped_inputs_2d`)."""
     users, items = {}, {}
-    for b, q in enumerate(data_ranks(mesh)):
+    for b, q in _local_blocks(mesh):
         dev = mesh.device(q)
         for out, e in ((users, by_user), (items, by_item)):
             valid = np.ones(len(e.users[b]), np.float32)
             out[q] = als_ops.prepare_coo(e.users[b], e.items[b], e.ratings[b], valid, e.upb,
                                          rank, dev)
-    return BlockSides(users, items, grouped=False)
+    return _sides(users, items, False, mesh)
 
 
 # -- the iteration -----------------------------------------------------------------
@@ -307,12 +372,15 @@ def _block_body(sides: BlockSides, x: Dict[Rank, torch.Tensor], y: Dict[Rank, to
     then the item partials and the X-block Grams psum-ed over ``axis``
     and the item update on every rank.  Returns ``(x, y)``."""
     ranks = list(sides.users)
+    span = {"mesh": sides.mesh, "group": sides.group}
     x = {q: als_ops._half(sides.users[q], y[q], reg, alpha, implicit, policy, solve, gram)
          for q in ranks}
     parts = [sides.items[q].partials(x[q], alpha, implicit, policy) for q in ranks]
-    a_i, b_i, n_i = (collective.psum_group([p[j] for p in parts], axis) for j in range(3))
+    a_i, b_i, n_i = (collective.psum_group([p[j] for p in parts], axis, **span)
+                     for j in range(3))
     del parts
-    g_x = (collective.psum_group([als_ops._factor_gram(x[q], gram) for q in ranks], axis)
+    g_x = (collective.psum_group([als_ops._factor_gram(x[q], gram) for q in ranks], axis,
+                                 **span)
            if implicit else [None] * len(ranks))
     y = {q: als_ops.regularized_solve(a_i[k], b_i[k], n_i[k], reg, g_x[k], solve)
          for k, q in enumerate(ranks)}
@@ -326,10 +394,12 @@ def _block_body_2d(sides: BlockSides, x: Dict[Rank, torch.Tensor],
     all-gathered, the other side's blocks solved from their own edges,
     the Gram the psum of the block Grams.  Returns ``(x, y)`` blocks."""
     ranks = list(sides.users)
+    span = {"mesh": sides.mesh, "group": sides.group}
 
     def half(dst_sides, src):
-        full = collective.all_gather_group([src[q] for q in ranks], axis)
-        g = (collective.psum_group([als_ops._factor_gram(src[q], gram) for q in ranks], axis)
+        full = collective.all_gather_group([src[q] for q in ranks], axis, **span)
+        g = (collective.psum_group([als_ops._factor_gram(src[q], gram) for q in ranks], axis,
+                                   **span)
              if implicit else [None] * len(ranks))
         out = {}
         for k, q in enumerate(ranks):
@@ -417,7 +487,18 @@ def gather_user_factors(x: Dict[Rank, torch.Tensor], mesh: Mesh, offsets: np.nda
                         ) -> np.ndarray:
     """The (n, r) factors of a block-sharded table on the host (the user
     factors, or the item factors of the 2-D layout): each block's real
-    rows, its padding rows dropped."""
-    rows = [x[q][: int(offsets[b + 1] - offsets[b])].cpu().numpy()
-            for b, q in enumerate(data_ranks(mesh))]
+    rows, its padding rows dropped.  Across processes a collective: the
+    blocks come from the processes that hold them, and every process
+    gets the whole table."""
+    ranks = data_ranks(mesh)
+    if _cross(mesh):
+        blocks = collective.all_gather_group([x[q] for q in ranks if mesh.is_local(q)],
+                                             mesh.axis_names[0], mesh=mesh, group=ranks)
+        full = blocks[0].cpu().numpy()
+        per = full.shape[0] // len(ranks)
+        rows = [full[b * per: b * per + int(offsets[b + 1] - offsets[b])]
+                for b in range(len(ranks))]
+    else:
+        rows = [x[q][: int(offsets[b + 1] - offsets[b])].cpu().numpy()
+                for b, q in enumerate(ranks)]
     return np.concatenate(rows, axis=0)

@@ -32,15 +32,41 @@ after the launches every card's stream waits on every other card's, so
 work the caller puts on a rank's stream, including the caching
 allocator's reuse of its input, comes after the peers' last reads of
 it.  The host never synchronises.
+
+Across processes (:func:`ring_allreduce_groups`, a world of several,
+parallel/bootstrap.py) the rings' ranks belong to several processes,
+each of which calls with its own ranks' buffers.  Each process owns a
+symmetric workspace: one ``cudaMalloc``, grown collectively to the
+largest call so far and never carved from torch's caching allocator,
+whose ``cudaIpcMemHandle_t`` every peer maps once per size
+(``cudaIpcMemLazyEnablePeerAccess``; the process's own ranks use its
+own pointer, as a handle does not open in the process that made it).
+A call copies the local ranks' buffers into the workspace, synchronises,
+passes a gloo barrier, launches the kernel once per ring it holds a
+rank of, with a table of every rank's mapped input and output, folding
+its share of the elements (one share per process of the ring, in
+``fold_order``'s order) and storing it into every rank's output,
+synchronises, passes a second barrier (after which the workspace may be
+written again) and copies its ranks' outputs out.  Both barriers carry
+an error flag (``collective.agree``), and so does the handle exchange
+of a new workspace: a copy, launch or allocation that fails on one
+process raises on every process.  The mappings stay
+open until :func:`close_ipc` (parallel/bootstrap.shutdown).  The plain
+version across processes is ``collective.process_allgather`` of the
+parts, then :func:`ring_allreduce_plain` of each ring on the gathered
+list: the bits of the one-process plain ring.  CPU tensors take it, CUDA
+tensors the kernel, or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 from collections import OrderedDict
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.parallel import collective
@@ -219,6 +245,12 @@ def _library():
         lib.ring_enable_peer.restype = i32
         lib.ring_fold.argtypes = [i32] + [ptr] * 5 + [i32] * 6
         lib.ring_fold.restype = i32
+        lib.ring_ws_alloc.argtypes = [i32, ctypes.c_longlong, ctypes.POINTER(ptr), ptr]
+        lib.ring_ws_free.argtypes = [i32, ptr]
+        lib.ring_ipc_open.argtypes = [i32, ptr, ctypes.POINTER(ptr)]
+        lib.ring_ipc_close.argtypes = [i32, ptr]
+        for fn in (lib.ring_ws_alloc, lib.ring_ws_free, lib.ring_ipc_open, lib.ring_ipc_close):
+            fn.restype = i32
         _lib = lib
     return _lib
 
@@ -335,3 +367,266 @@ def ring_allreduce(parts: Sequence[torch.Tensor], segments: int = 1,
     if parts[0].device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {parts[0].device}")
     return _ring_launch(parts, max(1, int(segments)))
+
+
+# -- across processes -------------------------------------------------------------
+
+# this process's workspace and its peers' mapped ones: card index, own
+# pointer, bytes (equal on every process), {process: mapped pointer}
+_ipc = {"card": None, "ptr": None, "bytes": 0, "peers": {}}
+# the host cost of the cross-process rings: calls, seconds in the two
+# barriers, seconds of the whole call (copies and launches included)
+IPC_STATS = {"calls": 0, "barrier_s": 0.0, "total_s": 0.0}
+_SLOT_ALIGN = 256
+
+
+def reset_ipc_stats() -> None:
+    IPC_STATS.update(calls=0, barrier_s=0.0, total_s=0.0)
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{KERNEL}: {what} failed with CUDA error {err}")
+
+
+def close_ipc() -> None:
+    """Unmap the peers' workspaces and free this process's (a collective:
+    every process calls it; the first barrier keeps a workspace alive
+    until no peer maps it, and a failed unmap raises on every process and
+    frees nothing)."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    if _ipc["ptr"] is None:
+        return
+    lib = _library()
+    collective.barrier()
+    errors = [f"CUDA error {e}" for e in (lib.ring_ipc_close(_ipc["card"], ptr)
+                                          for ptr in _ipc["peers"].values()) if e]
+    collective.agree(RuntimeError("; ".join(errors)) if errors else None,
+                     f"{KERNEL}: cudaIpcCloseMemHandle")
+    _check(lib.ring_ws_free(_ipc["card"], _ipc["ptr"]), "cudaFree of the workspace")
+    _ipc.update(ptr=None, bytes=0, peers={})
+
+
+def _workspace(card: int, nbytes: int) -> Dict[int, int]:
+    """Every process's workspace address in this process (its own and the
+    mapped peers'), at least ``nbytes`` each: grown collectively (every
+    process passes the same ``nbytes``), the handles exchanged through
+    the host and opened here.  A workspace that does not allocate, or a
+    handle that does not open, raises on every process."""
+    from oap_mllib_tpu_torch.parallel import bootstrap, collective
+
+    me = bootstrap.process_index()
+    if _ipc["ptr"] is not None and _ipc["bytes"] >= nbytes:
+        return {me: _ipc["ptr"], **_ipc["peers"]}
+    close_ipc()
+    lib = _library()
+    ptr, handle = ctypes.c_void_p(), (ctypes.c_ubyte * 64)()
+    err = lib.ring_ws_alloc(card, nbytes, ctypes.byref(ptr), handle)
+    # the allocation's outcome travels with the handle: a process whose
+    # allocation failed does not leave its peers in the exchange
+    handles, alloc = collective.process_allgather(
+        [np.frombuffer(bytes(handle), np.uint8), np.asarray([err], np.int64)])
+    if alloc.any():
+        if err == 0:
+            lib.ring_ws_free(card, ptr)
+        raise RuntimeError(
+            f"{KERNEL}: the workspace of {nbytes} bytes did not allocate "
+            f"(CUDA errors by process: {alloc[:, 0].tolist()})")
+    _ipc.update(card=card, ptr=ptr.value, bytes=nbytes, peers={})
+    errors = []
+    for q, h in enumerate(handles):
+        if q == me:
+            continue
+        mapped = ctypes.c_void_p()
+        err = lib.ring_ipc_open(card, h.tobytes(), ctypes.byref(mapped))
+        if err != 0:
+            errors.append(f"process {q}'s handle: CUDA error {err}")
+        else:
+            _ipc["peers"][q] = mapped.value
+    (failed,) = collective.process_allgather([np.asarray([len(errors)], np.int64)])
+    if failed.sum():
+        raise RuntimeError(
+            f"{KERNEL}: cudaIpcOpenMemHandle failed on {int((failed > 0).sum())} "
+            f"process(es) of the world ({'; '.join(errors) or 'on a peer'}); the "
+            "cross-process ring needs every process to see every card "
+            "(no CUDA_VISIBLE_DEVICES masking)"
+        )
+    return {me: _ipc["ptr"], **_ipc["peers"]}
+
+
+class _Raw:
+    """A (rows, cols) f32 view of raw device memory, for torch.as_tensor."""
+
+    def __init__(self, ptr: int, shape):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": "<f4", "data": (int(ptr), False),
+            "version": 3, "strides": None}
+
+
+def _layout(groups, owner) -> Dict[Hashable, Tuple[int, int]]:
+    """Each member's (process, slot): a process's members in the order
+    the rings list them.  Every process derives the same layout."""
+    slots: Dict[int, int] = {}
+    out = {}
+    for g in groups:
+        for m in g:
+            p = owner(m)
+            out[m] = (p, slots.get(p, 0))
+            slots[p] = slots.get(p, 0) + 1
+    return out
+
+
+def _check_groups(parts, groups, owner, me):
+    members = [m for g in groups for m in g]
+    if len(set(members)) != len(members):
+        raise ValueError("a member lies in two rings")
+    mine = [m for m in members if owner(m) == me]
+    if not mine or sorted(map(repr, mine)) != sorted(map(repr, parts)):
+        raise ValueError(f"process {me} holds {list(parts)} but its members are {mine}; "
+                         "every process holds a member of the rings")
+    _check_parts(list(parts.values()))
+    return mine
+
+
+def ring_allreduce_groups_plain(parts: Dict[Hashable, torch.Tensor],
+                                groups: Sequence[Sequence[Hashable]],
+                                owner: Callable[[Hashable], int], segments: int = 1,
+                                axis: Optional[str] = None) -> Dict[Hashable, torch.Tensor]:
+    """The plain version of :func:`ring_allreduce_groups`: every
+    process's parts through ``collective.process_allgather`` (each
+    process holds as many members), then :func:`ring_allreduce_plain` of
+    every ring this process holds a member of, on the gathered list; the
+    local members' sums on their devices."""
+    from oap_mllib_tpu_torch.parallel import bootstrap, collective
+
+    me = bootstrap.process_index()
+    mine = _check_groups(parts, groups, owner, me)
+    layout = _layout(groups, owner)
+    (stacked,) = collective.process_allgather(
+        [torch.stack([parts[m].detach().cpu() for m in mine])])
+    out = {}
+    for g in groups:
+        local = [m for m in g if owner(m) == me]
+        if not local:
+            continue
+        dev = parts[local[0]].device
+        full = [torch.from_numpy(stacked[layout[m][0], layout[m][1]]).to(dev) for m in g]
+        for m, t in zip(g, ring_allreduce_plain(full, segments, axis)):
+            if m in parts:
+                out[m] = t.to(parts[m].device)
+    return out
+
+
+def ring_allreduce_groups(parts: Dict[Hashable, torch.Tensor],
+                          groups: Sequence[Sequence[Hashable]],
+                          owner: Callable[[Hashable], int], segments: int = 1,
+                          axis: Optional[str] = None) -> Dict[Hashable, torch.Tensor]:
+    """Rings whose members may belong to several processes: ``groups``
+    lists each ring's members in ring order, ``owner(member)`` the
+    process that holds it, and ``parts`` this process's members' 2-D f32
+    buffers, all of one shape.  Every process of the world calls it; it
+    returns the local members' sums, each ring's the bits of
+    :func:`ring_allreduce_plain` of its members.  In one process it is
+    :func:`ring_allreduce` ring by ring; CPU tensors take the plain
+    version across processes, CUDA tensors the kernel over IPC."""
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
+    segments = max(1, int(segments))
+    if bootstrap.world_size() == 1:
+        out = {}
+        for g in groups:
+            for m, t in zip(g, ring_allreduce([parts[m] for m in g], segments, axis)):
+                out[m] = t
+        return out
+    from oap_mllib_tpu_torch.parallel import collective
+
+    me = bootstrap.process_index()
+    _check_groups(parts, groups, owner, me)
+    for g in groups:
+        if any(owner(m) == me for m in g):
+            collective.note("ring_allreduce", axis)
+    device = next(iter(parts.values())).device
+    if device.type == "cpu":
+        return ring_allreduce_groups_plain(parts, groups, owner, segments, axis)
+    if device.type != "cuda":
+        raise ValueError(f"{KERNEL}: unsupported device {device}")
+    return _ring_launch_ipc(parts, groups, owner, segments, me)
+
+
+def _ring_launch_ipc(parts, groups, owner, segments: int, me: int):
+    from oap_mllib_tpu_torch.parallel import collective
+
+    t_call = time.perf_counter()
+    rows, cols = next(iter(parts.values())).shape
+    total = rows * cols
+    if total >= 2 ** 31 - 2 ** 20:
+        raise ValueError(f"{KERNEL}: {rows} x {cols} is past the kernel's 32-bit indices")
+    lib = _library()
+    layout = _layout(groups, owner)
+    per_process: Dict[int, int] = {}
+    for p, _ in layout.values():
+        per_process[p] = per_process.get(p, 0) + 1
+    slot = _pad_to(4 * total, _SLOT_ALIGN)
+    card = next(iter(parts.values())).device
+    bases = _workspace(card.index if _ipc["card"] is None else _ipc["card"],
+                       2 * slot * max(per_process.values()))
+    ws_dev = torch.device("cuda", _ipc["card"])
+
+    def addr(m, out):
+        p, s = layout[m]
+        return bases[p] + (2 * s + out) * slot
+
+    stream = torch.cuda.current_stream(ws_dev)
+    # the barriers carry an error flag (collective.agree): a process whose
+    # copy, launch or synchronisation fails raises together with its peers
+    error = None
+    try:
+        for m, t in parts.items():  # copy in
+            torch.as_tensor(_Raw(addr(m, 0), (rows, cols)), device=ws_dev).copy_(t)
+        stream.synchronize()
+    except Exception as e:  # noqa: BLE001 - every process raises at the barrier
+        error = e
+    t0 = time.perf_counter()
+    collective.agree(error, f"{KERNEL}: the copy into the workspace")
+    waited = time.perf_counter() - t0
+    launched = 0
+    try:
+        for g in groups:
+            procs = list(dict.fromkeys(owner(m) for m in g))
+            if me not in procs:
+                continue
+            world = len(g)
+            order, half, seg_rows, seg = _geometry(rows, cols, world, segments)
+            ins = [addr(m, 0) for m in g]
+            outs = [addr(m, 1) for m in g]
+            vec = int(all(a % 16 == 0 for a in ins + outs))
+            table = _device_table(ws_dev, stream.cuda_stream, fold_table(ins, outs, order))
+            lo, hi = _shares(total, len(procs))[procs.index(me)]
+            one = ctypes.c_int * 1
+            err = lib.ring_fold(
+                1, one(ws_dev.index), (ctypes.c_void_p * 1)(stream.cuda_stream), one(lo),
+                one(hi), (ctypes.c_void_p * 1)(table.data_ptr()), world, cols, half,
+                seg_rows, seg, vec)
+            _check(err, "the cross-process launch")
+            launched += 1
+        stream.synchronize()
+    except Exception as e:  # noqa: BLE001 - every process raises at the barrier
+        error = e
+    LAUNCHES[KERNEL] += launched  # one launch per process per ring
+    t0 = time.perf_counter()
+    collective.agree(error, f"{KERNEL}: the cross-process launch")
+    waited += time.perf_counter() - t0
+    out = {m: torch.as_tensor(_Raw(addr(m, 1), (rows, cols)), device=ws_dev).to(
+        parts[m].device, copy=True) for m in parts}
+    IPC_STATS["calls"] += 1
+    IPC_STATS["barrier_s"] += waited
+    IPC_STATS["total_s"] += time.perf_counter() - t_call
+    return out
+
+
+def ring_allreduce_mesh(parts: Dict, mesh, axis: str, segments: int = 1) -> Dict:
+    """One ring per group of the mesh ``axis`` over per-rank buffers
+    (this process's ranks'): :func:`ring_allreduce_groups` of the axis'
+    groups.  Returns the local ranks' sums."""
+    return ring_allreduce_groups(parts, mesh.groups(axis), mesh.process_of, segments, axis)

@@ -13,6 +13,18 @@ Initialisation: ``init_random`` and the host side of k-means|| draw from
 random-init fit starts from the same centers in both packages.  The
 k-means|| sampling rounds draw from a ``torch.Generator`` seeded from
 ``seed`` where the JAX package used ``jax.random``: the draws differ.
+
+Across processes (parallel/bootstrap.py) the init runs on this
+process's part of a table that spans the world
+(data/table.DenseTable.from_process_local): every sampling draw is a
+function of (seed, round, global valid row) alone, one stream of
+``torch.rand`` over the world's valid rows of which each process keeps
+its slice, so a fit draws the same rows however the table is split; the
+first center, phi, the picks' prefix positions, the picked rows and the
+candidates' weights cross through ``collective.process_allgather``, and
+every process ends each round with the same candidates.  The Lloyd
+loops on a mesh whose ranks span processes run each process's ranks,
+the psums and the ring reaching the other processes'.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch.data.table import DenseTable
 from oap_mllib_tpu_torch.ops.cuda import ring_kernel
 from oap_mllib_tpu_torch.ops.cuda._tiers import check_mode, tiered_dot
 from oap_mllib_tpu_torch.parallel import collective
@@ -209,7 +222,7 @@ def _sharded_accumulate(x, w, c, mesh: Mesh, dax: str, max_: str, final: bool,
     aprec, sprec, pol = (("highest", "highest", "f32") if final
                          else (_assign_prec(precision), precision, policy))
     part = {}
-    for r in mesh.ranks:
+    for r in mesh.local_ranks:
         c_sq = torch.sum(c[r] * c[r], dim=1)
         cross = psn.pdot(x[r], c[r].T, pol, aprec)
         if final:
@@ -222,7 +235,7 @@ def _sharded_accumulate(x, w, c, mesh: Mesh, dax: str, max_: str, final: bool,
     score = collective.psum(part, mesh, max_)
     del part
     sums, counts, cost = {}, {}, {}
-    for r in mesh.ranks:
+    for r in mesh.local_ranks:
         k = c[r].shape[0]
         if final:
             d2 = torch.clamp_min(score[r], 0.0)
@@ -249,21 +262,20 @@ def _sharded_accumulate(x, w, c, mesh: Mesh, dax: str, max_: str, final: bool,
     # columns [0, d_loc) sums, d_loc counts, d_loc + 1 the cost (row 0,
     # zero elsewhere so the sum is exact)
     packed = {}
-    for r in mesh.ranks:
+    for r in mesh.local_ranks:
         extra = torch.zeros((counts[r].shape[0], 2), dtype=torch.float32,
                             device=counts[r].device)
         extra[:, 0] = counts[r]
         if final:
             extra[0, 1] = cost[r]
         packed[r] = torch.cat([sums[r], extra], dim=1)
-    for group in mesh.groups(dax):
-        reduced = ring_kernel.ring_allreduce(
-            [packed[r] for r in group], ring_segments, axis=dax)
-        for r, red in zip(group, reduced):
-            d_loc = red.shape[1] - 2
-            sums[r], counts[r] = red[:, :d_loc], red[:, d_loc]
-            if final:
-                cost[r] = red[0, d_loc + 1]
+    # one ring per group of the data axis, across processes when the
+    # axis spans them
+    for r, red in ring_kernel.ring_allreduce_mesh(packed, mesh, dax, ring_segments).items():
+        d_loc = red.shape[1] - 2
+        sums[r], counts[r] = red[:, :d_loc], red[:, d_loc]
+        if final:
+            cost[r] = red[0, d_loc + 1]
     return sums, counts, cost
 
 
@@ -294,7 +306,7 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     c0 = torch.as_tensor(init_centers, dtype=torch.float32)
     d_loc = c0.shape[1] // n_model
     centers = {(i, j): c0[:, j * d_loc:(j + 1) * d_loc].to(mesh.device((i, j))).contiguous()
-               for i, j in mesh.ranks}
+               for i, j in mesh.local_ranks}
 
     def accum(c, final):
         return _sharded_accumulate(x, weights, c, mesh, data_axis, model_axis, final,
@@ -302,9 +314,11 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
 
     centers, n_iter, cost, counts = _lloyd_loop(
         accum, lambda m: collective.psum(m, mesh, model_axis), centers, max_iter, tol)
-    first = mesh.device((0, 0))
-    full = torch.cat([centers[(0, j)].to(first) for j in range(n_model)], dim=1)
-    return full, n_iter, cost[(0, 0)], counts[(0, 0)]
+    # this process's first row of ranks holds every feature block
+    row = mesh.local_ranks[0][0]
+    first = mesh.device((row, 0))
+    full = torch.cat([centers[(row, j)].to(first) for j in range(n_model)], dim=1)
+    return full, n_iter, cost[(row, 0)], counts[(row, 0)]
 
 
 def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, torch.Tensor],
@@ -331,19 +345,17 @@ def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel Lloyd runs on a model axis of 1, got {mesh.shape}")
     c0 = torch.as_tensor(init_centers, dtype=torch.float32)
-    centers = {r: c0.to(mesh.device(r)).contiguous() for r in mesh.ranks}
+    centers = {r: c0.to(mesh.device(r)).contiguous() for r in mesh.local_ranks}
 
     def accum(c, final):
         part = {r: accumulate(x[r], weights[r], c[r], "highest" if final else mode, final)
-                for r in mesh.ranks}
-        sums = collective.psum({r: p[0] for r, p in part.items()}, mesh, data_axis)
-        counts = collective.psum({r: p[1] for r, p in part.items()}, mesh, data_axis)
-        cost = (collective.psum({r: p[2] for r, p in part.items()}, mesh, data_axis)
-                if final else None)
-        return sums, counts, cost
+                for r in mesh.local_ranks}
+        moments = [{r: p[j] for r, p in part.items()} for j in range(3 if final else 2)]
+        reduced = collective.psum_many(moments, mesh, data_axis)
+        return reduced[0], reduced[1], reduced[2] if final else None
 
     centers, n_iter, cost, counts = _lloyd_loop(accum, lambda m: m, centers, max_iter, tol)
-    first = mesh.ranks[0]
+    first = mesh.local_ranks[0]
     return centers[first], n_iter, cost[first], counts[first]
 
 
@@ -361,7 +373,10 @@ def min_sq_dists(x, centers) -> torch.Tensor:
 
 
 def _gather_rows(x, idx: np.ndarray) -> np.ndarray:
-    """Rows ``x[idx]`` on the host, for a tensor or an ndarray."""
+    """Rows ``x[idx]`` on the host, for a tensor, an ndarray or a table
+    (its padded-layout rows, gathered from their processes)."""
+    if isinstance(x, DenseTable):
+        return x.gather_rows(idx)
     if isinstance(x, torch.Tensor):
         sel = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
         return x[sel].cpu().numpy()
@@ -370,7 +385,9 @@ def _gather_rows(x, idx: np.ndarray) -> np.ndarray:
 
 def init_random(x, n_valid: int, k: int, seed: int, index_map=None) -> np.ndarray:
     """Sample k distinct valid rows uniformly (numpy-seeded, so the same
-    rows as the JAX package's ``init_random`` for the same seed)."""
+    rows as the JAX package's ``init_random`` for the same seed).  ``x``
+    may be a table spanning processes (a collective: every process
+    draws the same rows and gets them from their owners)."""
     rng = np.random.default_rng(seed)
     idx = rng.choice(n_valid, size=min(k, n_valid), replace=False)
     if len(idx) < k:  # fewer points than clusters: duplicate (degenerate case)
@@ -397,28 +414,52 @@ def _slot_chunk_size(cap: int, target: int = 1024) -> int:
     return best
 
 
-def _pll_round(x, w, dmin, amin, base_id: int, generator, l: float,
-               cap: int, chunk: int):
+def _world_sum_f32(value: torch.Tensor, cross: bool) -> torch.Tensor:
+    """A scalar summed over the processes in process order, in f32 (the
+    same bits on every process); itself in one process."""
+    if not cross:
+        return value
+    (vals,) = collective.process_allgather([value.reshape(1)])
+    acc = np.float32(0.0)
+    for v in vals[:, 0]:
+        acc = np.float32(acc + v)
+    return torch.tensor(float(acc), dtype=value.dtype, device=value.device)
+
+
+def _pll_round(x, w, dmin, amin, base_id: int, draws, l: float,
+               cap: int, chunk: int, cross: bool = False):
     """One k-means|| sampling round: sample each row with probability
-    ``min(l * cost / phi, 1)``, place the picked rows into ``cap`` slots
-    by their picked-prefix position (overflow dropped), then fold the new
-    slots into the running (min distance, nearest candidate) state, slot
-    chunk by slot chunk and row chunk by row chunk.
+    ``min(l * cost / phi, 1)`` (``draws`` its uniforms), place the picked
+    rows into ``cap`` slots by their picked-prefix position (overflow
+    dropped), then fold the new slots into the running (min distance,
+    nearest candidate) state, slot chunk by slot chunk and row chunk by
+    row chunk.  ``cross``: the rows are this process's part of a table
+    spanning processes, phi and the prefix positions are the world's and
+    the slots are filled by every process.
     Returns ``(slots, slot_valid, dmin, amin, phi)``."""
     n, d = x.shape
     cost = dmin * w
-    phi = torch.sum(cost)
+    phi = _world_sum_f32(torch.sum(cost), cross)
     prob = torch.clamp_max(l * cost / torch.clamp_min(phi, 1e-30), 1.0)
-    draws = torch.rand(
-        dmin.shape, generator=generator, dtype=dmin.dtype, device=dmin.device
-    )
     picked = draws < prob
     pos = torch.cumsum(picked.to(torch.int64), dim=0) - 1
+    if cross:
+        from oap_mllib_tpu_torch.parallel import bootstrap
+
+        (counts,) = collective.process_allgather(
+            [np.asarray([int(picked.sum())], np.int64)])
+        pos = pos + int(counts[:bootstrap.process_index(), 0].sum())
     keep = picked & (pos < cap)
     slots = x.new_zeros((cap, d))
     slot_valid = x.new_zeros((cap,))
     slots[pos[keep]] = x[keep]
     slot_valid[pos[keep]] = 1.0
+    if cross:
+        # each slot is filled by one process: take it from that one
+        got, valid = collective.process_allgather([slots, slot_valid])
+        owner = np.argmax(valid > 0, axis=0)
+        slots = torch.from_numpy(got[owner, np.arange(cap)]).to(x.device)
+        slot_valid = torch.from_numpy(valid.max(axis=0)).to(x.device)
 
     rows = rows_per_chunk(chunk, d)
     dmin, amin = dmin.clone(), amin.clone()
@@ -436,23 +477,47 @@ def _pll_round(x, w, dmin, amin, base_id: int, generator, l: float,
     return slots, slot_valid, dmin, amin, phi
 
 
-def _candidate_weights(w, amin, n_cand: int) -> np.ndarray:
+def _candidate_weights(w, amin, n_cand: int, cross: bool = False) -> np.ndarray:
     """Total row weight owned by each candidate, summed on the host in
-    row order so that the result, and the k-means++ draws it weights,
-    do not depend on the order of device atomics."""
-    return np.bincount(
+    row order (then over the processes in process order) so that the
+    result, and the k-means++ draws it weights, do not depend on the
+    order of device atomics."""
+    own = np.bincount(
         amin.cpu().numpy(), weights=w.cpu().numpy().astype(np.float64),
         minlength=n_cand,
     )
+    if cross:
+        (own_all,) = collective.process_allgather([own])
+        own = own_all[0].copy()
+        for o in own_all[1:]:
+            own = own + o
+    return own
+
+
+def _row_draws(generator, n_valid: int, offset: int, n_local: int, n: int, like):
+    """One round's uniforms of this process's ``n`` rows: the slice
+    ``[offset, offset + n_local)`` of one stream over the world's
+    ``n_valid`` rows, 1 (never picked) on the padding rows."""
+    draws = torch.rand((n_valid,), generator=generator, dtype=like.dtype, device=like.device)
+    out = torch.ones((n,), dtype=like.dtype, device=like.device)
+    out[:n_local] = draws[offset:offset + n_local]
+    return out
 
 
 def init_kmeans_parallel(x, weights, n_valid: int, k: int, seed: int,
                          init_steps: int = 2, index_map=None) -> np.ndarray:
     """k-means|| (Bahmani et al.) with oversampling l = 2k, Spark defaults:
     the sampling rounds on the device, then a weighted k-means++ on the
-    host over the candidates, each weighted by the row weight it owns."""
+    host over the candidates, each weighted by the row weight it owns.
+    ``x`` is a tensor of the ``n_valid`` rows, or a table (this
+    process's part of a table spanning the world; a collective)."""
+    table = x if isinstance(x, DenseTable) else None
+    data = table.data if table is not None else x
+    cross = table is not None and table.per_process_valid is not None
     rng = np.random.default_rng(seed)
-    n, d = x.shape
+    n, d = data.shape
+    offset = table.row_offset if table is not None else 0
+    n_local = table.local_valid if cross else min(n, n_valid)
 
     first = np.asarray([rng.integers(n_valid)])
     if index_map is not None:
@@ -462,18 +527,19 @@ def init_kmeans_parallel(x, weights, n_valid: int, k: int, seed: int,
     l = 2.0 * k
     cap = 4 * k
     chunk = _slot_chunk_size(cap)
-    generator = torch.Generator(device=x.device)
+    generator = torch.Generator(device=data.device)
     generator.manual_seed(int(seed))
 
-    dmin = pairwise_sq_dists(x, torch.as_tensor(c0, device=x.device))[:, 0]
-    amin = torch.zeros((n,), dtype=torch.int64, device=x.device)
+    dmin = pairwise_sq_dists(data, torch.as_tensor(c0, device=data.device))[:, 0]
+    amin = torch.zeros((n,), dtype=torch.int64, device=data.device)
 
     all_slots = [c0]
     all_valid = [np.ones((1,), np.float32)]
     base = 1
     for _ in range(init_steps):
+        draws = _row_draws(generator, n_valid, offset, n_local, n, dmin)
         slots, slot_valid, dmin, amin, phi = _pll_round(
-            x, weights, dmin, amin, base, generator, l, cap, chunk,
+            data, weights, dmin, amin, base, draws, l, cap, chunk, cross,
         )
         if float(phi) <= 0.0:
             break
@@ -483,7 +549,7 @@ def init_kmeans_parallel(x, weights, n_valid: int, k: int, seed: int,
 
     cand = np.concatenate(all_slots, axis=0)
     valid = np.concatenate(all_valid, axis=0) > 0
-    cand_w = _candidate_weights(weights, amin, base)[: len(cand)]
+    cand_w = _candidate_weights(weights, amin, base, cross)[: len(cand)]
     cand, cand_w = cand[valid], cand_w[valid]
 
     if cand.shape[0] <= k:

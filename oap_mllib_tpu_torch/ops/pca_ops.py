@@ -22,7 +22,10 @@ On a mesh (parallel/mesh.py), as the JAX package computes on its:
   axis.
 
 Either returns the (d, d) covariance on the mesh's first device, where
-the eigensolve runs.
+the eigensolve runs.  Across processes (a mesh whose ranks span them,
+parallel/mesh.py) each process runs its own ranks, the psums reach the
+other processes' ranks and every process returns the covariance on its
+first rank's device.
 """
 
 from __future__ import annotations
@@ -67,13 +70,13 @@ def covariance_data_parallel(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel covariance runs on a model axis of 1, got {mesh.shape}")
     colsum = collective.psum(
-        {r: moments(x[r], mask[r], None, precision, need_gram=False)[1] for r in mesh.ranks},
+        {r: moments(x[r], mask[r], None, precision, need_gram=False)[1] for r in mesh.local_ranks},
         mesh, dax)
-    mean = {r: colsum[r] / float(n_rows) for r in mesh.ranks}
+    mean = {r: colsum[r] / float(n_rows) for r in mesh.local_ranks}
     gram = collective.psum(
-        {r: moments(x[r], mask[r], mean[r], precision, need_sums=False)[0] for r in mesh.ranks},
+        {r: moments(x[r], mask[r], mean[r], precision, need_sums=False)[0] for r in mesh.local_ranks},
         mesh, dax)
-    first = mesh.ranks[0]
+    first = mesh.local_ranks[0]
     cov = gram[first] / max(float(n_rows) - 1.0, 1.0)
     return 0.5 * (cov + cov.T), mean[first]
 
@@ -91,18 +94,19 @@ def covariance_model_sharded(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     the first rank's device, symmetrised."""
     dax, max_ = mesh.axis_names
     col_sum = collective.psum(
-        {r: torch.sum(x[r] * mask[r][:, None], dim=0) for r in mesh.ranks}, mesh, dax)
-    mean = {r: col_sum[r] / float(n_rows) for r in mesh.ranks}
-    xc = {r: (x[r] - mean[r][None, :]) * mask[r][:, None] for r in mesh.ranks}
+        {r: torch.sum(x[r] * mask[r][:, None], dim=0) for r in mesh.local_ranks}, mesh, dax)
+    mean = {r: col_sum[r] / float(n_rows) for r in mesh.local_ranks}
+    xc = {r: (x[r] - mean[r][None, :]) * mask[r][:, None] for r in mesh.local_ranks}
     xc_full = collective.all_gather(xc, mesh, max_, dim=1)  # (n_loc, d) a rank
     rows = collective.psum(
-        {r: psn.pdot(xc[r].T, xc_full[r], policy, precision) for r in mesh.ranks}, mesh, dax)
+        {r: psn.pdot(xc[r].T, xc_full[r], policy, precision) for r in mesh.local_ranks}, mesh, dax)
     del xc, xc_full
-    first = mesh.device(mesh.ranks[0])
+    row = mesh.local_ranks[0][0]  # a row of ranks holds every feature block
+    first = mesh.device((row, 0))
     n_model = mesh.shape[max_]
-    cov = torch.cat([rows[(0, j)].to(first) for j in range(n_model)], dim=0)
+    cov = torch.cat([rows[(row, j)].to(first) for j in range(n_model)], dim=0)
     cov = cov / max(float(n_rows) - 1.0, 1.0)
-    full_mean = torch.cat([mean[(0, j)].to(first) for j in range(n_model)])
+    full_mean = torch.cat([mean[(row, j)].to(first) for j in range(n_model)])
     return 0.5 * (cov + cov.T), full_mean
 
 

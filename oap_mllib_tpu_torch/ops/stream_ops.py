@@ -24,10 +24,23 @@ records its stage / transfer / compute split in the fit's timings.
   ``bf16`` policy chunks stage at bfloat16 and the cross-chunk sums are
   Kahan-compensated, as in the JAX package.
 
-Padded tail rows carry weight 0 through K1 and K2, cost included.  With
-one process the JAX package's cross-process reductions are the
-identity; they come with several processes, as do the ring reduction of
-the streamed moments and the fleet statistics.
+Padded tail rows carry weight 0 through K1 and K2, cost included.
+
+Across processes (the multi-process half of the JAX package's module)
+each process streams its OWN shard, and every pass ends in a reduction
+that every process reaches (:func:`_psum_host`, :func:`_allgather_host`),
+even one whose source raised: :class:`_PassGuard` swallows the error,
+its flag rides in front of the payload, and every process raises
+together.  The f32 moments of a pass (sums, counts and cost; the column
+sums; the Gram) reduce through ONE packed ring across the processes,
+K5 over CUDA IPC (:func:`_ring_reduce_f32`), when ``Config.ring_reduction``
+allows it; the flag and the other payloads (row counts, phi, the
+candidates' weights) take the host gather, first, so a failed process
+aborts the world before the ring.  The route is a pure function of the
+config and the dtypes, so every process issues the same collectives.
+With one process the reductions are the identity.  The JAX package's
+fleet statistics (``_fleet_pass``, ``capability_sync``) serve its
+capability balancer and are not ported.
 """
 
 from __future__ import annotations
@@ -40,7 +53,8 @@ import torch
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.ops import kmeans_ops
-from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel
+from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel, ring_kernel
+from oap_mllib_tpu_torch.parallel import bootstrap, collective
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device
 from oap_mllib_tpu_torch.utils.timing import tick
@@ -130,6 +144,171 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.float()
 
 
+# -- across processes ----------------------------------------------------------------
+
+
+def _world() -> int:
+    return bootstrap.world_size()
+
+
+class _PassGuard:
+    """Capture a source error during a local pass so the next
+    cross-process reduction still runs on EVERY process.
+
+    Without it a process whose source raises mid-pass exits before its
+    gather while its peers wait in theirs until the collective timeout.
+    With it the error is swallowed, the reduction gathers an error flag
+    with the data, and every process raises together (the local error
+    chained on the process that saw it).  With one process the original
+    exception is raised unchanged at the reduction::
+
+        guard = _PassGuard()
+        with guard:
+            for chunk, n_valid in source: ...accumulate...
+        out = _psum_host([...], guard=guard)
+    """
+
+    def __init__(self):
+        self.err = None
+
+    def __enter__(self) -> "_PassGuard":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc is not None and isinstance(exc, Exception):
+            self.err = exc
+            return True  # swallowed; the next reduction raises on every process
+        return False
+
+
+def _gather_with_guard(arrays, guard):
+    """``collective.process_allgather`` with the guard's error flag in
+    front of the payload, so every process fails together when any
+    process's pass failed.  Returns the per-process stacked arrays, or
+    None in one process (the guard's error raised)."""
+    if _world() == 1:
+        if guard is not None and guard.err is not None:
+            raise guard.err
+        return None
+    if guard is not None:
+        arrays = [np.asarray([0 if guard.err is None else 1], np.int64)] + list(arrays)
+    gathered = collective.process_allgather(arrays)
+    if guard is not None:
+        if int(gathered[0].sum()) > 0:
+            raise RuntimeError("streamed pass failed on at least one process") from guard.err
+        gathered = gathered[1:]
+    return gathered
+
+
+def _materialize(arrays, guard):
+    """The accumulators on the host, under the guard: fetching a device
+    value is where an asynchronous device error surfaces, and it must
+    reach the collective like a source error.  A failed fetch sends
+    zeros of the same shapes (the flag aborts the world first)."""
+    def fetch():
+        return [a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                for a in arrays]
+
+    if guard is None:
+        return fetch()
+    with guard:
+        return fetch()
+    return [np.zeros(tuple(a.shape), np.float32 if isinstance(a, torch.Tensor)
+                     else np.asarray(a).dtype) for a in arrays]
+
+
+def _ring_armed() -> bool:
+    """Whether the f32 moments of a streamed pass reduce through the ring
+    across the processes: several processes, no model axis (the JAX
+    package's condition) and ``Config.ring_reduction`` not "off"."""
+    from oap_mllib_tpu_torch.config import get_config
+
+    cfg = get_config()
+    return (_world() > 1 and cfg.model_parallel == 1
+            and kmeans_ops.ring_mode_cfg(cfg) != "off")
+
+
+def _ring_reduce_f32(arrays, device):
+    """Sum f32 host arrays across the processes through ONE packed ring:
+    the payloads flatten into a (P, ceil(total / P)) sheet, one slot per
+    process (each ring segment a real chunk of the moments), the ring of
+    the P processes sums it (K5 over IPC on the card,
+    ring_kernel.ring_allreduce_groups), and the sums come back on every
+    process."""
+    world = _world()
+    flat = np.concatenate([np.asarray(a, np.float32).ravel() for a in arrays])
+    total = flat.size
+    cols = max(1, -(-total // world))
+    sheet = np.zeros((world, cols), np.float32)
+    sheet.ravel()[:total] = flat
+    me = bootstrap.process_index()
+    out = ring_kernel.ring_allreduce_groups(
+        {me: torch.from_numpy(sheet).to(device)}, [list(range(world))], lambda p: p)
+    summed = out[me].cpu().numpy().ravel()[:total]
+    res, off = [], 0
+    for a in arrays:
+        n = int(np.asarray(a).size)
+        res.append(summed[off:off + n].reshape(np.shape(a)))
+        off += n
+    return res
+
+
+def _psum_host(arrays, guard=None, device=None):
+    """Each array summed across the processes, the same on every process
+    (host numpy arrays; tensors and arrays in, the identity with one
+    process).  ``guard``: see :class:`_PassGuard`.  With the ring armed
+    the f32 payloads reduce through one packed ring on ``device`` after
+    the host gather of the flag and the rest."""
+    arrays = _materialize(arrays, guard)
+    if _world() == 1:
+        if guard is not None and guard.err is not None:
+            raise guard.err
+        return arrays
+    f32 = [i for i, a in enumerate(arrays) if a.dtype == np.float32]
+    if not _ring_armed() or not f32:
+        return [g.sum(axis=0) for g in _gather_with_guard(arrays, guard)]
+    rest = [i for i in range(len(arrays)) if i not in f32]
+    gathered = (_gather_with_guard([arrays[i] for i in rest], guard)
+                if rest or guard is not None else [])
+    ringed = _ring_reduce_f32([arrays[i] for i in f32],
+                              torch.device("cpu") if device is None else device)
+    out = [None] * len(arrays)
+    for j, i in enumerate(f32):
+        out[i] = ringed[j]
+    for j, i in enumerate(rest):
+        out[i] = gathered[j].sum(axis=0)
+    return out
+
+
+def _allgather_host(arrays, guard=None):
+    """Each array gathered across the processes along a new leading
+    (process) axis; the axis is added with one process too."""
+    arrays = _materialize(arrays, guard)
+    gathered = _gather_with_guard(arrays, guard)
+    return [a[None] for a in arrays] if gathered is None else gathered
+
+
+def _checked_entry(validate) -> None:
+    """Run an entry check under a guard and agree on its outcome across
+    the processes (one scalar gather), so a process whose check fails
+    does not leave its peers waiting in the first pass."""
+    guard = _PassGuard()
+    with guard:
+        validate()
+    _psum_host([np.zeros((), np.int64)], guard=guard)
+
+
+def _reduce_pass(tensors, guard, dev):
+    """A pass's device accumulators reduced across the processes and
+    back on ``dev`` (the identity with one process, the guard's error
+    raised)."""
+    if _world() == 1:
+        if guard.err is not None:
+            raise guard.err
+        return tensors
+    return [torch.as_tensor(a).to(dev) for a in _psum_host(tensors, guard, dev)]
+
+
 # -- K-Means ----------------------------------------------------------------------
 
 
@@ -146,16 +325,23 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
     cost = torch.zeros((), dtype=torch.float32, device=dev) if need_cost else None
     stats = PrefetchStats()
     elapsed = tick()
-    with _staged_chunks(source, weights, dev, stats, psn.staging_dtype(policy)) as pf:
-        for _, (x, w) in pf:
-            s, c, t = kmeans_kernel.lloyd_accumulate(_f32(x), w, centers, precision, need_cost)
-            sums += s
-            counts += c
-            if need_cost:
-                cost += t
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    guard = _PassGuard()
+    with guard:
+        with _staged_chunks(source, weights, dev, stats, psn.staging_dtype(policy)) as pf:
+            for _, (x, w) in pf:
+                s, c, t = kmeans_kernel.lloyd_accumulate(_f32(x), w, centers, precision,
+                                                         need_cost)
+                sums += s
+                counts += c
+                if need_cost:
+                    cost += t
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     stats.finalize(timings, phase, elapsed())
+    if cost is None:
+        sums, counts = _reduce_pass([sums, counts], guard, dev)
+    else:
+        sums, counts, cost = _reduce_pass([sums, counts, cost], guard, dev)
     return sums, counts, cost
 
 
@@ -171,7 +357,7 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
     optional width-1 source walked in lockstep; ``validated`` skips its
     check when the caller ran it."""
     if weights is not None and not validated:
-        _check_weight_source(source, weights)
+        _checked_entry(lambda: _check_weight_source(source, weights))
     if device is None and isinstance(init_centers, torch.Tensor):
         device = init_centers.device
     else:
@@ -210,7 +396,8 @@ def reservoir_sample(source: ChunkSource, k: int, seed: int, timings=None) -> np
     seen = 0
     stats = PrefetchStats()
     elapsed = tick()
-    with Prefetcher(source, stats=stats) as pf:
+    guard = _PassGuard()
+    with guard, Prefetcher(source, stats=stats) as pf:
         for chunk, n_valid in pf:
             start = 0
             if len(sample) < k:
@@ -225,11 +412,43 @@ def reservoir_sample(source: ChunkSource, k: int, seed: int, timings=None) -> np
                     sample[j[i]] = chunk[start + i].copy()
             seen += n_valid
     stats.finalize(timings, "init_centers", elapsed())
+    if guard.err is not None and _world() == 1:
+        raise guard.err
+    if _world() > 1:
+        sample, seen = _merge_reservoirs(sample, seen, k, source.n_features, seed, guard)
     if not sample:
         raise ValueError("empty source")
     while len(sample) < k:  # fewer rows than clusters: duplicate
         sample.append(sample[len(sample) % max(1, seen)])
     return np.stack(sample)
+
+
+def _merge_reservoirs(sample, seen: int, k: int, d: int, seed: int, guard):
+    """The processes' reservoirs merged into one sample of k rows, the
+    same on every process: weighted sampling without replacement
+    (Efraimidis-Spirakis keys, each reservoir row standing for
+    seen_p / |reservoir_p| rows), from one stream shared by every
+    process, as the JAX package merges them."""
+    local = np.zeros((k, d))
+    if sample:
+        local[:len(sample)] = np.stack(sample)
+    rows_g, nv_g, seen_g = _allgather_host(
+        [local, np.asarray([len(sample)], np.int64), np.asarray([seen], np.int64)],
+        guard=guard)
+    rows = rows_g.reshape(-1, d)  # (processes * k, d), process-major
+    nv = nv_g.ravel()
+    weights = np.zeros(len(rows))
+    for p in range(len(nv)):
+        if nv[p]:
+            weights[p * k:p * k + nv[p]] = seen_g.ravel()[p] / nv[p]
+    valid = weights > 0
+    if not valid.any():
+        raise ValueError("empty source (all processes)")
+    merge_rng = np.random.default_rng(seed + 1000003)
+    keys = np.where(valid, merge_rng.random(len(rows)) ** (1.0 / np.maximum(weights, 1e-300)),
+                    -1.0)
+    top = np.argsort(-keys, kind="stable")[:min(k, int(valid.sum()))]
+    return [rows[t] for t in top], int(seen_g.sum())
 
 
 def _chunk_min_d2(x: torch.Tensor, dmin: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
@@ -255,13 +474,16 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
     sampling cost and the ownership.  ``device`` None is
     ``Config.device``."""
     if weights is not None and not validated:
-        _check_weight_source(source, weights)
+        _checked_entry(lambda: _check_weight_source(source, weights))
     dev = resolve_device(device)
     l = 2.0 * k
+    d = source.n_features
+    cap = 4 * k  # a process's picks a round gathered across processes
     stage_dtype = psn.staging_dtype(policy)
-    # the sampling stream of this process's rows (the JAX package adds
-    # 31 x its process index, 0 here) and the final k-means++ stream
-    samp_rng = np.random.default_rng(seed)
+    # the sampling stream of this process's rows (seed + 31 x its process
+    # index, as in the JAX package) and the final k-means++ stream, the
+    # same on every process
+    samp_rng = np.random.default_rng(seed + 31 * bootstrap.process_index())
     final_rng = np.random.default_rng(seed + 7777)
 
     c0 = reservoir_sample(source, 1, seed, timings=timings)
@@ -279,7 +501,8 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
         new_phi = 0.0
         stats = PrefetchStats()
         elapsed = tick()
-        with _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
+        guard = _PassGuard()
+        with guard, _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
             for ci, ((chunk, n_valid, wv), (x, _)) in enumerate(pf):
                 if cands_dev is not None:
                     prev = (torch.as_tensor(dmin_chunks[ci], device=dev) if rnd > 0
@@ -301,9 +524,21 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
                     for i in np.nonzero(hit)[0]:
                         picks.append(chunk[i].copy())
         stats.finalize(timings, "init_centers", elapsed())
-        phi = new_phi
+        (phi_arr,) = _psum_host([np.asarray([new_phi])], guard=guard)
+        phi = float(phi_arr[0])
+        if _world() > 1:
+            # each process's picks, fixed-shape and process-major, so
+            # every process extends the candidates alike; picks past cap
+            # drop, like the in-memory slots
+            local = np.zeros((cap, d))
+            n_local = min(len(picks), cap)
+            if n_local:
+                local[:n_local] = np.stack(picks[:n_local])
+            rows_g, cnt_g = _allgather_host([local, np.asarray([n_local], np.int64)])
+            picks = [rows_g[p, i] for p in range(rows_g.shape[0])
+                     for i in range(int(cnt_g.ravel()[p]))]
         cands.extend(picks)
-        new_block = np.stack(picks) if picks else np.zeros((0, source.n_features))
+        new_block = np.stack(picks) if picks else np.zeros((0, d))
 
     cand_arr = np.stack(cands)
     if cand_arr.shape[0] <= k:
@@ -313,10 +548,12 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
     own = np.zeros((cand_arr.shape[0],), np.float64)
     stats = PrefetchStats()
     elapsed = tick()
-    with _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
+    guard = _PassGuard()
+    with guard, _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
         for _, (x, w) in pf:
             own += _chunk_ownership(_f32(x), w, cands_dev).cpu().numpy()
     stats.finalize(timings, "init_centers", elapsed())
+    (own,) = _psum_host([own], guard=guard)
     return kmeans_ops._weighted_kmeans_pp(cand_arr, own, k, final_rng)
 
 
@@ -350,17 +587,24 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     n = 0
     stats = PrefetchStats()
     elapsed = tick()
-    with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
-        for (_, n_valid, _), (x, w) in pf:
-            _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False)
-            if compensated:
-                _kahan_add(total, comp, s)
-            else:
-                total += s
-            n += n_valid
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    guard = _PassGuard()
+    with guard:
+        with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
+            for (_, n_valid, _), (x, w) in pf:
+                _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False)
+                if compensated:
+                    _kahan_add(total, comp, s)
+                else:
+                    total += s
+                n += n_valid
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     stats.finalize(timings, "covariance_streamed", elapsed())
+    if _world() > 1:
+        total, n_arr = _psum_host([total, np.asarray([n], np.int64)], guard, dev)
+        total, n = torch.as_tensor(total).to(dev), int(n_arr[0])
+    elif guard.err is not None:
+        raise guard.err
     if n < 1:
         raise ValueError("empty source")
     mean = total / n
@@ -368,15 +612,18 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     gcomp = torch.zeros_like(gram)
     stats = PrefetchStats()
     elapsed = tick()
-    with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
-        for _, (x, w) in pf:
-            g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False)
-            if compensated:
-                _kahan_add(gram, gcomp, g)
-            else:
-                gram += g
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    guard = _PassGuard()
+    with guard:
+        with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
+            for _, (x, w) in pf:
+                g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False)
+                if compensated:
+                    _kahan_add(gram, gcomp, g)
+                else:
+                    gram += g
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     stats.finalize(timings, "covariance_streamed", elapsed())
+    (gram,) = _reduce_pass([gram], guard, dev)
     cov = gram / max(n - 1.0, 1.0)
     return 0.5 * (cov + cov.T), mean, n

@@ -17,6 +17,17 @@ A device may repeat in the grid: ``"cuda:0,cuda:0,cuda:0,cuda:0"`` is a
 four-rank world on one card and ``"cpu,cpu,cpu,cpu"`` one on the CPU.
 The ranks still hold separate buffers and run the same schedule, so a
 one-card or CPU world computes what a world of distinct cards computes.
+
+In a world of several processes (parallel/bootstrap.py) the grid spans
+the world: it is built from every process's devices, gathered at the
+join, process 0's first, exactly as one process's grid is built from
+its list.  Each rank belongs to the process whose device it is
+(:meth:`Mesh.process_of`); a process holds and computes only its
+:attr:`Mesh.local_ranks`, so per-rank dictionaries hold the local ranks'
+tensors, and the collectives reach the other processes' ranks.  A
+process's ranks must fill whole rows of the grid (its device count a
+multiple of ``model_parallel``): every process holds whole rows of its
+own table shard.
 """
 
 from __future__ import annotations
@@ -37,7 +48,8 @@ class Mesh:
     size of an axis and ``axis_names`` their names, as on a JAX mesh."""
 
     def __init__(self, devices: Sequence[Sequence[torch.device]],
-                 axis_names: Tuple[str, str]):
+                 axis_names: Tuple[str, str],
+                 owners: Optional[Sequence[Sequence[int]]] = None, process: int = 0):
         self.devices = [list(row) for row in devices]
         if not self.devices or any(len(r) != len(self.devices[0]) for r in self.devices):
             raise ValueError("a mesh is a non-empty rectangular grid of devices")
@@ -45,6 +57,28 @@ class Mesh:
         self.shape: Dict[str, int] = {
             axis_names[0]: len(self.devices), axis_names[1]: len(self.devices[0]),
         }
+        # the process that holds each rank (all 0 in one process)
+        self.owners = ([list(row) for row in owners] if owners is not None
+                       else [[0] * len(r) for r in self.devices])
+        self.process = process
+        self.processes = 1 + max(max(row) for row in self.owners)
+
+    def process_of(self, rank: Rank) -> int:
+        """The process that holds ``rank``."""
+        return self.owners[rank[0]][rank[1]]
+
+    def is_local(self, rank: Rank) -> bool:
+        return self.process_of(rank) == self.process
+
+    @property
+    def local_ranks(self) -> List[Rank]:
+        """The ranks this process holds, row by row (every rank in one
+        process)."""
+        return [r for r in self.ranks if self.is_local(r)]
+
+    def spans(self, ranks: Sequence[Rank]) -> bool:
+        """Whether ``ranks`` lie in more than one process."""
+        return len({self.process_of(r) for r in ranks}) > 1
 
     @property
     def size(self) -> int:
@@ -70,8 +104,9 @@ class Mesh:
         raise ValueError(f"unknown mesh axis {axis!r}; the mesh has {self.axis_names}")
 
     def distinct_devices(self) -> List[torch.device]:
+        """This process's distinct devices, in rank order."""
         out = []
-        for rank in self.ranks:
+        for rank in self.local_ranks:
             if self.device(rank) not in out:
                 out.append(self.device(rank))
         return out
@@ -82,22 +117,53 @@ def get_mesh(n_devices: Optional[int] = None, model_parallel: Optional[int] = No
     """A (data, model) mesh over ``devices`` (None = the ranks of
     ``Config.device``), the first ``n_devices`` of them when given, with
     ``model_parallel`` (None = ``Config.model_parallel``) ranks on the
-    model axis."""
+    model axis.
+
+    In a world of several processes ``devices`` are this process's own
+    (they must be the ones it joined with) and the grid spans every
+    process's devices, in the order gathered at the join; ``n_devices``
+    then counts the world's devices, a whole number of processes'."""
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
     cfg = get_config()
     if model_parallel is None:
         model_parallel = cfg.model_parallel
     if devices is None:
         devices = resolve_devices()
     devices = list(devices)
+    owners = [0] * len(devices)
+    process = 0
+    if bootstrap.world_size() > 1:
+        world = bootstrap.world_devices()
+        process = bootstrap.process_index()
+        if [str(d) for d in devices] != world[process]:
+            raise ValueError(
+                f"this process joined the world with devices {world[process]}; a fit "
+                f"in the world runs on those, not on {[str(d) for d in devices]}"
+            )
+        # other processes' devices name their own cards: keep the names,
+        # each rank's owner says whose they are
+        devices = [torch.device(name) for names in world for name in names]
+        owners = [p for p, names in enumerate(world) for _ in names]
+        for p, names in enumerate(world):
+            if len(names) % model_parallel:
+                raise ValueError(
+                    f"process {p} holds {len(names)} devices, not a multiple of "
+                    f"model_parallel={model_parallel}: a process holds whole rows "
+                    "of the mesh (its own rows of the table)"
+                )
     if n_devices is not None:
-        devices = devices[:n_devices]
+        devices, owners = devices[:n_devices], owners[:n_devices]
+        if process not in owners:
+            raise ValueError(f"n_devices={n_devices} leaves out this process ({process})")
     n = len(devices)
     if model_parallel < 1 or n % model_parallel != 0:
         raise ValueError(
             f"device count {n} not divisible by model_parallel={model_parallel}"
         )
     grid = [devices[i:i + model_parallel] for i in range(0, n, model_parallel)]
-    return Mesh(grid, (cfg.data_axis, cfg.model_axis))
+    own = [owners[i:i + model_parallel] for i in range(0, n, model_parallel)]
+    return Mesh(grid, (cfg.data_axis, cfg.model_axis), own, process)
 
 
 def pad_rows(x: np.ndarray, multiple: int, fill: float = 0.0):

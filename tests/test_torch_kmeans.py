@@ -211,7 +211,8 @@ class TestIsolation:
         assert {"ops/als_block.py", "ops/host_prep.py", "ops/pca_ops.py",
                 "parallel/collective.py", "data/stream.py", "data/bucketing.py",
                 "data/sparse.py", "data/io.py", "data/prefetch.py", "utils/membudget.py",
-                "ops/stream_ops.py", "ops/als_stream.py"} <= checked
+                "ops/stream_ops.py", "ops/als_stream.py", "parallel/bootstrap.py",
+                "parallel/shuffle.py", "parallel/mesh.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -227,6 +228,8 @@ class TestIsolation:
         code = (
             "import sys, numpy as np, oap_mllib_tpu_torch, chip_smoke\n"
             "from oap_mllib_tpu_torch.ops import als_block, als_stream, host_prep, stream_ops\n"
+            "from oap_mllib_tpu_torch.parallel import bootstrap, collective, shuffle\n"
+            "assert bootstrap.initialize_distributed() is False\n"
             "from oap_mllib_tpu_torch.data import bucketing, io, prefetch, sparse, stream\n"
             "from oap_mllib_tpu_torch.utils import membudget\n"
             "src = stream.ChunkSource.from_array(np.ones((300, 3), np.float32), 128)\n"
