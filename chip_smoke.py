@@ -4,8 +4,10 @@
     python3 chip_smoke.py              # on a machine with the card
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, tiny
     python3 chip_smoke.py --mesh       # only the phases whose ranks span cards
-                                       # (4's last card, 10-14, 19, 21)
+                                       # (4's last card, 10-14, 19, 21, 22)
     python3 chip_smoke.py --mp         # only the build and the worlds (21)
+    python3 chip_smoke.py --block-stream  # only the build and 22 (four cards
+                                          # when the machine has four)
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -162,6 +164,36 @@ Phases, each a hard check (any failure exits non-zero):
    iterations equal, centers and cost 1e-5; PCA against one device,
    components 1e-4, ratios 1e-5; streamed: centers 1e-4, cost 1e-5, PCA
    1e-5; ALS 1e-4 in prediction space).  ``--mp`` runs only these.
+   mp_block_stream (world "b"): each process's cut of the ML-25M ratings
+   as a width-3 source, the streamed block ALS at rank 10 (K3 = K4 = 2 x
+   2 x 10 a process), every process's factors against the one-process
+   four-rank streamed block fit (bit-equal, or 1e-5 relative).
+   mp_balance (world "a"): every process holds the whole headline table
+   and takes its extent through ``balance.local_sources``; with
+   capabilities pinned 1.0 / 0.5 (even / odd processes) the extents of
+   the 2^20 x 256 table (16 chunks of 65,536 rows: 11 / 5 on two
+   processes), the streamed Lloyd loop and the streamed PCA against the
+   same fits on equal shares within 1e-5, the block ALS on the weighted
+   offsets against the equal-share fit within 1e-4 in prediction space
+   and, afterwards in this process, each of the two against a float64
+   fit of the same ratings (balance_f64: the weighted fit no farther from
+   it than twice the equal-share fit), every process's ``balance`` block
+   equal; the default ("auto", nothing pinned) weighs the processes 1.0
+   each, whatever their probes read; then the drill: equal pinned
+   capabilities, process 1's rows slowed by 0.1 s a chunk (a wrapper of
+   this script's), the fleet rollups on, threshold 1.3, patience 2: the
+   controller must re-plan by the third pass; each pass's walls, skew
+   ratios and re-plans printed, K1's launches equal to the chunks the
+   passes' extents staged.
+22. block_stream (the streamed block ALS, after als_block_2d): the
+   ML-25M ratings as a width-3 source on four ranks (four cards under
+   ``--mesh``), implicit rank 10 with replicated items and rank 32 in
+   the 2-D layout, each against the resident block fit of its rank and
+   layout: factors bit-equal (gate 1e-5 relative), K3 = K4 = 2 x 4 x 10
+   and the summary's counts equal to the counters; iterations/s,
+   ``table_convert``, each card's peak memory beside the resident
+   route's, one streamed iteration's idle share by card and the split
+   of its host wall (staging, pinned copies, waits, psums).
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -193,9 +225,12 @@ from oap_mllib_tpu_torch.data.table import ShardedTable
 from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
-from oap_mllib_tpu_torch.ops import als_block, als_ops, als_stream, kmeans_ops, pca_ops, stream_ops
+from oap_mllib_tpu_torch.ops import (als_block, als_block_stream, als_ops, als_stream, kmeans_ops,
+                                     pca_ops, stream_ops)
 from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kernel, pca_kernel,
                                           ring_kernel)
+from oap_mllib_tpu_torch.parallel import balance, collective
+from oap_mllib_tpu_torch.telemetry import fleet
 from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
@@ -245,6 +280,9 @@ ALS_FULL = {"n_users": 162_541, "n_items": 59_047, "nnz": 25_000_000,
 ALS_TINY = {"n_users": 700, "n_items": 300, "nnz": 20_000, "rank": 10,
             "alpha": 40.0, "reg": 0.1, "max_iter": 3, "explicit_iter": 2,
             "ranks": (10, 32), "wide_rank": 32, "layout_2d": "sharded"}
+# the ratings of the streamed block ALS as a width-3 (user, item, rating)
+# source: rows a chunk of it
+ALS_SOURCE_ROWS = 1 << 20
 # the streamed paths: the headline K-Means table in 65,536-row chunks
 # (the default width), a five-iteration streamed fit (each pass walks
 # the 1 GB table through the host); the PCA table; the sparse table
@@ -2106,6 +2144,154 @@ def phase_als_block_2d(cfg, data, dev):
     return out
 
 
+def als_source(users, items, ratings):
+    """Ratings as a width-3 (user, item, rating) f64 ``ChunkSource``: ids
+    and f32 ratings are exact in f64."""
+    return ChunkSource.from_array(np.stack([users, items, ratings], 1).astype(np.float64),
+                                  chunk_rows=ALS_SOURCE_ROWS)
+
+
+def factor_rel_err(a, b):
+    """max |a - b| / max |b| of two factor tables (0 when bit-equal)."""
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-30))
+
+
+def phase_block_stream(cfg, data, dev):
+    """The streamed block ALS (ops/als_block_stream.py): the ML-25M ratings
+    as a width-3 source on four ranks (distinct cards when the machine
+    has four), implicit, rank 10 with replicated items and rank 32 in
+    the 2-D layout, each held against the resident block fit of the same
+    mesh and rank: the factors bit-equal (each rank's chunks are its
+    resident blocks of groups; the gate is 1e-5 relative), K3 = K4 = 2 x
+    4 x max_iter with the summary's counts equal to the counters, the
+    route "streamed-block"; iterations/s, ``table_convert`` seconds, each
+    card's peak memory beside the resident route's, and the card's idle
+    share of one streamed iteration (torch.profiler)."""
+    users, items, ratings = data
+    n_users, n_items, it = cfg["n_users"], cfg["n_items"], cfg["max_iter"]
+    devs = mesh_devices(dev, 4)
+    layout = ",".join(str(v) for v in devs)
+    cards = sorted({d.index for d in devs if d.type == "cuda"})
+    src = als_source(users, items, ratings)
+    out = []
+    for r, item_layout in ((cfg["rank"], "replicated"), (cfg["wide_rank"], "sharded")):
+        kw = dict(rank=r, max_iter=it, reg_param=cfg["reg"], implicit_prefs=True,
+                  alpha=cfg["alpha"], seed=0)
+        fits = {}
+        set_config(als_item_layout=item_layout)
+        try:
+            for route, args in (("streamed", (src,)), ("resident", (users, items, ratings))):
+                for c in cards:
+                    torch.cuda.reset_peak_memory_stats(c)
+                als_kernel.reset_launches()
+                t0 = time.perf_counter()
+                m = ALS(device=layout, **kw).fit(*args, n_users=n_users, n_items=n_items)
+                fits[route] = {"model": m, "wall_s": time.perf_counter() - t0,
+                               "launches": dict(als_kernel.LAUNCHES),
+                               "peak_mem_gb": {f"cuda:{c}": torch.cuda.max_memory_allocated(c)
+                                               / 1e9 for c in cards}}
+            iteration = streamed_iteration_profile(cfg, data, r, item_layout, devs,
+                                                   fits["streamed"]["model"])
+        finally:
+            set_config(als_item_layout="auto")
+        st, rs = fits["streamed"], fits["resident"]
+        s = st["model"].summary
+        expect = 2 * 4 * it if dev.type == "cuda" else 0
+        check(st["launches"] == {als_kernel.SOLVE: expect, als_kernel.GRAM: expect}
+              == s["kernels"], f"block_stream rank {r}: launches {st['launches']}, summary "
+              f"{s['kernels']}, expected 2 * 4 * {it} = {expect} of each")
+        check(s["streamed"] and s["block_parallel"] and s["item_layout"] == item_layout
+              and s["route"]["route"] == "streamed-block" and "streamed" not in rs["model"].summary,
+              f"block_stream rank {r}: summary {s}")
+        um, im = st["model"], rs["model"]
+        check(np.all(np.isfinite(um.user_factors_)) and np.all(np.isfinite(um.item_factors_)),
+              f"block_stream rank {r}: non-finite factors")
+        errs = {"user": factor_rel_err(um.user_factors_, im.user_factors_),
+                "item": factor_rel_err(um.item_factors_, im.item_factors_)}
+        bit = (np.array_equal(um.user_factors_, im.user_factors_)
+               and np.array_equal(um.item_factors_, im.item_factors_))
+        check(max(errs.values()) <= 1e-5,
+              f"block_stream rank {r}: factors {errs} from the resident block fit")
+        phases, rphases = s["timings"].as_dict(), rs["model"].summary["timings"].as_dict()
+        v = {"devices": layout, "rank": r, "item_layout": item_layout,
+             "launches": st["launches"], "bit_equal_to_resident": bool(bit),
+             "factor_rel_err_vs_resident": errs, "wall_s": st["wall_s"], "phases_s": phases,
+             "iters_per_s": it / phases["als_iterations"],
+             "table_convert_s": phases["table_convert"],
+             "resident_iters_per_s": it / rphases["als_iterations"],
+             "resident_phases_s": rphases, "peak_mem_gb": st["peak_mem_gb"],
+             "resident_peak_mem_gb": rs["peak_mem_gb"], "iteration": iteration,
+             "balance": s["balance"]}
+        emit("block_stream", v)
+        out.append(v)
+        del fits, st, rs, um, im
+    return out
+
+
+def streamed_iteration_profile(cfg, data, r, item_layout, devs, model):
+    """One iteration of the streamed block loop at the fit's layout, from
+    the fitted factors, profiled card by card (the card's idle share of
+    the iteration's wall)."""
+    users, items, ratings = data
+    mesh = get_mesh(devices=list(devs), model_parallel=1)
+    lay = als_block_stream.prepare_streamed_block_layouts(
+        users, items, ratings, cfg["n_users"], cfg["n_items"], mesh, r,
+        item_sharded=item_layout == "sharded")
+    ranks = als_block.data_ranks(mesh)
+
+    def blocks(table, offsets, per):
+        return {q: blk.to(mesh.device(q))
+                for q, blk in zip(ranks, block_rows(table, offsets, per, torch.device("cpu")))}
+
+    x0 = blocks(model.user_factors_, lay.offsets_u, lay.upb)
+    y0 = (blocks(model.item_factors_, lay.by_item.offsets, lay.by_item.upb) if lay.item_sharded
+          else {q: torch.as_tensor(model.item_factors_, device=mesh.device(q)) for q in ranks})
+
+    def one_iteration():
+        return als_block_stream.als_block_run_streamed(lay, x0, y0, 1, cfg["reg"],
+                                                       cfg["alpha"], mesh, implicit=True)
+
+    one_iteration()
+    out = mesh_breakdown(one_iteration, list(devs))
+    return {**(out or {}), "host_split": streamed_iteration_split(one_iteration, lay, devs)}
+
+
+def streamed_iteration_split(one_iteration, lay, devs):
+    """Where the host's wall of one streamed iteration goes, in ms: the
+    producer's staging (gathering a chunk into pinned buffers) and its
+    pinned copies' issue, the consumer's waits for a staged chunk, and
+    the psums across the ranks (each between syncs of every card, so the
+    psum's own time: this iteration is not the timed one)."""
+    st = lay.stats
+    before = (st.stage_s, st.transfer_s, st.wait_s)
+    psum_s = [0.0]
+    real = collective.psum_group
+
+    def timed_psum(*a, **k):
+        sync_all(devs)
+        t0 = time.perf_counter()
+        got = real(*a, **k)
+        sync_all(devs)
+        psum_s[0] += time.perf_counter() - t0
+        return got
+
+    collective.psum_group = timed_psum
+    try:
+        sync_all(devs)
+        t0 = time.perf_counter()
+        one_iteration()
+        sync_all(devs)
+        wall = time.perf_counter() - t0
+    finally:
+        collective.psum_group = real
+    stage, transfer, wait = (a - b for a, b in zip((st.stage_s, st.transfer_s, st.wait_s),
+                                                    before))
+    return {"wall_ms": wall * 1e3, "staging_ms": (stage - transfer) * 1e3,
+            "pinned_copy_issue_ms": transfer * 1e3, "consumer_wait_ms": wait * 1e3,
+            "psum_ms": psum_s[0] * 1e3,
+            "consumer_other_ms": (wall - wait - psum_s[0]) * 1e3}
+
+
 def phase_sparse_input(cfg, dev):
     """SciPy CSR input: ``KMeans.fit`` and ``PCA.fit`` of a CSR table equal
     the fits of its dense copy (the same f32 table reaches the card, the
@@ -2152,11 +2338,11 @@ def phase_sparse_input(cfg, dev):
 MP_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "pca": (1 << 20, 128),
            "pca_k": 16, "chunk_rows": 1 << 16, "stream_iter": 5, "reps": 10,
            "ring_shapes": [(1000, 130), (13, 37), (65536, 256)], "als": ALS_FULL,
-           "als_cut": 0.46}
+           "als_cut": 0.46, "drill_iter": 6, "drill_sleep_s": 0.1}
 MP_TINY = {"n": 4096, "d": 29, "k": 11, "max_iter": 5, "pca": (3000, 37), "pca_k": 5,
-           "chunk_rows": 1024, "stream_iter": 3, "reps": 1,
+           "chunk_rows": 256, "stream_iter": 3, "reps": 1,
            "ring_shapes": [(1000, 130), (13, 37), (512, 256)], "als": ALS_TINY,
-           "als_cut": 0.46}
+           "als_cut": 0.46, "drill_iter": 6, "drill_sleep_s": 0.02}
 MP_BLOCK = 1 << 16  # rows a seeded generator makes: any process makes its own
 MP_TIMEOUT_S = 900
 
@@ -2562,8 +2748,7 @@ def mp_als(cfg, dev, rank, nproc, out):
 
     a = cfg["als"]
     u, i, r = als_data(a)
-    cut = int(len(u) * cfg["als_cut"])
-    sl = slice(0, cut) if rank == 0 else slice(cut, None)
+    sl = als_part(len(u), cfg["als_cut"], rank, nproc)
     runs = [(a["rank"], "replicated")]
     if MP_STATE.get("mesh") or dev.type == "cpu":
         runs.append((a["wide_rank"], "sharded"))
@@ -2607,6 +2792,263 @@ def mp_als(cfg, dev, rank, nproc, out):
     return res
 
 
+def mp_block_stream(cfg, dev, rank, nproc, out):
+    """The streamed block ALS across the processes: this process's uneven
+    cut of the ML-25M ratings as a width-3 source, implicit rank 10 on
+    its two ranks (K3 = K4 = 2 x local ranks x iterations), the shuffle
+    across processes; the factors saved for the parent's one-process
+    streamed block fit."""
+    from oap_mllib_tpu_torch.parallel import collective
+
+    a = cfg["als"]
+    u, i, r = als_data(a)
+    sl = als_part(len(u), cfg["als_cut"], rank, nproc)
+    src = als_source(u[sl], i[sl], r[sl])
+    del u, i, r
+    als_kernel.reset_launches()
+    collective.reset_host_stats()
+    t0 = time.perf_counter()
+    m = ALS(rank=a["rank"], max_iter=a["max_iter"], reg_param=a["reg"], alpha=a["alpha"],
+            implicit_prefs=True).fit(src, n_users=a["n_users"], n_items=a["n_items"])
+    wall = time.perf_counter() - t0
+    launches = dict(als_kernel.LAUNCHES)
+    host = dict(collective.HOST_STATS)
+    s = m.summary
+    want = 2 * len(resolve_devices()) * a["max_iter"] if dev.type == "cuda" else 0
+    check(launches == {als_kernel.SOLVE: want, als_kernel.GRAM: want} == s["kernels"],
+          f"mp_block_stream: launches {launches}, summary {s['kernels']}, expected {want} each")
+    check(s["streamed"] and s["block_parallel"] and s["processes"] == nproc
+          and s["route"]["route"] == "streamed-block", f"mp_block_stream summary {s}")
+    mp_same("mp_block_stream", m.user_factors_.tobytes() + m.item_factors_.tobytes())
+    if rank == 0:
+        _mp_save(out, rank, "block_stream_u", m.user_factors_)
+        _mp_save(out, rank, "block_stream_i", m.item_factors_)
+    phases = s["timings"].as_dict()
+    v = {"rank": a["rank"], "mesh": s["mesh"], "processes": nproc,
+         "ratings_here": int(src.n_rows), "wall_s": wall, "phases_s": phases,
+         "iters_per_s": a["max_iter"] / phases["als_iterations"], "launches": launches,
+         "host_collective_s": host["seconds"], "host_collective_gloo_s": host["gloo_s"],
+         "host_collective_bytes": host["bytes"], "balance": s["balance"]}
+    emit("mp_block_stream", v)
+    return v
+
+
+def als_part(n, cut, rank, nproc):
+    """Process ``rank``'s slice of ``n`` ratings: process 0 the first
+    ``cut`` of them, the others equal parts of the rest."""
+    first = int(n * cut)
+    edges = [0] + [first + (n - first) * p // (nproc - 1) for p in range(nproc)]
+    return slice(edges[rank], edges[rank + 1])
+
+
+def pinned_map(nproc):
+    """Every even process 1.0, every odd one 0.5: ``rank_capability``'s
+    map for the world."""
+    return ",".join(f"{p}:{1.0 if p % 2 == 0 else 0.5}" for p in range(nproc))
+
+
+class SlowRows:
+    """The drill's straggler: rows of a table, each slice a balanced view
+    takes (one a chunk) paying ``seconds`` of sleep first.  It wraps the
+    data this script hands the port; the port has no such setting."""
+
+    def __init__(self, base, seconds):
+        self._base = base
+        self._seconds = seconds
+        self.shape, self.ndim, self.dtype = base.shape, base.ndim, base.dtype
+
+    def __getitem__(self, idx):
+        if self._seconds:
+            time.sleep(self._seconds)
+        return self._base[idx]
+
+
+def mp_balance(cfg, dev, rank, nproc, out):
+    """Capability-weighted shares across the processes (world "a").
+    Pinned capabilities (even processes 1.0, odd 0.5): the planned
+    extents of the headline table over ``balance.local_sources`` (every
+    process holds the whole table), the streamed Lloyd loop from the
+    blob-centre start, the streamed PCA, and the block ALS offsets, each
+    held against the same fit on equal shares (``capability_sharding``
+    "off") within 1e-5, with every process's ``balance`` block equal.
+    Then the drill: equal pinned capabilities, process 1's rows slowed
+    by a sleep a chunk, the rollups armed, and the controller must
+    re-plan within ``rebalance_patience + 1`` passes."""
+    n, d, k, chunk = cfg["n"], cfg["d"], cfg["k"], cfg["chunk_rows"]
+    xt, c0 = blob_rows(n, 0, n, d, k, 0, dev)
+    x = xt.cpu().numpy()
+    del xt
+    (pn, pd), pk = cfg["pca"], cfg["pca_k"]
+    px = spectrum_rows(pn, 0, pn, pd, pd, dev).cpu().numpy()
+    a = cfg["als"]
+    u, i, r = als_data(a)
+    sl = als_part(len(u), cfg["als_cut"], rank, nproc)
+    on_card = dev.type == "cuda"
+    # the capability probe on this process's device (unused by the plans
+    # below, which pin): its value and its cost, gathered
+    from oap_mllib_tpu_torch.parallel import collective
+    from oap_mllib_tpu_torch.utils import dispatch
+
+    t0 = time.perf_counter()
+    cap = dispatch.throughput_probe(0)
+    probe = {"ms": (time.perf_counter() - t0) * 1e3}
+    (caps,) = collective.process_allgather([np.asarray([cap, probe["ms"]])])
+    probe.update(capabilities=caps[:, 0].tolist(), ms_by_process=caps[:, 1].tolist())
+    # the default ("auto", nothing pinned): the world's processes run on
+    # one model of card, as many a card, so they weigh the same whatever
+    # the probes read
+    set_config(capability_sharding="auto", rank_capability="")
+    balance.reset()
+    auto = balance.world_capabilities()
+    probe.update(auto_weights=auto.weights.tolist(), auto_origin=auto.origin)
+    check(auto.weights.tolist() == [1.0] * nproc,
+          f"mp_balance: the default world's weights {auto.weights.tolist()} (probes "
+          f"{probe['capabilities']}) on equal hardware")
+    runs = {}
+    for mode in ("weighted", "equal"):
+        weighted = mode == "weighted"
+        set_config(capability_sharding="auto" if weighted else "off",
+                   rank_capability=pinned_map(nproc) if weighted else "", fleet_stats="off")
+        balance.reset()
+        src = balance.local_sources(x, chunk_rows=chunk)
+        kmeans_kernel.reset_launches()
+        ring_kernel.reset_launches()
+        km_summary = {}
+        t0 = time.perf_counter()
+        stream_ops.begin_fit(src)
+        c, n_iter, cost, _ = stream_ops.lloyd_run_streamed(src, c0, cfg["stream_iter"], 1e-4,
+                                                           "highest", device=dev)
+        stream_ops.end_fit(km_summary)
+        km_wall = time.perf_counter() - t0
+        km_launch = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+        local_chunks = -(-src.n_rows // chunk)
+        check(km_launch[kmeans_kernel.KERNEL] == (local_chunks * (n_iter + 1) if on_card else 0)
+              and km_launch[ring_kernel.KERNEL] == (n_iter + 1 if on_card else 0),
+              f"mp_balance {mode} kmeans: launches {km_launch}, {local_chunks} chunks here")
+        pca_kernel.reset_launches()
+        ring_kernel.reset_launches()
+        psrc = balance.local_sources(px, chunk_rows=chunk)
+        pfit = PCA(k=pk).fit(psrc)
+        p_launch = {**pca_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+        p_chunks = -(-psrc.n_rows // chunk)
+        check(p_launch[pca_kernel.KERNEL] == (2 * p_chunks if on_card else 0)
+              and p_launch[ring_kernel.KERNEL] == (2 if on_card else 0),
+              f"mp_balance {mode} pca: launches {p_launch}, {p_chunks} chunks here")
+        als_kernel.reset_launches()
+        am = ALS(rank=a["rank"], max_iter=a["max_iter"], reg_param=a["reg"], alpha=a["alpha"],
+                 implicit_prefs=True).fit(u[sl], i[sl], r[sl], n_users=a["n_users"],
+                                          n_items=a["n_items"])
+        a_launch = dict(als_kernel.LAUNCHES)
+        blocks = {"kmeans": km_summary["balance"], "pca": pfit.summary["balance"],
+                  "als": am.summary["balance"]}
+        mp_same(f"mp_balance {mode} balance blocks",
+                json.dumps(blocks, sort_keys=True).encode())
+        runs[mode] = {"centers": c.cpu().numpy(), "cost": float(cost), "n_iter": n_iter,
+                      "pca": (pfit.components_, pfit.explained_variance_),
+                      "als": am, "blocks": blocks,
+                      "extents": src.plan.extents(), "km_wall_s": km_wall,
+                      "km_launches": km_launch, "pca_launches": p_launch,
+                      "als_launches": a_launch,
+                      "als_iters_per_s": a["max_iter"]
+                      / am.summary["timings"].as_dict()["als_iterations"]}
+    set_config(capability_sharding="auto", rank_capability="")
+    w, e = runs["weighted"], runs["equal"]
+    for mode, tag in (("weighted", "w"), ("equal", "e")):
+        _mp_save(out, rank, f"balance_als_{tag}_u", runs[mode]["als"].user_factors_)
+        _mp_save(out, rank, f"balance_als_{tag}_i", runs[mode]["als"].item_factors_)
+    raw = np.asarray([1.0 if p % 2 == 0 else 0.5 for p in range(nproc)])
+    want_ext, _ = balance.plan_extents(n, chunk, raw / raw.mean())
+    check(w["extents"] == want_ext and e["extents"] != want_ext,
+          f"mp_balance: weighted extents {w['extents']}, planned {want_ext}")
+    off = w["blocks"]["als"]["offsets"]
+    check(off is not None and off[1] - off[0] > off[2] - off[1]
+          and e["blocks"]["als"]["offsets"] is None,
+          f"mp_balance: block ALS offsets {off} (equal {e['blocks']['als']['offsets']})")
+    errs = {"kmeans_centers": factor_rel_err(w["centers"], e["centers"]),
+            "kmeans_cost": abs(w["cost"] - e["cost"]) / abs(e["cost"]),
+            "pca_components": sign_err(w["pca"][0], e["pca"][0]),
+            "pca_ratios": float(np.max(np.abs(w["pca"][1] - e["pca"][1]))),
+            "als_pred": pred_rel_err(w["als"], e["als"], a["n_users"], dev)}
+    # the factors' largest elementwise difference, beside
+    errs_factor = {"als_user_max": factor_rel_err(w["als"].user_factors_,
+                                                  e["als"].user_factors_),
+                   "als_item_max": factor_rel_err(w["als"].item_factors_,
+                                                  e["als"].item_factors_)}
+    check(w["n_iter"] == e["n_iter"] and max(v for k, v in errs.items() if k != "als_pred")
+          <= 1e-5, f"mp_balance: weighted against equal shares {errs}, iterations "
+          f"{w['n_iter']} / {e['n_iter']}")
+    # other user blocks add each item's f32 partials in another grouping,
+    # which the implicit solve at alpha 40 magnifies over ten iterations:
+    # held to the gate of every block ALS whose blocks differ from its
+    # reference's (als_block_fit, als_block_2d, mp_als: 1e-4 in prediction
+    # space), the value reported
+    check(errs["als_pred"] <= 1e-4,
+          f"mp_balance: weighted block ALS {errs['als_pred']:.3g} from equal shares")
+    # the drill starts from the table's first k rows, far enough from the
+    # blob centres that the loop does not converge before max_iter
+    drill = mp_balance_drill(cfg, dev, rank, nproc, x, x[:k].copy())
+    v = {"processes": nproc, "pinned": pinned_map(nproc), "table": [n, d], "chunk_rows": chunk,
+         "extents": {"weighted": w["extents"], "equal": e["extents"]},
+         "als_offsets": {"weighted": off, "equal": e["blocks"]["als"]["offsets"]},
+         "weighted_vs_equal": errs, "weighted_vs_equal_factor_max": errs_factor,
+         "kmeans_wall_s": {m: runs[m]["km_wall_s"] for m in runs},
+         "als_iters_per_s": {m: runs[m]["als_iters_per_s"] for m in runs},
+         "launches": {m: {"kmeans": runs[m]["km_launches"], "pca": runs[m]["pca_launches"],
+                          "als": runs[m]["als_launches"]} for m in runs},
+         "balance_blocks": w["blocks"], "probe": probe, "drill": drill}
+    emit("mp_balance", v)
+    return v
+
+
+def mp_balance_drill(cfg, dev, rank, nproc, x, c0):
+    """The straggler drill: capabilities pinned equal, process 1's rows
+    slowed (a sleep a chunk), the rollups armed, rebalance_threshold 1.3
+    and rebalance_patience 2; the streamed Lloyd loop from ``c0``.  The
+    controller must re-plan by pass ``patience + 1``; K1's
+    launches must equal this process's chunks summed over the passes'
+    extents.  Returns each pass's walls, skew ratios and the re-plans."""
+    chunk, patience = cfg["chunk_rows"], 2
+    set_config(rank_capability="1.0", fleet_stats="on", rebalance_threshold=1.3,
+               rebalance_patience=patience)
+    balance.reset()
+    try:
+        src = balance.local_sources(SlowRows(x, cfg["drill_sleep_s"] if rank == 1 else 0.0),
+                                    chunk_rows=chunk)
+        start = src.plan.extents()
+        kmeans_kernel.reset_launches()
+        ring_kernel.reset_launches()
+        summary = {}
+        t0 = time.perf_counter()
+        stream_ops.begin_fit(src)
+        _, n_iter, _, _ = stream_ops.lloyd_run_streamed(src, c0, cfg["drill_iter"], 0.0,
+                                                        "highest", device=dev)
+        window = fleet.last_window()
+        stream_ops.end_fit(summary)
+        wall = time.perf_counter() - t0
+        launches = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+    finally:
+        set_config(rank_capability="", fleet_stats="auto", rebalance_threshold=1.5,
+                   rebalance_patience=3)
+        balance.reset()
+    replans = summary["balance"]["replans"]
+    check(bool(replans) and replans[0]["pass"] <= patience + 1
+          and replans[0]["slowest_rank"] == 1,
+          f"mp_balance drill: re-plans {replans}, expected one by pass {patience + 1}")
+    rows = [rec["frames"][rank][fleet.FRAME_FIELDS.index("rows")] for rec in window]
+    chunks = int(sum(-(-int(r_) // chunk) for r_ in rows))
+    check(launches[kmeans_kernel.KERNEL] == (chunks if dev.type == "cuda" else 0),
+          f"mp_balance drill: K1 {launches[kmeans_kernel.KERNEL]}, chunks staged {chunks}")
+    mp_same("mp_balance drill", json.dumps(summary["balance"], sort_keys=True).encode())
+    walls = [[rec["frames"][p][0] for p in range(nproc)] for rec in window]
+    return {"sleep_s_a_chunk": cfg["drill_sleep_s"], "patience": patience, "threshold": 1.3,
+            "start_extents": start, "final_extents": summary["balance"]["extents"],
+            "passes": len(window), "pass_walls_s": walls,
+            "pass_wall_max_s": [max(p) for p in walls],
+            "skew_ratios": [rec["skew_ratio"] for rec in window], "replans": replans,
+            "launches": launches, "wall_s": wall, "num_iter": n_iter,
+            "fleet": summary["fleet"]}
+
+
 MP_STATE = {}
 
 
@@ -2630,11 +3072,13 @@ def mp_worker(argv) -> int:
             res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 1, out, "k-means||")]
             res["mp_pca"] = [mp_pca(cfg, dev, rank, nproc, 1, out)]
             res["mp_stream"] = mp_stream(cfg, dev, rank, nproc, out)
+            res["mp_balance"] = mp_balance(cfg, dev, rank, nproc, out)
         else:
             res["mp_ring_members"] = mp_ring_members(dev, rank, nproc)
             res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 2, out, "random")]
             res["mp_pca"] = [mp_pca(cfg, dev, rank, nproc, 2, out)]
             res["mp_als"] = mp_als(cfg, dev, rank, nproc, out)
+            res["mp_block_stream"] = mp_block_stream(cfg, dev, rank, nproc, out)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1
@@ -2691,6 +3135,73 @@ def _mp_load(out, name, nproc):
     arrays = [np.load(os.path.join(out, f"rank{r}_{name}.npy")) for r in range(nproc)]
     check(all(np.array_equal(a, arrays[0]) for a in arrays), f"{name}: processes differ")
     return arrays[0]
+
+
+def als_f64(data, cfg, seed, dev, chunk=1 << 21):
+    """The implicit ALS of ``cfg`` in float64 on ``dev``, a plain reference
+    independent of the port's routes: als_np's normal equations (A by
+    ``alpha |r|`` on every edge, b by ``1 + alpha |r|`` and the ALS-WR
+    count on positive ones, plus the other side's Gram) summed by
+    ``index_add_`` and solved by ``torch.linalg.cholesky_ex``, rows with
+    no positive rating zero; from the fits' own start (the item factors
+    ``init_factors(n_items, rank, seed + 1)``).  Returns the (user, item)
+    factors, float64 numpy."""
+    users, items, ratings = data
+    r, alpha, reg = cfg["rank"], cfg["alpha"], cfg["reg"]
+    f64 = torch.float64
+    u = torch.as_tensor(users, dtype=torch.int64, device=dev)
+    i = torch.as_tensor(items, dtype=torch.int64, device=dev)
+    c = torch.as_tensor(ratings, dtype=f64, device=dev)
+    eye = torch.eye(r, dtype=f64, device=dev)
+
+    def half(dst, src, n_dst, f):
+        a = torch.zeros((n_dst, r * r), dtype=f64, device=dev)
+        b = torch.zeros((n_dst, r), dtype=f64, device=dev)
+        n = torch.zeros((n_dst,), dtype=f64, device=dev)
+        for e0 in range(0, len(dst), chunk):
+            d, ys, cc = dst[e0:e0 + chunk], f[src[e0:e0 + chunk]], c[e0:e0 + chunk]
+            pos = (cc > 0).to(f64)
+            a.index_add_(0, d, ((alpha * cc.abs())[:, None, None] * ys[:, :, None]
+                                * ys[:, None, :]).reshape(-1, r * r))
+            b.index_add_(0, d, ((1.0 + alpha * cc.abs()) * pos)[:, None] * ys)
+            n.index_add_(0, d, pos)
+        a = a.reshape(n_dst, r, r) + (f.T @ f)[None] + reg * n[:, None, None] * eye[None]
+        chol, info = torch.linalg.cholesky_ex(a)
+        x = torch.cholesky_solve(b[:, :, None], chol)[:, :, 0]
+        return torch.where(((n > 0) & (info == 0))[:, None], x, 0.0)
+
+    y = torch.as_tensor(als_np.init_factors(cfg["n_items"], r, seed + 1), dtype=f64, device=dev)
+    for _ in range(cfg["max_iter"]):
+        x = half(u, i, cfg["n_users"], y)
+        y = half(i, u, cfg["n_items"], x)
+    return x.cpu().numpy(), y.cpu().numpy()
+
+
+def balance_f64_witness(cfg, data, out, nproc, dev):
+    """mp_balance's weighted and equal-share block ALS (every process's
+    factors equal) each against the float64 fit of the same ratings, in
+    prediction space: how far each f32 fit lies from the exact answer
+    beside how far the two lie apart.  The equal-share fit must lie
+    within 1e-4 of it (the block ALS gate) and the weighted one within
+    1e-5, or no farther than twice the equal-share fit."""
+    from types import SimpleNamespace
+
+    t0 = time.perf_counter()
+    uf, itf = als_f64(data, cfg, 0, dev)
+    ref = SimpleNamespace(user_factors_=uf, item_factors_=itf)
+    fits = {mode: SimpleNamespace(user_factors_=_mp_load(out, f"balance_als_{tag}_u", nproc),
+                                  item_factors_=_mp_load(out, f"balance_als_{tag}_i", nproc))
+            for mode, tag in (("weighted", "w"), ("equal", "e"))}
+    v = {f"{mode}_vs_f64": pred_rel_err(m, ref, cfg["n_users"], dev)
+         for mode, m in fits.items()}
+    v["weighted_vs_equal"] = pred_rel_err(fits["weighted"], fits["equal"], cfg["n_users"], dev)
+    v["f64_s"] = time.perf_counter() - t0
+    emit("balance_f64", v)
+    check(v["equal_vs_f64"] <= 1e-4 and v["weighted_vs_f64"] <= max(2.0 * v["equal_vs_f64"],
+                                                                     1e-5),
+          f"balance_f64: the weighted block ALS {v['weighted_vs_f64']:.3g} from the float64 "
+          f"fit, the equal-share one {v['equal_vs_f64']:.3g}")
+    return v
 
 
 def phase_mp(dev, mesh, rehearse):
@@ -2792,6 +3303,29 @@ def phase_mp(dev, mesh, rehearse):
             and np.array_equal(itf, ref.item_factors_)),
             "one_process_iters_per_s": acfg["max_iter"]
             / ref.summary["timings"].as_dict()["als_iterations"]}
+    # the streamed block ALS: the one-process four-rank streamed fit
+    devs = mesh_devices(dev, 4) if mesh else [dev] * 4
+    ref = ALS(rank=acfg["rank"], max_iter=acfg["max_iter"], reg_param=acfg["reg"],
+              alpha=acfg["alpha"], implicit_prefs=True,
+              device=",".join(str(q) for q in devs)).fit(
+        als_source(u, i, r), n_users=acfg["n_users"], n_items=acfg["n_items"])
+    uf = np.load(os.path.join(out, "rank0_block_stream_u.npy"))
+    itf = np.load(os.path.join(out, "rank0_block_stream_i.npy"))
+    errs = {"user": factor_rel_err(uf, ref.user_factors_),
+            "item": factor_rel_err(itf, ref.item_factors_)}
+    check(ref.summary["streamed"] and max(errs.values()) <= 1e-5,
+          f"mp_block_stream: factors {errs} from the one-process streamed block fit")
+    checks["block_stream"] = {"factor_rel_err": errs, "bit_equal": bool(
+        np.array_equal(uf, ref.user_factors_) and np.array_equal(itf, ref.item_factors_)),
+        "one_process_iters_per_s": acfg["max_iter"]
+        / ref.summary["timings"].as_dict()["als_iterations"]}
+    del ref, uf, itf
+    bal = a[0]["mp_balance"]
+    checks["balance_f64"] = balance_f64_witness(acfg, (u, i, r), out, n_a, dev)
+    checks["balance"] = {"weighted_vs_equal": bal["weighted_vs_equal"],
+                         "extents": bal["extents"], "als_offsets": bal["als_offsets"],
+                         "drill_replans": len(bal["drill"]["replans"]),
+                         "drill_first_replan_pass": bal["drill"]["replans"][0]["pass"]}
     result = {"worlds": {"a": {"processes": n_a, "wall_s": wall_a},
                          "b": {"processes": 2, "wall_s": wall_b}},
               "a": a, "b": b, "checks": checks}
@@ -2805,18 +3339,36 @@ def mp_launches(mp):
     return {
         kmeans_kernel.KERNEL: {f"mp_kmeans {v['tag']} (a process)": v["launches"][
             kmeans_kernel.KERNEL] for v in a["mp_kmeans"] + b["mp_kmeans"]} | {
-            "mp_stream kmeans (a process)": a["mp_stream"]["launches"][kmeans_kernel.KERNEL]},
+            "mp_stream kmeans (a process)": a["mp_stream"]["launches"][kmeans_kernel.KERNEL],
+            "mp_balance kmeans weighted (a process)":
+                a["mp_balance"]["launches"]["weighted"]["kmeans"][kmeans_kernel.KERNEL],
+            "mp_balance drill (a process)":
+                a["mp_balance"]["drill"]["launches"][kmeans_kernel.KERNEL]},
         pca_kernel.KERNEL: {f"mp_pca {v['tag']} (a process)": v["launches"][pca_kernel.KERNEL]
                             for v in a["mp_pca"] + b["mp_pca"]} | {
-            "mp_stream pca (a process)": a["mp_stream"]["pca_launches"][pca_kernel.KERNEL]},
+            "mp_stream pca (a process)": a["mp_stream"]["pca_launches"][pca_kernel.KERNEL],
+            "mp_balance pca weighted (a process)":
+                a["mp_balance"]["launches"]["weighted"]["pca"][pca_kernel.KERNEL]},
         als_kernel.SOLVE: {f"mp_{v['tag']} (a process)": v["launches"][als_kernel.SOLVE]
-                           for v in b["mp_als"]},
+                           for v in b["mp_als"]} | {
+            "mp_block_stream (a process)": b["mp_block_stream"]["launches"][als_kernel.SOLVE],
+            "mp_balance als weighted (a process)":
+                a["mp_balance"]["launches"]["weighted"]["als"][als_kernel.SOLVE]},
         als_kernel.GRAM: {f"mp_{v['tag']} (a process)": v["launches"][als_kernel.GRAM]
-                          for v in b["mp_als"]},
+                          for v in b["mp_als"]} | {
+            "mp_block_stream (a process)": b["mp_block_stream"]["launches"][als_kernel.GRAM],
+            "mp_balance als weighted (a process)":
+                a["mp_balance"]["launches"]["weighted"]["als"][als_kernel.GRAM]},
         ring_kernel.KERNEL: {f"mp_kmeans {v['tag']} (a process)": v["launches"][
             ring_kernel.KERNEL] for v in a["mp_kmeans"] + b["mp_kmeans"]} | {
             "mp_stream kmeans (a process)": a["mp_stream"]["launches"][ring_kernel.KERNEL],
-            "mp_stream pca (a process)": a["mp_stream"]["pca_launches"][ring_kernel.KERNEL]},
+            "mp_stream pca (a process)": a["mp_stream"]["pca_launches"][ring_kernel.KERNEL],
+            "mp_balance kmeans weighted (a process)":
+                a["mp_balance"]["launches"]["weighted"]["kmeans"][ring_kernel.KERNEL],
+            "mp_balance pca weighted (a process)":
+                a["mp_balance"]["launches"]["weighted"]["pca"][ring_kernel.KERNEL],
+            "mp_balance drill (a process)":
+                a["mp_balance"]["drill"]["launches"][ring_kernel.KERNEL]},
     }
 
 
@@ -2857,6 +3409,9 @@ def main(argv=None) -> int:
                     help="only the phases whose ranks span cards (K1-K4 on the last card, "
                          "the ring kernels, the sharded, data-parallel, PCA-mesh, block-ALS "
                          "and 2-D ALS fits, the worlds of processes); prints no ok line")
+    ap.add_argument("--block-stream", action="store_true",
+                    help="only the build and the streamed block ALS phase (on four cards "
+                         "when the machine has four); prints no ok line")
     ap.add_argument("--mp", action="store_true",
                     help="only the build and the phases across processes (the worlds of "
                          "--mesh with it); prints no ok line")
@@ -2868,6 +3423,11 @@ def main(argv=None) -> int:
         dev = resolve_device("cpu" if args.rehearse else "cuda")
         cfg = TINY if args.rehearse else FULL
         smi = phase_build(dev) if dev.type == "cuda" else None
+        if args.block_stream:
+            als_cfg = ALS_TINY if args.rehearse else ALS_FULL
+            phase_block_stream(als_cfg, als_data(als_cfg), dev)
+            print(f"block_stream passed: {smi}", flush=True)
+            return 0
         if args.mp:
             mp = phase_mp(dev, args.mesh, args.rehearse)
             emit("mp_launches", mp_launches(mp))
@@ -2884,6 +3444,8 @@ def main(argv=None) -> int:
             als_data_ = als_data(als_cfg)
             phase_als_block_fit(als_cfg, als_data_, dev, None)
             phase_als_block_2d(als_cfg, als_data_, dev)
+            phase_block_stream(als_cfg, als_data_, dev)
+            del als_data_
             mp = phase_mp(dev, True, args.rehearse)
             emit("mp_launches", mp_launches(mp))
             print(f"mesh phases passed on {torch.cuda.device_count() if dev.type == 'cuda' else 0}"
@@ -2913,7 +3475,9 @@ def main(argv=None) -> int:
         rate = pinned_h2d_rate(dev)
         stream_als = phase_stream_als(als_cfg, data, dev, als_model, rate)
         block_2d = phase_als_block_2d(als_cfg, data, dev)
-        del data, als_model
+        del als_model
+        block_stream = phase_block_stream(als_cfg, data, dev)
+        del data
         stream_km, host, streamed_model = phase_stream_kmeans(
             STREAM_TINY if args.rehearse else STREAM_FULL, dev)
         route = phase_stream_route(STREAM_TINY if args.rehearse else STREAM_FULL, host,
@@ -3011,11 +3575,15 @@ def main(argv=None) -> int:
         als_kernel.SOLVE: {"als_fit": als_fit["launches"][als_kernel.SOLVE],
                            "als_block_fit": als_block["launches"][als_kernel.SOLVE],
                            "stream_als": stream_als["launches"][als_kernel.SOLVE],
-                           "als_block_2d": block_2d["launches"][als_kernel.SOLVE]},
+                           "als_block_2d": block_2d["launches"][als_kernel.SOLVE],
+                           **{f"block_stream r{v['rank']} {v['item_layout']}":
+                              v["launches"][als_kernel.SOLVE] for v in block_stream}},
         als_kernel.GRAM: {"als_fit": als_fit["launches"][als_kernel.GRAM],
                           "als_block_fit": als_block["launches"][als_kernel.GRAM],
                           "stream_als": stream_als["launches"][als_kernel.GRAM],
-                          "als_block_2d": block_2d["launches"][als_kernel.GRAM]},
+                          "als_block_2d": block_2d["launches"][als_kernel.GRAM],
+                          **{f"block_stream r{v['rank']} {v['item_layout']}":
+                             v["launches"][als_kernel.GRAM] for v in block_stream}},
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
                              "dp_fit": dp["launches"][ring_kernel.KERNEL]},
     }

@@ -60,6 +60,26 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   of the peers of a process that fails outside a collective and lives
   on; a process that exits closes its connections, and its peers'
   collectives fail at once.
+- ``capability_sharding``: "auto" (default) weighs each process's share
+  by its capability in a world of several processes, "on" everywhere
+  (one process plans the equal layout), "off" keeps equal shares
+  (parallel/balance.py): the row extents of the streamed fits over
+  ``balance.local_sources`` and the user blocks of the replicated-item
+  block ALS.
+- ``rank_capability``: "" probes each process's capability
+  (utils/dispatch.throughput_probe); a bare float pins this process's,
+  a map "0:1.0,1:0.5" pins by process index (absent ones probe).
+  Values are > 0.
+- ``probe_epoch``: the generation of the cached probe and capability
+  gather; bumping it makes the next plan measure again.
+- ``rebalance_threshold`` (> 1) and ``rebalance_patience`` (>= 1): the
+  straggler controller re-plans the extents when a pass's skew ratio
+  (the slowest process's pass wall over the mean) stays above the
+  threshold for ``patience`` passes and is not falling.
+- ``fleet_stats``: "auto" (default) gathers one frame of pass statistics
+  a process after every streamed pass in a world of several processes,
+  "on" also in one, "off" never (telemetry/fleet.py); the controller
+  reads those frames.
 
 The JAX package's ``pca_kernel`` and ``als_solve_kernel`` choose between
 Pallas and XLA; the port has one device route, its CUDA kernels, so it
@@ -106,6 +126,12 @@ class Config:
     coordinator_port: int = 0
     bootstrap_timeout: float = 60.0
     collective_timeout: float = 600.0
+    capability_sharding: str = "auto"
+    rank_capability: str = ""
+    probe_epoch: int = 0
+    rebalance_threshold: float = 1.5
+    rebalance_patience: int = 3
+    fleet_stats: str = "auto"
 
     @classmethod
     def from_env(cls) -> "Config":

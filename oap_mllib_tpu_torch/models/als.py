@@ -33,21 +33,35 @@ the card's budget, and a one-device fit it routes "streamed" keeps the
 grouped layouts in host memory and streams them through the card every
 half-iteration (K3 and K4 as in memory; summary ``streamed``).  ``fit``
 also takes a width-3 (user, item, rating) ``ChunkSource``, ingested to
-host arrays, whose natural route is that streamed one.  A source fit on
-a device list raises: the streamed block layout (the JAX package's
-``als_block_stream.py``) is not ported (ROADMAP A4).
+host arrays, whose natural route is that streamed one.  On a device
+list (``num_user_blocks`` not 1) or across processes a source takes the
+streamed block route (ops/als_block_stream.py, the planner's
+"streamed-block"): each rank keeps its block's grouped layouts in host
+memory and streams them through its card, with the block route's
+psums and gathers (summary ``streamed`` and ``block_parallel``), in
+either item layout.  An array fit on a device list takes it when
+``Config.scale_policy`` is "pin:streamed-block".  A degree distribution
+the grouped guard rejects runs the resident block fit instead, the
+downgrade recorded on the route plan.
+
+On the replicated item layout the resident and the streamed block
+routes ask parallel/balance.block_offsets for capability-weighted user
+blocks; a world of processes on equal hardware (their probes made
+equal, parallel/balance.equal_classes) or of weights inside the
+planner's deadband keeps the uniform blocks, bit for bit.  The
+summary's ``balance`` records the decision.
 
 A fitted model scores on one device: a mesh fit's on the first rank's.
 
 In a world of several processes (``Config.num_processes > 1``) the
-triples passed to ``fit`` are THIS process's ratings: the id maxima are
-allgathered (``n_users`` / ``n_items`` default to the world's max + 1),
-the fit takes the block route on the mesh spanning every process's
-devices (either item layout), the shuffle moves each rating to the
-process that holds its user block (parallel/shuffle.py), and every
-process returns the same factors.  A source across processes raises
-(the streamed block layout is ROADMAP A4), and so does
-``nonnegative=True`` (its numpy route would fit one shard).
+triples passed to ``fit`` (or the rows of its source) are THIS
+process's ratings: the id maxima are allgathered (``n_users`` /
+``n_items`` default to the world's max + 1), the fit takes the block
+route on the mesh spanning every process's devices (either item
+layout), the shuffle moves each rating to the process that holds its
+user block (parallel/shuffle.py), and every process returns the same
+factors.  ``nonnegative=True`` raises there (its numpy route would fit
+one shard).
 """
 
 from __future__ import annotations
@@ -62,9 +76,9 @@ import torch
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.fallback import als_np
-from oap_mllib_tpu_torch.ops import als_block, als_ops, als_stream, kmeans_ops
+from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_stream, kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
-from oap_mllib_tpu_torch.parallel import bootstrap, collective
+from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
 from oap_mllib_tpu_torch.utils import membudget
 from oap_mllib_tpu_torch.utils import precision as psn
@@ -297,15 +311,7 @@ class ALS:
             users, items, ratings, n_users, n_items)
         kernel = _als_kernel_cfg()
         als_block.als_item_layout_cfg()  # a typo raises on every route
-        if init is not None:
-            x0, y0 = np.array(init[0], np.float32), np.array(init[1], np.float32)
-            if x0.shape != (n_users, self.rank) or y0.shape != (n_items, self.rank):
-                raise ValueError(
-                    f"init factors have shapes {x0.shape} and {y0.shape}, the fit "
-                    f"needs ({n_users}, {self.rank}) and ({n_items}, {self.rank})"
-                )
-        else:
-            x0 = y0 = None
+        x0, y0 = self._init_arrays(init, n_users, n_items)
         if self.nonnegative:
             if bootstrap.world_size() > 1:
                 raise NotImplementedError(
@@ -313,6 +319,31 @@ class ALS:
                     "ratings; it does not fit across a world of processes")
             return self._fit_fallback_np(users, items, ratings, n_users, n_items, x0, y0)
         devices = devices or resolve_devices(self.device)
+        mesh = self._block_mesh(devices)
+        if mesh is not None:
+            if membudget.scale_policy_cfg() == ("pin", membudget.ROUTE_STREAMED_BLOCK):
+                world = mesh.shape[mesh.axis_names[0]]
+                plan = membudget.plan_als(len(users), n_users, n_items, self.rank, world=world,
+                                          device=devices[0])
+                model = self._fit_source_block(users, items, ratings, n_users, n_items,
+                                               x0, y0, mesh, kernel, plan)
+                membudget.record_plan(model.summary, plan)
+                return model
+            return self._fit_block_parallel(users, items, ratings, n_users, n_items,
+                                            x0, y0, mesh, kernel)
+        if plan is None:
+            plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
+                                      device=devices[0])
+        model = self._fit_single_device(users, items, ratings, n_users, n_items, x0, y0,
+                                        devices[0], kernel, plan)
+        membudget.record_plan(model.summary, plan)
+        return model
+
+    def _block_mesh(self, devices) -> Optional[Mesh]:
+        """The mesh of a block-route fit, or None for the one-device route:
+        across processes the mesh of every process's devices (one user
+        block a data rank); in one process a device list whose
+        ``num_user_blocks`` is not 1, the data axis capped at it."""
         if bootstrap.world_size() > 1:
             mesh = get_mesh(devices=devices)
             world = mesh.shape[mesh.axis_names[0]]
@@ -320,8 +351,7 @@ class ALS:
                 raise ValueError(
                     f"num_user_blocks={self.num_user_blocks}: across processes the "
                     f"block ALS runs one user block per data rank of the world ({world})")
-            return self._fit_block_parallel(users, items, ratings, n_users, n_items,
-                                            x0, y0, mesh, kernel)
+            return mesh
         if len(devices) > 1 and self.num_user_blocks != 1:
             mesh = get_mesh(devices=devices)
             world = mesh.shape[mesh.axis_names[0]]
@@ -331,22 +361,17 @@ class ALS:
                 mesh = get_mesh(devices=devices[: self.num_user_blocks * mp])
                 world = mesh.shape[mesh.axis_names[0]]
             if world > 1:
-                return self._fit_block_parallel(users, items, ratings, n_users, n_items,
-                                                x0, y0, mesh, kernel)
-        if plan is None:
-            plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
-                                      device=devices[0])
-        model = self._fit_single_device(users, items, ratings, n_users, n_items, x0, y0,
-                                        devices[0], kernel, plan)
-        membudget.record_plan(model.summary, plan)
-        return model
+                return mesh
+        return None
 
     def _fit_source(self, source: ChunkSource, n_users, n_items, init) -> ALSModel:
         """The fit of a width-3 (user, item, rating) source (the JAX
         package's ``_fit_source``, without its resilience ladder): the
         triples are read to host arrays (host memory O(nnz), as the
-        reference's executors hold their partitions), then the route plan
-        with the source's natural route, streamed."""
+        reference's executors hold their partitions; across processes
+        this process's rows), then the route plan with the source's
+        natural route: streamed on one device, the streamed block route
+        on a mesh."""
         if source.n_features != 3:
             raise ValueError("ALS source must have width 3 (user, item, rating); "
                              f"got {source.n_features}")
@@ -361,18 +386,38 @@ class ALS:
         if self.nonnegative:
             return self._fit_arrays(users, items, ratings, n_users, n_items, init)
         devices = resolve_devices(self.device)
-        if (len(devices) > 1 and self.num_user_blocks != 1) or bootstrap.world_size() > 1:
-            raise NotImplementedError(
-                "an ALS fit of a ChunkSource on a device list or across processes runs "
-                "the streamed block layout (the JAX package's ops/als_block_stream.py), "
-                "which is not ported yet (ROADMAP A4); fit it on one device, or pass "
-                "arrays"
-            )
+        mesh = self._block_mesh(devices)
+        if mesh is not None:
+            users, items, ratings, n_users, n_items = _validate_resolve(
+                users, items, ratings, n_users, n_items)
+            kernel = _als_kernel_cfg()
+            als_block.als_item_layout_cfg()
+            x0, y0 = self._init_arrays(init, n_users, n_items)
+            plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
+                                      world=mesh.shape[mesh.axis_names[0]],
+                                      source_backing=source.backing, device=devices[0])
+            model = self._fit_source_block(users, items, ratings, n_users, n_items, x0, y0,
+                                           mesh, kernel, plan)
+            membudget.record_plan(model.summary, plan)
+            return model
         _, _, _, n_users, n_items = _validate_resolve(users, items, ratings, n_users, n_items)
         plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
                                   source_backing=source.backing, device=devices[0])
         return self._fit_arrays(users, items, ratings, n_users, n_items, init, plan,
                                 devices[:1])
+
+    def _init_arrays(self, init, n_users: int, n_items: int):
+        """``(x0, y0)`` f32 copies of a given ``init`` pair, checked
+        against the fit's shapes, or ``(None, None)``."""
+        if init is None:
+            return None, None
+        x0, y0 = np.array(init[0], np.float32), np.array(init[1], np.float32)
+        if x0.shape != (n_users, self.rank) or y0.shape != (n_items, self.rank):
+            raise ValueError(
+                f"init factors have shapes {x0.shape} and {y0.shape}, the fit "
+                f"needs ({n_users}, {self.rank}) and ({n_items}, {self.rank})"
+            )
+        return x0, y0
 
     def _summary(self, timings, pol, before, extra) -> dict:
         return {
@@ -513,8 +558,9 @@ class ALS:
         2-D layout, a second one by item block), each rank's edge
         layouts staged on its device, the block-local factor init, then
         ops/als_block's iterations.  The capability-weighted block
-        offsets of the JAX package return None on a homogeneous world,
-        which every mesh of H100s is: the blocks are uniform."""
+        offsets (parallel/balance.block_offsets, the replicated layout
+        only) are None on a world of equal processes: the blocks are then
+        uniform."""
         world = mesh.shape[mesh.axis_names[0]]
         ranks = [q for q in als_block.data_ranks(mesh) if mesh.is_local(q)]
         devs = list(dict.fromkeys(mesh.device(q) for q in ranks))
@@ -522,10 +568,12 @@ class ALS:
         psn.apply_matmul_flags("highest")
         item_sharded, use_grouped, sizes = self._block_dispatch(
             users, items, n_users, n_items, world, kernel, mesh)
+        offsets, bal = self._block_balance(n_users, world, item_sharded)
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
         with phase_timer(timings, "ratings_shuffle", devs):
-            edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users, mesh)
+            edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users, mesh,
+                                                   offsets=offsets)
             if item_sharded:
                 # the second shuffle, by item block: the same exchange with
                 # the roles swapped (local item ids, global user ids)
@@ -567,7 +615,71 @@ class ALS:
             "block_parallel": True, "als_kernel": "grouped" if use_grouped else "coo",
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,
-            "process_id": mesh.process, **self._block_summary(world)})
+            "process_id": mesh.process, "balance": bal, **self._block_summary(world)})
+        return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
+
+    def _block_balance(self, n_users: int, world: int, item_sharded: bool):
+        """``(offsets, block)``: the capability-weighted user-block offsets
+        of a block fit on the replicated item layout (None: uniform
+        blocks), each key priced at its factor row and moment rows
+        (``4 (r + (r+1)(r+2))`` bytes), and the summary's ``balance``
+        record of the decision."""
+        if item_sharded:
+            return None, balance.block_summary(None, world, None, "2-D item layout")
+        cw = balance.block_capabilities()
+        offsets = balance.block_offsets(
+            n_users, world, bytes_per_key=4 * (self.rank + (self.rank + 1) * (self.rank + 2)),
+            capworld=cw) if cw is not None else None
+        return offsets, balance.block_summary(offsets, world, cw)
+
+    def _fit_source_block(self, users, items, ratings, n_users, n_items, x0, y0,
+                          mesh: Mesh, kernel: str, plan: membudget.RoutePlan) -> ALSModel:
+        """The streamed block route (the JAX package's ``_fit_source_block``,
+        ops/als_block_stream.py): the shuffle, each local rank's grouped
+        layouts kept in host memory, the block-local factor init, then
+        the block iterations with every side streamed through its rank's
+        card.  A degree distribution the grouped guard rejects runs the
+        resident block fit, the downgrade recorded on ``plan``."""
+        world = mesh.shape[mesh.axis_names[0]]
+        item_sharded, use_grouped, sizes = self._block_dispatch(
+            users, items, n_users, n_items, world, kernel, mesh)
+        if not use_grouped:
+            plan.downgrade(membudget.ROUTE_IN_MEMORY, "grouped guard rejected the degree "
+                           "distribution (COO streaming unsupported)")
+            return self._fit_block_parallel(users, items, ratings, n_users, n_items, x0, y0,
+                                            mesh, kernel)
+        ranks = [q for q in als_block.data_ranks(mesh) if mesh.is_local(q)]
+        devs = list(dict.fromkeys(mesh.device(q) for q in ranks))
+        pol = psn.resolve("als")
+        psn.apply_matmul_flags("highest")
+        offsets, bal = self._block_balance(n_users, world, item_sharded)
+        timings = Timings("als.fit")
+        before = dict(als_kernel.LAUNCHES)
+        with phase_timer(timings, "table_convert", devs):
+            lay = als_block_stream.prepare_streamed_block_layouts(
+                users, items, ratings, n_users, n_items, mesh, self.rank,
+                item_sharded=item_sharded, sizes=sizes, offsets=offsets)
+            x0_dev = self._place_block_factors(mesh, lay.offsets_u, lay.upb, x0, self.seed)
+            if item_sharded:
+                y0_dev = self._place_block_factors(mesh, lay.by_item.offsets, lay.by_item.upb,
+                                                   y0, self.seed + 1)
+            else:
+                y0_host = (y0 if y0 is not None
+                           else als_np.init_factors(n_items, self.rank, self.seed + 1))
+                staged = {dev: torch.from_numpy(y0_host).to(dev) for dev in devs}
+                y0_dev = {q: staged[mesh.device(q)] for q in ranks}
+        with phase_timer(timings, "als_iterations", devs):
+            x_blocks, y = als_block_stream.als_block_run_streamed(
+                lay, x0_dev, y0_dev, self.max_iter, self.reg_param, self.alpha, mesh,
+                implicit=self.implicit_prefs, timings=timings, policy=pol)
+            x = als_block.gather_user_factors(x_blocks, mesh, lay.offsets_u)
+            y = (als_block.gather_user_factors(y, mesh, lay.by_item.offsets) if item_sharded
+                 else y[ranks[0]].cpu().numpy())
+        summary = self._summary(timings, pol, before, {
+            "streamed": True, "block_parallel": True, "als_kernel": "grouped",
+            "item_layout": "sharded" if item_sharded else "replicated",
+            "mesh": dict(mesh.shape), "processes": mesh.processes,
+            "process_id": mesh.process, "balance": bal, **self._block_summary(world)})
         return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
 
 

@@ -47,6 +47,14 @@ process's, aligned to the per-process padding.  Every process returns
 the same model; the summary records ``processes``, ``process_id`` and
 the mesh shape.  ``fit(ChunkSource)`` streams this process's shard,
 every pass's moments reduced across the processes (ops/stream_ops.py).
+A shard built by parallel/balance.local_sources is a capability-weighted
+extent of a table every process holds: the straggler controller may
+move rows between the processes between Lloyd passes, and the summary
+carries ``balance`` (the plan and its re-plans) and, when the rollups
+are armed, ``fleet`` (telemetry/fleet.py).  The k-means|| init of the
+in-memory route draws one ``torch.rand`` stream over the world's valid
+rows, each process its slice from the prefix sum of the gathered row
+counts, so uneven shares leave it unchanged.
 """
 
 from __future__ import annotations
@@ -105,6 +113,10 @@ class KMeansSummary:
         self.ring = ring
         self.streamed = streamed
         self.route = None
+        # a streamed fit's capability plan and fleet rollups
+        # (parallel/balance.py, telemetry/fleet.py), when armed
+        self.balance = None
+        self.fleet = None
         # the world the fit ran in (parallel/bootstrap.py)
         self.processes = bootstrap.world_size()
         self.process_id = bootstrap.process_index()
@@ -347,6 +359,7 @@ class KMeans:
         psn.apply_matmul_flags(tier)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
+        stream_ops.begin_fit(source)
         with phase_timer(timings, "init_centers", dev):
             if self.init_mode == INIT_RANDOM:
                 centers0 = stream_ops.reservoir_sample(source, self.k, self.seed, timings)
@@ -367,6 +380,7 @@ class KMeans:
                      for name in kmeans_kernel.LAUNCHES},
             precision=pol, streamed=True,
         )
+        stream_ops.end_fit(summary)
         return KMeansModel(centers, self.distance_measure, summary,
                            device=model_device(self.device, dev))
 

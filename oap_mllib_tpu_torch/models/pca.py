@@ -35,7 +35,10 @@ devices, each process's ranks hold tiles of its own rows
 (data/table.ShardedTable.from_process_local), the psums reach the other
 processes, and every process solves the same covariance (summary
 ``processes``, ``process_id``, ``mesh_shape``).  ``fit(ChunkSource)``
-streams this process's shard, the moments reduced across processes.
+streams this process's shard, the moments reduced across processes; a
+capability-weighted shard (parallel/balance.local_sources) may move rows
+between the processes between the two passes, and the summary then
+carries ``balance`` and, when the rollups are armed, ``fleet``.
 """
 
 from __future__ import annotations
@@ -222,11 +225,13 @@ class PCA:
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
+        stream_ops.begin_fit(source)
         with phase_timer(timings, "covariance_streamed", dev):
             cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev)
         model = self._finish(cov, d, timings, dev, solver, pol, before,
                              model_device(self.device, dev))
         model.summary.update(streamed=True, n_rows=n)
+        stream_ops.end_fit(model.summary)
         membudget.record_plan(model.summary, plan)
         return model
 

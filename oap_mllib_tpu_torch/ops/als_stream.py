@@ -112,26 +112,45 @@ def _accum_moments(views, src_c, conf_c, valid_c, lengths, first: int,
         als_ops._segment_add(out, rows, first, lengths)
 
 
-def _half_update_streamed(grouped_host, factors: torch.Tensor, n_dst: int, gc: int,
-                          reg: float, alpha: float, implicit: bool,
-                          stats: Optional[PrefetchStats] = None, policy: str = "f32",
-                          solve: Callable = als_kernel.solve_normal_eq,
-                          gram: Callable = als_kernel.factor_gram) -> torch.Tensor:
-    """One side's update: the host layout walked through the device chunk
-    by chunk, ``gc`` groups a chunk, then the solve.  Returns the (n_dst,
-    r) factors on the device of ``factors``."""
+def sheet_views(m: torch.Tensor):
+    """``(A, b, n_reg)``: the views of an (n_dst, r+1, r+2) moment sheet."""
+    r = m.shape[1] - 1
+    return m[:, :r, :r], m[:, :r, r], m[:, r, r + 1]
+
+
+def stream_moments(grouped_host, factors: torch.Tensor, n_dst: int, gc: int, alpha: float,
+                   implicit: bool, stats: Optional[PrefetchStats] = None,
+                   policy: str = "f32", width: Optional[int] = None) -> torch.Tensor:
+    """One side's (n_dst, r+1, r+2) moment sheet on the device of
+    ``factors``: the host layout walked through the device chunk by
+    chunk, ``gc`` groups a chunk, each chunk's moments added into the
+    sheet's views by destination (``width``: the most destinations a
+    chunk spans, :func:`_segments_width`, found here when None)."""
     r = factors.shape[1]
     m = torch.zeros((n_dst, r + 1, r + 2), dtype=torch.float32, device=factors.device)
-    views = (m[:, :r, :r], m[:, :r, r], m[:, r, r + 1])
-    width = _segments_width(grouped_host[3], gc)
+    if grouped_host[0].shape[0] == 0:
+        return m
+    views = sheet_views(m)
+    width = _segments_width(grouped_host[3], gc) if width is None else width
     with Prefetcher(range(0, grouped_host[0].shape[0], gc),
                     stage=_stage_group_chunk(grouped_host, gc, width, n_dst),
                     device=factors.device, stats=stats) as pf:
         for (first, n_seg, ng), (src_c, conf_c, valid_c, lengths) in pf:
             _accum_moments(views, src_c[:ng], conf_c[:ng], valid_c[:ng], lengths[:n_seg],
                            first, factors, alpha, implicit, policy)
+    return m
+
+
+def _half_update_streamed(grouped_host, factors: torch.Tensor, n_dst: int, gc: int,
+                          reg: float, alpha: float, implicit: bool,
+                          stats: Optional[PrefetchStats] = None, policy: str = "f32",
+                          solve: Callable = als_kernel.solve_normal_eq,
+                          gram: Callable = als_kernel.factor_gram) -> torch.Tensor:
+    """One side's update: :func:`stream_moments`, then the solve.  Returns
+    the (n_dst, r) factors on the device of ``factors``."""
+    m = stream_moments(grouped_host, factors, n_dst, gc, alpha, implicit, stats, policy)
     g = als_ops._factor_gram(factors, gram) if implicit else None
-    return als_ops.regularized_solve(*views, reg, g, solve)
+    return als_ops.regularized_solve(*sheet_views(m), reg, g, solve)
 
 
 def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_iter: int,

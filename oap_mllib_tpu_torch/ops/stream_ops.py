@@ -38,9 +38,16 @@ allows it; the flag and the other payloads (row counts, phi, the
 candidates' weights) take the host gather, first, so a failed process
 aborts the world before the ring.  The route is a pure function of the
 config and the dtypes, so every process issues the same collectives.
-With one process the reductions are the identity.  The JAX package's
-fleet statistics (``_fleet_pass``, ``capability_sync``) serve its
-capability balancer and are not ported.
+With one process the reductions are the identity.
+
+After every pass's reduction, :func:`_fleet_pass` gathers one frame of
+the pass's statistics from every process (telemetry/fleet.py, when
+``Config.fleet_stats`` arms it) and hands the same frames to the
+straggler controller (parallel/balance.observe_pass), which may re-plan
+the extents of balanced sources before the next pass;
+:func:`capability_sync` is the capability balancer's one gather at its
+first plan.  Both ride :func:`_allgather_host`, so every process issues
+the same collectives.
 """
 
 from __future__ import annotations
@@ -54,7 +61,8 @@ from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel, ring_kernel
-from oap_mllib_tpu_torch.parallel import bootstrap, collective
+from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
+from oap_mllib_tpu_torch.telemetry import fleet
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device
 from oap_mllib_tpu_torch.utils.timing import tick
@@ -288,6 +296,51 @@ def _allgather_host(arrays, guard=None):
     return [a[None] for a in arrays] if gathered is None else gathered
 
 
+def _fleet_pass(phase: str, stats: PrefetchStats, pass_wall_s: float, timings=None) -> None:
+    """The fleet rollup of one finished pass: when the rollups are armed
+    (a pure function of the config and the world's size, so every process
+    agrees), gather every process's frame, fold it into the fit's window
+    and hand the same frames to the straggler controller.  The gather's
+    seconds land in ``timings`` under ``fleet``."""
+    if not fleet.armed(_world()):
+        return
+    elapsed = tick()
+    (gathered,) = _allgather_host([fleet.local_frame(stats, pass_wall_s)])
+    fleet.fold_pass(phase, gathered)
+    balance.observe_pass(phase, gathered)
+    if timings is not None:
+        timings.add("fleet", elapsed())
+
+
+def capability_sync(frame: np.ndarray) -> np.ndarray:
+    """The capability balancer's gather: every process's ``[capability,
+    origin, card budget, host budget, hardware class, devices]`` frame,
+    ``(world, 6)`` float64, the same on every process."""
+    (gathered,) = _allgather_host([np.asarray(frame, np.float64)])
+    return gathered
+
+
+def begin_fit(source: ChunkSource) -> None:
+    """At a streamed fit's start: the plan of a balanced view
+    (parallel/balance.BalancedView) becomes the controller's live plan,
+    any other source leaves none live, and the controller's and the
+    rollups' per-fit state start empty."""
+    balance.reset_fit()
+    fleet.reset_fit()
+    if isinstance(source, balance.BalancedView):
+        balance.activate(source.plan)
+    else:
+        balance.deactivate()
+
+
+def end_fit(summary) -> None:
+    """At a streamed fit's end: the ``fleet`` block when the rollups are
+    armed and the ``balance`` block when a plan is live, into
+    ``summary``."""
+    fleet.finalize_fit(summary, _world())
+    balance.finalize_fit(summary)
+
+
 def _checked_entry(validate) -> None:
     """Run an entry check under a guard and agree on its outcome across
     the processes (one scalar gather), so a process whose check fails
@@ -337,11 +390,13 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
                     cost += t
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    stats.finalize(timings, phase, elapsed())
+    pass_wall = elapsed()
+    stats.finalize(timings, phase, pass_wall)
     if cost is None:
         sums, counts = _reduce_pass([sums, counts], guard, dev)
     else:
         sums, counts, cost = _reduce_pass([sums, counts, cost], guard, dev)
+    _fleet_pass(phase, stats, pass_wall, timings)
     return sums, counts, cost
 
 
@@ -599,12 +654,14 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
                 n += n_valid
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    stats.finalize(timings, "covariance_streamed", elapsed())
+    pass_wall = elapsed()
+    stats.finalize(timings, "covariance_streamed", pass_wall)
     if _world() > 1:
         total, n_arr = _psum_host([total, np.asarray([n], np.int64)], guard, dev)
         total, n = torch.as_tensor(total).to(dev), int(n_arr[0])
     elif guard.err is not None:
         raise guard.err
+    _fleet_pass("covariance_streamed", stats, pass_wall, timings)
     if n < 1:
         raise ValueError("empty source")
     mean = total / n
@@ -623,7 +680,9 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
                     gram += g
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-    stats.finalize(timings, "covariance_streamed", elapsed())
+    pass_wall = elapsed()
+    stats.finalize(timings, "covariance_streamed", pass_wall)
     (gram,) = _reduce_pass([gram], guard, dev)
+    _fleet_pass("covariance_streamed", stats, pass_wall, timings)
     cov = gram / max(n - 1.0, 1.0)
     return 0.5 * (cov + cov.T), mean, n

@@ -40,24 +40,27 @@ def _pack_records(u, i, r, cap: int) -> np.ndarray:
     return rec
 
 
-def exchange_ratings(users, items, ratings, mesh: Mesh, ranks, n_users: int
+def exchange_ratings(users, items, ratings, mesh: Mesh, ranks, n_users: int, offsets=None
                      ) -> Tuple[Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]],
                                 np.ndarray]:
     """Move this process's triples to the processes that hold their user
     blocks (a collective: every process calls it with its own triples).
     ``ranks`` are the block ranks in block order (the mesh's first model
-    column); block ``b`` holds the users ``[offsets[b], offsets[b + 1])``
-    of the uniform ``ceil(n_users / world)`` split, and edges route to
-    block ``min(u // kpb, world - 1)``.  Returns ``({b: (users, items,
-    ratings)}`` for the blocks this process holds (global ids), the
-    offsets)``."""
+    column); block ``b`` holds the users ``[offsets[b], offsets[b + 1])``:
+    of the uniform ``ceil(n_users / world)`` split, edges routed to block
+    ``min(u // kpb, world - 1)``, or of the given capability-weighted
+    ``offsets`` (the same on every process), edges routed by
+    ``searchsorted(offsets[1:], u, "right")`` clipped to ``world - 1``.
+    Returns ``({b: (users, items, ratings)}`` for the blocks this process
+    holds (global ids), the offsets)``."""
+    from oap_mllib_tpu_torch.ops.als_block import block_of, block_offsets_of
+
     users, items = np.asarray(users, np.int64), np.asarray(items, np.int64)
     if n_users >= 2 ** 31 or (len(items) and int(np.max(items)) >= 2 ** 31):
         raise ValueError("ids must fit int32 (the device index dtype)")
     world = len(ranks)
-    kpb = max(1, -(-n_users // world))
-    offsets = np.minimum(np.arange(world + 1) * kpb, n_users)
-    block = np.minimum(users // kpb, world - 1)
+    offsets, weighted = block_offsets_of(world, n_users, offsets)
+    block = block_of(users, max(1, -(-n_users // world)), world, offsets if weighted else None)
     order = np.argsort(block.astype(np.int16 if world < 2 ** 15 else np.int64), kind="stable")
     counts = np.bincount(block, minlength=world)
     bounds = np.concatenate([[0], np.cumsum(counts)])

@@ -103,7 +103,8 @@ def _pca(model):
 def _als(model):
     return {"uf": np.asarray(model.user_factors_).tolist(),
             "if": np.asarray(model.item_factors_).tolist(),
-            "layout": model.summary["item_layout"], "mesh": model.summary["mesh"]}
+            "layout": model.summary["item_layout"], "mesh": model.summary["mesh"],
+            "balance": model.summary["balance"]}
 
 
 def _worker_two(rank, res):
@@ -150,12 +151,12 @@ def _worker_two(rank, res):
     res["ring"] = {str(m): t.numpy().tobytes().hex() for m, t in four.items()}
     res["ring_pairs"] = {str(m): t.numpy().tobytes().hex() for m, t in pairs.items()}
     res["collectives"] = _collectives(rank)
-    try:
-        ALS(implicit_prefs=True, **ALS_KW).fit(
-            ChunkSource.from_array(np.stack([u[sl], i[sl], r[sl]], 1).astype(np.float64), 256))
-        res["als_source"] = "no error"
-    except NotImplementedError as e:
-        res["als_source"] = str(e)
+    src_fit = ALS(implicit_prefs=True, **ALS_KW).fit(
+        ChunkSource.from_array(np.stack([u[sl], i[sl], r[sl]], 1).astype(np.float64), 256))
+    s = src_fit.summary
+    res["als_source"] = {**_als(src_fit), "streamed": s.get("streamed"),
+                         "block_parallel": s.get("block_parallel"),
+                         "route": s["route"]["route"], "kernels": s["kernels"]}
 
 
 def collective_parts(mesh_ranks):
@@ -276,7 +277,9 @@ def _leg_peer_exit(rank, res):
 WORKERS = {"two": _worker_two, "three": _worker_three, "error": _worker_error}
 
 
-def _worker(argv):
+def _worker(argv, workers=None):
+    """One process of a world: join, run ``workers[mode]`` (this file's
+    ``WORKERS`` by default), print its ``RESULT`` line."""
     rank, nproc, port, local, mode = int(argv[0]), int(argv[1]), int(argv[2]), int(argv[3]), argv[4]
     sys.path.insert(0, ROOT)
     from oap_mllib_tpu_torch import set_config
@@ -286,7 +289,7 @@ def _worker(argv):
     assert bootstrap.initialize_distributed(f"127.0.0.1:{port}", launcher_store=True)
     res = {"rank": rank, "layout": bootstrap.world_layout()}
     try:
-        WORKERS[mode](rank, res)
+        (workers or WORKERS)[mode](rank, res)
     finally:
         bootstrap.shutdown()
     print("RESULT " + json.dumps(res), flush=True)
@@ -295,10 +298,10 @@ def _worker(argv):
 # -- the parent ----------------------------------------------------------------------
 
 
-def _launch(nproc, local, mode):
-    """Run a world of ``nproc`` workers of ``local`` ranks each; this
-    process hosts its store on a port the kernel assigns, held until the
-    world ends."""
+def _launch(nproc, local, mode, script=None):
+    """Run a world of ``nproc`` workers of ``local`` ranks each (``script``
+    run with ``--worker``: this file by default); this process hosts its
+    store on a port the kernel assigns, held until the world ends."""
     import datetime
 
     import torch.distributed as dist
@@ -310,7 +313,8 @@ def _launch(nproc, local, mode):
                OAP_MLLIB_TPU_COLLECTIVE_TIMEOUT=str(COLLECTIVE_TIMEOUT_S),
                OAP_MLLIB_TPU_BOOTSTRAP_TIMEOUT="30", OMP_NUM_THREADS="2")
     t0 = time.monotonic()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", str(r),
+    script = os.path.abspath(script or __file__)
+    procs = [subprocess.Popen([sys.executable, script, "--worker", str(r),
                                str(nproc), str(port), str(local), mode],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                               env=env, cwd=ROOT)
@@ -526,8 +530,35 @@ class TestTwoProcessALS:
         np.testing.assert_allclose(got["if"], ref.item_factors_, atol=4e-3, rtol=4e-3)
 
     def test_a_source_across_processes_raises(self, two):
-        for res in two.values():
-            assert "ROADMAP A4" in res["als_source"]
+        """A triples source across the processes no longer raises: it
+        takes the streamed block route, each process streaming its ranks'
+        blocks, and the shuffle keeps source-process order, so the
+        factors are the one-process four-rank source fit's bits, and
+        (its chunks being the blocks) the resident block fit's."""
+        from oap_mllib_tpu_torch import ALS
+        from oap_mllib_tpu_torch.data.stream import ChunkSource
+
+        got = _same(two, "als_source")
+        assert got["streamed"] and got["block_parallel"] and got["route"] == "streamed-block"
+        assert got["mesh"] == {"data": 4, "model": 1}
+        u, i, r = als_table()
+        src = ChunkSource.from_array(np.stack([u, i, r], 1).astype(np.float64), 256)
+        one = ALS(implicit_prefs=True, device=CPU4, **ALS_KW).fit(src)
+        resident = ALS(implicit_prefs=True, device=CPU4, **ALS_KW).fit(u, i, r)
+        assert one.summary["streamed"] and "streamed" not in resident.summary
+        for ref in (one, resident):
+            assert np.asarray(got["uf"], np.float32).tobytes() == ref.user_factors_.tobytes()
+            assert np.asarray(got["if"], np.float32).tobytes() == ref.item_factors_.tobytes()
+
+
+    @pytest.mark.parametrize("key", ["als_imp", "als_exp", "als_source"])
+    def test_the_default_world_keeps_the_uniform_blocks(self, two, key):
+        """capability_sharding "auto" (the default) probes in this world,
+        and its two processes run on the same hardware: equal weights, the
+        uniform blocks, and so the one-process fits' bits above."""
+        bal = _same(two, key)["balance"]
+        assert bal["enabled"] and bal["origin"] == "probe"
+        assert bal["weights"] == [1.0, 1.0] and bal["offsets"] is None
 
 
 class TestCrossProcessRing:

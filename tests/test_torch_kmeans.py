@@ -212,7 +212,8 @@ class TestIsolation:
                 "parallel/collective.py", "data/stream.py", "data/bucketing.py",
                 "data/sparse.py", "data/io.py", "data/prefetch.py", "utils/membudget.py",
                 "ops/stream_ops.py", "ops/als_stream.py", "parallel/bootstrap.py",
-                "parallel/shuffle.py", "parallel/mesh.py"} <= checked
+                "parallel/shuffle.py", "parallel/mesh.py", "parallel/balance.py",
+                "ops/als_block_stream.py", "telemetry/fleet.py", "utils/dispatch.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)

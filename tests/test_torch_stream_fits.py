@@ -307,8 +307,10 @@ class TestEstimatorsStream:
     def test_als_source_rules(self):
         users, items, ratings, nu, ni = _ratings(12, nnz=300)
         src = ChunkSource.from_array(np.stack([users, items, ratings], 1), chunk_rows=128)
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            ALS(rank=2, device="cpu,cpu").fit(src)
+        # a device list takes the streamed block route
+        two = ALS(rank=2, max_iter=2, device="cpu,cpu").fit(src)
+        assert two.summary["streamed"] and two.summary["block_parallel"]
+        assert two.summary["route"]["route"] == "streamed-block"
         with pytest.raises(ValueError, match="width 3"):
             ALS(rank=2, device="cpu").fit(ChunkSource.from_array(np.zeros((4, 2))))
         with pytest.raises(ValueError, match="EITHER"):
