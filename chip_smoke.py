@@ -195,6 +195,32 @@ Phases, each a hard check (any failure exits non-zero):
    route's, one streamed iteration's idle share by card and the split
    of its host wall (staging, pinned copies, waits, psums).
 
+23. ladder (after small; 2^16 x 64, k = 16): the resilience ladder
+   (utils/resilience.py) under injected faults (utils/faults.py), each
+   leg's counts zeroed just before its fit and read just after: (a)
+   ``stream.read:fail=2,prefetch.stage:fail=1`` on a streamed fit of
+   128-row chunks, three retries, centers bit-equal to the unfaulted
+   fit; (b) ``fit.execute:oom=2`` at 1024-row chunks, halvings [2, 4],
+   the cost within 1e-5 of the fit at 256; a real
+   ``torch.cuda.OutOfMemoryError`` (an allocation past the card)
+   classified "oom", and a fit under a memory cap between the peaks of
+   two chunk widths (fired or not, reported); (c) ``oomhost`` on an
+   in-memory fit: the spill rung under a temporary ``spill_dir``, the
+   fit bit-equal to the fit of the same source; (d) ``nan`` under the
+   bf16 policy: the precision rung, K1 at the bf16 tier in the
+   unfaulted fit and at highest in the retry (``LAUNCHES_BY_MODE``),
+   the retry bit-equal to the f32 fit; (e) a NaN row raises
+   ``NonFiniteError`` naming "centroids", a PCA overflow "Gram"; (f)
+   ``fit.execute:oom=*``: ``ResilienceError`` with every halving in its
+   history, the plain version never run; (g) a streamed implicit ALS
+   from a triples source, ``stream.read:fail=1``, K3 = K4 = 2 x
+   max_iter, factors bit-equal.
+24. pca_randomized (after pca_fit): ``pca_solver="randomized"`` at 2^18
+   x 1024, k = 16, against eigh on the same table (ratios 1e-4
+   relative, |cosines| > 1 - 1e-4), K2 twice a fit; both fits' walls
+   and both solvers' times on the covariance, with the card's name and
+   power limit.
+
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
 
@@ -211,8 +237,10 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -231,7 +259,7 @@ from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kern
                                           ring_kernel)
 from oap_mllib_tpu_torch.parallel import balance, collective
 from oap_mllib_tpu_torch.telemetry import fleet
-from oap_mllib_tpu_torch.utils import membudget
+from oap_mllib_tpu_torch.utils import faults, membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings
@@ -304,6 +332,16 @@ PCA_GRAM_RTOL = {"highest": 1e-4, "high": 1e-4, "default": 1e-2}
 PCA_FIT_TOL = 1e-4
 SOLVE_RTOL = 1e-5
 ALS_FIT_RTOL = 1e-3
+# the resilience ladder's legs: a small table in 128- and 1024-row
+# chunks, and a small ratings table for the streamed ALS leg
+LADDER_FULL = {"n": 1 << 16, "d": 64, "k": 16, "rows": (128, 1024), "max_iter": 5,
+               "oom_rows": 1 << 20,
+               "als": {"n_users": 20_000, "n_items": 5_000, "nnz": 400_000, "rank": 10,
+                       "max_iter": 3}}
+LADDER_TINY = {"n": 4133, "d": 29, "k": 11, "rows": (128, 1024), "max_iter": 3,
+               "oom_rows": 4096,
+               "als": {"n_users": 300, "n_items": 120, "nnz": 5_000, "rank": 10,
+                       "max_iter": 2}}
 
 
 class Failed(Exception):
@@ -3333,6 +3371,313 @@ def phase_mp(dev, mesh, rehearse):
     return result
 
 
+# -- the resilience ladder and the randomized PCA solver -----------------------------
+
+class armed:
+    """``Config.fault_spec`` armed for a ``with`` block, the registry's
+    counts fresh, disarmed on the way out."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+    def __enter__(self):
+        set_config(fault_spec=self.spec)
+        faults.reset()
+
+    def __exit__(self, *exc):
+        set_config(fault_spec="")
+        faults.reset()
+
+
+def counted_fit(fit, *tables):
+    """``fit()`` with every launch count set to 0 just before and read
+    just after; the summary's ``kernels`` must equal the counts."""
+    for t in tables:
+        for name in t:
+            t[name] = 0
+    model = fit()
+    launches = {name: n for t in tables for name, n in t.items()}
+    s = model.summary
+    got = s["kernels"] if isinstance(s, dict) else s.kernels
+    check(got == launches, f"summary kernels {got} != counters {launches}")
+    return model, launches
+
+
+def ladder_res(model):
+    s = model.summary
+    return s["resilience"] if isinstance(s, dict) else s.resilience
+
+
+def phase_ladder(cfg, dev):
+    """The resilience ladder on the card at small sizes: each leg a fit
+    under a fault spec, counts zeroed just before and read just after,
+    against the same fit without the fault.  Returns each leg's
+    launches."""
+    n, d, k, it = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"]
+    narrow, wide = cfg["rows"]
+    cuda = dev.type == "cuda"
+    x, _, _ = blobs(n, d, k, dev, seed=11)
+    host = x.cpu().numpy()
+    del x
+    set_config(retry_backoff=0.001, retry_deadline=30.0)
+    km = kmeans_kernel.LAUNCHES
+    out = {}
+
+    def kfit(src, **kw):
+        return KMeans(k=k, max_iter=kw.pop("max_iter", it), tol=1e-4, seed=0,
+                      device=str(dev), **kw).fit(src)
+
+    # (a) transient faults: three retries, the same bits
+    base, base_l = counted_fit(lambda: kfit(ChunkSource.from_array(host, narrow)), km)
+    with armed("stream.read:fail=2,prefetch.stage:fail=1"):
+        m, launches = counted_fit(lambda: kfit(ChunkSource.from_array(host, narrow)), km)
+    res = ladder_res(m)
+    check(res["retries"] == 3 and res["faults"] == 3 and res["degradations"] == 0,
+          f"ladder (a): {res}")
+    check(np.array_equal(m.cluster_centers_, base.cluster_centers_),
+          "ladder (a): the retried fit's centers differ from the unfaulted fit's")
+    check(launches == base_l and (launches[kmeans_kernel.KERNEL] > 0) == cuda,
+          f"ladder (a): launches {launches} vs the unfaulted fit's {base_l}")
+    out["a_transient"] = {"resilience": res, "launches": launches, "chunk_rows": narrow}
+    emit("ladder_a", out["a_transient"])
+
+    # (b) two device OOMs: halvings /2, /4, the cost of a fit at chunk / 4
+    quarter, quarter_l = counted_fit(lambda: kfit(ChunkSource.from_array(host, wide // 4)), km)
+    with armed("fit.execute:oom=2"):
+        m, launches = counted_fit(lambda: kfit(ChunkSource.from_array(host, wide)), km)
+    res = ladder_res(m)
+    cost_err = abs(m.summary.training_cost - quarter.summary.training_cost) / abs(
+        quarter.summary.training_cost)
+    check(res["halvings"] == [2, 4] and res["degradations"] == 2, f"ladder (b): {res}")
+    check(cost_err <= 1e-5, f"ladder (b): cost {cost_err:.3g} from the fit at chunk / 4")
+    check(launches == quarter_l, f"ladder (b): launches {launches} vs {quarter_l}")
+    out["b_halving"] = {"resilience": res, "launches": launches, "cost_rel_err": cost_err,
+                        "chunk_rows": wide, "real_oom": real_oom(cfg, dev, kfit)}
+    emit("ladder_b", out["b_halving"])
+
+    # (c) a host OOM in an in-memory fit: the spill rung, then the
+    # streamed fit of the spill, bit-equal to the same source's fit
+    spill_dir = tempfile.mkdtemp(prefix="oap-ladder-spill.")
+    try:
+        set_config(spill_dir=spill_dir)
+        with armed("fit.execute:oomhost=1"):
+            m, launches = counted_fit(lambda: kfit(host), km)
+        res = ladder_res(m)
+        rows = m.summary.route["chunk_rows"]
+        ref, ref_l = counted_fit(lambda: kfit(ChunkSource.from_array(host, rows)), km)
+        check(res["spilled"] and m.summary.route.get("spilled") and m.summary.streamed
+              and res["degradations"] == 1, f"ladder (c): {res}, route {m.summary.route}")
+        check(np.array_equal(m.cluster_centers_, ref.cluster_centers_),
+              "ladder (c): the spilled fit differs from the source fit")
+        check(launches == ref_l, f"ladder (c): launches {launches} vs {ref_l}")
+        out["c_spill"] = {"resilience": res, "launches": launches,
+                          "spill_files": sorted(os.listdir(spill_dir))}
+    finally:
+        set_config(spill_dir="")
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    emit("ladder_c", out["c_spill"])
+
+    # (d) a non-finite iterate under bf16: the precision rung, K1 at the
+    # bf16 tier in the unfaulted fit and at highest in the retry
+    set_config(compute_precision="bf16")
+    try:
+        kmeans_kernel.reset_launches()  # the tallies by tier too
+        bf, bf_l = counted_fit(lambda: kfit(host), km)
+        bf_modes = dict(kmeans_kernel.LAUNCHES_BY_MODE)
+        with armed("fit.execute:nan=1"):
+            kmeans_kernel.reset_launches()
+            m, launches = counted_fit(lambda: kfit(host), km)
+        modes = dict(kmeans_kernel.LAUNCHES_BY_MODE)
+    finally:
+        set_config(compute_precision="f32")
+    f32, _ = counted_fit(lambda: kfit(host), km)
+    res = ladder_res(m)
+    iters = m.summary.num_iter
+    check(bf.summary.precision == "bf16" and m.summary.precision == "f32"
+          and res["degradations"] == 1 and "[nonfinite]" in res["history"][0],
+          f"ladder (d): {res}, precision {m.summary.precision}")
+    check(not cuda or (bf_modes["default"] == bf.summary.num_iter and bf_modes["highest"] == 1
+                       and modes["default"] == 0 and modes["highest"] == iters + 1),
+          f"ladder (d): K1 by tier, bf16 fit {bf_modes}, rung {modes}")
+    check(np.array_equal(m.cluster_centers_, f32.cluster_centers_),
+          "ladder (d): the f32 retry differs from the f32 fit")
+    out["d_precision"] = {"resilience": res, "launches": launches, "by_tier": modes,
+                          "bf16_fit_by_tier": bf_modes}
+    emit("ladder_d", out["d_precision"])
+
+    # (e) C1: non-finite iterates raise, naming what went non-finite
+    bad = host.copy()
+    bad[7, 2] = np.nan
+    names = {}
+    for tag, fit, what in (
+            ("kmeans", lambda: kfit(ChunkSource.from_array(bad, wide), max_iter=3,
+                                    init_mode="random"), "centroids"),
+            ("pca", lambda: PCA(k=2, device=str(dev)).fit(ChunkSource.from_array(
+                (np.random.default_rng(0).normal(size=(4096, 16)) * 3e19).astype(np.float32),
+                wide)), "Gram")):
+        try:
+            fit()
+        except resilience.NonFiniteError as e:
+            names[tag] = str(e)
+        check(what in names.get(tag, ""), f"ladder (e): {tag} raised {names.get(tag)!r}")
+    out["e_nonfinite"] = names
+    emit("ladder_e", names)
+
+    # (f) a persistent device OOM: every halving, then ResilienceError
+    # with the history; the plain version (the CPU) never runs
+    plain_calls = [0]
+    real_plain = kmeans_kernel.lloyd_accumulate_plain
+
+    def spy(*a, **kw):
+        plain_calls[0] += 1
+        return real_plain(*a, **kw)
+
+    kmeans_kernel.lloyd_accumulate_plain = spy
+    history = None
+    try:
+        kmeans_kernel.reset_launches()
+        with armed("fit.execute:oom=*"):
+            try:
+                kfit(ChunkSource.from_array(host, wide))
+            except resilience.ResilienceError as e:
+                history = e.history
+    finally:
+        kmeans_kernel.lloyd_accumulate_plain = real_plain
+    expect = resilience.halvings_available(ChunkSource.from_array(host, wide).chunk_rows) + 1
+    check(history is not None and len(history) == expect,
+          f"ladder (f): history {history}, expected {expect} entries")
+    check(not cuda or plain_calls[0] == 0, f"ladder (f): the plain version ran {plain_calls}")
+    out["f_exhausted"] = {"history": history, "launches": dict(km),
+                          "plain_calls": plain_calls[0]}
+    emit("ladder_f", out["f_exhausted"])
+
+    # (g) a streamed ALS fit from a triples source, one read fault
+    rng = np.random.default_rng(5)
+    a = cfg["als"]
+    tri = np.stack([rng.integers(a["n_users"], size=a["nnz"]),
+                    np.minimum(rng.zipf(1.3, size=a["nnz"]) - 1, a["n_items"] - 1),
+                    rng.random(a["nnz"]) * 4 + 1], axis=1)
+
+    def afit():
+        return ALS(rank=a["rank"], max_iter=a["max_iter"], implicit_prefs=True, alpha=40.0,
+                   reg_param=0.1, seed=0, device=str(dev)).fit(
+            ChunkSource.from_array(tri, 1 << 16))
+
+    ab, ab_l = counted_fit(afit, als_kernel.LAUNCHES)
+    with armed("stream.read:fail=1"):
+        m, launches = counted_fit(afit, als_kernel.LAUNCHES)
+    res = ladder_res(m)
+    want = 2 * a["max_iter"] if cuda else 0
+    check(res["retries"] == 1 and m.summary["streamed"], f"ladder (g): {res}")
+    check(launches[als_kernel.SOLVE] == want and launches[als_kernel.GRAM] == want,
+          f"ladder (g): launches {launches}, expected {want} of each")
+    check(np.array_equal(m.user_factors_, ab.user_factors_)
+          and np.array_equal(m.item_factors_, ab.item_factors_),
+          "ladder (g): the retried ALS factors differ from the unfaulted fit's")
+    out["g_als"] = {"resilience": res, "launches": launches}
+    emit("ladder_g", out["g_als"])
+    set_config(retry_backoff=0.05, retry_deadline=30.0)
+    return out
+
+
+def real_oom(cfg, dev, kfit):
+    """A real ``torch.cuda.OutOfMemoryError`` (an allocation larger than
+    the card) must classify as "oom".  Then a streamed fit of a table
+    staged as one chunk (``oom_rows`` x d, so its chunks dominate the
+    fit's device memory) under a memory cap
+    (``torch.cuda.set_per_process_memory_fraction``) halfway between the
+    peaks measured at the full chunk width and at half of it: where the
+    cap makes the full width fail, the halving rungs must finish, the
+    fit bit-equal to the fit at the width they reached.  Whether the cap
+    fires is reported, not required."""
+    if dev.type != "cuda":
+        return None
+    x, _, _ = blobs(cfg["oom_rows"], cfg["d"], cfg["k"], dev, seed=12)
+    host = x.cpu().numpy()
+    del x
+    try:
+        torch.empty((1 << 40,), dtype=torch.uint8, device=dev)
+        kind = "no error"
+    except torch.cuda.OutOfMemoryError as e:
+        kind = resilience.classify_fault(e)
+    check(kind == resilience.OOM, f"a real CUDA OOM classified as {kind!r}")
+    rows = host.shape[0]  # the whole table one chunk: the staged chunks dominate
+    peaks = {}
+    fits = {}
+    for width in (rows, rows // 2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fits[width] = kfit(ChunkSource.from_array(host, width))
+        # the cap bounds what the allocator reserves, but it frees its
+        # cached blocks and retries before it raises: what a fit needs
+        # is its peak of live allocations
+        peaks[width] = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = (peaks[rows] + peaks[rows // 2]) // 2
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+    try:
+        m = kfit(ChunkSource.from_array(host, rows))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+    res = m.summary.resilience
+    fired = res["faults"] > 0
+    if fired:
+        check(all("[oom]" in h and "out of memory" in h.lower() for h in res["history"])
+              and res["halvings"] == [2 ** (i + 1) for i in range(len(res["history"]))],
+              f"real OOM rung: {res}")
+        width = resilience.halved_rows(ChunkSource.from_array(host, rows).chunk_rows,
+                                       len(res["halvings"]))
+        ref = fits.get(width) or kfit(ChunkSource.from_array(host, width))
+        check(np.array_equal(m.cluster_centers_, ref.cluster_centers_),
+              f"real OOM rung: the fit differs from the fit at {width} rows")
+    return {"classified": kind, "peaks_allocated": {str(w): p for w, p in peaks.items()},
+            "cap_bytes": cap, "fired": fired, "resilience": res}
+
+
+def phase_pca_randomized(cfg, dev, smi):
+    """The randomized solver at the full width of the PCA kernel phase
+    (2^18 x 1024, k = 16, a decaying spectrum): against eigh on the same
+    table, the ratios within 1e-4 relative and every component's
+    |cosine| above 1 - 1e-4; two K2 launches a fit, counted just before
+    and after; each fit's wall and each solver's own time on the
+    covariance (CUDA events)."""
+    (n, d), k = cfg["shapes"][-1], cfg["k"]
+    x = pca_data(n, d, dev, seed=d + 1)
+    fits = {}
+    for solver in ("eigh", "randomized"):
+        set_config(pca_solver=solver)
+        try:
+            t0 = time.perf_counter()
+            model, launches = counted_fit(lambda: PCA(k=k, device=str(dev)).fit(x),
+                                          pca_kernel.LAUNCHES)
+            wall = time.perf_counter() - t0
+        finally:
+            set_config(pca_solver="auto")
+        check(model.summary["pca_solver"] == solver, f"pca_randomized: ran {model.summary}")
+        check(launches[pca_kernel.KERNEL] == (2 if dev.type == "cuda" else 0),
+              f"pca_randomized {solver}: K2 launched {launches}")
+        fits[solver] = (model, launches, wall)
+    eigh, rand = fits["eigh"][0], fits["randomized"][0]
+    ratio_err = float(np.max(np.abs(rand.explained_variance_ - eigh.explained_variance_)
+                             / eigh.explained_variance_))
+    cos = np.abs(np.einsum("dk,dk->k", rand.components_, eigh.components_))
+    check(ratio_err <= 1e-4 and bool(np.all(cos > 1 - 1e-4)),
+          f"pca_randomized: ratios {ratio_err:.3g}, cosines {cos.min():.8f}")
+    cov, _ = pca_ops.covariance(x, torch.ones(n, device=dev), n)
+    reps = 5 if dev.type == "cuda" else 1
+    out = {"shape": [n, d], "k": k, "ratio_rel_err": ratio_err,
+           "min_abs_cosine": float(cos.min()), "card": smi,
+           "eigh_ms": time_ms(lambda: pca_ops.eigh_descending(cov), dev, reps),
+           "randomized_ms": time_ms(lambda: pca_ops.topk_eigh_randomized(cov, k), dev, reps)}
+    for solver, (model, launches, wall) in fits.items():
+        out[solver] = {"wall_s": wall, "phases_s": model.summary["timings"].as_dict(),
+                       "launches": launches}
+    emit("pca_randomized", out)
+    return out
+
+
 def mp_launches(mp):
     """Each kernel's launches by path in the worlds (process 0's)."""
     a, b = mp["a"][0], mp["b"][0]
@@ -3453,6 +3798,7 @@ def main(argv=None) -> int:
             return 0
         phase_small(dev)
         phase_small_slices(dev)
+        ladder = phase_ladder(LADDER_TINY if args.rehearse else LADDER_FULL, dev)
         x, w, c = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)
         reps = 10 if dev.type == "cuda" else 1
         variants = phase_kernels(x, w, c, dev, reps)
@@ -3468,6 +3814,7 @@ def main(argv=None) -> int:
         als_cfg = ALS_TINY if args.rehearse else ALS_FULL
         pca_vars = phase_pca_kernels(pca_cfg, dev, reps)
         pca_fit = phase_pca_fit(pca_cfg, dev)
+        pca_rand = phase_pca_randomized(pca_cfg, dev, smi)
         data = als_data(als_cfg)
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
         als_fit, als_model = phase_als_fit(als_cfg, data, dev)
@@ -3565,25 +3912,32 @@ def main(argv=None) -> int:
                                    stream_km["fit"]["launches"][kmeans_kernel.KERNEL],
                                "stream_route": route["launches"][kmeans_kernel.KERNEL],
                                "sparse_input (two fits)":
-                                   sparse["launches"][kmeans_kernel.KERNEL]},
+                                   sparse["launches"][kmeans_kernel.KERNEL],
+                               **{f"ladder {leg}": ladder[leg]["launches"][kmeans_kernel.KERNEL]
+                                  for leg in ("a_transient", "b_halving", "c_spill",
+                                              "d_precision", "f_exhausted")}},
         pca_kernel.KERNEL: {"pca_fit": pca_fit["launches"][pca_kernel.KERNEL],
                             **{f"pca_mesh_fit {v['mesh']['data']}x{v['mesh']['model']}":
                                v["launches"][pca_kernel.KERNEL] for v in pca_mesh},
                             "stream_pca": stream_pca["f32"]["launches"][pca_kernel.KERNEL],
                             "stream_pca bf16": stream_pca["bf16"]["launches"][pca_kernel.KERNEL],
-                            "sparse_input (two fits)": sparse["launches"][pca_kernel.KERNEL]},
+                            "sparse_input (two fits)": sparse["launches"][pca_kernel.KERNEL],
+                            **{f"pca_randomized {v}": pca_rand[v]["launches"][pca_kernel.KERNEL]
+                               for v in ("eigh", "randomized")}},
         als_kernel.SOLVE: {"als_fit": als_fit["launches"][als_kernel.SOLVE],
                            "als_block_fit": als_block["launches"][als_kernel.SOLVE],
                            "stream_als": stream_als["launches"][als_kernel.SOLVE],
                            "als_block_2d": block_2d["launches"][als_kernel.SOLVE],
                            **{f"block_stream r{v['rank']} {v['item_layout']}":
-                              v["launches"][als_kernel.SOLVE] for v in block_stream}},
+                              v["launches"][als_kernel.SOLVE] for v in block_stream},
+                           "ladder g_als": ladder["g_als"]["launches"][als_kernel.SOLVE]},
         als_kernel.GRAM: {"als_fit": als_fit["launches"][als_kernel.GRAM],
                           "als_block_fit": als_block["launches"][als_kernel.GRAM],
                           "stream_als": stream_als["launches"][als_kernel.GRAM],
                           "als_block_2d": block_2d["launches"][als_kernel.GRAM],
                           **{f"block_stream r{v['rank']} {v['item_layout']}":
-                             v["launches"][als_kernel.GRAM] for v in block_stream}},
+                             v["launches"][als_kernel.GRAM] for v in block_stream},
+                          "ladder g_als": ladder["g_als"]["launches"][als_kernel.GRAM]},
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
                              "dp_fit": dp["launches"][ring_kernel.KERNEL]},
     }

@@ -26,8 +26,13 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   ``als_precision``: the compute-precision policy ("f32", "tf32",
   "bf16"; "auto" resolves to "f32"); a per-algorithm override is empty
   to inherit.
-- ``pca_solver``: "auto" or "eigh" (the full eigendecomposition);
-  "randomized" is not ported yet and raises.
+- ``pca_solver``: "auto" or "eigh" (the full eigendecomposition), or
+  "randomized" (ops/pca_ops.topk_eigh_randomized: subspace iteration
+  on a probe of ``k + pca_rand_oversample`` columns, ``pca_rand_iters``
+  products with a QR each); a typo raises at fit entry.
+- ``pca_rand_oversample`` (16) / ``pca_rand_iters`` (8): the randomized
+  solver's probe width beyond k and its iterations, each >= 1 (checked
+  at fit entry when the solver is "randomized").
 - ``als_kernel``: the ALS normal-equation layout, "auto" (grouped unless
   its padding blows up, as in the JAX package), "grouped" or "coo".
 - ``als_item_layout``: the item factors of an ALS fit on a mesh,
@@ -132,6 +137,15 @@ class Config:
     rebalance_threshold: float = 1.5
     rebalance_patience: int = 3
     fleet_stats: str = "auto"
+    pca_rand_oversample: int = 16
+    pca_rand_iters: int = 8
+    nonfinite_policy: str = "raise"
+    retry_limit: int = 5
+    retry_backoff: float = 0.05
+    retry_deadline: float = 30.0
+    fault_spec: str = ""
+    chaos: str = ""
+    spill_dir: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -4,7 +4,12 @@
   reader never sees a torn file.
 - The out-of-core readers behind the file-backed ``ChunkSource``
   constructors (data/stream.py): memory-mapped ``.npy`` row slices and
-  parquet batches (pyarrow, imported when called).
+  parquet batches (pyarrow, imported when called).  Every piece read is
+  a fault site (utils/faults.py): ``disk.read``, or ``spill.read`` for
+  a spill's reads.
+- :class:`SpillWriter`, the resilience ladder's host-OOM rung: a table
+  written piece by piece to one ``.npy`` file, committed atomically
+  (every piece the ``spill.write`` site).
 - The eager readers of the example formats: libsvm (``label idx:val``,
   1-based), dense CSV and ``user::item::rating`` lines.  These are the
   JAX package's Python parsers; its native C++ parsers are not ported.
@@ -14,10 +19,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import tempfile
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+from oap_mllib_tpu_torch.utils.faults import maybe_fault
 
 
 def _atomic_write(path: str, mode: str, write) -> int:
@@ -63,12 +71,15 @@ def open_npy_mmap(path: str) -> np.ndarray:
     return arr
 
 
-def iter_npy_rows(path: str, chunk_rows: int) -> Iterator[np.ndarray]:
+def iter_npy_rows(path: str, chunk_rows: int,
+                  fault_site: str = "disk.read") -> Iterator[np.ndarray]:
     """Row slices of a ``.npy`` file, ``chunk_rows`` at a time, each read
-    from disk here (``np.asarray`` detaches it from the map).  The map
-    lives for one walk; every walk reopens the file."""
+    from disk here (``np.asarray`` detaches it from the map) and each a
+    ``fault_site`` call.  The map lives for one walk; every walk reopens
+    the file."""
     arr = open_npy_mmap(path)
     for lo in range(0, arr.shape[0], chunk_rows):
+        maybe_fault(fault_site)
         yield np.asarray(arr[lo:lo + chunk_rows])
 
 
@@ -91,6 +102,7 @@ def iter_parquet_rows(path: str, chunk_rows: int,
     pf = pq.ParquetFile(path)
     cols = list(columns) if columns is not None else None
     for batch in pf.iter_batches(batch_size=chunk_rows, columns=cols):
+        maybe_fault("disk.read")
         arrays = [np.asarray(batch.column(i), dtype=np.float64)
                   for i in range(batch.num_columns)]
         yield np.stack(arrays, axis=1)
@@ -100,6 +112,89 @@ def parquet_schema(path: str) -> Tuple[int, int]:
     """(rows, columns) of a parquet file, from its footer."""
     meta = _pyarrow_parquet().ParquetFile(path).metadata
     return int(meta.num_rows), int(meta.num_columns)
+
+
+class SpillWriter:
+    """One 2-D ``.npy`` spill file written piece by piece.
+
+    The host-OOM rung walks a source once into :meth:`write`, then
+    :meth:`commit` writes the header for the rows seen and replaces
+    ``path`` atomically (tmp file + ``os.replace``): a reader never sees
+    a torn spill, and a kill mid-spill leaves only a ``*.tmp``.  Every
+    piece written is the ``spill.write`` fault site.  As a context
+    manager it commits on success and aborts on an error."""
+
+    def __init__(self, path: str, n_features: int, dtype=np.float32):
+        self.path = path
+        self.n_features = int(n_features)
+        self.dtype = np.dtype(dtype)
+        self.rows = 0
+        self.bytes_written = 0
+        d = os.path.dirname(path) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, self._tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path) + ".",
+                                         suffix=".tmp")
+        self._f = os.fdopen(fd, "wb")
+        self._committed = False
+
+    def write(self, piece: np.ndarray) -> None:
+        """Append one row block at the spill's dtype."""
+        maybe_fault("spill.write")
+        piece = np.ascontiguousarray(piece, dtype=self.dtype)
+        if piece.ndim != 2 or piece.shape[1] != self.n_features:
+            raise ValueError(f"spill piece shape {piece.shape} does not match "
+                             f"n_features={self.n_features}")
+        self._f.write(piece.tobytes())
+        self.rows += int(piece.shape[0])
+        self.bytes_written += piece.nbytes
+
+    def commit(self) -> str:
+        """The header for the rows written, then the data, fsynced and
+        moved onto ``path``.  Returns ``path``."""
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        final_tmp = self._tmp + ".hdr"
+        try:
+            with open(final_tmp, "wb") as out:
+                np.lib.format.write_array_header_2_0(
+                    out, {"descr": np.lib.format.dtype_to_descr(self.dtype),
+                          "fortran_order": False, "shape": (self.rows, self.n_features)})
+                with open(self._tmp, "rb") as raw:
+                    shutil.copyfileobj(raw, out, 1 << 22)
+                out.flush()
+                os.fsync(out.fileno())
+            os.replace(final_tmp, self.path)
+        except BaseException:
+            try:
+                os.unlink(final_tmp)
+            except OSError:
+                pass
+            raise
+        finally:
+            try:
+                os.unlink(self._tmp)
+            except OSError:
+                pass
+        self._committed = True
+        return self.path
+
+    def abort(self) -> None:
+        """Drop what was written; ``path`` is untouched."""
+        self._f.close()
+        try:
+            os.unlink(self._tmp)
+        except OSError:
+            pass
+
+    def __enter__(self) -> "SpillWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.abort()
+        elif not self._committed:
+            self.commit()
 
 
 # -- eager readers of the example formats --------------------------------------------

@@ -35,7 +35,10 @@ are per thread).  An error in the producer (the source, ``stage``, the
 upload) reaches the consumer at its next pull, where it is raised; the
 pipeline never drops to the serial loop on its own.  ``close()`` (or
 leaving the ``with`` block) cancels the producer, drains what it staged
-and joins the thread.
+and joins the thread.  The error raised is the producer's own
+exception, its class unchanged, so the resilience ladder classifies it;
+the producer has ended by then.  Every stage call is the
+``prefetch.stage`` fault site (utils/faults.py).
 
 :class:`PrefetchStats` keeps the stage / transfer / wait split of a pass
 and :meth:`PrefetchStats.finalize` writes it into a ``Timings`` under
@@ -57,6 +60,8 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from oap_mllib_tpu_torch.utils.faults import maybe_fault
 
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.utils.timing import tick
@@ -366,6 +371,9 @@ class Prefetcher:
                   else _Uploader(self.device, self.depth + 1, self.stats))
 
         def staged(item):
+            # every stage call, a stageless pipeline's too, is the
+            # prefetch.stage fault site (utils/faults.py)
+            maybe_fault("prefetch.stage")
             out = item if stage is None else stage(item)
             if upload is None:
                 return out

@@ -18,7 +18,12 @@ Constructors: :meth:`from_array` (ndarray, memmap or SciPy sparse, the
 latter densified per chunk), :meth:`from_npy` (a memory-mapped ``.npy``
 file), :meth:`from_csv`, :meth:`from_libsvm` and :meth:`from_parquet`
 (pyarrow, imported when called); any generator factory goes straight
-to the constructor.
+to the constructor.  :meth:`ChunkSource.spill_to_disk` stages a source
+to one atomic ``.npy`` spill (data/io.SpillWriter) and returns the
+"spill"-backed source over it: the resilience ladder's host-OOM rung.
+
+Every piece a source pulls from its reader is the ``stream.read`` fault
+site (utils/faults.py).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 
 from oap_mllib_tpu_torch.data.bucketing import bucket_rows
+from oap_mllib_tpu_torch.utils.faults import maybe_fault
 
 # rows per chunk by default: 64k rows x 256 features x f32 = 64 MB
 DEFAULT_CHUNK_ROWS = 1 << 16
@@ -42,7 +48,8 @@ class ChunkSource:
     (data/bucketing.py), as the JAX package rounds it.  ``backing`` says
     what holds the rows between passes, for the route planner's host
     estimate: "memory" (an in-RAM array), "disk" (a file reader, O(chunk)
-    host memory) or "stream" (an opaque generator).
+    host memory), "spill" (a spill the host-OOM rung wrote) or "stream"
+    (an opaque generator).
     """
 
     def __init__(
@@ -89,6 +96,7 @@ class ChunkSource:
         fill = 0
         total = 0
         for piece in self._make_iter():
+            maybe_fault("stream.read")
             piece = np.atleast_2d(np.asarray(piece, self.dtype))
             if piece.shape[1] != self.n_features:
                 raise ValueError(
@@ -149,9 +157,12 @@ class ChunkSource:
                    dtype=x.dtype, backing="memory")
 
     @classmethod
-    def from_npy(cls, path: str, chunk_rows: int = DEFAULT_CHUNK_ROWS) -> "ChunkSource":
+    def from_npy(cls, path: str, chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                 fault_site: str = "disk.read") -> "ChunkSource":
         """A 2-D ``.npy`` file through a read-only memory map: host memory
-        stays O(chunk) however large the file (data/io.iter_npy_rows)."""
+        stays O(chunk) however large the file (data/io.iter_npy_rows).
+        ``fault_site="spill.read"`` makes it a spill's source (backing
+        "spill")."""
         from oap_mllib_tpu_torch.data import io as _io
 
         arr = _io.open_npy_mmap(path)  # checks 2-D, reads the header
@@ -160,9 +171,39 @@ class ChunkSource:
         del arr
 
         def gen():
-            yield from _io.iter_npy_rows(path, chunk_rows)
+            yield from _io.iter_npy_rows(path, chunk_rows, fault_site)
 
-        return cls(gen, d, chunk_rows, n_rows=n, dtype=dtype, backing="disk")
+        backing = "spill" if fault_site == "spill.read" else "disk"
+        return cls(gen, d, chunk_rows, n_rows=n, dtype=dtype, backing=backing)
+
+    def spill_to_disk(self, path: Optional[str] = None) -> "ChunkSource":
+        """This source's rows staged to one atomic ``.npy`` spill
+        (data/io.SpillWriter) at ``path`` (None: a new file in
+        ``Config.spill_dir``, else the system's temporary directory), and
+        the "spill"-backed source over it: the same rows, order, chunk
+        width and dtype.  A failed spill removes the file it made."""
+        import os
+        import tempfile
+
+        from oap_mllib_tpu_torch.config import get_config
+        from oap_mllib_tpu_torch.data import io as _io
+
+        made = None
+        if path is None:
+            d = get_config().spill_dir or tempfile.gettempdir()
+            os.makedirs(d, exist_ok=True)
+            fd, path = tempfile.mkstemp(dir=d, prefix="oap-spill.", suffix=".npy")
+            os.close(fd)
+            made = path
+        try:
+            with _io.SpillWriter(path, self.n_features, self.dtype) as w:
+                for chunk, n_valid in self:
+                    w.write(chunk[:n_valid])
+        except BaseException:
+            if made is not None:
+                os.unlink(made)
+            raise
+        return ChunkSource.from_npy(path, self.chunk_rows, fault_site="spill.read")
 
     @classmethod
     def from_parquet(cls, path: str, chunk_rows: int = DEFAULT_CHUNK_ROWS,

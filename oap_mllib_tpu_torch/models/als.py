@@ -62,6 +62,13 @@ layout), the shuffle moves each rating to the process that holds its
 user block (parallel/shuffle.py), and every process returns the same
 factors.  ``nonnegative=True`` raises there (its numpy route would fit
 one shard).
+
+The one-device fit runs under the resilience ladder
+(utils/resilience.py): transient faults retry, a device OOM re-enters
+the streamed route with half the upload blocks (a COO layout runs
+again), and past the last rung ``ResilienceError``; a source's triples
+are read under ``run_with_retry``, its retries counted in the same
+``resilience`` block.  Block routes run one attempt.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_st
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
-from oap_mllib_tpu_torch.utils import membudget
+from oap_mllib_tpu_torch.utils import membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
@@ -306,7 +313,7 @@ class ALS:
 
     def _fit_arrays(self, users, items, ratings, n_users, n_items, init,
                     plan: Optional[membudget.RoutePlan] = None,
-                    devices=None) -> ALSModel:
+                    devices=None, stats=None) -> ALSModel:
         users, items, ratings, n_users, n_items = _validate_resolve(
             users, items, ratings, n_users, n_items)
         kernel = _als_kernel_cfg()
@@ -325,19 +332,31 @@ class ALS:
                 world = mesh.shape[mesh.axis_names[0]]
                 plan = membudget.plan_als(len(users), n_users, n_items, self.rank, world=world,
                                           device=devices[0])
-                model = self._fit_source_block(users, items, ratings, n_users, n_items,
-                                               x0, y0, mesh, kernel, plan)
+                model = self._one_attempt(lambda level: self._fit_source_block(
+                    users, items, ratings, n_users, n_items, x0, y0, mesh, kernel, plan), stats)
                 membudget.record_plan(model.summary, plan)
                 return model
-            return self._fit_block_parallel(users, items, ratings, n_users, n_items,
-                                            x0, y0, mesh, kernel)
+            return self._one_attempt(lambda level: self._fit_block_parallel(
+                users, items, ratings, n_users, n_items, x0, y0, mesh, kernel), stats)
         if plan is None:
             plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
                                       device=devices[0])
-        model = self._fit_single_device(users, items, ratings, n_users, n_items, x0, y0,
-                                        devices[0], kernel, plan)
+        # the ladder (utils/resilience.py): transient faults retry; a
+        # device OOM re-enters the streamed route at halved upload blocks
+        # (the COO layout has no such knob and runs again)
+        model = resilience.fit_with_ladder(
+            "ALS", lambda level: self._fit_single_device(
+                users, items, ratings, n_users, n_items, x0, y0, devices[0], kernel, plan,
+                level),
+            [als_kernel.LAUNCHES], stats=stats)
         membudget.record_plan(model.summary, plan)
         return model
+
+    def _one_attempt(self, attempt, stats=None) -> ALSModel:
+        """A block-route fit: one attempt, across processes or on an
+        in-process mesh (utils/resilience.py)."""
+        return resilience.fit_with_ladder("ALS", attempt, [als_kernel.LAUNCHES], stats=stats,
+                                          bypass=resilience.LADDER_MESH)
 
     def _block_mesh(self, devices) -> Optional[Mesh]:
         """The mesh of a block-route fit, or None for the one-device route:
@@ -366,23 +385,31 @@ class ALS:
 
     def _fit_source(self, source: ChunkSource, n_users, n_items, init) -> ALSModel:
         """The fit of a width-3 (user, item, rating) source (the JAX
-        package's ``_fit_source``, without its resilience ladder): the
-        triples are read to host arrays (host memory O(nnz), as the
-        reference's executors hold their partitions; across processes
-        this process's rows), then the route plan with the source's
-        natural route: streamed on one device, the streamed block route
-        on a mesh."""
+        package's ``_fit_source``, without its checkpoints): the triples
+        are read to host arrays (host memory O(nnz), as the reference's
+        executors hold their partitions; across processes this process's
+        rows), the read retrying transient faults
+        (``resilience.run_with_retry``, counted in the fit's
+        ``resilience``), then the route plan with the source's natural
+        route: streamed on one device, the streamed block route on a
+        mesh."""
         if source.n_features != 3:
             raise ValueError("ALS source must have width 3 (user, item, rating); "
                              f"got {source.n_features}")
-        us, its, rs = [], [], []
-        for chunk, n_valid in source:
-            us.append(np.asarray(chunk[:n_valid, 0], np.int64))
-            its.append(np.asarray(chunk[:n_valid, 1], np.int64))
-            rs.append(np.asarray(chunk[:n_valid, 2], np.float32))
-        users = np.concatenate(us) if us else np.zeros((0,), np.int64)
-        items = np.concatenate(its) if its else np.zeros((0,), np.int64)
-        ratings = np.concatenate(rs) if rs else np.zeros((0,), np.float32)
+
+        def ingest():
+            us, its, rs = [], [], []
+            for chunk, n_valid in source:
+                us.append(np.asarray(chunk[:n_valid, 0], np.int64))
+                its.append(np.asarray(chunk[:n_valid, 1], np.int64))
+                rs.append(np.asarray(chunk[:n_valid, 2], np.float32))
+            return (np.concatenate(us) if us else np.zeros((0,), np.int64),
+                    np.concatenate(its) if its else np.zeros((0,), np.int64),
+                    np.concatenate(rs) if rs else np.zeros((0,), np.float32))
+
+        stats = resilience.ResilienceStats()
+        users, items, ratings = resilience.run_with_retry(ingest, stats=stats,
+                                                          site="ALS.ingest")
         if self.nonnegative:
             return self._fit_arrays(users, items, ratings, n_users, n_items, init)
         devices = resolve_devices(self.device)
@@ -396,15 +423,15 @@ class ALS:
             plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
                                       world=mesh.shape[mesh.axis_names[0]],
                                       source_backing=source.backing, device=devices[0])
-            model = self._fit_source_block(users, items, ratings, n_users, n_items, x0, y0,
-                                           mesh, kernel, plan)
+            model = self._one_attempt(lambda level: self._fit_source_block(
+                users, items, ratings, n_users, n_items, x0, y0, mesh, kernel, plan), stats)
             membudget.record_plan(model.summary, plan)
             return model
         _, _, _, n_users, n_items = _validate_resolve(users, items, ratings, n_users, n_items)
         plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
                                   source_backing=source.backing, device=devices[0])
         return self._fit_arrays(users, items, ratings, n_users, n_items, init, plan,
-                                devices[:1])
+                                devices[:1], stats)
 
     def _init_arrays(self, init, n_users: int, n_items: int):
         """``(x0, y0)`` f32 copies of a given ``init`` pair, checked
@@ -440,12 +467,14 @@ class ALS:
 
     def _fit_single_device(self, users, items, ratings, n_users, n_items, x0, y0,
                            dev: torch.device, kernel: str,
-                           plan: membudget.RoutePlan) -> ALSModel:
+                           plan: membudget.RoutePlan, level: int = 0) -> ALSModel:
         """The one-device fit: the resident grouped or COO layouts, or, when
         ``plan`` routes it "streamed", the host-resident grouped layouts
         streamed every half-iteration (ops/als_stream.py).  Streaming is
         grouped only: a degree distribution the grouped guard rejects
-        moves the plan back to in-memory, on the record (strict raises)."""
+        moves the plan back to in-memory, on the record (strict raises).
+        ``level`` > 0 (the ladder's halving rung) streams the grouped
+        layouts at half the upload blocks; the COO layout runs again."""
         streamed = plan.route == membudget.ROUTE_STREAMED
         pol = psn.resolve("als")
         # the Grams and solves are f32 under every policy, and the moment
@@ -462,6 +491,7 @@ class ALS:
                 plan.downgrade(membudget.ROUTE_IN_MEMORY, "grouped guard rejected the "
                                "degree distribution (COO streaming unsupported)")
                 streamed = False
+            streamed = streamed or (bool(level) and grouped)
             if streamed:
                 by_user = als_ops.build_grouped_edges(users, items, ratings, n_users)
                 by_item = als_ops.build_grouped_edges(items, users, ratings, n_items)
@@ -473,7 +503,8 @@ class ALS:
             with phase_timer(timings, "als_iterations", dev):
                 x, y = als_stream.als_run_streamed(
                     by_user, by_item, x0, y0, n_users, n_items, self.max_iter,
-                    self.reg_param, self.alpha, self.implicit_prefs, timings, pol, dev)
+                    self.reg_param, self.alpha, self.implicit_prefs, timings, pol, dev,
+                    degraded=bool(level))
         else:
             with phase_timer(timings, "als_iterations", dev):
                 x, y = als_ops.run_sides(

@@ -55,6 +55,18 @@ are armed, ``fleet`` (telemetry/fleet.py).  The k-means|| init of the
 in-memory route draws one ``torch.rand`` stream over the world's valid
 rows, each process its slice from the prefix sum of the gathered row
 counts, so uneven shares leave it unchanged.
+
+Every one-device fit runs under the resilience ladder
+(utils/resilience.py, the JAX package's ``resilient_fit``): transient
+faults retry; a device OOM doubles the in-memory Lloyd loop's row
+chunks (K1 on 2^level row ranges a pass), or re-chunks a source at
+``chunk_rows / 2^level``; a host OOM spills the table (a memory-backed
+source, or the in-memory array) to disk and streams it from there; a
+non-finite iterate under bf16 / tf32 retries once at f32; past the
+last rung ``ResilienceError``, never a CPU fit.  Mesh fits and worlds
+of processes run one attempt.  The summary's ``resilience`` holds the
+counters and its ``kernels`` the launches of every attempt.
+``KMeansModel.to_pmml`` writes the JAX package's PMML 4.3 document.
 """
 
 from __future__ import annotations
@@ -75,7 +87,7 @@ from oap_mllib_tpu_torch.ops import kmeans_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
-from oap_mllib_tpu_torch.utils import membudget
+from oap_mllib_tpu_torch.utils import membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
@@ -95,7 +107,11 @@ class KMeansSummary:
     ring reduced its moments (``ring``, False on the data-parallel
     route); both are None on one device.  ``route`` is the route plan of
     a one-device or streamed fit (utils/membudget.record_plan), None on
-    a mesh; ``streamed`` is True when the fit streamed its table."""
+    a mesh; ``streamed`` is True when the fit streamed its table.
+    ``resilience`` holds the fit's ladder counters (retries,
+    degradations, faults, halvings, spilled, ladder, history; the JAX
+    package's keys); ``kernels`` then counts every attempt's launches,
+    a failed attempt's included."""
 
     def __init__(self, training_cost: float, num_iter: int, timings: Timings,
                  accelerated: bool, cluster_sizes: Optional[np.ndarray] = None,
@@ -117,6 +133,8 @@ class KMeansSummary:
         # (parallel/balance.py, telemetry/fleet.py), when armed
         self.balance = None
         self.fleet = None
+        # the resilience ladder's counters (utils/resilience.py)
+        self.resilience = None
         # the world the fit ran in (parallel/bootstrap.py)
         self.processes = bootstrap.world_size()
         self.process_id = bootstrap.process_index()
@@ -201,6 +219,37 @@ class KMeansModel:
         return float(sum(
             float(torch.sum(kmeans_ops.min_sq_dists(xc, c))) for xc in chunks
         ))
+
+    def to_pmml(self, path: str) -> None:
+        """Write the model as a PMML 4.3 ``ClusteringModel`` (Spark's
+        ``KMeansModel`` PMML export): the JAX package's document, field
+        for field, the centers as ``repr(float)``."""
+        import xml.etree.ElementTree as ET
+
+        d = self.cluster_centers_.shape[1]
+        root = ET.Element("PMML", {"version": "4.3", "xmlns": "http://www.dmg.org/PMML-4_3"})
+        header = ET.SubElement(root, "Header", {"description": "k-means clustering"})
+        ET.SubElement(header, "Application", {"name": "oap-mllib-tpu"})
+        dd = ET.SubElement(root, "DataDictionary", {"numberOfFields": str(d)})
+        for j in range(d):
+            ET.SubElement(dd, "DataField", {"name": f"field_{j}", "optype": "continuous",
+                                            "dataType": "double"})
+        cm = ET.SubElement(root, "ClusteringModel", {
+            "modelName": "k-means", "functionName": "clustering",
+            "modelClass": "centerBased", "numberOfClusters": str(self.k)})
+        ms = ET.SubElement(cm, "MiningSchema")
+        for j in range(d):
+            ET.SubElement(ms, "MiningField", {"name": f"field_{j}"})
+        ET.SubElement(cm, "ComparisonMeasure", {"kind": "distance"}).append(
+            ET.Element("squaredEuclidean"))
+        for j in range(d):
+            ET.SubElement(cm, "ClusteringField", {"field": f"field_{j}",
+                                                  "compareFunction": "absDiff"})
+        for i, center in enumerate(self.cluster_centers_):
+            cl = ET.SubElement(cm, "Cluster", {"name": f"cluster_{i}", "id": str(i)})
+            arr = ET.SubElement(cl, "Array", {"n": str(d), "type": "real"})
+            arr.text = " ".join(repr(float(v)) for v in center)
+        ET.ElementTree(root).write(path, xml_declaration=True, encoding="utf-8")
 
     # -- persistence: the JAX package's format (metadata.json + centers.npy) --
     def save(self, path: str) -> None:
@@ -315,8 +364,11 @@ class KMeans:
         devices = resolve_devices(self.device)
         if (len(devices) > 1 or get_config().model_parallel > 1
                 or bootstrap.world_size() > 1):
-            return self._fit_mesh(_dense_host(x) if _sparse.is_sparse(x) else x,
-                                  sample_weight, devices)
+            x = _dense_host(x) if _sparse.is_sparse(x) else x
+            # a mesh fit runs its one attempt (utils/resilience.py)
+            return resilience.fit_with_ladder(
+                "KMeans", lambda level: self._fit_mesh(x, sample_weight, devices),
+                [kmeans_kernel.LAUNCHES, ring_kernel.LAUNCHES], bypass=resilience.LADDER_MESH)
         # the route plan: an array whose working set exceeds the card's
         # budget streams instead of assuming it fits
         plan = membudget.plan_kmeans(
@@ -325,16 +377,34 @@ class KMeans:
         if plan.route == membudget.ROUTE_STREAMED:
             source = ChunkSource.from_array(_host(x), chunk_rows=plan.chunk_rows)
             return self._fit_source(source, sample_weight, plan=plan)
-        model = self._fit_device(x, sample_weight, devices[0])
-        membudget.record_plan(model.summary, plan)
+        # the ladder (utils/resilience.py): transient faults retry, a
+        # device OOM doubles the Lloyd loop's row chunks, a host OOM
+        # spills the table to disk and streams it from there
+        dev = devices[0]
+        holder = {}
+
+        def attempt(level):
+            if holder.get("source") is not None:
+                return self._stream_attempt(holder["source"], holder.get("weights"), level, dev)
+            return self._fit_device(x, sample_weight, dev, level)
+
+        def spill():
+            w = None if sample_weight is None else _host(sample_weight)
+            return membudget.spill_array(holder, _host(x), w, plan.chunk_rows, "KMeans")
+
+        model = resilience.fit_with_ladder("KMeans", attempt, [kmeans_kernel.LAUNCHES],
+                                           spill=spill)
+        membudget.record_plan(model.summary, plan, spilled=model.summary.resilience["spilled"])
         return model
 
     def _fit_source(self, source: ChunkSource, sample_weight, plan=None) -> KMeansModel:
         """The streamed fit of a ``ChunkSource`` (the JAX package's
-        ``_fit_source``, without its resilience ladder and checkpoints):
-        device memory O(chunk), one pass per Lloyd iteration.
-        ``sample_weight``: a width-1 source chunked like ``source``, or
-        an array (wrapped)."""
+        ``_fit_source``, without its checkpoints): device memory
+        O(chunk), one pass per Lloyd iteration, under the resilience
+        ladder: transient faults retry, a device OOM re-chunks the
+        source (and its weights) at ``chunk_rows / 2^level``, a host OOM
+        spills a memory-backed source to disk.  ``sample_weight``: a
+        width-1 source chunked like ``source``, or an array (wrapped)."""
         if sample_weight is not None and not isinstance(sample_weight, ChunkSource):
             sample_weight = ChunkSource.from_array(
                 np.asarray(_host(sample_weight)).reshape(-1, 1), chunk_rows=source.chunk_rows)
@@ -348,9 +418,35 @@ class KMeans:
             plan = membudget.plan_kmeans(source.n_rows, source.n_features, self.k,
                                          source_backing=source.backing,
                                          chunk_rows=source.chunk_rows, device=dev)
-        model = self._fit_stream_inner(source, sample_weight, dev)
-        membudget.record_plan(model.summary, plan)
+        holder = {"source": source, "weights": sample_weight}
+        spill = None
+        if source.backing not in ("disk", "spill"):
+            spill = lambda: membudget.spill_source(holder, "KMeans")  # noqa: E731
+        model = resilience.fit_with_ladder(
+            "KMeans",
+            lambda level: self._stream_attempt(holder["source"], holder.get("weights"),
+                                               level, dev),
+            [kmeans_kernel.LAUNCHES], spill=spill,
+            max_halvings=resilience.halvings_available(source.chunk_rows))
+        membudget.record_plan(model.summary, plan, spilled=model.summary.resilience["spilled"])
         return model
+
+    def _stream_attempt(self, source: ChunkSource, sample_weight, level: int,
+                        dev) -> KMeansModel:
+        """One streamed attempt at halving level ``level``: the source
+        (and its weights) re-chunked at ``chunk_rows / 2^level``, never
+        below ``OOM_CHUNK_FLOOR_ROWS`` (nor above the width it has)."""
+        if level:
+            rows = resilience.halved_rows(source.chunk_rows, level)
+            source = source.with_chunk_rows(rows)
+            if sample_weight is not None:
+                sample_weight = sample_weight.with_chunk_rows(rows)
+        stream_ops.begin_fit(source)
+        try:
+            return self._fit_stream_inner(source, sample_weight, dev)
+        except BaseException:
+            stream_ops.abort_fit()
+            raise
 
     def _fit_stream_inner(self, source: ChunkSource, sample_weight, dev) -> KMeansModel:
         cfg = get_config()
@@ -359,7 +455,6 @@ class KMeans:
         psn.apply_matmul_flags(tier)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
-        stream_ops.begin_fit(source)
         with phase_timer(timings, "init_centers", dev):
             if self.init_mode == INIT_RANDOM:
                 centers0 = stream_ops.reservoir_sample(source, self.k, self.seed, timings)
@@ -397,7 +492,9 @@ class KMeans:
             )
         return as_float_tensor(centers0, dev).contiguous()
 
-    def _fit_device(self, x, sample_weight, dev: torch.device) -> KMeansModel:
+    def _fit_device(self, x, sample_weight, dev: torch.device, level: int = 0) -> KMeansModel:
+        """The in-memory fit on one device; ``level`` (the halving rung)
+        runs the Lloyd loop on 2^level row ranges a pass."""
         cfg = get_config()
         pol = psn.resolve("kmeans")
         tier = psn.kernel_tier(pol, cfg.matmul_precision)
@@ -414,6 +511,7 @@ class KMeans:
         with phase_timer(timings, "lloyd_loop", dev):
             centers, n_iter, cost, counts = kmeans_kernel.lloyd_run_kernel(
                 table.data, weights, centers0, self.max_iter, self.tol, mode=tier,
+                row_chunks=2 ** int(level),
             )
             centers = centers.cpu().numpy()
             cost = float(cost)

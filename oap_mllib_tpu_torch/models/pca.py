@@ -39,6 +39,17 @@ streams this process's shard, the moments reduced across processes; a
 capability-weighted shard (parallel/balance.local_sources) may move rows
 between the processes between the two passes, and the summary then
 carries ``balance`` and, when the rollups are armed, ``fleet``.
+
+``Config.pca_solver="randomized"`` replaces the full eigh with the
+top-k subspace iteration of ops/pca_ops.topk_eigh_randomized
+(``pca_rand_oversample``, ``pca_rand_iters``); the summary's
+``pca_solver`` names the solver that ran.  One-device fits run under
+the resilience ladder (utils/resilience.py): transient faults retry, a
+device OOM re-chunks a source at ``chunk_rows / 2^level`` (the
+in-memory covariance runs again), a host OOM spills the table and
+streams the two passes from disk; past the last rung
+``ResilienceError``.  Mesh fits and worlds of processes run one
+attempt; the summary's ``resilience`` holds the counters.
 """
 
 from __future__ import annotations
@@ -58,7 +69,7 @@ from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
-from oap_mllib_tpu_torch.utils import membudget
+from oap_mllib_tpu_torch.utils import membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import (MAX_PCA_FEATURES, model_device, resolve_device,
                                                 resolve_devices)
@@ -145,16 +156,18 @@ class PCAModel:
 
 
 def _pca_solver_cfg() -> str:
-    """Validated ``Config.pca_solver``: "auto" and "eigh" run the full
-    eigendecomposition; "randomized" is not ported yet."""
-    solver = get_config().pca_solver
-    if solver == "randomized":
-        raise NotImplementedError(
-            "pca_solver='randomized' is not ported yet (ROADMAP A2, the "
-            "randomized top-k solver); use 'auto' or 'eigh'"
-        )
-    if solver not in ("auto", "eigh"):
+    """Validated ``Config.pca_solver``, the solver a fit runs: "auto" and
+    "eigh" run the full eigendecomposition, "randomized" the top-k
+    subspace iteration.  A typo, or a randomized knob below 1, raises
+    at fit entry, before any pass."""
+    cfg = get_config()
+    solver = cfg.pca_solver
+    if solver not in ("auto", "eigh", "randomized"):
         raise ValueError(f"pca_solver must be auto|eigh|randomized, got {solver!r}")
+    if solver == "randomized":
+        if cfg.pca_rand_oversample < 1 or cfg.pca_rand_iters < 1:
+            raise ValueError("pca_rand_oversample and pca_rand_iters must be >= 1")
+        return solver
     return "eigh"
 
 
@@ -187,16 +200,32 @@ class PCA:
                 or bootstrap.world_size() > 1):
             if _sparse.is_sparse(x):
                 x = x.toarray()
-            return self._fit_mesh(x, devices, solver)
+            # a mesh fit runs its one attempt (utils/resilience.py)
+            return resilience.fit_with_ladder(
+                "PCA", lambda level: self._fit_mesh(x, devices, solver),
+                [pca_kernel.LAUNCHES], bypass=resilience.LADDER_MESH)
         # the route plan: a table whose working set exceeds the card's
         # budget streams the two moment passes instead
         plan = membudget.plan_pca(n, d, device=devices[0])
+        host = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
         if plan.route == membudget.ROUTE_STREAMED:
-            host = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
             source = ChunkSource.from_array(host, chunk_rows=plan.chunk_rows)
             return self._fit_source(source, solver, plan=plan)
-        model = self._fit_device(x, devices[0], solver)
-        membudget.record_plan(model.summary, plan)
+        # the ladder (utils/resilience.py): transient faults retry, a
+        # device OOM runs the covariance again (it has no chunk knob), a
+        # host OOM spills the table and streams the two passes from disk
+        dev = devices[0]
+        holder = {}
+
+        def attempt(level):
+            if holder.get("source") is not None:
+                return self._stream_attempt(holder["source"], level, dev, solver)
+            return self._fit_device(x, dev, solver)
+
+        model = resilience.fit_with_ladder(
+            "PCA", attempt, [pca_kernel.LAUNCHES],
+            spill=lambda: membudget.spill_array(holder, host, None, plan.chunk_rows, "PCA"))
+        membudget.record_plan(model.summary, plan, spilled=model.summary["resilience"]["spilled"])
         return model
 
     def _check_width(self, d: int) -> None:
@@ -211,28 +240,54 @@ class PCA:
 
     def _fit_source(self, source: ChunkSource, solver: str, plan=None) -> PCAModel:
         """The streamed fit of a ``ChunkSource`` (the JAX package's
-        ``_fit_source``, without its resilience ladder and checkpoints):
-        device memory O(chunk + d^2)."""
+        ``_fit_source``, without its checkpoints): device memory O(chunk
+        + d^2), under the resilience ladder: transient faults retry, a
+        device OOM re-chunks the source at ``chunk_rows / 2^level``, a
+        host OOM spills a memory-backed source to disk."""
         d = source.n_features
         self._check_width(d)
         dev = resolve_devices(self.device)[0]
         if plan is None:
             plan = membudget.plan_pca(source.n_rows, d, source_backing=source.backing,
                                       chunk_rows=source.chunk_rows, device=dev)
+        holder = {"source": source}
+        spill = None
+        if source.backing not in ("disk", "spill"):
+            spill = lambda: membudget.spill_source(holder, "PCA")  # noqa: E731
+        model = resilience.fit_with_ladder(
+            "PCA", lambda level: self._stream_attempt(holder["source"], level, dev, solver),
+            [pca_kernel.LAUNCHES], spill=spill,
+            max_halvings=resilience.halvings_available(source.chunk_rows))
+        membudget.record_plan(model.summary, plan, spilled=model.summary["resilience"]["spilled"])
+        return model
+
+    def _stream_attempt(self, source: ChunkSource, level: int, dev, solver: str) -> PCAModel:
+        """One streamed attempt at halving level ``level`` (the source
+        re-chunked at ``chunk_rows / 2^level``, floored)."""
+        if level:
+            rows = resilience.halved_rows(source.chunk_rows, level)
+            source = source.with_chunk_rows(rows)
+        stream_ops.begin_fit(source)
+        try:
+            return self._fit_stream_inner(source, dev, solver)
+        except BaseException:
+            stream_ops.abort_fit()
+            raise
+
+    def _fit_stream_inner(self, source: ChunkSource, dev, solver: str) -> PCAModel:
+        d = source.n_features
         cfg = get_config()
         pol = psn.resolve("pca")
         tier = psn.kernel_tier(pol, cfg.matmul_precision)
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
-        stream_ops.begin_fit(source)
         with phase_timer(timings, "covariance_streamed", dev):
             cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev)
         model = self._finish(cov, d, timings, dev, solver, pol, before,
                              model_device(self.device, dev))
         model.summary.update(streamed=True, n_rows=n)
         stream_ops.end_fit(model.summary)
-        membudget.record_plan(model.summary, plan)
         return model
 
     def _fit_device(self, x, dev: torch.device, solver: str) -> PCAModel:
@@ -252,15 +307,29 @@ class PCA:
                 mesh_shape=None) -> PCAModel:
         """The eigensolve of ``cov`` (with ``d`` genuine features; a wider
         ``cov`` carries zero-padded ones, demoted below every genuine
-        eigenvalue first) and the model."""
-        with phase_timer(timings, "eigh", dev):
-            if cov.shape[0] > d:
-                cov = pca_ops.mark_padded_features(cov, d)
-            vals, vecs = pca_ops.eigh_descending(cov)
-            vals = vals[:d].cpu().numpy()
-            vecs = vecs[:d, : self.k].cpu().numpy()
-        total = float(vals.sum())
-        ratio = vals[: self.k] / total if total > 0 else np.zeros(self.k)
+        eigenvalue first, or sliced off for the randomized solver) and
+        the model; ``solver`` is the one that runs (summary
+        ``pca_solver``)."""
+        if solver == "randomized":
+            # padded feature dims are sliced off, not demoted: subspace
+            # iteration ranks by |eigenvalue|, and the trace is the
+            # eigenvalues' sum without the full spectrum
+            with phase_timer(timings, "randomized_topk", dev):
+                cfg = get_config()
+                cov = cov[:d, :d]
+                top, vecs = pca_ops.topk_eigh_randomized(
+                    cov, self.k, oversample=cfg.pca_rand_oversample, iters=cfg.pca_rand_iters)
+                top, vecs = top.cpu().numpy(), vecs.cpu().numpy()
+                total = float(torch.trace(cov))
+        else:
+            with phase_timer(timings, "eigh", dev):
+                if cov.shape[0] > d:
+                    cov = pca_ops.mark_padded_features(cov, d)
+                vals, vecs = pca_ops.eigh_descending(cov)
+                vals = vals[:d].cpu().numpy()
+                vecs = vecs[:d, : self.k].cpu().numpy()
+            top, total = vals[: self.k], float(vals.sum())
+        ratio = top / total if total > 0 else np.zeros(self.k)
         summary = {
             "timings": timings,
             "accelerated": True,

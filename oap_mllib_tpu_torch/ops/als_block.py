@@ -67,6 +67,7 @@ from oap_mllib_tpu_torch.ops import als_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel import collective, shuffle
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
+from oap_mllib_tpu_torch.utils import faults
 
 # "auto" shards the items once the replicated layout's per-iteration psum
 # payload (n_items * r * (r + 1) * 4 bytes) crosses this (the JAX
@@ -450,6 +451,7 @@ def _run(sides: BlockSides, x0, y0, max_iter: int, reg: float, alpha: float,
          body: Callable = _block_body):
     x, y = dict(x0), dict(y0)
     for _ in range(max_iter):
+        faults.maybe_fault("fit.execute")  # utils/faults.py, once an iteration
         x, y = body(sides, x, y, reg, alpha, implicit, axis, policy, solve, gram)
     return x, y
 

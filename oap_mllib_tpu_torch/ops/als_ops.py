@@ -51,6 +51,7 @@ import torch
 from oap_mllib_tpu_torch.ops import host_prep
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.utils import precision as psn
+from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.utils.timing import phase_timer
 
 # the grouped layout is taken only while its padded edge total stays
@@ -353,10 +354,12 @@ def run_sides(user_side, item_side, x0, y0, max_iter: int, reg: float,
               solve: Callable = als_kernel.solve_normal_eq,
               gram: Callable = als_kernel.factor_gram) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ALS loop over two prepared sides: ``max_iter`` times the user
-    half-update, then the item half-update.  ``solve`` and ``gram`` are
+    half-update, then the item half-update, each iteration the
+    ``fit.execute`` fault site (utils/faults.py).  ``solve`` and ``gram`` are
     the kernel wrappers; the card check passes their plain versions."""
     x, y = x0, y0
     for _ in range(max_iter):
+        faults.maybe_fault("fit.execute")
         x = _half(user_side, y, reg, alpha, implicit, policy, solve, gram)
         y = _half(item_side, x, reg, alpha, implicit, policy, solve, gram)
     return x, y

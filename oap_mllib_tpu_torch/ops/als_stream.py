@@ -39,7 +39,9 @@ import torch
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.ops import als_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
+from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device
+from oap_mllib_tpu_torch.utils.resilience import check_finite
 from oap_mllib_tpu_torch.utils.timing import tick
 
 
@@ -157,8 +159,8 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
                      reg: float, alpha: float, implicit: bool, timings=None,
                      policy: str = "f32", device=None,
                      solve: Callable = als_kernel.solve_normal_eq,
-                     gram: Callable = als_kernel.factor_gram
-                     ) -> Tuple[np.ndarray, np.ndarray]:
+                     gram: Callable = als_kernel.factor_gram,
+                     degraded: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """The streamed ALS loop (both feedback modes): ``by_user`` and
     ``by_item`` are host grouped layouts (``als_ops.build_grouped_edges``),
     the factors stay on ``device`` (None: ``Config.device``) across
@@ -166,7 +168,12 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
     streams its side's layout.  The prefetch split of every chunk lands
     in ``timings`` under ``als_iterations/``.  Returns the host (x, y).
     ``solve`` and ``gram`` are the kernel wrappers; the card check
-    passes their plain versions."""
+    passes their plain versions.  ``degraded`` is the resilience
+    ladder's halving rung: half the groups a chunk, half the device
+    memory a step (the segment sums then add in another order, so the
+    factors move by rounding only).  Each iteration is the
+    ``fit.execute`` fault site, and both factor tables are checked
+    finite after it (``NonFiniteError`` naming them)."""
     dev = resolve_device(device)
     r = np.asarray(x0).shape[1]
     if not implicit:
@@ -176,15 +183,22 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
                         for side in (by_user, by_item))
     gc_u = groups_per_chunk(*by_user[0].shape, r)
     gc_i = groups_per_chunk(*by_item[0].shape, r)
+    if degraded:
+        gc_u, gc_i = max(1, gc_u // 2), max(1, gc_i // 2)
     x = torch.as_tensor(np.asarray(x0, np.float32)).to(dev)
     y = torch.as_tensor(np.asarray(y0, np.float32)).to(dev)
     stats = PrefetchStats()
     elapsed = tick()
-    for _ in range(max_iter):
+    for it in range(max_iter):
+        faults.maybe_fault("fit.execute")
         x = _half_update_streamed(by_user, y, n_users, gc_u, reg, alpha, implicit, stats,
                                   policy, solve, gram)
         y = _half_update_streamed(by_item, x, n_items, gc_i, reg, alpha, implicit, stats,
                                   policy, solve, gram)
+        # a singular solve's NaN factors spread to every later
+        # half-update: stop at the iteration that made them
+        check_finite(x, f"ALS user factors (streamed iteration {it + 1})")
+        check_finite(y, f"ALS item factors (streamed iteration {it + 1})")
     x, y = x.cpu().numpy(), y.cpu().numpy()
     stats.finalize(timings, "als_iterations", elapsed())
     return x, y

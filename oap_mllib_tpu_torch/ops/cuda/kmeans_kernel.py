@@ -40,6 +40,9 @@ KERNEL = "kmeans_accumulate"
 # launches of the CUDA kernel, by kernel name; the wrapper adds one per
 # launch and nowhere else (the plain version on CPU tensors counts none)
 LAUNCHES = {KERNEL: 0}
+# the same launches by tier (the precision rung's witness: a bf16 fit
+# launches at "default", its f32 retry at "highest")
+LAUNCHES_BY_MODE = {"highest": 0, "high": 0, "default": 0}
 
 # the kernel's stable counting sort keeps (k, ranges) integer counts;
 # ranges shrink as k grows so the table stays under this many entries
@@ -63,8 +66,9 @@ _SCAN_TILE = 4096
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for table in (LAUNCHES, LAUNCHES_BY_MODE):
+        for name in table:
+            table[name] = 0
 
 
 def _assign_plain(x, c, mode, need_cost):
@@ -318,6 +322,7 @@ def _launch(x, w, c, mode: str, need_cost: bool):
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += 1
+    LAUNCHES_BY_MODE[mode] += 1
     return sums, counts, (cost if need_cost else None), labels
 
 
@@ -338,16 +343,29 @@ def lloyd_accumulate(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
 
 
 def lloyd_run_kernel(x, w, init_centers, max_iter: int, tol: float,
-                     mode: str = "highest"):
+                     mode: str = "highest", row_chunks: int = 1):
     """The fused-kernel Lloyd loop: ``(centers, n_iter, cost, counts)``.
     Semantics in :func:`oap_mllib_tpu_torch.ops.kmeans_ops._lloyd_loop`;
     the loop passes run in loop mode at ``mode``, the final pass in cost
-    mode at ``highest``."""
+    mode at ``highest``.  ``row_chunks`` > 1 (the resilience ladder's
+    halving rung) launches the kernel on that many equal row ranges a
+    pass, the last one ragged, and adds their moments in range order:
+    each launch's scratch shrinks with its rows."""
     mode = check_mode(mode)
+    n = x.shape[0]
+    step = max(1, -(-n // max(1, int(row_chunks))))
+    ranges = [(lo, min(n, lo + step)) for lo in range(0, n, step)]
 
     def accum(centers, final):
-        if final:
-            return lloyd_accumulate(x, w, centers, "highest", True)
-        return lloyd_accumulate(x, w, centers, mode, False)
+        tier, need_cost = ("highest", True) if final else (mode, False)
+        sums = counts = cost = None
+        for lo, hi in ranges:
+            s, c, t = lloyd_accumulate(x[lo:hi], w[lo:hi], centers, tier, need_cost)
+            if sums is None:
+                sums, counts, cost = s, c, t
+            else:
+                sums, counts = sums + s, counts + c
+                cost = cost + t if need_cost else None
+        return sums, counts, cost
 
     return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol)

@@ -39,6 +39,7 @@ from oap_mllib_tpu_torch.ops.cuda import ring_kernel
 from oap_mllib_tpu_torch.ops.cuda._tiers import check_mode, tiered_dot
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
+from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.utils import precision as psn
 
 # live-buffer element budget of every row-chunking site (training
@@ -149,7 +150,8 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
     ``accum(centers, final)`` returns ``(sums, counts, cost)``: loop passes
     have ``final=False``; one pass with ``final=True`` after the loop
     computes cost and counts against the returned centers at full
-    precision.  ``moved_reduce`` completes the per-center move (the
+    precision.  Every pass is the ``fit.execute`` fault site
+    (utils/faults.py) before ``accum`` launches anything.  ``moved_reduce`` completes the per-center move (the
     identity, or a psum over the model axis for feature-sharded centers).
     Centers, sums and counts are tensors, or ``{rank: tensor}`` on a mesh,
     where every rank updates its own block.  Returns
@@ -158,6 +160,7 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
     tol_sq = float(np.float32(tol) * np.float32(tol))
     n_iter = 0
     while n_iter < max_iter:
+        faults.maybe_fault("fit.execute")
         sums, counts, _ = accum(centers, False)
         new_centers = _each(_new_centers, sums, counts, centers)
         moved_sq = moved_reduce(_each(_moved_sq, new_centers, centers))
@@ -168,6 +171,7 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
         moves = moved_sq.values() if isinstance(moved_sq, dict) else [moved_sq]
         if all(bool(torch.all(m <= tol_sq)) for m in moves):
             break
+    faults.maybe_fault("fit.execute")
     _, counts, cost = accum(centers, True)
     return centers, n_iter, cost, counts
 

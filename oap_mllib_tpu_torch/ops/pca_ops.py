@@ -37,6 +37,7 @@ import torch
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
+from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.utils import precision as psn
 
 
@@ -47,9 +48,12 @@ def covariance(x: torch.Tensor, mask: torch.Tensor, n_rows: float,
     """Sample covariance (d, d) and mean (d,) of the rows ``mask``
     weighs in.  ``precision`` is the Gram's kernel tier; the column sums
     are f32 at every tier.  ``moments`` is the kernel wrapper; the card
-    check passes the plain version to compare fits."""
+    check passes the plain version to compare fits.  Each pass is the
+    ``fit.execute`` fault site (utils/faults.py), as on the mesh."""
+    faults.maybe_fault("fit.execute")
     _, colsum, _ = moments(x, mask, None, precision, need_gram=False)
     mean = colsum / float(n_rows)
+    faults.maybe_fault("fit.execute")
     gram, _, _ = moments(x, mask, mean, precision, need_sums=False)
     cov = gram / max(float(n_rows) - 1.0, 1.0)
     # numerical symmetry guard before eigh, as in the JAX package (the
@@ -69,10 +73,12 @@ def covariance_data_parallel(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     dax = mesh.axis_names[0]
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel covariance runs on a model axis of 1, got {mesh.shape}")
+    faults.maybe_fault("fit.execute")
     colsum = collective.psum(
         {r: moments(x[r], mask[r], None, precision, need_gram=False)[1] for r in mesh.local_ranks},
         mesh, dax)
     mean = {r: colsum[r] / float(n_rows) for r in mesh.local_ranks}
+    faults.maybe_fault("fit.execute")
     gram = collective.psum(
         {r: moments(x[r], mask[r], mean[r], precision, need_sums=False)[0] for r in mesh.local_ranks},
         mesh, dax)
@@ -93,9 +99,11 @@ def covariance_model_sharded(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     columns; no rank holds more.  Returns ``(cov (d, d), mean (d,))`` on
     the first rank's device, symmetrised."""
     dax, max_ = mesh.axis_names
+    faults.maybe_fault("fit.execute")
     col_sum = collective.psum(
         {r: torch.sum(x[r] * mask[r][:, None], dim=0) for r in mesh.local_ranks}, mesh, dax)
     mean = {r: col_sum[r] / float(n_rows) for r in mesh.local_ranks}
+    faults.maybe_fault("fit.execute")
     xc = {r: (x[r] - mean[r][None, :]) * mask[r][:, None] for r in mesh.local_ranks}
     xc_full = collective.all_gather(xc, mesh, max_, dim=1)  # (n_loc, d) a rank
     rows = collective.psum(
@@ -125,6 +133,38 @@ def eigh_descending(cov: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     symmetric matrix."""
     vals, vecs = torch.linalg.eigh(cov)  # ascending
     return torch.flip(vals, dims=(0,)), torch.flip(vecs, dims=(1,))
+
+
+def topk_eigh_randomized(cov: torch.Tensor, k: int, oversample: int = 16,
+                         iters: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k eigenpairs of a symmetric positive semi-definite matrix by
+    randomized subspace iteration (Halko, Martinsson, Tropp), the JAX
+    package's ``topk_eigh_randomized``: a probe of ``p = min(d, k +
+    oversample)`` columns, QR'd; ``iters`` times ``q = qr(cov @ q)``;
+    then the (p, p) eigh of ``q^T cov q``, descending.  Returns
+    ``(vals (k,), vecs (d, k))``.
+
+    Each Ritz value closes on its eigenvalue like (lambda_p /
+    lambda_i)^(2 iters): a decaying spectrum matches eigh to ~1e-4 at
+    the defaults, a flat one is biased low and its top vectors are not
+    defined.  The probe draws from a ``torch.Generator`` seeded with 0
+    (on the CPU, then moved): the same covariance gives the same
+    result, though not the JAX package's bits (its probe is a
+    ``jax.random`` draw).  The products are ``torch.matmul`` at f32 and
+    the QR ``torch.linalg.qr``: the JAX package computes them outside
+    any kernel too."""
+    d = cov.shape[0]
+    p = min(d, k + oversample)
+    gen = torch.Generator().manual_seed(0)
+    probe = torch.randn((d, p), generator=gen, dtype=cov.dtype).to(cov.device)
+    q, _ = torch.linalg.qr(probe)
+    for _ in range(iters):
+        q, _ = torch.linalg.qr(torch.matmul(cov, q))  # re-orthonormalise every step
+    b = torch.matmul(q.T, torch.matmul(cov, q))
+    w, v = torch.linalg.eigh(0.5 * (b + b.T))  # ascending
+    w = torch.flip(w, dims=(0,))[:k]
+    v = torch.flip(v, dims=(1,))[:, :k]
+    return w, torch.matmul(q, v)
 
 
 def project(x: torch.Tensor, components: torch.Tensor,

@@ -26,6 +26,12 @@ records its stage / transfer / compute split in the fit's timings.
 
 Padded tail rows carry weight 0 through K1 and K2, cost included.
 
+Each Lloyd pass and each PCA moment pass is the ``fit.execute`` fault
+site before its kernels launch (utils/faults.py).  After every Lloyd
+pass the centroids, after the PCA passes the column sums and the Gram
+are checked finite (utils/resilience.check_finite, the JAX package's
+checks and messages): a NaN or Inf raises ``NonFiniteError``.
+
 Across processes (the multi-process half of the JAX package's module)
 each process streams its OWN shard, and every pass ends in a reduction
 that every process reaches (:func:`_psum_host`, :func:`_allgather_host`),
@@ -63,7 +69,9 @@ from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.telemetry import fleet
+from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.utils import precision as psn
+from oap_mllib_tpu_torch.utils.resilience import check_finite
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device
 from oap_mllib_tpu_torch.utils.timing import tick
 
@@ -333,6 +341,15 @@ def begin_fit(source: ChunkSource) -> None:
         balance.deactivate()
 
 
+def abort_fit() -> None:
+    """After a failed streamed attempt: no plan live and the controller's
+    and the rollups' per-fit state empty, so a retry, or the next fit,
+    starts clean."""
+    balance.reset_fit()
+    fleet.reset_fit()
+    balance.deactivate()
+
+
 def end_fit(summary) -> None:
     """At a streamed fit's end: the ``fleet`` block when the rollups are
     armed and the ``balance`` block when a plan is live, into
@@ -380,6 +397,7 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
     elapsed = tick()
     guard = _PassGuard()
     with guard:
+        faults.maybe_fault("fit.execute")
         with _staged_chunks(source, weights, dev, stats, psn.staging_dtype(policy)) as pf:
             for _, (x, w) in pf:
                 s, c, t = kmeans_kernel.lloyd_accumulate(_f32(x), w, centers, precision,
@@ -430,6 +448,9 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
         max_moved = float(torch.max(kmeans_ops._moved_sq(new_centers, centers)))
         centers = new_centers.contiguous()
         n_iter += 1
+        # a NaN or Inf centroid poisons every later pass: stop at the
+        # pass that made it (Config.nonfinite_policy)
+        check_finite(centers, f"K-Means centroids (streamed pass {n_iter})")
         converged = max_moved <= tol_sq
     # the cost pass stages f32 and ranks at highest whatever the policy:
     # the reported objective must not carry a reduced tier's rounding
@@ -644,6 +665,7 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     elapsed = tick()
     guard = _PassGuard()
     with guard:
+        faults.maybe_fault("fit.execute")
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for (_, n_valid, _), (x, w) in pf:
                 _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False)
@@ -662,6 +684,9 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     elif guard.err is not None:
         raise guard.err
     _fleet_pass("covariance_streamed", stats, pass_wall, timings)
+    # an overflowed f32 sum or Gram turns into NaN eigenvectors later:
+    # stop at the pass that made it (Config.nonfinite_policy)
+    check_finite(total, "PCA column sums (streamed mean pass)")
     if n < 1:
         raise ValueError("empty source")
     mean = total / n
@@ -671,6 +696,7 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     elapsed = tick()
     guard = _PassGuard()
     with guard:
+        faults.maybe_fault("fit.execute")
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for _, (x, w) in pf:
                 g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False)
@@ -684,5 +710,6 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     stats.finalize(timings, "covariance_streamed", pass_wall)
     (gram,) = _reduce_pass([gram], guard, dev)
     _fleet_pass("covariance_streamed", stats, pass_wall, timings)
+    check_finite(gram, "PCA Gram accumulator (streamed Gram pass)")
     cov = gram / max(n - 1.0, 1.0)
     return 0.5 * (cov + cov.T), mean, n

@@ -17,7 +17,8 @@ world of two processes on one card is a supported layout.
 
 - :func:`initialize_distributed` joins once per process (idempotent),
   is a no-op returning False for one process, and retries a refused
-  coordinator connection with backoff under ``Config.bootstrap_timeout``
+  coordinator connection (each attempt the ``bootstrap.connect`` fault
+  site, utils/faults.py) with backoff under ``Config.bootstrap_timeout``
   before it raises ``RuntimeError`` naming the coordinator, the rank and
   the elapsed time.  A non-zero rank with no coordinator raises
   ``ValueError`` naming the environment values it saw.  There is no
@@ -43,6 +44,7 @@ import time
 from typing import List, Optional
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.utils import faults
 
 log = logging.getLogger("oap_mllib_tpu_torch")
 
@@ -164,6 +166,7 @@ def _connect(host: str, port: int, num_processes: int, process_id: int,
         remaining = timeout_s - (time.monotonic() - t0)
         attempt_s = max(0.1, min(_ATTEMPT_S, remaining))
         try:
+            faults.maybe_fault("bootstrap.connect")
             if not hosts:
                 _probe(host, port, attempt_s)
             return dist.TCPStore(

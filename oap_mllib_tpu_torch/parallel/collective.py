@@ -31,6 +31,11 @@ A census counts every collective by (op, axis), as the JAX package's
 a test can count psums against ring reductions: :func:`emitted`,
 :func:`reset_census`.  Each reduction of one group counts once; a
 :func:`process_allgather` or :func:`all_to_all` counts once a call.
+
+Every host exchange across processes (``_all_gather_host``, which every
+cross-process collective and the streamed passes' host reductions go
+through, and :func:`all_to_all`) is the ``collective.dispatch`` fault
+site (utils/faults.py).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.parallel import bootstrap
+from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
 
 _CENSUS: collections.Counter = collections.Counter()
@@ -82,6 +88,7 @@ def _all_gather_host(local: torch.Tensor) -> torch.Tensor:
     or of the call), so no size travels first."""
     import torch.distributed as dist
 
+    faults.maybe_fault("collective.dispatch")
     world = dist.get_world_size()
     flat = local.reshape(-1).view(torch.uint8)
     out = torch.empty((world, flat.numel()), dtype=torch.uint8)
@@ -146,6 +153,7 @@ def all_to_all(send: Sequence[np.ndarray], axis: Optional[str] = None) -> List[n
     shape, dtype = send[0].shape, send[0].dtype
     if any(a.shape != shape or a.dtype != dtype for a in send):
         raise ValueError("all_to_all: every array must have one shape and dtype")
+    faults.maybe_fault("collective.dispatch")
     flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a in send]))
     recv = torch.empty_like(flat)
     dist.all_to_all_single(recv, flat)

@@ -17,9 +17,10 @@ gathers.  This module issues no collective itself.
 
 Not ported here: the JAX package's ``oap_fleet_*`` metrics, its HTTP
 ``/metrics`` and ``/healthz`` endpoints and its flight-recorder events
-(ROADMAP A8).  The frame keeps all nine fields in the JAX order, but
-``retries`` and ``kernel_dispatch_s`` read 0 until A8 ports the
-resilience ladder and the metrics registry they count.
+(ROADMAP A8).  The frame keeps all nine fields in the JAX order;
+``retries`` is the process's transient retries over every fit so far
+(utils/resilience.retries_total), and ``kernel_dispatch_s`` reads 0
+until A8 ports the metrics registry it counts.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.utils import resilience
 
 # one float64 per field; walls and bytes are the pass's, rows the rows
 # this process staged in it, capability its weight (0 = not known yet)
@@ -80,7 +82,7 @@ def local_frame(stats, pass_wall_s: float) -> np.ndarray:
         float(stats.transfer_s),
         max(float(pass_wall_s) - float(stats.wait_s), 0.0),
         float(stats.bytes_staged),
-        0.0,  # retries: the resilience ladder is not ported (A8)
+        float(resilience.retries_total()),
         0.0,  # kernel_dispatch_s: the metrics registry is not ported (A8)
         float(stats.rows),
         balance.cached_capability(),

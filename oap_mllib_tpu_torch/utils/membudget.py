@@ -34,8 +34,12 @@ in-memory routes' tables are priced at the rows the port's
 mask ragged edges), where the JAX package prices its bucketed padding
 (``bucket_rows(n, 256)``), and ALS is left out of the calibration;
 every other constant is the JAX package's.
-The spill primitives (``spill_source``, ``spill_array``) belong to the
-resilience ladder and are not ported.
+
+The spill primitives of the resilience ladder's host-OOM rung:
+:func:`spill_source` stages a fit's source (and its lockstep weights)
+to disk spills and swaps the fit onto them, :func:`spill_array` does
+so for an in-memory route's array; ``record_plan(..., spilled=True)``
+marks the route.
 """
 
 from __future__ import annotations
@@ -526,16 +530,58 @@ def _note_calibration(algo: str, estimated: float, actual: float) -> float:
         return _cal[algo]
 
 
-def record_plan(summary, plan: Optional[RoutePlan]) -> None:
+def spill_source(holder: Dict[str, object], algo: str) -> bool:
+    """The host-OOM rung: ``holder["source"]`` (and ``holder["weights"]``,
+    a lockstep source, when present) staged to disk spills
+    (``ChunkSource.spill_to_disk``), the holder swapped onto the
+    spill-backed sources; the fit's next attempt reads them.  False
+    (with a warning) when the spill fails: the ladder falls through,
+    the holder untouched."""
+    try:
+        spilled = holder["source"].spill_to_disk()
+        w = holder.get("weights")
+        if w is not None:
+            holder["weights"] = w.spill_to_disk()
+        holder["source"] = spilled
+        log.warning("%s: spilled %s rows to %s", algo, spilled.n_rows, spilled.backing)
+        return True
+    except Exception as e:  # noqa: BLE001 -- the rung falls through
+        log.warning("%s: spill to disk failed: %s", algo, e)
+        return False
+
+
+def spill_array(holder: Dict[str, object], x, weights, chunk_rows: int, algo: str) -> bool:
+    """The in-memory route's host-OOM rung: the array (and its row
+    weights) as sources of ``chunk_rows``, spilled by
+    :func:`spill_source` into ``holder``, from which the next attempt
+    streams; a failed spill leaves ``holder`` as it was."""
+    import numpy as np
+
+    from oap_mllib_tpu_torch.data.stream import ChunkSource
+
+    staged = {"source": ChunkSource.from_array(x, chunk_rows=chunk_rows)}
+    if weights is not None:
+        staged["weights"] = ChunkSource.from_array(np.asarray(weights).reshape(-1, 1),
+                                                   chunk_rows=chunk_rows)
+    if not spill_source(staged, algo):
+        return False  # the holder stays empty: the in-memory route runs again
+    holder.update(staged)
+    return True
+
+
+def record_plan(summary, plan: Optional[RoutePlan], *, spilled: bool = False) -> None:
     """Attach the plan to the fit's summary (``summary["route"]`` for a
     dict, ``summary.route`` otherwise), with the bytes the pipeline
     staged since the plan was made, the bytes per row against the
-    planner's price, and the calibration that ratio moves."""
+    planner's price, and the calibration that ratio moves; ``spilled``
+    marks a fit the host-OOM rung moved to a disk spill."""
     if summary is None or plan is None:
         return
     from oap_mllib_tpu_torch.data.prefetch import staged_totals
 
     d = plan.as_dict()
+    if spilled:
+        d["spilled"] = True
     total_b, total_r = staged_totals()
     actual_b = total_b - plan.staged_marker[0]
     actual_r = total_r - plan.staged_marker[1]

@@ -14,9 +14,18 @@ bf16_3x split, not NVIDIA's TF32.
 JAX package's ``utils/precision.py``: f32 accumulation under every
 policy, bf16 operands under ``bf16``, hi/lo splits under ``tf32``.  Grams
 and solves stay f32 whatever the policy (their callers pin ``highest``).
+
+The resilience ladder's precision rung (utils/resilience.resilient_fit)
+reads :func:`reduced_active`, whether the failed attempt resolved a
+reduced policy, and retries once inside :func:`force_f32`, where
+:func:`resolve` answers ``f32`` for every algorithm.  Both are per
+thread; :func:`begin_attempt` starts an attempt's record.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -35,8 +44,35 @@ def _check(field: str, value: str, choices) -> str:
     return value
 
 
+_tls = threading.local()
+
+
+def begin_attempt() -> None:
+    """Start one fit attempt's record of resolved policies."""
+    _tls.resolved = []
+
+
+def reduced_active() -> bool:
+    """Whether the current attempt resolved a reduced policy (bf16 or
+    tf32): only then does the ladder take its precision rung."""
+    return any(p != "f32" for p in getattr(_tls, "resolved", []))
+
+
+@contextlib.contextmanager
+def force_f32():
+    """A scope in which :func:`resolve` answers ``f32`` for every
+    algorithm: the precision rung's retry."""
+    prev = getattr(_tls, "force_f32", False)
+    _tls.force_f32 = True
+    try:
+        yield
+    finally:
+        _tls.force_f32 = prev
+
+
 def resolve(algo: str = "kmeans", cfg=None) -> str:
-    """The resolved policy name of ``algo``'s next fit."""
+    """The resolved policy name of ``algo``'s next fit (``f32`` inside
+    :func:`force_f32`), recorded for :func:`reduced_active`."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algorithm {algo!r}; expected one of {ALGOS}")
     cfg = cfg or get_config()
@@ -45,7 +81,12 @@ def resolve(algo: str = "kmeans", cfg=None) -> str:
     field = f"{algo}_precision"
     if getattr(cfg, field):
         requested = _check(field, getattr(cfg, field), CHOICES)
-    return "f32" if requested == "auto" else requested
+    name = "f32" if requested == "auto" or getattr(_tls, "force_f32", False) else requested
+    resolved = getattr(_tls, "resolved", None)
+    if resolved is None:
+        resolved = _tls.resolved = []
+    resolved.append(name)
+    return name
 
 
 def kernel_tier(name: str, matmul_tier: str) -> str:

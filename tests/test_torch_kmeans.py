@@ -213,7 +213,8 @@ class TestIsolation:
                 "data/sparse.py", "data/io.py", "data/prefetch.py", "utils/membudget.py",
                 "ops/stream_ops.py", "ops/als_stream.py", "parallel/bootstrap.py",
                 "parallel/shuffle.py", "parallel/mesh.py", "parallel/balance.py",
-                "ops/als_block_stream.py", "telemetry/fleet.py", "utils/dispatch.py"} <= checked
+                "ops/als_block_stream.py", "telemetry/fleet.py", "utils/dispatch.py",
+                "utils/faults.py", "utils/resilience.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -232,7 +233,8 @@ class TestIsolation:
             "from oap_mllib_tpu_torch.parallel import bootstrap, collective, shuffle\n"
             "assert bootstrap.initialize_distributed() is False\n"
             "from oap_mllib_tpu_torch.data import bucketing, io, prefetch, sparse, stream\n"
-            "from oap_mllib_tpu_torch.utils import membudget\n"
+            "from oap_mllib_tpu_torch.utils import faults, membudget, resilience\n"
+            "resilience.run_with_retry(lambda: faults.maybe_fault('stream.read'))\n"
             "src = stream.ChunkSource.from_array(np.ones((300, 3), np.float32), 128)\n"
             "with prefetch.Prefetcher(src, depth=2) as pf:\n"
             "    assert sum(v for _, v in pf) == 300\n"

@@ -128,8 +128,7 @@ class TestRules:
         port_config.set_config(pca_solver="eigh")
         assert PCA(k=2, device="cpu").fit(x).summary["pca_solver"] == "eigh"
         port_config.set_config(pca_solver="randomized")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PCA(k=2, device="cpu").fit(x)
+        assert PCA(k=2, device="cpu").fit(x).summary["pca_solver"] == "randomized"
         port_config.set_config(pca_solver="lanczos")
         with pytest.raises(ValueError, match="pca_solver"):
             PCA(k=2, device="cpu").fit(x)
