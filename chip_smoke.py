@@ -5,7 +5,8 @@
     python3 chip_smoke.py --rehearse   # the same phases on the CPU, tiny
     python3 chip_smoke.py --mesh       # only the phases whose ranks span cards
                                        # (4's last card, 10-14, 19, 21, 22)
-    python3 chip_smoke.py --mp         # only the build and the worlds (21)
+    python3 chip_smoke.py --mp         # only the build, the worlds (21) and
+                                       # the supervised worlds (26)
     python3 chip_smoke.py --block-stream  # only the build and 22 (four cards
                                           # when the machine has four)
 
@@ -220,6 +221,41 @@ Phases, each a hard check (any failure exits non-zero):
    relative, |cosines| > 1 - 1e-4), K2 twice a fit; both fits' walls
    and both solvers' times on the covariance, with the card's name and
    power limit.
+25. ckpt (after als_block_fit; checkpoints under the port's build
+   directory, removed afterwards), each leg's counts zeroed just before
+   its fit: (a) the headline K-Means fit unarmed, armed
+   (``checkpoint_interval`` 5), armed to 10 iterations and resumed to
+   20: centers bit-equal to the armed full fit, equal iterations and
+   cost, K1 launched once per resumed iteration and once per segment's
+   cost pass and held against its plain version at the resumed centers;
+   the walls, ms per write and restore ms; (b) the implicit ML-25M ALS on
+   one device, unarmed, armed (interval 3), armed to 5 and continued to
+   10: factors bit-equal, K3 = K4 = 2 x 5 in the resumed part, each held
+   against its plain version at the resumed factors; (c) the streamed
+   PCA table fitted twice: the second restores the column sums and K2
+   runs only the Gram pass (once a chunk), components bit-equal, K2 on
+   the staged chunks against its plain version; (d) a child
+   ``chip_smoke.py --ckpt-worker`` on the card running the armed headline
+   fit (interval 2) SIGKILLed by the ``kill`` chaos kind at Lloyd pass 3
+   (exit -9), then relaunched with resume=auto: bit-equal to the
+   uninterrupted armed fit; (e) the block ALS on four ranks checkpointed
+   at iteration 2 and resumed with ``num_user_blocks=2``: "resharded",
+   within 1e-5 of the uninterrupted fit or, when larger, of the two
+   layouts' own distance (the JAX package's elementwise bound reported).
+26. supervise (with ``--mp`` and ``--mesh``): utils/supervisor.Supervisor
+   launches ``chip_smoke.py --sup-worker`` processes, two on the one card
+   (a card each under ``--mesh``), each streaming its half of the
+   headline table through K-Means and fitting the block ALS on its cut
+   of the ratings, with checkpoints and the crash sideband: the
+   uninterrupted world; a seeded chaos kill of process 1 in the ALS
+   (the survivor a ``peer_abort`` victim with its crash record, one
+   relaunch, results bit-equal to the uninterrupted world's); the same
+   with ``shrink_after=1`` (one process at the end, K-Means within 1e-5
+   of the two-process world, ALS within 1e-5 of the one-process fit or
+   of the two-process fit's own distance from it); each attempt's
+   classification, the detection-to-respawn walls and the steps lost.
+   The worlds of 21 time the gloo host path with the recovery watcher
+   armed (the default) and disarmed, in turns.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -259,6 +295,7 @@ from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kern
                                           ring_kernel)
 from oap_mllib_tpu_torch.parallel import balance, collective
 from oap_mllib_tpu_torch.telemetry import fleet
+from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
 from oap_mllib_tpu_torch.utils import faults, membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
@@ -2516,10 +2553,23 @@ def mp_ring(cfg, dev, rank, nproc):
         ms = mp_timed(lambda: ring_kernel.ring_allreduce_groups(mine, groups, owner), reps, dev)
         stats = dict(ring_kernel.IPC_STATS)
         n_gloo = max(1, reps // 2)
+
+        def gloo_host():
+            return torch.as_tensor(collective.process_allgather([part])[0].sum(axis=0)).to(dev)
+
+        # the recovery watcher's cost a host collective: disarmed
+        # (collective_timeout 0), armed (the default), armed, disarmed
+        unwatched = []
+        set_config(collective_timeout=0.0)
+        unwatched.append(mp_timed(gloo_host, n_gloo, dev))
+        set_config(collective_timeout=600.0)
         collective.reset_host_stats()
-        gloo_ms = mp_timed(lambda: torch.as_tensor(
-            collective.process_allgather([part])[0].sum(axis=0)).to(dev), n_gloo, dev)
+        gloo_ms = mp_timed(gloo_host, n_gloo, dev)
         host = dict(collective.HOST_STATS)
+        watched_again = mp_timed(gloo_host, n_gloo, dev)
+        set_config(collective_timeout=0.0)
+        unwatched.append(mp_timed(gloo_host, n_gloo, dev))
+        set_config(collective_timeout=600.0)
         # the same payload's bytes through gloo alone, host to host
         bare_ms = mp_timed(gloo_bare(part), n_gloo, dev)
         plain_ms = mp_timed(lambda: ring_kernel.ring_allreduce_groups_plain(mine, groups, owner),
@@ -2531,6 +2581,9 @@ def mp_ring(cfg, dev, rank, nproc):
              else f"all on {dev}", "bit_equal_to_plain": True, "launches_per_process": launches,
              "max_abs_err": float(torch.max(torch.abs(got - plain))), "ms": ms,
              "plain_ms": plain_ms, "gloo_host_ms": gloo_ms, "gloo_bare_ms": bare_ms,
+             "gloo_host_ms_watched": [gloo_ms, watched_again],
+             "gloo_host_ms_unwatched": unwatched,
+             "watcher_ms": (gloo_ms + watched_again - sum(unwatched)) / 2.0,
              # the host path's time inside gloo's all_gather and in all of
              # process_allgather (copies included), a call
              "gloo_host_gloo_ms": 1e3 * host["gloo_s"] / max(1, host["calls"]),
@@ -3717,6 +3770,588 @@ def mp_launches(mp):
     }
 
 
+# -- checkpoints, resume and the supervisor ------------------------------------------
+
+CKPT_FULL = {"kmeans": {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "stop": 10,
+                        "interval": 5, "kill_interval": 2, "kill_pass": 3},
+             "als": {"max_iter": 10, "stop": 5, "interval": 3},
+             "pca": {"n": 1 << 20, "d": 128, "k": 16, "chunk_rows": 1 << 16},
+             "reshard": {"max_iter": 4, "stop": 2, "blocks": (4, 2)}}
+CKPT_TINY = {"kmeans": {"n": 4133, "d": 29, "k": 11, "max_iter": 8, "stop": 4, "interval": 2,
+                        "kill_interval": 2, "kill_pass": 3},
+             "als": {"max_iter": 4, "stop": 2, "interval": 1},
+             "pca": {"n": 3001, "d": 37, "k": 5, "chunk_rows": 1024},
+             "reshard": {"max_iter": 4, "stop": 2, "blocks": (4, 2)}}
+# the supervised worlds: each process streams its half of the headline
+# K-Means table and fits the block ALS on its cut of the ML-25M ratings
+SUP_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "chunk_rows": 1 << 16, "km_iter": 6,
+            "als": ALS_FULL, "als_iter": 6, "interval": 2, "als_cut": 0.46}
+SUP_TINY = {"n": 4096, "d": 29, "k": 11, "chunk_rows": 256, "km_iter": 6, "als": ALS_TINY,
+            "als_iter": 6, "interval": 2, "als_cut": 0.46}
+
+
+def _scratch(name):
+    """A fresh directory for ``name`` under the port's build directory (the
+    checkout's, listed in .gitignore)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "oap_mllib_tpu_torch",
+                        "build", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _ck_stats(model):
+    s = model.summary
+    return s["checkpoint"] if isinstance(s, dict) else s.checkpoint
+
+
+def ckpt_fit(fit, dev, ckdir, interval, launches):
+    """One fit with checkpoints under ``ckdir`` (None: unarmed), every
+    count in ``launches`` zeroed just before: (model, wall s, launches,
+    restore s)."""
+    set_config(checkpoint_dir=ckdir or "", checkpoint_interval=interval)
+    for table in launches:
+        for name in table:
+            table[name] = 0
+    restore0 = ckpt_mod.stats()["restore_seconds"]
+    sync(dev)
+    t0 = time.perf_counter()
+    model = fit()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = {name: n for table in launches for name, n in table.items()}
+    return model, wall, counts, ckpt_mod.stats()["restore_seconds"] - restore0
+
+
+def write_ms(ck):
+    return 1e3 * ck["write_seconds"] / max(1, ck["writes"])
+
+
+def ckpt_kmeans(cfg, dev, root):
+    """(a) The headline K-Means fit unarmed, then armed (checkpoint every
+    ``interval`` iterations), then armed to ``stop`` iterations and
+    resumed to ``max_iter``: the resumed centers bit-equal to the armed
+    full fit's, equal iterations and cost; K1 launched once per resumed
+    iteration plus once per segment's cost pass, and held against its
+    plain version at the restored centers."""
+    n, d, k = cfg["n"], cfg["d"], cfg["k"]
+    x = blobs(n, d, k, dev, seed=0)[0]
+
+    def fit(max_iter):
+        return lambda: KMeans(k=k, max_iter=max_iter, tol=1e-4, init_mode="k-means||", seed=0,
+                              device=str(dev)).fit(x)
+
+    lt = [kmeans_kernel.LAUNCHES]
+    # unarmed and armed in turns (unarmed, armed, armed, unarmed)
+    unarmed, w_un, l_un, _ = ckpt_fit(fit(cfg["max_iter"]), dev, None, 1, lt)
+    armed, w_armed, l_armed, _ = ckpt_fit(fit(cfg["max_iter"]), dev, f"{root}/a_full",
+                                          cfg["interval"], lt)
+    armed2, w_armed2, _, _ = ckpt_fit(fit(cfg["max_iter"]), dev, f"{root}/a_full2",
+                                      cfg["interval"], lt)
+    unarmed2, w_un2, _, _ = ckpt_fit(fit(cfg["max_iter"]), dev, None, 1, lt)
+
+    def loops(*models):
+        return [m.summary.timings.as_dict()["lloyd_loop"] for m in models]
+
+    part, w_part, _, _ = ckpt_fit(fit(cfg["stop"]), dev, f"{root}/a_part", cfg["interval"], lt)
+    resumed, w_res, l_res, restore_s = ckpt_fit(fit(cfg["max_iter"]), dev, f"{root}/a_part",
+                                                cfg["interval"], lt)
+    ca, cr = _ck_stats(armed), _ck_stats(resumed)
+    on = dev.type == "cuda"
+    k1 = kmeans_kernel.KERNEL
+    check(cr["decision"] == "found" and cr["restored_step"] == part.summary.num_iter,
+          f"ckpt kmeans: resumed {cr}")
+    check(np.array_equal(resumed.cluster_centers_, armed.cluster_centers_)
+          and resumed.summary.num_iter == armed.summary.num_iter
+          and resumed.summary.training_cost == armed.summary.training_cost,
+          "ckpt kmeans: the resumed fit is not the armed full fit's")
+    it_un, it_a = unarmed.summary.num_iter, armed.summary.num_iter
+    same = np.array_equal(unarmed.cluster_centers_, armed.cluster_centers_)
+    # a fit converging on a segment boundary runs one more (sub-tol) pass
+    check((it_a == it_un and same) or it_a == it_un + 1,
+          f"ckpt kmeans: armed {it_a} iterations vs unarmed {it_un}, centers equal {same}")
+    for tag, model, got in (("armed", armed, l_armed), ("resumed", resumed, l_res)):
+        ck = _ck_stats(model)
+        ran = model.summary.num_iter - (ck["restored_step"] if ck["decision"] != "fresh" else 0)
+        want = ran + ck["writes"] if on else 0  # a cost pass a segment
+        check(got[k1] == want and model.summary.kernels == {k1: got[k1]},
+              f"ckpt kmeans {tag}: K1 launched {got[k1]} times, expected {want}")
+    c = torch.as_tensor(resumed.cluster_centers_, device=dev).contiguous()
+    variant = compare(x, torch.ones(n, device=dev), c, "highest", False)
+    out = {"shape": [n, d, k], "interval": cfg["interval"], "stop": cfg["stop"],
+           "num_iter": {"unarmed": it_un, "armed": it_a, "resumed": resumed.summary.num_iter},
+           "wall_s": {"unarmed": [w_un, w_un2], "armed": [w_armed, w_armed2], "part": w_part,
+                      "resumed": w_res},
+           "lloyd_loop_s": {"unarmed": loops(unarmed, unarmed2), "armed": loops(armed, armed2),
+                            "resumed": loops(resumed)[0]},
+           "armed_over_unarmed": (w_armed + w_armed2) / (w_un + w_un2),
+           "armed_over_unarmed_loop": sum(loops(armed, armed2)) / sum(loops(unarmed, unarmed2)),
+           "armed_equal_to_unarmed": same,
+           "launches": {"unarmed": l_un[k1], "armed": l_armed[k1], "resumed": l_res[k1]},
+           "writes": ca["writes"],
+           "bytes_per_write": ca["bytes_written"] / max(1, ca["writes"]),
+           "write_ms": write_ms(ca), "restore_ms": 1e3 * restore_s,
+           "init_s": {"armed": armed.summary.timings.as_dict()["init_centers"],
+                      "resumed": resumed.summary.timings.as_dict()["init_centers"]},
+           "k1_vs_plain": variant}
+    emit("ckpt_kmeans", out)
+    return out
+
+
+def ckpt_als(cfg, als_cfg, data, dev, root):
+    """(b) The implicit ML-25M fit on one device, unarmed, armed (every
+    ``interval`` iterations), armed to ``stop`` and continued to
+    ``max_iter``: factors bit-equal to the armed full fit's; K3 and K4
+    each 2 x (max_iter - stop) launches in the resumed part, each held
+    against its plain version at the resumed factors."""
+    users, items, ratings = data
+    n_users, n_items, r = als_cfg["n_users"], als_cfg["n_items"], als_cfg["rank"]
+
+    def fit(max_iter):
+        return lambda: ALS(rank=r, max_iter=max_iter, reg_param=als_cfg["reg"],
+                           implicit_prefs=True, alpha=als_cfg["alpha"], seed=0,
+                           device=str(dev)).fit(users, items, ratings, n_users, n_items)
+
+    lt = [als_kernel.LAUNCHES]
+    unarmed, w_un, _, _ = ckpt_fit(fit(cfg["max_iter"]), dev, None, 1, lt)
+    armed, w_armed, l_armed, _ = ckpt_fit(fit(cfg["max_iter"]), dev, f"{root}/b_full",
+                                          cfg["interval"], lt)
+    ckpt_fit(fit(cfg["stop"]), dev, f"{root}/b_part", cfg["interval"], lt)
+    resumed, w_res, l_res, restore_s = ckpt_fit(fit(cfg["max_iter"]), dev, f"{root}/b_part",
+                                                cfg["interval"], lt)
+    cr, ca = _ck_stats(resumed), _ck_stats(armed)
+    check(cr["decision"] == "found" and cr["restored_step"] == cfg["stop"],
+          f"ckpt als: resumed {cr}")
+    check(np.array_equal(resumed.user_factors_, armed.user_factors_)
+          and np.array_equal(resumed.item_factors_, armed.item_factors_),
+          "ckpt als: the resumed factors are not the armed full fit's")
+    check(np.array_equal(unarmed.user_factors_, armed.user_factors_),
+          "ckpt als: the armed fit differs from the unarmed one")
+    want = 2 * (cfg["max_iter"] - cfg["stop"]) if dev.type == "cuda" else 0
+    check(l_res == {als_kernel.SOLVE: want, als_kernel.GRAM: want},
+          f"ckpt als: resumed launches {l_res}, expected {want} of each")
+    y = torch.as_tensor(resumed.item_factors_, device=dev)
+    side = als_ops.prepare_grouped(*als_ops.build_grouped_edges(users, items, ratings, n_users),
+                                   n_users, r, dev)
+    a, b, n_reg = side.partials(y, als_cfg["alpha"], True, "f32")
+    k3 = solve_check("ckpt K3", a, b, n_reg, als_cfg["reg"], als_kernel.factor_gram(y))
+    k4 = gram_check("ckpt K4", y)
+    del a, b, n_reg, side
+    out = {"rank": r, "interval": cfg["interval"], "stop": cfg["stop"],
+           "wall_s": {"unarmed": w_un, "armed": w_armed, "resumed": w_res},
+           "armed_over_unarmed": w_armed / w_un,
+           "als_iterations_s": {tag: m.summary["timings"].as_dict()["als_iterations"]
+                                for tag, m in (("unarmed", unarmed), ("armed", armed),
+                                               ("resumed", resumed))},
+           "launches": {"armed": l_armed, "resumed": l_res}, "writes": ca["writes"],
+           "bytes_per_write": ca["bytes_written"] / max(1, ca["writes"]),
+           "write_ms": write_ms(ca), "restore_ms": 1e3 * restore_s,
+           "k3_vs_plain": k3, "k4_vs_plain": k4}
+    emit("ckpt_als", out)
+    return out
+
+
+def ckpt_pca(cfg, dev, root):
+    """(c) The streamed PCA table fitted armed, then again: the second fit
+    restores the column sums and runs only the Gram pass (K2 once a
+    chunk), its components bit-equal; K2 held against its plain version
+    on the staged chunks."""
+    n, d, k, rows = cfg["n"], cfg["d"], cfg["k"], cfg["chunk_rows"]
+    src = ChunkSource.from_array(pca_data(n, d, dev, seed=d).cpu().numpy(), chunk_rows=rows)
+    chunks = -(-n // src.chunk_rows)
+    lt = [pca_kernel.LAUNCHES]
+
+    def fit():
+        return PCA(k=k, device=str(dev)).fit(src)
+
+    first, w_first, l_first, _ = ckpt_fit(fit, dev, f"{root}/c", 1, lt)
+    again, w_again, l_again, restore_s = ckpt_fit(fit, dev, f"{root}/c", 1, lt)
+    ck = _ck_stats(again)
+    on = dev.type == "cuda"
+    check(ck["decision"] == "found", f"ckpt pca: {ck}")
+    check(l_first[pca_kernel.KERNEL] == (2 * chunks if on else 0)
+          and l_again[pca_kernel.KERNEL] == (chunks if on else 0),
+          f"ckpt pca: K2 {l_first} then {l_again}, expected {2 * chunks} then {chunks}")
+    check(np.array_equal(first.components_, again.components_)
+          and np.array_equal(first.explained_variance_, again.explained_variance_),
+          "ckpt pca: the resumed components differ")
+    out = {"shape": [n, d], "chunks": chunks,
+           "launches": {"first": l_first[pca_kernel.KERNEL],
+                        "resumed": l_again[pca_kernel.KERNEL]},
+           "wall_s": {"first": w_first, "resumed": w_again},
+           "write_ms": write_ms(_ck_stats(first)), "restore_ms": 1e3 * restore_s,
+           "k2_vs_plain": pca_chunk_checks(src, dev, "f32")}
+    emit("ckpt_pca", out)
+    return out
+
+
+def kill_seed(kill_pass, interval, rate=0.3):
+    """A chaos seed whose schedule (``seed:rate:kill:1``, one process)
+    leaves the in-memory armed fit's first calls alone (the restore, the
+    first segments' passes and cost passes, their writes) and kills it
+    at Lloyd pass ``kill_pass``."""
+    seg, pos = divmod(kill_pass - 1, interval)
+    target = seg * (interval + 1) + pos  # fit.execute call of that pass
+    for seed in range(1, 100000):
+        st = faults.ChaosState(seed, rate, ["kill"], 1)
+        if (not st.decide("ckpt.restore", 0, 0)
+                and not any(st.decide("ckpt.write", c, 0) for c in range(seg))
+                and not any(st.decide("fit.execute", c, 0) for c in range(target))
+                and st.decide("fit.execute", target, 0)):
+            return seed
+    raise Failed("no chaos seed kills at the pass asked for")
+
+
+def ckpt_worker(argv) -> int:
+    """A child of ``ckpt_kill``: the headline K-Means fit, armed, under
+    the given chaos spec; its centers saved beside the checkpoints."""
+    mode, ckdir, chaos, rehearse = argv[0], argv[1], argv[2], "--rehearse" in argv
+    cfg = (CKPT_TINY if rehearse else CKPT_FULL)["kmeans"]
+    dev = resolve_device("cpu" if rehearse else "cuda")
+    set_config(checkpoint_dir=ckdir, checkpoint_interval=cfg["kill_interval"], chaos=chaos)
+    x = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)[0]
+    kmeans_kernel.reset_launches()
+    m = KMeans(k=cfg["k"], max_iter=cfg["max_iter"], tol=1e-4, init_mode="k-means||", seed=0,
+               device=str(dev)).fit(x)
+    np.save(os.path.join(ckdir, f"centers_{mode}.npy"), m.cluster_centers_)
+    print("CKPT_RESULT " + json.dumps({
+        "checkpoint": m.summary.checkpoint, "num_iter": m.summary.num_iter,
+        "cost": m.summary.training_cost, "launches": dict(kmeans_kernel.LAUNCHES)}), flush=True)
+    return 0
+
+
+def ckpt_kill(cfg, dev, root, rehearse):
+    """(d) A child process running the armed headline fit (checkpoint
+    every ``kill_interval`` iterations) SIGKILLed by the ``kill`` chaos
+    kind at Lloyd pass ``kill_pass`` (exit -9), then relaunched with
+    ``resume=auto``: its centers bit-equal to the uninterrupted armed
+    fit's, made here."""
+    x = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)[0]
+    ref, _, _, _ = ckpt_fit(lambda: KMeans(k=cfg["k"], max_iter=cfg["max_iter"], tol=1e-4,
+                                           init_mode="k-means||", seed=0,
+                                           device=str(dev)).fit(x),
+                            dev, f"{root}/d_ref", cfg["kill_interval"],
+                            [kmeans_kernel.LAUNCHES])
+    del x
+    set_config(checkpoint_dir="")
+    seed = kill_seed(cfg["kill_pass"], cfg["kill_interval"])
+    ckdir = f"{root}/d_kill"
+    os.makedirs(ckdir)
+    flags = ["--rehearse"] if rehearse else []
+
+    def child(mode, chaos):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--ckpt-worker", mode,
+                            ckdir, chaos, *flags], capture_output=True, text=True, timeout=600)
+        return p, time.perf_counter() - t0
+
+    victim, w_victim = child("victim", f"{seed}:0.3:kill:1")
+    check(victim.returncode == -9, f"ckpt kill: the victim exited {victim.returncode}: "
+                                   f"{victim.stdout[-2000:]}{victim.stderr[-2000:]}")
+    resumed, w_resumed = child("resume", "")
+    check(resumed.returncode == 0, f"ckpt kill: the relaunch exited {resumed.returncode}: "
+                                   f"{resumed.stdout[-2000:]}{resumed.stderr[-2000:]}")
+    res = json.loads([ln for ln in resumed.stdout.splitlines()
+                      if ln.startswith("CKPT_RESULT ")][-1][len("CKPT_RESULT "):])
+    got = np.load(os.path.join(ckdir, "centers_resume.npy"))
+    durable = (cfg["kill_pass"] - 1) // cfg["kill_interval"] * cfg["kill_interval"]
+    ck = res["checkpoint"]
+    check(ck["decision"] == "found" and ck["restored_step"] == durable,
+          f"ckpt kill: the relaunch restored {ck}, expected step {durable}")
+    check(np.array_equal(got, ref.cluster_centers_) and res["num_iter"] == ref.summary.num_iter
+          and res["cost"] == ref.summary.training_cost,
+          "ckpt kill: the relaunched fit is not the uninterrupted armed fit's")
+    out = {"chaos": f"{seed}:0.3:kill:1", "kill_pass": cfg["kill_pass"],
+           "victim_exit": victim.returncode, "restored_step": ck["restored_step"],
+           "steps_lost": cfg["kill_pass"] - 1 - durable, "launches_resumed": res["launches"],
+           "wall_s": {"victim": w_victim, "resumed": w_resumed}}
+    emit("ckpt_kill", out)
+    return out
+
+
+def ckpt_reshard(cfg, als_cfg, data, dev, root):
+    """(e) The block ALS on four ranks checkpointed at iteration ``stop``,
+    then resumed with ``num_user_blocks=2``: the decision "resharded";
+    K3 and K4 each 2 x 2 x (max_iter - stop) launches in the resumed
+    part; the factors against the uninterrupted four-block fit (the
+    largest |difference| over the largest |value|, and the JAX package's
+    elementwise 1e-5 bound, reported).  Two block layouts add the item
+    partials in another order, so the gate is 1e-5 or, when larger, the
+    distance between the two layouts' uninterrupted fits (the witness:
+    the resumed fit ran part of its iterations in each layout)."""
+    users, items, ratings = data
+    n_users, n_items, r = als_cfg["n_users"], als_cfg["n_items"], als_cfg["rank"]
+    layout = ",".join(str(v) for v in mesh_devices(dev, 4))
+    before, after = cfg["blocks"]
+
+    def fit(max_iter, blocks):
+        return lambda: ALS(rank=r, max_iter=max_iter, reg_param=als_cfg["reg"],
+                           implicit_prefs=True, alpha=als_cfg["alpha"], seed=0, device=layout,
+                           num_user_blocks=blocks).fit(users, items, ratings, n_users, n_items)
+
+    lt = [als_kernel.LAUNCHES]
+    base, w_base, _, _ = ckpt_fit(fit(cfg["max_iter"], before), dev, None, 1, lt)
+    other, _, _, _ = ckpt_fit(fit(cfg["max_iter"], after), dev, None, 1, lt)
+    witness = max(factor_rel_err(other.user_factors_, base.user_factors_),
+                  factor_rel_err(other.item_factors_, base.item_factors_))
+    del other
+    ckpt_fit(fit(cfg["stop"], before), dev, f"{root}/e", 1, lt)
+    got, w_got, l_got, restore_s = ckpt_fit(fit(cfg["max_iter"], after), dev, f"{root}/e", 1,
+                                            lt)
+    ck = _ck_stats(got)
+    check(ck["decision"] == "resharded" and ck["restored_step"] == cfg["stop"],
+          f"ckpt reshard: {ck}")
+    errs = {}
+    for name in ("user_factors_", "item_factors_"):
+        a, b = getattr(got, name), getattr(base, name)
+        errs[name] = {"max_abs": float(np.max(np.abs(a - b))), "rel": factor_rel_err(a, b),
+                      "allclose": bool(np.allclose(a, b, atol=1e-5, rtol=1e-5))}
+    gate = max(1e-5, witness)
+    check(all(e["rel"] <= gate for e in errs.values()),
+          f"ckpt reshard: the resumed factors {errs} lie farther from the uninterrupted fit "
+          f"than {gate:.3g} (the layouts' own distance {witness:.3g})")
+    want = 2 * after * (cfg["max_iter"] - cfg["stop"]) if dev.type == "cuda" else 0
+    check(l_got == {als_kernel.SOLVE: want, als_kernel.GRAM: want},
+          f"ckpt reshard: launches {l_got}, expected {want} of each")
+    out = {"blocks": [before, after], "stop": cfg["stop"], "max_iter": cfg["max_iter"],
+           "errors": errs, "layouts_witness_rel": witness, "gate": gate,
+           "jax_bound_holds": all(e["allclose"] for e in errs.values()),
+           "launches_resumed": l_got, "restore_ms": 1e3 * restore_s,
+           "wall_s": {"uninterrupted": w_base, "resumed": w_got}}
+    emit("ckpt_reshard", out)
+    return out
+
+
+def phase_ckpt(cfg, als_cfg, data, dev, rehearse):
+    """The checkpointed paths on one card: legs (a)-(e); every
+    checkpoint under the port's build directory, removed afterwards."""
+    root = _scratch("ckpt_smoke")
+    ckpt_mod.reset_stats()
+    try:
+        out = {"a_kmeans": ckpt_kmeans(cfg["kmeans"], dev, root),
+               "b_als": ckpt_als(cfg["als"], als_cfg, data, dev, root),
+               "c_pca": ckpt_pca(cfg["pca"], dev, root),
+               "d_kill": ckpt_kill(cfg["kmeans"], dev, root, rehearse),
+               "e_reshard": ckpt_reshard(cfg["reshard"], als_cfg, data, dev, root)}
+    finally:
+        set_config(checkpoint_dir="", checkpoint_interval=1, chaos="")
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def sup_chaos_seed(counts, lo, hi, rate):
+    """A chaos seed (``seed:rate:kill:1``) whose schedule fires exactly
+    once over process 1's calls in the uninterrupted world (``counts``,
+    site -> calls), at ``fit.execute`` call ``lo <= c < hi``, and whose
+    next seed (the relaunch's) fires nowhere."""
+    # every site's window is widened past the counted calls: a retried
+    # join or read in a loaded run calls a site more often than the
+    # uninterrupted run did, and no such call may fire
+    windows = {site: 2 * counts.get(site, 0) + 8 for site in faults.SITES}
+
+    def fires(seed):
+        st = faults.ChaosState(seed, rate, ["kill"], 1)
+        return [(site, c) for site, n in windows.items() for c in range(n)
+                if st.decide(site, c, 1)]
+
+    for seed in range(1, 400000):
+        st = faults.ChaosState(seed, rate, ["kill"], 1)
+        hit = [("fit.execute", c) for c in range(lo, hi) if st.decide("fit.execute", c, 1)]
+        if len(hit) == 1 and fires(seed) == hit and not fires(seed + 1):
+            return seed
+    raise Failed("no chaos seed kills process 1 where asked")
+
+
+def sup_worker(argv) -> int:
+    """One process of a supervised world (``--sup-worker rank world
+    coord attempt out tag [flags]``): the streamed K-Means over its half
+    of the headline table and the block ALS on its cut of the ratings,
+    both checkpointed (the supervisor's env), chaos armed in process 1
+    only; a victim's recovery error exits 3."""
+    from oap_mllib_tpu_torch.parallel import bootstrap
+    from oap_mllib_tpu_torch.utils import recovery
+
+    rank, world, coord, attempt, out, tag = (int(argv[0]), int(argv[1]), argv[2], int(argv[3]),
+                                             argv[4], argv[5])
+    flags = set(argv[6:])
+    rehearse, mesh = "--rehearse" in flags, "--mesh" in flags
+    cfg = SUP_TINY if rehearse else SUP_FULL
+    set_config(device=mp_local_devices("a", rank, mesh, rehearse),
+               chaos=os.environ.get("OAP_MLLIB_TPU_CHAOS", "") if rank == 1 else "")
+    if world > 1:
+        bootstrap.initialize_distributed(coord, world, rank)
+    dev = resolve_devices()[0]
+    n, d, k = cfg["n"], cfg["d"], cfg["k"]
+    lo, hi = rank * n // world, (rank + 1) * n // world
+    acfg = cfg["als"]
+    users, items, ratings = als_data(acfg)
+    part = als_part(len(users), cfg["als_cut"], rank, world) if world > 1 else slice(None)
+    res = {"rank": rank, "world": world, "attempt": attempt}
+    for table in (kmeans_kernel.LAUNCHES, als_kernel.LAUNCHES, ring_kernel.LAUNCHES):
+        for name in table:
+            table[name] = 0
+    try:
+        x, _ = blob_rows(n, lo, hi, d, k, 0, dev)
+        src = ChunkSource.from_array(x.cpu().numpy(), chunk_rows=cfg["chunk_rows"])
+        del x
+        km = KMeans(k=k, max_iter=cfg["km_iter"], tol=0.0, init_mode="random", seed=0,
+                    device=str(dev)).fit(src)
+        al = ALS(rank=acfg["rank"], max_iter=cfg["als_iter"], reg_param=acfg["reg"],
+                 implicit_prefs=True, alpha=acfg["alpha"], seed=0,
+                 num_user_blocks=world if world > 1 else None).fit(
+            users[part], items[part], ratings[part], acfg["n_users"], acfg["n_items"])
+    except recovery.RecoveryError as e:
+        print(f"VICTIM {type(e).__name__} op={e.op} axis={e.axis} "
+              f"elapsed_s={e.elapsed_s:.3f}", flush=True)
+        recovery.exit_now(3)
+    if rank == 0:
+        np.save(os.path.join(out, f"{tag}_centers.npy"), km.cluster_centers_)
+        np.save(os.path.join(out, f"{tag}_u.npy"), al.user_factors_)
+        np.save(os.path.join(out, f"{tag}_i.npy"), al.item_factors_)
+    res.update({
+        "kmeans": {"checkpoint": km.summary.checkpoint, "num_iter": km.summary.num_iter,
+                   "ladder": km.summary.resilience["ladder"]},
+        "als": {"checkpoint": al.summary["checkpoint"],
+                "ladder": al.summary["resilience"]["ladder"],
+                "route": "block" if al.summary.get("block_parallel") else "one device"},
+        "launches": {**kmeans_kernel.LAUNCHES, **als_kernel.LAUNCHES, **ring_kernel.LAUNCHES},
+        "chaos_calls": faults.stats().get("chaos", {}).get("calls", {})})
+    print("SUP_RESULT " + json.dumps(res), flush=True)
+    bootstrap.shutdown()
+    return 0
+
+
+def _sup_results(summary):
+    got = []
+    for text in summary["outputs"]:
+        lines = [ln for ln in text.splitlines() if ln.startswith("SUP_RESULT ")]
+        check(bool(lines), f"supervise: a worker printed no result: {text[-3000:]}")
+        got.append(json.loads(lines[-1][len("SUP_RESULT "):]))
+    return got
+
+
+def phase_supervise(dev, mesh, rehearse):
+    """The supervisor (utils/supervisor.py) over two processes (on the
+    one card, or a card each under --mesh), each fitting the streamed
+    K-Means and the block ALS with checkpoints and the crash sideband:
+
+    - the uninterrupted world (chaos at rate 0 counts every site's calls);
+    - a seeded chaos ``kill`` of process 1 in the ALS after its first
+      write: the survivor exits a victim with its crash record, one
+      relaunch, and its result bit-equal to the uninterrupted world's;
+    - the same kill on every attempt with ``shrink_after=1``: the world
+      shrinks to one process, its K-Means within 1e-5 of the
+      uninterrupted world's and its ALS against the one-process fit
+      (here): within 1e-5 or, when larger, the uninterrupted two-process
+      fit's own distance from it (the two layouts add in other orders).
+
+    Each attempt's classification, the detection-to-respawn wall and the
+    steps lost are printed."""
+    from oap_mllib_tpu_torch.utils import recovery
+    from oap_mllib_tpu_torch.utils.supervisor import Supervisor
+
+    cfg = SUP_TINY if rehearse else SUP_FULL
+    root = _scratch("sup_smoke")
+    flags = (["--rehearse"] if rehearse else []) + (["--mesh"] if mesh else [])
+    me = os.path.abspath(__file__)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def supervised(tag, chaos, **kw):
+        env = {**os.environ, "OAP_MLLIB_TPU_CHECKPOINT_DIR": os.path.join(root, tag, "ckpt"),
+               "OAP_MLLIB_TPU_CHECKPOINT_INTERVAL": str(cfg["interval"])}
+        sup = Supervisor(lambda rank, world, coord, attempt: [
+            sys.executable, me, "--sup-worker", str(rank), str(world), coord, str(attempt),
+            root, tag, *flags], 2, os.path.join(root, tag, "sideband"), env=env, chaos=chaos,
+            restart_backoff=0.5, attempt_timeout=MP_TIMEOUT_S, grace_s=60.0, **kw)
+        t0 = time.perf_counter()
+        s = sup.run()
+        wall = time.perf_counter() - t0
+        for att in s["attempts"]:
+            print(f"supervise {tag} attempt {att['index']} world {att['world']}: "
+                  f"{[e['classification'] for e in att['exits']]} culprit {att['culprit']}",
+                  flush=True)
+        check(s["ok"], f"supervise {tag}: the world did not complete: {s['attempts']} "
+                       f"{[o[-3000:] for o in s['outputs']]}")
+        return s, wall
+
+    ref, w_ref = supervised("ref", "0:0.0:kill:1")
+    full = _sup_results(ref)
+    calls = full[1]["chaos_calls"]
+    km_calls = full[1]["kmeans"]["num_iter"] + 1  # Lloyd passes and the cost pass
+    als_iter = cfg["als_iter"]
+    # an ALS iteration after the first write (at iteration `interval`)
+    lo = km_calls + cfg["interval"] + 1
+    hi = km_calls + als_iter
+    # about one fire expected over the seed search's widened windows
+    rate = 1.0 / (2 * sum(calls.values()) + 8 * len(faults.SITES))
+    seed = sup_chaos_seed(calls, lo, hi, rate)
+    kill_iter = next(c for c in range(lo, hi)
+                     if faults.ChaosState(seed, rate, ["kill"], 1).decide("fit.execute", c, 1))
+    chaos = f"{seed}:{rate!r}:kill:1"
+    run, w_run = supervised("kill", chaos)
+    att0 = run["attempts"][0]
+    check(run["relaunches"] == 1 and run["shrinks"] == 0 and run["final_world"] == 2,
+          f"supervise kill: {run['relaunches']} relaunches, {run['shrinks']} shrinks")
+    check([e["classification"] for e in att0["exits"]] == ["peer_abort", "killed"]
+          and att0["exits"][1]["returncode"] == -9 and att0["culprit"] == 1,
+          f"supervise kill: attempt 0 {att0}")
+    got = _sup_results(run)
+    als_ck = got[0]["als"]["checkpoint"]
+    reached = kill_iter - km_calls  # ALS iterations finished when the kill fired
+    check(als_ck["decision"] == "found", f"supervise kill: the ALS restore {als_ck}")
+    same = {name: bool(np.array_equal(np.load(os.path.join(root, f"kill_{name}.npy")),
+                                      np.load(os.path.join(root, f"ref_{name}.npy"))))
+            for name in ("centers", "u", "i")}
+    check(all(same.values()), f"supervise kill: the relaunch is not bit-equal: {same}")
+    shrunk, w_shrunk = supervised("shrink", chaos, shrink_after=1)
+    check(shrunk["shrinks"] == 1 and shrunk["final_world"] == 1
+          and [a["world"] for a in shrunk["attempts"]] == [2, 1],
+          f"supervise shrink: {[a['world'] for a in shrunk['attempts']]}")
+    one = _sup_results(shrunk)[0]
+    check(one["als"]["checkpoint"]["decision"] == "resharded"
+          and one["kmeans"]["checkpoint"]["decision"] == "resharded",
+          f"supervise shrink: restores {one['kmeans']['checkpoint']} "
+          f"{one['als']['checkpoint']}")
+    acfg = cfg["als"]
+    users, items, ratings = als_data(acfg)
+    one_proc = ALS(rank=acfg["rank"], max_iter=cfg["als_iter"], reg_param=acfg["reg"],
+                   implicit_prefs=True, alpha=acfg["alpha"], seed=0, device=str(dev)).fit(
+        users, items, ratings, acfg["n_users"], acfg["n_items"])
+    def load(name):
+        return np.load(os.path.join(root, f"{name}.npy"))
+
+    errs = {"centers_vs_two_process": factor_rel_err(load("shrink_centers"),
+                                                     load("ref_centers")),
+            "user_vs_one_process": factor_rel_err(load("shrink_u"), one_proc.user_factors_),
+            "item_vs_one_process": factor_rel_err(load("shrink_i"), one_proc.item_factors_)}
+    witness = max(factor_rel_err(load("ref_u"), one_proc.user_factors_),
+                  factor_rel_err(load("ref_i"), one_proc.item_factors_))
+    als_gate = max(1e-5, witness)
+    check(errs["centers_vs_two_process"] <= 1e-5 and errs["user_vs_one_process"] <= als_gate
+          and errs["item_vs_one_process"] <= als_gate,
+          f"supervise shrink: {errs}, the ALS gate {als_gate:.3g} (the two-process fit's own "
+          f"distance {witness:.3g})")
+    out = {"processes": 2, "layout": "a card a process" if mesh else "one card",
+           "chaos": chaos, "kill_fit_execute_call": kill_iter,
+           "als_iterations_reached": reached, "als_restored_step": als_ck["restored_step"],
+           "steps_lost": reached - als_ck["restored_step"],
+           "survivor_record": att0["exits"][0].get("record"),
+           "classifications": {tag: [[e["classification"] for e in a["exits"]]
+                                     for a in s["attempts"]]
+                               for tag, s in (("ref", ref), ("kill", run), ("shrink", shrunk))},
+           "detect_to_respawn_s": {"kill": run["recovery_s"], "shrink": shrunk["recovery_s"]},
+           "restart_backoff_s": 0.5, "bit_equal": same, "shrink_errors": errs,
+           "shrink_als_witness": witness, "shrink_als_gate": als_gate,
+           "wall_s": {"ref": w_ref, "kill": w_run, "shrink": w_shrunk},
+           "launches": {tag: [r["launches"] for r in _sup_results(s)]
+                        for tag, s in (("ref", ref), ("kill", run), ("shrink", shrunk))},
+           "recovery_stats": recovery.stats()}
+    emit("supervise", out)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -3747,6 +4382,10 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--mp-worker"]:
         return mp_worker(argv[1:])
+    if argv[:1] == ["--ckpt-worker"]:
+        return ckpt_worker(argv[1:])
+    if argv[:1] == ["--sup-worker"]:
+        return sup_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
@@ -3776,6 +4415,7 @@ def main(argv=None) -> int:
         if args.mp:
             mp = phase_mp(dev, args.mesh, args.rehearse)
             emit("mp_launches", mp_launches(mp))
+            phase_supervise(dev, args.mesh, args.rehearse)
             print(f"mp phases passed: {smi}", flush=True)
             return 0
         if args.mesh:
@@ -3793,6 +4433,7 @@ def main(argv=None) -> int:
             del als_data_
             mp = phase_mp(dev, True, args.rehearse)
             emit("mp_launches", mp_launches(mp))
+            phase_supervise(dev, True, args.rehearse)
             print(f"mesh phases passed on {torch.cuda.device_count() if dev.type == 'cuda' else 0}"
                   f" cards: {smi}", flush=True)
             return 0
@@ -3819,6 +4460,8 @@ def main(argv=None) -> int:
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
         als_fit, als_model = phase_als_fit(als_cfg, data, dev)
         als_block = phase_als_block_fit(als_cfg, data, dev, als_model)
+        ckpt = phase_ckpt(CKPT_TINY if args.rehearse else CKPT_FULL, als_cfg, data, dev,
+                          args.rehearse)
         rate = pinned_h2d_rate(dev)
         stream_als = phase_stream_als(als_cfg, data, dev, als_model, rate)
         block_2d = phase_als_block_2d(als_cfg, data, dev)
@@ -3915,7 +4558,11 @@ def main(argv=None) -> int:
                                    sparse["launches"][kmeans_kernel.KERNEL],
                                **{f"ladder {leg}": ladder[leg]["launches"][kmeans_kernel.KERNEL]
                                   for leg in ("a_transient", "b_halving", "c_spill",
-                                              "d_precision", "f_exhausted")}},
+                                              "d_precision", "f_exhausted")},
+                               **{f"ckpt a {tag}": n for tag, n
+                                  in ckpt["a_kmeans"]["launches"].items()},
+                               "ckpt d relaunch": ckpt["d_kill"]["launches_resumed"][
+                                   kmeans_kernel.KERNEL]},
         pca_kernel.KERNEL: {"pca_fit": pca_fit["launches"][pca_kernel.KERNEL],
                             **{f"pca_mesh_fit {v['mesh']['data']}x{v['mesh']['model']}":
                                v["launches"][pca_kernel.KERNEL] for v in pca_mesh},
@@ -3923,21 +4570,31 @@ def main(argv=None) -> int:
                             "stream_pca bf16": stream_pca["bf16"]["launches"][pca_kernel.KERNEL],
                             "sparse_input (two fits)": sparse["launches"][pca_kernel.KERNEL],
                             **{f"pca_randomized {v}": pca_rand[v]["launches"][pca_kernel.KERNEL]
-                               for v in ("eigh", "randomized")}},
+                               for v in ("eigh", "randomized")},
+                            **{f"ckpt c {tag}": n
+                               for tag, n in ckpt["c_pca"]["launches"].items()}},
         als_kernel.SOLVE: {"als_fit": als_fit["launches"][als_kernel.SOLVE],
                            "als_block_fit": als_block["launches"][als_kernel.SOLVE],
                            "stream_als": stream_als["launches"][als_kernel.SOLVE],
                            "als_block_2d": block_2d["launches"][als_kernel.SOLVE],
                            **{f"block_stream r{v['rank']} {v['item_layout']}":
                               v["launches"][als_kernel.SOLVE] for v in block_stream},
-                           "ladder g_als": ladder["g_als"]["launches"][als_kernel.SOLVE]},
+                           "ladder g_als": ladder["g_als"]["launches"][als_kernel.SOLVE],
+                           "ckpt b resumed": ckpt["b_als"]["launches"]["resumed"][
+                               als_kernel.SOLVE],
+                           "ckpt e resharded": ckpt["e_reshard"]["launches_resumed"][
+                               als_kernel.SOLVE]},
         als_kernel.GRAM: {"als_fit": als_fit["launches"][als_kernel.GRAM],
                           "als_block_fit": als_block["launches"][als_kernel.GRAM],
                           "stream_als": stream_als["launches"][als_kernel.GRAM],
                           "als_block_2d": block_2d["launches"][als_kernel.GRAM],
                           **{f"block_stream r{v['rank']} {v['item_layout']}":
                              v["launches"][als_kernel.GRAM] for v in block_stream},
-                          "ladder g_als": ladder["g_als"]["launches"][als_kernel.GRAM]},
+                          "ladder g_als": ladder["g_als"]["launches"][als_kernel.GRAM],
+                          "ckpt b resumed": ckpt["b_als"]["launches"]["resumed"][
+                              als_kernel.GRAM],
+                          "ckpt e resharded": ckpt["e_reshard"]["launches_resumed"][
+                              als_kernel.GRAM]},
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
                              "dp_fit": dp["launches"][ring_kernel.KERNEL]},
     }

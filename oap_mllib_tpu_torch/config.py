@@ -60,11 +60,32 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``bootstrap_timeout``: seconds the join retries a refused coordinator
   connection before it raises.
 - ``collective_timeout``: seconds a cross-process collective may wait
-  for its peers before it raises (600 by default; 0 = the
-  torch.distributed default, 30 minutes for gloo).  It bounds the wait
-  of the peers of a process that fails outside a collective and lives
-  on; a process that exits closes its connections, and its peers'
-  collectives fail at once.
+  for its peers (600 by default; 0 disarms the watcher and leaves gloo
+  its own default, 30 minutes; negative raises).  Above 0, in a world
+  of several processes, every host collective runs under the recovery
+  plane's watcher (utils/recovery.guarded_dispatch), which raises
+  ``CollectiveTimeoutError`` at the deadline; gloo's own timeout is set
+  ``recovery.GLOO_MARGIN_S`` past it, so the watcher fires first.  A
+  process that exits closes its connections, and its peers' gloo calls
+  fail at once: the watcher maps that to ``PeerAbortError``.  The JAX
+  package defaults to 0 (disarmed).
+- ``crash_dir``: the recovery sideband ("" = off).  Set, a fatal fault
+  of a fit in a world of several processes writes this process's crash
+  record (``crash.rank<r>.json``), peers blocked in a watched
+  collective abort when one appears, and the ladder reads
+  "supervised".  The supervisor (utils/supervisor.py) sets it for every
+  process it launches.
+- ``restart_budget`` (3) / ``restart_backoff`` (1.0 s) /
+  ``shrink_after`` (2): the supervisor's relaunch budget, the base of
+  its exponential backoff, and the consecutive failures blamed on one
+  process before the world shrinks by one.
+- ``checkpoint_dir``: "" (default) is off; set, every fit writes its
+  iterate state every ``checkpoint_interval`` (1) steps
+  (utils/checkpoint.py, the JAX package's on-disk format) and restores
+  it under ``resume``: "auto" (default) resumes a matching checkpoint
+  and starts fresh otherwise (a corrupt one with a warning),
+  "require" raises ``CheckpointError`` unless one restores, "off"
+  writes but never reads.
 - ``capability_sharding``: "auto" (default) weighs each process's share
   by its capability in a world of several processes, "on" everywhere
   (one process plans the equal layout), "off" keeps equal shares
@@ -146,6 +167,13 @@ class Config:
     fault_spec: str = ""
     chaos: str = ""
     spill_dir: str = ""
+    crash_dir: str = ""
+    restart_budget: int = 3
+    restart_backoff: float = 1.0
+    shrink_after: int = 2
+    checkpoint_dir: str = ""
+    checkpoint_interval: int = 1
+    resume: str = "auto"
 
     @classmethod
     def from_env(cls) -> "Config":

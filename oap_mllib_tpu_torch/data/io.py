@@ -1,7 +1,8 @@
 """File I/O of the port (the JAX package's ``data/io.py``).
 
-- Durable writes for model persistence: tmp file + ``os.replace``, so a
-  reader never sees a torn file.
+- Durable writes for model persistence and the checkpoint shards
+  (utils/checkpoint.py): tmp file + ``os.replace``, so a reader never
+  sees a torn file; :func:`load_npz` reads a shard whole.
 - The out-of-core readers behind the file-backed ``ChunkSource``
   constructors (data/stream.py): memory-mapped ``.npy`` row slices and
   parquet batches (pyarrow, imported when called).  Every piece read is
@@ -21,7 +22,7 @@ import json
 import os
 import shutil
 import tempfile
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,9 +56,29 @@ def atomic_write_json(path: str, payload: dict) -> int:
     return _atomic_write(path, "w", lambda f: f.write(data))
 
 
+def read_json(path: str) -> dict:
+    """Read a JSON file written by :func:`atomic_write_json`."""
+    with open(path) as f:
+        return json.load(f)
+
+
 def atomic_save_npy(path: str, array: np.ndarray) -> int:
     """Durably write one ``.npy`` array.  Returns bytes written."""
     return _atomic_write(path, "wb", lambda f: np.save(f, array))
+
+
+def atomic_save_npz(path: str, arrays: Dict[str, np.ndarray]) -> int:
+    """Durably write an uncompressed ``.npz`` of ``arrays``.  Returns
+    bytes written."""
+    return _atomic_write(path, "wb", lambda f: np.savez(f, **arrays))
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    """Every array of an ``.npz`` in host memory; the file is closed
+    before this returns (checkpoint GC unlinks old generations while
+    restored state is still in use)."""
+    with np.load(path) as z:
+        return {k: np.asarray(z[k]) for k in z.files}
 
 
 # -- out-of-core readers ----------------------------------------------------------

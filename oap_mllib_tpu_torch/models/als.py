@@ -1,6 +1,5 @@
 """ALS estimator with Spark-MLlib-compatible parameters: the port of the
-JAX package's ``models/als.py`` (its in-memory routes on one device and
-on a device mesh, in both feedback modes).
+JAX package's ``models/als.py``.
 
 ``ALS(...).fit(users, items, ratings)`` builds the grouped or the COO
 edge layout (the JAX package's choice, ``_grouped_ok_single``), runs the
@@ -63,6 +62,19 @@ user block (parallel/shuffle.py), and every process returns the same
 factors.  ``nonnegative=True`` raises there (its numpy route would fit
 one shard).
 
+With ``Config.checkpoint_dir`` set every route checkpoints its factors
+(utils/checkpoint.py, the JAX package's format and signature, the id
+axes ``n_users`` / ``n_items`` growable): the one-device loop runs in
+``checkpoint_interval``-sized segments with both tables written between
+them (``_run_segmented``), the streamed loop writes every interval, and
+the block routes write each process's blocks' valid rows
+(``_run_block_segmented``, ops/als_block_stream.py).  A restore onto
+another block layout or world redistributes the rows
+(parallel/shuffle.reshard_factor_rows, decision "resharded"), a block
+world's checkpoint restores onto one device and the other way round,
+and a grown id space's tail takes the deterministic init
+(``_fill_grown``).
+
 The one-device fit runs under the resilience ladder
 (utils/resilience.py): transient faults retry, a device OOM re-enters
 the streamed route with half the upload blocks (a COO layout runs
@@ -87,6 +99,7 @@ from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_st
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
+from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
 from oap_mllib_tpu_torch.utils import membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
@@ -385,7 +398,7 @@ class ALS:
 
     def _fit_source(self, source: ChunkSource, n_users, n_items, init) -> ALSModel:
         """The fit of a width-3 (user, item, rating) source (the JAX
-        package's ``_fit_source``, without its checkpoints): the triples
+        package's ``_fit_source``): the triples
         are read to host arrays (host memory O(nnz), as the reference's
         executors hold their partitions; across processes this process's
         rows), the read retrying transient faults
@@ -465,6 +478,77 @@ class ALS:
             },
         }
 
+    # the id axes may GROW across restores (utils/checkpoint.py): an
+    # older checkpoint warm-starts a fit over a larger id space, its rows
+    # restoring exactly and the grown tail taking the deterministic init
+    _GROWABLE = ("n_users", "n_items")
+
+    def _ckpt_signature(self, n_users: int, n_items: int) -> dict:
+        """The checkpoint identity, the JAX package's dict key for key:
+        the solver parameters and the id space.  The world, the block
+        layout, the kernels, the chunking and the precision policy may
+        change across a preemption and stay out."""
+        return {"rank": self.rank, "implicit": bool(self.implicit_prefs),
+                "reg": float(self.reg_param), "alpha": float(self.alpha),
+                "seed": int(self.seed), "n_users": int(n_users), "n_items": int(n_items)}
+
+    def _open_checkpoint(self, n_users: int, n_items: int, timings):
+        return ckpt_mod.maybe_open("als", self._ckpt_signature(n_users, n_items),
+                                   timings=timings, growable=self._GROWABLE)
+
+    def _fill_grown(self, grown: dict, x=None, y=None):
+        """The grown tail of restored tables: rows ``[old, new)`` of a
+        grown axis restore as zeros and take the position-addressable
+        init instead, the rows a fit of the grown id space starts from."""
+        if x is not None and "n_users" in grown:
+            lo, hi = grown["n_users"]
+            x = np.asarray(x, np.float32)
+            x[lo:hi] = als_np.init_factors_rows(lo, hi, self.rank, self.seed)
+        if y is not None and "n_items" in grown:
+            lo, hi = grown["n_items"]
+            y = np.asarray(y, np.float32)
+            y[lo:hi] = als_np.init_factors_rows(lo, hi, self.rank, self.seed + 1)
+        return x, y
+
+    def _run_segmented(self, ckpt, x0, y0, run_iters, n_users: int, n_items: int):
+        """The checkpoint-armed one-device loop: ``checkpoint_interval``-
+        sized segments of ``run_iters(x, y, iters)``, both tables written
+        between them.  An iteration is a function of the tables alone, so
+        segments are bit-equal to one loop; a block world's sharded
+        checkpoint restores here too (marked resharded)."""
+        resume = ckpt.restore()
+        done = 0
+        x, y = x0, y0
+        if resume.found:
+            x = ckpt_mod.factors_from_result(resume, "x", n_users)
+            y = ckpt_mod.factors_from_result(resume, "y", n_items)
+            if resume.grown:
+                x, y = self._fill_grown(resume.grown, x, y)
+            done = min(int(resume.step), self.max_iter)
+            if "x" not in resume.arrays:
+                ckpt.mark_resharded()  # sharded state onto one device
+        while done < self.max_iter:
+            seg = min(ckpt.interval, self.max_iter - done)
+            x, y = run_iters(x, y, seg)
+            done += seg
+            ckpt.maybe_write(done, {"x": x, "y": y}, force=True)
+        return torch.as_tensor(x), torch.as_tensor(y)
+
+    def _run_block_segmented(self, ckpt, run_iters, x0, y0, mesh: Mesh, layout: dict,
+                             n_items: int):
+        """The checkpoint-armed block loop: segments of ``run_iters(x, y,
+        iters)`` with each process's blocks' valid rows written between
+        them; a restore redistributes what the relaunched world read onto
+        the live blocks (ops/als_block.restore_block_factors)."""
+        done, x, y = als_block.restore_block_factors(ckpt, mesh, layout, n_items,
+                                                     self.max_iter, x0, y0, self._fill_grown)
+        while done < self.max_iter:
+            seg = min(ckpt.interval, self.max_iter - done)
+            x, y = run_iters(x, y, seg)
+            done += seg
+            als_block.write_block_factors(ckpt, done, x, y, mesh, layout, force=True)
+        return x, y
+
     def _fit_single_device(self, users, items, ratings, n_users, n_items, x0, y0,
                            dev: torch.device, kernel: str,
                            plan: membudget.RoutePlan, level: int = 0) -> ALSModel:
@@ -499,24 +583,33 @@ class ALS:
                 user_side, item_side = als_ops.prepare_sides(
                     grouped, users, items, ratings, n_users, n_items, self.rank, dev, timings)
                 x0, y0 = torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev)
+        ckpt = self._open_checkpoint(n_users, n_items, timings)
         if streamed:
             with phase_timer(timings, "als_iterations", dev):
                 x, y = als_stream.als_run_streamed(
                     by_user, by_item, x0, y0, n_users, n_items, self.max_iter,
                     self.reg_param, self.alpha, self.implicit_prefs, timings, pol, dev,
-                    degraded=bool(level))
+                    degraded=bool(level), checkpoint=ckpt, grown_fill=self._fill_grown)
         else:
+            def run_iters(xa, ya, iters):
+                return als_ops.run_sides(
+                    user_side, item_side, torch.as_tensor(xa).to(dev),
+                    torch.as_tensor(ya).to(dev), iters, self.reg_param,
+                    self.alpha if self.implicit_prefs else 0.0, self.implicit_prefs, pol)
+
             with phase_timer(timings, "als_iterations", dev):
-                x, y = als_ops.run_sides(
-                    user_side, item_side, x0, y0, self.max_iter, self.reg_param,
-                    self.alpha if self.implicit_prefs else 0.0, self.implicit_prefs, pol,
-                )
+                if ckpt is None:
+                    x, y = run_iters(x0, y0, self.max_iter)
+                else:
+                    x, y = self._run_segmented(ckpt, x0, y0, run_iters, n_users, n_items)
                 x, y = x.cpu().numpy(), y.cpu().numpy()
         extra = {"als_kernel": "grouped" if grouped else "coo", "item_layout": "replicated",
                  **self._block_summary(1)}
         if streamed:
             extra["streamed"] = True
         summary = self._summary(timings, pol, before, extra)
+        if ckpt is not None:
+            ckpt.record(summary)
         return ALSModel(x, y, summary, device=self._scoring_device(dev))
 
     def _scoring_device(self, dev) -> Optional[str]:
@@ -636,9 +729,22 @@ class ALS:
                    else als_block.als_block_run_2d)
         else:
             run = als_block.als_block_run_grouped if use_grouped else als_block.als_block_run
+
+        def run_iters(xa, ya, iters):
+            return run(sides, xa, ya, iters, self.reg_param, self.alpha, mesh,
+                       implicit=self.implicit_prefs, policy=pol)
+
+        ckpt = self._open_checkpoint(n_users, n_items, timings)
         with phase_timer(timings, "als_iterations", devs):
-            x_blocks, y = run(sides, x0_dev, y0_dev, self.max_iter, self.reg_param,
-                              self.alpha, mesh, implicit=self.implicit_prefs, policy=pol)
+            if ckpt is None:
+                x_blocks, y = run_iters(x0_dev, y0_dev, self.max_iter)
+            else:
+                layout = als_block.block_ckpt_layout(
+                    edges.offsets, edges.upb, item_sharded,
+                    by_item.offsets if item_sharded else None,
+                    by_item.upb if item_sharded else None)
+                x_blocks, y = self._run_block_segmented(ckpt, run_iters, x0_dev, y0_dev, mesh,
+                                                        layout, n_items)
             x = als_block.gather_user_factors(x_blocks, mesh, edges.offsets)
             y = (als_block.gather_user_factors(y, mesh, by_item.offsets) if item_sharded
                  else y[ranks[0]].cpu().numpy())
@@ -647,6 +753,8 @@ class ALS:
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,
             "process_id": mesh.process, "balance": bal, **self._block_summary(world)})
+        if ckpt is not None:
+            ckpt.record(summary)
         return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
 
     def _block_balance(self, n_users: int, world: int, item_sharded: bool):
@@ -699,10 +807,11 @@ class ALS:
                            else als_np.init_factors(n_items, self.rank, self.seed + 1))
                 staged = {dev: torch.from_numpy(y0_host).to(dev) for dev in devs}
                 y0_dev = {q: staged[mesh.device(q)] for q in ranks}
+        ckpt = self._open_checkpoint(n_users, n_items, timings)
         with phase_timer(timings, "als_iterations", devs):
             x_blocks, y = als_block_stream.als_block_run_streamed(
                 lay, x0_dev, y0_dev, self.max_iter, self.reg_param, self.alpha, mesh,
-                implicit=self.implicit_prefs, timings=timings, policy=pol)
+                implicit=self.implicit_prefs, timings=timings, policy=pol, checkpoint=ckpt)
             x = als_block.gather_user_factors(x_blocks, mesh, lay.offsets_u)
             y = (als_block.gather_user_factors(y, mesh, lay.by_item.offsets) if item_sharded
                  else y[ranks[0]].cpu().numpy())
@@ -711,6 +820,8 @@ class ALS:
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,
             "process_id": mesh.process, "balance": bal, **self._block_summary(world)})
+        if ckpt is not None:
+            ckpt.record(summary)
         return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
 
 

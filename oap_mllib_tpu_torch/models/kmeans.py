@@ -1,6 +1,5 @@
 """K-Means estimator with Spark-MLlib-compatible parameters: the port of
-the JAX package's ``models/kmeans.py`` (its in-memory, uncheckpointed
-routes on one device and on a model-sharded mesh).
+the JAX package's ``models/kmeans.py``.
 
 ``KMeans(...).fit(x)`` runs table -> init (random | k-means||) -> Lloyd
 loop on the fused Hopper kernel (ops/cuda/kmeans_kernel.lloyd_run_kernel)
@@ -56,6 +55,17 @@ in-memory route draws one ``torch.rand`` stream over the world's valid
 rows, each process its slice from the prefix sum of the gathered row
 counts, so uneven shares leave it unchanged.
 
+With ``Config.checkpoint_dir`` set every route checkpoints its centers
+(utils/checkpoint.py, the JAX package's format and signature): the
+in-memory and mesh Lloyd loops run in ``checkpoint_interval``-sized
+segments with a write between them (``_run_lloyd_segmented``; K1 stays
+the in-memory loop's kernel), the streamed loop writes after its
+passes, and a fit that finds a checkpoint resumes from its centers and
+step without the init.  As in the JAX package, a fit that converges
+exactly on a segment boundary runs one more (sub-tol) iteration than an
+unarmed fit.  The summary's ``checkpoint`` records the writes and the
+restore decision.
+
 Every one-device fit runs under the resilience ladder
 (utils/resilience.py, the JAX package's ``resilient_fit``): transient
 faults retry; a device OOM doubles the in-memory Lloyd loop's row
@@ -87,6 +97,7 @@ from oap_mllib_tpu_torch.ops import kmeans_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
 from oap_mllib_tpu_torch.utils import membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
@@ -135,6 +146,8 @@ class KMeansSummary:
         self.fleet = None
         # the resilience ladder's counters (utils/resilience.py)
         self.resilience = None
+        # writes and the restore decision (utils/checkpoint.py), when armed
+        self.checkpoint = None
         # the world the fit ran in (parallel/bootstrap.py)
         self.processes = bootstrap.world_size()
         self.process_id = bootstrap.process_index()
@@ -399,7 +412,7 @@ class KMeans:
 
     def _fit_source(self, source: ChunkSource, sample_weight, plan=None) -> KMeansModel:
         """The streamed fit of a ``ChunkSource`` (the JAX package's
-        ``_fit_source``, without its checkpoints): device memory
+        ``_fit_source``): device memory
         O(chunk), one pass per Lloyd iteration, under the resilience
         ladder: transient faults retry, a device OOM re-chunks the
         source (and its weights) at ``chunk_rows / 2^level``, a host OOM
@@ -455,8 +468,14 @@ class KMeans:
         psn.apply_matmul_flags(tier)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
+        ckpt = ckpt_mod.maybe_open("kmeans", self._ckpt_signature(source.n_features),
+                                   timings=timings)
+        resume = ckpt.restore() if ckpt is not None else None
         with phase_timer(timings, "init_centers", dev):
-            if self.init_mode == INIT_RANDOM:
+            if resume is not None and resume.found:
+                # the restored centers are the iterate: no init pass
+                centers0 = np.asarray(resume.arrays["centers"], np.float32)
+            elif self.init_mode == INIT_RANDOM:
                 centers0 = stream_ops.reservoir_sample(source, self.k, self.seed, timings)
             else:
                 centers0 = stream_ops.init_kmeans_parallel_streamed(
@@ -465,7 +484,8 @@ class KMeans:
         with phase_timer(timings, "lloyd_loop", dev):
             centers, n_iter, cost, counts = stream_ops.lloyd_run_streamed(
                 source, as_float_tensor(centers0, dev), self.max_iter, self.tol, tier,
-                weights=sample_weight, validated=True, timings=timings, policy=pol)
+                weights=sample_weight, validated=True, timings=timings, policy=pol,
+                checkpoint=ckpt, resume=resume)
             centers = centers.cpu().numpy()
             cost = float(cost)
             counts = counts.cpu().numpy()
@@ -475,9 +495,65 @@ class KMeans:
                      for name in kmeans_kernel.LAUNCHES},
             precision=pol, streamed=True,
         )
+        if ckpt is not None:
+            ckpt.record(summary)
         stream_ops.end_fit(summary)
         return KMeansModel(centers, self.distance_measure, summary,
                            device=model_device(self.device, dev))
+
+    def _ckpt_signature(self, d: int) -> dict:
+        """The checkpoint identity (utils/checkpoint.py), the JAX
+        package's dict key for key: the parameters that define which
+        optimisation the centers belong to.  The world, the chunking and
+        the precision policy may change across a preemption and stay
+        out; ``x64`` is False (the port has no float64 mode)."""
+        return {
+            "k": self.k, "d": int(d), "init_mode": self.init_mode,
+            "init_steps": self.init_steps, "seed": int(self.seed),
+            "tol": float(self.tol), "distance": self.distance_measure, "x64": False,
+        }
+
+    def _open_checkpoint(self, d: int, timings, dev):
+        """``(checkpointer, restore result, restored centers or None)``;
+        ``(None, None, None)`` when checkpoints are off."""
+        ckpt = ckpt_mod.maybe_open("kmeans", self._ckpt_signature(d), timings=timings)
+        if ckpt is None:
+            return None, None, None
+        resume = ckpt.restore()
+        if not resume.found:
+            return ckpt, resume, None
+        return ckpt, resume, as_float_tensor(np.asarray(resume.arrays["centers"], np.float32),
+                                             dev).contiguous()
+
+    def _run_lloyd_segmented(self, run_iters, centers0, ckpt, resume, d_orig: int):
+        """The checkpoint-armed Lloyd loop (the JAX package's): segments of
+        ``checkpoint_interval`` iterations, ``run_iters(centers, iters)``
+        each, the centers and the iterations done written between them.
+        Each iteration is a function of the centers alone, so the centers
+        follow the unsegmented loop's; a fit converging exactly on a
+        segment boundary runs one more (sub-tol) iteration, and a resumed
+        fit replays the same segments, bit-equal to the uninterrupted
+        armed fit.  Returns ``(centers, n_iter, cost, counts)``."""
+        done = 0
+        converged = False
+        if resume is not None and resume.found:
+            done = min(int(resume.step), self.max_iter)
+            converged = bool(resume.extra.get("converged", False))
+        centers, cost, counts = centers0, None, None
+        ran_segment = False
+        while done < self.max_iter and not converged:
+            seg = min(ckpt.interval, self.max_iter - done)
+            centers, n_it, cost, counts = run_iters(centers, seg)
+            ran_segment = True
+            done += int(n_it)
+            converged = int(n_it) < seg
+            ckpt.maybe_write(done, {"centers": ckpt_mod.fetch_replicated(centers)[:, :d_orig]},
+                             extra={"converged": converged}, force=True)
+        if not ran_segment:
+            # restored at its end (converged or out of iterations): one
+            # zero-iteration call gives the cost and counts
+            centers, _, cost, counts = run_iters(centers, 0)
+        return centers, done, cost, counts
 
     def _init_centers(self, table: DenseTable, weights, dev) -> torch.Tensor:
         if self.init_mode == INIT_RANDOM:
@@ -506,13 +582,23 @@ class KMeans:
             weights = table.mask
             if sample_weight is not None:
                 weights = table.align_weights(sample_weight)
+        ckpt, resume, centers0 = self._open_checkpoint(x.shape[1], timings, dev)
         with phase_timer(timings, "init_centers", dev):
-            centers0 = self._init_centers(table, weights, dev)
+            if centers0 is None:
+                centers0 = self._init_centers(table, weights, dev)
         with phase_timer(timings, "lloyd_loop", dev):
-            centers, n_iter, cost, counts = kmeans_kernel.lloyd_run_kernel(
-                table.data, weights, centers0, self.max_iter, self.tol, mode=tier,
-                row_chunks=2 ** int(level),
-            )
+            def run_iters(c0, iters):
+                return kmeans_kernel.lloyd_run_kernel(
+                    table.data, weights, c0, iters, self.tol, mode=tier,
+                    row_chunks=2 ** int(level))
+
+            if ckpt is None:
+                centers, n_iter, cost, counts = run_iters(centers0, self.max_iter)
+            else:
+                # K1 stays the armed loop's kernel: the loop runs pass by
+                # pass on the host, so a segment is an iteration count
+                centers, n_iter, cost, counts = self._run_lloyd_segmented(
+                    run_iters, centers0, ckpt, resume, x.shape[1])
             centers = centers.cpu().numpy()
             cost = float(cost)
             counts = counts.cpu().numpy()
@@ -524,6 +610,8 @@ class KMeans:
             cost, int(n_iter), timings, accelerated=True,
             cluster_sizes=counts, kernels=kernels, precision=pol,
         )
+        if ckpt is not None:
+            ckpt.record(summary)
         return KMeansModel(centers, self.distance_measure, summary, device=self.device)
 
     def _fit_mesh(self, x, sample_weight, devices) -> KMeansModel:
@@ -561,20 +649,29 @@ class KMeans:
                 weights = table.align_weights(sample_weight)
                 tile_weights = sharded.align_weights(
                     weights if mesh.processes == 1 else _host(sample_weight))
+        ckpt, resume, centers0 = self._open_checkpoint(d_orig, timings, first)
         with phase_timer(timings, "init_centers", first):
-            centers0 = self._init_centers(table, weights, first)
+            if centers0 is None:
+                centers0 = self._init_centers(table, weights, first)
+            else:
+                # stored at d_orig: padded to this mesh's feature width
+                centers0 = torch.nn.functional.pad(centers0, (0, x.shape[1] - d_orig))
             del table, weights
         with phase_timer(timings, "lloyd_loop", mesh.distinct_devices()):
-            if n_model == 1:
-                centers, n_iter, cost, counts = kmeans_ops.lloyd_run_data_parallel(
-                    sharded.tiles, tile_weights, centers0, self.max_iter, self.tol, mesh,
-                    cfg.data_axis, mode=tier,
-                )
+            def run_iters(c0, iters):
+                if n_model == 1:
+                    return kmeans_ops.lloyd_run_data_parallel(
+                        sharded.tiles, tile_weights, c0, iters, self.tol, mesh,
+                        cfg.data_axis, mode=tier)
+                return kmeans_ops.lloyd_run_model_sharded(
+                    sharded.tiles, tile_weights, c0, iters, self.tol, mesh,
+                    cfg.data_axis, cfg.model_axis, precision=tier, policy=pol)
+
+            if ckpt is None:
+                centers, n_iter, cost, counts = run_iters(centers0, self.max_iter)
             else:
-                centers, n_iter, cost, counts = kmeans_ops.lloyd_run_model_sharded(
-                    sharded.tiles, tile_weights, centers0, self.max_iter, self.tol, mesh,
-                    cfg.data_axis, cfg.model_axis, precision=tier, policy=pol,
-                )
+                centers, n_iter, cost, counts = self._run_lloyd_segmented(
+                    run_iters, centers0, ckpt, resume, d_orig)
             centers = centers[:, :d_orig].cpu().numpy()
             cost = float(cost)
             counts = counts.cpu().numpy()
@@ -585,6 +682,8 @@ class KMeans:
             precision=pol, mesh=dict(mesh.shape),
             ring=n_model > 1 and kmeans_ops.ring_enabled(mesh, cfg.data_axis),
         )
+        if ckpt is not None:
+            ckpt.record(summary)
         return KMeansModel(centers, self.distance_measure, summary, device=str(first))
 
     # -- numpy reference path (cosine distance) ------------------------------

@@ -1,6 +1,5 @@
 """PCA estimator with Spark-MLlib-compatible parameters: the port of the
-JAX package's ``models/pca.py`` (its in-memory routes on one device and
-on a device mesh).
+JAX package's ``models/pca.py``.
 
 ``PCA(k).fit(x)`` runs table -> covariance (two passes of the Hopper
 moments kernel, ops/cuda/pca_kernel) -> eigh -> :class:`PCAModel`, whose
@@ -40,6 +39,13 @@ capability-weighted shard (parallel/balance.local_sources) may move rows
 between the processes between the two passes, and the summary then
 carries ``balance`` and, when the rollups are armed, ``fleet``.
 
+With ``Config.checkpoint_dir`` set (utils/checkpoint.py, the JAX
+package's format and signature) the streamed fit writes its reduced
+column sums after the first pass and a restored fit starts at the Gram
+pass; the in-memory and mesh fits write the covariance and a restored
+fit goes straight to the eigensolve.  The summary's ``checkpoint``
+records it.
+
 ``Config.pca_solver="randomized"`` replaces the full eigh with the
 top-k subspace iteration of ops/pca_ops.topk_eigh_randomized
 (``pca_rand_oversample``, ``pca_rand_iters``); the summary's
@@ -69,6 +75,7 @@ from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
 from oap_mllib_tpu_torch.utils import membudget, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import (MAX_PCA_FEATURES, model_device, resolve_device,
@@ -240,7 +247,7 @@ class PCA:
 
     def _fit_source(self, source: ChunkSource, solver: str, plan=None) -> PCAModel:
         """The streamed fit of a ``ChunkSource`` (the JAX package's
-        ``_fit_source``, without its checkpoints): device memory O(chunk
+        ``_fit_source``): device memory O(chunk
         + d^2), under the resilience ladder: transient faults retry, a
         device OOM re-chunks the source at ``chunk_rows / 2^level``, a
         host OOM spills a memory-backed source to disk."""
@@ -282,13 +289,42 @@ class PCA:
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
+        ckpt = ckpt_mod.maybe_open("pca", self._ckpt_signature(d, "colsum"), timings=timings)
         with phase_timer(timings, "covariance_streamed", dev):
-            cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev)
+            cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev,
+                                                       checkpoint=ckpt)
         model = self._finish(cov, d, timings, dev, solver, pol, before,
                              model_device(self.device, dev))
         model.summary.update(streamed=True, n_rows=n)
+        if ckpt is not None:
+            ckpt.record(model.summary)
         stream_ops.end_fit(model.summary)
         return model
+
+    @staticmethod
+    def _ckpt_signature(d: int, moments: str) -> dict:
+        """The checkpoint identity, the JAX package's dict key for key.
+        ``moments`` names the state, "colsum" (the streamed first pass)
+        or "cov" (the in-memory covariance), so neither route takes the
+        other's; ``k`` is absent (the moments do not depend on it)."""
+        return {"d": int(d), "moments": moments, "x64": False}
+
+    def _restore_cov(self, d: int, timings, dev):
+        """``(checkpointer, restored covariance or None)`` for the
+        in-memory and mesh routes."""
+        ckpt = ckpt_mod.maybe_open("pca", self._ckpt_signature(d, "cov"), timings=timings)
+        if ckpt is None:
+            return None, None
+        resume = ckpt.restore()
+        if resume.found and resume.extra.get("stage") == "cov":
+            return ckpt, torch.as_tensor(np.asarray(resume.arrays["cov"], np.float32)).to(dev)
+        return ckpt, None
+
+    @staticmethod
+    def _write_cov(ckpt, cov, d: int) -> None:
+        if ckpt is not None:
+            ckpt.maybe_write(1, {"cov": ckpt_mod.fetch_replicated(cov)[:d, :d]},
+                             extra={"stage": "cov"}, force=True)
 
     def _fit_device(self, x, dev: torch.device, solver: str) -> PCAModel:
         cfg = get_config()
@@ -297,11 +333,17 @@ class PCA:
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
-        with phase_timer(timings, "table_convert", dev):
-            table = DenseTable.from_numpy(x, dev)
-        with phase_timer(timings, "covariance", dev):
-            cov, _ = pca_ops.covariance(table.data, table.mask, table.n_rows, tier)
-        return self._finish(cov, x.shape[1], timings, dev, solver, pol, before, self.device)
+        ckpt, cov = self._restore_cov(x.shape[1], timings, dev)
+        if cov is None:
+            with phase_timer(timings, "table_convert", dev):
+                table = DenseTable.from_numpy(x, dev)
+            with phase_timer(timings, "covariance", dev):
+                cov, _ = pca_ops.covariance(table.data, table.mask, table.n_rows, tier)
+            self._write_cov(ckpt, cov, x.shape[1])
+        model = self._finish(cov, x.shape[1], timings, dev, solver, pol, before, self.device)
+        if ckpt is not None:
+            ckpt.record(model.summary)
+        return model
 
     def _finish(self, cov, d: int, timings, dev, solver, pol, before, device,
                 mesh_shape=None) -> PCAModel:
@@ -359,20 +401,28 @@ class PCA:
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
         n, d = x.shape
-        with phase_timer(timings, "table_convert", mesh.distinct_devices()):
-            if d % mp:
-                # zero feature columns: zero eigenvalues, demoted before eigh
-                pad = (-d) % mp
-                x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
-                     else np.pad(x, ((0, 0), (0, pad))))
-            table = ShardedTable.from_process_local(x, mesh)
-        with phase_timer(timings, "covariance", mesh.distinct_devices()):
-            if mp > 1:
-                cov, _ = pca_ops.covariance_model_sharded(
-                    table.tiles, table.mask, table.n_rows, mesh, tier, pol)
-            else:
-                cov, _ = pca_ops.covariance_data_parallel(
-                    table.tiles, table.mask, table.n_rows, mesh, tier)
-            del table
-        return self._finish(cov, d, timings, first, solver, pol, before, str(first),
-                            dict(mesh.shape))
+        # the covariance is stored unpadded: it restores onto any model
+        # axis, and a restored fit skips the table and the moments
+        ckpt, cov = self._restore_cov(d, timings, first)
+        if cov is None:
+            with phase_timer(timings, "table_convert", mesh.distinct_devices()):
+                if d % mp:
+                    # zero feature columns: zero eigenvalues, demoted before eigh
+                    pad = (-d) % mp
+                    x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
+                         else np.pad(x, ((0, 0), (0, pad))))
+                table = ShardedTable.from_process_local(x, mesh)
+            with phase_timer(timings, "covariance", mesh.distinct_devices()):
+                if mp > 1:
+                    cov, _ = pca_ops.covariance_model_sharded(
+                        table.tiles, table.mask, table.n_rows, mesh, tier, pol)
+                else:
+                    cov, _ = pca_ops.covariance_data_parallel(
+                        table.tiles, table.mask, table.n_rows, mesh, tier)
+                del table
+            self._write_cov(ckpt, cov, d)
+        model = self._finish(cov, d, timings, first, solver, pol, before, str(first),
+                             dict(mesh.shape))
+        if ckpt is not None:
+            ckpt.record(model.summary)
+        return model

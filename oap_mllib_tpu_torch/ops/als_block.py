@@ -52,6 +52,12 @@ world's counts (:func:`_global_sum`), each process stages and runs its
 own ranks, and the psums and all_gathers of an iteration reach the
 other processes' ranks.  :func:`gather_user_factors` is then a
 collective every process calls.
+
+Checkpoints (utils/checkpoint.py): :func:`write_block_factors` writes
+each process's blocks' valid rows with their global ids, and
+:func:`restore_block_factors` redistributes whatever a relaunched world
+read onto its live blocks, whether the world or the block count changed
+or not.
 """
 
 from __future__ import annotations
@@ -538,3 +544,71 @@ def gather_user_factors(x: Dict[Rank, torch.Tensor], mesh: Mesh, offsets: np.nda
         rows = [x[q][: int(offsets[b + 1] - offsets[b])].cpu().numpy()
                 for b, q in enumerate(ranks)]
     return np.concatenate(rows, axis=0)
+
+
+# -- checkpoints of the block routes (utils/checkpoint.py) ----------------------
+
+
+def block_ckpt_layout(offsets_u, upb: int, item_sharded: bool, offsets_i=None,
+                      ipb: Optional[int] = None) -> dict:
+    """The block layout a block route's checkpoint records (the JAX
+    package's ``layout`` keys); a restore onto another layout reshards."""
+    layout = {"offsets_u": [int(v) for v in offsets_u], "upb": int(upb),
+              "item_sharded": bool(item_sharded)}
+    if item_sharded:
+        layout["offsets_i"] = [int(v) for v in offsets_i]
+        layout["ipb"] = int(ipb)
+    return layout
+
+
+def restore_block_factors(checkpoint, mesh: Mesh, layout: dict, n_items: int, max_iter: int,
+                          x0, y0, grown_fill: Optional[Callable] = None):
+    """``(iterations done, x blocks, y)`` from the fit's checkpoint, or
+    ``(0, x0, y0)`` when none restores.  Whatever old shards this process
+    read are redistributed onto the live blocks through one resharding
+    pass (parallel/shuffle.reshard_factor_rows; the values travel as
+    their bits, so a same-layout restore is exact); replicated item
+    factors are assembled on the host and staged on every local rank's
+    device, ``grown_fill(grown, None, y)`` seeding a grown item tail.  A
+    restore whose layout differs from ``layout`` is marked resharded."""
+    from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
+
+    resume = checkpoint.restore()
+    if not resume.found:
+        return 0, x0, y0
+    nproc, proc = mesh.processes, mesh.process
+    ids_u, vals_u = ckpt_mod.sharded_rows_from_result(resume, "x", nproc, proc)
+    x = shuffle.reshard_factor_rows(ids_u, vals_u, mesh, layout["offsets_u"], layout["upb"])
+    if layout["item_sharded"]:
+        ids_i, vals_i = ckpt_mod.sharded_rows_from_result(resume, "y", nproc, proc)
+        y = shuffle.reshard_factor_rows(ids_i, vals_i, mesh, layout["offsets_i"], layout["ipb"])
+    else:
+        y_host = ckpt_mod.replicated_from_result(resume, "y", n_items)
+        if resume.grown and grown_fill is not None:
+            # the grown user tail stays zero in x: it re-solves from y
+            _, y_host = grown_fill(resume.grown, None, y_host)
+        ranks = [q for _, q in _local_blocks(mesh)]
+        staged = {}
+        for q in ranks:
+            dev = mesh.device(q)
+            if dev not in staged:
+                staged[dev] = torch.from_numpy(np.ascontiguousarray(y_host, np.float32)).to(dev)
+        y = {q: staged[mesh.device(q)] for q in ranks}
+    if resume.layout != layout:
+        checkpoint.mark_resharded()
+    return min(int(resume.step), max_iter), x, y
+
+
+def write_block_factors(checkpoint, step: int, x, y, mesh: Mesh, layout: dict,
+                        force: bool = False) -> None:
+    """This process's valid user-block rows (and item-block rows in the
+    2-D layout, else the replicated item table) at ``step``."""
+    from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
+
+    sharded = {"x": ckpt_mod.local_factor_rows(x, mesh, layout["offsets_u"], layout["upb"])}
+    arrays = {}
+    if layout["item_sharded"]:
+        sharded["y"] = ckpt_mod.local_factor_rows(y, mesh, layout["offsets_i"], layout["ipb"])
+    else:
+        arrays["y"] = ckpt_mod.fetch_replicated(y)
+    checkpoint.maybe_write(step, arrays, sharded=sharded, layout=layout, force=force)

@@ -174,7 +174,7 @@ def als_block_run_streamed(lay: StreamedBlockLayouts, x0: Dict[Rank, torch.Tenso
                            alpha: float, mesh: Mesh, *, implicit: bool, timings=None,
                            policy: str = "f32",
                            solve: Callable = als_kernel.solve_normal_eq,
-                           gram: Callable = als_kernel.factor_gram
+                           gram: Callable = als_kernel.factor_gram, checkpoint=None
                            ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
     """The streamed block ALS (both feedback modes, both item layouts):
     ``(x blocks, y)`` in the resident runners' forms (y the replicated
@@ -183,11 +183,31 @@ def als_block_run_streamed(lay: StreamedBlockLayouts, x0: Dict[Rank, torch.Tenso
     r) item block.  Every chunk's stage / transfer / compute split lands
     in ``timings`` under ``als_iterations/``.  ``solve`` and ``gram``
     are the kernel wrappers; the card check passes their plain
-    versions."""
+    versions.
+
+    ``checkpoint`` (utils/checkpoint.py): every process writes its
+    blocks' valid rows every ``checkpoint_interval`` iterations, and a
+    restore redistributes what the relaunched world read onto the live
+    blocks (als_block.restore_block_factors), whether the world shrank,
+    grew or only re-blocked."""
     body = als_block._block_body_2d if lay.item_sharded else als_block._block_body
     elapsed = tick()
-    x, y = als_block._run(lay.sides, x0, y0, max_iter, reg, alpha if implicit else 0.0,
-                          implicit, mesh.axis_names[0], policy, solve, gram, body)
+    args = (reg, alpha if implicit else 0.0, implicit, mesh.axis_names[0], policy, solve,
+            gram, body)
+    if checkpoint is None:
+        x, y = als_block._run(lay.sides, x0, y0, max_iter, *args)
+    else:
+        layout = als_block.block_ckpt_layout(
+            lay.offsets_u, lay.upb, lay.item_sharded,
+            lay.by_item.offsets if lay.item_sharded else None,
+            lay.by_item.upb if lay.item_sharded else None)
+        n_items = next(iter(y0.values())).shape[0]
+        start, x, y = als_block.restore_block_factors(checkpoint, mesh, layout, n_items,
+                                                      max_iter, x0, y0)
+        for it in range(start, max_iter):
+            x, y = als_block._run(lay.sides, x, y, 1, *args)
+            if checkpoint.due(it + 1):
+                als_block.write_block_factors(checkpoint, it + 1, x, y, mesh, layout)
     for t in list(x.values()) + list(y.values()):
         if t.device.type == "cuda":
             torch.cuda.synchronize(t.device)

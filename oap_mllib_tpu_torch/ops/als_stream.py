@@ -160,7 +160,8 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
                      policy: str = "f32", device=None,
                      solve: Callable = als_kernel.solve_normal_eq,
                      gram: Callable = als_kernel.factor_gram,
-                     degraded: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+                     degraded: bool = False, checkpoint=None,
+                     grown_fill: Optional[Callable] = None) -> Tuple[np.ndarray, np.ndarray]:
     """The streamed ALS loop (both feedback modes): ``by_user`` and
     ``by_item`` are host grouped layouts (``als_ops.build_grouped_edges``),
     the factors stay on ``device`` (None: ``Config.device``) across
@@ -173,7 +174,15 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
     memory a step (the segment sums then add in another order, so the
     factors move by rounding only).  Each iteration is the
     ``fit.execute`` fault site, and both factor tables are checked
-    finite after it (``NonFiniteError`` naming them)."""
+    finite after it (``NonFiniteError`` naming them).
+
+    ``checkpoint`` (utils/checkpoint.py) restores both tables and the
+    iteration at entry (a block world's sharded checkpoint too: this
+    process reads every old shard; ``grown_fill(grown, x, y)`` seeds a
+    grown id space's tail) and writes them every
+    ``checkpoint_interval`` iterations; the iterates are the whole
+    state, so a resume is bit-equal (the chunking is outside the
+    signature, so a halved re-chunk resumes too)."""
     dev = resolve_device(device)
     r = np.asarray(x0).shape[1]
     if not implicit:
@@ -185,11 +194,24 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
     gc_i = groups_per_chunk(*by_item[0].shape, r)
     if degraded:
         gc_u, gc_i = max(1, gc_u // 2), max(1, gc_i // 2)
+    start_it = 0
+    if checkpoint is not None:
+        from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
+
+        resume = checkpoint.restore()
+        if resume.found:
+            x0 = ckpt_mod.factors_from_result(resume, "x", n_users)
+            y0 = ckpt_mod.factors_from_result(resume, "y", n_items)
+            if resume.grown and grown_fill is not None:
+                x0, y0 = grown_fill(resume.grown, x0, y0)
+            start_it = min(int(resume.step), max_iter)
+            if "x" not in resume.arrays:
+                checkpoint.mark_resharded()  # sharded state onto one device
     x = torch.as_tensor(np.asarray(x0, np.float32)).to(dev)
     y = torch.as_tensor(np.asarray(y0, np.float32)).to(dev)
     stats = PrefetchStats()
     elapsed = tick()
-    for it in range(max_iter):
+    for it in range(start_it, max_iter):
         faults.maybe_fault("fit.execute")
         x = _half_update_streamed(by_user, y, n_users, gc_u, reg, alpha, implicit, stats,
                                   policy, solve, gram)
@@ -199,6 +221,8 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
         # half-update: stop at the iteration that made them
         check_finite(x, f"ALS user factors (streamed iteration {it + 1})")
         check_finite(y, f"ALS item factors (streamed iteration {it + 1})")
+        if checkpoint is not None:
+            checkpoint.maybe_write(it + 1, {"x": x, "y": y})
     x, y = x.cpu().numpy(), y.cpu().numpy()
     stats.finalize(timings, "als_iterations", elapsed())
     return x, y

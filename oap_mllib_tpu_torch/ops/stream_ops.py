@@ -420,7 +420,8 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
 
 def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: float,
                        precision: str = "highest", weights=None, validated: bool = False,
-                       timings=None, policy: str = "f32", device=None):
+                       timings=None, policy: str = "f32", device=None, checkpoint=None,
+                       resume=None):
     """The streamed Lloyd loop: ``(centers, n_iter, cost, counts)``, as
     ``kmeans_kernel.lloyd_run_kernel`` returns them, on ``device``
     (None: the device of ``init_centers`` if a tensor, else
@@ -428,7 +429,14 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
     (squared moves against ``tol ** 2`` in f64, the JAX streamed loop's
     test) or at ``max_iter``; empty clusters keep their center.  ``weights`` is an
     optional width-1 source walked in lockstep; ``validated`` skips its
-    check when the caller ran it."""
+    check when the caller ran it.
+
+    ``resume`` (utils/checkpoint.RestoreResult) re-enters the loop at
+    its recorded pass, the caller having passed its centers as
+    ``init_centers``; ``checkpoint`` writes the centers, the pass and the
+    converged flag every ``checkpoint_interval`` passes (and at
+    convergence).  The pass arithmetic is unchanged, so a resume in the
+    same world is bit-equal to the uninterrupted fit."""
     if weights is not None and not validated:
         _checked_entry(lambda: _check_weight_source(source, weights))
     if device is None and isinstance(init_centers, torch.Tensor):
@@ -441,6 +449,9 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
     tol_sq = float(tol) ** 2
     n_iter = 0
     converged = False
+    if resume is not None and resume.found:
+        n_iter = min(int(resume.step), max_iter)
+        converged = bool(resume.extra.get("converged", False))
     while n_iter < max_iter and not converged:
         sums, counts, _ = streamed_accumulate(source, centers, precision, False, weights,
                                               timings, policy=policy)
@@ -452,6 +463,9 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
         # pass that made it (Config.nonfinite_policy)
         check_finite(centers, f"K-Means centroids (streamed pass {n_iter})")
         converged = max_moved <= tol_sq
+        if checkpoint is not None:
+            checkpoint.maybe_write(n_iter, {"centers": centers}, extra={"converged": converged},
+                                   force=converged)
     # the cost pass stages f32 and ranks at highest whatever the policy:
     # the reported objective must not carry a reduced tier's rounding
     _, counts, cost = streamed_accumulate(source, centers, "highest", True, weights, timings,
@@ -645,19 +659,11 @@ def _kahan_add(total: torch.Tensor, comp: torch.Tensor, value: torch.Tensor) -> 
     total.copy_(t)
 
 
-def covariance_streamed(source: ChunkSource, precision: str = "highest", timings=None,
-                        policy: str = "f32", device=None):
-    """Two-pass streamed covariance: ``(cov (d, d), mean (d,), n_rows)``
-    on ``device`` (None: ``Config.device``).  Pass 1 sums the columns
-    (the mean), pass 2 the centred Gram at ``precision``, K2 on every
-    chunk of each; the two-pass form of ``pca_ops.covariance``.  Under
-    the ``bf16`` policy the chunks stage at bfloat16 and both
-    cross-chunk sums are Kahan-compensated; f32 adds plainly, in chunk
-    order."""
-    dev = resolve_device(device)
+def _colsum_pass(source: ChunkSource, precision: str, timings, dev, stage_dtype,
+                 compensated: bool):
+    """The streamed covariance's first pass: the column sums and the row
+    count, reduced across the processes."""
     d = source.n_features
-    stage_dtype = psn.staging_dtype(policy)
-    compensated = policy == "bf16"
     total = torch.zeros((d,), dtype=torch.float32, device=dev)
     comp = torch.zeros_like(total)
     n = 0
@@ -687,6 +693,36 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     # an overflowed f32 sum or Gram turns into NaN eigenvectors later:
     # stop at the pass that made it (Config.nonfinite_policy)
     check_finite(total, "PCA column sums (streamed mean pass)")
+    return total, n
+
+
+def covariance_streamed(source: ChunkSource, precision: str = "highest", timings=None,
+                        policy: str = "f32", device=None, checkpoint=None):
+    """Two-pass streamed covariance: ``(cov (d, d), mean (d,), n_rows)``
+    on ``device`` (None: ``Config.device``).  Pass 1 sums the columns
+    (the mean), pass 2 the centred Gram at ``precision``, K2 on every
+    chunk of each; the two-pass form of ``pca_ops.covariance``.  Under
+    the ``bf16`` policy the chunks stage at bfloat16 and both
+    cross-chunk sums are Kahan-compensated; f32 adds plainly, in chunk
+    order.
+
+    ``checkpoint`` (utils/checkpoint.py): after the column-sum pass the
+    reduced sums and the row count are written (step 1), and a fit that
+    restores them starts at the Gram pass.  They are the same on every
+    process, so the restore fits any world."""
+    dev = resolve_device(device)
+    d = source.n_features
+    stage_dtype = psn.staging_dtype(policy)
+    compensated = policy == "bf16"
+    resume = checkpoint.restore() if checkpoint is not None else None
+    if resume is not None and resume.found and resume.extra.get("stage") == "colsum":
+        total = torch.as_tensor(np.asarray(resume.arrays["colsum"], np.float32)).to(dev)
+        n = int(resume.extra["n_rows"])
+    else:
+        total, n = _colsum_pass(source, precision, timings, dev, stage_dtype, compensated)
+        if checkpoint is not None:
+            checkpoint.maybe_write(1, {"colsum": total}, extra={"stage": "colsum", "n_rows": n},
+                                   force=True)
     if n < 1:
         raise ValueError("empty source")
     mean = total / n

@@ -36,10 +36,14 @@ shares in three layers:
   the next pass takes the new shares.
 
 Every decision lands in the fit summary's ``balance`` block
-(:func:`finalize_fit`).  This module issues no collective itself.  Not
-ported: the JAX package's ``oap_balance_*`` metrics and its supervisor
-hint (``_maybe_hint``, a file for a supervisor the port does not have):
-ROADMAP A8.
+(:func:`finalize_fit`).  This module issues no collective itself.  A
+process that stays slowest through the controller's re-plans (eight
+re-plans spent, or a streak of twice the patience after one) is named in
+a persistent-offender hint (``_maybe_hint``): the summary's
+``supervisor_hint``, and with ``Config.crash_dir`` set process 0 writes
+it to ``balance.hint.json`` there, which the supervisor
+(utils/supervisor.py) reads as one more vote toward shrinking the world.
+Not ported: the JAX package's ``oap_balance_*`` metrics.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ _EMA = 0.5
 _MAX_REPLANS = 8
 # the phases whose passes a re-plan may follow
 _REPLAN_PHASES = ("lloyd_loop", "covariance_streamed")
+HINT_FILENAME = "balance.hint.json"
 # the share of a process's card budget its block ALS keys may take
 _HBM_BLOCK_FRACTION = 0.25
 
@@ -618,6 +623,7 @@ _over_count = 0
 _streak_rank: Optional[int] = None
 _streak = 0
 _decisions: List[Dict[str, Any]] = []
+_hint: Optional[Dict[str, Any]] = None
 
 
 def activate(plan: ShardPlan) -> None:
@@ -665,6 +671,7 @@ def observe_pass(phase: str, frames) -> Optional[Dict[str, Any]]:
         else:
             _streak_rank, _streak = None, 0
         over_count = _over_count
+        streak = _streak
         skews = list(_skews)
         n_replans = len(_decisions)
     if not over or over_count < pat:
@@ -672,9 +679,41 @@ def observe_pass(phase: str, frames) -> Optional[Dict[str, Any]]:
     from oap_mllib_tpu_torch.telemetry.fleet import _trend
 
     trend = _trend(skews[-max(2 * pat, 4):])
-    if trend == "falling" or phase not in _REPLAN_PHASES or n_replans >= _MAX_REPLANS:
+    if trend == "falling" or phase not in _REPLAN_PHASES:
         return None
+    if n_replans >= _MAX_REPLANS or streak >= 2 * pat and n_replans > 0:
+        _maybe_hint(slowest, skew, streak)
+        if n_replans >= _MAX_REPLANS:
+            return None
     return _replan(plan, frames, skew, slowest, trend)
+
+
+def _maybe_hint(rank: int, skew: float, streak: int) -> None:
+    """The persistent-offender hint, once a fit: the process that stayed
+    slowest through the re-plans, for the supervisor's shrink path (the
+    file only with the recovery sideband armed, written by process 0)."""
+    global _hint
+    with _state_lock:
+        if _hint is not None:
+            return
+        _hint = {"schema": 1, "rank": int(rank), "skew_ratio": round(float(skew), 4),
+                 "streak_passes": int(streak), "replans": len(_decisions),
+                 "reason": "persistent straggler despite re-planning"}
+        hint = dict(_hint)
+    log.warning("balance: process %d is a persistent straggler (skew %.2f for %d passes "
+                "despite re-planning); handing it to the supervisor's shrink path",
+                rank, skew, streak)
+    crash_dir = get_config().crash_dir
+    if crash_dir and _rank() == 0:
+        import os
+
+        from oap_mllib_tpu_torch.data import io as _io
+
+        try:
+            os.makedirs(crash_dir, exist_ok=True)
+            _io.atomic_write_json(os.path.join(crash_dir, HINT_FILENAME), hint)
+        except OSError as e:  # the hint is advice
+            log.warning("balance: hint write failed: %s", e)
 
 
 def _replan(plan: ShardPlan, frames: np.ndarray, skew: float, slowest: int,
@@ -728,6 +767,7 @@ def summary_block(world: int) -> Optional[Dict[str, Any]]:
     with _state_lock:
         plan = _active
         dec = list(_decisions)
+        hint = dict(_hint) if _hint is not None else None
         passes = len(_skews)
     if plan is None:
         return None
@@ -735,6 +775,8 @@ def summary_block(world: int) -> Optional[Dict[str, Any]]:
     block["enabled"] = armed(world)
     block["passes_observed"] = passes
     block["replans"] = dec
+    if hint is not None:
+        block["supervisor_hint"] = hint
     return block
 
 
@@ -758,13 +800,15 @@ def finalize_fit(summary) -> None:
 
 
 def reset_fit() -> None:
-    """Drop the controller's per-fit state (skews, decisions, streaks)."""
-    global _over_count, _streak_rank, _streak
+    """Drop the controller's per-fit state (skews, decisions, streaks,
+    the hint)."""
+    global _over_count, _streak_rank, _streak, _hint
     with _state_lock:
         _skews.clear()
         _decisions.clear()
         _over_count = 0
         _streak_rank, _streak = None, 0
+        _hint = None
 
 
 def reset() -> None:

@@ -235,9 +235,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
              coordinator_address, num_processes, process_id)
     store = _connect(host, int(port), num_processes, process_id, timeout_s,
                      coordinator_address, process_id == 0 and not launcher_store)
-    coll_s = float(cfg.collective_timeout)
-    if coll_s < 0:
-        raise ValueError(f"collective_timeout must be >= 0, got {coll_s}")
+    # gloo's own timeout lies past the recovery watcher's deadline, so
+    # the watcher fires first (utils/recovery.py)
+    from oap_mllib_tpu_torch.utils import recovery
+
+    coll_s = recovery.gloo_timeout_s(cfg)
     kwargs = {"timeout": datetime.timedelta(seconds=coll_s)} if coll_s > 0 else {}
     dist.init_process_group("gloo", store=store, world_size=num_processes,
                             rank=process_id, **kwargs)
@@ -259,15 +261,20 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 def shutdown() -> None:
     """Close the ring kernel's IPC mappings and workspace, then leave the
-    world; a no-op when no world was joined."""
+    world; a no-op when no world was joined.  After a recovery abort
+    left a thread blocked in gloo (utils/recovery.abandoned) the world
+    is only marked left: ``destroy_process_group`` could hang on it."""
     if not _state["initialized"]:
         return
     import torch.distributed as dist
 
     from oap_mllib_tpu_torch.ops.cuda import ring_kernel
+    from oap_mllib_tpu_torch.utils import recovery
 
     try:
-        ring_kernel.close_ipc()
+        if not recovery.abandoned():
+            ring_kernel.close_ipc()
     finally:
-        dist.destroy_process_group()
+        if not recovery.abandoned():
+            dist.destroy_process_group()
         _state.update(initialized=False, devices=None, coordinator=None)

@@ -35,7 +35,11 @@ a test can count psums against ring reductions: :func:`emitted`,
 Every host exchange across processes (``_all_gather_host``, which every
 cross-process collective and the streamed passes' host reductions go
 through, and :func:`all_to_all`) is the ``collective.dispatch`` fault
-site (utils/faults.py).
+site (utils/faults.py).  Those two, :func:`barrier` and :func:`agree`
+(which K5's cross-process launches go through) run their gloo call
+under the recovery plane's watcher (utils/recovery.guarded_dispatch): a
+peer that died or never arrives raises ``PeerAbortError`` or
+``CollectiveTimeoutError`` on every survivor.
 """
 
 from __future__ import annotations
@@ -48,8 +52,8 @@ import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.parallel import bootstrap
-from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
+from oap_mllib_tpu_torch.utils import faults, recovery
 
 _CENSUS: collections.Counter = collections.Counter()
 
@@ -94,7 +98,8 @@ def _all_gather_host(local: torch.Tensor) -> torch.Tensor:
     out = torch.empty((world, flat.numel()), dtype=torch.uint8)
     if flat.numel():
         t0 = time.perf_counter()
-        dist.all_gather(list(out.unbind(0)), flat)
+        recovery.guarded_dispatch("all_gather", "host",
+                                  lambda: dist.all_gather(list(out.unbind(0)), flat))
         HOST_STATS["gloo_s"] += time.perf_counter() - t0
     HOST_STATS["calls"] += 1
     HOST_STATS["bytes"] += flat.numel()
@@ -156,7 +161,8 @@ def all_to_all(send: Sequence[np.ndarray], axis: Optional[str] = None) -> List[n
     faults.maybe_fault("collective.dispatch")
     flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a in send]))
     recv = torch.empty_like(flat)
-    dist.all_to_all_single(recv, flat)
+    recovery.guarded_dispatch("all_to_all", axis or "host",
+                              lambda: dist.all_to_all_single(recv, flat))
     return [np.frombuffer(c.numpy().tobytes(), dtype).reshape(shape)
             for c in recv.chunk(world)]
 
@@ -167,7 +173,7 @@ def barrier() -> None:
     if bootstrap.world_size() > 1:
         import torch.distributed as dist
 
-        dist.barrier()
+        recovery.guarded_dispatch("barrier", "host", dist.barrier)
 
 
 def agree(error: Optional[BaseException], what: str) -> None:
@@ -187,8 +193,8 @@ def agree(error: Optional[BaseException], what: str) -> None:
     # all_gather's ring takes world - 1 rounds, a barrier's cost is one)
     world = bootstrap.world_size()
     flags = torch.empty((world,), dtype=torch.int64)
-    dist.all_to_all_single(flags, torch.full((world,), int(error is not None),
-                                             dtype=torch.int64))
+    mine = torch.full((world,), int(error is not None), dtype=torch.int64)
+    recovery.guarded_dispatch("agree", "host", lambda: dist.all_to_all_single(flags, mine))
     failed = [q for q, f in enumerate(flags.tolist()) if f]
     if failed:
         raise RuntimeError(f"{what} failed on process(es) {failed} "

@@ -43,7 +43,10 @@ propagate unchanged from the first attempt.
 
 A world of several processes bypasses the ladder
 (``ladder="bypassed(static-world)"``): a rank-local retry would desync
-the collectives, so a fault fails every process together.  Fits on an
+the collectives, so a fault fails every process together.  With
+``Config.crash_dir`` set the ladder reads ``"supervised"``: a fatal
+fault writes this process's crash record (utils/recovery.record_fatal)
+and the supervisor relaunches the world (utils/supervisor.py).  Fits on an
 in-process mesh run their one attempt too (``"bypassed(mesh)"``).
 
 :func:`retries_total` counts the process's transient retries over
@@ -80,6 +83,7 @@ OOM_CHUNK_FLOOR_ROWS = 64
 
 LADDER_ACTIVE = "active"
 LADDER_STATIC_WORLD = "bypassed(static-world)"
+LADDER_SUPERVISED = "supervised"
 LADDER_MESH = "bypassed(mesh)"
 
 # transient retries taken in this process, every fit
@@ -362,7 +366,19 @@ def resilient_fit(algo: str, attempt: Callable[[int], object], *,
 
     stats = stats or ResilienceStats()
     if _world() > 1:
-        bypass = LADDER_STATIC_WORLD
+        # the static-world contract: no process-local rung fires.  With
+        # the recovery sideband armed (Config.crash_dir, which the
+        # supervisor sets) recovery is supervised: a fatal fault poisons
+        # the peers and the supervisor relaunches the world, resume=auto
+        # restoring the last durable checkpoint (utils/recovery.py)
+        stats.ladder = LADDER_SUPERVISED if get_config().crash_dir else LADDER_STATIC_WORLD
+        try:
+            return attempt(0)
+        except Exception as e:
+            from oap_mllib_tpu_torch.utils import recovery
+
+            recovery.record_fatal(f"{algo}.fit", e)
+            raise
     if bypass is not None:
         stats.ladder = bypass
         return attempt(0)
