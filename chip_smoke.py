@@ -9,6 +9,7 @@
                                        # the supervised worlds (26)
     python3 chip_smoke.py --block-stream  # only the build and 22 (four cards
                                           # when the machine has four)
+    python3 chip_smoke.py --telemetry  # only the build and 27
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -255,7 +256,35 @@ Phases, each a hard check (any failure exits non-zero):
    of the two-process fit's own distance from it); each attempt's
    classification, the detection-to-respawn walls and the steps lost.
    The worlds of 21 time the gloo host path with the recovery watcher
-   armed (the default) and disarmed, in turns.
+   armed (the default) and disarmed, in turns, and with the collective
+   sanitizer off and on.  Every process runs with
+   the flight recorder (4096 slots) and the collective sanitizer armed:
+   the survivor's crash record must carry a recorder tail and the
+   sanitizer's fingerprint.
+27. telemetry (after ladder, in a child process ``--tel-worker``: a
+   process's profiler sessions stopped recording the kernels once
+   this phase's and the others' had run in it): the observability
+   plane on the headline K-Means, PCA, ML-25M ALS and the sharded
+   K-Means on four ranks (K5), each fit run with every plane off and armed
+   (``telemetry_log``, ``metrics_port`` on a free port,
+   ``flight_recorder=4096``, every sanitizer, ``profile_dir``), in
+   turns, three times each: (a) the armed fits bit-equal to the unarmed
+   ones; (b) each kernel's ``LAUNCHES`` count, the
+   ``oap_kernel_launches_total`` family and the span tree's ``kernels``
+   equal, counts zeroed just before each fit; (c) ``GET /metrics`` holds
+   the fit, kernel and program-cache families and ``GET /healthz`` the
+   JAX package's keys; (d) the JSON-lines sink one record a span and one
+   snapshot a fit; (e) the profiler trace names each hand-written kernel
+   of the path (one trace of the three at least: the tracer has dropped
+   a session's kernels), its summed device ms inside the fit and share
+   of the armed wall printed; (f) the median walls off and armed, beside
+   the first-fit walls of two runs before the plane; (g) the streamed K-Means (k-means||), PCA and
+   ALS under the transfer and retrace sanitizers bit-equal to unarmed,
+   and a planted ``.item()`` in a streamed consumer body raising.
+   Under ``--mp`` world "c" (two processes) plants an extra collective
+   on process 1 under the collective sanitizer: both processes raise
+   ``CollectiveDivergenceError`` naming both ops, well inside the
+   collective timeout.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -282,8 +311,8 @@ import time
 import numpy as np
 import torch
 
-from oap_mllib_tpu_torch import ALS, PCA, KMeans, get_mesh, set_config
-from oap_mllib_tpu_torch.data.prefetch import PrefetchStats
+from oap_mllib_tpu_torch import ALS, PCA, KMeans, config, get_mesh, set_config
+from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import ShardedTable
 from oap_mllib_tpu_torch.fallback import als_np
@@ -291,12 +320,13 @@ from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
 from oap_mllib_tpu_torch.ops import (als_block, als_block_stream, als_ops, als_stream, kmeans_ops,
                                      pca_ops, stream_ops)
-from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, als_kernel, kmeans_kernel, pca_kernel,
-                                          ring_kernel)
+from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, _tiers, als_kernel, kmeans_kernel,
+                                          pca_kernel, ring_kernel)
 from oap_mllib_tpu_torch.parallel import balance, collective
 from oap_mllib_tpu_torch.telemetry import fleet
+from oap_mllib_tpu_torch.telemetry import metrics as tel_metrics
 from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
-from oap_mllib_tpu_torch.utils import faults, membudget, resilience
+from oap_mllib_tpu_torch.utils import faults, membudget, profiling, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device, resolve_devices
 from oap_mllib_tpu_torch.utils.timing import Timings
@@ -2413,11 +2443,11 @@ def phase_sparse_input(cfg, dev):
 MP_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "pca": (1 << 20, 128),
            "pca_k": 16, "chunk_rows": 1 << 16, "stream_iter": 5, "reps": 10,
            "ring_shapes": [(1000, 130), (13, 37), (65536, 256)], "als": ALS_FULL,
-           "als_cut": 0.46, "drill_iter": 6, "drill_sleep_s": 0.1}
+           "als_cut": 0.46, "drill_iter": 6, "drill_sleep_s": 0.1, "div_rows": 1 << 16}
 MP_TINY = {"n": 4096, "d": 29, "k": 11, "max_iter": 5, "pca": (3000, 37), "pca_k": 5,
            "chunk_rows": 256, "stream_iter": 3, "reps": 1,
            "ring_shapes": [(1000, 130), (13, 37), (512, 256)], "als": ALS_TINY,
-           "als_cut": 0.46, "drill_iter": 6, "drill_sleep_s": 0.02}
+           "als_cut": 0.46, "drill_iter": 6, "drill_sleep_s": 0.02, "div_rows": 2048}
 MP_BLOCK = 1 << 16  # rows a seeded generator makes: any process makes its own
 MP_TIMEOUT_S = 900
 
@@ -2462,7 +2492,7 @@ def spectrum_rows(n, lo, hi, d, seed, dev):
 def mp_local_devices(world, rank, mesh, rehearse):
     """A worker's own devices: world "a" one, world "b" two; the one card
     for every process, or under --mesh cards of its own."""
-    per = 1 if world == "a" else 2
+    per = 2 if world == "b" else 1
     if rehearse:
         return ",".join(["cpu"] * per)
     if mesh:
@@ -2570,6 +2600,14 @@ def mp_ring(cfg, dev, rank, nproc):
         set_config(collective_timeout=0.0)
         unwatched.append(mp_timed(gloo_host, n_gloo, dev))
         set_config(collective_timeout=600.0)
+        # the collective sanitizer's cost a host collective (its
+        # cross-check is one more gloo all_gather, 192 bytes): off, on,
+        # on, off, every process alike
+        sanitized = []
+        for on in (False, True, True, False):
+            set_config(sanitizers="collective" if on else "")
+            sanitized.append(mp_timed(gloo_host, n_gloo, dev))
+        set_config(sanitizers="")
         # the same payload's bytes through gloo alone, host to host
         bare_ms = mp_timed(gloo_bare(part), n_gloo, dev)
         plain_ms = mp_timed(lambda: ring_kernel.ring_allreduce_groups_plain(mine, groups, owner),
@@ -2584,6 +2622,9 @@ def mp_ring(cfg, dev, rank, nproc):
              "gloo_host_ms_watched": [gloo_ms, watched_again],
              "gloo_host_ms_unwatched": unwatched,
              "watcher_ms": (gloo_ms + watched_again - sum(unwatched)) / 2.0,
+             "gloo_host_ms_sanitized": sanitized[1:3],
+             "gloo_host_ms_unsanitized": [sanitized[0], sanitized[3]],
+             "sanitizer_ms": (sanitized[1] + sanitized[2] - sanitized[0] - sanitized[3]) / 2.0,
              # the host path's time inside gloo's all_gather and in all of
              # process_allgather (copies included), a call
              "gloo_host_gloo_ms": 1e3 * host["gloo_s"] / max(1, host["calls"]),
@@ -3131,13 +3172,54 @@ def mp_balance_drill(cfg, dev, rank, nproc, x, c0):
           f"mp_balance drill: K1 {launches[kmeans_kernel.KERNEL]}, chunks staged {chunks}")
     mp_same("mp_balance drill", json.dumps(summary["balance"], sort_keys=True).encode())
     walls = [[rec["frames"][p][0] for p in range(nproc)] for rec in window]
+    col = fleet.FRAME_FIELDS.index("kernel_dispatch_s")
+    dispatch = [[rec["frames"][p][col] for p in range(nproc)] for rec in window]
+    check(dev.type != "cuda" or min(dispatch[-1]) > 0.0,
+          f"mp_balance drill: the frames' kernel_dispatch_s {dispatch[-1]}")
     return {"sleep_s_a_chunk": cfg["drill_sleep_s"], "patience": patience, "threshold": 1.3,
+            "kernel_dispatch_s": dispatch,
             "start_extents": start, "final_extents": summary["balance"]["extents"],
             "passes": len(window), "pass_walls_s": walls,
             "pass_wall_max_s": [max(p) for p in walls],
             "skew_ratios": [rec["skew_ratio"] for rec in window], "replans": replans,
             "launches": launches, "wall_s": wall, "num_iter": n_iter,
             "fleet": summary["fleet"]}
+
+
+def mp_divergence(cfg, dev, rank):
+    """World "c": a streamed K-Means under the collective sanitizer where
+    process 1 issues one extra barrier before the fit's first collective.
+    Every process must raise CollectiveDivergenceError there, naming both
+    ops, well inside the collective timeout."""
+    from oap_mllib_tpu_torch.utils import sanitizers
+
+    n, d = cfg["div_rows"], 16
+    x = np.random.default_rng(rank).normal(size=(n, d)).astype(np.float32)
+    real = collective.process_allgather
+    planted = {"done": rank != 1}
+
+    def extra(arrays):
+        if not planted["done"]:
+            planted["done"] = True
+            collective.barrier()
+        return real(arrays)
+
+    set_config(sanitizers="collective", flight_recorder=4096)
+    collective.process_allgather = extra
+    t0 = time.perf_counter()
+    err = None
+    try:
+        KMeans(k=8, max_iter=3, seed=0, init_mode="random", device=str(dev)).fit(
+            ChunkSource.from_array(x, n // 4))
+    except sanitizers.CollectiveDivergenceError as e:
+        err = str(e)
+    finally:
+        collective.process_allgather = real
+        set_config(sanitizers="", flight_recorder=0)
+    seconds = time.perf_counter() - t0
+    check(err is not None, "mp_divergence: the planted collective raised nothing")
+    return {"error": err, "seconds": seconds,
+            "timeout_s": float(config.get_config().collective_timeout)}
 
 
 MP_STATE = {}
@@ -3164,6 +3246,8 @@ def mp_worker(argv) -> int:
             res["mp_pca"] = [mp_pca(cfg, dev, rank, nproc, 1, out)]
             res["mp_stream"] = mp_stream(cfg, dev, rank, nproc, out)
             res["mp_balance"] = mp_balance(cfg, dev, rank, nproc, out)
+        elif world == "c":
+            res["mp_divergence"] = mp_divergence(cfg, dev, rank)
         else:
             res["mp_ring_members"] = mp_ring_members(dev, rank, nproc)
             res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 2, out, "random")]
@@ -3308,6 +3392,14 @@ def phase_mp(dev, mesh, rehearse):
     n_a = 4 if mesh else 2
     a, wall_a = run_world("a", n_a, out, flags)
     b, wall_b = run_world("b", 2, out, flags)
+    c, wall_c = run_world("c", 2, out, flags)
+    div = [r["mp_divergence"] for r in c]
+    for r, v in enumerate(div):
+        check("op:process_allgather" in v["error"] and "op:barrier" in v["error"]
+              and v["seconds"] < v["timeout_s"],
+              f"mp_divergence process {r}: {v['seconds']:.1f} s, {v['error'][:400]}")
+    emit("mp_divergence", {"seconds": [v["seconds"] for v in div], "world_wall_s": wall_c,
+                           "first_lines": [v["error"].splitlines()[0] for v in div]})
     n, d, k, it = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"]
     x, c0 = blob_rows(n, 0, n, d, k, 0, dev)
     checks = {}
@@ -4257,9 +4349,14 @@ def phase_supervise(dev, mesh, rehearse):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
+    sups = {}
+
     def supervised(tag, chaos, **kw):
         env = {**os.environ, "OAP_MLLIB_TPU_CHECKPOINT_DIR": os.path.join(root, tag, "ckpt"),
-               "OAP_MLLIB_TPU_CHECKPOINT_INTERVAL": str(cfg["interval"])}
+               "OAP_MLLIB_TPU_CHECKPOINT_INTERVAL": str(cfg["interval"]),
+               # the crash records' recorder tail and sanitizer fingerprint
+               "OAP_MLLIB_TPU_FLIGHT_RECORDER": "4096",
+               "OAP_MLLIB_TPU_SANITIZERS": "collective"}
         sup = Supervisor(lambda rank, world, coord, attempt: [
             sys.executable, me, "--sup-worker", str(rank), str(world), coord, str(attempt),
             root, tag, *flags], 2, os.path.join(root, tag, "sideband"), env=env, chaos=chaos,
@@ -4267,6 +4364,7 @@ def phase_supervise(dev, mesh, rehearse):
         t0 = time.perf_counter()
         s = sup.run()
         wall = time.perf_counter() - t0
+        sups[tag] = sup
         for att in s["attempts"]:
             print(f"supervise {tag} attempt {att['index']} world {att['world']}: "
                   f"{[e['classification'] for e in att['exits']]} culprit {att['culprit']}",
@@ -4296,6 +4394,12 @@ def phase_supervise(dev, mesh, rehearse):
     check([e["classification"] for e in att0["exits"]] == ["peer_abort", "killed"]
           and att0["exits"][1]["returncode"] == -9 and att0["culprit"] == 1,
           f"supervise kill: attempt 0 {att0}")
+    # the survivor's whole record (the summary keeps four of its fields)
+    record = sups["kill"].attempts[0].exits[0].record or {}
+    tail = record.get("flight_recorder") or []
+    check(bool(tail) and tail[-1]["kind"] == "crash" and record.get("sanitizer_fingerprint"),
+          f"supervise kill: the survivor's crash record carries tail {len(tail)} events, "
+          f"fingerprint {record.get('sanitizer_fingerprint')!r}")
     got = _sup_results(run)
     als_ck = got[0]["als"]["checkpoint"]
     reached = kill_iter - km_calls  # ALS iterations finished when the kill fired
@@ -4336,7 +4440,10 @@ def phase_supervise(dev, mesh, rehearse):
            "chaos": chaos, "kill_fit_execute_call": kill_iter,
            "als_iterations_reached": reached, "als_restored_step": als_ck["restored_step"],
            "steps_lost": reached - als_ck["restored_step"],
-           "survivor_record": att0["exits"][0].get("record"),
+           "survivor_record": {k: v for k, v in record.items()
+                               if k not in ("flight_recorder", "telemetry")},
+           "survivor_tail": {"events": len(tail), "kinds": sorted({e["kind"] for e in tail}),
+                             "last": tail[-3:]},
            "classifications": {tag: [[e["classification"] for e in a["exits"]]
                                      for a in s["attempts"]]
                                for tag, s in (("ref", ref), ("kill", run), ("shrink", shrunk))},
@@ -4352,6 +4459,380 @@ def phase_supervise(dev, mesh, rehearse):
     return out
 
 
+# -- the observability plane (telemetry) ----------------------------------------
+
+TEL_FULL = {"kmeans": {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20},
+            "pca": {"n": 1 << 20, "d": 128, "k": 16}, "als": ALS_FULL,
+            "sharded": SHARDED_FULL, "reps": 3,
+            "stream": {"n": 1 << 18, "d": 64, "k": 64, "chunk_rows": 1 << 15, "max_iter": 3,
+                       "als": LADDER_FULL["als"]}}
+TEL_TINY = {"kmeans": {"n": 4133, "d": 29, "k": 11, "max_iter": 5},
+            "pca": {"n": 3001, "d": 37, "k": 5}, "als": ALS_TINY,
+            "sharded": SHARDED_TINY, "reps": 2,
+            "stream": {"n": 4133, "d": 29, "k": 11, "chunk_rows": 1024, "max_iter": 3,
+                       "als": LADDER_TINY["als"]}}
+TEL_OFF = {"telemetry_log": "", "metrics_port": 0, "flight_recorder": 0, "sanitizers": "",
+           "profile_dir": ""}
+# the JAX package's GET /healthz keys
+HEALTHZ_KEYS = ("capability", "fit", "fleet_passes", "flight_recorder_seq", "last_collective",
+                "ladder", "ok", "phase", "rank", "rows_processed", "serving", "step", "world")
+# the CUDA functions of each hand-written kernel, as the profiler names them
+# (sum_slices_kernel is K2's slice sum; the ALS fit launches no K2)
+TRACE_FUNCS = {
+    kmeans_kernel.KERNEL: ("csq_kernel", "prep_kernel", "assign_kernel", "assign_wgmma_kernel",
+                           "rank_kernel", "scan_sums_kernel", "scan_apply_kernel",
+                           "scatter_kernel", "segsum_kernel", "finalize_kernel", "cost_kernel"),
+    pca_kernel.KERNEL: ("colsum_kernel", "colsum_finish_kernel", "gram_simt_kernel",
+                        "gram_wgmma_kernel", "sum_slices_kernel"),
+    als_kernel.SOLVE: ("solve_kernel",),
+    als_kernel.GRAM: ("factor_gram_kernel",),
+    ring_kernel.KERNEL: ("ring_fold_kernel",),
+}
+# the walls of the same four fits before the observability plane, the
+# first of each in two whole runs of this script on one H100 80GB HBM3 at
+# 700 W (its fit, pca_fit, als_fit and sharded_fit phases)
+EARLIER_WALLS = {"kmeans": (1.8399, 1.8643), "pca": (0.2589, 0.5038), "als": (4.5082, 4.3873),
+              "sharded": (2.2251, 2.5212)}
+
+
+def _sget(summary, key):
+    return summary[key] if isinstance(summary, dict) else getattr(summary, key)
+
+
+def _kernel_registry():
+    """{label: launches} of the ``oap_kernel_launches_total`` family."""
+    series = tel_metrics.snapshot().get("oap_kernel_launches_total", {})
+    return {lab.split("=", 1)[1]: int(v) for lab, v in series.items()}
+
+
+def _span_kernels(root):
+    """{label: launches} summed over a span tree's ``kernels`` attributes."""
+    out = {}
+    for _, sp in root.walk():
+        for label, n in sp.attrs.get("kernels", {}).items():
+            out[label] = out.get(label, 0) + n
+    return out
+
+
+def _trace_kernels(path, kernels):
+    """Each kernel's summed device ms and launches in a Chrome trace, and
+    the names of the trace's annotations (the fit's spans)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    pats = {k: re.compile(r"(^|[\s:])(" + "|".join(TRACE_FUNCS[k]) + r")(\(|<|$)")
+            for k in kernels}
+    out = {k: {"ms": 0.0, "events": 0} for k in kernels}
+    out["_kernel_events"] = 0
+    annotations = set()
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        if cat == "kernel":
+            out["_kernel_events"] += 1
+            for k, pat in pats.items():
+                if pat.search(name):
+                    out[k]["ms"] += float(e.get("dur", 0.0)) / 1e3
+                    out[k]["events"] += 1
+                    break
+        elif "annotation" in cat:
+            annotations.add(name)
+    return out, annotations
+
+
+def _http(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tel_runs(cfg, dev):
+    """The four fits of the phase: ``(name, run, kernel modules)``, each
+    run returning ``(arrays to compare, iterations, summary)``."""
+    kc, pc, ac, sc = cfg["kmeans"], cfg["pca"], cfg["als"], cfg["sharded"]
+    x, _, _ = blobs(kc["n"], kc["d"], kc["k"], dev, seed=0)
+    xp = pca_data(pc["n"], pc["d"], dev, seed=pc["d"])
+    data = als_data(ac)
+    xs = x if (sc["n"], sc["d"]) == (kc["n"], kc["d"]) else blobs(sc["n"], sc["d"], sc["k"],
+                                                                  dev, seed=0)[0]
+    layout = ",".join(str(q) for q in mesh_devices(dev, sc["data"] * sc["model"]))
+
+    def kmeans():
+        m = KMeans(k=kc["k"], max_iter=kc["max_iter"], tol=1e-4, init_mode="k-means||",
+                   seed=0, device=str(dev)).fit(x)
+        return [m.cluster_centers_], m.summary.num_iter, m.summary
+
+    def pca():
+        m = PCA(k=pc["k"], device=str(dev)).fit(xp)
+        return [m.components_, m.explained_variance_], None, m.summary
+
+    def als():
+        m = ALS(rank=ac["rank"], max_iter=ac["max_iter"], reg_param=ac["reg"],
+                implicit_prefs=True, alpha=ac["alpha"], seed=0, device=str(dev)).fit(
+            *data, ac["n_users"], ac["n_items"])
+        return [m.user_factors_, m.item_factors_], None, m.summary
+
+    def sharded():
+        set_config(model_parallel=sc["model"])
+        try:
+            m = KMeans(k=sc["k"], max_iter=sc["max_iter"], tol=1e-4, seed=0,
+                       device=layout).fit(xs)
+        finally:
+            set_config(model_parallel=1)
+        return [m.cluster_centers_], m.summary.num_iter, m.summary
+
+    return [("kmeans", kmeans, [kmeans_kernel]), ("pca", pca, [pca_kernel]),
+            ("als", als, [als_kernel]), ("sharded", sharded, [kmeans_kernel, ring_kernel])]
+
+
+def _tel_one(run, mods, armed, sink):
+    """One fit, off or armed, with the kernel counts zeroed just before and
+    read just after, the registry's and the span tree's counts beside."""
+    set_config(**(armed or TEL_OFF))
+    for m in mods:
+        m.reset_launches()
+    reg0, traces0 = _kernel_registry(), len(profiling.WRITTEN)
+    lines0 = _sink_records(sink)
+    t0 = time.perf_counter()
+    try:
+        arrays, n_iter, s = run()
+    finally:
+        set_config(**TEL_OFF)
+    wall = time.perf_counter() - t0
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    reg1 = _kernel_registry()
+    root = _sget(s, "timings").root
+    return {"arrays": arrays, "n_iter": n_iter, "wall": wall, "launches": launches,
+            "registry": {k: reg1.get(k, 0) - reg0.get(k, 0) for k in reg1},
+            "spans": _span_kernels(root), "root": root,
+            "traces": profiling.WRITTEN[traces0:],
+            "sink": _sink_records(sink)[len(lines0):], "summary": s}
+
+
+def _sink_records(sink):
+    if not sink or not os.path.exists(sink):
+        return []
+    with open(sink) as f:
+        return [json.loads(line) for line in f]
+
+
+def tel_transfer(cfg, dev):
+    """(g): the streamed K-Means (k-means|| init: its audited host reads),
+    PCA and ALS under the transfer and retrace sanitizers, bit-equal to
+    their unarmed fits; a planted ``.item()`` in a streamed consumer body
+    raises, and the sync mode is restored after."""
+    sc = cfg["stream"]
+    x, _, _ = blobs(sc["n"], sc["d"], sc["k"], dev, seed=5)
+    src = ChunkSource.from_array(x.cpu().numpy(), chunk_rows=sc["chunk_rows"])
+    a = sc["als"]
+    rng = np.random.default_rng(9)
+    tri = np.stack([rng.integers(a["n_users"], size=a["nnz"]),
+                    np.minimum(rng.zipf(1.3, size=a["nnz"]) - 1, a["n_items"] - 1),
+                    rng.random(a["nnz"]) * 4 + 1], 1)
+    tri_src = ChunkSource.from_array(tri, chunk_rows=1 << 14)
+
+    def fits():
+        km = KMeans(k=sc["k"], max_iter=sc["max_iter"], seed=0, init_mode="k-means||",
+                    device=str(dev)).fit(src)
+        pc = PCA(k=4, device=str(dev)).fit(src)
+        al = ALS(rank=a["rank"], max_iter=a["max_iter"], implicit_prefs=True, alpha=40.0,
+                 seed=0, device=str(dev)).fit(tri_src, n_users=a["n_users"],
+                                              n_items=a["n_items"])
+        return {"kmeans": [km.cluster_centers_], "pca": [pc.components_],
+                "als": [al.user_factors_, al.item_factors_],
+                "streamed": [km.summary.streamed, pc.summary["streamed"],
+                             al.summary["streamed"]]}
+
+    plain = fits()
+    before = tel_metrics.family_total("oap_sanitizer_transfer_scopes_total")
+    set_config(sanitizers="transfer,retrace")
+    try:
+        guarded = fits()
+        scopes = tel_metrics.family_total("oap_sanitizer_transfer_scopes_total") - before
+        raised = None
+        with Prefetcher(range(3), stage=lambda i: (i, [np.ones((4, 4), np.float32)]),
+                        device=dev) as pf:
+            try:
+                for _, (t,) in pf:
+                    t.sum().item()
+            except RuntimeError as e:
+                raised = str(e)
+    finally:
+        set_config(sanitizers="")
+    mode = torch.cuda.get_sync_debug_mode() if dev.type == "cuda" else 0
+    same = {k: all(np.array_equal(p, g) for p, g in zip(plain[k], guarded[k]))
+            for k in ("kmeans", "pca", "als")}
+    check(all(same.values()) and all(plain["streamed"]),
+          f"transfer: guarded streamed fits differ from unarmed ones: {same}")
+    check(scopes > 0, "transfer: no consumer body ran under the sanitizer")
+    if dev.type == "cuda":
+        check(raised is not None and "synchroniz" in raised,
+              f"transfer: the planted .item() did not raise ({raised!r})")
+    check(mode == 0, f"transfer: the sync debug mode stayed {mode}")
+    return {"bit_equal": same, "guarded_bodies": scopes, "planted_raised": raised}
+
+
+def phase_telemetry(cfg, dev):
+    """The observability plane on the four headline fits (module
+    docstring, 27): each run off and armed, interleaved, ``reps`` times."""
+    out = _scratch("telemetry")
+    sink = os.path.join(out, "telemetry.jsonl")
+    port = _free_port()
+    armed = {"telemetry_log": sink, "metrics_port": port, "flight_recorder": 4096,
+             "sanitizers": "collective,transfer,retrace,locks",
+             "profile_dir": os.path.join(out, "traces")}
+    result = {"port": port}
+    health = metrics_text = None
+    try:
+        for name, run, mods in _tel_runs(cfg, dev):
+            runs = {"off": [], "armed": []}
+            for _ in range(cfg["reps"]):
+                runs["off"].append(_tel_one(run, mods, None, sink))
+                runs["armed"].append(_tel_one(run, mods, armed, sink))
+            ref = runs["off"][0]
+            labels = {k: _tiers.LABELS[k] for k in ref["launches"]}
+            for kind, reps in runs.items():
+                for r in reps:
+                    # (a) bit-equal to the first unarmed fit
+                    check(all(np.array_equal(a, b) for a, b in zip(r["arrays"], ref["arrays"]))
+                          and r["n_iter"] == ref["n_iter"],
+                          f"telemetry {name}: the {kind} fit differs from the unarmed one")
+                    # (b) LAUNCHES == registry == span tree, every kernel
+                    for k, lab in labels.items():
+                        check(r["launches"][k] == r["registry"].get(lab, 0)
+                              == r["spans"].get(lab, 0) == ref["launches"][k],
+                              f"telemetry {name} {kind}: {k} LAUNCHES {r['launches'][k]}, "
+                              f"registry {r['registry'].get(lab, 0)}, spans "
+                              f"{r['spans'].get(lab, 0)}")
+            expect = [k for k, n in ref["launches"].items() if n > 0]
+            check(bool(expect) or dev.type != "cuda", f"telemetry {name}: no kernel launched")
+            kern_ms, spans_seen, seen = {k: [] for k in expect}, set(), []
+            for r in runs["armed"]:
+                # (d) one record per span of the tree and one snapshot a fit
+                recs = r["sink"]
+                root = r["root"]
+                n_spans = sum(1 for _ in root.walk())
+                got = [x for x in recs if x["type"] == "span" and x["fit"] == root.name]
+                mets = [x for x in recs if x["type"] == "metrics" and x.get("fit") == root.name]
+                check(len(got) == n_spans and len(mets) == 1,
+                      f"telemetry {name}: sink holds {len(got)} span records of {n_spans} "
+                      f"spans and {len(mets)} snapshots")
+                # (e) the profiler traces name each kernel of the path
+                check(len(r["traces"]) == 1, f"telemetry {name}: traces {r['traces']}")
+                ms, ann = _trace_kernels(r["traces"][0], expect)
+                spans_seen |= ann
+                seen.append(ms["_kernel_events"])
+                for k in expect:
+                    if ms[k]["events"]:
+                        kern_ms[k].append(ms[k]["ms"])
+                for path in r["traces"]:
+                    os.remove(path)
+            # the tracer has dropped a whole session's kernels on the card
+            # (profile_calls retries for it): one trace of three must name
+            # each kernel, and the count of those that did is printed
+            for k in expect:
+                check(bool(kern_ms[k]), f"telemetry {name}: no armed fit's trace names {k} "
+                                        f"(kernel events a trace: {seen})")
+            phases = {c.name for c in ref["root"].children if c.count}
+            check(bool(phases & spans_seen),
+                  f"telemetry {name}: the trace's annotations {sorted(spans_seen)[:20]} "
+                  f"name none of the phases {sorted(phases)}")
+            off_w = sorted(r["wall"] for r in runs["off"])
+            arm_w = sorted(r["wall"] for r in runs["armed"])
+            off_med, arm_med = float(np.median(off_w)), float(np.median(arm_w))
+            v = {"launches": ref["launches"], "labels": labels,
+                 "walls_s": {"off": [r["wall"] for r in runs["off"]],
+                             "armed": [r["wall"] for r in runs["armed"]]},
+                 "median_s": {"off": off_med, "armed": arm_med},
+                 "armed_over_off": arm_med / off_med,
+                 "earlier_first_fit_walls_s": EARLIER_WALLS[name],
+                 "kernel_device_ms": {k: float(np.median(v_)) for k, v_ in kern_ms.items()},
+                 "traces_naming_the_kernel": {k: len(v_) for k, v_ in kern_ms.items()},
+                 "trace_kernel_events": seen,
+                 "kernel_share_of_armed_wall": {k: float(np.median(v_)) / 1e3 / arm_med
+                                                for k, v_ in kern_ms.items()},
+                 "phases_s_off": runs["off"][-1]["root"].flat(),
+                 "phases_traced": sorted(phases & spans_seen),
+                 "progcache": _sget(runs["armed"][-1]["summary"], "progcache"),
+                 "sanitizers": _sget(runs["armed"][-1]["summary"], "sanitizers")}
+            emit(f"telemetry_{name}", v)
+            result[name] = v
+            del runs
+        # (c) the live endpoint after the armed fits, armed
+        set_config(**armed)
+        metrics_text = _http(port, "/metrics")
+        health = json.loads(_http(port, "/healthz"))
+        kernel_fams = (("oap_kernel_launches_total", "oap_kernel_dispatch_seconds")
+                       if dev.type == "cuda" else ())
+        for fam in ("oap_fit_total", "oap_progcache_hits_total", "oap_progcache_misses_total",
+                    *kernel_fams):
+            check(f"# TYPE {fam} " in metrics_text, f"telemetry: /metrics lacks {fam}")
+        check(sorted(health) == sorted(HEALTHZ_KEYS) and health["flight_recorder_seq"] >= 0,
+              f"telemetry: /healthz {health}")
+        set_config(**TEL_OFF)
+        # the payload's keys, not the payload: no line but the last may
+        # hold an ok flag
+        result["endpoint"] = {"metrics_families": sum(
+            1 for ln in metrics_text.splitlines() if ln.startswith("# TYPE")),
+            "healthz_keys": sorted(health),
+            "healthz_flight_recorder_seq": health["flight_recorder_seq"]}
+        result["transfer"] = tel_transfer(cfg, dev)
+    finally:
+        set_config(**TEL_OFF)
+        fleet.stop_server()
+    emit("telemetry", {k: v for k, v in result.items()
+                       if k in ("port", "endpoint", "transfer")})
+    shutil.rmtree(out, ignore_errors=True)
+    return result
+
+
+def tel_worker(argv) -> int:
+    """The child of :func:`phase_telemetry_child`: phase 27 in a process of
+    its own, its launches on one ``TEL_RESULT`` line."""
+    rehearse = "--rehearse" in argv
+    dev = resolve_device("cpu" if rehearse else "cuda")
+    try:
+        res = phase_telemetry(TEL_TINY if rehearse else TEL_FULL, dev)
+    except Failed as e:
+        print(f"FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    print("TEL_RESULT " + json.dumps({fit: {"launches": res[fit]["launches"]}
+                                      for fit in ("kmeans", "pca", "als", "sharded")}),
+          flush=True)
+    return 0
+
+
+def phase_telemetry_child(dev, rehearse):
+    """Phase 27 of the full run, in a child process: every torch.profiler
+    session of this process after the phase's twelve traces recorded no
+    CUDA kernel on the card, and the phase's traces after the earlier
+    phases' sessions held none of the PCA fit's; a fresh process traces
+    all of them (the kernels the child launches are its own, and the
+    build it loads is this run's)."""
+    flags = ["--rehearse"] if rehearse else []
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--tel-worker", *flags],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                       timeout=MP_TIMEOUT_S)
+    for line in p.stdout.splitlines():
+        if not line.startswith(("TEL_RESULT ", "USDT:")):
+            print(line, flush=True)
+    check(p.returncode == 0, f"telemetry: the child exited {p.returncode}")
+    got = [ln for ln in p.stdout.splitlines() if ln.startswith("TEL_RESULT ")]
+    check(bool(got), "telemetry: the child printed no result")
+    return json.loads(got[-1][len("TEL_RESULT "):])
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -4364,7 +4845,7 @@ def phase_build(dev):
                    "sources_hash": _build.sources_hash(), "cwd": os.getcwd(),
                    "libraries": {k: str(v) for k, v in paths.items()}})
     for name in paths:
-        log = (_build.BUILD_DIR / f"{name}.ptxas.log")
+        log = (_build.build_dir() / f"{name}.ptxas.log")
         if log.exists():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
@@ -4384,6 +4865,8 @@ def main(argv=None) -> int:
         return mp_worker(argv[1:])
     if argv[:1] == ["--ckpt-worker"]:
         return ckpt_worker(argv[1:])
+    if argv[:1] == ["--tel-worker"]:
+        return tel_worker(argv[1:])
     if argv[:1] == ["--sup-worker"]:
         return sup_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4399,6 +4882,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mp", action="store_true",
                     help="only the build and the phases across processes (the worlds of "
                          "--mesh with it); prints no ok line")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="only the build and the observability phase (27); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4407,6 +4892,10 @@ def main(argv=None) -> int:
         dev = resolve_device("cpu" if args.rehearse else "cuda")
         cfg = TINY if args.rehearse else FULL
         smi = phase_build(dev) if dev.type == "cuda" else None
+        if args.telemetry:
+            phase_telemetry(TEL_TINY if args.rehearse else TEL_FULL, dev)
+            print(f"telemetry phase passed: {smi}", flush=True)
+            return 0
         if args.block_stream:
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
             phase_block_stream(als_cfg, als_data(als_cfg), dev)
@@ -4440,6 +4929,10 @@ def main(argv=None) -> int:
         phase_small(dev)
         phase_small_slices(dev)
         ladder = phase_ladder(LADDER_TINY if args.rehearse else LADDER_FULL, dev)
+        # in a child process (its profiler sessions and this process's
+        # must not meet), after the ladder, whose real-OOM leg sizes a
+        # memory cap from a clean card
+        telemetry = phase_telemetry_child(dev, args.rehearse)
         x, w, c = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)
         reps = 10 if dev.type == "cuda" else 1
         variants = phase_kernels(x, w, c, dev, reps)
@@ -4600,6 +5093,9 @@ def main(argv=None) -> int:
     }
     for name, paths in mp_launches(mp).items():
         by_path[name].update(paths)
+    for fit in ("kmeans", "pca", "als", "sharded"):
+        for name, n in telemetry[fit]["launches"].items():
+            by_path[name][f"telemetry {fit} (off and armed alike)"] = n
     for entry in entries:
         entry["launches_by_path"] = by_path[entry["name"]]
     if args.rehearse:

@@ -106,6 +106,27 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   a process after every streamed pass in a world of several processes,
   "on" also in one, "off" never (telemetry/fleet.py); the controller
   reads those frames.
+- ``profile_dir``: "" (default) is off; set, every fit runs inside a
+  ``torch.profiler`` trace (CPU and, on a card, CUDA activities) that
+  writes a Chrome trace there (utils/profiling.py), and each span of
+  the fit opens a ``record_function`` of its name.
+- ``sanitizers``: a comma-set of "collective", "transfer", "retrace",
+  "locks" (utils/sanitizers.py); "" (default) is off, an unknown name
+  raises at the first seam that reads it.
+- ``telemetry_log``: the JSON-lines sink (telemetry/export.py), one
+  record per span and a metrics snapshot per fit; "" (default) opens no
+  file.  A world of several processes writes ``<path>.rank<r>``.
+- ``metrics_port``: > 0 serves ``GET /metrics`` and ``GET /healthz`` on
+  ``metrics_port + process_id`` (telemetry/fleet.py); 0 (default) is
+  off, negative raises.
+- ``flight_recorder``: slots of the event ring (telemetry/flightrec.py);
+  0 (default) is off, negative raises.
+- ``compilation_cache_dir``: the directory the kernel libraries build
+  into and load from (ops/cuda/_build.py, ops/host_prep.py); ""
+  (default) keeps ``oap_mllib_tpu_torch/build/``.
+
+The JAX package's ``timing`` (log every phase) is left out: the port
+always times its phases into the summary's span tree.
 
 The JAX package's ``pca_kernel`` and ``als_solve_kernel`` choose between
 Pallas and XLA; the port has one device route, its CUDA kernels, so it
@@ -174,6 +195,12 @@ class Config:
     checkpoint_dir: str = ""
     checkpoint_interval: int = 1
     resume: str = "auto"
+    profile_dir: str = ""
+    sanitizers: str = ""
+    telemetry_log: str = ""
+    metrics_port: int = 0
+    flight_recorder: int = 0
+    compilation_cache_dir: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":

@@ -47,7 +47,20 @@ excluded), ``<phase>/transfer`` (the pinned copy and the copy issue),
 ``<phase>/compute`` (pass wall minus the consumer's wait) and
 ``<phase>/stream_wall``.  Every finalized pass also adds its staged
 bytes and rows to :data:`STAGED`, the process totals the route planner
-calibrates against (utils/membudget.record_plan).
+calibrates against (utils/membudget.record_plan), and books the split
+into the registry (``oap_prefetch_*`` and ``oap_stream_*`` by phase,
+telemetry/metrics.py).
+
+Iterating a pipeline under the armed planes (each one config check a
+pass when off): the flight recorder gets a ``chunk`` event a consumed
+chunk; the ``transfer`` sanitizer runs each consumer body (the code
+between two pulls) under ``torch.cuda.set_sync_debug_mode("error")`` on
+a card, restored when the body ends, the loop breaks or raises, or the
+pipeline closes; the ``retrace`` sanitizer checks the builds, loads and
+program-cache misses at every chunk boundary past the first
+(utils/sanitizers.py).  The producer's pinned, non-blocking copies and
+its waits on its own events do not synchronise the consumer's stream
+and pass under the mode.
 """
 
 from __future__ import annotations
@@ -61,9 +74,11 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from oap_mllib_tpu_torch.utils.faults import maybe_fault
-
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.telemetry import flightrec
+from oap_mllib_tpu_torch.telemetry import metrics as _tm
+from oap_mllib_tpu_torch.utils import sanitizers
+from oap_mllib_tpu_torch.utils.faults import maybe_fault
 from oap_mllib_tpu_torch.utils.timing import tick
 
 log = logging.getLogger("oap_mllib_tpu_torch")
@@ -137,10 +152,28 @@ class PrefetchStats:
 
     def finalize(self, timings, prefix: str, wall: float) -> None:
         """Add this pipeline's split to ``timings`` under ``prefix`` (a
-        ``Timings``, or None) and its staged bytes to :data:`STAGED`."""
+        ``Timings``, or None), its staged bytes to :data:`STAGED`, and the
+        split to the registry labelled by ``prefix``."""
         with _staged_lock:
             STAGED["bytes"] += self.bytes_staged
             STAGED["rows"] += self.rows
+        lab = {"phase": prefix}
+        _tm.counter("oap_prefetch_stage_seconds_total", lab,
+                    help="Host staging wall (pad/convert, transfer excluded)"
+                    ).inc(max(self.stage_s - self.transfer_s, 0.0))
+        _tm.counter("oap_prefetch_transfer_seconds_total", lab,
+                    help="Device-transfer dispatch wall inside staging").inc(self.transfer_s)
+        _tm.counter("oap_prefetch_wait_seconds_total", lab,
+                    help="Consumer wall blocked waiting for a staged chunk").inc(self.wait_s)
+        _tm.counter("oap_prefetch_compute_seconds_total", lab,
+                    help="Pass wall not spent waiting on staging"
+                    ).inc(max(wall - self.wait_s, 0.0))
+        _tm.counter("oap_prefetch_chunks_total", lab,
+                    help="Chunks that reached the consumer").inc(self.chunks)
+        _tm.counter("oap_stream_bytes_staged_total", lab,
+                    help="Array bytes staged through the pipeline").inc(self.bytes_staged)
+        _tm.counter("oap_stream_rows_total", lab,
+                    help="Padded rows staged through the pipeline").inc(self.rows)
         if timings is None:
             return
         timings.add(prefix + "/stage", max(self.stage_s - self.transfer_s, 0.0))
@@ -315,6 +348,8 @@ class _Threaded:
         self._thread.join(timeout=JOIN_TIMEOUT_S)
         if self._thread.is_alive():
             self._stats.leaked_threads += 1
+            _tm.counter("oap_prefetch_leaked_threads_total",
+                        help="Producer threads that failed to join at shutdown").inc()
             self._items.close()
             log.warning("prefetch producer did not end within %.1f s at %s; its "
                         "source is closed", JOIN_TIMEOUT_S, where)
@@ -383,9 +418,36 @@ class Prefetcher:
         it = iter(items)
         self._impl = (_Serial(it, staged, self.stats) if self.depth == 1
                       else _Threaded(it, staged, self.depth, self.stats, self.device))
+        self._watched = None
 
     def __iter__(self):
-        return self
+        # the armed planes (module docstring); off, the pipeline itself:
+        # three config checks a pass, nothing a chunk
+        guard = sanitizers.enabled("transfer")
+        watch = sanitizers.RetraceWatch("prefetch") if sanitizers.enabled("retrace") else None
+        if not guard and watch is None and not flightrec.enabled():
+            return self
+        self._watched = self._sanitized(guard, watch)
+        return self._watched
+
+    def _sanitized(self, guard: bool, watch):
+        record = flightrec.enabled()
+        index = 0
+        while True:
+            try:
+                item = self.__next__()
+            except StopIteration:
+                return
+            if record:
+                flightrec.record("chunk", "prefetch", f"#{index}")
+            if guard:
+                with sanitizers.transfer_scope(self.device):
+                    yield item
+            else:
+                yield item
+            if watch is not None:
+                watch.chunk_done(index)
+            index += 1
 
     def __next__(self):
         out = next(self._impl)
@@ -395,7 +457,12 @@ class Prefetcher:
         return self
 
     def __exit__(self, *exc) -> None:
-        self._impl.close()
+        self.close()
 
     def close(self) -> None:
+        # a consumer body that raised leaves its generator suspended
+        # inside the transfer scope: closing it restores the sync mode
+        if self._watched is not None:
+            self._watched.close()
+            self._watched = None
         self._impl.close()

@@ -99,10 +99,12 @@ from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_st
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
+from oap_mllib_tpu_torch.telemetry import export as telemetry
 from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
-from oap_mllib_tpu_torch.utils import membudget, resilience
+from oap_mllib_tpu_torch.utils import membudget, progcache, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.profiling import maybe_trace
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
@@ -265,6 +267,16 @@ def _grouped_ok_single(kernel: str, users, items, n_users: int, n_items: int) ->
     return padded <= als_ops.GROUPED_MAX_BLOWUP * max(len(users), 1)
 
 
+def _traced(attempt):
+    """``attempt`` under ``Config.profile_dir``'s profiler trace
+    (utils/profiling.maybe_trace), one trace an attempt."""
+    def run(level):
+        with maybe_trace():
+            return attempt(level)
+
+    return run
+
+
 def _als_kernel_cfg() -> str:
     kernel = get_config().als_kernel
     if kernel not in ("auto", "grouped", "coo"):
@@ -319,10 +331,13 @@ class ALS:
             if items is not None or ratings is not None:
                 raise ValueError("pass EITHER a triples ChunkSource OR explicit "
                                  "users/items/ratings arrays")
-            return self._fit_source(users, n_users, n_items, init)
-        if items is None or ratings is None:
+            model = self._fit_source(users, n_users, n_items, init)
+        elif items is None or ratings is None:
             raise TypeError("fit needs items and ratings arrays")
-        return self._fit_arrays(users, items, ratings, n_users, n_items, init)
+        else:
+            model = self._fit_arrays(users, items, ratings, n_users, n_items, init)
+        telemetry.finalize_fit(model.summary)
+        return model
 
     def _fit_arrays(self, users, items, ratings, n_users, n_items, init,
                     plan: Optional[membudget.RoutePlan] = None,
@@ -358,9 +373,9 @@ class ALS:
         # device OOM re-enters the streamed route at halved upload blocks
         # (the COO layout has no such knob and runs again)
         model = resilience.fit_with_ladder(
-            "ALS", lambda level: self._fit_single_device(
+            "ALS", _traced(lambda level: self._fit_single_device(
                 users, items, ratings, n_users, n_items, x0, y0, devices[0], kernel, plan,
-                level),
+                level)),
             [als_kernel.LAUNCHES], stats=stats)
         membudget.record_plan(model.summary, plan)
         return model
@@ -368,8 +383,8 @@ class ALS:
     def _one_attempt(self, attempt, stats=None) -> ALSModel:
         """A block-route fit: one attempt, across processes or on an
         in-process mesh (utils/resilience.py)."""
-        return resilience.fit_with_ladder("ALS", attempt, [als_kernel.LAUNCHES], stats=stats,
-                                          bypass=resilience.LADDER_MESH)
+        return resilience.fit_with_ladder("ALS", _traced(attempt), [als_kernel.LAUNCHES],
+                                          stats=stats, bypass=resilience.LADDER_MESH)
 
     def _block_mesh(self, devices) -> Optional[Mesh]:
         """The mesh of a block-route fit, or None for the one-device route:
@@ -459,8 +474,8 @@ class ALS:
             )
         return x0, y0
 
-    def _summary(self, timings, pol, before, extra) -> dict:
-        return {
+    def _summary(self, timings, pol, before, extra, cache_before=None) -> dict:
+        out = {
             "timings": timings,
             "accelerated": True,
             **extra,
@@ -477,6 +492,9 @@ class ALS:
                 "seed": int(self.seed),
             },
         }
+        if cache_before is not None:
+            out["progcache"] = progcache.delta(cache_before)
+        return out
 
     # the id axes may GROW across restores (utils/checkpoint.py): an
     # older checkpoint warm-starts a fit over a larger id space, its rows
@@ -566,6 +584,7 @@ class ALS:
         psn.apply_matmul_flags("highest")
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         if x0 is None:
             x0 = als_np.init_factors(n_users, self.rank, self.seed)
             y0 = als_np.init_factors(n_items, self.rank, self.seed + 1)
@@ -607,7 +626,7 @@ class ALS:
                  **self._block_summary(1)}
         if streamed:
             extra["streamed"] = True
-        summary = self._summary(timings, pol, before, extra)
+        summary = self._summary(timings, pol, before, extra, cache_before)
         if ckpt is not None:
             ckpt.record(summary)
         return ALSModel(x, y, summary, device=self._scoring_device(dev))
@@ -695,6 +714,7 @@ class ALS:
         offsets, bal = self._block_balance(n_users, world, item_sharded)
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         with phase_timer(timings, "ratings_shuffle", devs):
             edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users, mesh,
                                                    offsets=offsets)
@@ -748,7 +768,7 @@ class ALS:
             x = als_block.gather_user_factors(x_blocks, mesh, edges.offsets)
             y = (als_block.gather_user_factors(y, mesh, by_item.offsets) if item_sharded
                  else y[ranks[0]].cpu().numpy())
-        summary = self._summary(timings, pol, before, {
+        summary = self._summary(timings, pol, before, cache_before=cache_before, extra={
             "block_parallel": True, "als_kernel": "grouped" if use_grouped else "coo",
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,
@@ -794,6 +814,7 @@ class ALS:
         offsets, bal = self._block_balance(n_users, world, item_sharded)
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         with phase_timer(timings, "table_convert", devs):
             lay = als_block_stream.prepare_streamed_block_layouts(
                 users, items, ratings, n_users, n_items, mesh, self.rank,
@@ -815,7 +836,7 @@ class ALS:
             x = als_block.gather_user_factors(x_blocks, mesh, lay.offsets_u)
             y = (als_block.gather_user_factors(y, mesh, lay.by_item.offsets) if item_sharded
                  else y[ranks[0]].cpu().numpy())
-        summary = self._summary(timings, pol, before, {
+        summary = self._summary(timings, pol, before, cache_before=cache_before, extra={
             "streamed": True, "block_parallel": True, "als_kernel": "grouped",
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,

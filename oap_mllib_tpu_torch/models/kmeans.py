@@ -97,10 +97,12 @@ from oap_mllib_tpu_torch.ops import kmeans_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch.telemetry import export as telemetry
 from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
-from oap_mllib_tpu_torch.utils import membudget, resilience
+from oap_mllib_tpu_torch.utils import membudget, progcache, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.profiling import maybe_trace
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 INIT_RANDOM = "random"
@@ -148,6 +150,12 @@ class KMeansSummary:
         self.resilience = None
         # writes and the restore decision (utils/checkpoint.py), when armed
         self.checkpoint = None
+        # the fit's program-cache delta (utils/progcache.py), its span tree
+        # and metrics (telemetry/export.finalize_fit) and, when armed, the
+        # sanitizers' block (utils/sanitizers.py)
+        self.progcache = None
+        self.telemetry = None
+        self.sanitizers = None
         # the world the fit ran in (parallel/bootstrap.py)
         self.processes = bootstrap.world_size()
         self.process_id = bootstrap.process_index()
@@ -373,15 +381,24 @@ class KMeans:
             raise ValueError("empty input")
         if self.distance_measure != "euclidean":
             _one_process("distance_measure='cosine'")
-            return self._fit_fallback(_dense_host(x), sample_weight)
+            model = self._fit_fallback(_dense_host(x), sample_weight)
+            telemetry.finalize_fit(model.summary)
+            return model
         devices = resolve_devices(self.device)
         if (len(devices) > 1 or get_config().model_parallel > 1
                 or bootstrap.world_size() > 1):
             x = _dense_host(x) if _sparse.is_sparse(x) else x
+
+            def mesh_attempt(level):
+                with maybe_trace():
+                    return self._fit_mesh(x, sample_weight, devices)
+
             # a mesh fit runs its one attempt (utils/resilience.py)
-            return resilience.fit_with_ladder(
-                "KMeans", lambda level: self._fit_mesh(x, sample_weight, devices),
+            model = resilience.fit_with_ladder(
+                "KMeans", mesh_attempt,
                 [kmeans_kernel.LAUNCHES, ring_kernel.LAUNCHES], bypass=resilience.LADDER_MESH)
+            telemetry.finalize_fit(model.summary)
+            return model
         # the route plan: an array whose working set exceeds the card's
         # budget streams instead of assuming it fits
         plan = membudget.plan_kmeans(
@@ -399,7 +416,8 @@ class KMeans:
         def attempt(level):
             if holder.get("source") is not None:
                 return self._stream_attempt(holder["source"], holder.get("weights"), level, dev)
-            return self._fit_device(x, sample_weight, dev, level)
+            with maybe_trace():
+                return self._fit_device(x, sample_weight, dev, level)
 
         def spill():
             w = None if sample_weight is None else _host(sample_weight)
@@ -408,6 +426,7 @@ class KMeans:
         model = resilience.fit_with_ladder("KMeans", attempt, [kmeans_kernel.LAUNCHES],
                                            spill=spill)
         membudget.record_plan(model.summary, plan, spilled=model.summary.resilience["spilled"])
+        telemetry.finalize_fit(model.summary)
         return model
 
     def _fit_source(self, source: ChunkSource, sample_weight, plan=None) -> KMeansModel:
@@ -425,7 +444,9 @@ class KMeans:
         if self.distance_measure != "euclidean":
             _one_process("distance_measure='cosine'")
             w = sample_weight.to_array().reshape(-1) if sample_weight is not None else None
-            return self._fit_fallback(source.to_array(), w)
+            model = self._fit_fallback(source.to_array(), w)
+            telemetry.finalize_fit(model.summary)
+            return model
         dev = resolve_devices(self.device)[0]
         if plan is None:
             plan = membudget.plan_kmeans(source.n_rows, source.n_features, self.k,
@@ -442,6 +463,7 @@ class KMeans:
             [kmeans_kernel.LAUNCHES], spill=spill,
             max_halvings=resilience.halvings_available(source.chunk_rows))
         membudget.record_plan(model.summary, plan, spilled=model.summary.resilience["spilled"])
+        telemetry.finalize_fit(model.summary)
         return model
 
     def _stream_attempt(self, source: ChunkSource, sample_weight, level: int,
@@ -456,7 +478,8 @@ class KMeans:
                 sample_weight = sample_weight.with_chunk_rows(rows)
         stream_ops.begin_fit(source)
         try:
-            return self._fit_stream_inner(source, sample_weight, dev)
+            with maybe_trace():
+                return self._fit_stream_inner(source, sample_weight, dev)
         except BaseException:
             stream_ops.abort_fit()
             raise
@@ -468,6 +491,7 @@ class KMeans:
         psn.apply_matmul_flags(tier)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         ckpt = ckpt_mod.maybe_open("kmeans", self._ckpt_signature(source.n_features),
                                    timings=timings)
         resume = ckpt.restore() if ckpt is not None else None
@@ -495,6 +519,7 @@ class KMeans:
                      for name in kmeans_kernel.LAUNCHES},
             precision=pol, streamed=True,
         )
+        summary.progcache = progcache.delta(cache_before)
         if ckpt is not None:
             ckpt.record(summary)
         stream_ops.end_fit(summary)
@@ -577,6 +602,7 @@ class KMeans:
         psn.apply_matmul_flags(tier)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         with phase_timer(timings, "table_convert", dev):
             table = DenseTable.from_numpy(x, dev)
             weights = table.mask
@@ -610,6 +636,7 @@ class KMeans:
             cost, int(n_iter), timings, accelerated=True,
             cluster_sizes=counts, kernels=kernels, precision=pol,
         )
+        summary.progcache = progcache.delta(cache_before)
         if ckpt is not None:
             ckpt.record(summary)
         return KMeansModel(centers, self.distance_measure, summary, device=self.device)
@@ -628,6 +655,7 @@ class KMeans:
         first = mesh.device(mesh.local_ranks[0])
         timings = Timings("kmeans.fit")
         before = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
+        cache_before = progcache.stats()
         d_orig = x.shape[1]
         with phase_timer(timings, "table_convert", mesh.distinct_devices()):
             if d_orig % n_model:
@@ -682,6 +710,7 @@ class KMeans:
             precision=pol, mesh=dict(mesh.shape),
             ring=n_model > 1 and kmeans_ops.ring_enabled(mesh, cfg.data_axis),
         )
+        summary.progcache = progcache.delta(cache_before)
         if ckpt is not None:
             ckpt.record(summary)
         return KMeansModel(centers, self.distance_measure, summary, device=str(first))

@@ -75,11 +75,13 @@ from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch.telemetry import export as telemetry
 from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
-from oap_mllib_tpu_torch.utils import membudget, resilience
+from oap_mllib_tpu_torch.utils import membudget, progcache, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils.dispatch import (MAX_PCA_FEATURES, model_device, resolve_device,
                                                 resolve_devices)
+from oap_mllib_tpu_torch.utils.profiling import maybe_trace
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
@@ -207,10 +209,15 @@ class PCA:
                 or bootstrap.world_size() > 1):
             if _sparse.is_sparse(x):
                 x = x.toarray()
+            def mesh_attempt(level):
+                with maybe_trace():
+                    return self._fit_mesh(x, devices, solver)
+
             # a mesh fit runs its one attempt (utils/resilience.py)
-            return resilience.fit_with_ladder(
-                "PCA", lambda level: self._fit_mesh(x, devices, solver),
-                [pca_kernel.LAUNCHES], bypass=resilience.LADDER_MESH)
+            model = resilience.fit_with_ladder(
+                "PCA", mesh_attempt, [pca_kernel.LAUNCHES], bypass=resilience.LADDER_MESH)
+            telemetry.finalize_fit(model.summary)
+            return model
         # the route plan: a table whose working set exceeds the card's
         # budget streams the two moment passes instead
         plan = membudget.plan_pca(n, d, device=devices[0])
@@ -227,12 +234,14 @@ class PCA:
         def attempt(level):
             if holder.get("source") is not None:
                 return self._stream_attempt(holder["source"], level, dev, solver)
-            return self._fit_device(x, dev, solver)
+            with maybe_trace():
+                return self._fit_device(x, dev, solver)
 
         model = resilience.fit_with_ladder(
             "PCA", attempt, [pca_kernel.LAUNCHES],
             spill=lambda: membudget.spill_array(holder, host, None, plan.chunk_rows, "PCA"))
         membudget.record_plan(model.summary, plan, spilled=model.summary["resilience"]["spilled"])
+        telemetry.finalize_fit(model.summary)
         return model
 
     def _check_width(self, d: int) -> None:
@@ -266,6 +275,7 @@ class PCA:
             [pca_kernel.LAUNCHES], spill=spill,
             max_halvings=resilience.halvings_available(source.chunk_rows))
         membudget.record_plan(model.summary, plan, spilled=model.summary["resilience"]["spilled"])
+        telemetry.finalize_fit(model.summary)
         return model
 
     def _stream_attempt(self, source: ChunkSource, level: int, dev, solver: str) -> PCAModel:
@@ -276,7 +286,8 @@ class PCA:
             source = source.with_chunk_rows(rows)
         stream_ops.begin_fit(source)
         try:
-            return self._fit_stream_inner(source, dev, solver)
+            with maybe_trace():
+                return self._fit_stream_inner(source, dev, solver)
         except BaseException:
             stream_ops.abort_fit()
             raise
@@ -289,13 +300,14 @@ class PCA:
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         ckpt = ckpt_mod.maybe_open("pca", self._ckpt_signature(d, "colsum"), timings=timings)
         with phase_timer(timings, "covariance_streamed", dev):
             cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev,
                                                        checkpoint=ckpt)
         model = self._finish(cov, d, timings, dev, solver, pol, before,
                              model_device(self.device, dev))
-        model.summary.update(streamed=True, n_rows=n)
+        model.summary.update(streamed=True, n_rows=n, progcache=progcache.delta(cache_before))
         if ckpt is not None:
             ckpt.record(model.summary)
         stream_ops.end_fit(model.summary)
@@ -333,6 +345,7 @@ class PCA:
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         ckpt, cov = self._restore_cov(x.shape[1], timings, dev)
         if cov is None:
             with phase_timer(timings, "table_convert", dev):
@@ -341,6 +354,7 @@ class PCA:
                 cov, _ = pca_ops.covariance(table.data, table.mask, table.n_rows, tier)
             self._write_cov(ckpt, cov, x.shape[1])
         model = self._finish(cov, x.shape[1], timings, dev, solver, pol, before, self.device)
+        model.summary["progcache"] = progcache.delta(cache_before)
         if ckpt is not None:
             ckpt.record(model.summary)
         return model
@@ -400,6 +414,7 @@ class PCA:
         first = mesh.device(mesh.local_ranks[0])
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
+        cache_before = progcache.stats()
         n, d = x.shape
         # the covariance is stored unpadded: it restores onto any model
         # axis, and a restored fit skips the table and the moments
@@ -423,6 +438,7 @@ class PCA:
             self._write_cov(ckpt, cov, d)
         model = self._finish(cov, d, timings, first, solver, pol, before, str(first),
                              dict(mesh.shape))
+        model.summary["progcache"] = progcache.delta(cache_before)
         if ckpt is not None:
             ckpt.record(model.summary)
         return model

@@ -51,7 +51,7 @@ import torch
 from oap_mllib_tpu_torch.ops import host_prep
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils import faults
+from oap_mllib_tpu_torch.utils import progcache
 from oap_mllib_tpu_torch.utils.timing import phase_timer
 
 # the grouped layout is taken only while its padded edge total stays
@@ -136,12 +136,24 @@ def grouped_block_moments(src_b, conf_b, valid_b, src_factors, alpha: float,
     """``(A (Gb, r, r), b (Gb, r), n_reg (Gb,))`` of one block of groups:
     ``A = Ys^T (a_w Ys)`` by one batched product, ``b = b_w^T Ys`` by a
     batched row product and ``n_reg`` the row sum of ``n_w``; no
-    concatenated operand.  The products follow the policy (f32
-    accumulation always); ``n_w`` is 0 or 1, so its sum is exact."""
+    concatenated operand.  Under the f32 policy the f32 operands are
+    multiplied and summed in f64 and rounded to f32 once; the reduced
+    policies' products follow their tier with f32 accumulation.  ``n_w``
+    is 0 or 1, so its sum is exact."""
     gb, p = src_b.shape
     r = src_factors.shape[1]
-    ys = src_factors.index_select(0, src_b.reshape(-1)).reshape(gb, p, r)
     a_w, b_w, n_w = _weights(conf_b, valid_b, alpha, implicit)
+    ys = src_factors.index_select(0, src_b.reshape(-1)).reshape(gb, p, r)
+    if psn.kernel_tier(policy, "highest") == "highest":
+        # the f32 operands multiplied and summed in f64, one rounding at
+        # the end: a batched product sums the group width in sequence,
+        # which at implicit confidences (alpha 40) left the fits 1.3-1.9x
+        # farther from a float64 fit than the JAX package's
+        # (tests/test_torch_als_block.py::TestFloat64Distance)
+        yw = ys * a_w[..., None]
+        a = torch.einsum("gpa,gpb->gab", ys.double(), yw.double()).float()
+        b = torch.einsum("gp,gpa->ga", b_w.double(), ys.double()).float()
+        return a, b, torch.sum(n_w, dim=1)
     a = psn.peinsum("gpa,gpb->gab", ys, ys * a_w[..., None], policy)
     b = psn.peinsum("gp,gpa->ga", b_w, ys, policy)
     return a, b, torch.sum(n_w, dim=1)
@@ -355,11 +367,13 @@ def run_sides(user_side, item_side, x0, y0, max_iter: int, reg: float,
               gram: Callable = als_kernel.factor_gram) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ALS loop over two prepared sides: ``max_iter`` times the user
     half-update, then the item half-update, each iteration the
-    ``fit.execute`` fault site (utils/faults.py).  ``solve`` and ``gram`` are
-    the kernel wrappers; the card check passes their plain versions."""
+    ``fit.execute`` fault site (utils/faults.py) and one launch of its
+    program (utils/progcache.py).  ``solve`` and ``gram`` are the kernel
+    wrappers; the card check passes their plain versions."""
     x, y = x0, y0
+    key = (progcache.array_key(x0, y0), type(user_side).__name__, implicit, policy)
     for _ in range(max_iter):
-        faults.maybe_fault("fit.execute")
+        progcache.count_launch("als.iteration", key)
         x = _half(user_side, y, reg, alpha, implicit, policy, solve, gram)
         y = _half(item_side, x, reg, alpha, implicit, policy, solve, gram)
     return x, y

@@ -39,7 +39,7 @@ import torch
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.ops import als_ops
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
-from oap_mllib_tpu_torch.utils import faults
+from oap_mllib_tpu_torch.utils import progcache
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device
 from oap_mllib_tpu_torch.utils.resilience import check_finite
 from oap_mllib_tpu_torch.utils.timing import tick
@@ -211,8 +211,9 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
     y = torch.as_tensor(np.asarray(y0, np.float32)).to(dev)
     stats = PrefetchStats()
     elapsed = tick()
+    key = (progcache.array_key(x, y), implicit, policy)
     for it in range(start_it, max_iter):
-        faults.maybe_fault("fit.execute")
+        progcache.count_launch("als.iteration_streamed", key)
         x = _half_update_streamed(by_user, y, n_users, gc_u, reg, alpha, implicit, stats,
                                   policy, solve, gram)
         y = _half_update_streamed(by_item, x, n_items, gc_i, reg, alpha, implicit, stats,

@@ -7,6 +7,9 @@ The hash covers every source under ``csrc/``, so an edited kernel builds
 anew and a stale library is never loaded.  Nothing builds at import: the
 first launch of a kernel builds it, and :func:`build_all` builds every
 kernel at once, one ``nvcc`` process per source, all started together.
+``Config.compilation_cache_dir`` names another directory to build into
+and load from (utils/progcache.build_dir).  Every build or load of a
+library counts in ``progcache.xla_compile_count`` (the port's compiles).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -42,8 +46,16 @@ def kernel_names():
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def build_dir() -> Path:
+    """Where libraries build and load: ``Config.compilation_cache_dir``
+    when set, else :data:`BUILD_DIR`."""
+    from oap_mllib_tpu_torch.utils import progcache
+
+    return progcache.build_dir(BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{sources_hash()}.so"
+    return build_dir() / f"lib{name}-{sources_hash()}.so"
 
 
 def find_nvcc() -> str:
@@ -74,7 +86,8 @@ def build_all(names: Iterable[str] = None) -> Dict[str, Path]:
     ``nvcc`` per source started together.  Returns ``{name: .so path}``;
     raises with the compiler's output when a build fails."""
     names = list(kernel_names() if names is None else names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
@@ -94,7 +107,7 @@ def build_all(names: Iterable[str] = None) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
-        (BUILD_DIR / f"{name}.ptxas.log").write_text(log)
+        (out_dir / f"{name}.ptxas.log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -106,6 +119,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            from oap_mllib_tpu_torch.utils import progcache
+
+            t0 = time.perf_counter()
             path = build_all([name])[name]
             lib = _loaded[name] = ctypes.CDLL(str(path))
+            progcache.note_build(time.perf_counter() - t0)
         return lib

@@ -25,12 +25,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, check_mode, tiered_dot
+from oap_mllib_tpu_torch.ops.cuda._tiers import (LABELS, MODE_CODE, book_launch, check_mode,
+                                                 tiered_dot)
 
 SOLVE = "als_solve"
 GRAM = "als_factor_gram"
@@ -230,6 +232,7 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
     lib = _library(SOLVE)
     n, r = b.shape
     out = torch.empty((n, r), dtype=torch.float32, device=b.device)
+    t0 = time.perf_counter()
     err = lib.als_solve(
         b.device.index, a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
         n_reg.data_ptr(), n_reg.stride(0),
@@ -239,6 +242,7 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{SOLVE}: CUDA launch failed with error {err}")
     LAUNCHES[SOLVE] += 1
+    book_launch(LABELS[SOLVE], time.perf_counter() - t0)
     return out
 
 
@@ -265,9 +269,11 @@ def factor_gram(f: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     stream = _stream(dev)
     tickets, scratch = _gram_workspace(dev, stream, (geo.blocks + geo.groups) * gram_packed(r))
     gram = f.new_empty((r, r))
+    t0 = time.perf_counter()
     err = fn(dev.index, f.data_ptr(), n, r, MODE_CODE[mode], *geo, scratch.data_ptr(),
              tickets.data_ptr(), gram.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{GRAM}: CUDA launch failed with error {err}")
     LAUNCHES[GRAM] += 1
+    book_launch(LABELS[GRAM], time.perf_counter() - t0)
     return gram

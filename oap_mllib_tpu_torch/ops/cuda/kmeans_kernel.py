@@ -28,12 +28,15 @@ itself, so the JAX package's padding and dummy centers are not needed.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, bf16_round, check_mode, split_bf16
+from oap_mllib_tpu_torch.ops.cuda._tiers import (LABELS, MODE_CODE, bf16_round, book_launch,
+                                                 check_mode, split_bf16)
 from oap_mllib_tpu_torch.ops.kmeans_ops import _lloyd_loop, rows_per_chunk
+from oap_mllib_tpu_torch.utils import progcache
 
 KERNEL = "kmeans_accumulate"
 
@@ -311,6 +314,7 @@ def _launch(x, w, c, mode: str, need_cost: bool):
     # the library sets its own current device (the .so links cudart
     # statically, so torch's current device is not its own)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    t0 = time.perf_counter()
     err = lib.kmeans_accumulate(
         dev.index, x.data_ptr(), w.data_ptr(), c.data_ptr(), n, d, k,
         MODE_CODE[mode], int(need_cost), ROUTE_CODE[geo.route], range_rows, ranges,
@@ -323,6 +327,7 @@ def _launch(x, w, c, mode: str, need_cost: bool):
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += 1
     LAUNCHES_BY_MODE[mode] += 1
+    book_launch(LABELS[KERNEL], time.perf_counter() - t0)
     return sums, counts, (cost if need_cost else None), labels
 
 
@@ -368,4 +373,5 @@ def lloyd_run_kernel(x, w, init_centers, max_iter: int, tol: float,
                 cost = cost + t if need_cost else None
         return sums, counts, cost
 
-    return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol)
+    return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol,
+                       ("kmeans.lloyd_kernel", (progcache.array_key(x, w), mode, len(ranges))))

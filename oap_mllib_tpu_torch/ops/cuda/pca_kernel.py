@@ -25,12 +25,14 @@ for the bf16 tiers at d >= 64, else the FP32 pipe
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Optional, Tuple
 
 import torch
 
 from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry, pca_gram_route, wgmma_geometry
-from oap_mllib_tpu_torch.ops.cuda._tiers import MODE_CODE, check_mode, tiered_dot
+from oap_mllib_tpu_torch.ops.cuda._tiers import (LABELS, MODE_CODE, book_launch, check_mode,
+                                                 tiered_dot)
 
 KERNEL = "pca_moments"
 
@@ -144,6 +146,7 @@ def _launch(x, mask, mean, mode, need_gram, need_sums):
             mean = torch.zeros(d, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        t0 = time.perf_counter()
         err = lib.pca_moments(
             dev.index, x.data_ptr(), _ptr(mask), _ptr(mean), n, d, MODE_CODE[mode],
             int(need_sums), int(need_gram), sum_slices, sum_rows,
@@ -153,6 +156,7 @@ def _launch(x, mask, mean, mode, need_gram, need_sums):
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += 1
+    book_launch(LABELS[KERNEL], time.perf_counter() - t0)
     return gram, colsum, count
 
 

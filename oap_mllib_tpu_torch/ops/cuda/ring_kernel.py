@@ -69,6 +69,7 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch.ops.cuda._tiers import LABELS, book_launch
 from oap_mllib_tpu_torch.parallel import collective
 
 KERNEL = "ring_reduce"
@@ -344,6 +345,7 @@ def _ring_launch(parts, segments: int) -> List[torch.Tensor]:
         _enable_peers(lib, [c.index for c in cards])
     los, his = zip(*_shares(total, n))
     ints = ctypes.c_int * n
+    t0 = time.perf_counter()
     err = lib.ring_fold(
         n, ints(*(c.index for c in cards)), (ctypes.c_void_p * n)(*streams),
         ints(*los), ints(*his), (ctypes.c_void_p * n)(*(t.data_ptr() for t in tables)),
@@ -351,6 +353,7 @@ def _ring_launch(parts, segments: int) -> List[torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += n  # one launch per card
+    book_launch(LABELS[KERNEL], time.perf_counter() - t0, n)
     return outs
 
 
@@ -591,6 +594,7 @@ def _ring_launch_ipc(parts, groups, owner, segments: int, me: int):
     collective.agree(error, f"{KERNEL}: the copy into the workspace")
     waited = time.perf_counter() - t0
     launched = 0
+    t_launch = time.perf_counter()
     try:
         for g in groups:
             procs = list(dict.fromkeys(owner(m) for m in g))
@@ -614,6 +618,8 @@ def _ring_launch_ipc(parts, groups, owner, segments: int, me: int):
     except Exception as e:  # noqa: BLE001 - every process raises at the barrier
         error = e
     LAUNCHES[KERNEL] += launched  # one launch per process per ring
+    if launched:
+        book_launch(LABELS[KERNEL], time.perf_counter() - t_launch, launched)
     t0 = time.perf_counter()
     collective.agree(error, f"{KERNEL}: the cross-process launch")
     waited += time.perf_counter() - t0

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -35,9 +36,16 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def build_dir() -> Path:
+    """``Config.compilation_cache_dir`` when set, else :data:`BUILD_DIR`."""
+    from oap_mllib_tpu_torch.utils import progcache
+
+    return progcache.build_dir(BUILD_DIR)
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libgrouped_prep-{digest}.so"
+    return build_dir() / f"libgrouped_prep-{digest}.so"
 
 
 def _compiler() -> str:
@@ -59,7 +67,7 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
@@ -76,7 +84,11 @@ def _library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            from oap_mllib_tpu_torch.utils import progcache
+
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build()))
+            progcache.note_build(time.perf_counter() - t0)
             i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
             i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
             lib.oap_als_grouped_total.restype = i64

@@ -39,7 +39,7 @@ from oap_mllib_tpu_torch.ops.cuda import ring_kernel
 from oap_mllib_tpu_torch.ops.cuda._tiers import check_mode, tiered_dot
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
-from oap_mllib_tpu_torch.utils import faults
+from oap_mllib_tpu_torch.utils import progcache
 from oap_mllib_tpu_torch.utils import precision as psn
 
 # live-buffer element budget of every row-chunking site (training
@@ -141,7 +141,7 @@ def _moved_sq(new_centers, centers):
 
 
 def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
-                max_iter: int, tol: float):
+                max_iter: int, tol: float, program: Tuple[str, tuple] = ("kmeans.lloyd", ())):
     """Lloyd loop skeleton shared by the kernel route, the plain route and
     the model-sharded route.
 
@@ -150,8 +150,10 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
     ``accum(centers, final)`` returns ``(sums, counts, cost)``: loop passes
     have ``final=False``; one pass with ``final=True`` after the loop
     computes cost and counts against the returned centers at full
-    precision.  Every pass is the ``fit.execute`` fault site
-    (utils/faults.py) before ``accum`` launches anything.  ``moved_reduce`` completes the per-center move (the
+    precision.  Every pass is one launch of ``program`` (an (algo, key)
+    pair of utils/progcache.py; the cost pass is ``<algo>.cost``) and the
+    ``fit.execute`` fault site (utils/faults.py), before ``accum``
+    launches anything.  ``moved_reduce`` completes the per-center move (the
     identity, or a psum over the model axis for feature-sharded centers).
     Centers, sums and counts are tensors, or ``{rank: tensor}`` on a mesh,
     where every rank updates its own block.  Returns
@@ -159,8 +161,9 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
     centers = init_centers
     tol_sq = float(np.float32(tol) * np.float32(tol))
     n_iter = 0
+    algo, key = program[0], (program[1], progcache.array_key(init_centers))
     while n_iter < max_iter:
-        faults.maybe_fault("fit.execute")
+        progcache.count_launch(algo, key)
         sums, counts, _ = accum(centers, False)
         new_centers = _each(_new_centers, sums, counts, centers)
         moved_sq = moved_reduce(_each(_moved_sq, new_centers, centers))
@@ -171,7 +174,7 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
         moves = moved_sq.values() if isinstance(moved_sq, dict) else [moved_sq]
         if all(bool(torch.all(m <= tol_sq)) for m in moves):
             break
-    faults.maybe_fault("fit.execute")
+    progcache.count_launch(algo + ".cost", key)
     _, counts, cost = accum(centers, True)
     return centers, n_iter, cost, counts
 
@@ -193,7 +196,9 @@ def lloyd_run(x, weights, init_centers, max_iter: int, tol: float,
             return _accumulate_chunked(x, weights, centers, row_chunks, p, final)
         return _accumulate(x, weights, centers, p, final)
 
-    return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol)
+    return _lloyd_loop(accum, lambda m: m, init_centers, max_iter, tol,
+                       ("kmeans.lloyd_plain", (progcache.array_key(x, weights), precision,
+                                               row_chunks)))
 
 
 def ring_mode_cfg(cfg=None) -> str:
@@ -317,7 +322,9 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
                                    precision, policy, ring, ring_segments)
 
     centers, n_iter, cost, counts = _lloyd_loop(
-        accum, lambda m: collective.psum(m, mesh, model_axis), centers, max_iter, tol)
+        accum, lambda m: collective.psum(m, mesh, model_axis), centers, max_iter, tol,
+        ("kmeans.lloyd_model_sharded", (progcache.mesh_fingerprint(mesh),
+                                        progcache.array_key(x), precision, ring)))
     # this process's first row of ranks holds every feature block
     row = mesh.local_ranks[0][0]
     first = mesh.device((row, 0))
@@ -358,7 +365,10 @@ def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
         reduced = collective.psum_many(moments, mesh, data_axis)
         return reduced[0], reduced[1], reduced[2] if final else None
 
-    centers, n_iter, cost, counts = _lloyd_loop(accum, lambda m: m, centers, max_iter, tol)
+    centers, n_iter, cost, counts = _lloyd_loop(
+        accum, lambda m: m, centers, max_iter, tol,
+        ("kmeans.lloyd_data_parallel", (progcache.mesh_fingerprint(mesh),
+                                        progcache.array_key(x), mode)))
     first = mesh.local_ranks[0]
     return centers[first], n_iter, cost[first], counts[first]
 

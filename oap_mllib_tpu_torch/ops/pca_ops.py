@@ -37,7 +37,7 @@ import torch
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
-from oap_mllib_tpu_torch.utils import faults
+from oap_mllib_tpu_torch.utils import progcache
 from oap_mllib_tpu_torch.utils import precision as psn
 
 
@@ -49,11 +49,13 @@ def covariance(x: torch.Tensor, mask: torch.Tensor, n_rows: float,
     weighs in.  ``precision`` is the Gram's kernel tier; the column sums
     are f32 at every tier.  ``moments`` is the kernel wrapper; the card
     check passes the plain version to compare fits.  Each pass is the
-    ``fit.execute`` fault site (utils/faults.py), as on the mesh."""
-    faults.maybe_fault("fit.execute")
+    ``fit.execute`` fault site (utils/faults.py), as on the mesh, and one
+    launch of its program (utils/progcache.py)."""
+    key = (progcache.array_key(x, mask), precision)
+    progcache.count_launch("pca.mean_pass", key)
     _, colsum, _ = moments(x, mask, None, precision, need_gram=False)
     mean = colsum / float(n_rows)
-    faults.maybe_fault("fit.execute")
+    progcache.count_launch("pca.gram_pass", key)
     gram, _, _ = moments(x, mask, mean, precision, need_sums=False)
     cov = gram / max(float(n_rows) - 1.0, 1.0)
     # numerical symmetry guard before eigh, as in the JAX package (the
@@ -73,12 +75,13 @@ def covariance_data_parallel(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     dax = mesh.axis_names[0]
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel covariance runs on a model axis of 1, got {mesh.shape}")
-    faults.maybe_fault("fit.execute")
+    key = (progcache.mesh_fingerprint(mesh), progcache.array_key(x), precision)
+    progcache.count_launch("pca.mean_pass_data_parallel", key)
     colsum = collective.psum(
         {r: moments(x[r], mask[r], None, precision, need_gram=False)[1] for r in mesh.local_ranks},
         mesh, dax)
     mean = {r: colsum[r] / float(n_rows) for r in mesh.local_ranks}
-    faults.maybe_fault("fit.execute")
+    progcache.count_launch("pca.gram_pass_data_parallel", key)
     gram = collective.psum(
         {r: moments(x[r], mask[r], mean[r], precision, need_sums=False)[0] for r in mesh.local_ranks},
         mesh, dax)
@@ -99,11 +102,12 @@ def covariance_model_sharded(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     columns; no rank holds more.  Returns ``(cov (d, d), mean (d,))`` on
     the first rank's device, symmetrised."""
     dax, max_ = mesh.axis_names
-    faults.maybe_fault("fit.execute")
+    key = (progcache.mesh_fingerprint(mesh), progcache.array_key(x), precision, policy)
+    progcache.count_launch("pca.mean_pass_model_sharded", key)
     col_sum = collective.psum(
         {r: torch.sum(x[r] * mask[r][:, None], dim=0) for r in mesh.local_ranks}, mesh, dax)
     mean = {r: col_sum[r] / float(n_rows) for r in mesh.local_ranks}
-    faults.maybe_fault("fit.execute")
+    progcache.count_launch("pca.gram_pass_model_sharded", key)
     xc = {r: (x[r] - mean[r][None, :]) * mask[r][:, None] for r in mesh.local_ranks}
     xc_full = collective.all_gather(xc, mesh, max_, dim=1)  # (n_loc, d) a rank
     rows = collective.psum(

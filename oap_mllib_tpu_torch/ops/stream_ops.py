@@ -68,9 +68,9 @@ from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
-from oap_mllib_tpu_torch.telemetry import fleet
-from oap_mllib_tpu_torch.utils import faults
+from oap_mllib_tpu_torch.telemetry import fleet, flightrec
 from oap_mllib_tpu_torch.utils import precision as psn
+from oap_mllib_tpu_torch.utils import progcache, sanitizers
 from oap_mllib_tpu_torch.utils.resilience import check_finite
 from oap_mllib_tpu_torch.utils.dispatch import resolve_device
 from oap_mllib_tpu_torch.utils.timing import tick
@@ -257,6 +257,9 @@ def _ring_reduce_f32(arrays, device):
     cols = max(1, -(-total // world))
     sheet = np.zeros((world, cols), np.float32)
     sheet.ravel()[:total] = flat
+    if flightrec.enabled():
+        flightrec.record("collective", "ring_allreduce", f"host|({world},{cols})")
+    sanitizers.note_collective("ring_allreduce", "host", (world, cols), "float32")
     me = bootstrap.process_index()
     out = ring_kernel.ring_allreduce_groups(
         {me: torch.from_numpy(sheet).to(device)}, [list(range(world))], lambda p: p)
@@ -354,7 +357,7 @@ def end_fit(summary) -> None:
     """At a streamed fit's end: the ``fleet`` block when the rollups are
     armed and the ``balance`` block when a plan is live, into
     ``summary``."""
-    fleet.finalize_fit(summary, _world())
+    fleet.land_block(summary, _world())
     balance.finalize_fit(summary)
 
 
@@ -397,7 +400,9 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
     elapsed = tick()
     guard = _PassGuard()
     with guard:
-        faults.maybe_fault("fit.execute")
+        progcache.count_launch("kmeans.lloyd_pass_streamed",
+                               (progcache.array_key(centers), source.chunk_rows, precision,
+                                need_cost, weights is not None))
         with _staged_chunks(source, weights, dev, stats, psn.staging_dtype(policy)) as pf:
             for _, (x, w) in pf:
                 s, c, t = kmeans_kernel.lloyd_accumulate(_f32(x), w, centers, precision,
@@ -595,9 +600,13 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
         with guard, _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
             for ci, ((chunk, n_valid, wv), (x, _)) in enumerate(pf):
                 if cands_dev is not None:
-                    prev = (torch.as_tensor(dmin_chunks[ci], device=dev) if rnd > 0
-                            else torch.full((source.chunk_rows,), torch.inf, device=dev))
-                    h = _chunk_min_d2(_f32(x), prev, cands_dev).cpu().numpy()
+                    # the per-row min distance lives on the host by design:
+                    # staging the last round's up and reading the fold back
+                    # are one audited host round trip a chunk
+                    with sanitizers.allow_transfers():
+                        prev = (torch.as_tensor(dmin_chunks[ci], device=dev) if rnd > 0
+                                else torch.full((source.chunk_rows,), torch.inf, device=dev))
+                        h = _chunk_min_d2(_f32(x), prev, cands_dev).cpu().numpy()
                     h[n_valid:] = 0.0  # padded rows carry no cost
                     if rnd > 0:
                         dmin_chunks[ci] = h
@@ -641,7 +650,8 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
     guard = _PassGuard()
     with guard, _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
         for _, (x, w) in pf:
-            own += _chunk_ownership(_f32(x), w, cands_dev).cpu().numpy()
+            with sanitizers.allow_transfers():  # the audited host accumulation
+                own += _chunk_ownership(_f32(x), w, cands_dev).cpu().numpy()
     stats.finalize(timings, "init_centers", elapsed())
     (own,) = _psum_host([own], guard=guard)
     return kmeans_ops._weighted_kmeans_pp(cand_arr, own, k, final_rng)
@@ -671,7 +681,8 @@ def _colsum_pass(source: ChunkSource, precision: str, timings, dev, stage_dtype,
     elapsed = tick()
     guard = _PassGuard()
     with guard:
-        faults.maybe_fault("fit.execute")
+        progcache.count_launch("pca.colsum_pass_streamed",
+                               (str(dev), d, source.chunk_rows, precision, compensated))
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for (_, n_valid, _), (x, w) in pf:
                 _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False)
@@ -732,7 +743,8 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     elapsed = tick()
     guard = _PassGuard()
     with guard:
-        faults.maybe_fault("fit.execute")
+        progcache.count_launch("pca.gram_pass_streamed",
+                               (str(dev), d, source.chunk_rows, precision, compensated))
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for _, (x, w) in pf:
                 g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False)

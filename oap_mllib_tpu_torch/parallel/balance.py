@@ -57,6 +57,8 @@ import numpy as np
 
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data.stream import ChunkSource
+from oap_mllib_tpu_torch.telemetry import metrics as _tm
+from oap_mllib_tpu_torch.utils import locktrace
 
 log = logging.getLogger("oap_mllib_tpu_torch")
 
@@ -211,7 +213,7 @@ def equal_classes(gathered) -> np.ndarray:
     return frames[:, :4]
 
 
-_sync_lock = threading.Lock()
+_sync_lock = locktrace.TrackedLock("balance.sync", threading.Lock())
 _sync_cache: Dict[tuple, CapabilityWorld] = {}
 
 
@@ -242,6 +244,11 @@ def world_capabilities(world: Optional[int] = None) -> CapabilityWorld:
     cw = fold_world(equal_classes(gathered))
     with _sync_lock:
         _sync_cache[key] = cw
+    if _rank() == 0:
+        for r in range(cw.world):
+            _tm.gauge("oap_balance_capability", {"rank": str(r)},
+                      help="Per-rank capability weight (normalized, mean 1.0)",
+                      ).set(float(cw.weights[r]))
     log.info("balance: world capabilities (%s) = %s", cw.origin,
              [round(float(w), 3) for w in cw.weights])
     return cw
@@ -426,6 +433,9 @@ def block_offsets(n_keys: int, mesh_world: int, bytes_per_key: int = 0,
     if offsets is not None:
         log.info("balance: capability-weighted block offsets (%s): %s", capworld.origin,
                  [int(o) for o in offsets])
+        if _rank() == 0:
+            _tm.counter("oap_balance_block_plans_total",
+                        help="Capability-weighted block-ALS layouts planned").inc()
     return offsets
 
 
@@ -535,6 +545,10 @@ def make_plan(n_rows: int, chunk_rows: int, *, row_bytes: int = 0, backing: str 
     if over:
         log.warning("balance: the host caps cannot hold %d rows; the extents overflow them "
                     "in proportion", n_rows)
+    if _rank() == 0:
+        _tm.counter("oap_balance_plans_total",
+                    help="Shard plans built by the balance planner").inc()
+        _extent_gauges(extents)
     activate(plan)
     return plan
 
@@ -616,7 +630,7 @@ def local_sources(x, sample_weight=None, chunk_rows: Optional[int] = None,
 
 # -- the straggler controller (module state, reset per fit) --------------------------------
 
-_state_lock = threading.Lock()
+_state_lock = locktrace.TrackedLock("balance.state", threading.Lock())
 _active: Optional[ShardPlan] = None
 _skews: List[float] = []
 _over_count = 0
@@ -754,7 +768,23 @@ def _replan(plan: ShardPlan, frames: np.ndarray, skew: float, slowest: int,
     with _state_lock:
         _over_count = 0
         _decisions.append(decision)
+    if "noop" not in decision:
+        if _rank() == 0:
+            _tm.counter("oap_balance_replans_total",
+                        help="Live extent re-plans by the straggler controller").inc()
+            _extent_gauges(new_extents)
+        from oap_mllib_tpu_torch.telemetry import flightrec
+
+        if flightrec.enabled():
+            flightrec.record("balance", "replan",
+                             f"skew={skew:.3f} slowest={slowest} pass={decision['pass']}")
     return decision
+
+
+def _extent_gauges(extents) -> None:
+    for r, (_, rows) in enumerate(extents):
+        _tm.gauge("oap_balance_extent_rows", {"rank": str(r)},
+                  help="Rows assigned to each rank by the current plan").set(float(rows))
 
 
 def decisions() -> List[Dict[str, Any]]:
@@ -780,11 +810,28 @@ def summary_block(world: int) -> Optional[Dict[str, Any]]:
     return block
 
 
-def finalize_fit(summary) -> None:
-    """At a fit's end: put the ``balance`` block in ``summary`` (a dict's
-    key, else an attribute) when a plan is live, then reset the
-    controller's per-fit state.  The plan stays live: its adapted
-    extents start the next fit over the same views."""
+def finalize_fit(summary, root=None) -> None:
+    """At a streamed fit's end (ops/stream_ops.end_fit): put the
+    ``balance`` block in ``summary`` (a dict's key, else an attribute)
+    when a plan is live, then reset the controller's per-fit state.  The
+    plan stays live: its adapted extents start the next fit over the
+    same views.
+
+    With a span ``root`` it is the fit-boundary hook
+    (telemetry/export.finalize_fit): the block the streamed attempt or
+    the ALS route landed gets a ``balance`` child span with its origin,
+    world, re-plans and weights; nothing new lands there, so a plan
+    left live by an earlier streamed fit never reaches an in-memory
+    fit's summary."""
+    if root is not None:
+        block = (summary.get("balance") if isinstance(summary, dict)
+                 else getattr(summary, "balance", None))
+        if isinstance(block, dict):
+            attrs = {k: block[k] for k in ("origin", "world", "weights") if k in block}
+            if isinstance(block.get("replans"), list):
+                attrs["replans"] = len(block["replans"])
+            root.node("balance").attrs.update(attrs)
+        return
     with _state_lock:
         plan = _active
     if plan is None:

@@ -40,6 +40,14 @@ site (utils/faults.py).  Those two, :func:`barrier` and :func:`agree`
 under the recovery plane's watcher (utils/recovery.guarded_dispatch): a
 peer that died or never arrives raises ``PeerAbortError`` or
 ``CollectiveTimeoutError`` on every survivor.
+
+Each of those host dispatches is instrumented (:func:`_instrumented`,
+the JAX package's facade): ``oap_collective_ops_total``,
+``oap_collective_bytes_total`` and ``oap_collective_dispatch_seconds``
+by op, ``Span.note_collective`` on the thread's active span, a
+``collective`` event in the flight recorder, and, with the
+``collective`` sanitizer armed, the signature cross-checked across the
+processes before the dispatch (utils/sanitizers.note_collective).
 """
 
 from __future__ import annotations
@@ -53,7 +61,10 @@ import torch
 
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
-from oap_mllib_tpu_torch.utils import faults, recovery
+from oap_mllib_tpu_torch.telemetry import flightrec
+from oap_mllib_tpu_torch.telemetry import metrics as _tm
+from oap_mllib_tpu_torch.telemetry.spans import current_span
+from oap_mllib_tpu_torch.utils import faults, recovery, sanitizers
 
 _CENSUS: collections.Counter = collections.Counter()
 
@@ -85,21 +96,49 @@ def reset_host_stats() -> None:
     HOST_STATS.update(calls=0, seconds=0.0, gloo_s=0.0, bytes=0)
 
 
-def _all_gather_host(local: torch.Tensor) -> torch.Tensor:
+def _instrumented(op: str, axis: str, shape, dtype, nbytes: int, dispatch,
+                  watched: Optional[str] = None):
+    """Run one host dispatch with its telemetry (module docstring): the
+    flight-recorder event and the sanitizer's cross-check come before the
+    dispatch, so a divergence or a timeout points at this event.  The
+    watcher names the dispatch ``watched`` (default ``op``)."""
+    if flightrec.enabled():
+        flightrec.record("collective", op, f"{axis}|{tuple(shape)}|{sanitizers.dtype_name(dtype)}")
+    sanitizers.note_collective(op, axis, shape, dtype)
+    t0 = time.perf_counter()
+    out = recovery.guarded_dispatch(watched or op, axis, dispatch)
+    dt = time.perf_counter() - t0
+    lab = {"op": op}
+    _tm.counter("oap_collective_ops_total", lab,
+                help="Collective facade dispatches by op").inc()
+    _tm.counter("oap_collective_bytes_total", lab,
+                help="Operand bytes through the collective facade").inc(nbytes)
+    _tm.histogram("oap_collective_dispatch_seconds", lab,
+                  help="Per-dispatch wall (compile included on first shape)").observe(dt)
+    sp = current_span()
+    if sp is not None:
+        sp.note_collective(op, nbytes, dt)
+    return out
+
+
+def _all_gather_host(local: torch.Tensor, op: str = "all_gather", sig=None) -> torch.Tensor:
     """``(world, *local.shape)``: every process's contiguous host tensor,
     through one gloo ``all_gather`` of its bytes.  Every process passes
     one shape and dtype (its callers' shapes are a function of the mesh
-    or of the call), so no size travels first."""
+    or of the call), so no size travels first.  ``op`` and ``sig``
+    (shape, dtype) name the dispatch for the telemetry (default: the
+    tensor's own)."""
     import torch.distributed as dist
 
     faults.maybe_fault("collective.dispatch")
     world = dist.get_world_size()
     flat = local.reshape(-1).view(torch.uint8)
     out = torch.empty((world, flat.numel()), dtype=torch.uint8)
+    shape, dtype = sig if sig is not None else (tuple(local.shape), local.dtype)
     if flat.numel():
         t0 = time.perf_counter()
-        recovery.guarded_dispatch("all_gather", "host",
-                                  lambda: dist.all_gather(list(out.unbind(0)), flat))
+        _instrumented(op, "host", shape, dtype, flat.numel(),
+                      lambda: dist.all_gather(list(out.unbind(0)), flat), watched="all_gather")
         HOST_STATS["gloo_s"] += time.perf_counter() - t0
     HOST_STATS["calls"] += 1
     HOST_STATS["bytes"] += flat.numel()
@@ -134,7 +173,8 @@ def process_allgather(arrays: Sequence) -> List[np.ndarray]:
         buf = np.zeros(int(offs[-1]), np.uint8)
         for a, o in zip(local, offs):
             buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    raw = _all_gather_host(torch.from_numpy(buf)).numpy()
+    sig = (tuple(tuple(a.shape) for a in local), ",".join(str(a.dtype) for a in local))
+    raw = _all_gather_host(torch.from_numpy(buf), "process_allgather", sig).numpy()
     got = [np.ascontiguousarray(raw[:, o:o + a.nbytes]).view(a.dtype).reshape(
         (raw.shape[0], *a.shape)) for a, o in zip(local, offs)]
     HOST_STATS["seconds"] += time.perf_counter() - t0
@@ -161,8 +201,8 @@ def all_to_all(send: Sequence[np.ndarray], axis: Optional[str] = None) -> List[n
     faults.maybe_fault("collective.dispatch")
     flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a in send]))
     recv = torch.empty_like(flat)
-    recovery.guarded_dispatch("all_to_all", axis or "host",
-                              lambda: dist.all_to_all_single(recv, flat))
+    _instrumented("all_to_all", axis or "host", (world, *shape), dtype, flat.numel(),
+                  lambda: dist.all_to_all_single(recv, flat))
     return [np.frombuffer(c.numpy().tobytes(), dtype).reshape(shape)
             for c in recv.chunk(world)]
 
@@ -173,7 +213,7 @@ def barrier() -> None:
     if bootstrap.world_size() > 1:
         import torch.distributed as dist
 
-        recovery.guarded_dispatch("barrier", "host", dist.barrier)
+        _instrumented("barrier", "host", (), "none", 0, dist.barrier)
 
 
 def agree(error: Optional[BaseException], what: str) -> None:
@@ -194,7 +234,8 @@ def agree(error: Optional[BaseException], what: str) -> None:
     world = bootstrap.world_size()
     flags = torch.empty((world,), dtype=torch.int64)
     mine = torch.full((world,), int(error is not None), dtype=torch.int64)
-    recovery.guarded_dispatch("agree", "host", lambda: dist.all_to_all_single(flags, mine))
+    _instrumented("agree", "host", (world,), "int64", 8 * world,
+                  lambda: dist.all_to_all_single(flags, mine))
     failed = [q for q, f in enumerate(flags.tolist()) if f]
     if failed:
         raise RuntimeError(f"{what} failed on process(es) {failed} "

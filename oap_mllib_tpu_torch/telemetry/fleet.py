@@ -1,5 +1,5 @@
-"""Fleet rollups: per-pass statistics of every process of a world (the
-rollup half of the JAX package's ``telemetry/fleet.py``).
+"""Fleet rollups and the live endpoint (the JAX package's
+``telemetry/fleet.py``).
 
 After each streamed pass every process contributes one fixed-shape frame
 (:data:`FRAME_FIELDS`, float64) to one gather over the host collectives
@@ -15,23 +15,41 @@ Whether a fit collects is a pure function of ``Config.fleet_stats`` and
 the world's size (:func:`armed`), so every process issues the same
 gathers.  This module issues no collective itself.
 
-Not ported here: the JAX package's ``oap_fleet_*`` metrics, its HTTP
-``/metrics`` and ``/healthz`` endpoints and its flight-recorder events
-(ROADMAP A8).  The frame keeps all nine fields in the JAX order;
+Process 0 folds each pass's frames into the ``oap_fleet_*`` gauges and
+histograms.  The frame keeps all nine fields in the JAX order:
 ``retries`` is the process's transient retries over every fit so far
-(utils/resilience.retries_total), and ``kernel_dispatch_s`` reads 0
-until A8 ports the metrics registry it counts.
+(utils/resilience.retries_total), ``kernel_dispatch_s`` the host
+dispatch wall of every kernel launch so far (the
+``oap_kernel_dispatch_seconds`` family, ops/cuda/_tiers.book_launch).
+
+**The live endpoint** (``Config.metrics_port`` > 0): one stdlib
+``http.server`` daemon thread a process on ``metrics_port +
+process_id`` serves ``GET /metrics`` (the registry's Prometheus text,
+telemetry/metrics.py) and ``GET /healthz`` (the JAX package's keys: fit
+root, phase, step, ladder, last completed collective, flight-recorder
+seq, capability, rows processed; ``serving`` stays empty until the
+serving plane is ported).  It starts at the first fit boundary or
+folded pass and stops in :func:`stop_server` (the exit hook,
+telemetry/export.shutdown).  A port that cannot be bound raises
+(the JAX package warns and serves nothing): an endpoint that was asked
+for is never skipped in silence.  ``/sloz`` waits for the serving plane.
 """
 
 from __future__ import annotations
 
+import http.server
+import json
+import logging
 import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from oap_mllib_tpu_torch.config import get_config
-from oap_mllib_tpu_torch.utils import resilience
+from oap_mllib_tpu_torch.telemetry import metrics as _tm
+from oap_mllib_tpu_torch.utils import locktrace, resilience
+
+log = logging.getLogger("oap_mllib_tpu_torch")
 
 # one float64 per field; walls and bytes are the pass's, rows the rows
 # this process staged in it, capability its weight (0 = not known yet)
@@ -47,6 +65,21 @@ FRAME_FIELDS = (
     "capability",
 )
 
+# metric family per frame field
+_FIELD_METRICS = {
+    "pass_wall_s": "oap_fleet_pass_seconds",
+    "stage_s": "oap_fleet_stage_seconds",
+    "transfer_s": "oap_fleet_transfer_seconds",
+    "compute_s": "oap_fleet_compute_seconds",
+    "bytes_staged": "oap_fleet_bytes_staged",
+    "retries": "oap_fleet_retries",
+    "kernel_dispatch_s": "oap_fleet_kernel_dispatch_seconds",
+    "rows": "oap_fleet_rows",
+    "capability": "oap_fleet_capability",
+}
+
+_STATS = ("min", "max", "mean", "p99")
+
 # passes whose raw frames a fit keeps; later passes still count in the
 # totals
 _WINDOW_CAP = 512
@@ -59,6 +92,27 @@ def fleet_stats_cfg(cfg=None) -> str:
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fleet_stats must be auto|on|off, got {mode!r}")
     return mode
+
+
+def metrics_port_cfg(cfg=None) -> int:
+    """Validated ``Config.metrics_port``: negative raises."""
+    cfg = cfg or get_config()
+    port = int(cfg.metrics_port)
+    if port < 0:
+        raise ValueError(f"metrics_port must be >= 0 (0 = no live endpoint), got {port}")
+    return port
+
+
+def _rank() -> int:
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
+    return bootstrap.process_index()
+
+
+def _world() -> int:
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
+    return bootstrap.world_size()
 
 
 def armed(world: int, cfg=None) -> bool:
@@ -83,18 +137,26 @@ def local_frame(stats, pass_wall_s: float) -> np.ndarray:
         max(float(pass_wall_s) - float(stats.wait_s), 0.0),
         float(stats.bytes_staged),
         float(resilience.retries_total()),
-        0.0,  # kernel_dispatch_s: the metrics registry is not ported (A8)
+        _tm.registry().family_total("oap_kernel_dispatch_seconds"),
         float(stats.rows),
         balance.cached_capability(),
     ], np.float64)
 
 
-_state_lock = threading.Lock()
+# the /healthz handler thread reads under this lock while passes write
+_state_lock = locktrace.TrackedLock("fleet.state", threading.Lock())
 _window: List[Dict[str, Any]] = []
 _passes = 0
 _wall_totals: Optional[np.ndarray] = None
 _row_totals: Optional[np.ndarray] = None
 _capability: Optional[np.ndarray] = None
+_health: Dict[str, Any] = {"fit": "", "step": 0, "ladder": "", "phase": ""}
+
+
+def note_state(**kw) -> None:
+    """Merge fields into the /healthz state (fit root, ladder, ...)."""
+    with _state_lock:
+        _health.update(kw)
 
 
 def fold_pass(phase: str, frames) -> Dict[str, Any]:
@@ -128,6 +190,27 @@ def fold_pass(phase: str, frames) -> Dict[str, Any]:
         _capability = frames[:, FRAME_FIELDS.index("capability")].copy()
         if len(_window) < _WINDOW_CAP:
             _window.append(rec)
+        _health["step"] = _passes
+        _health["phase"] = phase
+    if _rank() == 0:
+        for i, f in enumerate(FRAME_FIELDS):
+            for stat in _STATS:
+                _tm.gauge(_FIELD_METRICS[f], {"stat": stat},
+                          help=f"Fleet rollup of per-rank {f} (last pass, across ranks)",
+                          ).set(rec["fields"][f][stat])
+        _tm.gauge("oap_fleet_skew_ratio",
+                  help="Max/mean per-rank pass wall of the last rolled-up pass",
+                  ).set(rec["skew_ratio"])
+        _tm.gauge("oap_fleet_slowest_rank",
+                  help="Rank with the largest pass wall in the last rollup",
+                  ).set(rec["slowest_rank"])
+        _tm.counter("oap_fleet_passes_total",
+                    help="Streamed passes folded into fleet rollups").inc()
+        hist = _tm.histogram("oap_fleet_pass_wall_seconds",
+                             help="Per-rank pass walls observed by fleet rollups")
+        for w in walls:
+            hist.observe(float(w))
+    maybe_serve()
     return rec
 
 
@@ -187,10 +270,11 @@ def last_window() -> List[Dict[str, Any]]:
         return list(_window)
 
 
-def finalize_fit(summary, world: int) -> None:
-    """At a fit's end: put the ``fleet`` block in ``summary`` (a dict's
-    key, else an attribute) when the rollups are armed, then reset the
-    window.  Disarmed, one config check."""
+def land_block(summary, world: int) -> None:
+    """At a streamed fit's end (ops/stream_ops.end_fit): put the
+    ``fleet`` block in ``summary`` (a dict's key, else an attribute) when
+    the rollups are armed, then reset the window.  Disarmed, one config
+    check."""
     if not armed(world):
         return
     block = summary_block()
@@ -204,6 +288,42 @@ def finalize_fit(summary, world: int) -> None:
         summary.fleet = block
 
 
+def _summary_get(summary, key: str):
+    if summary is None:
+        return None
+    if isinstance(summary, dict):
+        return summary.get(key)
+    return getattr(summary, key, None)
+
+
+def finalize_fit(summary, root) -> None:
+    """The fit-boundary hook (telemetry/export.finalize_fit): start the
+    live endpoint when ``metrics_port`` is set; armed, land the ``fleet``
+    block (a streamed attempt landed its own already; a fit with no
+    streamed pass gets ``passes`` 0), give the root a ``fleet`` child
+    span with the straggler figures, and update the /healthz state.
+    One config check each when the plane is off."""
+    cfg = get_config()
+    world = _world()
+    if cfg.metrics_port:
+        maybe_serve(cfg)
+    if not armed(world, cfg):
+        return
+    block = _summary_get(summary, "fleet")
+    if block is None:
+        land_block(summary, world)
+        block = _summary_get(summary, "fleet")
+    if summary is None or block is None:
+        return
+    if root is not None:
+        root.node("fleet").attrs.update({
+            k: block[k] for k in ("world", "passes", "skew_ratio", "slowest_rank",
+                                  "imbalance_trend", "fit_skew_ratio") if k in block})
+    res = _summary_get(summary, "resilience")
+    note_state(fit=getattr(root, "name", "") if root is not None else "",
+               ladder=(res.get("ladder") if isinstance(res, dict) else None) or "")
+
+
 def reset_fit() -> None:
     """Drop the current fit's window."""
     global _passes, _wall_totals, _row_totals, _capability
@@ -211,3 +331,134 @@ def reset_fit() -> None:
         _window.clear()
         _passes = 0
         _wall_totals = _row_totals = _capability = None
+
+
+# -- the live endpoint -----------------------------------------------------------
+
+_server_lock = locktrace.TrackedLock("fleet.server", threading.Lock())
+_server: Optional[http.server.ThreadingHTTPServer] = None
+_server_port: Optional[int] = None
+
+
+def _healthz_payload() -> Dict[str, Any]:
+    from oap_mllib_tpu_torch.parallel import balance
+    from oap_mllib_tpu_torch.telemetry import flightrec
+    from oap_mllib_tpu_torch.utils import recovery
+
+    cfg = get_config()
+    rank = int(cfg.process_id)
+    with _state_lock:
+        health = dict(_health)
+        rows_done = (int(_row_totals[rank]) if _row_totals is not None
+                     and rank < len(_row_totals) else 0)
+    return {
+        "ok": True,
+        "rank": rank,
+        "world": int(cfg.num_processes),
+        "fit": health.get("fit", ""),
+        "phase": health.get("phase", ""),
+        "step": health.get("step", 0),
+        "ladder": health.get("ladder", ""),
+        "last_collective": recovery.last_completed(),
+        "flight_recorder_seq": flightrec.last_seq(),
+        "fleet_passes": health.get("step", 0),
+        "capability": balance.cached_capability(),
+        "rows_processed": rows_done,
+        # the serving plane's block: not ported yet
+        "serving": {},
+    }
+
+
+class _Handler(http.server.BaseHTTPRequestHandler):
+    def do_GET(self):  # noqa: N802 -- the stdlib handler's name
+        path = self.path.split("?")[0]
+        if path == "/metrics":
+            body = _tm.render_prometheus().encode()
+            ctype = "text/plain; version=0.0.4; charset=utf-8"
+        elif path == "/healthz":
+            body = (json.dumps(_healthz_payload(), sort_keys=True) + "\n").encode()
+            ctype = "application/json"
+        else:
+            self.send_response(404)
+            self.end_headers()
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):  # silence the stdlib's request log
+        pass
+
+
+def maybe_serve(cfg=None) -> Optional[int]:
+    """Start (once) this process's endpoint when ``Config.metrics_port``
+    > 0, on ``metrics_port + process_id``; returns the bound port, or
+    None when off.  A port that cannot be bound raises ``OSError``.  The
+    lock covers only the swap: a stale server is detached under it and
+    shut down after release."""
+    global _server, _server_port
+    cfg = cfg or get_config()
+    base = metrics_port_cfg(cfg)
+    if base == 0:
+        return None
+    port = base + int(cfg.process_id)
+    stale = None
+    with _server_lock:
+        if _server is not None and _server_port == port:
+            return port
+        if _server is not None:
+            stale, _server, _server_port = _server, None, None
+    _stop_http(stale)
+    try:
+        srv = http.server.ThreadingHTTPServer(("", port), _Handler)
+    except OSError as e:
+        raise OSError(e.errno, f"metrics endpoint: cannot bind port {port} "
+                               f"(metrics_port {base} + process {cfg.process_id}): {e}") from e
+    srv.daemon_threads = True
+    thread = threading.Thread(target=srv.serve_forever, daemon=True, name=f"oap-metrics-{port}")
+    loser = None
+    with _server_lock:
+        if _server is not None:
+            loser = srv  # a racing arm won
+        else:
+            _server, _server_port = srv, port
+            thread.start()
+    if loser is not None:
+        loser.server_close()
+        return server_port()
+    from oap_mllib_tpu_torch.telemetry import export as _export
+
+    _export.register_shutdown()
+    log.info("fleet: serving /metrics and /healthz on port %d", port)
+    return port
+
+
+def server_port() -> Optional[int]:
+    with _server_lock:
+        return _server_port
+
+
+def _stop_http(srv) -> None:
+    """Shut a detached server down (no lock held: ``shutdown`` waits for
+    the serve loop)."""
+    if srv is None:
+        return
+    srv.shutdown()
+    srv.server_close()
+
+
+def stop_server() -> None:
+    """Stop the endpoint: detach under the lock, shut down after."""
+    global _server, _server_port
+    with _server_lock:
+        srv, _server, _server_port = _server, None, None
+    _stop_http(srv)
+
+
+def _reset_for_tests() -> None:
+    stop_server()
+    reset_fit()
+    with _state_lock:
+        _health.update({"fit": "", "step": 0, "ladder": "", "phase": ""})

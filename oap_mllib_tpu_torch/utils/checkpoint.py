@@ -65,6 +65,8 @@ import torch
 
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data import io as _io
+from oap_mllib_tpu_torch.telemetry import flightrec
+from oap_mllib_tpu_torch.telemetry import metrics as _tm
 from oap_mllib_tpu_torch.utils import faults
 from oap_mllib_tpu_torch.utils.timing import phase_timer, tick
 
@@ -342,6 +344,8 @@ class Checkpointer:
         # path too: a one-process fault must not desync the collectives
         if not self._sync_ok(ok):
             _count("write_failures")
+            _tm.counter("oap_checkpoint_write_failures_total", {"algo": self.algo},
+                        help="Checkpoint writes that failed (the fit continued)").inc()
             log.warning("%s: checkpoint write at step %d failed (%s); fit continues "
                         "without this checkpoint", self.algo, step,
                         err if err is not None else "failure on a peer process")
@@ -358,6 +362,8 @@ class Checkpointer:
         # every process
         if not self._sync_ok(flip_ok):
             _count("write_failures")
+            _tm.counter("oap_checkpoint_write_failures_total", {"algo": self.algo},
+                        help="Checkpoint writes that failed (the fit continued)").inc()
             if self.rank != 0:
                 log.warning("%s: checkpoint manifest flip at step %d failed on process 0; "
                             "the previous generation stays live", self.algo, step)
@@ -373,6 +379,18 @@ class Checkpointer:
         _count("bytes_written", nbytes)
         _count("shards")
         _count("write_seconds", dt)
+        if flightrec.enabled():
+            # the commit (the manifest flip every process agreed on) is the
+            # event a post-mortem aligns against
+            flightrec.record("ckpt_commit", self.algo, f"step={step}")
+        _tm.counter("oap_checkpoint_writes_total", {"algo": self.algo},
+                    help="Checkpoint shard writes that landed durably").inc()
+        _tm.counter("oap_checkpoint_bytes_written_total",
+                    help="Bytes written to checkpoint shards").inc(nbytes)
+        _tm.counter("oap_checkpoint_shards_total",
+                    help="Checkpoint shard files written").inc()
+        _tm.counter("oap_checkpoint_write_seconds_total",
+                    help="Wall spent writing checkpoints").inc(dt)
         return True
 
     def _shard_name(self, step: int, rank: int) -> str:
@@ -463,9 +481,14 @@ class Checkpointer:
         with self._phase():
             res = self._restore_guarded()
         self._result = res
+        seconds = elapsed()
         with _lock:
             _STATS["restores"][res.decision] = _STATS["restores"].get(res.decision, 0) + 1
-            _STATS["restore_seconds"] += elapsed()
+            _STATS["restore_seconds"] += seconds
+        _tm.counter("oap_checkpoint_restores_total", {"algo": self.algo, "decision": res.decision},
+                    help="Checkpoint restore attempts by outcome").inc()
+        _tm.counter("oap_checkpoint_restore_seconds_total",
+                    help="Wall spent in checkpoint restore attempts").inc(seconds)
         return res
 
     def _restore_guarded(self) -> RestoreResult:

@@ -574,7 +574,9 @@ def record_plan(summary, plan: Optional[RoutePlan], *, spilled: bool = False) ->
     dict, ``summary.route`` otherwise), with the bytes the pipeline
     staged since the plan was made, the bytes per row against the
     planner's price, and the calibration that ratio moves; ``spilled``
-    marks a fit the host-OOM rung moved to a disk spill."""
+    marks a fit the host-OOM rung moved to a disk spill.  It also books
+    the ``oap_route_*`` families and annotates the span tree's ``route``
+    node (call it before telemetry/export.finalize_fit)."""
     if summary is None or plan is None:
         return
     from oap_mllib_tpu_torch.data.prefetch import staged_totals
@@ -593,7 +595,31 @@ def record_plan(summary, plan: Optional[RoutePlan], *, spilled: bool = False) ->
         d["estimated_bytes_per_row"] = round(plan.est_row_bytes, 2)
         d["calibration"] = round(
             _note_calibration(plan.algo.lower(), plan.est_row_bytes, observed), 4)
+    from oap_mllib_tpu_torch.telemetry import metrics as _tm
+
+    labels = {"algo": plan.algo, "route": plan.route}
+    _tm.counter("oap_route_decisions_total", labels,
+                help="Route-planner decisions by algorithm and chosen route").inc()
+    chosen = plan.estimate_for(plan.route)
+    if chosen is not None:
+        _tm.gauge("oap_route_estimated_hbm_bytes", labels,
+                  help="Planner HBM estimate of the chosen route",
+                  ).set(float(max(chosen.hbm_bytes, 0)))
+        _tm.gauge("oap_route_estimated_host_bytes", labels,
+                  help="Planner host-RAM estimate of the chosen route",
+                  ).set(float(max(chosen.host_bytes, 0)))
+    if plan.over_budget:
+        _tm.counter("oap_route_over_budget_total", {"algo": plan.algo},
+                    help="Fits where no candidate route fit the budget").inc()
+    if plan.degraded_scale or plan.downgrades:
+        _tm.counter("oap_route_downgrades_total", labels,
+                    help="Fits moved off their natural route (budget or guard)").inc()
     if isinstance(summary, dict):
         summary["route"] = d
+        timings = summary.get("timings")
     else:
         summary.route = d
+        timings = getattr(summary, "timings", None)
+    # the span tree's route node (count 0: no phase of its own)
+    if timings is not None and getattr(timings, "root", None) is not None:
+        timings.root.node("route").attrs.update(d)

@@ -42,10 +42,15 @@ Where the port differs from the JAX package:
   leaves through :func:`exit_now`; the supervisor's reap kills
   stragglers.
 
-Crash records are version 2 with ``flight_recorder`` ``[]`` and
-``sanitizer_fingerprint`` ``""``, what the JAX package writes with those
-planes off.  :func:`stats` holds the JAX package's ``oap_recovery_*``
-counts.
+Crash records are version 2, the JAX package's: ``flight_recorder``
+holds the newest ``flightrec.CRASH_TAIL_EVENTS`` events of the flight
+recorder (ending in the ``crash`` event) and ``sanitizer_fingerprint``
+the collective sanitizer's ``count:digest`` of the fit so far, ``[]``
+and ``""`` when those planes are off; ``telemetry`` is the registry's
+snapshot.  :func:`stats` keeps its counts, which also book the
+``oap_recovery_*`` families (aborts by cause, peer aborts, timeouts by
+op; the supervisor's relaunches, restart budget spent, world shrinks and
+time to recovery).
 """
 
 from __future__ import annotations
@@ -114,18 +119,59 @@ def reset_stats() -> None:
         _completed.update(count=0, last="")
 
 
+# the registry family of each count, with its label (the JAX names)
+_FAMILIES = {
+    "aborts": ("oap_recovery_aborts_total", "cause",
+               "Coordinated aborts by fault class (crash records written)"),
+    "peer_aborts": ("oap_recovery_peer_aborts_total", None,
+                    "Dispatches aborted because a peer's crash record appeared in the sideband"),
+    "timeouts": ("oap_recovery_timeouts_total", "op",
+                 "Collective dispatches that expired the deadline (a peer never arrived)"),
+    "relaunches": ("oap_recovery_relaunches_total", None,
+                   "Supervisor relaunches of a failed world"),
+    "restart_budget_spent": ("oap_recovery_restart_budget_spent_total", None,
+                             "Restart budget consumed by relaunches"),
+    "world_shrinks": ("oap_recovery_world_shrinks_total", None,
+                      "Worlds shrunk past a repeatedly failing rank"),
+}
+
+
 def _bump(key: str, sub: Optional[str] = None, value=1) -> None:
     with _lock:
         if sub is None:
             _STATS[key] += value
         else:
             _STATS[key][sub] = _STATS[key].get(sub, 0) + value
+    fam = _FAMILIES.get(key)
+    if fam is not None:
+        from oap_mllib_tpu_torch.telemetry import metrics as _tm
+
+        name, label, help_ = fam
+        _tm.counter(name, {label: str(sub)} if label else None, help=help_).inc(value)
 
 
 def note_recovery(seconds: float) -> None:
     """One relaunch's detection-to-respawn wall (the supervisor's)."""
+    from oap_mllib_tpu_torch.telemetry import metrics as _tm
+
     with _lock:
         _STATS["time_to_recovery_s"].append(float(seconds))
+    _tm.histogram("oap_recovery_time_to_recovery_seconds",
+                  help="Detection-to-respawn wall of supervised relaunches").observe(seconds)
+
+
+def _sanitizer_digest() -> str:
+    """The collective sanitizer's ``count:digest`` of the fit so far when
+    armed, else ""."""
+    try:
+        from oap_mllib_tpu_torch.utils import sanitizers
+
+        if sanitizers.enabled("collective"):
+            count, digest = sanitizers.fingerprint()
+            return f"{count}:{digest}"
+    except Exception:  # noqa: BLE001 -- a diagnosis must never mask the fault
+        pass
+    return ""
 
 
 class RecoveryError(RuntimeError):
@@ -239,8 +285,13 @@ def write_crash_record(site: str, fault_class: str, error: str, *, op: str = "",
         return None
     try:
         from oap_mllib_tpu_torch.data import io as _io
+        from oap_mllib_tpu_torch.telemetry import flightrec
+        from oap_mllib_tpu_torch.telemetry import metrics as _tm
         from oap_mllib_tpu_torch.utils import checkpoint as _ckpt
 
+        # the crash is the ring's last event, so the tail ends with it
+        if flightrec.enabled():
+            flightrec.record("crash", site, fault_class)
         rank = _rank()
         _bump("aborts", fault_class)
         record = {
@@ -253,10 +304,10 @@ def write_crash_record(site: str, fault_class: str, error: str, *, op: str = "",
             "op": op,
             "elapsed_s": round(float(elapsed_s), 3),
             "last_completed": last_completed(),
-            "sanitizer_fingerprint": "",
+            "sanitizer_fingerprint": _sanitizer_digest(),
             "last_checkpoint_step": _ckpt.last_durable_step(),
-            "flight_recorder": [],
-            "telemetry": {"recovery": stats(), "checkpoint": _ckpt.stats()},
+            "flight_recorder": flightrec.tail(flightrec.CRASH_TAIL_EVENTS),
+            "telemetry": _tm.snapshot(),
         }
         os.makedirs(cfg.crash_dir, exist_ok=True)
         path = crash_record_path(cfg.crash_dir, rank)

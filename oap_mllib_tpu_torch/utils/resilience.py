@@ -67,6 +67,8 @@ from typing import Callable, List, Optional
 import torch
 
 from oap_mllib_tpu_torch.config import get_config
+from oap_mllib_tpu_torch.telemetry import flightrec
+from oap_mllib_tpu_torch.telemetry import metrics as _tm
 from oap_mllib_tpu_torch.utils.faults import FaultInjected
 
 log = logging.getLogger("oap_mllib_tpu_torch")
@@ -259,6 +261,10 @@ class ResilienceStats:
     def record(self, site: str, kind: Optional[str], exc: BaseException) -> None:
         self.faults += 1
         self.history.append(f"{site}[{kind or 'unclassified'}]: {exc}")
+        if flightrec.enabled():
+            flightrec.record("fault", site, kind or "unclassified")
+        _tm.counter("oap_resilience_faults_total", {"kind": kind or "unclassified"},
+                    help="Classified exceptions observed by the resilience layer").inc()
 
     def note_retry(self, delay_s: float) -> None:
         global _retries
@@ -266,9 +272,18 @@ class ResilienceStats:
         self.backoff_s += delay_s
         with _retries_lock:
             _retries += 1
+        if flightrec.enabled():
+            flightrec.record("retry", "transient", f"{delay_s:.3f}s")
+        _tm.counter("oap_resilience_retries_total", help="Transient-fault retries taken").inc()
+        _tm.counter("oap_resilience_backoff_seconds_total",
+                    help="Wall slept in retry backoff").inc(delay_s)
 
     def note_degradation(self) -> None:
         self.degradations += 1
+        if flightrec.enabled():
+            flightrec.record("degrade", "ladder")
+        _tm.counter("oap_resilience_degradations_total",
+                    help="Degradation-ladder rungs stepped").inc()
 
     def as_dict(self) -> dict:
         return {

@@ -214,7 +214,10 @@ class TestIsolation:
                 "ops/stream_ops.py", "ops/als_stream.py", "parallel/bootstrap.py",
                 "parallel/shuffle.py", "parallel/mesh.py", "parallel/balance.py",
                 "ops/als_block_stream.py", "telemetry/fleet.py", "utils/dispatch.py",
-                "utils/faults.py", "utils/resilience.py"} <= checked
+                "utils/faults.py", "utils/resilience.py", "telemetry/spans.py",
+                "telemetry/metrics.py", "telemetry/export.py", "telemetry/flightrec.py",
+                "utils/locktrace.py", "utils/sanitizers.py", "utils/progcache.py",
+                "utils/profiling.py", "utils/debug.py", "tools/supervise.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -234,6 +237,10 @@ class TestIsolation:
             "assert bootstrap.initialize_distributed() is False\n"
             "from oap_mllib_tpu_torch.data import bucketing, io, prefetch, sparse, stream\n"
             "from oap_mllib_tpu_torch.utils import faults, membudget, resilience\n"
+            "from oap_mllib_tpu_torch.telemetry import export, flightrec, metrics, spans\n"
+            "from oap_mllib_tpu_torch.utils import debug, locktrace, profiling, progcache\n"
+            "from oap_mllib_tpu_torch.utils import sanitizers\n"
+            "from oap_mllib_tpu_torch.tools import supervise\n"
             "resilience.run_with_retry(lambda: faults.maybe_fault('stream.read'))\n"
             "src = stream.ChunkSource.from_array(np.ones((300, 3), np.float32), 128)\n"
             "with prefetch.Prefetcher(src, depth=2) as pf:\n"

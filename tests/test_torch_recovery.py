@@ -322,6 +322,63 @@ class TestCrashRecords:
         assert recovery.crash_record_path(d, 3) == jax_recovery.crash_record_path(d, 3)
 
 
+class TestArmedCrashRecords:
+    """With the flight recorder and the collective sanitizer armed, a
+    crash record carries the recorder's tail (ending in the crash event)
+    and the sanitizer's digest, with the JAX package's keys."""
+
+    def _armed(self, tmp_path, set_cfg, rec_mod, san_mod, fr_mod):
+        set_cfg(crash_dir=str(tmp_path), flight_recorder=128, sanitizers="collective")
+        fr_mod._reset_for_tests()
+        san_mod._reset_for_tests()
+        for i in range(80):
+            fr_mod.record("chunk", "prefetch", f"#{i}")
+        san_mod.note_collective("barrier", "host", (), "none")
+        return json.load(open(rec_mod.write_crash_record(
+            "collective.dispatch", "peer_abort", "peer rank 1 aborted", op="all_gather")))
+
+    def test_tail_and_digest_with_the_jax_keys(self, tmp_path):
+        from oap_mllib_tpu.config import set_config as jax_set_config
+        from oap_mllib_tpu.telemetry import flightrec as jax_fr
+        from oap_mllib_tpu.utils import sanitizers as jax_san
+        from oap_mllib_tpu_torch.telemetry import flightrec
+        from oap_mllib_tpu_torch.utils import sanitizers
+
+        try:
+            rec = self._armed(tmp_path / "port", set_config, recovery, sanitizers, flightrec)
+            ref = self._armed(tmp_path / "jax", jax_set_config, jax_recovery, jax_san, jax_fr)
+        finally:
+            flightrec._reset_for_tests()
+            sanitizers._reset_for_tests()
+            jax_fr._reset_for_tests()
+            jax_san._reset_for_tests()
+        assert set(rec) == set(ref)
+        assert len(rec["flight_recorder"]) == len(ref["flight_recorder"]) == 64
+        assert rec["flight_recorder"][-1]["kind"] == "crash"
+        assert [(e["seq"], e["kind"], e["name"], e["detail"]) for e in rec["flight_recorder"]] \
+            == [(e["seq"], e["kind"], e["name"], e["detail"]) for e in ref["flight_recorder"]]
+        assert set(rec["flight_recorder"][0]) == set(ref["flight_recorder"][0])
+        assert rec["sanitizer_fingerprint"] == ref["sanitizer_fingerprint"]
+        assert rec["sanitizer_fingerprint"].startswith("1:")
+        assert "oap_recovery_aborts_total" in rec["telemetry"]
+
+    @pytest.mark.parametrize("key,sub,family", [
+        ("aborts", "oom", "oap_recovery_aborts_total"),
+        ("timeouts", "all_gather", "oap_recovery_timeouts_total"),
+        ("peer_aborts", None, "oap_recovery_peer_aborts_total"),
+        ("relaunches", None, "oap_recovery_relaunches_total"),
+        ("world_shrinks", None, "oap_recovery_world_shrinks_total")])
+    def test_counts_book_the_jax_families(self, key, sub, family):
+        from oap_mllib_tpu_torch.telemetry import metrics as tm
+
+        before = tm.family_total(family)
+        stats0 = recovery.stats()
+        recovery._bump(key, sub)
+        assert tm.family_total(family) == before + 1
+        got = recovery.stats()[key]
+        assert (got[sub] == stats0[key].get(sub, 0) + 1) if sub else got == stats0[key] + 1
+
+
 class TestSupervisedLadder:
     def _fit(self, monkeypatch, world, crash_dir, fn=lambda level: "ok"):
         monkeypatch.setattr(resilience, "_world", lambda: world)

@@ -5,10 +5,13 @@ supervised world: two gloo processes fit a checkpointed streamed
 K-Means, a seeded ``chaos`` kill takes process 1 down mid-fit, the
 survivor exits as a victim, and the relaunch resumes to the
 uninterrupted fit's centers bit for bit; with ``shrink_after=1`` the
-world shrinks to one process and lands within 1e-5 of it."""
+world shrinks to one process and lands within 1e-5 of it.  The command
+line ``python -m oap_mllib_tpu_torch.tools.supervise`` runs one
+supervised world of one process on the CPU, killed once and resumed."""
 
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -385,3 +388,41 @@ class TestSupervisedWorld:
         assert one["ck"]["decision"] == "resharded" and one["ck"]["old_world"] == 2
         np.testing.assert_allclose(np.asarray(one["centers"]), np.asarray(full[0]["centers"]),
                                    atol=1e-5)
+
+
+class TestCommandLine:
+    """``python -m oap_mllib_tpu_torch.tools.supervise``: the JAX
+    package's ``dev/supervise.py`` flags over the port's workers."""
+
+    def _run(self, *args, env=None):
+        return subprocess.run([sys.executable, "-m", "oap_mllib_tpu_torch.tools.supervise", *args],
+                              capture_output=True, text=True, timeout=240, cwd=_REPO,
+                              env={**os.environ, "PYTHONPATH": _REPO, **(env or {})})
+
+    def test_help_names_the_jax_flags(self):
+        out = self._run("--help")
+        assert out.returncode == 0, out.stderr
+        for flag in ("--procs", "--checkpoint-dir", "--crash-dir", "--chaos", "--budget",
+                     "--backoff", "--shrink-after", "--collective-timeout", "--kill-rank",
+                     "--kill-walk", "--kill-scope", "--attempt-timeout"):
+            assert flag in out.stdout
+
+    def test_a_supervised_cpu_world_relaunches_and_resumes(self, tmp_path):
+        cpu = {"OAP_MLLIB_TPU_DEVICE": "cpu"}
+        clean = self._run("--procs", "1", "--checkpoint-dir", str(tmp_path / "ck0"),
+                          "--crash-dir", str(tmp_path / "c0"), env=cpu)
+        out = self._run("--procs", "1", "--checkpoint-dir", str(tmp_path / "ck1"),
+                        "--crash-dir", str(tmp_path / "c1"), "--kill-rank", "0",
+                        "--backoff", "0.01", env=cpu)
+        assert clean.returncode == 0 and out.returncode == 0, out.stdout + out.stderr
+
+        def lines(p, head):
+            return [json.loads(ln[len(head):]) for ln in p.stdout.splitlines()
+                    if ln.startswith(head)]
+
+        sup = lines(out, "SUPERVISOR ")[-1]
+        assert sup["ok"] and sup["relaunches"] == 1
+        assert sup["attempts"][0]["exits"][0]["classification"] == "killed"
+        got, ref = lines(out, "RESULT ")[-1], lines(clean, "RESULT ")[-1]
+        assert got["centers_hex"] == ref["centers_hex"]
+        assert got["decision"] == "found"
