@@ -10,6 +10,7 @@
     python3 chip_smoke.py --block-stream  # only the build and 22 (four cards
                                           # when the machine has four)
     python3 chip_smoke.py --telemetry  # only the build and 27
+    python3 chip_smoke.py --online     # only the build and 28
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -285,6 +286,38 @@ Phases, each a hard check (any failure exits non-zero):
    on process 1 under the collective sanitizer: both processes raise
    ``CollectiveDivergenceError`` naming both ops, well inside the
    collective timeout.
+
+28. serve_online (after als_block_fit; the serving core and the online
+   updates on the headline K-Means model and the ML-25M ALS model of
+   phases 5 and 9, each update on a copy where a later phase reads the
+   model; ``--online`` fits both itself): (a) ``serving.serve`` of the
+   K-Means model, ``warmup(4096)``, 200 requests of 1–4096 rows each
+   bit-equal to ``model.predict``, >= 99.99 % of labels equal to a
+   float64 numpy assignment, no program-cache miss and no build after
+   the warmup, p50 / p99 ms, requests/s, pad rows; ``predict_many`` of
+   16 small requests; (b) ``IncrementalPCA(16)`` over the 2^20 x 128 PCA
+   table in 16 chunks of 65,536 rows (K2 = 16) against ``PCA(16).fit``
+   (components 1e-4 sign-insensitively, ratios 1e-5), served, a second
+   delta re-pins it (version 2, bit-equal to ``model.transform``); (c)
+   the streamed sweep of the ML-25M model and of a 1,000,000 x 256,
+   rank-16 table, bit-equal to ``recommend_for_all_users``, ids against
+   a float64 top-10 of 4,096 users off near-ties (every gap of the 11
+   best float64 scores above 1e-5 of the best), peak memory within the
+   chunk's budget, users/s; (d) 10,000 new users (6 ratings each, drawn
+   like the base's) folded into a served copy of the ML-25M model: K3 =
+   K4 = 1, rows bit-equal to the COO half-update of the same edges, the
+   grown tail's untouched rows at the init, within 0.15 of a refit on
+   base plus delta in prediction space, the fold-in and refit walls; a
+   second delta in the same buckets misses nothing; batched by 2,048
+   rows, five launches of each and the same rows; (e) ``partial_fit`` of
+   a 2^18 x 256 delta of the same blobs in 65,536-row chunks (K1 = 4):
+   centers within 1e-5 of the plain K1's fold on the CPU, counts exact,
+   the served handle at version 2 and bit-equal to ``model.predict``;
+   (f) ``delta.ingest:err=1`` on (e), ``delta.solve:err=2`` on (d)
+   with batches of 2,048 (the count fires the first two calls: before
+   any launch), and on (d) the second batch's solve made to raise after
+   the first batch's K3 and K4 ran, each leave the arrays, the served
+   answers and the versions as they were.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -696,7 +729,7 @@ def phase_fit(x, dev, cfg, max_iter):
           f"compute_cost {cost} vs training cost {s.training_cost}")
     fit["compute_cost"] = cost
     emit("fit", fit)
-    return fit
+    return fit, model
 
 
 def phase_loop_parity(x, dev, cfg, max_iter):
@@ -4833,6 +4866,514 @@ def phase_telemetry_child(dev, rehearse):
     return json.loads(got[-1][len("TEL_RESULT "):])
 
 
+# -- serving and online updates (28) -------------------------------------------
+
+SERVE_FULL = {"kmeans": {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20},
+              "requests": 200, "max_rows": 4096, "many": 16, "slab": 1 << 16,
+              "pca": {"n": 1 << 20, "d": 128, "k": 16}, "chunk_rows": 1 << 16,
+              "pca_delta_chunks": 4, "topk": 10, "sweep_sample": 4096,
+              "bench_sweep": {"n_users": 1_000_000, "n_items": 256, "rank": 16},
+              "foldin_users": 10_000, "foldin_span": 10_500, "foldin_per_user": 6,
+              "foldin_batch": 2048, "delta_rows": 1 << 18}
+SERVE_TINY = {"kmeans": {"n": 4133, "d": 29, "k": 11, "max_iter": 5},
+              "requests": 20, "max_rows": 256, "many": 16, "slab": 2048,
+              "pca": {"n": 3001, "d": 37, "k": 5}, "chunk_rows": 512,
+              "pca_delta_chunks": 2, "topk": 10, "sweep_sample": 256,
+              "bench_sweep": {"n_users": 5000, "n_items": 64, "rank": 16},
+              "foldin_users": 30, "foldin_span": 33, "foldin_per_user": 6,
+              "foldin_batch": 7, "delta_rows": 2048,
+              # a base that dominates the delta and converges, as ML-25M's
+              # does: the refit bound holds only there (the JAX package's)
+              "als": dict(ALS_TINY, n_users=3000, nnz=100_000, max_iter=10)}
+# ids against a float64 top-k: a row is compared where every gap between
+# its 11 best float64 scores exceeds this share of its best |score|
+SWEEP_TIE_RTOL = 1e-5
+# the partial_fit centers against the plain K1's fold, max |diff| over
+# max |value|
+PARTIAL_FIT_RTOL = 1e-5
+# a fold-in against a refit on base plus delta, in prediction space
+# (the JAX package's documented bound)
+FOLDIN_REFIT_RTOL = 0.15
+
+
+def _armed_fault(spec):
+    set_config(fault_spec=spec)
+    faults.reset()
+
+
+def _f64_labels(x, c):
+    """Nearest center of each row in float64 numpy."""
+    x = np.asarray(x, np.float64)
+    c = np.asarray(c, np.float64)
+    d2 = (x * x).sum(1)[:, None] - 2.0 * x @ c.T + (c * c).sum(1)[None, :]
+    return np.argmin(d2, axis=1)
+
+
+def serve_kmeans_storm(cfg, x, model, dev, rng):
+    """(a) the headline K-Means served: warmup, a storm of jittered
+    requests, each bit-equal to model.predict; labels against float64;
+    no program-cache miss and no build after the warmup; predict_many."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.serving import batcher
+    from oap_mllib_tpu_torch.utils import progcache
+
+    slab = x[: cfg["slab"]].cpu().numpy()
+    ref = _f64_labels(slab, model.cluster_centers_)
+    h = serving.serve(model)
+    t0 = time.perf_counter()
+    buckets = h.warmup(cfg["max_rows"])
+    warm_s = time.perf_counter() - t0
+    misses = progcache.stats()["misses"]
+    builds = batcher.xla_snapshot()
+    pad0 = serving.serving_summary()["pad_rows"]
+    sizes = rng.integers(1, cfg["max_rows"] + 1, size=cfg["requests"])
+    offs = rng.integers(0, cfg["slab"] - cfg["max_rows"] + 1, size=cfg["requests"])
+    walls, answers = [], []
+    t_storm = time.perf_counter()
+    for s, o in zip(sizes, offs):
+        t0 = time.perf_counter()
+        answers.append(h.predict(slab[o:o + s]))
+        walls.append(time.perf_counter() - t0)
+    storm_s = time.perf_counter() - t_storm
+    pad = serving.serving_summary()["pad_rows"] - pad0
+    agree = total = 0
+    for (s, o), got in zip(zip(sizes, offs), answers):
+        check(np.array_equal(got, model.predict(slab[o:o + s])),
+              f"serve_online (a): a served answer of {s} rows differs from model.predict")
+        agree += int(np.sum(got == ref[o:o + s]))
+        total += int(s)
+    check(progcache.stats()["misses"] == misses and batcher.xla_snapshot() == builds,
+          "serve_online (a): the storm after the warmup missed the program cache or built")
+    share = agree / total
+    check(share >= MIN_AGREEMENT, f"serve_online (a): {share:.6f} of labels agree with float64")
+    small = [slab[i * 37:i * 37 + int(n)] for i, n in enumerate(rng.integers(1, 33, cfg["many"]))]
+    parts = h.predict_many(small)
+    check([len(p) for p in parts] == [len(q) for q in small]
+          and np.array_equal(np.concatenate(parts), model.predict(np.concatenate(small))),
+          "serve_online (a): predict_many split its answers wrongly")
+    walls_ms = np.sort(np.asarray(walls) * 1e3)
+    return h, slab, {
+        "warmup_buckets": buckets, "warmup_s": warm_s, "requests": int(cfg["requests"]),
+        "rows": total, "p50_ms": float(walls_ms[len(walls_ms) // 2]),
+        "p99_ms": float(walls_ms[min(len(walls_ms) - 1, int(len(walls_ms) * 0.99))]),
+        "qps": cfg["requests"] / storm_s, "rows_per_s": total / storm_s, "pad_rows": pad,
+        "f64_agreement": share, "predict_many_requests": len(small),
+    }
+
+
+def serve_ipca(cfg, dev):
+    """(b) IncrementalPCA on the headline PCA table in fixed chunks
+    against PCA.fit; the model served; a second delta re-pins it."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.online import IncrementalPCA
+
+    p = cfg["pca"]
+    n, d, k, rows = p["n"], p["d"], p["k"], cfg["chunk_rows"]
+    x = pca_data(n, d, dev, seed=d)
+    host = x.cpu().numpy()
+    ref = PCA(k=k, device=str(dev)).fit(x)
+    del x
+    ip = IncrementalPCA(k, device=str(dev))
+    pca_kernel.reset_launches()
+    t0 = time.perf_counter()
+    for lo in range(0, n, rows):
+        ip.partial_fit(host[lo:lo + rows])
+    sync(dev)
+    ingest_s = time.perf_counter() - t0
+    launches = dict(pca_kernel.LAUNCHES)
+    chunks = -(-n // rows)
+    check(launches[pca_kernel.KERNEL] == (chunks if dev.type == "cuda" else 0),
+          f"serve_online (b): pca_moments launched {launches}, expected {chunks}")
+    t0 = time.perf_counter()
+    model = ip.commit()
+    commit_s = time.perf_counter() - t0
+    keep = ref.explained_variance_ > 1e-5
+    comp_err = sign_err(model.components_[:, keep], ref.components_[:, keep])
+    ratio_err = float(np.max(np.abs(model.explained_variance_ - ref.explained_variance_)))
+    check(comp_err <= PCA_FIT_TOL and ratio_err <= 1e-5,
+          f"serve_online (b): IncrementalPCA vs PCA.fit components {comp_err:.3g}, "
+          f"ratios {ratio_err:.3g}")
+    h = serving.serve(model)
+    q = host[:4096]
+    before = h.transform(q)
+    delta = pca_data(cfg["pca_delta_chunks"] * rows, d, dev, seed=d + 1).cpu().numpy() + 0.5
+    pca_kernel.reset_launches()
+    ip.partial_fit(delta)
+    delta_launches = dict(pca_kernel.LAUNCHES)
+    ip.commit()
+    check(h.model_version == 2, f"serve_online (b): handle version {h.model_version} after a commit")
+    got = h.transform(q)
+    check(np.array_equal(got, model.transform(q)) and not np.array_equal(got, before),
+          "serve_online (b): the re-pinned handle does not answer with the new components")
+    serving.unserve(model)
+    return {"n": n, "d": d, "k": k, "chunks": chunks, "launches": launches,
+            "delta_launches": delta_launches, "ingest_s": ingest_s, "commit_s": commit_s,
+            "components_err": comp_err, "ratio_err": ratio_err}
+
+
+def _f64_topk_check(model, ids, scores, sample, k):
+    """Ids of the sampled users against a float64 numpy top-k, rows with
+    a near-tie (SWEEP_TIE_RTOL) excluded; scores within it everywhere."""
+    y = np.asarray(model.item_factors_, np.float64)
+    compared = ties = 0
+    worst = 0.0
+    for lo in range(0, len(sample), 512):
+        rows = sample[lo:lo + 512]
+        full = np.asarray(model.user_factors_[rows], np.float64) @ y.T
+        part = np.argpartition(-full, k, axis=1)[:, :k + 1]
+        vals = np.take_along_axis(full, part, axis=1)
+        order = np.lexsort((part, -vals))  # score descending, then id
+        top = np.take_along_axis(part, order, axis=1)
+        best = np.take_along_axis(vals, order, axis=1)
+        scale = np.maximum(np.abs(best[:, :1]), 1e-30)
+        worst = max(worst, float(np.max(np.abs(scores[rows] - best[:, :k]) / scale)))
+        clear = np.all(-np.diff(best, axis=1) > SWEEP_TIE_RTOL * scale, axis=1)
+        ties += int(np.sum(~clear))
+        compared += int(np.sum(clear))
+        check(np.array_equal(ids[rows][clear], top[clear, :k]),
+              "serve_online (c): sweep ids differ from the float64 top-k off a near-tie")
+    check(worst <= SWEEP_TIE_RTOL, f"serve_online (c): sweep scores {worst:.3g} from float64")
+    return {"compared": compared, "near_ties": ties, "score_rel_err": worst}
+
+
+def _sweep_leg(model, k, dev, rng, sample):
+    from oap_mllib_tpu_torch.serving import batcher, sweep
+
+    n_users, n_items = model.user_factors_.shape[0], model.item_factors_.shape[0]
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    ids, scores = sweep.recommend_for_all_users(model, k, with_scores=True)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    ids_m, scores_m = model.recommend_for_all_users(k, with_scores=True)
+    model_wall = time.perf_counter() - t0
+    check(np.array_equal(ids, ids_m) and np.array_equal(scores, scores_m),
+          "serve_online (c): the sweep differs from model.recommend_for_all_users")
+    rows = batcher.topk_chunk_rows(n_items, model.rank)
+    # the chunk's scores (4 bytes) and keys (8), the keys' int32 staging
+    # (4) and mask, and the query slots: the budget the chunk width sets
+    budget = rows * n_items * 20 + 8 * rows * model.rank * 4
+    if peak is not None:
+        check(peak <= budget, f"serve_online (c): sweep peak {peak} bytes over the chunk "
+                              f"budget {budget}")
+    out = {"n_users": n_users, "n_items": n_items, "rank": model.rank, "chunk_rows": rows,
+           "wall_s": wall, "users_per_s": n_users / wall, "model_call_s": model_wall,
+           "peak_bytes": peak, "budget_bytes": budget,
+           "score_matrix_bytes": 4 * n_users * n_items}
+    if sample:
+        out["f64"] = _f64_topk_check(
+            model, ids, scores, rng.choice(n_users, size=min(sample, n_users), replace=False), k)
+    return out
+
+
+def serve_sweep(cfg, als_model, dev, rng):
+    """(c) the streamed sweep of the ML-25M model and of the JAX bench's
+    1,000,000 x 256 table at rank 16."""
+    from oap_mllib_tpu_torch import ALSModel
+
+    ml25 = _sweep_leg(als_model, cfg["topk"], dev, rng, cfg["sweep_sample"])
+    b = cfg["bench_sweep"]
+    g = np.random.default_rng(5)
+    bench = ALSModel(g.normal(size=(b["n_users"], b["rank"])).astype(np.float32),
+                     g.normal(size=(b["n_items"], b["rank"])).astype(np.float32),
+                     device=str(dev))
+    return {"ml25m": ml25, "bench": _sweep_leg(bench, cfg["topk"], dev, rng, 0)}
+
+
+def _foldin_delta(cfg, n_base, n_items, seed):
+    """New users from ``n_base`` (``foldin_users`` of the next
+    ``foldin_span`` ids: the rest grow the table untouched), each with
+    ``foldin_per_user`` ratings drawn like the base's (zipf(1.3) items,
+    ratings in [1, 5))."""
+    g = np.random.default_rng(seed)
+    ids = n_base + np.sort(g.choice(cfg["foldin_span"], size=cfg["foldin_users"],
+                                    replace=False))
+    users = np.repeat(ids, cfg["foldin_per_user"])
+    items = (g.zipf(1.3, size=users.size) % n_items).astype(np.int64)
+    ratings = (g.random(users.size) * 4 + 1).astype(np.float32)
+    return users, items, ratings
+
+
+def _copy_als(model, dev):
+    from oap_mllib_tpu_torch import ALSModel
+
+    return ALSModel(model.user_factors_.copy(), model.item_factors_, model.summary,
+                    device=str(dev))
+
+
+def _pred_norm_err(a, b, rows, dev):
+    """Relative Frobenius distance of two models' scores on ``rows`` x
+    every item, summed on the card in chunks."""
+    num = den = 0.0
+    ya = torch.as_tensor(a.item_factors_, device=dev)
+    yb = torch.as_tensor(b.item_factors_, device=dev)
+    for lo in range(0, len(rows), 1024):
+        r = rows[lo:lo + 1024]
+        pa = torch.as_tensor(a.user_factors_[r], device=dev) @ ya.T
+        pb = torch.as_tensor(b.user_factors_[r], device=dev) @ yb.T
+        num += float(torch.sum((pa - pb).double() ** 2))
+        den += float(torch.sum(pb.double() ** 2))
+    return (num / den) ** 0.5
+
+
+def serve_foldin(cfg, als_cfg, data, als_model, dev):
+    """(d) 10,000 new users folded into a copy of the ML-25M model: one
+    K3 and one K4 launch, bit-equal to the COO half-update of the same
+    edges, the grown tail at the init, near a refit on base plus delta;
+    a second delta in the same buckets misses nothing; batched by 2048,
+    five launches of each and the same rows."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.utils import progcache
+
+    users, items, ratings = data
+    n_base, n_items = als_model.user_factors_.shape[0], als_model.item_factors_.shape[0]
+    du, di, dr = _foldin_delta(cfg, n_base, n_items, seed=11)
+    model = _copy_als(als_model, dev)
+    h = serving.serve(model)
+    als_kernel.reset_launches()
+    t0 = time.perf_counter()
+    out = model.fold_in_users(du, di, dr)
+    fold_s = time.perf_counter() - t0
+    launches = dict(als_kernel.LAUNCHES)
+    want = 1 if dev.type == "cuda" else 0
+    check(launches == {als_kernel.SOLVE: want, als_kernel.GRAM: want},
+          f"serve_online (d): fold-in launches {launches}, expected one of each")
+    n_new = int(du.max()) + 1
+    check(out["grown"] == [n_base, n_new] and out["rows_solved"] == cfg["foldin_users"]
+          and h.model_version == 2, f"serve_online (d): fold-in record {out}")
+    uniq, inv = np.unique(du, return_inverse=True)
+    p = model.summary["params"]
+    frozen = torch.as_tensor(model.item_factors_, device=dev)
+    side = als_ops.prepare_coo(inv, di, dr, np.ones(len(du), np.float32), len(uniq),
+                               frozen.shape[1], dev)
+    a, b, n_reg = side.partials(frozen, p["alpha"], p["implicit"])
+    coo = als_ops.regularized_solve(a, b, n_reg, p["reg"],
+                                    als_ops._factor_gram(frozen) if p["implicit"] else None)
+    check(np.array_equal(model.user_factors_[uniq], coo.cpu().numpy()),
+          "serve_online (d): folded rows differ from the COO half-update of the same edges")
+    untouched = np.setdiff1d(np.arange(n_base, n_new), uniq)
+    check(np.array_equal(model.user_factors_[untouched],
+                         als_np.init_factors_rows(n_base, n_new, model.rank, p["seed"])[
+                             untouched - n_base]),
+          "serve_online (d): the grown tail's untouched rows are not at the init")
+    t0 = time.perf_counter()
+    refit = ALS(rank=als_model.rank, max_iter=als_cfg["max_iter"], reg_param=p["reg"],
+                implicit_prefs=p["implicit"], alpha=p["alpha"], seed=p["seed"],
+                device=str(dev)).fit(np.concatenate([users, du]), np.concatenate([items, di]),
+                                     np.concatenate([ratings, dr]), n_new, n_items)
+    refit_s = time.perf_counter() - t0
+    refit_err = _pred_norm_err(model, refit, uniq, dev)
+    check(refit_err < FOLDIN_REFIT_RTOL,
+          f"serve_online (d): fold-in vs refit {refit_err:.3g} in prediction space")
+    # a second delta in the same buckets
+    du2, di2, dr2 = _foldin_delta(cfg, n_new, n_items, seed=12)
+    misses = progcache.stats()["misses"]
+    t0 = time.perf_counter()
+    model.fold_in_users(du2, di2, dr2)
+    fold2_s = time.perf_counter() - t0
+    check(progcache.stats()["misses"] == misses,
+          "serve_online (d): a second delta in the same buckets missed the program cache")
+    # batched by online_foldin_batch rows
+    batched = _copy_als(als_model, dev)
+    set_config(online_foldin_batch=cfg["foldin_batch"])
+    als_kernel.reset_launches()
+    try:
+        batched.fold_in_users(du, di, dr)
+    finally:
+        set_config(online_foldin_batch=0)
+    batches = -(-cfg["foldin_users"] // cfg["foldin_batch"])
+    blaunch = dict(als_kernel.LAUNCHES)
+    want = batches if dev.type == "cuda" else 0
+    check(blaunch == {als_kernel.SOLVE: want, als_kernel.GRAM: want},
+          f"serve_online (d): batched fold-in launches {blaunch}, expected {want} of each")
+    check(np.array_equal(batched.user_factors_[uniq], coo.cpu().numpy()),
+          "serve_online (d): the batched fold-in's rows differ from the one-launch rows")
+    serving.unserve(model)
+    return {"users": cfg["foldin_users"], "edges": int(len(du)), "grown": out["grown"],
+            "launches": launches, "batched_launches": blaunch, "batches": batches,
+            "foldin_s": fold_s, "second_delta_s": fold2_s, "refit_s": refit_s,
+            "refit_pred_rel_err": refit_err, "untouched_grown_rows": int(len(untouched))}, du, di, dr
+
+
+def serve_partial_fit(cfg, model, h, dev):
+    """(e) a 2^18-row delta from the same blobs through partial_fit in
+    65,536-row chunks: K1 once a chunk, the centers against the plain K1's
+    fold on the CPU, the counts exact; the served handle re-pinned."""
+    from oap_mllib_tpu_torch.data.stream import ChunkSource
+    from oap_mllib_tpu_torch.online import minibatch
+
+    kc = cfg["kmeans"]
+    xd = blob_delta(cfg["delta_rows"], kc["d"], kc["k"], dev, seed=0, draw_seed=101)
+    host = xd.cpu().numpy()
+    del xd
+    rows = cfg["chunk_rows"]
+    centers0 = model.cluster_centers_.copy()
+    seed = minibatch._seed_counts(model, kc["k"])
+    version = h.model_version
+    kmeans_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model.partial_fit(ChunkSource.from_array(host, chunk_rows=rows))
+    fit_s = time.perf_counter() - t0
+    launches = dict(kmeans_kernel.LAUNCHES)
+    chunks = -(-len(host) // rows)
+    check(launches[kmeans_kernel.KERNEL] == (chunks if dev.type == "cuda" else 0),
+          f"serve_online (e): kmeans_accumulate launched {launches}, expected {chunks}")
+    # the plain K1 on the CPU over the same chunks, folded the same way
+    c = torch.from_numpy(centers0.astype(np.float32))
+    sums = torch.zeros_like(c)
+    counts = torch.zeros(c.shape[0])
+    for lo in range(0, len(host), rows):
+        xc = torch.from_numpy(host[lo:lo + rows])
+        s, n, _ = kmeans_kernel.lloyd_accumulate_plain(xc, torch.ones(len(xc)), c, "highest",
+                                                       False)
+        sums += s
+        counts += n
+    denom = seed + counts.double().numpy()
+    want = np.where(denom[:, None] > 0,
+                    (centers0.astype(np.float64) * seed[:, None] + sums.double().numpy())
+                    / np.maximum(denom[:, None], 1e-300), centers0).astype(np.float32)
+    err = _rel_err(torch.from_numpy(model.cluster_centers_), torch.from_numpy(want))
+    check(err <= PARTIAL_FIT_RTOL, f"serve_online (e): partial_fit centers {err:.3g} from "
+                                   "the plain K1's fold")
+    check(np.array_equal(model._online_counts, denom),
+          "serve_online (e): partial_fit counts differ from the plain K1's")
+    check(h.model_version == version + 1,
+          f"serve_online (e): handle version {h.model_version}, expected {version + 1}")
+    q = host[:4096]
+    check(np.array_equal(h.predict(q), model.predict(q)),
+          "serve_online (e): the re-pinned handle differs from model.predict")
+    return {"rows": len(host), "chunks": chunks, "launches": launches, "partial_fit_s": fit_s,
+            "centers_rel_err": err, "moved_rows": int(counts.sum())}, host
+
+
+def serve_faults(cfg, km_model, hk, km_delta, als_model, foldin_delta, dev):
+    """(f) a failed delta leaves the model's arrays, the served answers
+    and the handle's version as they were: ``delta.ingest`` on (e),
+    ``delta.solve:err=2`` on (d) with batches of ``foldin_batch`` rows."""
+    from oap_mllib_tpu_torch import serving
+
+    q = km_delta[:4096]
+    centers, version, answer = km_model.cluster_centers_, hk.model_version, hk.predict(q)
+    _armed_fault("delta.ingest:err=1")
+    try:
+        km_model.partial_fit(km_delta)
+        raise Failed("serve_online (f): delta.ingest armed, partial_fit did not raise")
+    except faults.FaultInjected:
+        pass
+    finally:
+        _armed_fault("")
+    check(km_model.cluster_centers_ is centers and hk.model_version == version
+          and np.array_equal(hk.predict(q), answer),
+          "serve_online (f): a failed partial_fit moved the model or its handle")
+    model = _copy_als(als_model, dev)
+    h = serving.serve(model)
+    users = np.arange(64)
+    table, answer = model.user_factors_, h.recommend_for_users(users, 10, with_scores=True)
+    set_config(online_foldin_batch=cfg["foldin_batch"])
+    _armed_fault("delta.solve:err=2")
+    als_kernel.reset_launches()
+    try:
+        model.fold_in_users(*foldin_delta)
+        raise Failed("serve_online (f): delta.solve armed, fold_in_users did not raise")
+    except faults.FaultInjected:
+        pass
+    finally:
+        _armed_fault("")
+        set_config(online_foldin_batch=0)
+    launches = dict(als_kernel.LAUNCHES)
+    # the grammar's count fires the first N calls: ``err=2`` stops the
+    # first batch before its launches.  Mid-commit: the second batch's
+    # solve raises after the first batch's K3 and K4 ran
+    real, calls = als_ops.regularized_solve, []
+
+    def second_fails(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("planted: the second batch's solve failed")
+        return real(*a, **kw)
+
+    set_config(online_foldin_batch=cfg["foldin_batch"])
+    als_ops.regularized_solve = second_fails
+    als_kernel.reset_launches()
+    try:
+        model.fold_in_users(*foldin_delta)
+        raise Failed("serve_online (f): the planted mid-commit failure did not raise")
+    except RuntimeError as e:
+        check("planted" in str(e), f"serve_online (f): mid-commit leg raised {e!r}")
+    finally:
+        als_ops.regularized_solve = real
+        set_config(online_foldin_batch=0)
+    mid = dict(als_kernel.LAUNCHES)
+    want = 1 if dev.type == "cuda" else 0
+    check(mid[als_kernel.SOLVE] == want,
+          f"serve_online (f): {mid} launched before the mid-commit failure")
+    again = h.recommend_for_users(users, 10, with_scores=True)
+    check(model.user_factors_ is table and h.model_version == 1
+          and all(np.array_equal(u, v) for u, v in zip(again, answer)),
+          "serve_online (f): a failed fold-in moved the model or its handle")
+    serving.unserve(model)
+    return {"foldin_launches_before_fault": launches, "mid_commit_launches": mid}
+
+
+def blob_delta(n, d, k, dev, seed, draw_seed, spread=2.0):
+    """``n`` new rows of the blobs that :func:`blobs` makes from ``seed``
+    (its blob centers), drawn from ``draw_seed``."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    true = torch.randn((k, d), generator=g, device=dev) * spread
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(draw_seed)
+    lab = torch.randint(0, k, (n,), generator=g2, device=dev)
+    return (true[lab] + torch.randn((n, d), generator=g2, device=dev)).contiguous()
+
+
+def phase_serve_online(cfg, als_cfg, dev, x=None, km_model=None, data=None, als_model=None):
+    """Phase 28: the serving core and the online updates (module
+    docstring).  Without a fitted headline K-Means or ML-25M ALS (the
+    ``--online`` run) the phase fits them first."""
+    from oap_mllib_tpu_torch import serving
+
+    rng = np.random.default_rng(28)
+    kc = cfg["kmeans"]
+    if "als" in cfg:
+        als_cfg, data, als_model = cfg["als"], None, None
+    if x is None:
+        x, _, _ = blobs(kc["n"], kc["d"], kc["k"], dev, seed=0)
+    if km_model is None:
+        km_model = KMeans(k=kc["k"], max_iter=kc["max_iter"], tol=1e-4,
+                          init_mode="k-means||", seed=0, device=str(dev)).fit(x)
+    if data is None:
+        data = als_data(als_cfg)
+    if als_model is None:
+        als_model = ALS(rank=als_cfg["rank"], max_iter=als_cfg["max_iter"],
+                        reg_param=als_cfg["reg"], implicit_prefs=True, alpha=als_cfg["alpha"],
+                        seed=0, device=str(dev)).fit(*data, als_cfg["n_users"],
+                                                     als_cfg["n_items"])
+    t_phase = time.perf_counter()
+    hk, _, storm = serve_kmeans_storm(cfg, x, km_model, dev, rng)
+    emit("serve_online_a", storm)
+    ipca = serve_ipca(cfg, dev)
+    emit("serve_online_b", ipca)
+    sweep_res = serve_sweep(cfg, als_model, dev, rng)
+    emit("serve_online_c", sweep_res)
+    foldin, *fdelta = serve_foldin(cfg, als_cfg, data, als_model, dev)
+    emit("serve_online_d", foldin)
+    partial, km_delta = serve_partial_fit(cfg, km_model, hk, dev)
+    emit("serve_online_e", partial)
+    fault = serve_faults(cfg, km_model, hk, km_delta, als_model, fdelta, dev)
+    emit("serve_online_f", fault)
+    summary = serving.serving_summary()
+    serving.registry.clear()
+    out = {"a": storm, "b": ipca, "c": sweep_res, "d": foldin, "e": partial, "f": fault,
+           "serving_summary": summary, "wall_s": time.perf_counter() - t_phase}
+    emit("serve_online", {"wall_s": out["wall_s"], "serving_summary": summary})
+    return out
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -4884,6 +5425,9 @@ def main(argv=None) -> int:
                          "--mesh with it); prints no ok line")
     ap.add_argument("--telemetry", action="store_true",
                     help="only the build and the observability phase (27); prints no ok line")
+    ap.add_argument("--online", action="store_true",
+                    help="only the build and the serving and online phase (28); prints no "
+                         "ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4895,6 +5439,11 @@ def main(argv=None) -> int:
         if args.telemetry:
             phase_telemetry(TEL_TINY if args.rehearse else TEL_FULL, dev)
             print(f"telemetry phase passed: {smi}", flush=True)
+            return 0
+        if args.online:
+            phase_serve_online(SERVE_TINY if args.rehearse else SERVE_FULL,
+                               ALS_TINY if args.rehearse else ALS_FULL, dev)
+            print(f"serve_online phase passed: {smi}", flush=True)
             return 0
         if args.block_stream:
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
@@ -4941,9 +5490,8 @@ def main(argv=None) -> int:
         del w, c
         last_card = phase_last_card(dev)
         max_iter = 20 if dev.type == "cuda" else 5
-        fit = phase_fit(x, dev, cfg, max_iter)
+        fit, km_model = phase_fit(x, dev, cfg, max_iter)
         phase_loop_parity(x, dev, cfg, max_iter)
-        del x
         pca_cfg = PCA_TINY if args.rehearse else PCA_FULL
         als_cfg = ALS_TINY if args.rehearse else ALS_FULL
         pca_vars = phase_pca_kernels(pca_cfg, dev, reps)
@@ -4953,6 +5501,10 @@ def main(argv=None) -> int:
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
         als_fit, als_model = phase_als_fit(als_cfg, data, dev)
         als_block = phase_als_block_fit(als_cfg, data, dev, als_model)
+        # the headline K-Means and the ML-25M ALS served, updated online
+        serve_online = phase_serve_online(SERVE_TINY if args.rehearse else SERVE_FULL, als_cfg,
+                                          dev, x, km_model, data, als_model)
+        del x, km_model
         ckpt = phase_ckpt(CKPT_TINY if args.rehearse else CKPT_FULL, als_cfg, data, dev,
                           args.rehearse)
         rate = pinned_h2d_rate(dev)
@@ -5091,6 +5643,22 @@ def main(argv=None) -> int:
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
                              "dp_fit": dp["launches"][ring_kernel.KERNEL]},
     }
+    # the serving and online phase's launch paths (28)
+    by_path[kmeans_kernel.KERNEL]["serve_online partial_fit"] = \
+        serve_online["e"]["launches"][kmeans_kernel.KERNEL]
+    by_path[pca_kernel.KERNEL].update({
+        f"serve_online ipca ({serve_online['b']['chunks']} chunks)":
+            serve_online["b"]["launches"][pca_kernel.KERNEL],
+        "serve_online ipca second delta": serve_online["b"]["delta_launches"][pca_kernel.KERNEL]})
+    for name in (als_kernel.SOLVE, als_kernel.GRAM):
+        by_path[name].update({
+            "serve_online fold_in": serve_online["d"]["launches"][name],
+            f"serve_online fold_in batched ({serve_online['d']['batches']} batches)":
+                serve_online["d"]["batched_launches"][name],
+            "serve_online fold_in delta.solve:err=2":
+                serve_online["f"]["foldin_launches_before_fault"][name],
+            "serve_online fold_in failed at batch 2":
+                serve_online["f"]["mid_commit_launches"][name]})
     for name, paths in mp_launches(mp).items():
         by_path[name].update(paths)
     for fit in ("kmeans", "pca", "als", "sharded"):

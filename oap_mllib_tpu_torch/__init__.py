@@ -19,6 +19,12 @@ process::
     model = KMeans(k=8, device="cuda:0,cuda:1,cuda:2,cuda:3").fit(X)
     mesh = get_mesh(devices=...)  # the mesh such a fit builds
 
+Serving and online updates::
+
+    handle = serving.serve(model)     # the model's tensors pinned once
+    model.partial_fit(delta_rows)     # the handle re-pins in place
+    als.fold_in_users(users, items, ratings)
+
 Ported so far: the in-memory, single-device fits of the three
 estimators and the model-sharded K-Means fit on a mesh, with their
 kernels written in CUDA C++ for Hopper: the fused Lloyd accumulate
@@ -35,6 +41,7 @@ from oap_mllib_tpu_torch.models.als import ALS, ALSModel
 from oap_mllib_tpu_torch.models.kmeans import KMeans, KMeansModel, KMeansSummary
 from oap_mllib_tpu_torch.models.pca import PCA, PCAModel
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
+from oap_mllib_tpu_torch import online, serving
 
 __all__ = [
     "ALS",
@@ -47,5 +54,7 @@ __all__ = [
     "Config",
     "get_config",
     "get_mesh",
+    "online",
+    "serving",
     "set_config",
 ]

@@ -124,6 +124,24 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``compilation_cache_dir``: the directory the kernel libraries build
   into and load from (ops/cuda/_build.py, ops/host_prep.py); ""
   (default) keeps ``oap_mllib_tpu_torch/build/``.
+- ``serving_precision``: the compute policy of the serving plane's
+  scoring products (serving/batcher.py: the served and the models' own
+  predict, transform and top-k).  "" (default) inherits the algorithm's
+  resolved policy; "f32", "tf32", "bf16" or "auto" override it for
+  scoring only.  A typo raises at request time.
+- ``sweep_chunk_rows``: query rows a full-sweep top-k chunk scores
+  (serving/sweep.py); 0 (default) derives them from the scoring buffer
+  budget the models' top-k uses; negative raises at sweep time.
+- ``online_decay``: the per-delta discount of the accumulated per-center
+  counts in ``KMeansModel.partial_fit`` (online/minibatch.py), in
+  (0, 1]; 1.0 (default) forgets nothing.  Checked at partial_fit entry.
+- ``online_foldin_batch``: destination rows an ALS fold-in solves a
+  launch (online/foldin.py); 0 (default) solves the whole delta in one
+  launch; negative raises at fold-in entry.
+- ``online_repin``: "auto" (default) re-pins every served handle of a
+  model on each committed delta (online/delta.py), "off" leaves them on
+  the old pins until ``serving.registry.repin_model``.  A typo raises at
+  commit time.
 
 The JAX package's ``timing`` (log every phase) is left out: the port
 always times its phases into the summary's span tree.
@@ -201,6 +219,11 @@ class Config:
     metrics_port: int = 0
     flight_recorder: int = 0
     compilation_cache_dir: str = ""
+    serving_precision: str = ""
+    sweep_chunk_rows: int = 0
+    online_decay: float = 1.0
+    online_foldin_batch: int = 0
+    online_repin: str = "auto"
 
     @classmethod
     def from_env(cls) -> "Config":

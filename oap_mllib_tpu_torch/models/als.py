@@ -95,7 +95,7 @@ import torch
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.fallback import als_np
-from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_stream, kmeans_ops
+from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_stream
 from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
@@ -108,17 +108,6 @@ from oap_mllib_tpu_torch.utils.profiling import maybe_trace
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 
-def _topk_keys(scores: torch.Tensor) -> torch.Tensor:
-    """int64 keys whose order is (score descending, id ascending): the
-    f32 bits mapped to an order-preserving int32, shifted up, and the
-    complemented column id below.  ``torch.topk`` on them breaks ties to
-    the lowest id, as ``lax.top_k`` does."""
-    bits = scores.contiguous().view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    ids = torch.arange(scores.shape[1], device=scores.device, dtype=torch.int64)
-    return ordered * (1 << 32) + ((1 << 32) - 1 - ids)
-
-
 class ALSModel:
     """Trained factors: ``user_factors_`` (n_users, r) and
     ``item_factors_`` (n_items, r), scored on ``device``."""
@@ -128,36 +117,48 @@ class ALSModel:
         self.user_factors_ = np.asarray(user_factors)
         self.item_factors_ = np.asarray(item_factors)
         self.summary = summary or {}
-        # None = Config.device, resolved at the first scoring call
+        # None = Config.device, resolved at every scoring call
         self.device = device
-        self._staged = {}  # id(array) -> (device, tensor)
+        # the device copies of the factor tables (serving/registry.pin),
+        # keyed by the host array's identity: at most "targets:user" and
+        # "targets:item", across top-k chunks and calls
+        self._dev_cache: dict = {}
 
     @property
     def rank(self) -> int:
         return self.item_factors_.shape[1]
 
-    def _on_device(self, table: np.ndarray) -> torch.Tensor:
-        """A factor table on the model's device, staged once per array."""
-        dev = resolve_device(self.device)
-        hit = self._staged.get(id(table))
-        if hit is None or hit[0] != str(dev) or hit[1] is not table:
-            hit = (str(dev), table, torch.tensor(np.asarray(table, np.float32), device=dev))
-            self._staged[id(table)] = hit
-        return hit[2]
+    def _pinned(self, table: np.ndarray) -> torch.Tensor:
+        """The pinned device copy of a factor table of this model (a
+        foreign table stages once per call, unpinned)."""
+        from oap_mllib_tpu_torch.serving import batcher
+        from oap_mllib_tpu_torch.serving.registry import pin
+
+        if table is self.item_factors_:
+            return pin(self._dev_cache, "targets:item", table, self.device)
+        if table is self.user_factors_:
+            return pin(self._dev_cache, "targets:user", table, self.device)
+        return batcher.stage(table, resolve_device(self.device))
 
     def predict(self, users, items) -> np.ndarray:
         """Predicted preference/rating of (user, item) pairs."""
-        x = self._on_device(self.user_factors_)
-        y = self._on_device(self.item_factors_)
+        x = self._pinned(self.user_factors_)
+        y = self._pinned(self.item_factors_)
         u = torch.as_tensor(np.asarray(users, np.int64), device=x.device)
         i = torch.as_tensor(np.asarray(items, np.int64), device=x.device)
         return als_ops.predict_pairs(x, y, u, i).cpu().numpy()
 
     def _top_k_scores(self, query, targets: np.ndarray, n: int,
                       with_scores: bool = True):
-        """Top-n (ids, scores) per query row, chunked over query rows so
-        the (rows, n_targets) score block stays bounded.  ``n`` is
-        clamped to the target count; ties go to the lowest id."""
+        """Top-n (ids, scores) per query row through the serving program
+        (serving/batcher.topk_pairs) against the pinned target table,
+        chunked over query rows so the (rows, n_targets) score block stays
+        bounded (``batcher.topk_chunk_rows``); a chunk shorter than the
+        width pads to its row bucket, as the sweep's and a served
+        request's do.  ``n`` is clamped to the target count; ties go to
+        the lowest id."""
+        from oap_mllib_tpu_torch.serving import batcher
+
         if n < 0:
             raise ValueError(f"top-k count must be >= 0, got {n}")
         n = min(int(n), targets.shape[0])
@@ -165,34 +166,31 @@ class ALSModel:
         if nq == 0 or n == 0:
             return (np.zeros((nq, n), np.int32),
                     np.zeros((nq, n), np.float32) if with_scores else None)
-        t = self._on_device(targets)
-        # scores (4 bytes) and keys (8 bytes) per element: budget x 1/3
-        rows = max(1, kmeans_ops.rows_per_chunk(targets.shape[0], query.shape[1]) // 3)
+        t = self._pinned(targets)
+        rows = batcher.topk_chunk_rows(targets.shape[0], query.shape[1])
         ids, scores = [], []
         for lo in range(0, nq, rows):
-            q = query[lo:lo + rows]
-            q = q.to(t.device) if isinstance(q, torch.Tensor) else torch.as_tensor(
-                np.asarray(q, np.float32)).to(t.device)
-            s = q @ t.T
-            idx = torch.topk(_topk_keys(s), n, dim=1).indices
-            ids.append(idx.to(torch.int32).cpu().numpy())
+            q = np.asarray(query[lo:lo + rows], np.float32)
+            nv = q.shape[0]
+            if nv < rows:
+                q, _ = batcher.bucket_batch(q)
+            s, i = batcher.topk_pairs(batcher.stage(q, t.device), t, n)
+            ids.append(i.cpu().numpy()[:nv])
             if with_scores:
-                scores.append(s.gather(1, idx).cpu().numpy())
+                scores.append(s.cpu().numpy()[:nv])
         return (np.concatenate(ids), np.concatenate(scores) if with_scores else None)
 
     def recommend_for_all_users(self, num_items: int, with_scores: bool = False):
         """Top-N item ids per user (with ``with_scores``, the (ids, scores)
         pair, scores descending)."""
-        ids, scores = self._top_k_scores(
-            self._on_device(self.user_factors_), self.item_factors_, num_items,
-            with_scores)
+        ids, scores = self._top_k_scores(self.user_factors_, self.item_factors_, num_items,
+                                         with_scores)
         return (ids, scores) if with_scores else ids
 
     def recommend_for_all_items(self, num_users: int, with_scores: bool = False):
         """Top-N user ids per item."""
-        ids, scores = self._top_k_scores(
-            self._on_device(self.item_factors_), self.user_factors_, num_users,
-            with_scores)
+        ids, scores = self._top_k_scores(self.item_factors_, self.user_factors_, num_users,
+                                         with_scores)
         return (ids, scores) if with_scores else ids
 
     def _recommend_subset(self, query_ids, query_table: np.ndarray,
@@ -205,9 +203,7 @@ class ALSModel:
                 f"{what} ids must be in [0, {n_q}); got range "
                 f"[{query_ids.min()}, {query_ids.max()}]"
             )
-        table = self._on_device(query_table)
-        q = table[torch.as_tensor(query_ids, device=table.device)]
-        ids, scores = self._top_k_scores(q, target_table, n, with_scores)
+        ids, scores = self._top_k_scores(query_table[query_ids], target_table, n, with_scores)
         return (ids, scores) if with_scores else ids
 
     def recommend_for_users(self, user_ids, num_items: int, with_scores: bool = False):
@@ -219,6 +215,26 @@ class ALSModel:
         """Top-N user ids for a subset of items; row j is for item_ids[j]."""
         return self._recommend_subset(item_ids, self.item_factors_,
                                       self.user_factors_, num_users, with_scores, "item")
+
+    def fold_in_users(self, users, items, ratings, **kw) -> dict:
+        """Fold new or changed USER rows in against the frozen item table
+        (online/foldin.py): one batched normal-equation solve a delta (K3,
+        and K4 for implicit feedback), then an in-place serving re-pin.
+        The triples are the touched users' FULL current ratings.  The
+        user axis may grow: ids past the table extend it, untouched new
+        rows at the deterministic init.  ``reg`` / ``alpha`` /
+        ``implicit`` / ``seed`` default to the fit's ``summary["params"]``.
+        Returns ``{"side", "rows_solved", "grown", "repinned"}``."""
+        from oap_mllib_tpu_torch.online import foldin
+
+        return foldin.fold_in(self, users, items, ratings, side="user", **kw)
+
+    def fold_in_items(self, users, items, ratings, **kw) -> dict:
+        """Fold ITEM rows in against the frozen user table; see
+        :meth:`fold_in_users`."""
+        from oap_mllib_tpu_torch.online import foldin
+
+        return foldin.fold_in(self, users, items, ratings, side="item", **kw)
 
     # -- persistence: the JAX package's format (metadata.json + .npy) -------
     def save(self, path: str) -> None:

@@ -101,7 +101,7 @@ from oap_mllib_tpu_torch.telemetry import export as telemetry
 from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
 from oap_mllib_tpu_torch.utils import membudget, progcache, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_device, resolve_devices
+from oap_mllib_tpu_torch.utils.dispatch import model_device, resolve_devices
 from oap_mllib_tpu_torch.utils.profiling import maybe_trace
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
@@ -176,9 +176,11 @@ class KMeansModel:
         self.cluster_centers_ = np.asarray(cluster_centers)
         self.distance_measure = distance_measure
         self.summary = summary
-        # None = Config.device, resolved at the first scoring call
+        # None = Config.device, resolved at every scoring call
         self.device = device
-        self._staged = None  # (key, centers tensor) of the last device
+        # the device copies (serving/registry.pin): keyed by the host
+        # array's identity, one copy per pin name
+        self._dev_cache: dict = {}
 
     @property
     def k(self) -> int:
@@ -187,26 +189,29 @@ class KMeansModel:
     def _score_chunk_rows(self) -> int:
         return kmeans_ops.rows_per_chunk(self.k, self.cluster_centers_.shape[1])
 
-    def _centers_dev(self, dev: torch.device) -> torch.Tensor:
-        """The centers on ``dev``, staged once per (device, centers array)."""
-        key = (str(dev), id(self.cluster_centers_))
-        if self._staged is None or self._staged[0] != key:
-            self._staged = (key, as_float_tensor(self.cluster_centers_, dev))
-        return self._staged[1]
+    def _centers_dev(self) -> torch.Tensor:
+        """The pinned centers on the model's device: staged once per
+        centers array, re-staged when the array is replaced."""
+        from oap_mllib_tpu_torch.serving.registry import pin
 
-    def _chunks(self, x):
-        """(device centers, row chunks of x as f32 tensors on the device)."""
-        dev = resolve_device(self.device)
-        c = self._centers_dev(dev)
+        return pin(self._dev_cache, "centers", self.cluster_centers_, self.device)
+
+    def _predict_euclidean(self, x) -> np.ndarray:
+        """The serving program (serving/batcher.assign_kmeans) over
+        fixed-width row slices against the pinned centers, each slice
+        padded to its row bucket: a served request is bit-equal to this
+        call on the same rows."""
+        from oap_mllib_tpu_torch.serving import batcher
+
+        c = self._centers_dev()
         rows = self._score_chunk_rows()
-        return c, (
-            as_float_tensor(x[lo:lo + rows], dev)
-            for lo in range(0, len(x), rows)
-        )
+        return np.concatenate([batcher.assign_kmeans(c, x[lo:lo + rows])
+                               for lo in range(0, len(x), rows)])
 
     def predict(self, x) -> np.ndarray:
         """Nearest-center label of every row; a ``ChunkSource`` is scored
-        chunk by chunk (the labels are O(n) host memory)."""
+        chunk by chunk through the same program (the labels are O(n)
+        host memory)."""
         if isinstance(x, ChunkSource):
             parts = [self.predict(np.asarray(c[:v], self.cluster_centers_.dtype))
                      for c, v in x]
@@ -217,14 +222,20 @@ class KMeansModel:
             return predict_np(_host(x), self.cluster_centers_, self.distance_measure)
         if len(x) == 0:
             return np.zeros((0,), np.int64)
-        c, chunks = self._chunks(x)
-        return np.concatenate([
-            torch.argmin(kmeans_ops.pairwise_sq_dists(xc, c), dim=1).cpu().numpy()
-            for xc in chunks
-        ])
+        return self._predict_euclidean(x)
 
     def transform(self, x) -> np.ndarray:
         return self.predict(x)
+
+    def partial_fit(self, x, sample_weight=None) -> "KMeansModel":
+        """One decayed mini-batch Lloyd delta (online/minibatch.py): one
+        streamed assignment pass over ``x`` (K1 on every chunk), folded
+        into the centers by count weight, the centers array replaced at
+        the end (a fault leaves the model as it was); served handles
+        re-pin in place.  Returns ``self``."""
+        from oap_mllib_tpu_torch.online import minibatch
+
+        return minibatch.partial_fit_kmeans(self, x, sample_weight)
 
     def compute_cost(self, x) -> float:
         """Sum of squared distances of the rows to their nearest center (a
@@ -236,9 +247,12 @@ class KMeansModel:
         if self.distance_measure != "euclidean":
             d = _sq_dists(_host(x), self.cluster_centers_, self.distance_measure)
             return float(np.sum(np.min(d, axis=1)))
-        c, chunks = self._chunks(x)
+        c = self._centers_dev()
+        rows = self._score_chunk_rows()
         return float(sum(
-            float(torch.sum(kmeans_ops.min_sq_dists(xc, c))) for xc in chunks
+            float(torch.sum(kmeans_ops.min_sq_dists(as_float_tensor(x[lo:lo + rows], c.device),
+                                                    c)))
+            for lo in range(0, len(x), rows)
         ))
 
     def to_pmml(self, path: str) -> None:

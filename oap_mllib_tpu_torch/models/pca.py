@@ -70,7 +70,7 @@ import torch
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data import sparse as _sparse
 from oap_mllib_tpu_torch.data.stream import ChunkSource
-from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
+from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable
 from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
 from oap_mllib_tpu_torch.ops.cuda import pca_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
@@ -79,8 +79,7 @@ from oap_mllib_tpu_torch.telemetry import export as telemetry
 from oap_mllib_tpu_torch.utils import checkpoint as ckpt_mod
 from oap_mllib_tpu_torch.utils import membudget, progcache, resilience
 from oap_mllib_tpu_torch.utils import precision as psn
-from oap_mllib_tpu_torch.utils.dispatch import (MAX_PCA_FEATURES, model_device, resolve_device,
-                                                resolve_devices)
+from oap_mllib_tpu_torch.utils.dispatch import MAX_PCA_FEATURES, model_device, resolve_devices
 from oap_mllib_tpu_torch.utils.profiling import maybe_trace
 from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
@@ -92,35 +91,36 @@ class PCAModel:
         self.components_ = np.asarray(components)
         self.explained_variance_ = np.asarray(explained_variance)
         self.summary = summary or {}
-        # None = Config.device, resolved at the first transform
+        # None = Config.device, resolved at every transform
         self.device = device
-        self._staged = None  # (key, components tensor) of the last device
+        # the device copy of the components (serving/registry.pin), keyed
+        # by the host array's identity
+        self._dev_cache: dict = {}
 
     @property
     def k(self) -> int:
         return self.components_.shape[1]
 
     def transform(self, x) -> np.ndarray:
-        """Project rows into the component basis (no centering), chunked
-        over rows on the model's device; a ``ChunkSource`` chunk by
-        chunk (the projection is O(n) host memory)."""
+        """Project rows into the component basis (no centering) through
+        the serving program (serving/batcher.project_pca) against the
+        pinned components, in fixed-width row slices each padded to its
+        row bucket; a ``ChunkSource`` chunk by chunk (the projection is
+        O(n) host memory)."""
+        from oap_mllib_tpu_torch.serving import batcher
+        from oap_mllib_tpu_torch.serving.registry import pin
+
         if isinstance(x, ChunkSource):
             parts = [self.transform(np.asarray(c[:v], self.components_.dtype)) for c, v in x]
             return np.concatenate(parts) if parts else np.zeros((0, self.k), np.float32)
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
-        dev = resolve_device(self.device)
-        key = (str(dev), id(self.components_))
-        if self._staged is None or self._staged[0] != key:
-            self._staged = (key, as_float_tensor(self.components_, dev))
-        comp = self._staged[1]
+        comp = pin(self._dev_cache, "components", self.components_, self.device)
         if len(x) == 0:
             return np.zeros((0, self.k), np.float32)
         rows = kmeans_ops.rows_per_chunk(self.k, self.components_.shape[0])
-        return np.concatenate([
-            pca_ops.project(as_float_tensor(x[lo:lo + rows], dev), comp).cpu().numpy()
-            for lo in range(0, len(x), rows)
-        ])
+        return np.concatenate([batcher.project_pca(comp, x[lo:lo + rows])
+                               for lo in range(0, len(x), rows)])
 
     # -- persistence: the JAX package's format (metadata.json + .npy) -------
     def save(self, path: str) -> None:

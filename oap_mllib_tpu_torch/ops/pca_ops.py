@@ -1,12 +1,13 @@
 """PCA in plain PyTorch around the moments kernel: covariance on one
-device and on a mesh, eigendecomposition and projection.  The port of
+device and on a mesh and the eigendecomposition (the projection is the
+serving batcher's, serving/batcher.project_pca).  The port of
 the JAX package's ``ops/pca_ops.py``.
 
 :func:`covariance` is the two-pass mean-centered form at every tier: the
 mean pass (column sums), then the centered Gram.  The one-pass
 raw-moment form ``(X^T X - n mu mu^T) / (n - 1)`` cancels
-catastrophically on large-mean data and stays banned, as in the JAX
-package.  Both passes run the moments kernel (ops/cuda/pca_kernel).
+catastrophically on large-mean data and stays banned for the fits, as
+in the JAX package (online/ipca.py takes it on purpose).  Both passes run the moments kernel (ops/cuda/pca_kernel).
 
 On a mesh (parallel/mesh.py), as the JAX package computes on its:
 
@@ -169,10 +170,3 @@ def topk_eigh_randomized(cov: torch.Tensor, k: int, oversample: int = 16,
     w = torch.flip(w, dims=(0,))[:k]
     v = torch.flip(v, dims=(1,))[:, :k]
     return w, torch.matmul(q, v)
-
-
-def project(x: torch.Tensor, components: torch.Tensor,
-            policy: str = "f32") -> torch.Tensor:
-    """Rows in the component basis: (n, d) @ (d, k).  No mean-centering,
-    for Spark parity (Spark's PCAModel.transform does not center)."""
-    return psn.pdot(x, components, policy)

@@ -70,9 +70,11 @@ def force_f32():
         _tls.force_f32 = prev
 
 
-def resolve(algo: str = "kmeans", cfg=None) -> str:
+def resolve(algo: str = "kmeans", cfg=None, record: bool = True) -> str:
     """The resolved policy name of ``algo``'s next fit (``f32`` inside
-    :func:`force_f32`), recorded for :func:`reduced_active`."""
+    :func:`force_f32`), recorded for :func:`reduced_active` unless
+    ``record`` is False (the serving plane's per-request resolution,
+    which belongs to no fit attempt)."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algorithm {algo!r}; expected one of {ALGOS}")
     cfg = cfg or get_config()
@@ -82,6 +84,8 @@ def resolve(algo: str = "kmeans", cfg=None) -> str:
     if getattr(cfg, field):
         requested = _check(field, getattr(cfg, field), CHOICES)
     name = "f32" if requested == "auto" or getattr(_tls, "force_f32", False) else requested
+    if not record:
+        return name
     resolved = getattr(_tls, "resolved", None)
     if resolved is None:
         resolved = _tls.resolved = []

@@ -217,7 +217,10 @@ class TestIsolation:
                 "utils/faults.py", "utils/resilience.py", "telemetry/spans.py",
                 "telemetry/metrics.py", "telemetry/export.py", "telemetry/flightrec.py",
                 "utils/locktrace.py", "utils/sanitizers.py", "utils/progcache.py",
-                "utils/profiling.py", "utils/debug.py", "tools/supervise.py"} <= checked
+                "utils/profiling.py", "utils/debug.py", "tools/supervise.py",
+                "serving/__init__.py", "serving/registry.py", "serving/batcher.py",
+                "serving/sweep.py", "online/__init__.py", "online/delta.py",
+                "online/minibatch.py", "online/ipca.py", "online/foldin.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -241,6 +244,9 @@ class TestIsolation:
             "from oap_mllib_tpu_torch.utils import debug, locktrace, profiling, progcache\n"
             "from oap_mllib_tpu_torch.utils import sanitizers\n"
             "from oap_mllib_tpu_torch.tools import supervise\n"
+            "from oap_mllib_tpu_torch import online, serving\n"
+            "from oap_mllib_tpu_torch.serving import batcher, registry, sweep\n"
+            "from oap_mllib_tpu_torch.online import delta, foldin, ipca, minibatch\n"
             "resilience.run_with_retry(lambda: faults.maybe_fault('stream.read'))\n"
             "src = stream.ChunkSource.from_array(np.ones((300, 3), np.float32), 128)\n"
             "with prefetch.Prefetcher(src, depth=2) as pf:\n"
