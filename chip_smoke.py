@@ -4909,15 +4909,15 @@ def _f64_labels(x, c):
     return np.argmin(d2, axis=1)
 
 
-def serve_kmeans_storm(cfg, x, model, dev, rng):
+def serve_kmeans_storm(cfg, slab, model, dev, rng):
     """(a) the headline K-Means served: warmup, a storm of jittered
-    requests, each bit-equal to model.predict; labels against float64;
-    no program-cache miss and no build after the warmup; predict_many."""
+    requests from the host ``slab`` of the blobs' first rows, each
+    bit-equal to model.predict; labels against float64; no program-cache
+    miss and no build after the warmup; predict_many."""
     from oap_mllib_tpu_torch import serving
     from oap_mllib_tpu_torch.serving import batcher
     from oap_mllib_tpu_torch.utils import progcache
 
-    slab = x[: cfg["slab"]].cpu().numpy()
     ref = _f64_labels(slab, model.cluster_centers_)
     h = serving.serve(model)
     t0 = time.perf_counter()
@@ -5169,6 +5169,8 @@ def serve_foldin(cfg, als_cfg, data, als_model, dev):
     refit_err = _pred_norm_err(model, refit, uniq, dev)
     check(refit_err < FOLDIN_REFIT_RTOL,
           f"serve_online (d): fold-in vs refit {refit_err:.3g} in prediction space")
+    cause = _foldin_cause(als_cfg, p, (users, items, ratings), (du, di, dr), uniq, n_base,
+                          n_new, n_items, model.summary, refit, dev)
     # a second delta in the same buckets
     du2, di2, dr2 = _foldin_delta(cfg, n_new, n_items, seed=12)
     misses = progcache.stats()["misses"]
@@ -5196,7 +5198,35 @@ def serve_foldin(cfg, als_cfg, data, als_model, dev):
     return {"users": cfg["foldin_users"], "edges": int(len(du)), "grown": out["grown"],
             "launches": launches, "batched_launches": blaunch, "batches": batches,
             "foldin_s": fold_s, "second_delta_s": fold2_s, "refit_s": refit_s,
-            "refit_pred_rel_err": refit_err, "untouched_grown_rows": int(len(untouched))}, du, di, dr
+            "refit_pred_rel_err": refit_err, "refit_distance_by_items": cause,
+            "untouched_grown_rows": int(len(untouched))}, du, di, dr
+
+
+def _foldin_cause(als_cfg, p, base, delta, uniq, n_base, n_new, n_items, summary, refit, dev):
+    """Where the fold-in's distance from the refit comes from: the same
+    delta folded against the refit's own item tables.  Against the
+    table its last user half-update solved with (the ninth iteration's:
+    a refit one iteration shorter, from the same seed) the folded rows
+    should be the refit's rows up to the layouts' rounding (COO here,
+    grouped there); against its final table, one iteration's drift."""
+    from oap_mllib_tpu_torch import ALSModel
+
+    fit_args = [np.concatenate([a, b]) for a, b in zip(base, delta)] + [n_new, n_items]
+    short = ALS(rank=refit.rank, max_iter=als_cfg["max_iter"] - 1, reg_param=p["reg"],
+                implicit_prefs=p["implicit"], alpha=p["alpha"], seed=p["seed"],
+                device=str(dev)).fit(*fit_args)
+    want = refit.user_factors_[uniq].astype(np.float64)
+    out = {}
+    for tag, items_tbl in (("refit_iter_minus_1_items", short.item_factors_),
+                           ("refit_final_items", refit.item_factors_)):
+        folded = ALSModel(refit.user_factors_[:n_base].copy(), items_tbl, summary,
+                          device=str(dev))
+        folded.fold_in_users(*delta)
+        rows = folded.user_factors_[uniq].astype(np.float64)
+        out[tag] = {
+            "rows_rel_err": float(np.linalg.norm(rows - want) / np.linalg.norm(want)),
+            "pred_rel_err": _pred_norm_err(folded, refit, uniq, dev)}
+    return out
 
 
 def serve_partial_fit(cfg, model, h, dev):
@@ -5331,21 +5361,25 @@ def blob_delta(n, d, k, dev, seed, draw_seed, spread=2.0):
     return (true[lab] + torch.randn((n, d), generator=g2, device=dev)).contiguous()
 
 
-def phase_serve_online(cfg, als_cfg, dev, x=None, km_model=None, data=None, als_model=None):
+def phase_serve_online(cfg, als_cfg, dev, slab=None, km_model=None, data=None,
+                       als_model=None):
     """Phase 28: the serving core and the online updates (module
-    docstring).  Without a fitted headline K-Means or ML-25M ALS (the
-    ``--online`` run) the phase fits them first."""
+    docstring).  ``slab`` is the host copy of the blobs' first
+    ``cfg["slab"]`` rows that ``km_model`` was fitted on.  Without a
+    fitted headline K-Means or ML-25M ALS (the ``--online`` run) the
+    phase fits them first."""
     from oap_mllib_tpu_torch import serving
 
     rng = np.random.default_rng(28)
     kc = cfg["kmeans"]
     if "als" in cfg:
         als_cfg, data, als_model = cfg["als"], None, None
-    if x is None:
-        x, _, _ = blobs(kc["n"], kc["d"], kc["k"], dev, seed=0)
     if km_model is None:
+        x, _, _ = blobs(kc["n"], kc["d"], kc["k"], dev, seed=0)
         km_model = KMeans(k=kc["k"], max_iter=kc["max_iter"], tol=1e-4,
                           init_mode="k-means||", seed=0, device=str(dev)).fit(x)
+        slab = x[: cfg["slab"]].cpu().numpy()
+        del x
     if data is None:
         data = als_data(als_cfg)
     if als_model is None:
@@ -5354,7 +5388,7 @@ def phase_serve_online(cfg, als_cfg, dev, x=None, km_model=None, data=None, als_
                         seed=0, device=str(dev)).fit(*data, als_cfg["n_users"],
                                                      als_cfg["n_items"])
     t_phase = time.perf_counter()
-    hk, _, storm = serve_kmeans_storm(cfg, x, km_model, dev, rng)
+    hk, _, storm = serve_kmeans_storm(cfg, slab, km_model, dev, rng)
     emit("serve_online_a", storm)
     ipca = serve_ipca(cfg, dev)
     emit("serve_online_b", ipca)
@@ -5492,6 +5526,11 @@ def main(argv=None) -> int:
         max_iter = 20 if dev.type == "cuda" else 5
         fit, km_model = phase_fit(x, dev, cfg, max_iter)
         phase_loop_parity(x, dev, cfg, max_iter)
+        serve_cfg = SERVE_TINY if args.rehearse else SERVE_FULL
+        # phase 28 serves requests from the blobs' first rows: a host
+        # copy, so the table frees here, before the phases between
+        km_slab = x[: serve_cfg["slab"]].cpu().numpy()
+        del x
         pca_cfg = PCA_TINY if args.rehearse else PCA_FULL
         als_cfg = ALS_TINY if args.rehearse else ALS_FULL
         pca_vars = phase_pca_kernels(pca_cfg, dev, reps)
@@ -5502,9 +5541,9 @@ def main(argv=None) -> int:
         als_fit, als_model = phase_als_fit(als_cfg, data, dev)
         als_block = phase_als_block_fit(als_cfg, data, dev, als_model)
         # the headline K-Means and the ML-25M ALS served, updated online
-        serve_online = phase_serve_online(SERVE_TINY if args.rehearse else SERVE_FULL, als_cfg,
-                                          dev, x, km_model, data, als_model)
-        del x, km_model
+        serve_online = phase_serve_online(serve_cfg, als_cfg, dev, km_slab, km_model, data,
+                                          als_model)
+        del km_slab, km_model
         ckpt = phase_ckpt(CKPT_TINY if args.rehearse else CKPT_FULL, als_cfg, data, dev,
                           args.rehearse)
         rate = pinned_h2d_rate(dev)

@@ -150,35 +150,18 @@ class ALSModel:
 
     def _top_k_scores(self, query, targets: np.ndarray, n: int,
                       with_scores: bool = True):
-        """Top-n (ids, scores) per query row through the serving program
-        (serving/batcher.topk_pairs) against the pinned target table,
-        chunked over query rows so the (rows, n_targets) score block stays
-        bounded (``batcher.topk_chunk_rows``); a chunk shorter than the
-        width pads to its row bucket, as the sweep's and a served
-        request's do.  ``n`` is clamped to the target count; ties go to
-        the lowest id."""
+        """Top-n (ids, scores) per query row through the chunked serving
+        program (serving/batcher.topk_chunked) against the pinned target
+        table, the (rows, n_targets) score block bounded by
+        ``batcher.topk_chunk_rows``.  ``n`` is clamped to the target
+        count; ties go to the lowest id."""
         from oap_mllib_tpu_torch.serving import batcher
 
         if n < 0:
             raise ValueError(f"top-k count must be >= 0, got {n}")
-        n = min(int(n), targets.shape[0])
-        nq = query.shape[0]
-        if nq == 0 or n == 0:
-            return (np.zeros((nq, n), np.int32),
-                    np.zeros((nq, n), np.float32) if with_scores else None)
-        t = self._pinned(targets)
-        rows = batcher.topk_chunk_rows(targets.shape[0], query.shape[1])
-        ids, scores = [], []
-        for lo in range(0, nq, rows):
-            q = np.asarray(query[lo:lo + rows], np.float32)
-            nv = q.shape[0]
-            if nv < rows:
-                q, _ = batcher.bucket_batch(q)
-            s, i = batcher.topk_pairs(batcher.stage(q, t.device), t, n)
-            ids.append(i.cpu().numpy()[:nv])
-            if with_scores:
-                scores.append(s.cpu().numpy()[:nv])
-        return (np.concatenate(ids), np.concatenate(scores) if with_scores else None)
+        return batcher.topk_chunked(
+            query, self._pinned(targets), n,
+            batcher.topk_chunk_rows(targets.shape[0], query.shape[1]), with_scores=with_scores)
 
     def recommend_for_all_users(self, num_items: int, with_scores: bool = False):
         """Top-N item ids per user (with ``with_scores``, the (ids, scores)

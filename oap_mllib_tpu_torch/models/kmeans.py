@@ -197,14 +197,14 @@ class KMeansModel:
         return pin(self._dev_cache, "centers", self.cluster_centers_, self.device)
 
     def _predict_euclidean(self, x) -> np.ndarray:
-        """The serving program (serving/batcher.assign_kmeans) over
-        fixed-width row slices against the pinned centers, each slice
-        padded to its row bucket: a served request is bit-equal to this
-        call on the same rows."""
+        """The serving program (serving/batcher.assign_kmeans) over row
+        slices against the pinned centers, each slice the largest row
+        bucket within the scoring budget, the tail padded to its bucket:
+        a served request is bit-equal to this call on the same rows."""
         from oap_mllib_tpu_torch.serving import batcher
 
         c = self._centers_dev()
-        rows = self._score_chunk_rows()
+        rows = batcher.slice_rows(self._score_chunk_rows())
         return np.concatenate([batcher.assign_kmeans(c, x[lo:lo + rows])
                                for lo in range(0, len(x), rows)])
 

@@ -104,9 +104,10 @@ class PCAModel:
     def transform(self, x) -> np.ndarray:
         """Project rows into the component basis (no centering) through
         the serving program (serving/batcher.project_pca) against the
-        pinned components, in fixed-width row slices each padded to its
-        row bucket; a ``ChunkSource`` chunk by chunk (the projection is
-        O(n) host memory)."""
+        pinned components, in row slices of the largest row bucket
+        within the scoring budget, the tail padded to its bucket; a
+        ``ChunkSource`` chunk by chunk (the projection is O(n) host
+        memory)."""
         from oap_mllib_tpu_torch.serving import batcher
         from oap_mllib_tpu_torch.serving.registry import pin
 
@@ -118,7 +119,7 @@ class PCAModel:
         comp = pin(self._dev_cache, "components", self.components_, self.device)
         if len(x) == 0:
             return np.zeros((0, self.k), np.float32)
-        rows = kmeans_ops.rows_per_chunk(self.k, self.components_.shape[0])
+        rows = batcher.slice_rows(kmeans_ops.rows_per_chunk(self.k, self.components_.shape[0]))
         return np.concatenate([batcher.project_pca(comp, x[lo:lo + rows])
                                for lo in range(0, len(x), rows)])
 

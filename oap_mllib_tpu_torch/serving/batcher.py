@@ -29,7 +29,7 @@ the lowest id, as ``lax.top_k``'s do.  Each scoring batch is the
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +95,16 @@ def bucket_batch(x, multiple: int = SERVE_ROW_MULTIPLE):
     if b != n:
         x = np.concatenate([x, np.zeros((b - n, x.shape[1]), x.dtype)], axis=0)
     return x, n
+
+
+def slice_rows(budget_rows: int, multiple: int = SERVE_ROW_MULTIPLE) -> int:
+    """The largest row bucket within ``budget_rows`` (at least
+    ``multiple``): the width of a model's scoring slices, so a full
+    slice runs at its own bucket and pads nothing; only the tail pads."""
+    rows = multiple
+    while bucket_rows(rows + 1, multiple) <= budget_rows:
+        rows = bucket_rows(rows + 1, multiple)
+    return rows
 
 
 def stage(x, device) -> torch.Tensor:
@@ -193,8 +203,8 @@ def _build_topk(policy: str, tier: str):
 
 def topk_pairs(q_dev: torch.Tensor, targets_dev: torch.Tensor, n: int, kind: str = "als"):
     """Top-``n`` ``(scores, ids)`` of every staged query row against the
-    pinned target table, device tensors: the program the models'
-    chunked top-k, the subset recommenders and the sweep share."""
+    pinned target table, device tensors: the program the chunked top-k
+    (:func:`topk_chunked`) and a served request share."""
     pol = resolve_policy("als")
     fn = _program("serve.topk", pol, targets_dev.device,
                   lambda: _build_topk(pol.name, pol.dot_tier))
@@ -208,6 +218,36 @@ def topk_chunk_rows(n_targets: int, r: int) -> int:
     (rows, n_targets) scores and the query rows, a third of it, because
     the keys take two more words a score."""
     return max(1, kmeans_ops.rows_per_chunk(n_targets, r) // 3)
+
+
+def topk_chunked(query, targets_dev: torch.Tensor, n: int, rows: int, *,
+                 with_scores: bool = True,
+                 kind: str = "als") -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Top-``n`` ``(ids int32, scores f32 or None)`` of every row of the
+    host table ``query`` against the pinned targets, ``rows`` query rows
+    a chunk: the loop the models' top-k and the full sweep share.  A
+    chunk shorter than ``rows`` pads to its row bucket (one padded chunk
+    when the table is narrower than the width), so the products run at
+    two shapes however the table is sized; the (n_query, n_targets)
+    score matrix is never built, and host memory is the preallocated
+    output plus one chunk."""
+    n = min(int(n), int(targets_dev.shape[0]))
+    nq = int(query.shape[0])
+    out_ids = np.empty((nq, n), np.int32)
+    out_scores = np.empty((nq, n), np.float32) if with_scores else None
+    if nq == 0 or n == 0:
+        return out_ids, out_scores
+    rows = max(1, int(rows))
+    for lo in range(0, nq, rows):
+        q = np.asarray(query[lo:lo + rows], np.float32)
+        nv = q.shape[0]
+        if nv < rows:
+            q, _ = bucket_batch(q)
+        s, i = topk_pairs(stage(q, targets_dev.device), targets_dev, n, kind=kind)
+        out_ids[lo:lo + nv] = i.cpu().numpy()[:nv]
+        if with_scores:
+            out_scores[lo:lo + nv] = s.cpu().numpy()[:nv]
+    return out_ids, out_scores
 
 
 def topk_scores(query, targets_dev: torch.Tensor, n: int,

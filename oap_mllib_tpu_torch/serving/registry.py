@@ -13,7 +13,10 @@ raises, nothing moves to the CPU by itself.
 array's identity, it holds the array it staged and compares with
 ``is``, so a replaced array (a refit, an online commit) re-stages
 exactly once and a freed array's id, which CPython reuses, can never
-answer for a new one.  The cache holds one device copy per pin name.
+answer for a new one.  The cache holds one device copy per pin name,
+and a handle pins into its model's cache under the model's own names
+(``centers``, ``components``, ``targets:item``): a served model holds
+one device copy of its state, shared by the handle and the model.
 
 Per-request telemetry goes to the process registry under the JAX
 package's families: ``oap_serve_requests_total`` / ``_rows_total`` /
@@ -126,7 +129,6 @@ class ServedModel:
 
     def __init__(self, model):
         self.model = model
-        self._cache: dict = {}
         self.requests = 0
         self.model_version = 1
         self._committed_at = time.monotonic()
@@ -194,8 +196,9 @@ class ServedModel:
         return version
 
     def _repin_pins(self) -> None:
-        """Refresh the subclass's pins (identity-keyed: a swapped array
-        re-stages once, an unchanged one is free)."""
+        """Refresh the subclass's pins from the model's cache
+        (identity-keyed: a swapped array re-stages once, an unchanged one
+        is free, and one the model's own call re-staged is shared)."""
 
     # -- micro-batch coalescing ---------------------------------------------
     def _flush_many(self, batches, score_rows):
@@ -256,10 +259,10 @@ class ServedKMeans(ServedModel):
 
     def __init__(self, model):
         super().__init__(model)
-        self.centers_dev = pin(self._cache, "centers", model.cluster_centers_, self.device)
+        self._repin_pins()
 
     def _repin_pins(self) -> None:
-        self.centers_dev = pin(self._cache, "centers", self.model.cluster_centers_,
+        self.centers_dev = pin(self.model._dev_cache, "centers", self.model.cluster_centers_,
                                self.device)
 
     def predict(self, x) -> np.ndarray:
@@ -294,10 +297,10 @@ class ServedPCA(ServedModel):
 
     def __init__(self, model):
         super().__init__(model)
-        self.components_dev = pin(self._cache, "components", model.components_, self.device)
+        self._repin_pins()
 
     def _repin_pins(self) -> None:
-        self.components_dev = pin(self._cache, "components", self.model.components_,
+        self.components_dev = pin(self.model._dev_cache, "components", self.model.components_,
                                   self.device)
 
     def transform(self, x) -> np.ndarray:
@@ -315,7 +318,9 @@ class ServedPCA(ServedModel):
 
 
 class ServedALS(ServedModel):
-    """Pinned ALS factor tables (the port's models keep host factors)."""
+    """The pinned ALS item table (the port's models keep host factors):
+    every request scores user rows against it; the user table stays on
+    the host, whence a request gathers its rows."""
 
     kind = "als"
 
@@ -324,9 +329,8 @@ class ServedALS(ServedModel):
         self._repin_pins()
 
     def _repin_pins(self) -> None:
-        dev = self.device
-        self.user_dev = pin(self._cache, "user", self.model.user_factors_, dev)
-        self.item_dev = pin(self._cache, "item", self.model.item_factors_, dev)
+        self.item_dev = pin(self.model._dev_cache, "targets:item", self.model.item_factors_,
+                            self.device)
 
     def predict(self, users, items) -> np.ndarray:
         return self._request(len(np.atleast_1d(users)),

@@ -4,14 +4,17 @@ JAX package's ``serving/sweep.py``.
 ``recommend_for_all_users`` over the whole user base scores an
 (n_users, r) x (r, n_items) product whose naive form builds the
 (n_users, n_items) score matrix (38.4 GB at ML-25M's 162,541 x 59,047).
-:func:`sweep_streamed` never builds it: the user table walks through the
-prefetch pipeline (data/prefetch.py) in fixed-width row chunks, the last
-one padded to its row bucket, while the card folds each chunk's top-k
-against the PINNED item table (serving/registry.pin); the results land
-in a preallocated (n_users, k) output.  Its chunk width is the models'
-(``batcher.topk_chunk_rows``; ``Config.sweep_chunk_rows`` overrides it)
-and its program the models' (``batcher.topk_pairs``), so the sweep
-equals ``ALSModel.recommend_for_all_users`` bit for bit.
+:func:`sweep_streamed` never builds it: it walks the user table in
+fixed-width row chunks, the last one padded to its row bucket, folding
+each chunk's top-k against the PINNED item table (serving/registry.pin)
+into a preallocated (n_users, k) output.  Its loop is the models' own
+(``batcher.topk_chunked``), at the models' chunk width
+(``batcher.topk_chunk_rows``; ``Config.sweep_chunk_rows`` overrides
+it), so the sweep equals ``ALSModel.recommend_for_all_users`` bit for
+bit.  Unlike the JAX package's sweep it stages the chunks on the calling
+thread, not through the prefetch pipeline: a chunk is a few KB of query
+rows against a product that takes longer than its copy, and handing
+each one to a staging thread measured slower than the plain loop.
 
 The JAX package's factor-sharded ring sweep, ``shard_factors`` and the
 eviction ``reform`` hook serve models that keep a live sharded layout;
@@ -57,63 +60,26 @@ def recommend_for_all_users(model, num_items: int, *, with_scores: bool = False,
 
 
 def _pinned_targets(model, handle) -> torch.Tensor:
-    """The pinned item table: the handle's when there is one, else the
-    model's own device cache's (one upload per table either way)."""
-    if handle is not None and getattr(handle, "item_dev", None) is not None:
+    """The pinned item table: the handle's generation when there is one
+    (a handle with ``online_repin`` off keeps its own until re-pinned),
+    else the model's (one device copy either way)."""
+    if handle is not None:
         return handle.item_dev
-    from oap_mllib_tpu_torch.serving.registry import pin
-
-    return pin(model._dev_cache, "targets:item", model.item_factors_,
-               getattr(model, "device", None), allow_stale=True)
+    return model._pinned(model.item_factors_)
 
 
 def sweep_streamed(query, targets_dev: torch.Tensor, n: int, *, with_scores: bool = False,
                    chunk_rows: int = 0,
                    kind: str = "als") -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Top-``n`` of ``query @ targets.T`` for every query row, the query
-    table staged through the prefetch pipeline in fixed-width chunks (the
-    tail padded to its bucket: two chunk shapes however the sweep is
-    sized; one padded chunk when the table is narrower than the width);
-    host memory is the (n_query, n) output plus O(chunk)."""
-    from oap_mllib_tpu_torch.data.bucketing import bucket_rows
-    from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
+    """Top-``n`` of ``query @ targets.T`` for every query row, in chunks
+    of ``chunk_rows`` rows (0: :func:`_sweep_chunk_rows`); host memory is
+    the (n_query, n) output plus one chunk."""
     from oap_mllib_tpu_torch.serving import batcher
 
-    query = np.ascontiguousarray(np.asarray(query, np.float32))
-    m = int(targets_dev.shape[0])
-    n = min(int(n), m)
-    n_query = query.shape[0]
-    out_ids = np.empty((n_query, n), np.int32)
-    out_scores = np.empty((n_query, n), np.float32) if with_scores else None
-    if n_query == 0 or n == 0:
-        return out_ids, out_scores
-    # every chunk shorter than the width pads to its bucket, as the
-    # models' chunks do (a table narrower than one chunk included), so
-    # both run their products at the same shapes
-    rows = max(1, int(chunk_rows) or _sweep_chunk_rows(m, query.shape[1]))
-
-    def chunks():
-        for lo in range(0, n_query, rows):
-            chunk = query[lo:lo + rows]
-            nv = chunk.shape[0]
-            if nv < rows:
-                pad = bucket_rows(nv, batcher.SERVE_ROW_MULTIPLE) - nv
-                chunk = np.concatenate([chunk, np.zeros((pad, chunk.shape[1]), np.float32)])
-            yield lo, nv, chunk
-
-    def stage(item):
-        lo, nv, chunk = item
-        return (lo, nv), (chunk,)
-
-    with Prefetcher(chunks(), stage, device=targets_dev.device,
-                    stats=PrefetchStats()) as pf:
-        for (lo, nv), (q_dev,) in pf:
-            s, i = batcher.topk_pairs(q_dev, targets_dev, n, kind=kind)
-            out_ids[lo:lo + nv] = i.cpu().numpy()[:nv]
-            if with_scores:
-                out_scores[lo:lo + nv] = s.cpu().numpy()[:nv]
+    rows = int(chunk_rows) or _sweep_chunk_rows(int(targets_dev.shape[0]), query.shape[1])
+    out = batcher.topk_chunked(query, targets_dev, n, rows, with_scores=with_scores, kind=kind)
     _tm.counter(
         "oap_serve_sweep_rows_total", {"model": kind},
         help="Query rows swept by full-sweep top-k",
-    ).inc(n_query)
-    return out_ids, out_scores
+    ).inc(int(query.shape[0]))
+    return out

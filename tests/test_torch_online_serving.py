@@ -119,7 +119,10 @@ class TestRepinOnCommit:
         ids_m, s_m = m.recommend_for_users([34, 1], 4, with_scores=True)
         assert np.array_equal(ids, ids_m) and np.array_equal(s, s_m)
         np.testing.assert_array_equal(m.recommend_for_users(np.arange(5), 3), ids_before)
-        np.testing.assert_array_equal(h.user_dev.numpy(), m.user_factors_)
+        # the handle re-pinned the swapped item table into the model's
+        # cache; the grown user table stays on the host
+        assert h.item_dev is m._dev_cache["targets:item"][1]
+        np.testing.assert_array_equal(h.item_dev.numpy(), m.item_factors_)
 
     def test_repin_off_freezes_pin_until_explicit(self, rng):
         port_config.set_config(online_repin="off")

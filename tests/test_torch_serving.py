@@ -296,7 +296,77 @@ class TestPinRepair:
         assert als._dev_cache["targets:user"][0] is als.user_factors_
 
 
+    @pytest.mark.parametrize("kind", ["kmeans", "pca", "als"])
+    def test_a_served_model_holds_one_device_copy(self, kind, rng):
+        """A handle pins into its model's cache under the model's names:
+        the model's calls and the handle's requests share one copy, and
+        a re-pin after a swap replaces it."""
+        x = rng.normal(size=(30, 5)).astype(np.float32)
+        pool = _pool(kind, rng)
+        if kind == "kmeans":
+            m = KMeansModel(_fresh_copy(pool, 0), device="cpu")
+            attr, name, dev_attr = "cluster_centers_", "centers", "centers_dev"
+            h = serving.serve(m)
+            np.testing.assert_array_equal(h.predict(x), m.predict(x))
+        elif kind == "pca":
+            m = PCAModel(_fresh_copy(pool, 0), np.ones(3) / 3, device="cpu")
+            attr, name, dev_attr = "components_", "components", "components_dev"
+            h = serving.serve(m)
+            np.testing.assert_array_equal(h.transform(x), m.transform(x))
+        else:
+            m = ALSModel(rng.normal(size=(8, 4)).astype(np.float32), _fresh_copy(pool, 0),
+                         device="cpu")
+            attr, name, dev_attr = "item_factors_", "targets:item", "item_dev"
+            h = serving.serve(m)
+            got = h.recommend_for_users(np.arange(8), 2, with_scores=True)
+            want = m.recommend_for_users(np.arange(8), 2, with_scores=True)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        assert set(m._dev_cache) == {name}
+        assert getattr(h, dev_attr) is m._dev_cache[name][1]
+        setattr(m, attr, _fresh_copy(pool, 1))
+        assert registry.repin_model(m) == 1 and h.model_version == 2
+        assert set(m._dev_cache) == {name}
+        assert getattr(h, dev_attr) is m._dev_cache[name][1]
+        assert m._dev_cache[name][0] is getattr(m, attr)
+
+
 class TestBatcher:
+    def test_slice_rows_is_the_largest_bucket_within_the_budget(self):
+        from oap_mllib_tpu_torch.data.bucketing import bucket_rows
+
+        for budget in (1, 7, 8, 9, 15, 16, 17, 100, 26_715, 233_016):
+            rows = batcher.slice_rows(budget)
+            assert bucket_rows(rows, batcher.SERVE_ROW_MULTIPLE) == rows
+            assert rows <= max(budget, batcher.SERVE_ROW_MULTIPLE)
+            assert bucket_rows(rows + 1, batcher.SERVE_ROW_MULTIPLE) > max(
+                budget, batcher.SERVE_ROW_MULTIPLE)
+        assert batcher.slice_rows(26_715) == 16_384
+        assert batcher.slice_rows(233_016) == 131_072
+
+    @pytest.mark.parametrize("kind", ["kmeans", "pca"])
+    def test_full_slices_pad_nothing(self, kind, rng, monkeypatch):
+        """A model's scoring slices are row buckets: only the tail pads,
+        and the answer equals one unsliced request's."""
+        from oap_mllib_tpu_torch.ops import kmeans_ops
+
+        monkeypatch.setattr(kmeans_ops, "rows_per_chunk", lambda *w, **kw: 100)
+        x = rng.normal(size=(197, 6)).astype(np.float32)
+        if kind == "kmeans":
+            m = KMeansModel(rng.normal(size=(4, 6)).astype(np.float32), device="cpu")
+            score = m.predict
+            whole = lambda q: batcher.assign_kmeans(m._centers_dev(), q)  # noqa: E731
+        else:
+            m = PCAModel(rng.normal(size=(6, 3)), np.ones(3) / 3, device="cpu")
+            score = m.transform
+            whole = lambda q: batcher.project_pca(  # noqa: E731
+                registry.pin(m._dev_cache, "components", m.components_, "cpu"), q)
+        for n, pad in ((192, 0), (200, 0), (197, 3), (64, 0), (70, 2)):
+            before = tm.family_total("oap_serve_pad_rows_total")
+            got = score(x[:n] if n <= len(x) else np.concatenate([x, x])[:n])
+            assert tm.family_total("oap_serve_pad_rows_total") - before == pad
+            q = x[:n] if n <= len(x) else np.concatenate([x, x])[:n]
+            np.testing.assert_allclose(got, whole(q), rtol=TOL, atol=TOL)
+
     def test_bucket_batch_matches_jax(self):
         for n in list(range(1, 70)) + [127, 128, 129, 1000, 4095, 4096, 4097]:
             padded, got = batcher.bucket_batch(np.ones((n, 3), np.float32))
