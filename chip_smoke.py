@@ -11,6 +11,7 @@
                                           # when the machine has four)
     python3 chip_smoke.py --telemetry  # only the build and 27
     python3 chip_smoke.py --online     # only the build and 28
+    python3 chip_smoke.py --traffic    # only the build and 29
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -318,6 +319,43 @@ Phases, each a hard check (any failure exits non-zero):
    any launch), and on (d) the second batch's solve made to raise after
    the first batch's K3 and K4 ran, each leave the arrays, the served
    answers and the versions as they were.
+29. serve_traffic (after serve_online, on its K-Means model; ``--traffic``
+   fits it itself): the serving front, launch counts zeroed before each
+   leg and read after.  (a) after ``warmup(4096)``, 2,000 requests of
+   1–4096 rows (uniform, ``bench.py --serving``'s law) from 4
+   closed-loop clients of 16 in flight through one ``TrafficQueue``
+   (flushes of at most 4,096 rows), with no deadline and with 50 ms:
+   every future resolves exactly once, >= 99.99 % of labels equal the
+   float64 argmin, each answer bit-equal to ``predict_many`` of its own
+   flush group (a spy handle records the groups), no program-cache miss
+   or build, no kernel launch; p50 / p99 from submit, requests/s, rows
+   a flush, sheds by reason; (b) the same storm at
+   ``serve_trace_sample=1`` with the SLO engine (50 ms) and the metrics
+   endpoint on: every ledger's stages within 1 us of its wall, one
+   ``request`` record in the sink a sampled request, exemplars on
+   ``/metrics``; per-stage p99, then the storm untraced again (the armed
+   over off wall); (c) a burst of 20 at ``serve_queue_depth=8`` (12
+   ``queue_full``, the 8 bit-equal to ``predict_many`` of their flush);
+   ``serve_shed_headroom`` at half a full request's bytes over the
+   detected budget: budget sheds, then topk -> bf16 -> stale, each step
+   booked, breaches absorbed, then the budget shed again; the bf16
+   rung's answers bit-equal to ``model.predict`` under
+   ``serving_precision="bf16"``, their agreement with f32 recorded; (d)
+   under ``pin:stale`` (scoring pinned to f32) a storm of 1,500 spans
+   ``partial_fit`` of 2^18 headline rows: K1 = 4, no failed future,
+   labels the float64 argmin under the old or the new centers, the
+   version up by one; (e) ``bench.py:1463``'s degraded storm (stale
+   rung, ``serve.dispatch:fail=2``, two NaN requests): exactly the two
+   quarantined (``oap_serve_poison_total`` +2), retries booked, the
+   rest answered; a drain with pending work posts its report and the
+   supervisor's ``_read_drain_reports`` reads it; (f) ``GET /sloz`` and
+   ``/healthz`` over localhost: the JAX payloads' keys, the burn rates;
+   (g) two replicas, a process each on the one card
+   (``--ha-worker``), each its own queue: one heartbeat view of both,
+   process 1 SIGKILLed, the survivor's ``ReplicaGuard`` evicts it
+   (``oap_serve_evictions_total`` +1) and answers bit-equal to before;
+   its scale decision lands in ``serve.scale.hint.json`` and the
+   supervisor's ``_read_scale_hint`` reads it.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -339,6 +377,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5408,6 +5447,642 @@ def phase_serve_online(cfg, als_cfg, dev, slab=None, km_model=None, data=None,
     return out
 
 
+# -- phase 29: the serving front -----------------------------------------------------
+
+TRAFFIC_FULL = {"kmeans": {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20},
+                "slab": 1 << 16, "max_rows": 4096, "requests": 2000, "threads": 4,
+                "window": 16, "deadline_ms": 50.0, "burst": 20, "depth": 8,
+                "bf16_requests": 200, "stale_requests": 1500,
+                "delta_rows": 1 << 18, "chunk_rows": 1 << 16, "faulted_requests": 300,
+                "drain_requests": 12, "slo_p99_ms": 50.0, "ha_requests": 40,
+                "ha_rows": 1024, "ha_burst": 64, "ha_high": 8.0}
+TRAFFIC_TINY = {"kmeans": {"n": 4133, "d": 29, "k": 11, "max_iter": 5},
+                "slab": 2048, "max_rows": 256, "requests": 120, "threads": 4,
+                "window": 4, "deadline_ms": 50.0, "burst": 20, "depth": 8,
+                "bf16_requests": 30, "stale_requests": 60,
+                "delta_rows": 2048, "chunk_rows": 512, "faulted_requests": 40,
+                "drain_requests": 6, "slo_p99_ms": 50.0, "ha_requests": 8,
+                "ha_rows": 64, "ha_burst": 16, "ha_high": 2.0}
+# the JAX package's payload keys (its telemetry/fleet.py and serving/):
+# /sloz armed, /healthz, and /healthz's serving block with a model
+# pinned, a shed behind it and the SLO engine armed
+SLOZ_KEYS = {"armed", "p99_ms", "availability", "window_s", "fast_window_s", "requests",
+             "bad", "lifetime_requests", "lifetime_bad", "burn_rate_fast",
+             "burn_rate_slow", "error_budget_remaining", "breach"}
+HEALTHZ_KEYS = {"ok", "rank", "world", "fit", "phase", "step", "ladder", "last_collective",
+                "flight_recorder_seq", "fleet_passes", "capability", "rows_processed",
+                "serving"}
+HEALTHZ_SERVING_KEYS = {"queue_depth", "in_flight", "pinned_models", "models",
+                        "brownout_rung", "last_shed", "slo"}
+HA_TIMEOUT_S = 300
+
+
+def _zero_launches():
+    for mod in (kmeans_kernel, pca_kernel, als_kernel, ring_kernel):
+        mod.reset_launches()
+
+
+def _launches():
+    return {**kmeans_kernel.LAUNCHES, **pca_kernel.LAUNCHES, **als_kernel.LAUNCHES,
+            **ring_kernel.LAUNCHES}
+
+
+class GroupSpy:
+    """A serving handle whose ``predict_many`` records each flush's
+    requests, by the submitted arrays' identity (``index``)."""
+
+    def __init__(self, handle, index):
+        self.h, self.index = handle, index
+        self.kind, self.device = handle.kind, handle.device
+        self.groups = []
+        self._lock = threading.Lock()
+
+    def predict_many(self, batches):
+        out = self.h.predict_many(batches)
+        with self._lock:
+            self.groups.append([self.index[id(b)] for b in batches])
+        return out
+
+
+def traffic_storm(q, reqs, threads, window, deadline_ms):
+    """``reqs`` through ``q`` from ``threads`` closed-loop clients, each
+    keeping at most ``window`` requests in flight.  Returns each request's
+    future (None when shed at submit), submit and resolution times,
+    resolution counts, the sheds at submit by reason, and the wall."""
+    from oap_mllib_tpu_torch.serving import ShedError
+
+    n = len(reqs)
+    futs, t_sub, t_done, resolved = [None] * n, [0.0] * n, [0.0] * n, [0] * n
+    sheds, errors = {}, []
+    lock = threading.Lock()
+
+    def done_at(i):
+        def cb(_f):
+            t = time.perf_counter()
+            with lock:
+                t_done[i] = t
+                resolved[i] += 1
+        return cb
+
+    def client(c):
+        try:
+            inflight = []
+            for i in range(c, n, threads):
+                while len(inflight) >= window:
+                    inflight.pop(0).exception(timeout=120)
+                t_sub[i] = time.perf_counter()
+                try:
+                    f = q.submit(reqs[i], deadline_ms=deadline_ms)
+                except ShedError as e:
+                    with lock:
+                        sheds[e.reason] = sheds.get(e.reason, 0) + 1
+                    continue
+                futs[i] = f
+                f.add_done_callback(done_at(i))
+                inflight.append(f)
+            for f in inflight:
+                f.exception(timeout=120)
+        except Exception as e:  # noqa: BLE001 -- reported after the join
+            errors.append(repr(e))
+
+    workers = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(threads)]
+    t0 = time.perf_counter()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in workers),
+          f"serve_traffic: a storm client failed: {errors[:3]}")
+    return {"futs": futs, "t_sub": t_sub, "t_done": t_done, "resolved": resolved,
+            "sheds": sheds, "wall_s": wall}
+
+
+def storm_report(tag, st, reqs, offs, ref, spy, h):
+    """Check one storm's futures and answers; returns its figures.  Every
+    future resolves exactly once; every answer agrees with the float64
+    labels ``ref`` (>= MIN_AGREEMENT of the rows) and is bit-equal to
+    ``h.predict_many`` of its own flush group."""
+    from oap_mllib_tpu_torch.serving import ServeError, ShedError
+
+    answered, walls, sheds, failed = {}, [], dict(st["sheds"]), {}
+    for i, f in enumerate(st["futs"]):
+        if f is None:
+            continue
+        check(f.done() and st["resolved"][i] == 1,
+              f"serve_traffic {tag}: request {i} resolved {st['resolved'][i]} times")
+        exc = f.exception()
+        if exc is None:
+            answered[i] = f.result()
+            walls.append(st["t_done"][i] - st["t_sub"][i])
+        elif isinstance(exc, ShedError):
+            sheds[exc.reason] = sheds.get(exc.reason, 0) + 1
+        elif isinstance(exc, ServeError):
+            failed[exc.reason] = failed.get(exc.reason, 0) + 1
+        else:
+            raise Failed(f"serve_traffic {tag}: request {i} raised {exc!r}")
+    agree = rows = 0
+    for i, got in answered.items():
+        o = offs[i]
+        agree += int(np.sum(got == ref[o:o + len(got)]))
+        rows += len(got)
+    share = agree / max(rows, 1)
+    check(share >= MIN_AGREEMENT,
+          f"serve_traffic {tag}: {share:.6f} of labels agree with float64")
+    grouped = 0
+    for g in spy.groups:
+        parts = h.predict_many([reqs[j] for j in g])
+        for j, part in zip(g, parts):
+            if j in answered:
+                check(np.array_equal(part, answered[j]),
+                      f"serve_traffic {tag}: request {j} differs from predict_many of its "
+                      "flush group")
+                grouped += 1
+    check(grouped == len(answered),
+          f"serve_traffic {tag}: {grouped} of {len(answered)} answers found in a flush group")
+    walls_ms = np.sort(np.asarray(walls) * 1e3) if walls else np.zeros(1)
+    flush_rows = [sum(len(reqs[j]) for j in g) for g in spy.groups]
+    return answered, {
+        "requests": len(reqs), "answered": len(answered), "sheds": sheds, "failed": failed,
+        "p50_ms": float(walls_ms[len(walls_ms) // 2]),
+        "p99_ms": float(walls_ms[min(len(walls_ms) - 1, int(len(walls_ms) * 0.99))]),
+        "requests_per_s": len(answered) / st["wall_s"], "wall_s": st["wall_s"],
+        "rows_per_s": rows / st["wall_s"], "flushes": len(spy.groups),
+        "rows_per_flush": float(np.mean(flush_rows)) if flush_rows else 0.0,
+        "requests_per_flush": len(answered) / max(len(spy.groups), 1),
+        "f64_agreement": share,
+    }
+
+
+def _requests(cfg, rng, slab, n):
+    sizes = rng.integers(1, cfg["max_rows"] + 1, size=n)
+    offs = rng.integers(0, len(slab) - cfg["max_rows"] + 1, size=n)
+    return [slab[o:o + s] for s, o in zip(sizes, offs)], offs
+
+
+def run_storm(tag, cfg, h, reqs, offs, ref, deadline_ms, **q_kw):
+    """One storm through a fresh TrafficQueue; the program cache and the
+    kernel launches are read around it."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.serving import batcher
+    from oap_mllib_tpu_torch.utils import progcache
+
+    spy = GroupSpy(h, {id(r): i for i, r in enumerate(reqs)})
+    misses, builds = progcache.stats()["misses"], batcher.xla_snapshot()
+    _zero_launches()
+    with serving.TrafficQueue(spy, max_batch_rows=cfg["max_rows"], **q_kw) as q:
+        st = traffic_storm(q, reqs, cfg["threads"], cfg["window"], deadline_ms)
+    launches = _launches()
+    cache = {"misses": progcache.stats()["misses"] - misses,
+             "builds": batcher.xla_snapshot() - builds}
+    answered, rep = storm_report(tag, st, reqs, offs, ref, spy, h)
+    rep.update(launches=launches, after_warmup=cache)
+    return answered, rep, st
+
+
+def traffic_a(cfg, h, slab, ref, rng):
+    """(a) the storm with no deadline and with 50 ms; no cache miss."""
+    reqs, offs = _requests(cfg, rng, slab, cfg["requests"])
+    out = {}
+    for tag, dl in (("no_deadline", 0.0), ("deadline", cfg["deadline_ms"])):
+        _, rep, _ = run_storm(f"(a) {tag}", cfg, h, reqs, offs, ref, dl)
+        check(rep["after_warmup"] == {"misses": 0, "builds": 0},
+              f"serve_traffic (a) {tag}: {rep['after_warmup']} after the warmup")
+        check(not any(rep["launches"].values()), f"serve_traffic (a): launched {rep['launches']}")
+        if tag == "no_deadline":
+            check(rep["answered"] == len(reqs), "serve_traffic (a): a request went unanswered")
+        out[tag] = rep
+    return out, (reqs, offs)
+
+
+def traffic_b(cfg, h, ref, storm, sink, port):
+    """(b) the same storm traced at serve_trace_sample=1 with the SLO
+    engine armed: ledgers sum to their walls, one sink record a sampled
+    request, exemplars on /metrics; then the storm untraced again."""
+    from oap_mllib_tpu_torch.serving import reqtrace
+    from oap_mllib_tpu_torch.telemetry import fleet as tfleet
+
+    reqs, offs = storm
+    set_config(serve_trace_sample=1.0, telemetry_log=sink, serve_slo_p99_ms=cfg["slo_p99_ms"],
+               metrics_port=port)
+    check(tfleet.maybe_serve() == port, "serve_traffic (b): the metrics endpoint did not start")
+    answered, rep, st = run_storm("(b) traced", cfg, h, reqs, offs, ref, 0.0)
+    ledgers = [reqtrace.ledger_of(f) for f in st["futs"] if f is not None]
+    worst = max(abs(lg.stage_sum() - lg.wall_s) for lg in ledgers)
+    check(worst <= 1e-6, f"serve_traffic (b): a ledger's stages miss its wall by {worst:.3g} s")
+    sampled = sum(lg.ctx.sampled for lg in ledgers)
+    with open(sink) as f:
+        records = [json.loads(ln) for ln in f if '"request"' in ln]
+    records = [r for r in records if r.get("type") == "request"]
+    check(len(records) == sampled == len(ledgers),
+          f"serve_traffic (b): {len(records)} sink records, {sampled} sampled requests")
+    text = _http(port, "/metrics")
+    exemplars = [ln for ln in text.splitlines()
+                 if ln.startswith("oap_serve_request_seconds_bucket") and "trace_id=" in ln]
+    check(bool(exemplars), "serve_traffic (b): no exemplar on /metrics")
+    stages = {s: float(np.percentile([lg.stages[s] for lg in ledgers], 99)) * 1e3
+              for s in reqtrace.STAGES}
+    set_config(serve_trace_sample=0.0, telemetry_log="")
+    _, off_again, _ = run_storm("(b) off again", cfg, h, reqs, offs, ref, 0.0)
+    return {"traced": rep, "off_again": off_again, "ledgers": len(ledgers),
+            "worst_sum_err_s": worst, "sink_records": len(records),
+            "exemplar_lines": len(exemplars), "stage_p99_ms": stages,
+            "stage_hist_p99_ms": {s: v["p99_s"] * 1e3
+                                  for s, v in reqtrace.stage_quantiles().items()},
+            "attribution_coverage": reqtrace.attribution_block()["coverage"]}
+
+
+def traffic_c(cfg, h, model, slab, ref, rng):
+    """(c) a burst at serve_queue_depth=8 sheds queue_full; a small
+    serve_shed_headroom steps the ladder topk -> bf16 -> stale, then the
+    budget shed resumes; at the bf16 rung answers equal the model's own
+    call under serving_precision="bf16"."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.serving import traffic
+    from oap_mllib_tpu_torch.telemetry import metrics as tm
+
+    out = {}
+    _zero_launches()
+    set_config(serve_queue_depth=cfg["depth"])
+    q = serving.TrafficQueue(h, start=False)
+    futs, sheds = [], {}
+    for i in range(cfg["burst"]):
+        try:
+            futs.append((i, q.submit(slab[i * 16:i * 16 + 16])))
+        except serving.ShedError as e:
+            sheds[e.reason] = sheds.get(e.reason, 0) + 1
+    q.pump()
+    q.close()
+    check(sheds == {"queue_full": cfg["burst"] - cfg["depth"]} and len(futs) == cfg["depth"],
+          f"serve_traffic (c): the burst shed {sheds}")
+    # one pump, one flush: bit-equal to predict_many of the admitted
+    got = np.concatenate([f.result() for _, f in futs])
+    want = np.concatenate(h.predict_many([slab[i * 16:i * 16 + 16] for i, _ in futs]))
+    check(np.array_equal(got, want), "serve_traffic (c): the burst's answers differ from "
+                                     "predict_many of its flush")
+    rows = slice(0, 16 * cfg["depth"])
+    out["burst"] = {"admitted": len(futs), "sheds": sheds,
+                    "f64_agreement": float(np.mean(got == ref[rows]))}
+    set_config(serve_queue_depth=256)
+    # the ladder: an allowance of half a full request, so every
+    # admission prices over it; the first window of breaches sheds, then
+    # each full window steps a rung and the breaches are absorbed, until
+    # the top rung, where the budget shed resumes
+    hbm = membudget.Budgets.resolve().hbm
+    req = slab[:cfg["max_rows"]]
+    headroom = 0.5 * req.nbytes / hbm
+    set_config(serve_shed_headroom=headroom, serve_brownout="off")
+    traffic.brownout()
+    set_config(serve_brownout="auto")
+    b = traffic.brownout()
+    steps0 = tm.family_total("oap_serve_brownout_steps_total")
+    q = serving.TrafficQueue(h, start=False)
+    trail = []
+    for _ in range(4 * b.WINDOW):
+        try:
+            q.submit(req)
+            trail.append((b.rung, None))
+        except serving.ShedError as e:
+            trail.append((b.rung, e.reason))
+            if b.rung == 3:
+                break
+    q.close()
+    check([s["to"] for s in b.steps] == ["topk", "bf16", "stale"]
+          and trail[-1] == (3, "budget") and all(r in (None, "budget") for _, r in trail),
+          f"serve_traffic (c): the ladder went {b.steps}, {trail}")
+    check(tm.family_total("oap_serve_brownout_steps_total") - steps0 == 3,
+          "serve_traffic (c): the ladder's steps were not booked")
+    out["ladder"] = {"hbm_bytes": hbm, "headroom": headroom, "trail": trail,
+                     "steps": b.steps, "absorbed": b.absorbed,
+                     "summary_brownout": serving.serving_summary()["brownout"]}
+    set_config(serve_shed_headroom=0.5, serve_brownout="pin:bf16")
+    # the bf16 rung is its own program family: warm it first
+    h.warmup(cfg["max_rows"])
+    reqs, offs = _requests(cfg, rng, slab, cfg["bf16_requests"])
+    spy = GroupSpy(h, {id(r): i for i, r in enumerate(reqs)})
+    with serving.TrafficQueue(spy, max_batch_rows=cfg["max_rows"]) as q:
+        st = traffic_storm(q, reqs, cfg["threads"], cfg["window"], 0.0)
+    set_config(serve_brownout="off", serving_precision="bf16")
+    agree_f64 = agree_f32 = rows = 0
+    f32 = None
+    for g in spy.groups:
+        joined = np.concatenate([reqs[j] for j in g])
+        want = model.predict(joined)
+        got = np.concatenate([st["futs"][j].result() for j in g])
+        check(np.array_equal(got, want), "serve_traffic (c): a bf16-rung answer differs from "
+                                         "the model's call under serving_precision=bf16")
+    set_config(serving_precision="")
+    f32 = model.predict(slab)
+    for i, f in enumerate(st["futs"]):
+        got, o = f.result(), offs[i]
+        agree_f64 += int(np.sum(got == ref[o:o + len(got)]))
+        agree_f32 += int(np.sum(got == f32[o:o + len(got)]))
+        rows += len(got)
+    out["bf16"] = {"requests": len(reqs), "flushes": len(spy.groups), "rows": rows,
+                   "f32_agreement": agree_f32 / rows, "f64_agreement": agree_f64 / rows}
+    out["launches"] = _launches()
+    check(not any(out["launches"].values()), f"serve_traffic (c): launched {out['launches']}")
+    return out
+
+
+def traffic_d(cfg, h, model, slab, rng, dev):
+    """(d) under serve_brownout="pin:stale" (scoring pinned to f32) a storm
+    runs while partial_fit of ``delta_rows`` headline rows commits: K1 once
+    a chunk, no failed future, every answer the float64 argmin under the
+    old or the new centers, the handle's version up by one."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.data.stream import ChunkSource
+
+    kc = cfg["kmeans"]
+    set_config(serve_brownout="pin:stale", serving_precision="f32")
+    old = _f64_labels(slab, model.cluster_centers_)
+    delta = blob_delta(cfg["delta_rows"], kc["d"], kc["k"], dev, seed=0,
+                       draw_seed=129).cpu().numpy()
+    reqs, offs = _requests(cfg, rng, slab, cfg["stale_requests"])
+    version = h.model_version
+    box = {}
+    with serving.TrafficQueue(h, max_batch_rows=cfg["max_rows"]) as q:
+        storm = threading.Thread(target=lambda: box.update(
+            st=traffic_storm(q, reqs, cfg["threads"], cfg["window"], 0.0)), daemon=True)
+        storm.start()
+        time.sleep(0.02)
+        _zero_launches()
+        t0 = time.perf_counter()
+        model.partial_fit(ChunkSource.from_array(delta, chunk_rows=cfg["chunk_rows"]))
+        t_commit = time.perf_counter()
+        launches = _launches()
+        storm.join(300)
+    check("st" in box, "serve_traffic (d): the storm did not finish")
+    st = box["st"]
+    new = _f64_labels(slab, model.cluster_centers_)
+    chunks = -(-len(delta) // cfg["chunk_rows"])
+    check(launches[kmeans_kernel.KERNEL] == (chunks if dev.type == "cuda" else 0),
+          f"serve_traffic (d): partial_fit launched {launches}, expected {chunks} K1")
+    check(h.model_version == version + 1,
+          f"serve_traffic (d): version {h.model_version}, expected {version + 1}")
+    agree = rows = after = 0
+    for i, f in enumerate(st["futs"]):
+        check(f is not None and f.exception() is None, f"serve_traffic (d): request {i} failed")
+        got, o = f.result(), offs[i]
+        agree += int(np.sum((got == old[o:o + len(got)]) | (got == new[o:o + len(got)])))
+        rows += len(got)
+        after += st["t_done"][i] > t_commit
+    share = agree / rows
+    check(share >= MIN_AGREEMENT, f"serve_traffic (d): {share:.6f} of labels are neither "
+                                  "float64 argmin")
+    before = sum(st["t_done"][i] < t0 for i in range(len(reqs)))
+    check(dev.type != "cuda" or (before > 0 and after > 0),
+          f"serve_traffic (d): the storm did not span the commit ({before} answered before "
+          f"partial_fit, {after} after it)")
+    set_config(serve_brownout="auto", serving_precision="")
+    return {"launches": launches, "chunks": chunks, "partial_fit_s": t_commit - t0,
+            "requests": len(reqs), "answered_before_fit": before,
+            "answered_after_commit": after,
+            "version": [version, h.model_version], "old_or_new_agreement": share,
+            "labels_moved": int(np.sum(old != new)), "storm_wall_s": st["wall_s"]}
+
+
+def traffic_e(cfg, h, slab, ref, rng):
+    """(e) bench.py's degraded storm: the stale rung (bf16 scoring),
+    serve.dispatch:fail=2 and two NaN requests: exactly those two
+    quarantined, retries booked, the rest answered; then a drain with
+    pending work posts its report and the supervisor reads it back."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.telemetry import metrics as tm
+    from oap_mllib_tpu_torch.utils.supervisor import Supervisor
+
+    set_config(serve_brownout="pin:stale")
+    h.warmup(cfg["max_rows"])
+    reqs, offs = _requests(cfg, rng, slab, cfg["faulted_requests"])
+    nan_at = {3, len(reqs) // 2}
+    for i in nan_at:
+        reqs[i] = reqs[i].copy()
+        reqs[i][0, 0] = np.nan
+    poison0 = tm.family_total("oap_serve_poison_total")
+    retries0 = tm.family_total("oap_serve_retries_total")
+    _armed_fault("serve.dispatch:fail=2")
+    _zero_launches()
+    try:
+        with serving.TrafficQueue(h, max_batch_rows=cfg["max_rows"]) as q:
+            st = traffic_storm(q, reqs, cfg["threads"], cfg["window"], 120_000.0)
+    finally:
+        _armed_fault("")
+    launches = _launches()
+    poisoned, agree, rows = [], 0, 0
+    for i, f in enumerate(st["futs"]):
+        exc = f.exception()
+        if exc is not None:
+            check(isinstance(exc, serving.ServeError) and exc.reason == "poison",
+                  f"serve_traffic (e): request {i} raised {exc!r}")
+            poisoned.append(i)
+            continue
+        got, o = f.result(), offs[i]
+        agree += int(np.sum(got == ref[o:o + len(got)]))
+        rows += len(got)
+    retries = tm.family_total("oap_serve_retries_total") - retries0
+    check(sorted(poisoned) == sorted(nan_at)
+          and tm.family_total("oap_serve_poison_total") - poison0 == 2,
+          f"serve_traffic (e): quarantined {poisoned}, expected {sorted(nan_at)}")
+    check(retries > 0, "serve_traffic (e): the dispatch faults booked no retry")
+    side = _scratch("serve_traffic_sideband")
+    set_config(crash_dir=side, serve_brownout="auto")
+    q = serving.TrafficQueue(h, start=False)
+    for i in range(cfg["drain_requests"]):
+        q.submit(slab[i * 8:i * 8 + 8])
+    stats = q.drain(timeout_s=30.0)
+    q.close()
+    reports = Supervisor(lambda *a: [], 1, side)._read_drain_reports()
+    set_config(crash_dir="")
+    check(stats["drained"] and stats["answered"] == cfg["drain_requests"]
+          and len(reports) == 1 and reports[0]["answered"] == cfg["drain_requests"],
+          f"serve_traffic (e): drain {stats}, the supervisor read {reports}")
+    return {"requests": len(reqs), "poisoned": sorted(poisoned), "retries": retries,
+            "launches": launches, "bf16_f64_agreement": agree / rows,
+            "futures": serving.serving_summary().get("futures"), "drain": stats,
+            "supervisor_read": reports}
+
+
+def traffic_f(port):
+    """(f) GET /sloz and /healthz over localhost: the JAX payloads' keys,
+    the burn rates."""
+    sloz = json.loads(_http(port, "/sloz"))
+    health = json.loads(_http(port, "/healthz"))
+    check(set(sloz) == SLOZ_KEYS and sloz["armed"],
+          f"serve_traffic (f): /sloz keys {sorted(sloz)}")
+    check(set(health) == HEALTHZ_KEYS and set(health["serving"]) == HEALTHZ_SERVING_KEYS,
+          f"serve_traffic (f): /healthz keys {sorted(health)}, serving "
+          f"{sorted(health['serving'])}")
+    return {"sloz": sloz, "healthz_serving": health["serving"]}
+
+
+def ha_worker(argv) -> int:
+    """One replica of leg (g): serve, heartbeat with the other, and (process
+    1) die by SIGKILL; process 0 evicts it and keeps answering."""
+    import signal
+
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.convert import kmeans_model_from_arrays
+    from oap_mllib_tpu_torch.parallel import bootstrap
+    from oap_mllib_tpu_torch.telemetry import metrics as tm
+    from oap_mllib_tpu_torch.utils import recovery
+
+    rank, port, out, device = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    cfg = TRAFFIC_TINY if "--rehearse" in argv else TRAFFIC_FULL
+    side = os.path.join(out, "sideband")
+    set_config(device=device, crash_dir=side, collective_timeout=60.0,
+               serve_scale_high=cfg["ha_high"])
+    bootstrap.initialize_distributed(f"127.0.0.1:{port}", 2, rank, launcher_store=True)
+    h = serving.serve(kmeans_model_from_arrays(np.load(os.path.join(out, "centers.npy")),
+                                               device=device))
+    h.warmup(cfg["ha_rows"])
+    x = np.load(os.path.join(out, "requests.npy"))
+    reqs = [x[i * 7:i * 7 + 1 + (i * 97) % cfg["ha_rows"]] for i in range(cfg["ha_requests"])]
+    q = serving.TrafficQueue(h)
+    guard = serving.ReplicaGuard(queue=q)
+    # one request a flush, before and after: each scores at its own bucket
+    before = [q.submit(r).result(timeout=60) for r in reqs]
+    with guard.leg():
+        view = serving.heartbeat()
+    evictions = tm.family_total("oap_serve_evictions_total")
+    _zero_launches()
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    t0 = time.perf_counter()
+    with guard.leg():
+        serving.heartbeat()
+    evict_s = time.perf_counter() - t0
+    after = [q.submit(r).result(timeout=60) for r in reqs]
+    # the survivor alone against a backlog: the controller votes a
+    # replica out and posts it for the supervisor
+    burst = serving.TrafficQueue(h, start=False)
+    for r in reqs[:cfg["ha_burst"]] * (1 + cfg["ha_burst"] // len(reqs)):
+        if burst.depth() < cfg["ha_burst"]:
+            burst.submit(r)
+    sc = serving.ScaleController(1)
+    decisions = [sc.observe(queue_depth=burst.depth()) for _ in range(sc.WINDOW)]
+    hint = serving.write_scale_hint(side, decisions[-1])
+    burst.close()
+    stats = guard.release(timeout_s=30.0)
+    res = {"rank": rank, "view": view, "local_only": guard.local_only,
+           "evicted": serving.fleet_evicted(), "error": type(guard.last_error).__name__,
+           "evictions": tm.family_total("oap_serve_evictions_total") - evictions,
+           "evict_s": evict_s, "same": all(np.array_equal(a, b) for a, b in zip(before, after)),
+           "answers": len(after), "decision": decisions[-1], "hint": hint,
+           "drained": stats["drained"], "launches": _launches()}
+    print("HA_RESULT " + json.dumps(res, default=str), flush=True)
+    recovery.exit_now(0)
+    return 0
+
+
+def traffic_g(cfg, model, slab, dev, rehearse):
+    """(g) two replicas sharing the card, a process each, each its own
+    queue: heartbeats gather both; process 1 is SIGKILLed; the survivor's
+    ReplicaGuard evicts it and keeps answering bit-equal; its scale
+    decision lands in serve.scale.hint.json, which the supervisor reads."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from oap_mllib_tpu_torch.utils.supervisor import Supervisor
+
+    out = _scratch("serve_traffic_ha")
+    np.save(os.path.join(out, "centers.npy"), model.cluster_centers_)
+    np.save(os.path.join(out, "requests.npy"), slab[:8 * cfg["ha_rows"]])
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=HA_TIMEOUT_S))
+    flags = ["--rehearse"] if rehearse else []
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ha-worker", str(r),
+                               str(store.port), out, str(dev), *flags],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        text = procs[0].communicate(timeout=HA_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        raise Failed(f"serve_traffic (g): the survivor did not end within {HA_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+        del store
+    wall = time.perf_counter() - t0
+    got = [ln for ln in text.splitlines() if ln.startswith("HA_RESULT ")]
+    if procs[0].returncode != 0 or not got:
+        print(text[-4000:], flush=True)
+    check(procs[0].returncode == 0 and bool(got),
+          f"serve_traffic (g): the survivor exited {procs[0].returncode}")
+    check(procs[1].returncode == -9, f"serve_traffic (g): process 1 exited {procs[1].returncode}")
+    res = json.loads(got[-1][len("HA_RESULT "):])
+    check(res["view"]["world"] == 2 and res["view"]["requests"] == [cfg["ha_requests"]] * 2,
+          f"serve_traffic (g): the heartbeat view {res['view']}")
+    check(res["local_only"] and res["evicted"] and res["evictions"] == 1,
+          f"serve_traffic (g): the guard did not evict ({res})")
+    check(res["same"], "serve_traffic (g): the survivor's answers changed after the eviction")
+    check(not any(res["launches"].values()), f"serve_traffic (g): launched {res['launches']}")
+    hint = Supervisor(lambda *a: [], 1, os.path.join(out, "sideband"))._read_scale_hint()
+    check(hint is not None and hint["action"] == "out",
+          f"serve_traffic (g): the supervisor read the scale hint {hint}")
+    res.update(wall_s=wall, supervisor_hint=hint)
+    return res
+
+
+def phase_serve_traffic(cfg, dev, slab=None, km_model=None, rehearse=False):
+    """Phase 29: the serving front on the headline K-Means (module
+    docstring).  ``slab`` is the host copy of the blobs' first rows that
+    ``km_model`` was fitted on; the ``--traffic`` run fits it first."""
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.telemetry import fleet as tfleet
+
+    rng = np.random.default_rng(29)
+    kc = cfg["kmeans"]
+    if km_model is None:
+        x, _, _ = blobs(kc["n"], kc["d"], kc["k"], dev, seed=0)
+        km_model = KMeans(k=kc["k"], max_iter=kc["max_iter"], tol=1e-4,
+                          init_mode="k-means||", seed=0, device=str(dev)).fit(x)
+        slab = x[: cfg["slab"]].cpu().numpy()
+        del x
+    if dev.type != "cuda":
+        # no card to detect a budget from: the ladder prices against 1 GB
+        set_config(memory_budget_hbm="1G")
+    t_phase = time.perf_counter()
+    ref = _f64_labels(slab, km_model.cluster_centers_)
+    h = serving.serve(km_model)
+    t0 = time.perf_counter()
+    buckets = h.warmup(cfg["max_rows"])
+    warm_s = time.perf_counter() - t0
+    a, storm = traffic_a(cfg, h, slab, ref, rng)
+    emit("serve_traffic_a", {"warmup_buckets": buckets, "warmup_s": warm_s, **a})
+    sink = os.path.join(_scratch("serve_traffic_sink"), "sink.jsonl")
+    port = _free_port()
+    try:
+        b = traffic_b(cfg, h, ref, storm, sink, port)
+        emit("serve_traffic_b", b)
+        c = traffic_c(cfg, h, km_model, slab, ref, rng)
+        emit("serve_traffic_c", c)
+        f = traffic_f(port)
+        emit("serve_traffic_f", f)
+    finally:
+        tfleet.stop_server()
+        set_config(metrics_port=0, serve_slo_p99_ms=0.0, serve_trace_sample=0.0,
+                   telemetry_log="", serve_queue_depth=256, serve_shed_headroom=0.5,
+                   serve_brownout="auto", serving_precision="")
+    d = traffic_d(cfg, h, km_model, slab, rng, dev)
+    emit("serve_traffic_d", d)
+    ref = _f64_labels(slab, km_model.cluster_centers_)
+    e = traffic_e(cfg, h, slab, ref, rng)
+    emit("serve_traffic_e", e)
+    g = traffic_g(cfg, km_model, slab, dev, rehearse)
+    emit("serve_traffic_g", g)
+    summary = serving.serving_summary()
+    serving.registry.clear()
+    set_config(memory_budget_hbm="", serve_brownout="auto")
+    out = {"a": a, "b": b, "c": c, "d": d, "e": e, "f": f, "g": g,
+           "wall_s": time.perf_counter() - t_phase}
+    emit("serve_traffic", {"wall_s": out["wall_s"], "serving_summary": summary})
+    return out
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -5444,6 +6119,8 @@ def main(argv=None) -> int:
         return tel_worker(argv[1:])
     if argv[:1] == ["--sup-worker"]:
         return sup_worker(argv[1:])
+    if argv[:1] == ["--ha-worker"]:
+        return ha_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
@@ -5462,6 +6139,9 @@ def main(argv=None) -> int:
     ap.add_argument("--online", action="store_true",
                     help="only the build and the serving and online phase (28); prints no "
                          "ok line")
+    ap.add_argument("--traffic", action="store_true",
+                    help="only the build and the serving front's phase (29); prints no ok "
+                         "line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5478,6 +6158,11 @@ def main(argv=None) -> int:
             phase_serve_online(SERVE_TINY if args.rehearse else SERVE_FULL,
                                ALS_TINY if args.rehearse else ALS_FULL, dev)
             print(f"serve_online phase passed: {smi}", flush=True)
+            return 0
+        if args.traffic:
+            phase_serve_traffic(TRAFFIC_TINY if args.rehearse else TRAFFIC_FULL, dev,
+                                rehearse=args.rehearse)
+            print(f"serve_traffic phase passed: {smi}", flush=True)
             return 0
         if args.block_stream:
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
@@ -5543,6 +6228,9 @@ def main(argv=None) -> int:
         # the headline K-Means and the ML-25M ALS served, updated online
         serve_online = phase_serve_online(serve_cfg, als_cfg, dev, km_slab, km_model, data,
                                           als_model)
+        # the serving front on the same model (29)
+        serve_traffic = phase_serve_traffic(TRAFFIC_TINY if args.rehearse else TRAFFIC_FULL,
+                                            dev, km_slab, km_model, args.rehearse)
         del km_slab, km_model
         ckpt = phase_ckpt(CKPT_TINY if args.rehearse else CKPT_FULL, als_cfg, data, dev,
                           args.rehearse)
@@ -5685,6 +6373,8 @@ def main(argv=None) -> int:
     # the serving and online phase's launch paths (28)
     by_path[kmeans_kernel.KERNEL]["serve_online partial_fit"] = \
         serve_online["e"]["launches"][kmeans_kernel.KERNEL]
+    by_path[kmeans_kernel.KERNEL]["serve_traffic partial_fit under a storm"] = \
+        serve_traffic["d"]["launches"][kmeans_kernel.KERNEL]
     by_path[pca_kernel.KERNEL].update({
         f"serve_online ipca ({serve_online['b']['chunks']} chunks)":
             serve_online["b"]["launches"][pca_kernel.KERNEL],

@@ -132,6 +132,39 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
 - ``sweep_chunk_rows``: query rows a full-sweep top-k chunk scores
   (serving/sweep.py); 0 (default) derives them from the scoring buffer
   budget the models' top-k uses; negative raises at sweep time.
+- ``serve_queue_depth`` (256): pending requests a
+  ``serving.TrafficQueue`` holds before ``submit`` sheds
+  (``ShedError(reason="queue_full")``); >= 1.
+- ``serve_deadline_ms`` (0 = none): the deadline of a request submitted
+  without one; a request still pending past it is shed un-scored;
+  >= 0.
+- ``serve_shed_headroom`` (0.5): the share of the resolved card budget
+  (utils/membudget.Budgets) the queue's staged bytes may price before
+  ``submit`` sheds (reason "budget"); in (0, 1]; an unbounded budget
+  prices nothing.
+- ``serve_scale_high`` (32) / ``serve_scale_idle_s`` (30 s): the
+  replica controller (serving/traffic.ScaleController) votes out on a
+  windowed queue depth a replica above the first, in after the second
+  of idleness; each > 0.
+- ``serve_retry_limit`` (2) / ``serve_retry_backoff`` (0.01 s): the
+  durable-future envelope: re-enqueues after a transient scoring fault,
+  at the request's own deadline priority, and their jittered backoff
+  base; each >= 0.
+- ``serve_brownout``: "auto" (default) steps the degradation ladder
+  (topk, bf16, stale) under sustained over-budget pressure, "off"
+  sheds at once, "pin:<rung>" holds one rung.
+- ``serve_trace_sample``: > 0 gives every admitted request a
+  deadline-budget ledger (serving/reqtrace.py); the value is the
+  sampled share (crc32 of the trace id) whose ledgers reach the flight
+  recorder, the JSON-lines sink and the exemplars; in [0, 1], 0
+  (default) is off.
+- ``serve_slo_p99_ms`` (0 = off) / ``serve_slo_availability`` (0.999)
+  / ``serve_slo_window_s`` (3600 s): the burn-rate engine
+  (serving/slo.py): a request is bad when it fails or its wall passes
+  the target; the fast window is the slow one over 12.
+
+  Each ``serve_*`` typo raises where the plane first reads it (submit,
+  the engine, the controller).
 - ``online_decay``: the per-delta discount of the accumulated per-center
   counts in ``KMeansModel.partial_fit`` (online/minibatch.py), in
   (0, 1]; 1.0 (default) forgets nothing.  Checked at partial_fit entry.
@@ -221,6 +254,18 @@ class Config:
     compilation_cache_dir: str = ""
     serving_precision: str = ""
     sweep_chunk_rows: int = 0
+    serve_queue_depth: int = 256
+    serve_deadline_ms: float = 0.0
+    serve_shed_headroom: float = 0.5
+    serve_scale_high: float = 32.0
+    serve_scale_idle_s: float = 30.0
+    serve_retry_limit: int = 2
+    serve_retry_backoff: float = 0.01
+    serve_brownout: str = "auto"
+    serve_trace_sample: float = 0.0
+    serve_slo_p99_ms: float = 0.0
+    serve_slo_availability: float = 0.999
+    serve_slo_window_s: float = 3600.0
     online_decay: float = 1.0
     online_foldin_batch: int = 0
     online_repin: str = "auto"

@@ -29,6 +29,7 @@ the lowest id, as ``lax.top_k``'s do.  Each scoring batch is the
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,6 +38,7 @@ import torch
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data.bucketing import bucket_rows
 from oap_mllib_tpu_torch.ops import kmeans_ops
+from oap_mllib_tpu_torch.serving import reqtrace
 from oap_mllib_tpu_torch.telemetry import metrics as _tm
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils import progcache
@@ -60,9 +62,12 @@ def resolve_policy(algo: str) -> ServingPolicy:
     """The serving-time policy of ``algo``'s scoring products:
     ``Config.serving_precision`` empty inherits the algorithm's resolved
     policy, a value overrides it with the same vocabulary.  A typo
-    raises at request time.  (The brownout ladder's precision rung,
-    which folds in here in the JAX package, comes with its traffic
-    plane.)"""
+    raises at request time.
+
+    The brownout ladder's ``bf16`` rung
+    (``traffic.brownout_precision_override``) folds in here, only with
+    no ``serving_precision`` pin and only for an algorithm with a
+    parity bound: an operator's pin beats a degradation rung."""
     cfg = get_config()
     raw = cfg.serving_precision
     if raw not in _SERVING_CHOICES:
@@ -71,6 +76,10 @@ def resolve_policy(algo: str) -> ServingPolicy:
             f"{'|'.join(v or '<empty>' for v in _SERVING_CHOICES)}, "
             f"got {raw!r}"
         )
+    if not raw:
+        from oap_mllib_tpu_torch.serving import traffic
+
+        raw = traffic.brownout_precision_override(algo)
     if raw:
         cfg = dataclasses.replace(cfg, compute_precision=raw, kmeans_precision="",
                                   pca_precision="", als_precision="")
@@ -81,19 +90,23 @@ def resolve_policy(algo: str) -> ServingPolicy:
 def bucket_batch(x, multiple: int = SERVE_ROW_MULTIPLE):
     """``(padded, n)``: ``x`` (an array or a tensor) with zero rows
     appended up to ``bucket_rows(n, multiple)``; every consumer slices
-    its result back to ``n``."""
+    its result back to ``n``.  The pad's wall folds into the request
+    ledgers of a traced flush (``reqtrace.note_flush``; a thread-local
+    miss otherwise)."""
+    t0 = time.perf_counter()
     if isinstance(x, torch.Tensor):
         x = x if x.dim() == 2 else x.reshape(1, -1)
         n = x.shape[0]
         b = bucket_rows(max(n, 1), multiple)
         if b != n:
             x = torch.cat([x, x.new_zeros((b - n, x.shape[1]))])
-        return x, n
-    x = np.ascontiguousarray(np.atleast_2d(x))
-    n = x.shape[0]
-    b = bucket_rows(max(n, 1), multiple)
-    if b != n:
-        x = np.concatenate([x, np.zeros((b - n, x.shape[1]), x.dtype)], axis=0)
+    else:
+        x = np.ascontiguousarray(np.atleast_2d(x))
+        n = x.shape[0]
+        b = bucket_rows(max(n, 1), multiple)
+        if b != n:
+            x = np.concatenate([x, np.zeros((b - n, x.shape[1]), x.dtype)], axis=0)
+    reqtrace.note_flush("bucket_pad", time.perf_counter() - t0)
     return x, n
 
 

@@ -25,10 +25,12 @@ package's families: ``oap_serve_requests_total`` / ``_rows_total`` /
 renders the "serving" block.  Online commits (online/delta.py) re-pin
 the handles of their model in place through :func:`repin_model`.
 
-Three seams of the JAX module reach its traffic plane and request
-tracing, which this port does not have yet; each takes its disarmed
-answer here: ``pin`` answers no stale pin (the brownout rung), a
-request books no exemplar, and the summary carries no traffic keys.
+Three seams reach the traffic plane (serving/traffic.py) and request
+tracing (serving/reqtrace.py): ``pin`` answers from the previous pin at
+the brownout ladder's stale rung, a traced flush pins a sampled trace
+id to the latency histogram as an exemplar, and :func:`serving_summary`
+carries the traffic keys (sheds, futures, brownout, scale, attribution,
+SLO).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch.serving import reqtrace
 from oap_mllib_tpu_torch.telemetry import flightrec
 from oap_mllib_tpu_torch.telemetry import metrics as _tm
 from oap_mllib_tpu_torch.utils import locktrace
@@ -83,12 +86,30 @@ def pin(cache: dict, name: str, host_array, device=None, *,
     ``Config.device``), cached in ``cache[name]`` as ``(host_array,
     tensor)``: the same array object on the same device returns the same
     tensor, anything else stages once, by one explicit host-to-device
-    copy, and replaces the entry.  ``allow_stale`` is the brownout
-    rung's seam (its traffic plane is not ported: no stale answer)."""
+    copy, and replaces the entry.  The copy is synchronous
+    (``non_blocking=False``), so a pin swapped in by one thread is whole
+    before another thread's flush reads it.
+
+    ``allow_stale``: at the brownout ladder's ``stale`` rung
+    (``traffic.brownout_stale_ok``) a replaced array answers from the
+    previous pin instead of waiting for its copy, booked in
+    ``oap_serve_stale_pins_total``; the new array stages at the next
+    call off the rung."""
     dev = resolve_device(device) if not isinstance(device, torch.device) else device
     ent = cache.get(name)
-    if ent is not None and ent[0] is host_array and ent[1].device == dev:
-        return ent[1]
+    if ent is not None and ent[1].device == dev:
+        if ent[0] is host_array:
+            return ent[1]
+        if allow_stale:
+            from oap_mllib_tpu_torch.serving import traffic
+
+            if traffic.brownout_stale_ok():
+                _tm.counter(
+                    "oap_serve_stale_pins_total",
+                    help="Requests answered from a stale device pin under "
+                         "the brownout ladder's stale rung",
+                ).inc()
+                return ent[1]
     host = np.asarray(host_array, np.float32)
     if dev.type == "cpu" or not host.flags.writeable:
         # a CPU pin must not alias the host array (its owner may write
@@ -109,11 +130,13 @@ def _observe_request(kind: str, wall_s: float, rows: int) -> None:
         "oap_serve_rows_total", lab,
         help="Request rows scored by the serving plane",
     ).inc(rows)
-    # request tracing's exemplar seam: no traced flush here
+    # a traced flush pins one of its sampled trace ids to the latency
+    # bucket as an exemplar (serving/reqtrace.py)
+    tid = reqtrace.exemplar_trace_id()
     _tm.histogram(
         "oap_serve_request_seconds", lab,
         help="Per-request serving latency (staging + scoring + fetch)",
-    ).observe(wall_s)
+    ).observe(wall_s, exemplar={"trace_id": tid} if tid is not None else None)
 
 
 class ServedModel:
@@ -442,7 +465,8 @@ def clear() -> None:
 def serving_summary() -> Dict[str, Any]:
     """The ``serving`` block: request, batch, pad-row and row totals,
     p50 / p99 latency from the log-bucket histogram (upper-bound bucket
-    quantiles), each handle's version and staleness, the queue depth."""
+    quantiles), each handle's version and staleness, the queue depth,
+    and the traffic plane's keys (``traffic.summary_block``)."""
     reqs = _tm.family_total("oap_serve_requests_total")
     block: Dict[str, Any] = {
         "models_pinned": len(_SERVED),
@@ -465,7 +489,9 @@ def serving_summary() -> Dict[str, Any]:
         ]
     with _DEPTH_LOCK:
         block["queue_depth"] = _queue_depth
-    # the traffic plane's keys (brownout, slo, attribution) join here
+    from oap_mllib_tpu_torch.serving import traffic
+
+    block.update(traffic.summary_block())
     return block
 
 

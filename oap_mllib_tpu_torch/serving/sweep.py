@@ -16,10 +16,12 @@ thread, not through the prefetch pipeline: a chunk is a few KB of query
 rows against a product that takes longer than its copy, and handing
 each one to a staging thread measured slower than the plain loop.
 
-The JAX package's factor-sharded ring sweep, ``shard_factors`` and the
-eviction ``reform`` hook serve models that keep a live sharded layout;
-the port's models gather their factors to the host, so every model here
-takes the streamed sweep.
+The JAX package's factor-sharded ring sweep, ``shard_factors`` /
+``shard_factors_local`` and the eviction ``reform`` hook (with its
+``ha.fleet_evicted`` check) serve models that keep a live sharded
+layout; the port's models gather their factors to the host, so every
+model here takes the streamed sweep.  They wait for a later slice (A5
+slice 3 in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -62,10 +64,15 @@ def recommend_for_all_users(model, num_items: int, *, with_scores: bool = False,
 def _pinned_targets(model, handle) -> torch.Tensor:
     """The pinned item table: the handle's generation when there is one
     (a handle with ``online_repin`` off keeps its own until re-pinned),
-    else the model's (one device copy either way)."""
+    else the model's (one device copy either way).  At the brownout
+    ladder's stale rung a replaced table answers from its previous pin
+    (``registry.pin``'s ``allow_stale``)."""
     if handle is not None:
         return handle.item_dev
-    return model._pinned(model.item_factors_)
+    from oap_mllib_tpu_torch.serving.registry import pin
+
+    return pin(model._dev_cache, "targets:item", model.item_factors_, model.device,
+               allow_stale=True)
 
 
 def sweep_streamed(query, targets_dev: torch.Tensor, n: int, *, with_scores: bool = False,

@@ -13,12 +13,13 @@ reports, and the fit boundary (the JAX package's ``telemetry/export.py``).
 - **Report**: :func:`report` renders one fit's span tree with its
   streamed overlap, compile split, program-cache and ladder counters,
   or with no summary the process's totals.
+- **Request ledgers**: :func:`emit_requests` appends the sampled
+  requests' ledgers (serving/reqtrace.py) as ``type: "request"``
+  records, rank- and seq-tagged like the rest.
 
 :func:`shutdown` is the one exit hook (:func:`register_shutdown`, at the
 first sink write or endpoint start): the recorder's drain and the final
 snapshot first, then the fleet endpoint stops.
-
-Not ported: ``emit_requests`` (the serving plane's request ledgers).
 """
 
 from __future__ import annotations
@@ -123,6 +124,27 @@ def _emit_final_snapshot() -> None:
         _write_lines(path, records)
     except OSError:
         pass  # a torn-down filesystem at exit must not mask the real exit
+
+
+def emit_requests(records: List[Dict[str, Any]]) -> int:
+    """Append finalized request-ledger records as ``type: "request"``
+    lines; returns the number written (0 with the sink off, and on an
+    ``OSError``: the sink is a diagnosis channel, never a liveness
+    one)."""
+    path = sink_path()
+    if path is None or not records:
+        return 0
+    register_shutdown()
+    rank = _rank()
+    out = [
+        dict(rec, type="request", rank=rank, seq=next(_seq))
+        for rec in records
+    ]
+    try:
+        _write_lines(path, out)
+    except OSError:
+        return 0
+    return len(out)
 
 
 def emit_fit(root: Span) -> None:

@@ -27,12 +27,13 @@ dispatch wall of every kernel launch so far (the
 process_id`` serves ``GET /metrics`` (the registry's Prometheus text,
 telemetry/metrics.py) and ``GET /healthz`` (the JAX package's keys: fit
 root, phase, step, ladder, last completed collective, flight-recorder
-seq, capability, rows processed; ``serving`` stays empty until the
-serving plane is ported).  It starts at the first fit boundary or
-folded pass and stops in :func:`stop_server` (the exit hook,
+seq, capability, rows processed, and the ``serving`` block of
+serving/traffic.serving_health_block) and ``GET /sloz`` (the SLO
+engine's state, serving/slo.py).  It starts at the first fit boundary
+or folded pass and stops in :func:`stop_server` (the exit hook,
 telemetry/export.shutdown).  A port that cannot be bound raises
 (the JAX package warns and serves nothing): an endpoint that was asked
-for is never skipped in silence.  ``/sloz`` waits for the serving plane.
+for is never skipped in silence.
 """
 
 from __future__ import annotations
@@ -351,7 +352,7 @@ def _healthz_payload() -> Dict[str, Any]:
         health = dict(_health)
         rows_done = (int(_row_totals[rank]) if _row_totals is not None
                      and rank < len(_row_totals) else 0)
-    return {
+    payload = {
         "ok": True,
         "rank": rank,
         "world": int(cfg.num_processes),
@@ -364,9 +365,22 @@ def _healthz_payload() -> Dict[str, Any]:
         "fleet_passes": health.get("step", 0),
         "capability": balance.cached_capability(),
         "rows_processed": rows_done,
-        # the serving plane's block: not ported yet
-        "serving": {},
     }
+    try:
+        from oap_mllib_tpu_torch.serving import traffic
+
+        payload["serving"] = traffic.serving_health_block()
+    except Exception:  # noqa: BLE001 -- health renders regardless
+        payload["serving"] = {}
+    return payload
+
+
+def _sloz_payload() -> Dict[str, Any]:
+    """``GET /sloz``: the SLO engine's state (``{"armed": false}`` with
+    ``serve_slo_p99_ms`` 0)."""
+    from oap_mllib_tpu_torch.serving import slo
+
+    return slo.state()
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -377,6 +391,9 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             ctype = "text/plain; version=0.0.4; charset=utf-8"
         elif path == "/healthz":
             body = (json.dumps(_healthz_payload(), sort_keys=True) + "\n").encode()
+            ctype = "application/json"
+        elif path == "/sloz":
+            body = (json.dumps(_sloz_payload(), sort_keys=True) + "\n").encode()
             ctype = "application/json"
         else:
             self.send_response(404)
@@ -431,7 +448,7 @@ def maybe_serve(cfg=None) -> Optional[int]:
     from oap_mllib_tpu_torch.telemetry import export as _export
 
     _export.register_shutdown()
-    log.info("fleet: serving /metrics and /healthz on port %d", port)
+    log.info("fleet: serving /metrics, /healthz and /sloz on port %d", port)
     return port
 
 

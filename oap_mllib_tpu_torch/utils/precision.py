@@ -37,6 +37,16 @@ CHOICES = TIERS + ("auto",)
 MATMUL_TIERS = ("highest", "high", "default")
 ALGOS = ("kmeans", "pca", "als")
 
+# The JAX package's registered bf16-vs-f32 parity bounds per algorithm
+# (its utils/precision.py): the brownout ladder's bf16 rung
+# (serving/traffic.brownout_precision_override) degrades the scoring of
+# an algorithm only when it has one.  ``auto`` does not read them here.
+PARITY_BOUNDS = {
+    "kmeans": {"centroid_rel": 5e-2, "cost_rel": 1e-2},
+    "pca": {"subspace_rad": 5e-2, "ratio_abs": 1e-2},
+    "als": {"factor_rel": 5e-2, "rmse_rel": 2e-2},
+}
+
 
 def _check(field: str, value: str, choices) -> str:
     if value not in choices:

@@ -234,6 +234,20 @@ class RetryPolicy:
             deadline_s=max(float(cfg.retry_deadline), 0.0),
         )
 
+    @classmethod
+    def for_serving(cls) -> "RetryPolicy":
+        """The traffic plane's durable-future envelope
+        (``Config.serve_retry_limit`` / ``serve_retry_backoff``): the same
+        jitter, a backoff capped at 0.5 s, and no deadline of its own
+        (each request carries one)."""
+        cfg = get_config()
+        return cls(
+            max_retries=max(int(cfg.serve_retry_limit), 0),
+            backoff_s=max(float(cfg.serve_retry_backoff), 0.0),
+            max_backoff_s=0.5,
+            deadline_s=float("inf"),
+        )
+
     def delay_s(self, attempt: int, site: str = "") -> float:
         """The wait before retry ``attempt`` (0-based), jittered."""
         base = min(self.backoff_s * (self.multiplier ** attempt), self.max_backoff_s)

@@ -477,8 +477,11 @@ class TestLiveEndpoint:
         assert ctype == "application/json" and health["ok"] and health["rank"] == 0
         assert set(health) == set(jax_fleet._healthz_payload())
         assert health["flight_recorder_seq"] >= 0
+        assert set(health["serving"]) == set(jax_fleet._healthz_payload()["serving"])
+        status, ctype, body = _get(port, "/sloz")
+        assert status == 200 and json.loads(body) == jax_fleet._sloz_payload() == {"armed": False}
         with pytest.raises(urllib.error.HTTPError):
-            _get(port, "/sloz")
+            _get(port, "/nothing")
         assert m.summary.telemetry["fit"] == "kmeans.fit"
 
     def test_a_port_in_use_raises(self):
