@@ -12,6 +12,7 @@
     python3 chip_smoke.py --telemetry  # only the build and 27
     python3 chip_smoke.py --online     # only the build and 28
     python3 chip_smoke.py --traffic    # only the build and 29
+    python3 chip_smoke.py --front      # only the build, 30 and 31
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -357,6 +358,44 @@ Phases, each a hard check (any failure exits non-zero):
    its scale decision lands in ``serve.scale.hint.json`` and the
    supervisor's ``_read_scale_hint`` reads it.
 
+30. serve_sharded (after als_block_2d; the factor-sharded serving on the
+   block fits' live layouts; ``--front`` fits them itself): (a) phase
+   12's ML-25M model (rank 10, replicated items, four ranks), which the
+   fit handed over without a gather (``summary["sharded_factors"]``):
+   ``sweep.recommend_for_all_users(model, 10, with_scores=True)`` runs
+   the per-rank fold of each user block against the pinned item table,
+   no kernel launched, held against the streamed sweep of the gathered
+   tables (ids equal on >= 99.99 % of the users, scores within 1e-6 of
+   their scale); users/s and each card's peak memory beside the streamed
+   sweep's; the same tables placed by ``shard_factors_local`` over the
+   four ranks sweep bit-equal to the live layout; (b) the same for phase
+   19's rank-32 model on the 2-D layout, the item blocks rotating
+   (``oap_serve_ring_hops_total`` up by the world a sweep); (c) world
+   "a", two processes on the one card (``--sweep-worker``): the rank-10
+   tables placed by ``shard_factors`` on the world's 2-D layout, both
+   processes' sweeps bit-equal and within the gate; process 1 SIGKILLs
+   itself, process 0's heartbeat evicts it, its next sweep is refused
+   (``PeerAbortError``) and re-forms once on its own card through
+   ``reform``, answering within the gate (``oap_serve_sweep_reforms_total``
+   1).  Under ``--mesh`` the four ranks lie on four cards.
+31. front_doors (after serve_sharded): the Spark-API compat layer on the
+   card, launch counts zeroed before each fit: (a)
+   ``compat.spark.KMeans().setK(1000).setMaxIter(20).setInitMode("k-means||")
+   .setSeed(0).fit({"features": x})`` at 2^20 x 256: K1 as often as
+   phase 5's native fit, centers bit-equal to it; transform and the
+   ``ClusteringEvaluator`` silhouette of 65,536 rows; (b)
+   ``compat.spark.PCA().setK(16)`` at 2^20 x 128: two K2 launches,
+   components within 1e-4 of the native fit; (c) ``compat.spark.ALS``
+   at the ML-25M table, rank 32, ``setNumUserBlocks(4)`` on four ranks:
+   K3 = K4 as phase 19's native fit, the live 2-D layout kept,
+   ``recommendForAllUsers(10)`` through the ring sweep (hops booked)
+   bit-equal to (b) of phase 30, ``transform`` with
+   ``coldStartStrategy="drop"`` (1,000 cold rows dropped) and the
+   ``RegressionEvaluator``; (d) a small ``Pipeline`` (PCA, K-Means)
+   saved, loaded and run bit-equal; (e) the pyspark adapter on a
+   duck-typed DataFrame against the dict plane; (f) the port's
+   ``examples/run_all.sh`` on the card, each example exit 0.
+
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
 
@@ -383,7 +422,7 @@ import time
 import numpy as np
 import torch
 
-from oap_mllib_tpu_torch import ALS, PCA, KMeans, config, get_mesh, set_config
+from oap_mllib_tpu_torch import ALS, PCA, ALSModel, KMeans, config, get_mesh, set_config
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import ShardedTable
@@ -1710,6 +1749,10 @@ def phase_als_block_fit(cfg, data, dev, one_device):
     wall = time.perf_counter() - t0
     launches = dict(als_kernel.LAUNCHES)
     s = model.summary
+    # the model keeps the fit's live blocks: nothing gathered yet
+    kept = bool(s.get("sharded_factors")) and model._user_factors is None
+    check(kept, "block ALS: the fit gathered its user factors")
+    model.fit_launches = launches
     expect = 2 * world * it if dev.type == "cuda" else 0
     check(s["kernels"] == launches, f"summary kernels {s['kernels']} != counters {launches}")
     check(launches == {als_kernel.SOLVE: expect, als_kernel.GRAM: expect},
@@ -1746,9 +1789,9 @@ def phase_als_block_fit(cfg, data, dev, one_device):
     fit = {"devices": layout, "world": world, "layout": s["als_kernel"], "wall_s": wall,
            "phases_s": phases, "iters_per_s": it / phases["als_iterations"],
            "launches": launches, "pred_rel_err_vs_one_device": err, "users_compared": len(q),
-           "iteration_by_card": iteration}
+           "iteration_by_card": iteration, "sharded_factors": kept}
     emit("als_block_fit", fit)
-    return fit
+    return fit, model
 
 
 # -- out of core: the streamed routes and the 2-D ALS layout ------------------
@@ -2288,9 +2331,10 @@ def phase_als_block_2d(cfg, data, dev):
             als_kernel.reset_launches()
             t0 = time.perf_counter()
             m = ALS(device=layout, **kw).fit(users, items, ratings, n_users, n_items)
+            m.fit_launches = dict(als_kernel.LAUNCHES)
             runs[m.summary["item_layout"]] = {
                 "model": m, "wall_s": time.perf_counter() - t0,
-                "launches": dict(als_kernel.LAUNCHES),
+                "launches": m.fit_launches, "kept": m._user_factors is None,
                 "peak_mem_gb": {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 1e9
                                 for c in cards}}
         finally:
@@ -2298,6 +2342,8 @@ def phase_als_block_2d(cfg, data, dev):
     check(set(runs) == {"sharded", "replicated"}, f"item layouts {sorted(runs)}")
     model, launches = runs["sharded"]["model"], runs["sharded"]["launches"]
     s = model.summary
+    check(all(run["kept"] for run in runs.values()) and model._item_factors is None,
+          "2-D ALS: a block fit gathered its factors")
     expect = 2 * 4 * it if dev.type == "cuda" else 0
     check(launches == {als_kernel.SOLVE: expect, als_kernel.GRAM: expect} == s["kernels"],
           f"2-D ALS launches {launches}, expected 2 * 4 * {it} = {expect} of each")
@@ -2318,7 +2364,7 @@ def phase_als_block_2d(cfg, data, dev):
            "peak_mem_gb_by_card": peaks, "kernel_checks": kernel_checks,
            "one_device_iters_per_s": it / one.summary["timings"].as_dict()["als_iterations"]}
     emit("als_block_2d", out)
-    return out
+    return out, model
 
 
 def als_source(users, items, ratings):
@@ -4364,14 +4410,17 @@ def sup_worker(argv) -> int:
                  implicit_prefs=True, alpha=acfg["alpha"], seed=0,
                  num_user_blocks=world if world > 1 else None).fit(
             users[part], items[part], ratings[part], acfg["n_users"], acfg["n_items"])
+        # a block fit keeps its factors sharded: every process gathers
+        # them together (a collective)
+        al_u, al_i = al.user_factors_, al.item_factors_
     except recovery.RecoveryError as e:
         print(f"VICTIM {type(e).__name__} op={e.op} axis={e.axis} "
               f"elapsed_s={e.elapsed_s:.3f}", flush=True)
         recovery.exit_now(3)
     if rank == 0:
         np.save(os.path.join(out, f"{tag}_centers.npy"), km.cluster_centers_)
-        np.save(os.path.join(out, f"{tag}_u.npy"), al.user_factors_)
-        np.save(os.path.join(out, f"{tag}_i.npy"), al.item_factors_)
+        np.save(os.path.join(out, f"{tag}_u.npy"), al_u)
+        np.save(os.path.join(out, f"{tag}_i.npy"), al_i)
     res.update({
         "kmeans": {"checkpoint": km.summary.checkpoint, "num_iter": km.summary.num_iter,
                    "ladder": km.summary.resilience["ladder"]},
@@ -6083,6 +6132,496 @@ def phase_serve_traffic(cfg, dev, slab=None, km_model=None, rehearse=False):
     return out
 
 
+# -- the factor-sharded serving (30) and the Spark-API front doors (31) --------
+
+SHARDED_SERVE = {"n": 10, "world": 4}
+SWEEP_TIMEOUT_S = 300
+# the front doors: the headline K-Means table, the PCA table, the ALS
+# table at rank 32 (the 2-D layout of phase 19), a small pipeline and a
+# small table through the pyspark adapter
+FRONT_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "pca": (1 << 20, 128),
+              "pca_k": 16, "test_rows": 200_000, "cold": 1000, "sil_rows": 1 << 16,
+              "pipe": (4096, 32), "spark_rows": 2048}
+FRONT_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "pca": (3001, 37), "pca_k": 5,
+              "test_rows": 2000, "cold": 50, "sil_rows": 1024, "pipe": (512, 12),
+              "spark_rows": 256}
+
+
+class configured:
+    """``set_config(**fields)`` for a ``with`` block, the fields' earlier
+    values restored after it."""
+
+    def __init__(self, **fields):
+        self.fields = fields
+
+    def __enter__(self):
+        cfg = config.get_config()
+        self.before = {k: getattr(cfg, k) for k in self.fields}
+        set_config(**self.fields)
+
+    def __exit__(self, *exc):
+        set_config(**self.before)
+        return False
+
+
+def _fit_block(cfg, data, dev, rank, item_layout):
+    """The block ALS of phases 12 (rank 10, replicated items) and 19 (rank
+    32, the 2-D layout) on four ranks, counts zeroed just before: the
+    model keeps its live layout (nothing gathered in the fit)."""
+    users, items, ratings = data
+    devs = mesh_devices(dev, SHARDED_SERVE["world"])
+    with configured(als_item_layout=item_layout):
+        als_kernel.reset_launches()
+        model = ALS(rank=rank, max_iter=cfg["max_iter"], reg_param=cfg["reg"],
+                    implicit_prefs=True, alpha=cfg["alpha"], seed=0,
+                    device=",".join(str(v) for v in devs)).fit(
+            users, items, ratings, cfg["n_users"], cfg["n_items"])
+    check(model.summary.get("sharded_factors") and model._user_factors is None,
+          "block ALS: the fit gathered its factors")
+    model.fit_launches = dict(als_kernel.LAUNCHES)
+    return model
+
+
+def _sweep_gate(tag, ids, scores, ref_ids, ref_scores):
+    """ids equal on >= MIN_AGREEMENT of the users (near-ties may swap),
+    scores within 1e-6 of the reference's scale."""
+    rows = float(np.mean(np.all(ids == ref_ids, axis=1)))
+    rel = float(np.max(np.abs(scores - ref_scores)) / max(np.max(np.abs(ref_scores)), 1e-30))
+    check(ids.shape == ref_ids.shape and rows >= MIN_AGREEMENT and rel <= 1e-6,
+          f"{tag}: ids equal on {rows:.6f} of the users, scores rel err {rel:.3g}")
+    return {"ids_equal_rows": rows, "scores_rel_err": rel}
+
+
+def _timed_sweep(model, n, devs):
+    """The sweep warm, then timed once: ``(ids, scores, wall_s, peak GB by
+    card)``."""
+    from oap_mllib_tpu_torch.serving import sweep
+
+    sweep.recommend_for_all_users(model, n, with_scores=True)
+    cards = sorted({d.index for d in devs if d.type == "cuda"})
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    ids, scores = sweep.recommend_for_all_users(model, n, with_scores=True)
+    wall = time.perf_counter() - t0
+    peak = {f"cuda:{c}": torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+    return ids, scores, wall, peak
+
+
+def _sharded_leg(tag, model, cfg, dev):
+    """One model's sweep from its live layout against the streamed sweep of
+    its gathered tables, the ring hops booked, and the sweep of the same
+    tables placed by ``shard_factors_local`` bit-equal to the live one."""
+    from oap_mllib_tpu_torch.serving import sweep
+
+    n, world = SHARDED_SERVE["n"], SHARDED_SERVE["world"]
+    devs = mesh_devices(dev, world)
+    two_d = model._sharded_item is not None
+    check(len(als_block.data_ranks(model._sharded_user.mesh)) == world,
+          f"{tag}: the live layout has {model._sharded_user.mesh.shape} ranks")
+    _zero_launches()
+    hops = tel_metrics.family_total("oap_serve_ring_hops_total")
+    ids, scores, wall, peak = _timed_sweep(model, n, devs)
+    hops = int(tel_metrics.family_total("oap_serve_ring_hops_total") - hops)
+    check(hops == (2 * world if two_d else 0),
+          f"{tag}: {hops} ring hops over two sweeps, expected {2 * world if two_d else 0}")
+    check(not any(_launches().values()), f"{tag}: the sweep launched {_launches()}")
+    check(model._sharded_user is not None, f"{tag}: the sweep dropped the live layout")
+    uf, itf = model.user_factors_, model.item_factors_
+    host = ALSModel(uf, itf, device=str(dev))
+    t0 = time.perf_counter()
+    ref_ids, ref_scores = sweep.recommend_for_all_users(host, n, with_scores=True)
+    ref_wall = time.perf_counter() - t0
+    gate = _sweep_gate(tag, ids, scores, ref_ids, ref_scores)
+    check(np.all(np.isfinite(scores)) and ids.min() >= 0 and ids.max() < itf.shape[0],
+          f"{tag}: ids or scores out of range")
+    with configured(device=",".join(str(v) for v in devs)):
+        local = ALSModel(None, None if two_d else itf, device=str(devs[0]),
+                         sharded_user=sweep.shard_factors_local(uf),
+                         sharded_item=sweep.shard_factors_local(itf) if two_d else None)
+    l_ids, l_scores = sweep.recommend_for_all_users(local, n, with_scores=True)
+    same_local = bool(np.array_equal(l_ids, ids) and np.array_equal(l_scores, scores))
+    check(same_local, f"{tag}: the shard_factors_local sweep differs from the live layout's")
+    out = {"rank": model.rank, "item_layout": model.summary["item_layout"],
+           "n_users": int(uf.shape[0]), "n_items": int(itf.shape[0]), "n": n,
+           "fit_launches": getattr(model, "fit_launches", None), "ring_hops": hops // 2,
+           "sweep_s": wall, "users_per_s": uf.shape[0] / wall, "peak_mem_gb": peak,
+           "streamed_sweep_s": ref_wall, "streamed_users_per_s": uf.shape[0] / ref_wall,
+           "vs_streamed": gate, "shard_factors_local_bit_equal": same_local}
+    emit(f"serve_sharded_{tag}", out)
+    return out, (ids, scores, ref_ids, ref_scores)
+
+
+def sweep_worker(argv) -> int:
+    """One process of the two-process leg of phase 30: the host tables
+    placed on the world's block layout by ``shard_factors``, swept; then
+    process 1 SIGKILLs itself, and process 0's heartbeat evicts it, its
+    next sweep is refused and re-forms on its own card."""
+    import signal
+
+    from oap_mllib_tpu_torch import serving
+    from oap_mllib_tpu_torch.parallel import bootstrap
+    from oap_mllib_tpu_torch.serving import ha, sweep
+    from oap_mllib_tpu_torch.utils import recovery
+
+    rank, port, out, device = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    n = SHARDED_SERVE["n"]
+    set_config(device=device, crash_dir=os.path.join(out, "sideband"), collective_timeout=60.0)
+    bootstrap.initialize_distributed(f"127.0.0.1:{port}", 2, rank, launcher_store=True)
+    uf, itf = np.load(os.path.join(out, "uf.npy")), np.load(os.path.join(out, "itf.npy"))
+    mesh = get_mesh()
+    model = ALSModel(None, None, device=device, sharded_user=sweep.shard_factors(uf, mesh),
+                     sharded_item=sweep.shard_factors(itf, mesh))
+    hops = tel_metrics.family_total("oap_serve_ring_hops_total")
+    t0 = time.perf_counter()
+    ids, scores = sweep.recommend_for_all_users(model, n, with_scores=True)
+    wall = time.perf_counter() - t0
+    np.save(os.path.join(out, f"ids{rank}.npy"), ids)
+    np.save(os.path.join(out, f"scores{rank}.npy"), scores)
+    guard = serving.ReplicaGuard()
+    with guard.leg():
+        view = serving.heartbeat()
+    res = {"rank": rank, "world": view["world"], "sweep_s": wall,
+           "hops": int(tel_metrics.family_total("oap_serve_ring_hops_total") - hops)}
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    with guard.leg():
+        serving.heartbeat()
+    reforms = tel_metrics.family_total("oap_serve_sweep_reforms_total")
+    errors = []
+
+    def reform(exc):
+        errors.append(type(exc).__name__)
+        return ALSModel(None, None, device=device, sharded_user=sweep.shard_factors_local(uf),
+                        sharded_item=sweep.shard_factors_local(itf))
+
+    t0 = time.perf_counter()
+    ids, scores = sweep.recommend_for_all_users(model, n, with_scores=True, reform=reform)
+    res.update(evicted=ha.fleet_evicted(), errors=errors, reform_sweep_s=time.perf_counter() - t0,
+               reforms=int(tel_metrics.family_total("oap_serve_sweep_reforms_total") - reforms))
+    np.save(os.path.join(out, "ids_reformed.npy"), ids)
+    np.save(os.path.join(out, "scores_reformed.npy"), scores)
+    print("SWEEP_RESULT " + json.dumps(res), flush=True)
+    recovery.exit_now(0)
+    return 0
+
+
+def sharded_world(uf, itf, ref, dev, rehearse):
+    """Phase 30's two-process leg in world "a" (two processes on the one
+    card): both sweep the 2-D placement of the tables and agree bit for
+    bit; process 1 dies by SIGKILL; the survivor re-forms once and
+    answers as the host reference does."""
+    import datetime
+
+    import torch.distributed as dist
+
+    out = _scratch("serve_sharded_world")
+    np.save(os.path.join(out, "uf.npy"), uf)
+    np.save(os.path.join(out, "itf.npy"), itf)
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=SWEEP_TIMEOUT_S))
+    flags = ["--rehearse"] if rehearse else []
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sweep-worker",
+                               str(r), str(store.port), out, str(dev), *flags],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        text = procs[0].communicate(timeout=SWEEP_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        raise Failed(f"serve_sharded (world): the survivor did not end within {SWEEP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+        del store
+    wall = time.perf_counter() - t0
+    got = [ln for ln in text.splitlines() if ln.startswith("SWEEP_RESULT ")]
+    if procs[0].returncode != 0 or not got:
+        print(text[-4000:], flush=True)
+    check(procs[0].returncode == 0 and bool(got),
+          f"serve_sharded (world): the survivor exited {procs[0].returncode}")
+    check(procs[1].returncode == -9,
+          f"serve_sharded (world): process 1 exited {procs[1].returncode}")
+    res = json.loads(got[-1][len("SWEEP_RESULT "):])
+    load = {name: np.load(os.path.join(out, f"{name}.npy"))
+            for name in ("ids0", "ids1", "scores0", "scores1", "ids_reformed",
+                         "scores_reformed")}
+    same = bool(np.array_equal(load["ids0"], load["ids1"])
+                and np.array_equal(load["scores0"], load["scores1"]))
+    check(same, "serve_sharded (world): the two processes' sweeps differ")
+    check(res["world"] == 2 and res["hops"] == 2,
+          f"serve_sharded (world): world {res['world']}, {res['hops']} hops")
+    check(res["evicted"] and res["errors"] == ["PeerAbortError"] and res["reforms"] == 1,
+          f"serve_sharded (world): the survivor did not re-form once ({res})")
+    ref_ids, ref_scores = ref
+    res.update(wall_s=wall, processes_bit_equal=same,
+               vs_streamed=_sweep_gate("serve_sharded (world)", load["ids0"], load["scores0"],
+                                       ref_ids, ref_scores),
+               reformed_vs_streamed=_sweep_gate("serve_sharded (world, re-formed)",
+                                                load["ids_reformed"],
+                                                load["scores_reformed"], ref_ids, ref_scores))
+    emit("serve_sharded_world", res)
+    return res
+
+
+def phase_serve_sharded(als_cfg, data, dev, rehearse, replicated=None, two_d=None):
+    """Phase 30: the factor-sharded serving on the ML-25M models of the
+    block fits (phase 12's rank 10 with replicated items, phase 19's rank
+    32 on the 2-D layout; fitted here when not given), then the world."""
+    t0 = time.perf_counter()
+    replicated = replicated or _fit_block(als_cfg, data, dev, als_cfg["rank"], "auto")
+    two_d = two_d or _fit_block(als_cfg, data, dev, als_cfg["wide_rank"], als_cfg["layout_2d"])
+    check(replicated._sharded_item is None and two_d._sharded_item is not None,
+          "serve_sharded: the item layouts are not replicated and 2-D")
+    out = {}
+    out["replicated"], (_, _, ref_ids, ref_scores) = _sharded_leg("replicated", replicated,
+                                                                  als_cfg, dev)
+    out["two_d"], two_d_result = _sharded_leg("two_d", two_d, als_cfg, dev)
+    out["world"] = sharded_world(replicated.user_factors_, replicated.item_factors_,
+                                 (ref_ids, ref_scores), dev, rehearse)
+    emit("serve_sharded", {"users_per_s": {k: out[k]["users_per_s"]
+                                           for k in ("replicated", "two_d")},
+                           "world_wall_s": out["world"]["wall_s"],
+                           "wall_s": time.perf_counter() - t0})
+    return out, two_d_result
+
+
+class FakeSession:
+    """The duck-typed SparkSession surface the pyspark adapter touches."""
+
+    def createDataFrame(self, data, schema):
+        return FakeDataFrame({name: [row[j] for row in data] for j, name in enumerate(schema)},
+                             self)
+
+
+class FakeDataFrame:
+    """The duck-typed DataFrame surface the pyspark adapter touches:
+    select, collect, columns, sparkSession."""
+
+    def __init__(self, columns, session):
+        self._cols, self.sparkSession = columns, session
+
+    @property
+    def columns(self):
+        return list(self._cols)
+
+    def select(self, *names):
+        return FakeDataFrame({n: self._cols[n] for n in names}, self.sparkSession)
+
+    def collect(self):
+        names = list(self._cols)
+        n = len(self._cols[names[0]]) if names else 0
+        return [tuple(self._cols[c][i] for c in names) for i in range(n)]
+
+
+def front_kmeans(cfg, dev, km_ref):
+    """(a) the compat K-Means at the headline shape: K1 as often as the
+    native fit, centers bit-equal to it; transform and the silhouette of
+    a slice."""
+    from oap_mllib_tpu_torch.compat import spark
+
+    x_dev = blobs(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)[0]
+    if km_ref is None:
+        kmeans_kernel.reset_launches()
+        native = KMeans(k=cfg["k"], max_iter=cfg["max_iter"], tol=1e-4, init_mode="k-means||",
+                        seed=0, device=str(dev)).fit(x_dev)
+        km_ref = (dict(kmeans_kernel.LAUNCHES), native.cluster_centers_)
+    x = x_dev.cpu().numpy()
+    del x_dev
+    kmeans_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model = (spark.KMeans().setK(cfg["k"]).setMaxIter(cfg["max_iter"]).setInitMode("k-means||")
+             .setSeed(0).fit({"features": x}))
+    wall = time.perf_counter() - t0
+    launches = dict(kmeans_kernel.LAUNCHES)
+    check(launches == km_ref[0], f"front_doors (a): K1 {launches}, the native fit {km_ref[0]}")
+    same = bool(np.array_equal(model.clusterCenters(), km_ref[1]))
+    check(same, "front_doors (a): the compat centers differ from the native fit's")
+    rows = cfg["sil_rows"]
+    pred = model.transform({"features": x})
+    check(pred["prediction"].shape == (cfg["n"],) and set(pred) == {"features", "prediction"},
+          "front_doors (a): transform columns")
+    sil = spark.ClusteringEvaluator().evaluate(
+        {"features": x[:rows], "prediction": pred["prediction"][:rows]})
+    check(np.isfinite(sil) and -1.0 <= sil <= 1.0, f"front_doors (a): silhouette {sil}")
+    return {"launches": launches, "centers_bit_equal": same, "wall_s": wall,
+            "num_iter": model.summary.num_iter, "silhouette_rows": rows, "silhouette": sil}
+
+
+def front_pca(cfg, dev):
+    """(b) the compat PCA: two K2 launches, components against the native
+    fit of the same table (sign-insensitive)."""
+    from oap_mllib_tpu_torch.compat import spark
+
+    n, d = cfg["pca"]
+    x_dev = pca_data(n, d, dev, seed=d)
+    native = PCA(k=cfg["pca_k"], device=str(dev)).fit(x_dev)
+    x = x_dev.cpu().numpy()
+    del x_dev
+    pca_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model = spark.PCA().setK(cfg["pca_k"]).fit({"features": x})
+    wall = time.perf_counter() - t0
+    launches = dict(pca_kernel.LAUNCHES)
+    expect = 2 if dev.type == "cuda" else 0
+    check(launches[pca_kernel.KERNEL] == expect,
+          f"front_doors (b): K2 launched {launches[pca_kernel.KERNEL]}, expected {expect}")
+    err = sign_err(model.pc, native.components_)
+    check(err <= PCA_FIT_TOL, f"front_doors (b): components {err:.3g} from the native fit")
+    proj = model.transform({"features": x[:4096]})["pcaFeatures"]
+    check(proj.shape == (min(4096, n), cfg["pca_k"]) and np.all(np.isfinite(proj)),
+          "front_doors (b): transform")
+    return {"launches": launches, "components_err": err, "wall_s": wall,
+            "bit_equal": bool(np.array_equal(model.pc, native.components_))}
+
+
+def front_als(cfg, als_cfg, data, dev, two_d_result, block_launches):
+    """(c) the compat ALS at the ML-25M table with setNumUserBlocks(4) on
+    the four ranks (rank 32, the 2-D layout of phase 19): K3 / K4 as the
+    native block fit, the live layout kept, transform with "drop",
+    recommendForAllUsers through the ring sweep bit-equal to phase 30's
+    sweep of the native fit, the RegressionEvaluator."""
+    from oap_mllib_tpu_torch.compat import spark
+
+    users, items, ratings = data
+    devs = mesh_devices(dev, SHARDED_SERVE["world"])
+    df = {"user": users, "item": items, "rating": ratings}
+    with configured(device=",".join(str(v) for v in devs), als_item_layout=als_cfg["layout_2d"]):
+        als_kernel.reset_launches()
+        t0 = time.perf_counter()
+        model = (spark.ALS().setRank(als_cfg["wide_rank"]).setMaxIter(als_cfg["max_iter"])
+                 .setRegParam(als_cfg["reg"]).setAlpha(als_cfg["alpha"]).setImplicitPrefs(True)
+                 .setSeed(0).setNumUserBlocks(SHARDED_SERVE["world"])
+                 .setColdStartStrategy("drop").fit(df))
+        wall = time.perf_counter() - t0
+        launches = dict(als_kernel.LAUNCHES)
+        inner = model._inner
+        s = inner.summary
+        check(s["sharded_factors"] and s["item_layout"] == "sharded"
+              and inner._user_factors is None and s["num_user_blocks"] == SHARDED_SERVE["world"],
+              f"front_doors (c): the block fit's layout {s.get('item_layout')}")
+        hops = tel_metrics.family_total("oap_serve_ring_hops_total")
+        t0 = time.perf_counter()
+        ids, scores = model.recommendForAllUsers(SHARDED_SERVE["n"], withScores=True)
+        sweep_s = time.perf_counter() - t0
+        hops = int(tel_metrics.family_total("oap_serve_ring_hops_total") - hops)
+    check(launches == block_launches,
+          f"front_doors (c): K3 / K4 {launches}, the native block fit {block_launches}")
+    check(hops == SHARDED_SERVE["world"] and inner._user_factors is None,
+          f"front_doors (c): {hops} ring hops, the factors gathered: "
+          f"{inner._user_factors is not None}")
+    same = bool(np.array_equal(ids, two_d_result[0]) and np.array_equal(scores, two_d_result[1]))
+    check(same, "front_doors (c): recommendForAllUsers differs from the native fit's sweep")
+    rows, cold = cfg["test_rows"], cfg["cold"]
+    test = {"user": np.concatenate([users[:rows], als_cfg["n_users"] + np.arange(cold)]),
+            "item": np.concatenate([items[:rows], items[:cold]]),
+            "rating": np.concatenate([ratings[:rows], ratings[:cold]])}
+    t0 = time.perf_counter()
+    out = model.transform(test)
+    transform_s = time.perf_counter() - t0
+    check(len(out["prediction"]) == rows and np.all(np.isfinite(out["prediction"])),
+          f"front_doors (c): transform kept {len(out['prediction'])} of {rows + cold} rows")
+    want = inner.predict(users[:rows], items[:rows])
+    check(np.allclose(out["prediction"], want, rtol=1e-6, atol=1e-6),
+          "front_doors (c): transform differs from the model's predict")
+    rmse = spark.RegressionEvaluator(metricName="rmse", labelCol="rating").evaluate(out)
+    direct = float(np.sqrt(np.mean((out["prediction"].astype(np.float64)
+                                    - ratings[:rows].astype(np.float64)) ** 2)))
+    check(abs(rmse - direct) <= 1e-9 * max(1.0, direct),
+          f"front_doors (c): rmse {rmse} against {direct}")
+    return {"launches": launches, "wall_s": wall, "ring_hops": hops, "sweep_s": sweep_s,
+            "sweep_bit_equal_to_native": same, "transform_rows": rows + cold,
+            "transform_kept": int(len(out["prediction"])), "transform_s": transform_s,
+            "rmse": rmse}
+
+
+def front_pipeline(cfg, dev):
+    """(d) a small Pipeline (PCA, then K-Means) fitted, saved, loaded and
+    run: bit-equal to the fitted one."""
+    from oap_mllib_tpu_torch.compat import pipeline, spark
+
+    n, d = cfg["pipe"]
+    x = np.random.default_rng(5).normal(size=(n, d)).astype(np.float32)
+    pm = pipeline.Pipeline(stages=[
+        spark.PCA().setK(4).setOutputCol("pca"),
+        spark.KMeans().setK(8).setSeed(1).setInitMode("random").setFeaturesCol("pca")]).fit(
+        {"features": x})
+    path = _scratch("front_pipeline")
+    pm.save(path)
+    back = pipeline.PipelineModel.load(path)
+    a, b = pm.transform({"features": x}), back.transform({"features": x})
+    same = bool(np.array_equal(a["pca"], b["pca"])
+                and np.array_equal(a["prediction"], b["prediction"]))
+    check(same, "front_doors (d): the loaded pipeline's output differs")
+    shutil.rmtree(path, ignore_errors=True)
+    return {"rows": n, "bit_equal": same}
+
+
+def front_pyspark(cfg, dev):
+    """(e) the pyspark adapter on a duck-typed DataFrame (no pyspark): the
+    K-Means and ALS adapters against the dict plane on the same rows."""
+    from oap_mllib_tpu_torch.compat import pyspark, spark
+
+    rng = np.random.default_rng(9)
+    n = cfg["spark_rows"]
+    x = (rng.normal(size=(8, 16)) * 6)[rng.integers(8, size=n)] + rng.normal(size=(n, 16))
+    sess = FakeSession()
+    df = FakeDataFrame({"features": [list(r) for r in x]}, sess)
+    out = pyspark.KMeans(k=8, seed=1).fit(df).transform(df)
+    want = spark.KMeans().setK(8).setSeed(1).fit({"features": x}).transform({"features": x})
+    labels = [r[-1] for r in out.collect()]
+    check(out.columns == ["features", "prediction"]
+          and labels == [int(v) for v in want["prediction"]],
+          "front_doors (e): the K-Means adapter differs from the dict plane")
+    u, i = rng.integers(0, 60, n), rng.integers(0, 40, n)
+    r = rng.random(n).astype(np.float32)
+    rdf = FakeDataFrame({"userId": [int(v) for v in u], "movieId": [int(v) for v in i],
+                         "rating": [float(v) for v in r]}, sess)
+    kw = dict(rank=4, maxIter=3, userCol="userId", itemCol="movieId", ratingCol="rating",
+              coldStartStrategy="drop")
+    als_rows = pyspark.ALS(**kw).fit(rdf).transform(rdf).collect()
+    dict_model = spark.ALS().setRank(4).setMaxIter(3).setUserCol("userId").setItemCol(
+        "movieId").setColdStartStrategy("drop").fit({"userId": u, "movieId": i, "rating": r})
+    want = dict_model.transform({"userId": u, "movieId": i, "rating": r})["prediction"]
+    same = bool(np.array_equal(np.asarray([row[-1] for row in als_rows], np.float32), want))
+    check(same, "front_doors (e): the ALS adapter differs from the dict plane")
+    return {"rows": n, "kmeans_equal": True, "als_equal": same,
+            "have_pyspark": pyspark.HAVE_PYSPARK}
+
+
+def front_examples(dev):
+    """(f) the port's examples through their run_all.sh on this device,
+    each exit 0."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "oap_mllib_tpu_torch",
+                          "examples", "run_all.sh")
+    t0 = time.perf_counter()
+    done = subprocess.run(["bash", script, "--device", "cuda" if dev.type == "cuda" else "cpu"],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    ran = done.stdout.count("=== ")
+    if done.returncode != 0:
+        print(done.stdout[-3000:], done.stderr[-3000:], flush=True)
+    check(done.returncode == 0 and ran == 9 and "All examples completed." in done.stdout,
+          f"front_doors (f): run_all.sh exited {done.returncode} after {ran} examples")
+    return {"examples": ran, "wall_s": wall}
+
+
+def phase_front_doors(cfg, als_cfg, data, dev, two_d_result, block_launches, km_ref=None):
+    """Phase 31: the Spark-API front doors, their fits on ``Config.device``
+    (this device; the ALS leg's four ranks)."""
+    t0 = time.perf_counter()
+    with configured(device=str(dev)):
+        out = {"a_kmeans": front_kmeans(cfg, dev, km_ref), "b_pca": front_pca(cfg, dev),
+               "c_als": front_als(cfg, als_cfg, data, dev, two_d_result, block_launches),
+               "d_pipeline": front_pipeline(cfg, dev), "e_pyspark": front_pyspark(cfg, dev)}
+    out["f_examples"] = front_examples(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    emit("front_doors", out)
+    return out
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -6121,6 +6660,8 @@ def main(argv=None) -> int:
         return sup_worker(argv[1:])
     if argv[:1] == ["--ha-worker"]:
         return ha_worker(argv[1:])
+    if argv[:1] == ["--sweep-worker"]:
+        return sweep_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
@@ -6142,6 +6683,9 @@ def main(argv=None) -> int:
     ap.add_argument("--traffic", action="store_true",
                     help="only the build and the serving front's phase (29); prints no ok "
                          "line")
+    ap.add_argument("--front", action="store_true",
+                    help="only the build, the factor-sharded serving (30) and the front "
+                         "doors (31); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -6164,6 +6708,14 @@ def main(argv=None) -> int:
                                 rehearse=args.rehearse)
             print(f"serve_traffic phase passed: {smi}", flush=True)
             return 0
+        if args.front:
+            als_cfg = ALS_TINY if args.rehearse else ALS_FULL
+            data = als_data(als_cfg)
+            sharded, two_d = phase_serve_sharded(als_cfg, data, dev, args.rehearse)
+            phase_front_doors(FRONT_TINY if args.rehearse else FRONT_FULL, als_cfg, data, dev,
+                              two_d, sharded["two_d"]["fit_launches"])
+            print(f"serve_sharded and front_doors phases passed: {smi}", flush=True)
+            return 0
         if args.block_stream:
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
             phase_block_stream(als_cfg, als_data(als_cfg), dev)
@@ -6184,8 +6736,10 @@ def main(argv=None) -> int:
             phase_pca_mesh_fit(PCA_TINY if args.rehearse else PCA_FULL, dev)
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
             als_data_ = als_data(als_cfg)
-            phase_als_block_fit(als_cfg, als_data_, dev, None)
-            phase_als_block_2d(als_cfg, als_data_, dev)
+            _, rep_model = phase_als_block_fit(als_cfg, als_data_, dev, None)
+            _, two_d_model = phase_als_block_2d(als_cfg, als_data_, dev)
+            phase_serve_sharded(als_cfg, als_data_, dev, args.rehearse, rep_model, two_d_model)
+            del rep_model, two_d_model
             phase_block_stream(als_cfg, als_data_, dev)
             del als_data_
             mp = phase_mp(dev, True, args.rehearse)
@@ -6210,6 +6764,9 @@ def main(argv=None) -> int:
         last_card = phase_last_card(dev)
         max_iter = 20 if dev.type == "cuda" else 5
         fit, km_model = phase_fit(x, dev, cfg, max_iter)
+        # the front doors' K-Means is held to this fit (31), before the
+        # online phases move the model's centers
+        km_ref = (fit["launches"], km_model.cluster_centers_.copy())
         phase_loop_parity(x, dev, cfg, max_iter)
         serve_cfg = SERVE_TINY if args.rehearse else SERVE_FULL
         # phase 28 serves requests from the blobs' first rows: a host
@@ -6224,7 +6781,7 @@ def main(argv=None) -> int:
         data = als_data(als_cfg)
         solves, grams = phase_als_kernels(als_cfg, data, dev, 2 * reps)
         als_fit, als_model = phase_als_fit(als_cfg, data, dev)
-        als_block = phase_als_block_fit(als_cfg, data, dev, als_model)
+        als_block, block_model = phase_als_block_fit(als_cfg, data, dev, als_model)
         # the headline K-Means and the ML-25M ALS served, updated online
         serve_online = phase_serve_online(serve_cfg, als_cfg, dev, km_slab, km_model, data,
                                           als_model)
@@ -6236,7 +6793,15 @@ def main(argv=None) -> int:
                           args.rehearse)
         rate = pinned_h2d_rate(dev)
         stream_als = phase_stream_als(als_cfg, data, dev, als_model, rate)
-        block_2d = phase_als_block_2d(als_cfg, data, dev)
+        block_2d, block_2d_model = phase_als_block_2d(als_cfg, data, dev)
+        # the factor-sharded serving on the two block fits' live layouts
+        # (30), then the front doors (31)
+        sharded, two_d_sweep = phase_serve_sharded(als_cfg, data, dev, args.rehearse,
+                                                   block_model, block_2d_model)
+        del block_model, block_2d_model
+        front = phase_front_doors(FRONT_TINY if args.rehearse else FRONT_FULL, als_cfg, data,
+                                  dev, two_d_sweep, sharded["two_d"]["fit_launches"], km_ref)
+        del two_d_sweep
         del als_model
         block_stream = phase_block_stream(als_cfg, data, dev)
         del data
@@ -6388,6 +6953,14 @@ def main(argv=None) -> int:
                 serve_online["f"]["foldin_launches_before_fault"][name],
             "serve_online fold_in failed at batch 2":
                 serve_online["f"]["mid_commit_launches"][name]})
+    # the front doors' compat fits (31)
+    by_path[kmeans_kernel.KERNEL]["front_doors compat KMeans"] = \
+        front["a_kmeans"]["launches"][kmeans_kernel.KERNEL]
+    by_path[pca_kernel.KERNEL]["front_doors compat PCA"] = \
+        front["b_pca"]["launches"][pca_kernel.KERNEL]
+    for name in (als_kernel.SOLVE, als_kernel.GRAM):
+        by_path[name]["front_doors compat ALS (2-D, four ranks)"] = \
+            front["c_als"]["launches"][name]
     for name, paths in mp_launches(mp).items():
         by_path[name].update(paths)
     for fit in ("kmeans", "pca", "als", "sharded"):

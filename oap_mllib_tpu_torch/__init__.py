@@ -25,13 +25,24 @@ Serving and online updates::
     model.partial_fit(delta_rows)     # the handle re-pins in place
     als.fold_in_users(users, items, ratings)
 
-Ported so far: the in-memory, single-device fits of the three
-estimators and the model-sharded K-Means fit on a mesh, with their
-kernels written in CUDA C++ for Hopper: the fused Lloyd accumulate
-(``csrc/kmeans_accumulate.cu``), the PCA moments
-(``csrc/pca_moments.cu``), the ALS solve (``csrc/als_solve.cu``), the
-ALS factor Gram (``csrc/als_factor_gram.cu``) and the ring allreduce
-(``csrc/ring_reduce.cu``).
+Spark-ML front doors (``oap_mllib_tpu_torch.compat``)::
+
+    from oap_mllib_tpu_torch.compat import KMeans, Pipeline
+    model = KMeans().setK(8).setSeed(1).fit({"features": X})
+
+Ported so far (PRs 1-16): every fit of the three estimators in memory
+on one device and on an in-process mesh, out of core, and across a
+world of processes, with their kernels written in CUDA C++ for Hopper:
+the fused Lloyd accumulate (``csrc/kmeans_accumulate.cu``), the PCA
+moments (``csrc/pca_moments.cu``), the ALS solve (``csrc/als_solve.cu``),
+the ALS factor Gram (``csrc/als_factor_gram.cu``) and the ring
+allreduce (``csrc/ring_reduce.cu``); the resilience ladder, checkpoints,
+the recovery plane and the supervisor, the observability plane; the
+serving core, the online updates and the serving front; the
+factor-sharded serving (block fits keep their live layout, and the full
+sweep serves it); the Spark-ML compat layer (``compat``) and the
+examples (``examples``, ``python -m
+oap_mllib_tpu_torch.examples.kmeans_example``).
 """
 
 __version__ = "0.1.0"

@@ -51,6 +51,13 @@ planner's deadband keeps the uniform blocks, bit for bit.  The
 summary's ``balance`` records the decision.
 
 A fitted model scores on one device: a mesh fit's on the first rank's.
+A block fit (resident or streamed, in either item layout) hands its
+live blocks to its model instead of gathering them: the user table as
+``sharded_user``, the item table as ``sharded_item`` on the 2-D layout
+(summary ``sharded_factors``).  The model gathers a table to the host
+on first access of ``user_factors_`` / ``item_factors_`` (a collective
+across processes), and the full sweep (serving/sweep.py) serves the
+blocks where they lie.
 
 In a world of several processes (``Config.num_processes > 1``) the
 triples passed to ``fit`` (or the rows of its source) are THIS
@@ -110,12 +117,33 @@ from oap_mllib_tpu_torch.utils.timing import Timings, phase_timer
 
 class ALSModel:
     """Trained factors: ``user_factors_`` (n_users, r) and
-    ``item_factors_`` (n_items, r), scored on ``device``."""
+    ``item_factors_`` (n_items, r), scored on ``device``.
+
+    A block fit keeps its factors where they were fitted: the user
+    table as ``sharded_user`` (an ``als_block.Shard``, the blocks on the
+    ranks' devices with their offsets, the reference's ALSResult
+    cUserOffset bookkeeping), the item table as ``sharded_item`` on the
+    2-D layout, else on the host.  Pass exactly one form of each table.
+    A sharded table gathers to the host on first access of its
+    property; across processes that gather is a COLLECTIVE, so every
+    process touches ``user_factors_`` (or ``predict`` / ``save`` / the
+    subset top-k) together.  ``rank`` never gathers, and the full sweep
+    (serving/sweep.recommend_for_all_users) serves the live blocks.
+    Assigning a table (the fold-in's commit) replaces that side's
+    shard: the sweep then serves the assigned table."""
 
     def __init__(self, user_factors, item_factors, summary: Optional[dict] = None,
-                 device: Optional[str] = None):
-        self.user_factors_ = np.asarray(user_factors)
-        self.item_factors_ = np.asarray(item_factors)
+                 device: Optional[str] = None, *,
+                 sharded_user: Optional[als_block.Shard] = None,
+                 sharded_item: Optional[als_block.Shard] = None):
+        if (user_factors is None) == (sharded_user is None):
+            raise ValueError("pass exactly one of user_factors / sharded_user")
+        if (item_factors is None) == (sharded_item is None):
+            raise ValueError("pass exactly one of item_factors / sharded_item")
+        self._user_factors = None if user_factors is None else np.asarray(user_factors)
+        self._item_factors = None if item_factors is None else np.asarray(item_factors)
+        self._sharded_user = sharded_user
+        self._sharded_item = sharded_item
         self.summary = summary or {}
         # None = Config.device, resolved at every scoring call
         self.device = device
@@ -125,8 +153,32 @@ class ALSModel:
         self._dev_cache: dict = {}
 
     @property
+    def user_factors_(self) -> np.ndarray:
+        if self._user_factors is None:
+            self._user_factors = _gather(self._sharded_user)
+        return self._user_factors
+
+    @user_factors_.setter
+    def user_factors_(self, table) -> None:
+        self._user_factors = np.asarray(table)
+        self._sharded_user = None
+
+    @property
+    def item_factors_(self) -> np.ndarray:
+        if self._item_factors is None:
+            self._item_factors = _gather(self._sharded_item)
+        return self._item_factors
+
+    @item_factors_.setter
+    def item_factors_(self, table) -> None:
+        self._item_factors = np.asarray(table)
+        self._sharded_item = None
+
+    @property
     def rank(self) -> int:
-        return self.item_factors_.shape[1]
+        if self._item_factors is not None:
+            return self._item_factors.shape[1]
+        return int(next(iter(self._sharded_item.blocks.values())).shape[1])
 
     def _pinned(self, table: np.ndarray) -> torch.Tensor:
         """The pinned device copy of a factor table of this model (a
@@ -253,6 +305,12 @@ class ALSModel:
                     "model directory is torn or mixed from two saves"
                 )
         return cls(uf, itf, device=device)
+
+
+def _gather(shard: als_block.Shard) -> np.ndarray:
+    """The host (n, r) table of a block-sharded one: a collective when
+    its mesh spans processes."""
+    return als_block.gather_user_factors(shard.blocks, shard.mesh, shard.offsets)
 
 
 def _grouped_ok_single(kernel: str, users, items, n_users: int, n_items: int) -> bool:
@@ -764,17 +822,16 @@ class ALS:
                     by_item.upb if item_sharded else None)
                 x_blocks, y = self._run_block_segmented(ckpt, run_iters, x0_dev, y0_dev, mesh,
                                                         layout, n_items)
-            x = als_block.gather_user_factors(x_blocks, mesh, edges.offsets)
-            y = (als_block.gather_user_factors(y, mesh, by_item.offsets) if item_sharded
-                 else y[ranks[0]].cpu().numpy())
         summary = self._summary(timings, pol, before, cache_before=cache_before, extra={
-            "block_parallel": True, "als_kernel": "grouped" if use_grouped else "coo",
+            "block_parallel": True, "sharded_factors": True,
+            "als_kernel": "grouped" if use_grouped else "coo",
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,
             "process_id": mesh.process, "balance": bal, **self._block_summary(world)})
         if ckpt is not None:
             ckpt.record(summary)
-        return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
+        return _sharded_model(x_blocks, y, summary, mesh, ranks, edges.offsets, edges.upb,
+                              by_item if item_sharded else None)
 
     def _block_balance(self, n_users: int, world: int, item_sharded: bool):
         """``(offsets, block)``: the capability-weighted user-block offsets
@@ -832,17 +889,30 @@ class ALS:
             x_blocks, y = als_block_stream.als_block_run_streamed(
                 lay, x0_dev, y0_dev, self.max_iter, self.reg_param, self.alpha, mesh,
                 implicit=self.implicit_prefs, timings=timings, policy=pol, checkpoint=ckpt)
-            x = als_block.gather_user_factors(x_blocks, mesh, lay.offsets_u)
-            y = (als_block.gather_user_factors(y, mesh, lay.by_item.offsets) if item_sharded
-                 else y[ranks[0]].cpu().numpy())
         summary = self._summary(timings, pol, before, cache_before=cache_before, extra={
-            "streamed": True, "block_parallel": True, "als_kernel": "grouped",
+            "streamed": True, "block_parallel": True, "sharded_factors": True,
+            "als_kernel": "grouped",
             "item_layout": "sharded" if item_sharded else "replicated",
             "mesh": dict(mesh.shape), "processes": mesh.processes,
             "process_id": mesh.process, "balance": bal, **self._block_summary(world)})
         if ckpt is not None:
             ckpt.record(summary)
-        return ALSModel(x, y, summary, device=str(mesh.device(ranks[0])))
+        return _sharded_model(x_blocks, y, summary, mesh, ranks, lay.offsets_u, lay.upb,
+                              lay.by_item if item_sharded else None)
+
+
+def _sharded_model(x_blocks, y, summary: dict, mesh: Mesh, ranks, offsets_u, upb: int,
+                   by_item) -> ALSModel:
+    """A block fit's model on its live layout (the JAX package's): the
+    user blocks as ``sharded_user``, the item blocks as ``sharded_item``
+    on the 2-D layout (``by_item`` its item-block edges), else the
+    replicated item table on the host.  Nothing gathers here."""
+    user = als_block.Shard(x_blocks, np.asarray(offsets_u), int(upb), mesh)
+    device = str(mesh.device(ranks[0]))
+    if by_item is not None:
+        item = als_block.Shard(y, np.asarray(by_item.offsets), int(by_item.upb), mesh)
+        return ALSModel(None, None, summary, device=device, sharded_user=user, sharded_item=item)
+    return ALSModel(None, y[ranks[0]].cpu().numpy(), summary, device=device, sharded_user=user)
 
 
 def _validate_resolve(users, items, ratings, n_users, n_items):

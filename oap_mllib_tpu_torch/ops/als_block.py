@@ -63,7 +63,7 @@ or not.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -523,6 +523,20 @@ def als_block_run_grouped_2d(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
         raise ValueError("als_block_run_grouped_2d takes grouped sides")
     return _run(sides, x0, y0, max_iter, reg, alpha if implicit else 0.0, implicit,
                 mesh.axis_names[0], policy, solve, gram, _block_body_2d)
+
+
+class Shard(NamedTuple):
+    """A factor table kept in its block layout on the mesh: the JAX
+    package's ``(blocks, offsets, per_block)`` triple at indices 0-2
+    (``shard[1][-1]`` is the row count), with the mesh the blocks live
+    on.  ``blocks`` is ``{rank: (per_block, r) tensor}`` for this
+    process's data ranks; block ``b`` holds rows ``[offsets[b],
+    offsets[b + 1])`` first, zeros below them."""
+
+    blocks: Dict[Rank, torch.Tensor]
+    offsets: np.ndarray
+    per_block: int
+    mesh: Mesh
 
 
 def gather_user_factors(x: Dict[Rank, torch.Tensor], mesh: Mesh, offsets: np.ndarray

@@ -193,16 +193,18 @@ def project_pca(components_dev: torch.Tensor, x, kind: str = "pca") -> np.ndarra
     return fn(staged, components_dev).cpu().numpy()[:n]
 
 
-def topk_keys(scores: torch.Tensor) -> torch.Tensor:
+def topk_keys(scores: torch.Tensor, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int64 keys whose order is (score descending, id ascending): the
     f32 bits mapped to an order-preserving int32, shifted up, and the
-    complemented column id below.  ``torch.topk`` on them breaks ties to
-    the lowest id, as ``lax.top_k`` does."""
+    complemented id below (``ids``, non-negative int32 broadcast against
+    the scores; None: the column index).  ``torch.topk`` on them breaks
+    ties to the lowest id, as ``lax.top_k`` does."""
     bits = scores.contiguous().view(torch.int32)
     keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    ids = torch.arange(scores.shape[1], device=scores.device, dtype=torch.int64)
+    if ids is None:
+        ids = torch.arange(scores.shape[1], device=scores.device, dtype=torch.int64)
     # in place: one int64 (rows, n_targets) buffer beside the scores
-    return keys.mul_(1 << 32).add_((1 << 32) - 1 - ids)
+    return keys.mul_(1 << 32).add_((1 << 32) - 1 - ids.to(torch.int64))
 
 
 def _build_topk(policy: str, tier: str):

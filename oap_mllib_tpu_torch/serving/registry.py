@@ -1,5 +1,5 @@
 """Device registry of served models: the port of the JAX package's
-``serving/registry.py`` (its one-process part).
+``serving/registry.py``.
 
 :func:`serve` pins a fitted model's state (centers, components, factor
 tables) on its device once, keyed like the program cache (serving the
@@ -341,9 +341,12 @@ class ServedPCA(ServedModel):
 
 
 class ServedALS(ServedModel):
-    """The pinned ALS item table (the port's models keep host factors):
-    every request scores user rows against it; the user table stays on
-    the host, whence a request gathers its rows."""
+    """The pinned ALS item table: every request scores user rows against
+    it; the user table stays on the host, whence a request gathers its
+    rows.  A model that keeps its live sharded layout (a block fit) pins
+    nothing: the full sweep serves its blocks (serving/sweep.py) and a
+    subset request goes through the model (whose factor gather is a
+    collective across processes)."""
 
     kind = "als"
 
@@ -351,9 +354,16 @@ class ServedALS(ServedModel):
         super().__init__(model)
         self._repin_pins()
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the model serves from a live sharded user layout (a
+        fold-in's commit replaces it with the host table)."""
+        return self.model._sharded_user is not None
+
     def _repin_pins(self) -> None:
-        self.item_dev = pin(self.model._dev_cache, "targets:item", self.model.item_factors_,
-                            self.device)
+        if not self.sharded:
+            self.item_dev = pin(self.model._dev_cache, "targets:item",
+                                self.model.item_factors_, self.device)
 
     def predict(self, users, items) -> np.ndarray:
         return self._request(len(np.atleast_1d(users)),
@@ -361,10 +371,14 @@ class ServedALS(ServedModel):
 
     def recommend_for_users(self, user_ids, num_items: int, with_scores: bool = False):
         """Top-``num_items`` for a subset of users against the pinned item
-        table (ids validated by the model's table)."""
+        table (ids validated by the model's table); a sharded model
+        answers through its own ``recommend_for_users``."""
         from oap_mllib_tpu_torch.serving import batcher
 
         user_ids = np.asarray(user_ids, np.int64)
+        if self.sharded:
+            return self._request(len(user_ids), lambda: self.model.recommend_for_users(
+                user_ids, num_items, with_scores))
 
         def run():
             q = self.model.user_factors_[user_ids]
@@ -375,11 +389,13 @@ class ServedALS(ServedModel):
 
     def recommend_for_all_users(self, num_items: int, with_scores: bool = False,
                                 chunk_rows: int = 0):
-        """The full-sweep top-k (serving/sweep.py): the user table
-        streamed in chunks, the score matrix never built."""
+        """The full-sweep top-k (serving/sweep.py): the ring sweep of a
+        sharded model's live layout, else the user table streamed in
+        chunks; the score matrix is never built."""
         from oap_mllib_tpu_torch.serving import sweep
 
-        n_users = int(self.model.user_factors_.shape[0])
+        n_users = (int(self.model._sharded_user[1][-1]) if self.sharded
+                   else int(self.model.user_factors_.shape[0]))
         return self._request(
             n_users,
             lambda: sweep.recommend_for_all_users(
@@ -390,6 +406,8 @@ class ServedALS(ServedModel):
     def _warm_one(self, rows: int) -> None:
         from oap_mllib_tpu_torch.serving import batcher
 
+        if self.sharded:
+            return
         r = int(self.model.user_factors_.shape[1])
         batcher.topk_scores(np.zeros((rows, r), np.float32), self.item_dev, 1, self.kind)
 
@@ -408,7 +426,11 @@ def serve(model, key: Optional[str] = None) -> ServedModel:
         handle: ServedModel = ServedKMeans(model)
     elif hasattr(model, "components_"):
         handle = ServedPCA(model)
-    elif hasattr(model, "user_factors_") and hasattr(model, "item_factors_"):
+    elif hasattr(model, "rank") and (
+            getattr(model, "_sharded_user", None) is not None
+            or getattr(model, "_user_factors", None) is not None):
+        # structural, and with no factor gather: a sharded model serves
+        # from its live layout
         handle = ServedALS(model)
     else:
         raise TypeError(

@@ -220,7 +220,10 @@ class TestIsolation:
                 "utils/profiling.py", "utils/debug.py", "tools/supervise.py",
                 "serving/__init__.py", "serving/registry.py", "serving/batcher.py",
                 "serving/sweep.py", "online/__init__.py", "online/delta.py",
-                "online/minibatch.py", "online/ipca.py", "online/foldin.py"} <= checked
+                "online/minibatch.py", "online/ipca.py", "online/foldin.py",
+                "compat/__init__.py", "compat/spark.py", "compat/pipeline.py",
+                "compat/pyspark.py", "examples/__init__.py", "examples/als_example.py",
+                "examples/kmeans_pyspark_example.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -247,6 +250,8 @@ class TestIsolation:
             "from oap_mllib_tpu_torch import online, serving\n"
             "from oap_mllib_tpu_torch.serving import batcher, registry, sweep\n"
             "from oap_mllib_tpu_torch.online import delta, foldin, ipca, minibatch\n"
+            "from oap_mllib_tpu_torch.compat import pipeline, pyspark, spark\n"
+            "from oap_mllib_tpu_torch import examples\n"
             "resilience.run_with_retry(lambda: faults.maybe_fault('stream.read'))\n"
             "src = stream.ChunkSource.from_array(np.ones((300, 3), np.float32), 128)\n"
             "with prefetch.Prefetcher(src, depth=2) as pf:\n"
