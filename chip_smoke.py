@@ -13,6 +13,7 @@
     python3 chip_smoke.py --online     # only the build and 28
     python3 chip_smoke.py --traffic    # only the build and 29
     python3 chip_smoke.py --front      # only the build, 30 and 31
+    python3 chip_smoke.py --tuning     # only the build and 32
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -396,6 +397,38 @@ Phases, each a hard check (any failure exits non-zero):
    duck-typed DataFrame against the dict plane; (f) the port's
    ``examples/run_all.sh`` on the card, each example exit 0.
 
+32. tuning (last; the kernel-geometry autotuner,
+   ``ops/cuda/autotune.py``, and the trace merger), launch counts zeroed
+   before each leg and read after: (a) every candidate of each kernel's
+   grid against the default geometry and the plain version: K1 at the
+   main table (2^20 x 256, k = 1000) at highest and default (labels
+   equal; sums and counts bit-equal where only ``range_rows`` moves,
+   within 1e-6 of max(1, max |ref|) where ``parts`` does), K2 at 2^20 x
+   128 at highest and high (both passes within 1e-6), K3 at the ML-25M
+   user side, r = 10 and 32 (every bit), K4 there (within 1e-6), K5 at
+   the sharded fit's packed buffer (bit-equal to the plain ring) and the
+   model-sharded fit on one card at 1, 2 and 4 segments (bit-equal,
+   the same K5 launches, 42); each candidate's ms printed; (b) under
+   ``tuning="on"`` with a fresh ``tuning_cache_dir``, a K-Means (2^18 x
+   256, k = 1000), a PCA (2^18 x 128) and an implicit ALS (rank 10) fit,
+   in the main paths' buckets: each kernel swept exactly once (the
+   summaries and ``oap_tuning_sweeps_total``), each sweep's wall and
+   winner printed, each fit launching what an untuned fit launches;
+   then a child process (``--tune-worker``) sharing the directory: every
+   kernel a ``hit``, no sweep, the same geometry, every array bit-equal;
+   (c) under a non-default pin of every kernel against the defaults:
+   the fit's K1 Lloyd loop from centers near the blob centers (centers
+   within 1e-6, equal iterations and launches), the PCA and ALS fits
+   (ratios within 1e-6, components within 1e-4; ALS factors within 1e-6
+   or twice the default fit's distance from its twin with K4's plain
+   version, the ALS solve's pin alone bit-equal);
+   (d) world "a" (two processes on the card) fits K-Means under
+   ``tuning="on"``: process 0 sweeps through ``resolve_world``, process 1
+   records the same geometry as a hit (``--tuning`` runs world "a" with
+   only this step); (e) ``tools/oaptrace.py`` merges phase 27's
+   JSON-lines sink and world "a"'s: ``validate_trace`` finds nothing;
+   the tracks, flows and request lanes printed.
+
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
 
@@ -431,8 +464,8 @@ from oap_mllib_tpu_torch.fallback.kmeans_np import lloyd_np
 from oap_mllib_tpu_torch.fallback.pca_np import pca_np
 from oap_mllib_tpu_torch.ops import (als_block, als_block_stream, als_ops, als_stream, kmeans_ops,
                                      pca_ops, stream_ops)
-from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, _tiers, als_kernel, kmeans_kernel,
-                                          pca_kernel, ring_kernel)
+from oap_mllib_tpu_torch.ops.cuda import (_build, _gram, _tiers, als_kernel, autotune,
+                                          kmeans_kernel, pca_kernel, ring_kernel)
 from oap_mllib_tpu_torch.parallel import balance, collective
 from oap_mllib_tpu_torch.telemetry import fleet
 from oap_mllib_tpu_torch.telemetry import metrics as tel_metrics
@@ -3358,12 +3391,15 @@ def mp_worker(argv) -> int:
     dev = resolve_devices()[0]
     res = {"rank": rank, "world": world, "layout": bootstrap.world_layout()}
     try:
-        if world == "a":
+        if world == "a" and "--tuning-only" in flags:
+            res["mp_tuning"] = mp_tuning(cfg, dev, rank, nproc, out)
+        elif world == "a":
             res["mp_ring"] = mp_ring(cfg, dev, rank, nproc)
             res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 1, out, "k-means||")]
             res["mp_pca"] = [mp_pca(cfg, dev, rank, nproc, 1, out)]
             res["mp_stream"] = mp_stream(cfg, dev, rank, nproc, out)
             res["mp_balance"] = mp_balance(cfg, dev, rank, nproc, out)
+            res["mp_tuning"] = mp_tuning(cfg, dev, rank, nproc, out)
         elif world == "c":
             res["mp_divergence"] = mp_divergence(cfg, dev, rank)
         else:
@@ -4912,8 +4948,19 @@ def phase_telemetry(cfg, dev):
         fleet.stop_server()
     emit("telemetry", {k: v for k, v in result.items()
                        if k in ("port", "endpoint", "transfer")})
+    # the phase's streams outlive its scratch: the trace merger of 32
+    # reads them
+    if os.path.exists(sink):
+        shutil.copyfile(sink, tel_sink_path())
     shutil.rmtree(out, ignore_errors=True)
     return result
+
+
+def tel_sink_path():
+    """Where phase 27 leaves its JSON-lines sink (the port's build
+    directory, listed in .gitignore)."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "oap_mllib_tpu_torch",
+                        "build", "telemetry_phase27.jsonl")
 
 
 def tel_worker(argv) -> int:
@@ -6622,6 +6669,624 @@ def phase_front_doors(cfg, als_cfg, data, dev, two_d_result, block_launches, km_
     return out
 
 
+# -- the kernel-geometry autotuner and the trace merger (32) --------------------
+
+# leg 1 at the main paths' shapes; legs 2-3 fit smaller tables in the
+# main paths' buckets (K-Means (1024, 256), PCA (128,), ALS (16,)), so
+# the sweeps rank geometry where the headline fits run
+TUNE_FULL = {"kmeans": FULL, "kmeans_modes": ("highest", "default"),
+             "pca": (1 << 20, 128), "pca_modes": ("highest", "high"), "als": ALS_FULL,
+             "sharded": SHARDED_FULL, "ring": (1000, 130), "reps": 3,
+             "fit_kmeans": {"n": 1 << 18, "d": 256, "k": 1000, "max_iter": 3},
+             "fit_pca": {"n": 1 << 18, "d": 128, "k": 16},
+             "fit_als": {"n_users": 20_000, "n_items": 5_000, "nnz": 400_000, "rank": 10,
+                         "alpha": 40.0, "reg": 0.1, "max_iter": 2},
+             "world": {"n": 1 << 18, "d": 256, "k": 1000, "max_iter": 3}}
+TUNE_TINY = {"kmeans": TINY, "kmeans_modes": ("highest", "default"),
+             "pca": (3001, 37), "pca_modes": ("highest", "high"), "als": ALS_TINY,
+             "sharded": SHARDED_TINY, "ring": (13, 37), "reps": 1,
+             "fit_kmeans": {"n": 4133, "d": 29, "k": 11, "max_iter": 3},
+             "fit_pca": {"n": 3001, "d": 37, "k": 5},
+             "fit_als": {"n_users": 300, "n_items": 120, "nnz": 5_000, "rank": 10,
+                         "alpha": 40.0, "reg": 0.1, "max_iter": 2},
+             "world": {"n": 4096, "d": 29, "k": 11, "max_iter": 3}}
+# a knob that changes the fold: values within this share of max(1, max|ref|)
+TUNE_FOLD_RTOL = 1e-6
+# a non-default geometry for every kernel of the fits (leg 3)
+TUNE_PINS = {"kmeans": {"range_rows": 4096, "parts": 4},
+             "pca": {"target_blocks": 1056, "sum_rows": 4096},
+             "als_solve": {"group": 1}, "als_gram": {"blocks": 132, "stage_floats": 2048}}
+TUNE_FITS = ("kmeans", "pca", "als")
+# the kernels each fit of leg 2 resolves and sweeps once
+TUNE_SWEPT = {"kmeans": ["kmeans"], "pca": ["pca"], "als": ["als_solve", "als_gram"]}
+
+
+def json_pin(pins):
+    return "pin:" + json.dumps(pins, sort_keys=True)
+
+
+def _fold_err(a, ref):
+    """max |a - ref| over max(1, max |ref|): the contract's measure for a
+    knob that changes the fold."""
+    return float(torch.max(torch.abs(a - ref)) / max(1.0, float(torch.max(torch.abs(ref)))))
+
+
+def _tune_hold(tag, got, ref, bit_equal):
+    """One candidate's outputs against the default's: every bit, or within
+    :data:`TUNE_FOLD_RTOL`; returns the worst error."""
+    err = max(_fold_err(a, b) for a, b in zip(got, ref))
+    if bit_equal:
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"{tag}: not bit-equal to the default geometry (err {err:.3g})")
+    check(err <= TUNE_FOLD_RTOL, f"{tag}: {err:.3g} from the default geometry")
+    return err
+
+
+def _k1_run(x, w, c, mode, geo):
+    """(sums, counts, labels) of K1 at a geometry; the plain version and its
+    labels on the CPU."""
+    if x.device.type == "cuda":
+        sums, counts, _, labels = kmeans_kernel._launch(x, w, c, mode, False, geo)
+        return sums, counts, labels.long()
+    sums, counts, _ = kmeans_kernel.lloyd_accumulate(x, w, c, mode, False, geo)
+    return sums, counts, kmeans_kernel.assign_plain(x, c, mode, False)[0]
+
+
+def tune_kmeans_candidates(cfg, dev, reps):
+    """K1's grid at the main path's table, each tier: labels equal to the
+    default's, sums and counts bit-equal where only ``range_rows`` moves
+    (a stable sort) and within the fold bound where ``parts`` does, and
+    every candidate against the plain version's sums on its labels."""
+    kc = cfg["kmeans"]
+    x, w, c = blobs(kc["n"], kc["d"], kc["k"], dev, seed=0)
+    bucket = autotune.shape_bucket(kc["k"], kc["d"])
+    out = []
+    for mode in cfg["kmeans_modes"]:
+        ref = _k1_run(x, w, c, mode, None)
+        ref_s, ref_c = kmeans_kernel.sums_for_labels(x, w, ref[2], kc["k"], mode)
+        for cand in autotune.candidates("kmeans", bucket):
+            tag = f"tuning kmeans {mode} {cand}"
+            got = _k1_run(x, w, c, mode, cand)
+            check(torch.equal(got[2], ref[2]), f"{tag}: labels differ from the default's")
+            err = _tune_hold(tag, got[:2], ref[:2],
+                             cand["parts"] == autotune.DEFAULTS["kmeans"]["parts"])
+            plain = max(_rel_err(got[0], ref_s), _rel_err(got[1], ref_c))
+            check(plain <= RTOL[mode], f"{tag}: {plain:.3g} from the plain version")
+            out.append({"mode": mode, "geometry": cand, "fold_err": err, "plain_rel_err": plain,
+                        "ms": time_ms(lambda: _k1_run(x, w, c, mode, cand), dev, reps)})
+    return out
+
+
+def tune_pca_candidates(cfg, dev, reps):
+    """K2's grid at the main path's table, each tier: both passes within
+    the fold bound of the default and held to the plain version."""
+    n, d = cfg["pca"]
+    x = pca_data(n, d, dev, seed=d)
+    mask = torch.ones(n, device=dev)
+    out = []
+    for mode in cfg["pca_modes"]:
+        def run(geo):
+            _, cs, cnt = pca_kernel.pca_moments(x, mask, None, mode, need_gram=False,
+                                                geometry=geo)
+            g, _, _ = pca_kernel.pca_moments(x, mask, cs / float(n), mode, need_sums=False,
+                                             geometry=geo)
+            return g, cs, cnt.reshape(1)
+
+        ref = run(None)
+        g_p, cs_p, _ = pca_kernel.pca_moments_plain(x, mask, ref[1] / float(n), mode)
+        for cand in autotune.candidates("pca", autotune.shape_bucket(d)):
+            tag = f"tuning pca {mode} {cand}"
+            got = run(cand)
+            err = _tune_hold(tag, got, ref, False)
+            check(torch.equal(got[2], ref[2]), f"{tag}: the row count differs")
+            e_sum, e_gram = _rel_err(got[1], cs_p), _rel_err(got[0], g_p)
+            check(e_sum <= PCA_SUM_RTOL and e_gram <= PCA_GRAM_RTOL[mode],
+                  f"{tag}: colsum {e_sum:.3g}, Gram {e_gram:.3g} from the plain version")
+            out.append({"mode": mode, "geometry": cand, "fold_err": err,
+                        "plain_rel_err": {"colsum": e_sum, "gram": e_gram},
+                        "ms": time_ms(lambda: run(cand), dev, reps)})
+    return out
+
+
+def tune_als_candidates(cfg, dev, reps):
+    """K3's grid (every bit: the solve is row-independent) and K4's (the
+    fold bound) at the ML-25M user side, r = 10 and r = 32, each against
+    the plain version too."""
+    ac = cfg["als"]
+    users, items, ratings = als_data(ac)
+    by_user = als_ops.build_grouped_edges(users, items, ratings, ac["n_users"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    solves, grams = [], []
+    for r in ac["ranks"]:
+        side = als_ops.prepare_grouped(*by_user, ac["n_users"], r, dev)
+        y = torch.randn((ac["n_items"], r), generator=g, device=dev) / r ** 0.5
+        xf = torch.randn((ac["n_users"], r), generator=g, device=dev) / r ** 0.5
+        a, b, n_reg = side.partials(y, ac["alpha"], True)
+        gm = als_kernel.factor_gram_plain(y)
+        ref = als_kernel.solve_normal_eq(a, b, n_reg, ac["reg"], gm)
+        plain = als_kernel.solve_plain(a, b, n_reg, ac["reg"], gm)
+        valid = n_reg > 0
+        bucket = autotune.shape_bucket(r)
+        for cand in autotune.candidates("als_solve", bucket):
+            tag = f"tuning als_solve r={r} {cand}"
+            w = als_kernel.solve_normal_eq(a, b, n_reg, ac["reg"], gm, geometry=cand)
+            check(torch.equal(w, ref), f"{tag}: not bit-equal to the default geometry")
+            check(torch.equal(w[valid], plain[valid]), f"{tag}: not bit-equal to the plain version")
+            solves.append({"r": r, "geometry": cand, "lanes": als_kernel.solve_lanes(r, cand),
+                           "bit_equal": True,
+                           "ms": time_ms(lambda: als_kernel.solve_normal_eq(
+                               a, b, n_reg, ac["reg"], gm, geometry=cand), dev, reps)})
+        ref_g = als_kernel.factor_gram(xf)
+        plain_g = als_kernel.factor_gram_plain(xf)
+        for cand in autotune.candidates("als_gram", bucket):
+            tag = f"tuning als_gram r={r} {cand}"
+            gk = als_kernel.factor_gram(xf, "highest", cand)
+            err = _tune_hold(tag, [gk], [ref_g], False)
+            check(dev.type != "cuda" or torch.equal(gk, gk.T), f"{tag}: not bit-symmetric")
+            e_plain = _rel_err(gk, plain_g)
+            check(e_plain <= 1e-5, f"{tag}: {e_plain:.3g} from the plain version")
+            grams.append({"r": r, "geometry": cand, "fold_err": err, "plain_rel_err": e_plain,
+                          "launch": als_kernel.factor_gram_geometry(
+                              ac["n_users"], r, cand["blocks"], cand["stage_floats"])._asdict(),
+                          "ms": time_ms(lambda: als_kernel.factor_gram(xf, "highest", cand),
+                                        dev, reps)})
+        del side, a, b, n_reg
+    return solves, grams
+
+
+def _sharded_tuned(sc, dev, segments, x):
+    """The model-sharded fit on one card under ``pin:{"ring": {"segments":
+    s}}``, the counts zeroed just before and read just after."""
+    layout = ",".join(str(q) for q in [dev] * (sc["data"] * sc["model"]))
+    set_config(model_parallel=sc["model"], tuning=json_pin({"ring": {"segments": segments}}))
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        m = KMeans(k=sc["k"], max_iter=sc["max_iter"], tol=1e-4, seed=0, device=layout).fit(x)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        set_config(model_parallel=1, tuning="auto")
+    check([d["geometry"] for d in m.summary.tuning["decisions"]] == [{"segments": segments}],
+          f"sharded fit segments={segments}: resolved {m.summary.tuning['decisions']}")
+    return m, launches, wall
+
+
+def tune_ring_candidates(cfg, dev, reps):
+    """K5's grid: the ring at the sharded fit's packed buffer (world 2)
+    against its plain version bit for bit at each segment count, and the
+    model-sharded fit on one card at each: bit-equal to one segment (two
+    ranks on the data axis add two values, in either order) and K5's
+    launches unchanged."""
+    rows, cols = cfg["ring"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    parts = [torch.randn((rows, cols), generator=g, device=dev) for _ in range(2)]
+    rings = []
+    for cand in autotune.CANDIDATES["ring"]:
+        s = cand["segments"]
+        got = ring_kernel.ring_allreduce(parts, s)
+        want = ring_kernel.ring_allreduce_plain(parts, s)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"tuning ring segments={s}: not bit-equal to the plain version")
+        rings.append({"segments": s, "shape": [rows, cols], "world": 2,
+                      "ms": time_ms(lambda: ring_kernel.ring_allreduce(parts, s), dev, reps)})
+    sc = cfg["sharded"]
+    x, _, _ = blobs(sc["n"], sc["d"], sc["k"], dev, seed=0)
+    fits = {}
+    for cand in autotune.CANDIDATES["ring"]:
+        s = cand["segments"]
+        m, launches, wall = _sharded_tuned(sc, dev, s, x)
+        fits[s] = (m, launches)
+        rings.append({"segments": s, "fit_wall_s": wall, "num_iter": m.summary.num_iter,
+                      "launches": launches})
+    ref, ref_l = fits[1]
+    for s, (m, launches) in fits.items():
+        check(np.array_equal(m.cluster_centers_, ref.cluster_centers_)
+              and m.summary.num_iter == ref.summary.num_iter,
+              f"sharded fit segments={s}: not bit-equal to one segment")
+        check(launches == ref_l, f"sharded fit segments={s}: launches {launches}, one "
+                                 f"segment {ref_l}")
+    want = (ref.summary.num_iter + 1) * sc["model"] if dev.type == "cuda" else 0
+    check(ref_l[ring_kernel.KERNEL] == want,
+          f"sharded fit: K5 launched {ref_l[ring_kernel.KERNEL]} times, expected {want}")
+    return rings, fits[2][1]
+
+
+def _tune_data(cfg, dev):
+    """The tables of legs 2 and 3, made from seeds (any process makes the
+    same): the blobs and centers near the blob centers, the PCA table,
+    the ratings."""
+    kc, pc, ac = cfg["fit_kmeans"], cfg["fit_pca"], cfg["fit_als"]
+    x, _, c0 = blobs(kc["n"], kc["d"], kc["k"], dev, seed=3)
+    return x, c0, pca_data(pc["n"], pc["d"], dev, seed=7), als_data(ac)
+
+
+def _tune_fits(cfg, dev, data, which=TUNE_FITS):
+    """The fits ``which`` of legs 2 and 3, each with the counts zeroed just
+    before and read just after: ``{fit: (arrays, summary, launches)}``."""
+    kc, pc, ac = cfg["fit_kmeans"], cfg["fit_pca"], cfg["fit_als"]
+    x, _, xp, (u, i, r) = data
+    runs = {
+        "kmeans": lambda: KMeans(k=kc["k"], max_iter=kc["max_iter"], tol=1e-4, seed=0,
+                                 init_mode="random", device=str(dev)).fit(x),
+        "pca": lambda: PCA(k=pc["k"], device=str(dev)).fit(xp),
+        "als": lambda: ALS(rank=ac["rank"], max_iter=ac["max_iter"], reg_param=ac["reg"],
+                           alpha=ac["alpha"], implicit_prefs=True, seed=0,
+                           device=str(dev)).fit(u, i, r, ac["n_users"], ac["n_items"]),
+    }
+    out = {}
+    for fit in which:
+        _zero_launches()
+        m = runs[fit]()
+        launches = _launches()
+        if fit == "kmeans":
+            arrays, s = [m.cluster_centers_], m.summary
+        elif fit == "pca":
+            arrays, s = [m.components_, m.explained_variance_], m.summary
+        else:
+            arrays, s = [m.user_factors_, m.item_factors_], m.summary
+        out[fit] = (arrays, s, launches)
+    return out
+
+
+def _summary_tuning(s):
+    return s["tuning"] if isinstance(s, dict) else s.tuning
+
+
+def _fit_launches_ok(fit, s, launches, dev, cfg):
+    """The fit launched what it launches untuned: the sweeps' launches are
+    not the fit's."""
+    on = dev.type == "cuda"
+    if fit == "kmeans":
+        want = {kmeans_kernel.KERNEL: (s.num_iter + 1) if on else 0}
+    elif fit == "pca":
+        want = {pca_kernel.KERNEL: 2 if on else 0}
+    else:
+        n = 2 * cfg["fit_als"]["max_iter"] if on else 0
+        want = {als_kernel.SOLVE: n, als_kernel.GRAM: n}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"tuning {fit}: launched {got}, an untuned fit launches {want}")
+
+
+def _sweeps_of(timings):
+    """Every sweep the fit's span tree booked: kernel, bucket, candidates,
+    winner and wall."""
+    return [sw for _, sp in timings.root.walk() if sp.name == "tuning"
+            for sw in sp.attrs.get("sweeps", [])]
+
+
+def _tuning_counters():
+    out = {}
+    for fam in ("oap_tuning_hits_total", "oap_tuning_misses_total", "oap_tuning_sweeps_total"):
+        for kernel in autotune.KNOBS:
+            out[f"{fam}{{kernel={kernel}}}"] = tel_metrics.counter(fam, {"kernel": kernel}).value
+    return out
+
+
+def tune_worker(argv) -> int:
+    """The child of leg 2: the same three fits in a fresh process sharing
+    the cache directory; its arrays to ``out`` and one ``TUNE_RESULT``
+    line of decisions and counters."""
+    cache_dir, out = argv[0], argv[1]
+    rehearse = "--rehearse" in argv
+    dev = resolve_device("cpu" if rehearse else "cuda")
+    cfg = TUNE_TINY if rehearse else TUNE_FULL
+    set_config(tuning="on", tuning_cache_dir=cache_dir)
+    before = _tuning_counters()
+    try:
+        fits = _tune_fits(cfg, dev, _tune_data(cfg, dev))
+        for fit, (arrays, s, launches) in fits.items():
+            _fit_launches_ok(fit, s, launches, dev, cfg)
+    except Failed as e:
+        print(f"FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    after = _tuning_counters()
+    np.savez(out, **{f"{fit}_{j}": a for fit, (arrays, _, _) in fits.items()
+                     for j, a in enumerate(arrays)})
+    print("TUNE_RESULT " + json.dumps({
+        "tuning": {fit: _summary_tuning(s) for fit, (_, s, _) in fits.items()},
+        "counters": {k: after[k] - before[k] for k in after}}), flush=True)
+    return 0
+
+
+def tune_cache_contract(cfg, dev, rehearse):
+    """Leg 2: under ``tuning="on"`` with a fresh cache directory each fit
+    sweeps every kernel it launches exactly once (its summary and the
+    counters), then a second process sharing the directory resolves every
+    kernel as a hit with no sweep, picks the same geometry and gives every
+    array bit for bit."""
+    cache_dir = _scratch("tuning_cache")
+    data = _tune_data(cfg, dev)
+    set_config(tuning="on", tuning_cache_dir=cache_dir)
+    before = _tuning_counters()
+    try:
+        fits = _tune_fits(cfg, dev, data)
+    finally:
+        set_config(tuning="auto", tuning_cache_dir="")
+    after = _tuning_counters()
+    res = {"sweeps": [], "parent": {}}
+    for fit, (arrays, s, launches) in fits.items():
+        _fit_launches_ok(fit, s, launches, dev, cfg)
+        t = _summary_tuning(s)
+        kernels = [d["kernel"] for d in t["decisions"]]
+        check(kernels == TUNE_SWEPT[fit] and t["sweeps"] == len(kernels) and t["hits"] == 0
+              and all(d["decision"] == "sweep" for d in t["decisions"]),
+              f"tuning {fit}: decisions {t['decisions']}")
+        for sw in _sweeps_of(s["timings"] if isinstance(s, dict) else s.timings):
+            res["sweeps"].append(sw)
+            print(f"tuning sweep {sw['kernel']} bucket={sw['bucket']}: {sw['wall_s']:.3f} s, "
+                  f"{sw['candidates']} candidates, winner {sw['winner']}", flush=True)
+        res["parent"][fit] = t
+    for kernel in ("kmeans", "pca", "als_solve", "als_gram"):
+        key = f"oap_tuning_sweeps_total{{kernel={kernel}}}"
+        check(after[key] - before[key] == 1, f"tuning: {key} rose by {after[key] - before[key]}")
+    check(len(res["sweeps"]) == 4, f"tuning: the span trees booked {len(res['sweeps'])} sweeps")
+    check(len(os.listdir(cache_dir)) == 4, f"tuning: {len(os.listdir(cache_dir))} cache files")
+    out = os.path.join(cache_dir, "child.npz")
+    flags = ["--rehearse"] if rehearse else []
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--tune-worker", cache_dir,
+                        out, *flags], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=MP_TIMEOUT_S)
+    res["child_wall_s"] = time.perf_counter() - t0
+    for line in p.stdout.splitlines():
+        if not line.startswith("TUNE_RESULT "):
+            print(f"[tune-worker] {line}", flush=True)
+    check(p.returncode == 0, f"tuning: the child exited {p.returncode}")
+    got = [ln for ln in p.stdout.splitlines() if ln.startswith("TUNE_RESULT ")]
+    check(bool(got), "tuning: the child printed no result")
+    child = json.loads(got[-1][len("TUNE_RESULT "):])
+    arrays = np.load(out)
+    for fit, (parent_arrays, _, _) in fits.items():
+        t, pt = child["tuning"][fit], res["parent"][fit]
+        check(t["sweeps"] == 0 and all(d["decision"] == "hit" for d in t["decisions"])
+              and [d["kernel"] for d in t["decisions"]] == TUNE_SWEPT[fit],
+              f"tuning child {fit}: decisions {t['decisions']}")
+        check([d["geometry"] for d in t["decisions"]] == [d["geometry"] for d in pt["decisions"]],
+              f"tuning child {fit}: geometry {t['decisions']} against {pt['decisions']}")
+        for j, a in enumerate(parent_arrays):
+            check(np.array_equal(arrays[f"{fit}_{j}"], a),
+                  f"tuning child {fit}: array {j} not bit-equal to this process's fit")
+    swept = {k: v for k, v in child["counters"].items() if "sweeps" in k and v}
+    check(not swept, f"tuning child: swept {swept}")
+    res["child"] = child["tuning"]
+    return res, fits
+
+
+def _tune_loop(cfg, dev, x, c0, geo):
+    """The in-memory fit's K1 Lloyd loop (``kmeans_kernel.lloyd_run_kernel``)
+    at a resolved geometry, the counts zeroed just before and read just
+    after."""
+    kc = cfg["fit_kmeans"]
+    _zero_launches()
+    c, it, cost, _ = kmeans_kernel.lloyd_run_kernel(
+        x, torch.ones(x.shape[0], device=dev), c0, kc["max_iter"], 1e-4, "highest",
+        geometry=geo)
+    return c, it, cost, _launches()
+
+
+def tune_pinned_fits(cfg, dev):
+    """Leg 3: under a non-default pin of every kernel against the defaults:
+    K-Means through the fit's K1 Lloyd loop from centers near the blob
+    centers (from data rows two centers can share a blob, and a rounding
+    then moves rows between them), the PCA and implicit ALS fits; the
+    centers, the PCA ratios and the ALS factors within the fold bound,
+    the PCA components within PCA_FIT_TOL (an eigenvector moves by the
+    covariance's rounding over its eigen-gap), the ALS solve's pin alone
+    bit-equal.  The ALS fit carries K4's fold through its solves (2.3e-6
+    on an H100 at two iterations): its bound is also twice its distance
+    from the default fit with K4's plain version, which adds the same
+    rows in another order.  Every error is printed before any is
+    checked."""
+    kc = cfg["fit_kmeans"]
+    x, c0, xp, ratings = _tune_data(cfg, dev)
+    bucket = autotune.shape_bucket(kc["k"], kc["d"])
+    fits = {}
+    real_gram = als_kernel.factor_gram
+    try:
+        for tag, spec in (("default", "off"), ("pinned", json_pin(TUNE_PINS)),
+                          # K3's pin alone: K4 pinned to its default, not
+                          # to leg 2's cached winner
+                          ("solve_only", json_pin({"als_solve": TUNE_PINS["als_solve"],
+                                                   "als_gram": autotune.DEFAULTS["als_gram"]}))):
+            set_config(tuning=spec)
+            geo = autotune.resolve("kmeans", bucket, "highest", dev)
+            fits[tag] = dict(_tune_fits(cfg, dev, (None, None, xp, ratings), ("pca", "als")),
+                             kmeans=(geo, _tune_loop(cfg, dev, x, c0, geo)))
+        # the ALS witness: the default fit with K4's plain version, whose
+        # Gram adds the same rows in another order
+        set_config(tuning="off")
+        als_kernel.factor_gram = lambda f, mode="highest", geometry=None: \
+            als_kernel.factor_gram_plain(f, mode)
+        witness = _tune_fits(cfg, dev, (None, None, xp, ratings), ("als",))["als"][0]
+    finally:
+        als_kernel.factor_gram = real_gram
+        set_config(tuning="auto")
+    base, pinned = fits["default"], fits["pinned"]
+    (g0, (k0, it0, cost0, kl0)), (g1, (k1, it1, cost1, kl1)) = base["kmeans"], pinned["kmeans"]
+    out = {"kmeans": {"geometry": g1, "iterations": [it0, it1], "launches": kl1,
+                      "errs": {"centers": _fold_err(k1, k0),
+                               "cost": _fold_err(cost1.reshape(1), cost0.reshape(1))}}}
+    (p0, _, pl0), (p1, ps1, pl1) = base["pca"], pinned["pca"]
+    out["pca"] = {"launches": pl1, "geometry": _summary_tuning(ps1)["decisions"],
+                  "errs": {"ratios": _fold_err(torch.as_tensor(p1[1]), torch.as_tensor(p0[1])),
+                           "components": sign_err(p1[0], p0[0])}}
+    (a0, _, al0), (a1, as1, al1) = base["als"], pinned["als"]
+    out["als"] = {"launches": al1, "geometry": _summary_tuning(as1)["decisions"],
+                  "errs": {"user": _fold_err(torch.as_tensor(a1[0]), torch.as_tensor(a0[0])),
+                           "item": _fold_err(torch.as_tensor(a1[1]), torch.as_tensor(a0[1]))},
+                  "solve_only_bit_equal": all(np.array_equal(p, q) for p, q in
+                                              zip(fits["solve_only"]["als"][0], a0)),
+                  "plain_gram_witness": max(_fold_err(torch.as_tensor(w), torch.as_tensor(a))
+                                            for w, a in zip(witness, a0))}
+    emit("tuning_pinned", out)
+    check(g1 == TUNE_PINS["kmeans"] and g0 == autotune.DEFAULTS["kmeans"],
+          f"tuning pinned kmeans: resolved {g1}, default {g0}")
+    check(it0 == it1 and kl0 == kl1, f"tuning pinned kmeans: {it1} iterations and launches "
+                                     f"{kl1}, default {it0} and {kl0}")
+    for fit, launches0, launches1, s1 in (("pca", pl0, pl1, ps1), ("als", al0, al1, as1)):
+        check(launches0 == launches1, f"tuning pinned {fit}: launches {launches1}, default "
+                                      f"{launches0}")
+        geos = {d["kernel"]: d["geometry"] for d in _summary_tuning(s1)["decisions"]}
+        check(all(geos[k] == TUNE_PINS[k] for k in TUNE_SWEPT[fit]),
+              f"tuning pinned {fit}: resolved {geos}")
+    check(out["pca"]["errs"]["components"] <= PCA_FIT_TOL,
+          f"tuning pinned pca: components {out['pca']['errs']['components']:.3g} from the default")
+    check(out["als"]["solve_only_bit_equal"],
+          "tuning pinned als_solve alone: not bit-equal to the default fit")
+    for fit in TUNE_FITS:
+        worst = max(v for k, v in out[fit]["errs"].items() if k != "components")
+        # two ALS iterations carry K4's fold through four solves: the
+        # pinned fit may lie as far from the default as twice the default
+        # fit's distance from its plain-Gram twin
+        bound = (max(TUNE_FOLD_RTOL, 2.0 * out["als"]["plain_gram_witness"]) if fit == "als"
+                 else TUNE_FOLD_RTOL)
+        check(worst <= bound, f"tuning pinned {fit}: {out[fit]['errs']} from the default fit "
+                              f"(bound {bound:.3g})")
+    return out
+
+
+def mp_tuning(cfg, dev, rank, nproc, out):
+    """World "a"'s autotuner leg (32): under ``tuning="on"`` a data-parallel
+    K-Means across the processes resolves K1 through ``resolve_world``:
+    process 0 sweeps into a fresh cache, every process records the same
+    geometry.  The JSON-lines sink and the flight recorder are armed, so
+    the world's streams are there for the trace merger, and each process
+    then serves four traced requests of its rows (their ledgers too)."""
+    from oap_mllib_tpu_torch import serving
+
+    tc = (TUNE_TINY if cfg is MP_TINY else TUNE_FULL)["world"]
+    cache_dir = os.path.join(out, "tuning_world_cache")
+    sink = os.path.join(out, "tuning_world.jsonl")
+    for path in ([sink] if rank == 0 else []) + [f"{sink}.rank{rank}"]:
+        if os.path.exists(path):
+            os.remove(path)
+    if rank == 0:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    lo, hi = rank * tc["n"] // nproc, (rank + 1) * tc["n"] // nproc
+    x, _ = blob_rows(tc["n"], lo, hi, tc["d"], tc["k"], 0, dev)
+    set_config(tuning="on", tuning_cache_dir=cache_dir, telemetry_log=sink,
+               flight_recorder=4096)
+    try:
+        _zero_launches()
+        m = KMeans(k=tc["k"], max_iter=tc["max_iter"], tol=1e-4, seed=0,
+                   init_mode="random").fit(x)
+        launches = _launches()
+        set_config(serve_trace_sample=1.0)
+        rows = x[:256].cpu().numpy()
+        h = serving.serve(m)
+        with serving.TrafficQueue(h, max_batch_rows=256) as q:
+            futs = [q.submit(rows[j * 64:(j + 1) * 64]) for j in range(4)]
+            answers = [f.result(timeout=120) for f in futs]
+        serving.unserve(m)
+    finally:
+        set_config(tuning="auto", tuning_cache_dir="", telemetry_log="", flight_recorder=0,
+                   serve_trace_sample=0.0)
+    check(np.array_equal(np.concatenate([np.asarray(a) for a in answers]), m.predict(rows)),
+          "mp_tuning: the served answers differ from predict")
+    t = m.summary.tuning
+    want = (m.summary.num_iter + 1) * len(resolve_devices()) if dev.type == "cuda" else 0
+    check(launches[kmeans_kernel.KERNEL] == want,
+          f"mp_tuning: K1 launched {launches[kmeans_kernel.KERNEL]} times, expected {want}")
+    v = {"decisions": t["decisions"], "sweeps": t["sweeps"], "hits": t["hits"],
+         "launches": launches, "sink": sink, "num_iter": m.summary.num_iter}
+    mp_same("mp_tuning geometry", json.dumps([d["geometry"] for d in t["decisions"]]).encode())
+    emit("mp_tuning", v)
+    return v
+
+
+def tune_world(world_a):
+    """Leg 4: both processes of world "a" resolved K1 once, process 0 by a
+    sweep and process 1 as a hit of the geometry process 0 sent."""
+    ranks = [r["mp_tuning"] for r in world_a]
+    geos = [[d["geometry"] for d in v["decisions"]] for v in ranks]
+    check(all(g == geos[0] for g in geos) and len(geos[0]) == 1,
+          f"tuning world: the processes resolved {geos}")
+    check([d["decision"] for d in ranks[0]["decisions"]] == ["sweep"]
+          and all([d["decision"] for d in v["decisions"]] == ["hit"] for v in ranks[1:]),
+          f"tuning world: decisions {[v['decisions'] for v in ranks]}")
+    return {"processes": len(ranks), "geometry": geos[0],
+            "decisions": [v["decisions"][0]["decision"] for v in ranks]}
+
+
+def tune_merge(paths):
+    """Leg 5: the JSON-lines streams through tools/oaptrace.py: a trace
+    that validates; its tracks, flows and request lanes."""
+    from oap_mllib_tpu_torch.tools import oaptrace
+
+    files = oaptrace.expand_paths(paths)
+    trace = oaptrace.merge_trace(files)
+    problems = oaptrace.validate_trace(trace)
+    check(problems == [], f"tuning merge: {problems[:5]}")
+    ev = trace["traceEvents"]
+    flows = {}
+    for e in ev:
+        if e.get("ph") == "s":
+            flows[e.get("cat")] = flows.get(e.get("cat"), 0) + 1
+    lanes = {(e["pid"], e["tid"]) for e in ev if e.get("cat") == "request"}
+    v = {"files": [os.path.basename(f) for f in files], "mode": trace["otherData"]["mode"],
+         "tracks": trace["otherData"]["ranks"], "events": len(ev), "flows": flows,
+         "request_lanes": len(lanes), "requests": trace["otherData"]["requests"],
+         "slices": sum(1 for e in ev if e.get("ph") == "X")}
+    check(len(v["tracks"]) >= 2 and v["slices"] > 0 and sum(flows.values()) > 0,
+          f"tuning merge: {v}")
+    print(f"tuning merge: {len(files)} files, tracks {v['tracks']}, flows {flows}, "
+          f"request lanes {v['request_lanes']}, {v['events']} events ({v['mode']} mode)",
+          flush=True)
+    return v
+
+
+def phase_tuning(cfg, dev, rehearse, world_a=None, tel_sink=None):
+    """Phase 32 (module docstring): the autotuner's five legs, each with
+    the launch counts zeroed just before and read just after."""
+    t_phase = time.perf_counter()
+    reps = cfg["reps"] if dev.type == "cuda" else 1
+    res = {}
+    _zero_launches()
+    res["kmeans"] = tune_kmeans_candidates(cfg, dev, reps)
+    res["pca"] = tune_pca_candidates(cfg, dev, reps)
+    res["als_solve"], res["als_gram"] = tune_als_candidates(cfg, dev, reps)
+    res["ring"], seg2_launches = tune_ring_candidates(cfg, dev, reps)
+    res["leg1_launches"] = _launches()
+    for kernel in ("kmeans", "pca", "als_solve", "als_gram", "ring"):
+        print(f"tuning candidates {kernel}: " + "; ".join(
+            f"{v.get('mode', v.get('r', ''))} {v.get('geometry', v.get('segments'))} "
+            f"{v['ms']:.4f} ms" for v in res[kernel] if "ms" in v), flush=True)
+        emit(f"tuning_{kernel}", res[kernel])
+    res["cache"], tuned = tune_cache_contract(cfg, dev, rehearse)
+    del tuned
+    res["pinned"] = tune_pinned_fits(cfg, dev)
+    res["pinned"]["sharded_segments_2_launches"] = seg2_launches
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "oap_mllib_tpu_torch",
+                       "build", "mp_smoke")
+    if world_a is None:
+        os.makedirs(out, exist_ok=True)
+        flags = (["--rehearse"] if rehearse else []) + ["--tuning-only"]
+        world_a, res["world_wall_s"] = run_world("a", 2, out, flags)
+    res["world"] = tune_world(world_a)
+    emit("tuning_world", res["world"])
+    streams = [world_a[0]["mp_tuning"]["sink"]]
+    if tel_sink is not None and os.path.exists(tel_sink):
+        streams.append(tel_sink)
+    else:
+        # phase 27 did not run: this process's own fits, armed, stand in
+        own = os.path.join(_scratch("tuning_sink"), "tuning.jsonl")
+        set_config(telemetry_log=own, flight_recorder=4096, tuning="auto")
+        try:
+            _tune_fits(cfg, dev, _tune_data(cfg, dev))
+        finally:
+            set_config(telemetry_log="", flight_recorder=0)
+        streams.append(own)
+    res["merge"] = tune_merge(streams)
+    res["wall_s"] = time.perf_counter() - t_phase
+    emit("tuning", {k: res[k] for k in ("world", "merge", "wall_s")})
+    return res
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -6662,6 +7327,8 @@ def main(argv=None) -> int:
         return ha_worker(argv[1:])
     if argv[:1] == ["--sweep-worker"]:
         return sweep_worker(argv[1:])
+    if argv[:1] == ["--tune-worker"]:
+        return tune_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")
@@ -6686,6 +7353,10 @@ def main(argv=None) -> int:
     ap.add_argument("--front", action="store_true",
                     help="only the build, the factor-sharded serving (30) and the front "
                          "doors (31); prints no ok line")
+    ap.add_argument("--tuning", action="store_true",
+                    help="only the build and the kernel-geometry autotuner's phase (32; its "
+                         "world \"a\" runs alone, and this process's armed fits stand in "
+                         "for phase 27's streams); prints no ok line")
     args = ap.parse_args(argv)
     if not args.rehearse and not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -6715,6 +7386,10 @@ def main(argv=None) -> int:
             phase_front_doors(FRONT_TINY if args.rehearse else FRONT_FULL, als_cfg, data, dev,
                               two_d, sharded["two_d"]["fit_launches"])
             print(f"serve_sharded and front_doors phases passed: {smi}", flush=True)
+            return 0
+        if args.tuning:
+            phase_tuning(TUNE_TINY if args.rehearse else TUNE_FULL, dev, args.rehearse)
+            print(f"tuning phase passed: {smi}", flush=True)
             return 0
         if args.block_stream:
             als_cfg = ALS_TINY if args.rehearse else ALS_FULL
@@ -6819,6 +7494,10 @@ def main(argv=None) -> int:
         dp = phase_dp_fit(DP_TINY if args.rehearse else DP_FULL, dev)
         pca_mesh = phase_pca_mesh_fit(pca_cfg, dev)
         mp = phase_mp(dev, False, args.rehearse)
+        # the autotuner (32), its world leg world "a"'s, its merged streams
+        # phase 27's and that world's
+        tuning = phase_tuning(TUNE_TINY if args.rehearse else TUNE_FULL, dev, args.rehearse,
+                              world_a=mp["a"], tel_sink=tel_sink_path())
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -6933,7 +7612,9 @@ def main(argv=None) -> int:
                           "ckpt e resharded": ckpt["e_reshard"]["launches_resumed"][
                               als_kernel.GRAM]},
         ring_kernel.KERNEL: {"sharded_fit": sharded["launches"][ring_kernel.KERNEL],
-                             "dp_fit": dp["launches"][ring_kernel.KERNEL]},
+                             "dp_fit": dp["launches"][ring_kernel.KERNEL],
+                             "tuning sharded_fit segments=2": tuning["pinned"][
+                                 "sharded_segments_2_launches"][ring_kernel.KERNEL]},
     }
     # the serving and online phase's launch paths (28)
     by_path[kmeans_kernel.KERNEL]["serve_online partial_fit"] = \

@@ -176,6 +176,26 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   the old pins until ``serving.registry.repin_model``.  A typo raises at
   commit time.
 
+- ``tuning``: the kernel-geometry autotuner's mode (ops/cuda/autotune.py):
+  "auto" (default) resolves cached geometry and never sweeps (no cache:
+  each kernel's default, today's launch exactly), "on" sweeps a
+  (kernel, shape bucket, tier) once on a miss and persists the winner,
+  "off" ignores the cache, ``pin:<json>`` overlays
+  ``{kernel: {knob: int}}`` on the defaults.  A typo raises at every
+  fit's entry.  Stated departures from the JAX package: the knobs are
+  the Hopper kernels' launch parameters (``kmeans``: ``range_rows``,
+  ``parts``; ``pca``: ``target_blocks``, ``sum_rows``; ``als_solve``:
+  ``group``; ``als_gram``: ``blocks``, ``stage_floats``; ``ring``:
+  ``segments``), so a pin of the JAX package's TPU knobs (``tile_rows``,
+  ``depth``, ``batch``) raises and names the port's; and a sweep on a
+  CPU device records each kernel's default as its winner (the plain
+  versions take no geometry).  The kernel keys, the modes, the buckets
+  and ``summary["tuning"]`` are the JAX package's.
+- ``tuning_cache_dir``: the directory the swept winners persist to
+  (one JSON file a key, written by rename); "" keeps them in the
+  process.  A corrupt, stale or unwritable entry warns and reads as a
+  miss.
+
 The JAX package's ``timing`` (log every phase) is left out: the port
 always times its phases into the summary's span tree.
 
@@ -269,6 +289,8 @@ class Config:
     online_decay: float = 1.0
     online_foldin_batch: int = 0
     online_repin: str = "auto"
+    tuning: str = "auto"
+    tuning_cache_dir: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":

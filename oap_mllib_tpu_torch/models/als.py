@@ -103,7 +103,7 @@ from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.fallback import als_np
 from oap_mllib_tpu_torch.ops import als_block, als_block_stream, als_ops, als_stream
-from oap_mllib_tpu_torch.ops.cuda import als_kernel
+from oap_mllib_tpu_torch.ops.cuda import als_kernel, autotune
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, get_mesh
 from oap_mllib_tpu_torch.telemetry import export as telemetry
@@ -384,6 +384,7 @@ class ALS:
         ``users`` a width-3 ``ChunkSource`` of (user, item, rating) rows
         (``items`` and ``ratings`` None).  ``init`` is an optional
         (x0, y0) pair of initial factors."""
+        autotune.check_config()  # a Config.tuning typo raises here
         if isinstance(users, ChunkSource):
             if items is not None or ratings is not None:
                 raise ValueError("pass EITHER a triples ChunkSource OR explicit "
@@ -531,7 +532,8 @@ class ALS:
             )
         return x0, y0
 
-    def _summary(self, timings, pol, before, extra, cache_before=None) -> dict:
+    def _summary(self, timings, pol, before, extra, cache_before=None,
+                 tune_before=None) -> dict:
         out = {
             "timings": timings,
             "accelerated": True,
@@ -551,6 +553,8 @@ class ALS:
         }
         if cache_before is not None:
             out["progcache"] = progcache.delta(cache_before)
+        if tune_before is not None:
+            out["tuning"] = autotune.delta(tune_before)
         return out
 
     # the id axes may GROW across restores (utils/checkpoint.py): an
@@ -642,6 +646,7 @@ class ALS:
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         if x0 is None:
             x0 = als_np.init_factors(n_users, self.rank, self.seed)
             y0 = als_np.init_factors(n_items, self.rank, self.seed + 1)
@@ -683,7 +688,7 @@ class ALS:
                  **self._block_summary(1)}
         if streamed:
             extra["streamed"] = True
-        summary = self._summary(timings, pol, before, extra, cache_before)
+        summary = self._summary(timings, pol, before, extra, cache_before, tune_before)
         if ckpt is not None:
             ckpt.record(summary)
         return ALSModel(x, y, summary, device=self._scoring_device(dev))
@@ -772,6 +777,7 @@ class ALS:
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         with phase_timer(timings, "ratings_shuffle", devs):
             edges = als_block.prepare_block_inputs(users, items, ratings, world, n_users, mesh,
                                                    offsets=offsets)
@@ -822,7 +828,8 @@ class ALS:
                     by_item.upb if item_sharded else None)
                 x_blocks, y = self._run_block_segmented(ckpt, run_iters, x0_dev, y0_dev, mesh,
                                                         layout, n_items)
-        summary = self._summary(timings, pol, before, cache_before=cache_before, extra={
+        summary = self._summary(timings, pol, before, cache_before=cache_before,
+                                tune_before=tune_before, extra={
             "block_parallel": True, "sharded_factors": True,
             "als_kernel": "grouped" if use_grouped else "coo",
             "item_layout": "sharded" if item_sharded else "replicated",
@@ -871,6 +878,7 @@ class ALS:
         timings = Timings("als.fit")
         before = dict(als_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         with phase_timer(timings, "table_convert", devs):
             lay = als_block_stream.prepare_streamed_block_layouts(
                 users, items, ratings, n_users, n_items, mesh, self.rank,
@@ -889,7 +897,8 @@ class ALS:
             x_blocks, y = als_block_stream.als_block_run_streamed(
                 lay, x0_dev, y0_dev, self.max_iter, self.reg_param, self.alpha, mesh,
                 implicit=self.implicit_prefs, timings=timings, policy=pol, checkpoint=ckpt)
-        summary = self._summary(timings, pol, before, cache_before=cache_before, extra={
+        summary = self._summary(timings, pol, before, cache_before=cache_before,
+                                tune_before=tune_before, extra={
             "streamed": True, "block_parallel": True, "sharded_factors": True,
             "als_kernel": "grouped",
             "item_layout": "sharded" if item_sharded else "replicated",

@@ -94,7 +94,7 @@ from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable, as_float_tensor
 from oap_mllib_tpu_torch.fallback.kmeans_np import _sq_dists, lloyd_np, predict_np
 from oap_mllib_tpu_torch.ops import kmeans_ops, stream_ops
-from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, ring_kernel
+from oap_mllib_tpu_torch.ops.cuda import autotune, kmeans_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
 from oap_mllib_tpu_torch.telemetry import export as telemetry
@@ -156,6 +156,8 @@ class KMeansSummary:
         self.progcache = None
         self.telemetry = None
         self.sanitizers = None
+        # the fit's kernel-geometry decisions (ops/cuda/autotune.delta)
+        self.tuning = None
         # the world the fit ran in (parallel/bootstrap.py)
         self.processes = bootstrap.world_size()
         self.process_id = bootstrap.process_index()
@@ -385,6 +387,7 @@ class KMeans:
         """Fit on ``x`` (an (n, d) ndarray, tensor, SciPy sparse matrix or
         ``ChunkSource``), optionally with row weights (for a source, a
         width-1 source chunked like it, or an array)."""
+        autotune.check_config()  # a Config.tuning typo raises here
         if isinstance(x, ChunkSource):
             return self._fit_source(x, sample_weight)
         if not isinstance(x, torch.Tensor) and not _sparse.is_sparse(x):
@@ -506,6 +509,7 @@ class KMeans:
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         ckpt = ckpt_mod.maybe_open("kmeans", self._ckpt_signature(source.n_features),
                                    timings=timings)
         resume = ckpt.restore() if ckpt is not None else None
@@ -534,6 +538,7 @@ class KMeans:
             precision=pol, streamed=True,
         )
         summary.progcache = progcache.delta(cache_before)
+        summary.tuning = autotune.delta(tune_before)
         if ckpt is not None:
             ckpt.record(summary)
         stream_ops.end_fit(summary)
@@ -617,6 +622,7 @@ class KMeans:
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         with phase_timer(timings, "table_convert", dev):
             table = DenseTable.from_numpy(x, dev)
             weights = table.mask
@@ -627,10 +633,14 @@ class KMeans:
             if centers0 is None:
                 centers0 = self._init_centers(table, weights, dev)
         with phase_timer(timings, "lloyd_loop", dev):
+            # K1's launch geometry (ops/cuda/autotune.py), for the loop
+            geometry = autotune.resolve_world(
+                "kmeans", autotune.shape_bucket(self.k, x.shape[1]), tier, dev)
+
             def run_iters(c0, iters):
                 return kmeans_kernel.lloyd_run_kernel(
                     table.data, weights, c0, iters, self.tol, mode=tier,
-                    row_chunks=2 ** int(level))
+                    row_chunks=2 ** int(level), geometry=geometry)
 
             if ckpt is None:
                 centers, n_iter, cost, counts = run_iters(centers0, self.max_iter)
@@ -651,6 +661,7 @@ class KMeans:
             cluster_sizes=counts, kernels=kernels, precision=pol,
         )
         summary.progcache = progcache.delta(cache_before)
+        summary.tuning = autotune.delta(tune_before)
         if ckpt is not None:
             ckpt.record(summary)
         return KMeansModel(centers, self.distance_measure, summary, device=self.device)
@@ -670,6 +681,7 @@ class KMeans:
         timings = Timings("kmeans.fit")
         before = {**kmeans_kernel.LAUNCHES, **ring_kernel.LAUNCHES}
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         d_orig = x.shape[1]
         with phase_timer(timings, "table_convert", mesh.distinct_devices()):
             if d_orig % n_model:
@@ -700,14 +712,25 @@ class KMeans:
                 centers0 = torch.nn.functional.pad(centers0, (0, x.shape[1] - d_orig))
             del table, weights
         with phase_timer(timings, "lloyd_loop", mesh.distinct_devices()):
+            # the launch geometry (ops/cuda/autotune.py), the same on every
+            # process: K1's on a model axis of 1, else the ring's segments
+            if n_model == 1:
+                geometry = autotune.resolve_world(
+                    "kmeans", autotune.shape_bucket(self.k, x.shape[1]), tier, first)
+            else:
+                segments = autotune.resolve_world(
+                    "ring", autotune.shape_bucket(mesh.shape[cfg.data_axis], x.shape[1]),
+                    device=first)["segments"]
+
             def run_iters(c0, iters):
                 if n_model == 1:
                     return kmeans_ops.lloyd_run_data_parallel(
                         sharded.tiles, tile_weights, c0, iters, self.tol, mesh,
-                        cfg.data_axis, mode=tier)
+                        cfg.data_axis, mode=tier, geometry=geometry)
                 return kmeans_ops.lloyd_run_model_sharded(
                     sharded.tiles, tile_weights, c0, iters, self.tol, mesh,
-                    cfg.data_axis, cfg.model_axis, precision=tier, policy=pol)
+                    cfg.data_axis, cfg.model_axis, precision=tier, policy=pol,
+                    ring_segments=segments)
 
             if ckpt is None:
                 centers, n_iter, cost, counts = run_iters(centers0, self.max_iter)
@@ -725,6 +748,7 @@ class KMeans:
             ring=n_model > 1 and kmeans_ops.ring_enabled(mesh, cfg.data_axis),
         )
         summary.progcache = progcache.delta(cache_before)
+        summary.tuning = autotune.delta(tune_before)
         if ckpt is not None:
             ckpt.record(summary)
         return KMeansModel(centers, self.distance_measure, summary, device=str(first))

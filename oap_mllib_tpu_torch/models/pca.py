@@ -72,7 +72,7 @@ from oap_mllib_tpu_torch.data import sparse as _sparse
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import DenseTable, ShardedTable
 from oap_mllib_tpu_torch.ops import kmeans_ops, pca_ops, stream_ops
-from oap_mllib_tpu_torch.ops.cuda import pca_kernel
+from oap_mllib_tpu_torch.ops.cuda import autotune, pca_kernel
 from oap_mllib_tpu_torch.parallel import bootstrap
 from oap_mllib_tpu_torch.parallel.mesh import get_mesh
 from oap_mllib_tpu_torch.telemetry import export as telemetry
@@ -195,6 +195,7 @@ class PCA:
         """Fit on ``x``, an (n, d) ndarray, tensor, SciPy sparse matrix or
         ``ChunkSource``."""
         solver = _pca_solver_cfg()
+        autotune.check_config()  # a Config.tuning typo raises here
         if isinstance(x, ChunkSource):
             return self._fit_source(x, solver)
         if not isinstance(x, torch.Tensor) and not _sparse.is_sparse(x):
@@ -302,13 +303,15 @@ class PCA:
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         ckpt = ckpt_mod.maybe_open("pca", self._ckpt_signature(d, "colsum"), timings=timings)
         with phase_timer(timings, "covariance_streamed", dev):
             cov, _, n = stream_ops.covariance_streamed(source, tier, timings, pol, dev,
                                                        checkpoint=ckpt)
         model = self._finish(cov, d, timings, dev, solver, pol, before,
                              model_device(self.device, dev))
-        model.summary.update(streamed=True, n_rows=n, progcache=progcache.delta(cache_before))
+        model.summary.update(streamed=True, n_rows=n, progcache=progcache.delta(cache_before),
+                             tuning=autotune.delta(tune_before))
         if ckpt is not None:
             ckpt.record(model.summary)
         stream_ops.end_fit(model.summary)
@@ -347,6 +350,7 @@ class PCA:
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         ckpt, cov = self._restore_cov(x.shape[1], timings, dev)
         if cov is None:
             with phase_timer(timings, "table_convert", dev):
@@ -356,6 +360,7 @@ class PCA:
             self._write_cov(ckpt, cov, x.shape[1])
         model = self._finish(cov, x.shape[1], timings, dev, solver, pol, before, self.device)
         model.summary["progcache"] = progcache.delta(cache_before)
+        model.summary["tuning"] = autotune.delta(tune_before)
         if ckpt is not None:
             ckpt.record(model.summary)
         return model
@@ -416,6 +421,7 @@ class PCA:
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
         cache_before = progcache.stats()
+        tune_before = autotune.mark()
         n, d = x.shape
         # the covariance is stored unpadded: it restores onto any model
         # axis, and a restored fit skips the table and the moments
@@ -440,6 +446,7 @@ class PCA:
         model = self._finish(cov, d, timings, first, solver, pol, before, str(first),
                              dict(mesh.shape))
         model.summary["progcache"] = progcache.delta(cache_before)
+        model.summary["tuning"] = autotune.delta(tune_before)
         if ckpt is not None:
             ckpt.record(model.summary)
         return model

@@ -186,6 +186,9 @@ def fold_in(model, users, items, ratings, *, side: str = "user",
     rows_solved = 0
     step = batch_rows or len(uniq)
     gram = None
+    # K3 / K4 at the geometry the fit's cache holds (ops/cuda/autotune.py,
+    # this process alone): a fold-in after a tuned fit sweeps nothing
+    solve_k, gram_k = als_ops.tuned_kernels(r, implicit, dev, world=False)
     for lo in range(0, len(uniq), step):
         hi = min(lo + step, len(uniq))
         e_lo, e_hi = np.searchsorted(inv_s, [lo, hi])
@@ -201,8 +204,8 @@ def fold_in(model, users, items, ratings, *, side: str = "user",
             a, b, n_reg = side_b.partials(frozen, alpha, implicit, pol)
             # the frozen table's Gram is the same every batch, but each
             # batch's launch set is whole (K4 with K3), as a half-update's
-            gram = als_ops._factor_gram(frozen) if implicit else None
-            solved = als_ops.regularized_solve(a, b, n_reg, reg, gram)
+            gram = als_ops._factor_gram(frozen, gram_k) if implicit else None
+            solved = als_ops.regularized_solve(a, b, n_reg, reg, gram, solve_k)
         solved = solved[:hi - lo].cpu().numpy()
         n_reg = n_reg[:hi - lo].cpu().numpy()
         take = n_reg > 0  # rows with no reg-counted rating keep their factors

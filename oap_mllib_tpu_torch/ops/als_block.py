@@ -70,7 +70,6 @@ import torch
 
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.ops import als_ops
-from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel import collective, shuffle
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
 from oap_mllib_tpu_torch.utils import faults
@@ -453,8 +452,13 @@ def _block_body_2d(sides: BlockSides, x: Dict[Rank, torch.Tensor],
 
 
 def _run(sides: BlockSides, x0, y0, max_iter: int, reg: float, alpha: float,
-         implicit: bool, axis: str, policy: str, solve: Callable, gram: Callable,
-         body: Callable = _block_body):
+         implicit: bool, axis: str, policy: str, solve: Optional[Callable],
+         gram: Optional[Callable], body: Callable = _block_body):
+    """``max_iter`` iterations of ``body``; ``solve`` / ``gram`` None take
+    K3 / K4 at the autotuner's geometry (als_ops.tuned_kernels), resolved
+    once on every process."""
+    first = next(iter(x0.values()))
+    solve, gram = als_ops.tuned_kernels(first.shape[1], implicit, first.device, solve, gram)
     x, y = dict(x0), dict(y0)
     for _ in range(max_iter):
         faults.maybe_fault("fit.execute")  # utils/faults.py, once an iteration
@@ -465,14 +469,13 @@ def _run(sides: BlockSides, x0, y0, max_iter: int, reg: float, alpha: float,
 def als_block_run(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
                   y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float, alpha: float,
                   mesh: Mesh, *, implicit: bool, policy: str = "f32",
-                  solve: Callable = als_kernel.solve_normal_eq,
-                  gram: Callable = als_kernel.factor_gram
+                  solve: Optional[Callable] = None, gram: Optional[Callable] = None
                   ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
     """Block-parallel ALS (both feedback modes) on COO sides: ``(x
     blocks, y copies)``, one per data rank.  ``x0[q]`` is rank ``q``'s
     (upb, r) user block, ``y0[q]`` its (n_items, r) copy of the items;
-    ``solve`` and ``gram`` are the kernel wrappers (the card check passes
-    their plain versions)."""
+    ``solve`` and ``gram`` are the kernel wrappers, None for the tuned
+    ones (the card check passes their plain versions)."""
     if sides.grouped:
         raise ValueError("als_block_run takes COO sides; grouped ones run "
                          "als_block_run_grouped")
@@ -483,8 +486,8 @@ def als_block_run(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
 def als_block_run_grouped(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
                           y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float,
                           alpha: float, mesh: Mesh, *, implicit: bool, policy: str = "f32",
-                          solve: Callable = als_kernel.solve_normal_eq,
-                          gram: Callable = als_kernel.factor_gram
+                          solve: Optional[Callable] = None,
+                          gram: Optional[Callable] = None
                           ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
     """:func:`als_block_run` on grouped sides: the same iteration and
     psums with the grouped moments."""
@@ -497,8 +500,7 @@ def als_block_run_grouped(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
 def als_block_run_2d(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
                      y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float, alpha: float,
                      mesh: Mesh, *, implicit: bool, policy: str = "f32",
-                     solve: Callable = als_kernel.solve_normal_eq,
-                     gram: Callable = als_kernel.factor_gram
+                     solve: Optional[Callable] = None, gram: Optional[Callable] = None
                      ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
     """The 2-D layout (:func:`_block_body_2d`) on COO sides from
     :func:`prepare_coo_inputs_2d`: ``(x blocks, y blocks)``, ``x0[q]`` rank
@@ -514,8 +516,8 @@ def als_block_run_grouped_2d(sides: BlockSides, x0: Dict[Rank, torch.Tensor],
                              y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float,
                              alpha: float, mesh: Mesh, *, implicit: bool,
                              policy: str = "f32",
-                             solve: Callable = als_kernel.solve_normal_eq,
-                             gram: Callable = als_kernel.factor_gram
+                             solve: Optional[Callable] = None,
+                             gram: Optional[Callable] = None
                              ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
     """:func:`als_block_run_2d` on grouped sides from
     :func:`prepare_grouped_inputs_2d`."""

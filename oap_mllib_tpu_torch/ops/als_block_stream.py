@@ -50,7 +50,6 @@ import torch
 
 from oap_mllib_tpu_torch.data.prefetch import PrefetchStats
 from oap_mllib_tpu_torch.ops import als_block, als_ops, als_stream
-from oap_mllib_tpu_torch.ops.cuda import als_kernel
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
 from oap_mllib_tpu_torch.utils.timing import tick
 
@@ -173,8 +172,8 @@ def als_block_run_streamed(lay: StreamedBlockLayouts, x0: Dict[Rank, torch.Tenso
                            y0: Dict[Rank, torch.Tensor], max_iter: int, reg: float,
                            alpha: float, mesh: Mesh, *, implicit: bool, timings=None,
                            policy: str = "f32",
-                           solve: Callable = als_kernel.solve_normal_eq,
-                           gram: Callable = als_kernel.factor_gram, checkpoint=None
+                           solve: Optional[Callable] = None,
+                           gram: Optional[Callable] = None, checkpoint=None
                            ) -> Tuple[Dict[Rank, torch.Tensor], Dict[Rank, torch.Tensor]]:
     """The streamed block ALS (both feedback modes, both item layouts):
     ``(x blocks, y)`` in the resident runners' forms (y the replicated
@@ -182,7 +181,8 @@ def als_block_run_streamed(lay: StreamedBlockLayouts, x0: Dict[Rank, torch.Tenso
     ``q``'s (upb, r) user block, ``y0[q]`` its (n_items, r) copy or (ipb,
     r) item block.  Every chunk's stage / transfer / compute split lands
     in ``timings`` under ``als_iterations/``.  ``solve`` and ``gram``
-    are the kernel wrappers; the card check passes their plain
+    are the kernel wrappers (None: K3 and K4 at the autotuner's
+    geometry, resolved once a call); the card check passes their plain
     versions.
 
     ``checkpoint`` (utils/checkpoint.py): every process writes its
@@ -191,6 +191,8 @@ def als_block_run_streamed(lay: StreamedBlockLayouts, x0: Dict[Rank, torch.Tenso
     blocks (als_block.restore_block_factors), whether the world shrank,
     grew or only re-blocked."""
     body = als_block._block_body_2d if lay.item_sharded else als_block._block_body
+    first = next(iter(x0.values()))
+    solve, gram = als_ops.tuned_kernels(first.shape[1], implicit, first.device, solve, gram)
     elapsed = tick()
     args = (reg, alpha if implicit else 0.0, implicit, mesh.axis_names[0], policy, solve,
             gram, body)

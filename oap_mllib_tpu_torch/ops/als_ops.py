@@ -43,13 +43,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, List, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from oap_mllib_tpu_torch.ops import host_prep
-from oap_mllib_tpu_torch.ops.cuda import als_kernel
+from oap_mllib_tpu_torch.ops.cuda import als_kernel, autotune
 from oap_mllib_tpu_torch.utils import precision as psn
 from oap_mllib_tpu_torch.utils import progcache
 from oap_mllib_tpu_torch.utils.timing import phase_timer
@@ -361,15 +362,40 @@ def _factor_gram(factors, gram: Callable = als_kernel.factor_gram) -> torch.Tens
     return gram(factors.contiguous(), "highest")
 
 
+def tuned_kernels(rank: int, implicit: bool, device, solve: Optional[Callable] = None,
+                  gram: Optional[Callable] = None, world: bool = True):
+    """``(solve, gram)`` for a loop at ``rank``: each one given is kept
+    (the card check passes the plain versions), each None becomes K3's
+    or K4's wrapper at the geometry the autotuner resolves
+    (ops/cuda/autotune.py, the JAX package's ``_tuned_geometry``):
+    ``als_solve`` where the rank takes the solve kernel, ``als_gram``
+    where an implicit fit's Gram runs the kernel.  ``world`` resolves
+    the same geometry on every process (every process calls); False
+    resolves in this process alone."""
+    resolve = autotune.resolve_world if world else autotune.resolve
+    bucket = autotune.shape_bucket(rank)
+    if solve is None:
+        geo = (resolve("als_solve", bucket, device=device)
+               if rank <= als_kernel.MAX_RANK else None)
+        solve = functools.partial(als_kernel.solve_normal_eq, geometry=geo)
+    if gram is None:
+        geo = (resolve("als_gram", bucket, device=device)
+               if implicit and gram_route(rank) == "kernel" else None)
+        gram = functools.partial(als_kernel.factor_gram, geometry=geo)
+    return solve, gram
+
+
 def run_sides(user_side, item_side, x0, y0, max_iter: int, reg: float,
               alpha: float, implicit: bool, policy: str = "f32",
-              solve: Callable = als_kernel.solve_normal_eq,
-              gram: Callable = als_kernel.factor_gram) -> Tuple[torch.Tensor, torch.Tensor]:
+              solve: Optional[Callable] = None,
+              gram: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ALS loop over two prepared sides: ``max_iter`` times the user
     half-update, then the item half-update, each iteration the
     ``fit.execute`` fault site (utils/faults.py) and one launch of its
     program (utils/progcache.py).  ``solve`` and ``gram`` are the kernel
-    wrappers; the card check passes their plain versions."""
+    wrappers (None: :func:`tuned_kernels`); the card check passes their
+    plain versions."""
+    solve, gram = tuned_kernels(x0.shape[1], implicit, x0.device, solve, gram)
     x, y = x0, y0
     key = (progcache.array_key(x0, y0), type(user_side).__name__, implicit, policy)
     for _ in range(max_iter):

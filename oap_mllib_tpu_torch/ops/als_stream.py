@@ -158,8 +158,8 @@ def _half_update_streamed(grouped_host, factors: torch.Tensor, n_dst: int, gc: i
 def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_iter: int,
                      reg: float, alpha: float, implicit: bool, timings=None,
                      policy: str = "f32", device=None,
-                     solve: Callable = als_kernel.solve_normal_eq,
-                     gram: Callable = als_kernel.factor_gram,
+                     solve: Optional[Callable] = None,
+                     gram: Optional[Callable] = None,
                      degraded: bool = False, checkpoint=None,
                      grown_fill: Optional[Callable] = None) -> Tuple[np.ndarray, np.ndarray]:
     """The streamed ALS loop (both feedback modes): ``by_user`` and
@@ -168,7 +168,8 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
     iterations, each half-update
     streams its side's layout.  The prefetch split of every chunk lands
     in ``timings`` under ``als_iterations/``.  Returns the host (x, y).
-    ``solve`` and ``gram`` are the kernel wrappers; the card check
+    ``solve`` and ``gram`` are the kernel wrappers (None: K3 and K4 at
+    the autotuner's geometry, ``als_ops.tuned_kernels``); the card check
     passes their plain versions.  ``degraded`` is the resilience
     ladder's halving rung: half the groups a chunk, half the device
     memory a step (the segment sums then add in another order, so the
@@ -185,6 +186,7 @@ def als_run_streamed(by_user, by_item, x0, y0, n_users: int, n_items: int, max_i
     signature, so a halved re-chunk resumes too)."""
     dev = resolve_device(device)
     r = np.asarray(x0).shape[1]
+    solve, gram = als_ops.tuned_kernels(r, implicit, dev, solve, gram)
     if not implicit:
         alpha = 0.0
     by_user, by_item = (tuple(np.ascontiguousarray(a, t) for a, t in

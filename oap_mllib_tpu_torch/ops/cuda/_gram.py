@@ -34,14 +34,16 @@ _SMS = 132
 WGMMA_MIN_D = 64
 
 
-def gram_geometry(n: int, d: int) -> Tuple[int, int, int, int]:
+def gram_geometry(n: int, d: int, target_blocks: int = _TARGET_BLOCKS
+                  ) -> Tuple[int, int, int, int]:
     """``(tm, m, slices, slice_rows)`` of the Gram of an (n, d) table:
     16 * tm output tiles, m tiles per side (m (m + 1) / 2 computed), row
-    slices."""
+    slices enough for about ``target_blocks`` (tile, slice) blocks (the
+    autotuner's ``pca`` knob of that name)."""
     tm = 8 if d > 64 else 4 if d > 32 else 2 if d > 16 else 1
     m = -(-d // (16 * tm))
     tiles = m * (m + 1) // 2
-    slices = max(1, min(-(-_TARGET_BLOCKS // tiles),
+    slices = max(1, min(-(-target_blocks // tiles),
                         -(-n // _MIN_SLICE_ROWS),
                         _PARTIAL_ELEMS // (d * d)))
     slice_rows = -(-(-(-n // slices)) // _BK) * _BK

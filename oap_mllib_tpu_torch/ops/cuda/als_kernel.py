@@ -13,6 +13,18 @@
   in a fixed order inside the launch, behind atomic tickets kept zeroed
   per device and stream.
 
+Launch geometry (the autotuner's ``als_solve`` and ``als_gram`` knobs,
+ops/cuda/autotune.py): the solve's ``group`` counts the steps above
+:func:`solve_group` in powers of two (0 is ``solve_group(r)`` lanes a
+system, 1 the next power of two above it; at most 32 lanes, so r above
+16 takes 0 only), see :func:`solve_lanes`; the row-independent solve
+gives the same bits at every group.  The factor Gram's ``blocks`` (at
+most :data:`MAX_GRAM_BLOCKS`) and ``stage_floats`` (a multiple of 4, at
+most :data:`MAX_STAGE_FLOATS`, the shared buffer ``csrc/als_factor_gram.cu``
+sizes) size :func:`factor_gram_geometry`; the blocks cut the rows
+into other partials, so they change the fold.  ``geometry=None``
+launches :data:`SOLVE_DEFAULT` and :data:`GRAM_DEFAULT`.
+
 Each has a plain PyTorch version beside it (:func:`solve_plain`,
 :func:`factor_gram_plain`).  A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises, with no fallback either way.
@@ -102,12 +114,60 @@ def solve_group(r: int) -> int:
     return r if r == EXACT_RANK else 1 << (r - 1).bit_length()
 
 
+SOLVE_DEFAULT = {"group": 0}
+
+
+def solve_lanes(r: int, geometry=None) -> int:
+    """Lanes per system at the solve geometry ``{"group": steps}``:
+    :func:`solve_group` raised ``steps`` times to the next power of two
+    above it.  A geometry the kernel has no instance for (more than 32
+    lanes, a negative step, another knob) raises, on every device."""
+    geo = SOLVE_DEFAULT if geometry is None else geometry
+    if set(geo) != set(SOLVE_DEFAULT):
+        raise ValueError(f"{SOLVE} geometry takes the knobs {sorted(SOLVE_DEFAULT)}, "
+                         f"got {sorted(geo)}")
+    steps = geo["group"]
+    if not isinstance(steps, int) or steps < 0:
+        raise ValueError(f"{SOLVE}: group must be a step count >= 0, got {steps!r}")
+    g = solve_group(r)
+    for _ in range(steps):
+        g = 1 << g.bit_length()
+    if g > MAX_RANK:
+        raise ValueError(f"{SOLVE}: group {steps} at rank {r} is {g} lanes a system, "
+                         f"above the kernel's {MAX_RANK}")
+    return g
+
+
 # the factor Gram's launch: blocks (two per SM of an H100 SXM's 132), rows
 # a block stages at once (in floats of F), and a block's rows a multiple
 # of this
 _GRAM_BLOCKS = 2 * 132
 _GRAM_STAGE_FLOATS = 4096
 _GRAM_ROW_ALIGN = 4  # 16-byte copies need a block's rows to start at a multiple of 4 floats
+GRAM_DEFAULT = {"blocks": _GRAM_BLOCKS, "stage_floats": _GRAM_STAGE_FLOATS}
+# the kernel's bounds: groups of ceil(sqrt(blocks)) blocks, at most 32
+# groups of at most 32 (its MAX_GROUP), and a stage of at most
+# MAX_STAGE_ALLOC - 4 floats
+MAX_GRAM_BLOCKS = 32 * 32
+MAX_STAGE_FLOATS = 4096
+
+
+def check_gram_geometry(geometry):
+    """``(blocks, stage_floats)`` of a ``{"blocks", "stage_floats"}``
+    geometry (None: :data:`GRAM_DEFAULT`); one the kernel cannot take
+    raises, on every device."""
+    geo = GRAM_DEFAULT if geometry is None else geometry
+    if set(geo) != set(GRAM_DEFAULT):
+        raise ValueError(f"{GRAM} geometry takes the knobs {sorted(GRAM_DEFAULT)}, "
+                         f"got {sorted(geo)}")
+    blocks, stage = geo["blocks"], geo["stage_floats"]
+    if not isinstance(blocks, int) or not 1 <= blocks <= MAX_GRAM_BLOCKS:
+        raise ValueError(f"{GRAM}: blocks must be in 1..{MAX_GRAM_BLOCKS}, got {blocks!r}")
+    if (not isinstance(stage, int) or not _GRAM_ROW_ALIGN <= stage <= MAX_STAGE_FLOATS
+            or stage % _GRAM_ROW_ALIGN):
+        raise ValueError(f"{GRAM}: stage_floats must be a multiple of {_GRAM_ROW_ALIGN} in "
+                         f"{_GRAM_ROW_ALIGN}..{MAX_STAGE_FLOATS}, got {stage!r}")
+    return blocks, stage
 
 
 class GramGeometry(NamedTuple):
@@ -123,13 +183,16 @@ def _round_up(v: int, m: int) -> int:
 
 
 @lru_cache(maxsize=256)
-def factor_gram_geometry(n: int, r: int) -> GramGeometry:
-    """The factor Gram's one launch for an (n, r) table: two blocks per
-    SM over contiguous row ranges, stages of about 16 KB of F, and
-    groups of ~sqrt(blocks) blocks for the kernel's two-level sum."""
-    block_rows = _round_up(-(-n // _GRAM_BLOCKS), _GRAM_ROW_ALIGN)
+def factor_gram_geometry(n: int, r: int, target_blocks: int = _GRAM_BLOCKS,
+                         stage_floats: int = _GRAM_STAGE_FLOATS) -> GramGeometry:
+    """The factor Gram's one launch for an (n, r) table: at most
+    ``target_blocks`` blocks (two per SM by default) over contiguous row
+    ranges, stages of at most ``stage_floats`` floats of F (16 KB by
+    default), and groups of ~sqrt(blocks) blocks for the kernel's
+    two-level sum."""
+    block_rows = _round_up(-(-n // target_blocks), _GRAM_ROW_ALIGN)
     blocks = -(-n // block_rows)
-    stage_rows = min(block_rows, max(_GRAM_ROW_ALIGN, _GRAM_STAGE_FLOATS // r
+    stage_rows = min(block_rows, max(_GRAM_ROW_ALIGN, stage_floats // r
                                      // _GRAM_ROW_ALIGN * _GRAM_ROW_ALIGN))
     group_size = math.isqrt(blocks - 1) + 1  # ceil(sqrt(blocks))
     return GramGeometry(blocks, block_rows, stage_rows, group_size, -(-blocks // group_size))
@@ -220,11 +283,13 @@ def _stream(dev):
 
 
 def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
-                    reg: float, gram: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    reg: float, gram: Optional[torch.Tensor] = None,
+                    geometry=None) -> torch.Tensor:
     """Factors (n, r) of ``gram + (a + reg * n_reg * I)`` x = b, zero where
     ``n_reg == 0``.  f32 operands on one device, any strides: CPU takes
-    the plain version, CUDA the Hopper kernel."""
+    the plain version, CUDA the Hopper kernel at ``geometry``."""
     _check_solve(a, b, n_reg, gram)
+    lanes = solve_lanes(b.shape[1], geometry)
     if b.device.type == "cpu":
         return solve_plain(a, b, n_reg, reg, gram)
     if b.device.type != "cuda":
@@ -237,7 +302,7 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
         b.device.index, a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
         n_reg.data_ptr(), n_reg.stride(0),
         None if gram is None else gram.data_ptr(), float(reg), n, r,
-        solve_group(r), out.data_ptr(), _stream(b.device),
+        lanes, out.data_ptr(), _stream(b.device),
     )
     if err != 0:
         raise RuntimeError(f"{SOLVE}: CUDA launch failed with error {err}")
@@ -246,10 +311,12 @@ def solve_normal_eq(a: torch.Tensor, b: torch.Tensor, n_reg: torch.Tensor,
     return out
 
 
-def factor_gram(f: torch.Tensor, mode: str = "highest") -> torch.Tensor:
+def factor_gram(f: torch.Tensor, mode: str = "highest", geometry=None) -> torch.Tensor:
     """``F^T F`` (r, r) of an (n, r) f32 contiguous table at a tier: CPU
-    takes the plain version, CUDA the Hopper kernel (one launch)."""
+    takes the plain version, CUDA the Hopper kernel (one launch) at
+    ``geometry``."""
     mode = check_mode(mode)
+    target_blocks, stage_floats = check_gram_geometry(geometry)
     if not isinstance(f, torch.Tensor) or f.dtype != torch.float32 or f.dim() != 2:
         raise TypeError("factors must be a 2-D float32 torch.Tensor")
     if not f.is_contiguous():
@@ -265,7 +332,7 @@ def factor_gram(f: torch.Tensor, mode: str = "highest") -> torch.Tensor:
     if r > MAX_GRAM_RANK:
         raise ValueError(f"{GRAM}: rank {r} above the kernel's {MAX_GRAM_RANK}")
     fn = _library(GRAM).als_factor_gram
-    geo = factor_gram_geometry(n, r)
+    geo = factor_gram_geometry(n, r, target_blocks, stage_floats)
     stream = _stream(dev)
     tickets, scratch = _gram_workspace(dev, stream, (geo.blocks + geo.groups) * gram_packed(r))
     gram = f.new_empty((r, r))

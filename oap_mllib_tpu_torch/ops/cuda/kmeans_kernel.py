@@ -17,6 +17,12 @@
 - :func:`lloyd_run_kernel` is ``_lloyd_loop_padded`` / ``lloyd_run_pallas``:
   the Lloyd loop over the wrapper, then one cost pass at ``highest``.
 
+Launch geometry (the autotuner's ``kmeans`` knobs, ops/cuda/autotune.py):
+``range_rows``, the rows a warp of the counting sort ranks (a multiple
+of 32; the sort is stable, so it moves no bit), and ``parts``, the most
+parts a cluster's sums are cut into (1 .. :data:`_MAX_PARTS`; it changes
+the fold).  ``geometry=None`` launches :data:`DEFAULT_GEOMETRY`.
+
 Contract, as in the JAX package: ``mode`` is a precision tier; loop mode
 (``need_cost=False``) ranks on ``argmax(x.c - |c|^2 / 2)`` and computes no
 cost; cost mode ranks on ``argmin max(|x|^2 + |c|^2 - 2 x.c, 0)`` and sums
@@ -55,6 +61,7 @@ _RANGE_ROWS = 2048
 # bounded so the (k, parts, d) partials stay under this many floats
 _PARTIAL_ELEMS = 1 << 25
 _MAX_PARTS = 8
+DEFAULT_GEOMETRY = {"range_rows": _RANGE_ROWS, "parts": _MAX_PARTS}
 # the assignment's routes (csrc/kmeans_accumulate.cu, assign_wgmma.cuh):
 # wgmma keeps each row's operand parts in registers and shared memory
 # for the whole pass, which bounds its depth; wider rows take the SIMT
@@ -236,16 +243,36 @@ def scan_tiles(m: int) -> int:
     return -(-m // _SCAN_TILE)
 
 
-def _geometry(n: int, k: int, d: int):
-    """(range_rows, ranges, parts) for the kernel's sort and sums passes."""
-    ranges = -(-n // _RANGE_ROWS)
-    range_rows = _RANGE_ROWS
+def check_geometry(geometry) -> Tuple[int, int]:
+    """``(range_rows, parts)`` of a ``{"range_rows", "parts"}`` geometry
+    (None: :data:`DEFAULT_GEOMETRY`); one the kernel cannot take raises,
+    on every device."""
+    geo = DEFAULT_GEOMETRY if geometry is None else geometry
+    if set(geo) != set(DEFAULT_GEOMETRY):
+        raise ValueError(f"{KERNEL} geometry takes the knobs {sorted(DEFAULT_GEOMETRY)}, "
+                         f"got {sorted(geo)}")
+    range_rows, parts = geo["range_rows"], geo["parts"]
+    if not isinstance(range_rows, int) or range_rows < 32 or range_rows % 32:
+        raise ValueError(f"{KERNEL}: range_rows must be a positive multiple of 32, "
+                         f"got {range_rows!r}")
+    if not isinstance(parts, int) or not 1 <= parts <= _MAX_PARTS:
+        raise ValueError(f"{KERNEL}: parts must be in 1..{_MAX_PARTS}, got {parts!r}")
+    return range_rows, parts
+
+
+def _geometry(n: int, k: int, d: int, base_rows: int = _RANGE_ROWS,
+              max_parts: int = _MAX_PARTS):
+    """(range_rows, ranges, parts) for the kernel's sort and sums passes:
+    ranges of ``base_rows`` rows unless the (k, ranges) count table would
+    pass its bound, and at most ``max_parts`` parts a cluster."""
+    ranges = -(-n // base_rows)
+    range_rows = base_rows
     if ranges * k > _RANK_TABLE_ELEMS:
         ranges = max(1, _RANK_TABLE_ELEMS // k)
         range_rows = -(-n // ranges)
         range_rows = -(-range_rows // 32) * 32
         ranges = -(-n // range_rows)
-    parts = max(1, min(_MAX_PARTS, _PARTIAL_ELEMS // max(1, k * d)))
+    parts = max(1, min(max_parts, _PARTIAL_ELEMS // max(1, k * d)))
     return range_rows, ranges, parts
 
 
@@ -290,13 +317,13 @@ def _library():
     return _lib
 
 
-def _launch(x, w, c, mode: str, need_cost: bool):
+def _launch(x, w, c, mode: str, need_cost: bool, geometry=None):
     """Launch the kernel on CUDA operands (checked by the caller):
     ``(sums, counts, cost or None, labels)``."""
     lib = _library()
     n, d = x.shape
     k = c.shape[0]
-    range_rows, ranges, parts = _geometry(n, k, d)
+    range_rows, ranges, parts = _geometry(n, k, d, *check_geometry(geometry))
     geo = assign_geometry(n, k, d, mode)
     dev = x.device
     f32, i32 = torch.float32, torch.int32
@@ -332,30 +359,32 @@ def _launch(x, w, c, mode: str, need_cost: bool):
 
 
 def lloyd_accumulate(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
-                     mode: str = "highest", need_cost: bool = True
+                     mode: str = "highest", need_cost: bool = True, geometry=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One fused pass: ``(sums (k, d), counts (k,), cost)`` with ``cost``
     None in loop mode.  f32 contiguous operands on one device: CPU takes
-    the plain version, CUDA the Hopper kernel."""
+    the plain version, CUDA the Hopper kernel at ``geometry``."""
     mode = check_mode(mode)
     _check_operands(x, w, c)
+    check_geometry(geometry)
     if x.device.type == "cpu":
         return lloyd_accumulate_plain(x, w, c, mode, need_cost)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {x.device}")
-    sums, counts, cost, _ = _launch(x, w, c, mode, need_cost)
+    sums, counts, cost, _ = _launch(x, w, c, mode, need_cost, geometry)
     return sums, counts, cost
 
 
 def lloyd_run_kernel(x, w, init_centers, max_iter: int, tol: float,
-                     mode: str = "highest", row_chunks: int = 1):
+                     mode: str = "highest", row_chunks: int = 1, geometry=None):
     """The fused-kernel Lloyd loop: ``(centers, n_iter, cost, counts)``.
     Semantics in :func:`oap_mllib_tpu_torch.ops.kmeans_ops._lloyd_loop`;
     the loop passes run in loop mode at ``mode``, the final pass in cost
     mode at ``highest``.  ``row_chunks`` > 1 (the resilience ladder's
     halving rung) launches the kernel on that many equal row ranges a
     pass, the last one ragged, and adds their moments in range order:
-    each launch's scratch shrinks with its rows."""
+    each launch's scratch shrinks with its rows.  Every launch takes
+    ``geometry``."""
     mode = check_mode(mode)
     n = x.shape[0]
     step = max(1, -(-n // max(1, int(row_chunks))))
@@ -365,7 +394,7 @@ def lloyd_run_kernel(x, w, init_centers, max_iter: int, tol: float,
         tier, need_cost = ("highest", True) if final else (mode, False)
         sums = counts = cost = None
         for lo, hi in ranges:
-            s, c, t = lloyd_accumulate(x[lo:hi], w[lo:hi], centers, tier, need_cost)
+            s, c, t = lloyd_accumulate(x[lo:hi], w[lo:hi], centers, tier, need_cost, geometry)
             if sums is None:
                 sums, counts, cost = s, c, t
             else:

@@ -20,6 +20,13 @@ chosen by ``_gram.pca_gram_route`` from the tier and the width: the
 tensor cores (``csrc/gram_wgmma.cuh``, sized by ``_gram.wgmma_geometry``)
 for the bf16 tiers at d >= 64, else the FP32 pipe
 (``csrc/gram_simt.cuh``, sized by ``_gram.gram_geometry``).
+
+Launch geometry (the autotuner's ``pca`` knobs, ops/cuda/autotune.py):
+``target_blocks``, the (tile, slice) blocks the FP32 Gram route aims
+for (the tensor-core route fills the SMs by its own rule), and
+``sum_rows``, the least rows of a mean-pass slice.  Both cut the rows
+into other slices, so they change the fold.  ``geometry=None`` launches
+:data:`DEFAULT_GEOMETRY`.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._gram import gram_geometry, pca_gram_route, wgmma_geometry
+from oap_mllib_tpu_torch.ops.cuda._gram import (_TARGET_BLOCKS, gram_geometry, pca_gram_route,
+                                                wgmma_geometry)
 from oap_mllib_tpu_torch.ops.cuda._tiers import (LABELS, MODE_CODE, book_launch, check_mode,
                                                  tiered_dot)
 
@@ -43,6 +51,11 @@ LAUNCHES = {KERNEL: 0}
 # mean pass: rows per slice, and at most this many slices
 _SUM_SLICE_ROWS = 1024
 _MAX_SUM_SLICES = 4096
+DEFAULT_GEOMETRY = {"target_blocks": _TARGET_BLOCKS, "sum_rows": _SUM_SLICE_ROWS}
+# the knobs' bounds: a grid of at most this many blocks, slices of at
+# most this many rows
+_MAX_TARGET_BLOCKS = 1 << 16
+_MAX_SUM_ROWS = 1 << 20
 
 
 def reset_launches() -> None:
@@ -50,9 +63,27 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def sums_geometry(n: int) -> Tuple[int, int]:
-    """``(slices, slice_rows)`` of the mean pass."""
-    slice_rows = max(_SUM_SLICE_ROWS, -(-n // _MAX_SUM_SLICES))
+def check_geometry(geometry) -> Tuple[int, int]:
+    """``(target_blocks, sum_rows)`` of a ``{"target_blocks",
+    "sum_rows"}`` geometry (None: :data:`DEFAULT_GEOMETRY`); one the
+    kernel cannot take raises, on every device."""
+    geo = DEFAULT_GEOMETRY if geometry is None else geometry
+    if set(geo) != set(DEFAULT_GEOMETRY):
+        raise ValueError(f"{KERNEL} geometry takes the knobs {sorted(DEFAULT_GEOMETRY)}, "
+                         f"got {sorted(geo)}")
+    blocks, rows = geo["target_blocks"], geo["sum_rows"]
+    if not isinstance(blocks, int) or not 1 <= blocks <= _MAX_TARGET_BLOCKS:
+        raise ValueError(f"{KERNEL}: target_blocks must be in 1..{_MAX_TARGET_BLOCKS}, "
+                         f"got {blocks!r}")
+    if not isinstance(rows, int) or not 1 <= rows <= _MAX_SUM_ROWS:
+        raise ValueError(f"{KERNEL}: sum_rows must be in 1..{_MAX_SUM_ROWS}, got {rows!r}")
+    return blocks, rows
+
+
+def sums_geometry(n: int, sum_rows: int = _SUM_SLICE_ROWS) -> Tuple[int, int]:
+    """``(slices, slice_rows)`` of the mean pass: slices of at least
+    ``sum_rows`` rows, at most :data:`_MAX_SUM_SLICES` of them."""
+    slice_rows = max(sum_rows, -(-n // _MAX_SUM_SLICES))
     return -(-n // slice_rows), slice_rows
 
 
@@ -121,7 +152,7 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(x, mask, mean, mode, need_gram, need_sums):
+def _launch(x, mask, mean, mode, need_gram, need_sums, geometry=None):
     """Launch the kernel on CUDA operands (checked by the caller)."""
     lib = _library()
     n, d = x.shape
@@ -130,13 +161,14 @@ def _launch(x, mask, mean, mode, need_gram, need_sums):
     def empty(*size):
         return torch.empty(size, dtype=torch.float32, device=dev)
 
-    sum_slices, sum_rows = sums_geometry(n)
+    target_blocks, least_rows = check_geometry(geometry)
+    sum_slices, sum_rows = sums_geometry(n, least_rows)
     route = pca_gram_route(mode, d)
     if route == "wgmma":
         tm = 0
         m, g_slices, g_rows = wgmma_geometry(n, d)
     else:
-        tm, m, g_slices, g_rows = gram_geometry(n, d)
+        tm, m, g_slices, g_rows = gram_geometry(n, d, target_blocks)
     psum = pcount = colsum = count = part = gram = None
     if need_sums:
         psum, pcount, colsum, count = empty(sum_slices, d), empty(sum_slices), empty(d), empty()
@@ -162,18 +194,19 @@ def _launch(x, mask, mean, mode, need_gram, need_sums):
 
 def pca_moments(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 mean: Optional[torch.Tensor] = None, mode: str = "highest",
-                need_gram: bool = True, need_sums: bool = True):
+                need_gram: bool = True, need_sums: bool = True, geometry=None):
     """One moments pass: ``(gram (d, d), colsum (d,), count ())``, each
     None when not asked for (``need_gram`` / ``need_sums``).  ``mask``
     None weighs every row 1; ``mean`` None is zero.  f32 contiguous
     operands on one device: CPU takes the plain version, CUDA the Hopper
-    kernel."""
+    kernel at ``geometry``."""
     mode = check_mode(mode)
     _check_operands(x, mask, mean)
+    check_geometry(geometry)
     if x.device.type == "cpu":
         if mask is None:
             mask = torch.ones(x.shape[0], dtype=torch.float32)
         return pca_moments_plain(x, mask, mean, mode, need_gram, need_sums)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {x.device}")
-    return _launch(x, mask, mean, mode, need_gram, need_sums)
+    return _launch(x, mask, mean, mode, need_gram, need_sums, geometry)

@@ -98,6 +98,22 @@ def _pad_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+# the autotuner's ``ring`` knob (ops/cuda/autotune.py): row blocks, each
+# its own ring; the bound keeps the padding (rows to a multiple of
+# world * segments) small
+MAX_SEGMENTS = 64
+
+
+def check_segments(segments) -> int:
+    """``segments`` if the schedule takes it (an int in 1 ..
+    :data:`MAX_SEGMENTS`), else ValueError, on every device."""
+    if isinstance(segments, bool) or not isinstance(segments, (int, np.integer)) \
+            or not 1 <= segments <= MAX_SEGMENTS:
+        raise ValueError(f"{KERNEL}: segments must be an int in 1..{MAX_SEGMENTS}, "
+                         f"got {segments!r}")
+    return int(segments)
+
+
 def padded_shape(rows: int, cols: int, world: int, segments: int = 1):
     """``(rows_pad, cols_pad)`` of the ring's buffers, as the JAX ring
     pads them."""
@@ -223,9 +239,9 @@ def ring_allreduce_plain(parts: Sequence[torch.Tensor], segments: int = 1,
     f32 tensor per rank, in ring order) on every rank's device."""
     _check_parts(parts)
     world = len(parts)
+    segments = check_segments(segments)
     if world < 2:
         return collective.psum_group(list(parts), axis)
-    segments = max(1, int(segments))
     rows, cols = parts[0].shape
     bufs = _padded_copies(parts, *padded_shape(rows, cols, world, segments))
     _ring_plain(bufs, segments, axis)
@@ -364,12 +380,13 @@ def ring_allreduce(parts: Sequence[torch.Tensor], segments: int = 1,
     every rank.  CPU tensors take the plain version, CUDA tensors the
     Hopper kernel.  ``axis`` names the mesh axis for the census."""
     _check_parts(parts)
+    segments = check_segments(segments)
     collective.note("ring_allreduce", axis)
     if len(parts) < 2 or parts[0].device.type == "cpu":
         return ring_allreduce_plain(parts, segments, axis)
     if parts[0].device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {parts[0].device}")
-    return _ring_launch(parts, max(1, int(segments)))
+    return _ring_launch(parts, segments)
 
 
 # -- across processes -------------------------------------------------------------
@@ -535,7 +552,7 @@ def ring_allreduce_groups(parts: Dict[Hashable, torch.Tensor],
     version across processes, CUDA tensors the kernel over IPC."""
     from oap_mllib_tpu_torch.parallel import bootstrap
 
-    segments = max(1, int(segments))
+    segments = check_segments(segments)
     if bootstrap.world_size() == 1:
         out = {}
         for g in groups:

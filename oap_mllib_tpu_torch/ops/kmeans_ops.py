@@ -29,6 +29,7 @@ the psums and the ring reaching the other processes'.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -310,7 +311,7 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     step for step."""
     precision = check_mode(precision)
     ring = ring_enabled(mesh, data_axis)
-    ring_segments = max(1, int(ring_segments)) if ring else 1
+    ring_segments = ring_kernel.check_segments(ring_segments) if ring else 1
     n_model = mesh.shape[model_axis]
     c0 = torch.as_tensor(init_centers, dtype=torch.float32)
     d_loc = c0.shape[1] // n_model
@@ -335,7 +336,7 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
 def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, torch.Tensor],
                             init_centers, max_iter: int, tol: float, mesh: Mesh,
                             data_axis: str, mode: str = "highest",
-                            accumulate: Callable = None
+                            accumulate: Callable = None, geometry=None
                             ) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
     """Lloyd loop with the rows sharded over the data axis and the centers
     replicated: ``(centers, n_iter, cost, counts)`` on the first rank's
@@ -348,10 +349,13 @@ def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     psum-ed over the data axis in rank order: the JAX package's GSPMD
     ``lloyd_run`` on a data-parallel mesh, whose psum is XLA's and not the
     ring.  The center update and the tolerance test are
-    :func:`_lloyd_loop`'s, on every rank's copy of the centers."""
+    :func:`_lloyd_loop`'s, on every rank's copy of the centers.  The
+    default ``accumulate`` launches K1 at ``geometry`` (the autotuner's
+    ``kmeans`` knobs; None: the defaults)."""
     from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel
 
-    accumulate = accumulate or kmeans_kernel.lloyd_accumulate
+    if accumulate is None:
+        accumulate = functools.partial(kmeans_kernel.lloyd_accumulate, geometry=geometry)
     mode = check_mode(mode)
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel Lloyd runs on a model axis of 1, got {mesh.shape}")

@@ -31,27 +31,37 @@ first rank's device.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda import pca_kernel
+from oap_mllib_tpu_torch.ops.cuda import autotune, pca_kernel
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank
 from oap_mllib_tpu_torch.utils import progcache
 from oap_mllib_tpu_torch.utils import precision as psn
 
 
+def tuned_moments(d: int, precision: str, device) -> Callable:
+    """K2's wrapper at the geometry the autotuner resolves for width ``d``
+    at ``precision`` (ops/cuda/autotune.py, the same on every process)."""
+    geometry = autotune.resolve_world("pca", autotune.shape_bucket(d), precision, device)
+    return functools.partial(pca_kernel.pca_moments, geometry=geometry)
+
+
 def covariance(x: torch.Tensor, mask: torch.Tensor, n_rows: float,
-               precision: str = "highest",
-               moments: Callable = pca_kernel.pca_moments
+               precision: str = "highest", moments: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample covariance (d, d) and mean (d,) of the rows ``mask``
     weighs in.  ``precision`` is the Gram's kernel tier; the column sums
-    are f32 at every tier.  ``moments`` is the kernel wrapper; the card
-    check passes the plain version to compare fits.  Each pass is the
-    ``fit.execute`` fault site (utils/faults.py), as on the mesh, and one
-    launch of its program (utils/progcache.py)."""
+    are f32 at every tier.  ``moments`` is the kernel wrapper, None for
+    :func:`tuned_moments`; the card check passes the plain version to
+    compare fits.  Each pass is the ``fit.execute`` fault site
+    (utils/faults.py), as on the mesh, and one launch of its program
+    (utils/progcache.py)."""
+    if moments is None:
+        moments = tuned_moments(x.shape[1], precision, x.device)
     key = (progcache.array_key(x, mask), precision)
     progcache.count_launch("pca.mean_pass", key)
     _, colsum, _ = moments(x, mask, None, precision, need_gram=False)
@@ -66,7 +76,7 @@ def covariance(x: torch.Tensor, mask: torch.Tensor, n_rows: float,
 
 def covariance_data_parallel(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch.Tensor],
                              n_rows: float, mesh: Mesh, precision: str = "highest",
-                             moments: Callable = pca_kernel.pca_moments
+                             moments: Optional[Callable] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`covariance` of row tiles on a mesh whose model axis is 1:
     the mean pass on every rank, its column sums psum-ed over the data
@@ -76,6 +86,9 @@ def covariance_data_parallel(x: Dict[Rank, torch.Tensor], mask: Dict[Rank, torch
     dax = mesh.axis_names[0]
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel covariance runs on a model axis of 1, got {mesh.shape}")
+    if moments is None:
+        first = mesh.local_ranks[0]
+        moments = tuned_moments(x[first].shape[1], precision, mesh.device(first))
     key = (progcache.mesh_fingerprint(mesh), progcache.array_key(x), precision)
     progcache.count_launch("pca.mean_pass_data_parallel", key)
     colsum = collective.psum(

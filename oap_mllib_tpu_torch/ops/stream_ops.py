@@ -66,7 +66,7 @@ import torch
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.ops import kmeans_ops
-from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel, ring_kernel
+from oap_mllib_tpu_torch.ops.cuda import autotune, kmeans_kernel, pca_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
 from oap_mllib_tpu_torch.telemetry import fleet, flightrec
 from oap_mllib_tpu_torch.utils import precision as psn
@@ -261,8 +261,13 @@ def _ring_reduce_f32(arrays, device):
         flightrec.record("collective", "ring_allreduce", f"host|({world},{cols})")
     sanitizers.note_collective("ring_allreduce", "host", (world, cols), "float32")
     me = bootstrap.process_index()
+    # the ring's segments: the plain ladder, a function of the config and
+    # the shared cache on every process (under "on" a world refuses to
+    # sweep: "default-multiproc"), as the JAX package's epilogue resolves
+    segments = autotune.resolve("ring", autotune.shape_bucket(world, cols),
+                                device=device)["segments"]
     out = ring_kernel.ring_allreduce_groups(
-        {me: torch.from_numpy(sheet).to(device)}, [list(range(world))], lambda p: p)
+        {me: torch.from_numpy(sheet).to(device)}, [list(range(world))], lambda p: p, segments)
     summed = out[me].cpu().numpy().ravel()[:total]
     res, off = [], 0
     for a in arrays:
@@ -387,10 +392,10 @@ def _reduce_pass(tensors, guard, dev):
 
 def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: str,
                         need_cost: bool, weights=None, timings=None,
-                        phase: str = "lloyd_loop", policy: str = "f32"):
+                        phase: str = "lloyd_loop", policy: str = "f32", geometry=None):
     """One assignment pass: ``(sums (k, d), counts (k,), cost)`` on the
-    centers' device, K1 launched on every chunk (``cost`` None in loop
-    mode).  The split lands in ``timings`` under ``phase``."""
+    centers' device, K1 launched on every chunk at ``geometry`` (``cost``
+    None in loop mode).  The split lands in ``timings`` under ``phase``."""
     k, d = centers.shape
     dev = centers.device
     sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
@@ -406,7 +411,7 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
         with _staged_chunks(source, weights, dev, stats, psn.staging_dtype(policy)) as pf:
             for _, (x, w) in pf:
                 s, c, t = kmeans_kernel.lloyd_accumulate(_f32(x), w, centers, precision,
-                                                         need_cost)
+                                                         need_cost, geometry)
                 sums += s
                 counts += c
                 if need_cost:
@@ -451,6 +456,9 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
     centers = torch.as_tensor(np.asarray(init_centers, np.float32)
                               if not isinstance(init_centers, torch.Tensor) else init_centers,
                               dtype=torch.float32).to(device).contiguous()
+    # K1's geometry, resolved once for the loop (every process alike)
+    geometry = autotune.resolve_world("kmeans", autotune.shape_bucket(*centers.shape),
+                                      precision, device)
     tol_sq = float(tol) ** 2
     n_iter = 0
     converged = False
@@ -459,7 +467,7 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
         converged = bool(resume.extra.get("converged", False))
     while n_iter < max_iter and not converged:
         sums, counts, _ = streamed_accumulate(source, centers, precision, False, weights,
-                                              timings, policy=policy)
+                                              timings, policy=policy, geometry=geometry)
         new_centers = kmeans_ops._new_centers(sums, counts, centers)
         max_moved = float(torch.max(kmeans_ops._moved_sq(new_centers, centers)))
         centers = new_centers.contiguous()
@@ -474,7 +482,7 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
     # the cost pass stages f32 and ranks at highest whatever the policy:
     # the reported objective must not carry a reduced tier's rounding
     _, counts, cost = streamed_accumulate(source, centers, "highest", True, weights, timings,
-                                          policy="f32")
+                                          policy="f32", geometry=geometry)
     return centers, n_iter, cost, counts
 
 
@@ -670,7 +678,7 @@ def _kahan_add(total: torch.Tensor, comp: torch.Tensor, value: torch.Tensor) -> 
 
 
 def _colsum_pass(source: ChunkSource, precision: str, timings, dev, stage_dtype,
-                 compensated: bool):
+                 compensated: bool, geometry=None):
     """The streamed covariance's first pass: the column sums and the row
     count, reduced across the processes."""
     d = source.n_features
@@ -685,7 +693,8 @@ def _colsum_pass(source: ChunkSource, precision: str, timings, dev, stage_dtype,
                                (str(dev), d, source.chunk_rows, precision, compensated))
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for (_, n_valid, _), (x, w) in pf:
-                _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False)
+                _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False,
+                                                 geometry=geometry)
                 if compensated:
                     _kahan_add(total, comp, s)
                 else:
@@ -725,12 +734,15 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     d = source.n_features
     stage_dtype = psn.staging_dtype(policy)
     compensated = policy == "bf16"
+    # K2's geometry, resolved once for both passes (every process alike)
+    geometry = autotune.resolve_world("pca", autotune.shape_bucket(d), precision, dev)
     resume = checkpoint.restore() if checkpoint is not None else None
     if resume is not None and resume.found and resume.extra.get("stage") == "colsum":
         total = torch.as_tensor(np.asarray(resume.arrays["colsum"], np.float32)).to(dev)
         n = int(resume.extra["n_rows"])
     else:
-        total, n = _colsum_pass(source, precision, timings, dev, stage_dtype, compensated)
+        total, n = _colsum_pass(source, precision, timings, dev, stage_dtype, compensated,
+                                geometry)
         if checkpoint is not None:
             checkpoint.maybe_write(1, {"colsum": total}, extra={"stage": "colsum", "n_rows": n},
                                    force=True)
@@ -747,7 +759,8 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
                                (str(dev), d, source.chunk_rows, precision, compensated))
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for _, (x, w) in pf:
-                g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False)
+                g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False,
+                                                 geometry=geometry)
                 if compensated:
                     _kahan_add(gram, gcomp, g)
                 else:

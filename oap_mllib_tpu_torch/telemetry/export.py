@@ -42,20 +42,32 @@ _lock = locktrace.TrackedLock("telemetry.sink", threading.Lock())
 _shutdown_registered = False
 
 
+def _place():
+    """``(processes, this process's index)``: the joined world's
+    (parallel/bootstrap.py; a world may be joined with arguments instead
+    of the config), else the config's."""
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
+    if bootstrap.is_initialized():
+        return bootstrap.world_size(), bootstrap.process_index()
+    cfg = get_config()
+    return int(cfg.num_processes), int(cfg.process_id)
+
+
 def _rank() -> int:
-    return int(get_config().process_id)
+    return _place()[1]
 
 
 def sink_path() -> Optional[str]:
     """The armed JSONL path for THIS process, or None when telemetry
     logging is off.  Multi-process worlds get a per-rank suffix so
     concurrent writers never interleave inside one file."""
-    cfg = get_config()
-    path = cfg.telemetry_log
+    path = get_config().telemetry_log
     if not path:
         return None
-    if cfg.num_processes > 1:
-        return f"{path}.rank{cfg.process_id}"
+    processes, rank = _place()
+    if processes > 1:
+        return f"{path}.rank{rank}"
     return path
 
 

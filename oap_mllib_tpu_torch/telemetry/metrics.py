@@ -5,8 +5,10 @@ Every subsystem of the port books here: the program cache
 (``oap_progcache_*``, utils/progcache.py), the kernel wrappers
 (``oap_kernel_*``, ops/cuda/_tiers.kernel_launch), the host collectives
 (``oap_collective_*``), the streamed passes (``oap_prefetch_*``,
-``oap_stream_*``), the ladder (``oap_resilience_*``), recovery,
-checkpoints, balance and the fleet rollups.  The summaries keep their
+``oap_stream_*``), the ladder (``oap_resilience_*``), the kernel-geometry
+autotuner (``oap_tuning_{hits,misses,sweeps}_total`` by ``kernel``,
+ops/cuda/autotune.py), recovery, checkpoints, balance and the fleet
+rollups.  The summaries keep their
 own shapes; the registry is what the exporters (telemetry/export.py),
 ``GET /metrics`` (telemetry/fleet.py) and a dashboard read.  Names and
 labels are the JAX package's, and so is :func:`render_prometheus`'s

@@ -194,7 +194,9 @@ def _imports(tree):
 
 def _foreign(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "oap_mllib_tpu")
+    # the JAX package, JAX, and the repository's dev tools (the trace
+    # merger the port keeps its own copy of)
+    return top in ("jax", "jaxlib", "oap_mllib_tpu", "dev", "oaptrace", "bench_regress")
 
 
 class TestIsolation:
@@ -223,7 +225,8 @@ class TestIsolation:
                 "online/minibatch.py", "online/ipca.py", "online/foldin.py",
                 "compat/__init__.py", "compat/spark.py", "compat/pipeline.py",
                 "compat/pyspark.py", "examples/__init__.py", "examples/als_example.py",
-                "examples/kmeans_pyspark_example.py"} <= checked
+                "examples/kmeans_pyspark_example.py", "ops/cuda/autotune.py",
+                "tools/oaptrace.py"} <= checked
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
@@ -246,7 +249,8 @@ class TestIsolation:
             "from oap_mllib_tpu_torch.telemetry import export, flightrec, metrics, spans\n"
             "from oap_mllib_tpu_torch.utils import debug, locktrace, profiling, progcache\n"
             "from oap_mllib_tpu_torch.utils import sanitizers\n"
-            "from oap_mllib_tpu_torch.tools import supervise\n"
+            "from oap_mllib_tpu_torch.tools import oaptrace, supervise\n"
+            "from oap_mllib_tpu_torch.ops.cuda import autotune\n"
             "from oap_mllib_tpu_torch import online, serving\n"
             "from oap_mllib_tpu_torch.serving import batcher, registry, sweep\n"
             "from oap_mllib_tpu_torch.online import delta, foldin, ipca, minibatch\n"

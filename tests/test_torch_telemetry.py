@@ -374,7 +374,13 @@ def _jax_family_names():
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f)) as fh:
-                    names |= set(re.findall(r'"(oap_[a-z0-9_]+)"', fh.read()))
+                    text = fh.read()
+                names |= set(re.findall(r'"(oap_[a-z0-9_]+)"', text))
+                # a family named through an f-string of its event, with the
+                # events its module counts (ops/pallas/autotune._count:
+                # oap_tuning_{hits,misses,sweeps}_total)
+                for head, tail in re.findall(r'f"(oap_[a-z0-9_]*)\{event\}([a-z0-9_]*)"', text):
+                    names |= {head + e + tail for e in re.findall(r'_count\(\s*"(\w+)"', text)}
     return names
 
 
