@@ -14,6 +14,7 @@
     python3 chip_smoke.py --traffic    # only the build and 29
     python3 chip_smoke.py --front      # only the build, 30 and 31
     python3 chip_smoke.py --tuning     # only the build and 32
+    python3 chip_smoke.py --ingest     # only the build and 33
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -428,6 +429,32 @@ Phases, each a hard check (any failure exits non-zero):
    only this step); (e) ``tools/oaptrace.py`` merges phase 27's
    JSON-lines sink and world "a"'s: ``validate_trace`` finds nothing;
    the tracks, flows and request lanes printed.
+
+33. ingest (last; the native host layer, ``native/`` and ``data/io.py``,
+   files under a temp directory removed at the end; the text written by
+   numpy-only writer processes, a slice each; one small fit of each estimator first,
+   so no timed fit pays a library's load), counts zeroed before each
+   fit: (a) the
+   ML-25M ratings of phase 9 as MovieLens ``ratings.dat`` lines
+   ``u::i::r::ts`` (the rating ``%.9g``) parsed by the host library: ids
+   bit-equal to the source as int64, ratings as float32, the seconds and
+   MB/s; the plain Python reader on the first 2^20 lines bit-equal to
+   the host parse there, its seconds; the implicit ALS (rank 10, alpha
+   40, reg 0.1, 10 iterations, ``num_user_blocks=1``) from the parsed
+   triples: K3 = K4 = 20, factors bit-equal to the fit from the arrays,
+   both walls; (b) the shuffle prep of the 25M ratings into 4 blocks
+   bit-equal to numpy's lexsort, both times and the block-only radix
+   argsort's, and the prep's parts: the permutation's seconds, and the
+   gather of the three arrays by the library against numpy's ``a[perm]``
+   (bit-equal); (c) a 2^18 x 256 libsvm file at the sparse phase's ~32 % density
+   (values rounded to 6 decimals, printed ``%.9g``): the parse bit-equal
+   to the source in float64, the plain reader on its first 16,384 rows
+   bit-equal, ``KMeans(k=100, seed=0)`` from it (K1 = iterations + 1)
+   bit-equal to the fit from the array; (d) a dense 2^17 x 128 CSV:
+   ``PCA(k=16)`` from it (K2 = 2) bit-equal to the fit from the array;
+   (e) ``local_ip`` and a ``free_port`` printed, a table store round trip
+   through ``torch.from_numpy`` of a ``table_view``, the live table count
+   back where it started.
 
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
@@ -5600,11 +5627,13 @@ class GroupSpy:
         return out
 
 
-def traffic_storm(q, reqs, threads, window, deadline_ms):
+def traffic_storm(q, reqs, threads, window, deadline_ms, first_done=None):
     """``reqs`` through ``q`` from ``threads`` closed-loop clients, each
     keeping at most ``window`` requests in flight.  Returns each request's
     future (None when shed at submit), submit and resolution times,
-    resolution counts, the sheds at submit by reason, and the wall."""
+    resolution counts, the sheds at submit by reason, and the wall.
+    ``first_done`` (a threading.Event) is set once a request resolves,
+    after its resolution time is taken."""
     from oap_mllib_tpu_torch.serving import ShedError
 
     n = len(reqs)
@@ -5618,6 +5647,8 @@ def traffic_storm(q, reqs, threads, window, deadline_ms):
             with lock:
                 t_done[i] = t
                 resolved[i] += 1
+            if first_done is not None:
+                first_done.set()
         return cb
 
     def client(c):
@@ -5896,12 +5927,16 @@ def traffic_d(cfg, h, model, slab, rng, dev):
                        draw_seed=129).cpu().numpy()
     reqs, offs = _requests(cfg, rng, slab, cfg["stale_requests"])
     version = h.model_version
-    box = {}
+    box, first = {}, threading.Event()
     with serving.TrafficQueue(h, max_batch_rows=cfg["max_rows"]) as q:
         storm = threading.Thread(target=lambda: box.update(
-            st=traffic_storm(q, reqs, cfg["threads"], cfg["window"], 0.0)), daemon=True)
+            st=traffic_storm(q, reqs, cfg["threads"], cfg["window"], 0.0, first)),
+            daemon=True)
         storm.start()
+        # the commit starts once the storm is answering: a fixed 20 ms
+        # alone left a slow host's storm with no answer before it
         time.sleep(0.02)
+        first.wait(60)
         _zero_launches()
         t0 = time.perf_counter()
         model.partial_fit(ChunkSource.from_array(delta, chunk_rows=cfg["chunk_rows"]))
@@ -7287,6 +7322,319 @@ def phase_tuning(cfg, dev, rehearse, world_a=None, tel_sink=None):
     return res
 
 
+# -- 33. ingest: the native host layer -----------------------------------------------
+# Phase 33 writes the example formats at their main paths' sizes, reads
+# them through the host library and fits from what it read.  The text is
+# written by writer processes, a slice each (the formatting is Python's).
+INGEST_FULL = {"als": ALS_FULL, "plain_lines": 1 << 20, "prep_blocks": 4,
+               "libsvm": (1 << 18, 256), "kmeans_k": 100, "plain_rows": 16_384,
+               "csv": (1 << 17, 128), "pca_k": 16}
+INGEST_TINY = {"als": ALS_TINY, "plain_lines": 4096, "prep_blocks": 4,
+               "libsvm": (3000, 40), "kmeans_k": 6, "plain_rows": 1000,
+               "csv": (2000, 24), "pca_k": 4}
+INGEST_TIMESTAMP = 978_300_760  # MovieLens ratings.dat's fourth field
+
+
+# one writer process: ``python -c _TEXT_WRITER kind first_row ts out in.npy ...``
+# formats its slice of the arrays (numpy only: no torch import, no fork)
+_TEXT_WRITER = r"""
+import sys
+import numpy as np
+
+kind, first, ts, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+a = [np.load(p) for p in sys.argv[5:]]
+n = len(a[0])
+with open(out, "w") as f:
+    for lo in range(0, n, 1 << 18):
+        hi = min(n, lo + (1 << 18))
+        if kind == "ratings":
+            u, i, r = (x[lo:hi].tolist() for x in a)
+            f.write("".join(f"{x}::{y}::{z:.9g}::{ts + k % 86400}\n"
+                            for k, x, y, z in zip(range(first + lo, first + hi), u, i, r)))
+        elif kind == "libsvm":
+            labels, x = a
+            for row in range(lo, hi):
+                nz = np.flatnonzero(x[row])
+                f.write(" ".join([f"{labels[row]:.9g}"] + [
+                    f"{j + 1}:{v:.9g}" for j, v in zip(nz.tolist(), x[row, nz].tolist())]) + "\n")
+        else:
+            f.write("".join(",".join(f"{v:.9g}" for v in row) + "\n"
+                            for row in a[0][lo:hi].tolist()))
+"""
+
+
+def ingest_write(path, kind, n, arrays):
+    """``n`` rows of ``kind`` text from ``arrays`` (a tuple of row-aligned
+    arrays), written by writer processes a slice each and concatenated;
+    returns (bytes, seconds)."""
+    t0 = time.perf_counter()
+    workers = max(1, min(8, len(os.sched_getaffinity(0)), n // 4096))
+    cuts = np.linspace(0, n, workers + 1).astype(np.int64).tolist()
+    parts, procs, inputs = [], [], []
+    try:
+        for k in range(workers):
+            lo, hi = cuts[k], cuts[k + 1]
+            npys = [f"{path}.in{k}.{j}.npy" for j in range(len(arrays))]
+            for name, a in zip(npys, arrays):
+                np.save(name, a[lo:hi])
+            inputs += npys
+            parts.append(f"{path}.part{k}")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _TEXT_WRITER, kind, str(lo), str(INGEST_TIMESTAMP),
+                 parts[-1], *npys], stderr=subprocess.PIPE, text=True))
+        errors = [p.communicate()[1] for p in procs]
+        for p, err in zip(procs, errors):
+            check(p.returncode == 0, f"ingest: a text writer failed: {err[-2000:]}")
+        with open(path, "wb") as out:
+            for part in parts:
+                with open(part, "rb") as f:
+                    shutil.copyfileobj(f, out, 1 << 24)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for name in inputs + parts:
+            if os.path.exists(name):
+                os.remove(name)
+    return os.path.getsize(path), time.perf_counter() - t0
+
+
+def ingest_head(path, lines):
+    """A file of ``path``'s first ``lines`` lines; its path."""
+    import itertools
+
+    head = path + ".head"
+    with open(path, "rb") as f, open(head, "wb") as out:
+        out.writelines(itertools.islice(f, lines))
+    return head
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def ingest_ratings(cfg, dev, tmp):
+    """(a) MovieLens ratings.dat at ML-25M scale through the host
+    parser, the plain reader on its head, and an implicit ALS fit from
+    what was read against the fit from the arrays; (b) the shuffle prep
+    of the 25M ratings against numpy."""
+    from oap_mllib_tpu_torch import native
+    from oap_mllib_tpu_torch.data import io as data_io
+
+    als = cfg["als"]
+    users, items, ratings = als_data(als)
+    path = os.path.join(tmp, "ratings.dat")
+    nbytes, write_s = ingest_write(path, "ratings", len(users), (users, items, ratings))
+    (pu, pi, pr), parse_s = _timed(data_io.read_ratings, path)
+    check(_bits_equal(pu, users.astype(np.int64)) and _bits_equal(pi, items.astype(np.int64))
+          and _bits_equal(pr, ratings), "ingest: parsed ratings differ from the source")
+    head = ingest_head(path, cfg["plain_lines"])
+    (hu, hi, hr), plain_s = _timed(data_io.read_ratings_plain, head)
+    m = cfg["plain_lines"]
+    check(_bits_equal(hu, pu[:m]) and _bits_equal(hi, pi[:m]) and _bits_equal(hr, pr[:m]),
+          "ingest: the plain reader differs from the host parser on the head")
+    (gu, gi, gr), head_parse_s = _timed(data_io.read_ratings, head)
+    check(_bits_equal(gu, hu) and _bits_equal(gr, hr), "ingest: head parse differs")
+    os.remove(path)
+    os.remove(head)
+    out = {"lines": len(users), "bytes": nbytes, "write_s": write_s, "parse_s": parse_s,
+           "parse_mb_s": nbytes / 1e6 / parse_s, "plain_lines": m, "plain_s": plain_s,
+           "host_head_s": head_parse_s}
+
+    kw = dict(rank=als["rank"], max_iter=als["max_iter"], reg_param=als["reg"],
+              implicit_prefs=True, alpha=als["alpha"], num_user_blocks=1, seed=0,
+              device=str(dev))
+    n_users, n_items = als["n_users"], als["n_items"]
+    fits = {}
+    for tag, triples in (("memory", (users, items, ratings)), ("file", (pu, pi, pr))):
+        _zero_launches()
+        model, wall = _timed(lambda t: ALS(**kw).fit(*t, n_users, n_items), triples)
+        fits[tag] = (model, wall, {k: v for k, v in _launches().items() if v})
+    (mm, mem_wall, _), (fm, file_wall, launches) = fits["memory"], fits["file"]
+    expect = 2 * als["max_iter"] if dev.type == "cuda" else 0
+    check(launches.get(als_kernel.SOLVE, 0) == expect
+          and launches.get(als_kernel.GRAM, 0) == expect,
+          f"ingest ALS launches {launches}, expected {expect} of K3 and K4")
+    check(_bits_equal(fm.user_factors_, mm.user_factors_)
+          and _bits_equal(fm.item_factors_, mm.item_factors_),
+          "ingest: the ALS fit from the file differs from the fit from the arrays")
+    out["als"] = {"launches": launches, "fit_from_memory_s": mem_wall,
+                  "fit_from_file_s": file_wall, "parse_plus_fit_s": parse_s + file_wall}
+    del fits, fm, mm
+
+    nb = cfg["prep_blocks"]
+    kpb = -(-n_users // nb)
+    got, host_s = _timed(native.shuffle_prep, pu, pi, pr, kpb, nb)
+
+    def plain():
+        block = np.minimum(pu // kpb, nb - 1)
+        perm = np.lexsort((pi, pu, block))
+        return (pu[perm], pi[perm], pr[perm], np.bincount(block, minlength=nb).astype(np.int64),
+                perm)
+
+    ref, numpy_s = _timed(plain)
+    check(all(_bits_equal(a, b) for a, b in zip(got, ref)),
+          "ingest: the host shuffle prep differs from numpy's lexsort")
+    block16 = np.minimum(pu // kpb, nb - 1).astype(np.int16)
+    _, block_only_s = _timed(lambda: np.argsort(block16, kind="stable"))
+    # the prep's two parts: the permutation, and the gather of the three
+    # arrays by the library's threads against numpy's a[perm]
+    (_, perm), perm_s = _timed(native.shuffle_perm, pu, pi, kpb, nb)
+    gathered, gather_s = _timed(lambda: [native.gather(a, perm) for a in (pu, pi, pr)])
+    by_numpy, numpy_gather_s = _timed(lambda: [a[perm] for a in (pu, pi, pr)])
+    check(all(_bits_equal(a, b) for a, b in zip(gathered, by_numpy)),
+          "ingest: the host gather differs from numpy's a[perm]")
+    del gathered, by_numpy, perm
+    out["shuffle_prep"] = {"records": len(pu), "blocks": nb, "host_s": host_s,
+                           "numpy_lexsort_s": numpy_s, "block_only_argsort_s": block_only_s,
+                           "perm_s": perm_s, "gather_s": gather_s,
+                           "numpy_gather_s": numpy_gather_s}
+    return out
+
+
+def ingest_blobs(n, d, k, seed):
+    """The sparse-input phase's table (90 % of a normal table zeroed, its
+    first d / 4 columns offset by a cluster id: ~32 % dense), in float64
+    rounded to 6 decimals, so ``%.9g`` prints each value exactly."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    x[rng.random((n, d)) < 0.9] = 0.0
+    labels = rng.integers(k, size=n)
+    x[:, : d // 4] += labels[:, None]
+    x = np.round(x, 6)
+    x[x == 0] = 0.0  # no -0.0: a sparse row does not name its zeros
+    return labels.astype(np.float64), x
+
+
+def ingest_libsvm(cfg, dev, tmp):
+    """(c) a libsvm file through the host parser and the plain reader,
+    and K-Means from it against K-Means from the source array."""
+    from oap_mllib_tpu_torch.data import io as data_io
+
+    (n, d), k = cfg["libsvm"], cfg["kmeans_k"]
+    labels, x = ingest_blobs(n, d, k, seed=33)
+    path = os.path.join(tmp, "blobs.svm")
+    nbytes, write_s = ingest_write(path, "libsvm", n, (labels, x))
+    (pl, px), parse_s = _timed(data_io.read_libsvm, path, d)
+    check(_bits_equal(pl, labels) and _bits_equal(px, x), "ingest: parsed libsvm differs")
+    head = ingest_head(path, cfg["plain_rows"])
+    (hl, hx), plain_s = _timed(data_io.read_libsvm_plain, head, d)
+    m = cfg["plain_rows"]
+    check(_bits_equal(hl, pl[:m]) and _bits_equal(hx, px[:m]),
+          "ingest: the plain libsvm reader differs from the host parser on the head")
+    os.remove(path)
+    os.remove(head)
+    fits = {}
+    for tag, table in (("memory", x), ("file", px)):
+        kmeans_kernel.reset_launches()
+        model, wall = _timed(lambda t: KMeans(k=k, seed=0, device=str(dev)).fit(t), table)
+        fits[tag] = (model, wall, dict(kmeans_kernel.LAUNCHES))
+    (mm, mem_wall, _), (fm, file_wall, launches) = fits["memory"], fits["file"]
+    expect = fm.summary.num_iter + 1 if dev.type == "cuda" else 0
+    check(launches[kmeans_kernel.KERNEL] == expect, f"ingest K-Means launches {launches}")
+    check(_bits_equal(fm.cluster_centers_, mm.cluster_centers_),
+          "ingest: the K-Means fit from the file differs from the fit from the array")
+    return {"shape": [n, d], "density": float(np.count_nonzero(x)) / x.size, "bytes": nbytes,
+            "write_s": write_s, "parse_s": parse_s, "parse_mb_s": nbytes / 1e6 / parse_s,
+            "plain_rows": m, "plain_s": plain_s, "launches": launches,
+            "num_iter": fm.summary.num_iter, "fit_from_memory_s": mem_wall,
+            "fit_from_file_s": file_wall}
+
+
+def ingest_csv(cfg, dev, tmp):
+    """(d) a dense CSV through the host parser and PCA from it against
+    PCA from the source array."""
+    from oap_mllib_tpu_torch.data import io as data_io
+
+    (n, d), k = cfg["csv"], cfg["pca_k"]
+    rng = np.random.default_rng(34)
+    x = np.round(rng.normal(size=(n, d)) * np.geomspace(10.0, 0.1, d), 6)
+    path = os.path.join(tmp, "table.csv")
+    nbytes, write_s = ingest_write(path, "csv", n, (x,))
+    px, parse_s = _timed(data_io.read_csv, path)
+    check(_bits_equal(px, x), "ingest: parsed CSV differs from the source")
+    os.remove(path)
+    fits = {}
+    for tag, table in (("memory", x), ("file", px)):
+        pca_kernel.reset_launches()
+        model, wall = _timed(lambda t: PCA(k=k, device=str(dev)).fit(t), table)
+        fits[tag] = (model, wall, dict(pca_kernel.LAUNCHES))
+    (mm, mem_wall, _), (fm, file_wall, launches) = fits["memory"], fits["file"]
+    expect = 2 if dev.type == "cuda" else 0
+    check(launches[pca_kernel.KERNEL] == expect, f"ingest PCA launches {launches}")
+    check(_bits_equal(fm.components_, mm.components_)
+          and _bits_equal(fm.explained_variance_, mm.explained_variance_),
+          "ingest: the PCA fit from the file differs from the fit from the array")
+    return {"shape": [n, d], "bytes": nbytes, "write_s": write_s, "parse_s": parse_s,
+            "parse_mb_s": nbytes / 1e6 / parse_s, "launches": launches,
+            "fit_from_memory_s": mem_wall, "fit_from_file_s": file_wall}
+
+
+def ingest_warmup(dev):
+    """A small fit of each estimator, so the kernel libraries' loads and
+    first launches fall outside the timed fits."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4096, 16)).astype(np.float32)
+    KMeans(k=4, max_iter=2, seed=0, device=str(dev)).fit(x)
+    PCA(k=2, device=str(dev)).fit(x)
+    ALS(rank=4, max_iter=1, implicit_prefs=True, num_user_blocks=1, seed=0,
+        device=str(dev)).fit(rng.integers(50, size=2000), rng.integers(40, size=2000),
+                             rng.random(2000).astype(np.float32) + 1, 50, 40)
+
+
+def phase_ingest(cfg, dev, smi):
+    """Phase 33 (module docstring): the native host layer on the example
+    formats at the main paths' sizes; each fit's counts zeroed just
+    before it."""
+    from oap_mllib_tpu_torch import native
+    from oap_mllib_tpu_torch.parallel import bootstrap
+
+    t_phase = time.perf_counter()
+    tables = native.table_count()
+    ingest_warmup(dev)
+    tmp = tempfile.mkdtemp(prefix="oap_ingest_")
+    try:
+        res = {"ratings": ingest_ratings(cfg, dev, tmp)}
+        emit("ingest_ratings", res["ratings"])
+        res["libsvm"] = ingest_libsvm(cfg, dev, tmp)
+        emit("ingest_libsvm", res["libsvm"])
+        res["csv"] = ingest_csv(cfg, dev, tmp)
+        emit("ingest_csv", res["csv"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    port = bootstrap.free_port("", 3000)
+    res["probe"] = {"local_ip": bootstrap.local_ip(), "free_port": port,
+                    "native_local_ip": native.local_ip()}
+    h = native.table_create(4, 3)
+    native.table_append(h, np.ones((5, 3)))
+    view_sum = float(torch.from_numpy(native.table_view(h)).sum())
+    native.table_free(h)
+    res["table_store"] = {"count_before": tables, "count_after": native.table_count(),
+                          "view_sum": view_sum}
+    check(native.table_count() == tables and view_sum == 15.0,
+          f"ingest: table store {res['table_store']}")
+    res["wall_s"] = time.perf_counter() - t_phase
+    res["card"] = smi
+    emit("ingest", {k: res[k] for k in ("probe", "table_store", "wall_s", "card")})
+    r, sp = res["ratings"], res["ratings"]["shuffle_prep"]
+    print(f"ingest ratings.dat {r['lines']} lines {r['bytes'] / 1e6:.1f} MB: parse "
+          f"{r['parse_s']:.3f} s ({r['parse_mb_s']:.0f} MB/s), plain reader "
+          f"{r['plain_s']:.3f} s on {r['plain_lines']} lines; prep {sp['host_s']:.3f} s vs "
+          f"numpy {sp['numpy_lexsort_s']:.3f} s (gather {sp['gather_s']:.3f} s vs numpy "
+          f"{sp['numpy_gather_s']:.3f} s); ALS from file "
+          f"{r['als']['fit_from_file_s']:.3f} s vs memory {r['als']['fit_from_memory_s']:.3f} s "
+          f"| {smi}", flush=True)
+    return res
+
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -7353,6 +7701,9 @@ def main(argv=None) -> int:
     ap.add_argument("--front", action="store_true",
                     help="only the build, the factor-sharded serving (30) and the front "
                          "doors (31); prints no ok line")
+    ap.add_argument("--ingest", action="store_true",
+                    help="only the build and the native host layer's phase (33); prints no "
+                         "ok line")
     ap.add_argument("--tuning", action="store_true",
                     help="only the build and the kernel-geometry autotuner's phase (32; its "
                          "world \"a\" runs alone, and this process's armed fits stand in "
@@ -7386,6 +7737,10 @@ def main(argv=None) -> int:
             phase_front_doors(FRONT_TINY if args.rehearse else FRONT_FULL, als_cfg, data, dev,
                               two_d, sharded["two_d"]["fit_launches"])
             print(f"serve_sharded and front_doors phases passed: {smi}", flush=True)
+            return 0
+        if args.ingest:
+            phase_ingest(INGEST_TINY if args.rehearse else INGEST_FULL, dev, smi)
+            print(f"ingest phase passed: {smi}", flush=True)
             return 0
         if args.tuning:
             phase_tuning(TUNE_TINY if args.rehearse else TUNE_FULL, dev, args.rehearse)
@@ -7498,6 +7853,8 @@ def main(argv=None) -> int:
         # phase 27's and that world's
         tuning = phase_tuning(TUNE_TINY if args.rehearse else TUNE_FULL, dev, args.rehearse,
                               world_a=mp["a"], tel_sink=tel_sink_path())
+        # the native host layer (33): fits from the example formats' files
+        ingest = phase_ingest(INGEST_TINY if args.rehearse else INGEST_FULL, dev, smi)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -7644,6 +8001,13 @@ def main(argv=None) -> int:
             front["c_als"]["launches"][name]
     for name, paths in mp_launches(mp).items():
         by_path[name].update(paths)
+    # the ingest phase's fits from files (33)
+    by_path[kmeans_kernel.KERNEL]["ingest K-Means from libsvm"] = \
+        ingest["libsvm"]["launches"][kmeans_kernel.KERNEL]
+    by_path[pca_kernel.KERNEL]["ingest PCA from csv"] = ingest["csv"]["launches"][pca_kernel.KERNEL]
+    for name in (als_kernel.SOLVE, als_kernel.GRAM):
+        by_path[name]["ingest ALS from ratings.dat"] = \
+            ingest["ratings"]["als"]["launches"].get(name, 0)
     for fit in ("kmeans", "pca", "als", "sharded"):
         for name, n in telemetry[fit]["launches"].items():
             by_path[name][f"telemetry {fit} (off and armed alike)"] = n

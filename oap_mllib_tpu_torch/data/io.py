@@ -12,8 +12,12 @@
   written piece by piece to one ``.npy`` file, committed atomically
   (every piece the ``spill.write`` site).
 - The eager readers of the example formats: libsvm (``label idx:val``,
-  1-based), dense CSV and ``user::item::rating`` lines.  These are the
-  JAX package's Python parsers; its native C++ parsers are not ported.
+  1-based), dense CSV and ``user::item::rating`` lines, parsed by the
+  native host library's C++ parsers (native/, csrc/host/io_parse.cpp).
+  Their plain versions, ``read_libsvm_plain``, ``read_csv_plain`` and
+  ``read_ratings_plain``, are the JAX package's Python parsers and the
+  contract the C++ holds to; the tests and chip_smoke call them by
+  name, and no reader falls back to them.
 """
 
 from __future__ import annotations
@@ -224,6 +228,31 @@ class SpillWriter:
 def read_libsvm(path: str, n_features: Optional[int] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """A libsvm file as dense ``(labels, X)`` (f64; 1-based indices)."""
+    from oap_mllib_tpu_torch import native
+
+    return native.parse_libsvm(path, n_features)
+
+
+def read_csv(path: str, delimiter: str = ",") -> np.ndarray:
+    """A dense numeric CSV without header as an (n, d) f64 array."""
+    from oap_mllib_tpu_torch import native
+
+    return native.parse_csv(path, delimiter)
+
+
+def read_ratings(path: str, sep: str = "::") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``user<sep>item<sep>rating`` lines (further fields, such as
+    MovieLens's timestamp, ignored) as (users int64, items int64,
+    ratings f32)."""
+    from oap_mllib_tpu_torch import native
+
+    return native.parse_ratings(path, sep)
+
+
+def read_libsvm_plain(path: str, n_features: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`read_libsvm`'s plain version (the JAX package's Python
+    reader)."""
     labels = []
     rows = []
     max_idx = 0
@@ -251,14 +280,15 @@ def read_libsvm(path: str, n_features: Optional[int] = None
     return np.asarray(labels), x
 
 
-def read_csv(path: str, delimiter: str = ",") -> np.ndarray:
-    """A dense numeric CSV without header as an (n, d) f64 array."""
+def read_csv_plain(path: str, delimiter: str = ",") -> np.ndarray:
+    """:func:`read_csv`'s plain version: ``numpy.loadtxt``."""
     return np.loadtxt(path, delimiter=delimiter, dtype=np.float64, ndmin=2)
 
 
-def read_ratings(path: str, sep: str = "::") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """``user<sep>item<sep>rating`` lines as (users int64, items int64,
-    ratings f32)."""
+def read_ratings_plain(path: str, sep: str = "::"
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`read_ratings`'s plain version (the JAX package's Python
+    reader)."""
     users, items, ratings = [], [], []
     with open(path) as f:
         for line in f:

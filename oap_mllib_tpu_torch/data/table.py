@@ -273,3 +273,64 @@ class ShardedTable:
                 shard[:hi - lo].copy_(w[lo:hi])
             out[(i, j)] = shard
         return out
+
+
+@dataclasses.dataclass
+class CSRTable:
+    """A sparse ratings block in padded COO form with CSR row offsets:
+    the JAX package's ``data/table.CSRTable``, its arrays torch tensors
+    on one device.  All indices are zero-based (the reference's one-based
+    CSR was a oneDAL requirement).
+
+    - ``rows`` / ``cols``: (nnz_padded,) int32; padding entries point at
+      row ``n_rows`` (one past the end), col 0.
+    - ``values``: (nnz_padded,) float32, 0 on padding.
+    - ``row_offsets``: (n_rows + 1,) int32 CSR offsets over the valid
+      entries.
+    - ``nnz``: the valid entries.
+    """
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    values: torch.Tensor
+    row_offsets: torch.Tensor
+    n_rows: int
+    n_cols: int
+    nnz: int
+
+    @classmethod
+    def from_coo(cls, rows, cols, values, n_rows: int, n_cols: int,
+                 nnz_padded: Optional[int] = None, device="cuda") -> "CSRTable":
+        """From COO triples, sorted by (row, col) stably like the
+        reference's post-shuffle sort (ALSShuffle.cpp:111), on ``device``
+        (the card unless the caller names the CPU)."""
+        rows = np.asarray(rows, dtype=np.int32)
+        cols = np.asarray(cols, dtype=np.int32)
+        values = np.asarray(values, dtype=np.float32)
+        if len(rows) and (rows.max() >= n_rows or rows.min() < 0):
+            raise ValueError(f"row index out of range [0, {n_rows})")
+        if len(cols) and (cols.max() >= n_cols or cols.min() < 0):
+            raise ValueError(f"col index out of range [0, {n_cols})")
+        order = np.lexsort((cols, rows))
+        rows, cols, values = rows[order], cols[order], values[order]
+        nnz = len(values)
+        row_offsets = np.zeros((n_rows + 1,), dtype=np.int32)
+        np.cumsum(np.bincount(rows, minlength=n_rows), out=row_offsets[1:])
+        if nnz_padded is not None and nnz_padded > nnz:
+            pad = nnz_padded - nnz
+            rows = np.concatenate([rows, np.full((pad,), n_rows, np.int32)])
+            cols = np.concatenate([cols, np.zeros((pad,), np.int32)])
+            values = np.concatenate([values, np.zeros((pad,), np.float32)])
+        dev = torch.device(device)
+        return cls(rows=torch.from_numpy(rows).to(dev), cols=torch.from_numpy(cols).to(dev),
+                   values=torch.from_numpy(values).to(dev),
+                   row_offsets=torch.from_numpy(row_offsets).to(dev),
+                   n_rows=n_rows, n_cols=n_cols, nnz=nnz)
+
+    def to_dense(self) -> np.ndarray:
+        """The (n_rows, n_cols) float32 matrix on the host."""
+        out = np.zeros((self.n_rows, self.n_cols), dtype=np.float32)
+        r = self.rows[: self.nnz].cpu().numpy()
+        c = self.cols[: self.nnz].cpu().numpy()
+        out[r, c] = self.values[: self.nnz].cpu().numpy()
+        return out

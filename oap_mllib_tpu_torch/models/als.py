@@ -99,6 +99,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch import native
 from oap_mllib_tpu_torch.config import get_config
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.fallback import als_np
@@ -427,6 +428,18 @@ class ALS:
         if plan is None:
             plan = membudget.plan_als(len(users), n_users, n_items, self.rank,
                                       device=devices[0])
+        # the edges in (user, item) order, ties in input order, as a block
+        # route's shuffle orders a block (parallel/shuffle.bucket): the two
+        # routes' fits then group and sum every side alike.  Each array is
+        # gathered in its dtype and replaces its unsorted copy at once, so
+        # where validation copied the caller's arrays the host peak is the
+        # records and the permutation's 16 bytes an edge (its sort keys and
+        # itself), and no unsorted copy lives into the grouped build
+        _, perm = native.shuffle_perm(users, items, 1, 1)
+        users = native.gather(users, perm)
+        items = native.gather(items, perm)
+        ratings = native.gather(ratings, perm)
+        del perm
         # the ladder (utils/resilience.py): transient faults retry; a
         # device OOM re-enters the streamed route at halved upload blocks
         # (the COO layout has no such knob and runs again)

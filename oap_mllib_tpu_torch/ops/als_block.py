@@ -176,21 +176,14 @@ def block_of(keys: np.ndarray, kpb: int, world: int, offsets=None) -> np.ndarray
 def exchange_ratings(users, items, ratings, world: int, n_users: int, offsets=None):
     """Partition the triples by user block: ``(blocks, offsets)`` where
     ``blocks[b]`` is ``(users, items, ratings)`` of the ratings whose
-    user lies in block ``b`` (global user ids, input order kept), and
-    ``offsets`` the block boundaries: the uniform ``min(b * ceil(n_users
-    / world), n_users)``, edges routed to block ``min(u // kpb, world -
-    1)`` as in the JAX package, or the given weighted ``offsets``
-    (:func:`block_of`)."""
-    users, items = np.asarray(users, np.int64), np.asarray(items, np.int64)
-    if n_users >= 2 ** 31 or (len(items) and int(np.max(items)) >= 2 ** 31):
-        raise ValueError("ids must fit int32 (the device index dtype)")
-    offsets, weighted = block_offsets_of(world, n_users, offsets)
-    block = block_of(users, max(1, -(-n_users // world)), world, offsets if weighted else None)
-    # a stable partition by block: numpy sorts 16-bit keys by radix, O(nnz)
-    key = block.astype(np.int16 if world < 2 ** 15 else np.int64)
-    order = np.argsort(key, kind="stable")
-    bounds = np.concatenate([[0], np.cumsum(np.bincount(block, minlength=world))])
-    u, i, r = users[order], items[order], np.asarray(ratings, np.float32)[order]
+    user lies in block ``b`` (global user ids, ordered by (user, item),
+    ties in input order), and ``offsets`` the block boundaries: the
+    uniform ``min(b * ceil(n_users / world), n_users)``, edges routed to
+    block ``min(u // kpb, world - 1)`` as in the JAX package, or the
+    given weighted ``offsets`` (:func:`block_of`).  The bucketing and
+    order are the host library's (parallel/shuffle.bucket)."""
+    u, i, r, counts, offsets = shuffle.bucket(users, items, ratings, world, n_users, offsets)
+    bounds = np.concatenate([[0], np.cumsum(counts)])
     blocks = [(u[bounds[b]:bounds[b + 1]], i[bounds[b]:bounds[b + 1]], r[bounds[b]:bounds[b + 1]])
               for b in range(world)]
     return blocks, offsets

@@ -1,13 +1,12 @@
-"""The port's host library: the ALS grouped-edge prep in C++.
+"""The ALS grouped-edge prep in C++, one of the port's host libraries.
 
 ``csrc/host/grouped_prep.cpp`` (a copy of the JAX package's
 ``native/src/grouped_prep.cpp``) is a stable counting sort by
 destination, O(nnz + n_dst), where the numpy route sorts with a stable
-argsort.  It compiles with the host compiler (``g++ -O3 -shared
--fPIC``; ``$CXX`` names another) into
-``oap_mllib_tpu_torch/build/libgrouped_prep-<hash>.so``, named by a hash
-of its source, at the first call: nothing builds at import.  It loads
-with ``ctypes``.
+argsort.  It builds through utils/hostlib.py (the one build of every
+``csrc/host`` library) into
+``oap_mllib_tpu_torch/build/libgrouped_prep-<hash>.so`` at the first
+call, and loads with ``ctypes``.
 
 Nothing falls back: a library that does not build raises with the
 compiler's output, and the entry points' error codes (-1 bad input, -2
@@ -17,20 +16,18 @@ an allocation failure) raise too.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
+from oap_mllib_tpu_torch.utils import hostlib
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR / "csrc" / "host" / "grouped_prep.cpp"
 BUILD_DIR = PKG_DIR / "build"
+WHAT = "the grouped-edge prep library (csrc/host/grouped_prep.cpp)"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -44,51 +41,20 @@ def build_dir() -> Path:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return build_dir() / f"libgrouped_prep-{digest}.so"
-
-
-def _compiler() -> str:
-    name = os.environ.get("CXX") or "g++"
-    found = shutil.which(name)
-    if not found:
-        raise RuntimeError(
-            f"host compiler {name!r} not found on PATH: the grouped-edge prep "
-            "library (csrc/host/grouped_prep.cpp) cannot be built"
-        )
-    return found
+    return hostlib.library_path("grouped_prep", [SOURCE], build_dir())
 
 
 def build() -> Path:
     """Build the library for the current source unless it is built;
-    returns its path.  The compiler writes a file of its own and renames
-    it into place, so processes that build at once never load a partial
-    library."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_compiler(), "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"grouped-edge prep build failed ({' '.join(cmd)}), exit "
-            f"{proc.returncode}:\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out
+    returns its path."""
+    return hostlib.build("grouped_prep", [SOURCE], build_dir(), WHAT)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            from oap_mllib_tpu_torch.utils import progcache
-
-            t0 = time.perf_counter()
-            lib = ctypes.CDLL(str(build()))
-            progcache.note_build(time.perf_counter() - t0)
+            lib = hostlib.load(build)
             i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
             i32p, f32p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)
             lib.oap_als_grouped_total.restype = i64

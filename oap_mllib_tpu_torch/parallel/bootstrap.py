@@ -56,34 +56,26 @@ _state = {"initialized": False, "devices": None, "coordinator": None}
 
 
 def local_ip() -> str:
-    """First non-loopback IPv4 of this host: the source address the
-    kernel picks for an outbound route (no packet is sent), else
-    127.0.0.1."""
-    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-    try:
-        s.connect(("10.255.255.255", 1))  # UDP connect: no packets
-        return s.getsockname()[0]
-    except OSError:
-        return "127.0.0.1"
-    finally:
-        s.close()
+    """This host's first IPv4 on an interface that is up and not a
+    loopback, from the interface table (native.local_ip, ``getifaddrs``);
+    127.0.0.1 on a host with no such interface.  The JAX probe skips
+    "lo" by name alone (ROADMAP, the port's departures)."""
+    from oap_mllib_tpu_torch import native
+
+    return native.local_ip() or "127.0.0.1"
 
 
 def free_port(ip: str = "", start: int = 3000) -> int:
     """First bindable TCP port >= ``start`` (the reference scans from
-    3000).  SO_REUSEADDR, as the store's own bind sets it, so a port a
+    3000), by native.free_port over every port up to 65535.
+    SO_REUSEADDR, as the store's own bind sets it, so a port a
     just-closed world left in TIME_WAIT is not skipped."""
-    for p in range(start, 65536):
-        s = socket.socket()
-        try:
-            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            s.bind((ip or "", p))
-            return p
-        except OSError:
-            continue
-        finally:
-            s.close()
-    raise RuntimeError("no free port found")
+    from oap_mllib_tpu_torch import native
+
+    port = native.free_port(ip, start, 65536 - start)
+    if port is None:
+        raise RuntimeError(f"no free port found from {start} on {ip or 'any address'}")
+    return port
 
 
 def default_coordinator(start_port: int = 3000) -> str:

@@ -3,20 +3,26 @@ package's ``parallel/shuffle.py`` ``exchange_ratings``.
 
 The reference packs each rank's ratings, buckets them by user block and
 exchanges them with oneCCL ``alltoall`` (the lengths) and ``alltoallv``
-(the records).  As in the JAX package, each process buckets its LOCAL
-triples by destination block (the stable partition of
-ops/als_block.exchange_ratings, input order kept), the processes
-allgather the bucket counts, every bucket pads to the largest, and one
-``all_to_all`` (gloo ``all_to_all_single``, parallel/collective.py)
-moves fixed-shape int32 records ``[user, item, rating bits, valid]`` to
-the process that holds each block.  A block's edges are its buckets in
-source-process order: the edges the one-process partition of the
-process-major concatenation of every process's triples gives, so a fit
-across processes builds the same blocks as one process.  Ratings
-travel as their exact f32 bits.
+(the records), then sorts each block by (user, item).  As in the JAX
+package, each process buckets its LOCAL triples by destination block
+and orders each bucket by (user, item) (:func:`bucket`, the host
+library's ``native.shuffle_prep``), the processes allgather the bucket
+counts, every bucket pads to the largest, and one ``all_to_all`` (gloo
+``all_to_all_single``, parallel/collective.py) moves fixed-shape int32
+records ``[user, item, rating bits, valid]`` to the process that holds
+each block.  The holder sorts the block's buckets, concatenated in
+source-process order, by (user, item) once more, stably: the order the
+one-process partition (ops/als_block.exchange_ratings, the same
+:func:`bucket`) gives the process-major concatenation of every
+process's triples, so a fit across processes builds the same blocks as
+one process.  Ratings travel as their exact f32 bits.
 
 The in-process partition (one process holds every block) stays
 ops/als_block.exchange_ratings.
+
+:func:`shuffle_to_blocks` is the data plane's front door over either
+route (the JAX package's): each block this process holds as a zero-based
+local CSR table (data/table.CSRTable) on its rank's device.
 
 :func:`reshard_factor_rows` is the same machinery with factor rows for
 payload: the checkpoint restore's redistribution of a factor table onto
@@ -25,11 +31,13 @@ a new block layout (utils/checkpoint.py).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from oap_mllib_tpu_torch import native
 from oap_mllib_tpu_torch.parallel import collective
 from oap_mllib_tpu_torch.parallel.mesh import Mesh
 
@@ -45,6 +53,29 @@ def _pack_records(u, i, r, cap: int) -> np.ndarray:
     return rec
 
 
+def bucket(users, items, ratings, world: int, n_users: int, offsets=None):
+    """This process's triples bucketed by user block and ordered by
+    (block, user, item), ties in input order (``native.shuffle_prep``):
+    ``(users, items, ratings f32, counts (world,), offsets)``.  Block
+    ``b`` holds the users ``[offsets[b], offsets[b + 1])`` of the uniform
+    ``ceil(n_users / world)`` split (edges routed to ``min(u // kpb,
+    world - 1)``), or of the given capability-weighted ``offsets``
+    (``shuffle_prep_offsets``)."""
+    from oap_mllib_tpu_torch.ops.als_block import block_offsets_of
+
+    users, items = np.asarray(users, np.int64), np.asarray(items, np.int64)
+    if n_users >= 2 ** 31 or (len(items) and int(np.max(items)) >= 2 ** 31):
+        raise ValueError("ids must fit int32 (the device index dtype)")
+    offsets, weighted = block_offsets_of(world, n_users, offsets)
+    ratings = np.asarray(ratings, np.float32)
+    if weighted:
+        u, i, r, counts, _ = native.shuffle_prep_offsets(users, items, ratings, offsets)
+    else:
+        u, i, r, counts, _ = native.shuffle_prep(users, items, ratings,
+                                                 max(1, -(-n_users // world)), world)
+    return u, i, r, counts, offsets
+
+
 def exchange_ratings(users, items, ratings, mesh: Mesh, ranks, n_users: int, offsets=None
                      ) -> Tuple[Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]],
                                 np.ndarray]:
@@ -57,19 +88,11 @@ def exchange_ratings(users, items, ratings, mesh: Mesh, ranks, n_users: int, off
     ``offsets`` (the same on every process), edges routed by
     ``searchsorted(offsets[1:], u, "right")`` clipped to ``world - 1``.
     Returns ``({b: (users, items, ratings)}`` for the blocks this process
-    holds (global ids), the offsets)``."""
-    from oap_mllib_tpu_torch.ops.als_block import block_of, block_offsets_of
-
-    users, items = np.asarray(users, np.int64), np.asarray(items, np.int64)
-    if n_users >= 2 ** 31 or (len(items) and int(np.max(items)) >= 2 ** 31):
-        raise ValueError("ids must fit int32 (the device index dtype)")
+    holds (global ids, ordered by (user, item), ties in process-major
+    input order), the offsets)``."""
     world = len(ranks)
-    offsets, weighted = block_offsets_of(world, n_users, offsets)
-    block = block_of(users, max(1, -(-n_users // world)), world, offsets if weighted else None)
-    order = np.argsort(block.astype(np.int16 if world < 2 ** 15 else np.int64), kind="stable")
-    counts = np.bincount(block, minlength=world)
+    u, i, r, counts, offsets = bucket(users, items, ratings, world, n_users, offsets)
     bounds = np.concatenate([[0], np.cumsum(counts)])
-    u, i, r = users[order], items[order], np.asarray(ratings, np.float32)[order]
     # the lengths' pre-exchange: every process's bucket sizes
     (all_counts,) = collective.process_allgather([counts.astype(np.int64)])
     max_bucket = max(1, int(all_counts.max()))
@@ -87,9 +110,51 @@ def exchange_ratings(users, items, ratings, mesh: Mesh, ranks, n_users: int, off
     out = {}
     for slot, b in enumerate(held[mesh.process]):
         recs = np.concatenate([got[p][slot][:int(all_counts[p, b])] for p in range(len(got))])
-        out[b] = (recs[:, 0].astype(np.int64), recs[:, 1].astype(np.int64),
-                  recs[:, 2].view(np.float32).copy())
+        # each source's bucket is in (user, item) order: one stable sort
+        # of their concatenation interleaves them as one process would
+        bu, bi, br, _, _ = native.shuffle_prep(recs[:, 0].astype(np.int64),
+                                               recs[:, 1].astype(np.int64),
+                                               recs[:, 2].view(np.float32), 1, 1)
+        out[b] = (bu, bi, br)
     return out, offsets
+
+
+@dataclasses.dataclass
+class ShuffledBlocks:
+    """The user blocks after the shuffle (the JAX package's): one
+    CSRTable a block (local, rebased user rows) on its rank's device,
+    None for a block another process holds."""
+
+    blocks: List[Optional["CSRTable"]]
+    block_offsets: np.ndarray  # (world + 1,) global user-id boundaries
+    n_items: int
+
+
+def shuffle_to_blocks(users, items, ratings, mesh: Mesh, n_users: int, n_items: int
+                      ) -> ShuffledBlocks:
+    """The shuffle and each held block's local CSR build (~ cShuffleData
+    + bufferToCSRNumericTable, ALSDALImpl.scala:107-109), over the
+    mesh's data ranks (its first model column).  Across processes a
+    collective: each process passes its own triples."""
+    from oap_mllib_tpu_torch.data.table import CSRTable
+    from oap_mllib_tpu_torch.ops import als_block
+
+    ranks = als_block.data_ranks(mesh)
+    if mesh.spans(ranks):
+        held, offsets = exchange_ratings(users, items, ratings, mesh, ranks, n_users)
+    else:
+        blocks, offsets = als_block.exchange_ratings(users, items, ratings, len(ranks), n_users)
+        held = dict(enumerate(blocks))
+    out = []
+    for b, q in enumerate(ranks):
+        if b not in held:
+            out.append(None)
+            continue
+        u, i, r = held[b]
+        lo, hi = int(offsets[b]), int(offsets[b + 1])
+        out.append(CSRTable.from_coo(u - lo, i, r, n_rows=max(hi - lo, 1), n_cols=n_items,
+                                     device=mesh.device(q)))
+    return ShuffledBlocks(blocks=out, block_offsets=offsets, n_items=n_items)
 
 
 def reshard_factor_rows(ids, vals, mesh: Mesh, offsets, per: int) -> Dict[object, torch.Tensor]:

@@ -129,7 +129,8 @@ class TestLayout:
     @pytest.mark.parametrize("world", [2, 3, 8])
     def test_shuffle_blocks_and_local_ids(self, world):
         """Uniform blocks of ceil(n_users / world) ids; every rating lands
-        in its user's block with the user id rebased, in input order."""
+        in its user's block with the user id rebased, ordered by (user,
+        item), ties in input order (the host shuffle prep's order)."""
         users, items, ratings = _ratings(5)
         edges = als_block.prepare_block_inputs(users, items, ratings, world, N_USERS)
         kpb = -(-N_USERS // world)
@@ -138,7 +139,8 @@ class TestLayout:
         assert edges.upb == kpb
         block = np.minimum(users // kpb, world - 1)
         for b in range(world):
-            sel = block == b
+            sel = np.flatnonzero(block == b)
+            sel = sel[np.lexsort((items[sel], users[sel]))]
             np.testing.assert_array_equal(edges.users[b], users[sel] - edges.offsets[b])
             np.testing.assert_array_equal(edges.items[b], items[sel])
             np.testing.assert_array_equal(edges.ratings[b], ratings[sel])

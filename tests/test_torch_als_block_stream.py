@@ -216,7 +216,8 @@ def _block_rows(n, offsets, per, b, seed):
 class TestWeightedOffsets:
     def test_the_shuffle_matches_jax(self):
         """Explicit uneven offsets: every rating in the block whose range
-        holds its user, rebased to it, in input order; upb the widest
+        holds its user, rebased to it, ordered by (user, item), ties in
+        input order (the host shuffle prep's order); upb the widest
         block; the JAX package's blocks hold the same ratings (in its
         own order within a block)."""
         users, items, ratings = _ratings(6)
@@ -230,7 +231,8 @@ class TestWeightedOffsets:
         rows = np.asarray(u_loc).shape[0] // 4
         blk = np.searchsorted(OFFSETS[1:], users, side="right")
         for b in range(4):
-            mine = blk == b
+            mine = np.flatnonzero(blk == b)
+            mine = mine[np.lexsort((items[mine], users[mine]))]
             np.testing.assert_array_equal(edges.users[b], users[mine] - OFFSETS[b])
             np.testing.assert_array_equal(edges.items[b], items[mine])
             np.testing.assert_array_equal(edges.ratings[b], ratings[mine])
