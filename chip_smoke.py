@@ -15,6 +15,7 @@
     python3 chip_smoke.py --front      # only the build, 30 and 31
     python3 chip_smoke.py --tuning     # only the build and 32
     python3 chip_smoke.py --ingest     # only the build and 33
+    python3 chip_smoke.py --x64        # only the build and 34
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -459,6 +460,36 @@ Phases, each a hard check (any failure exits non-zero):
 Every mesh phase puts its four ranks on four distinct cards when the
 machine has four, else on the one card.
 
+34. x64 (last; the float64 parity lane, ``set_config(enable_x64=True)``
+   for the phase and off after it), launch counts zeroed before each
+   fit and read after: (a) K1's float64 form at the main path's shape
+   (2^20 x 256 f64 blobs, k = 1000), loop and cost mode, against its
+   plain version on the card: labels >= 99.99 %, sums and counts on the
+   kernel's labels and the cost within 1e-12 relative, two launches
+   bit-equal; ms a launch, the bound (2 n k d operations at the FP64
+   tensor cores' 67 TFLOP/s, 8 bytes an element), the FP64 pipe's 34
+   TFLOP/s time beside it, the plain version's ms and
+   ``torch.matmul(x, c.T)`` in f64; (b) K2's float64 form at 2^20 x 128:
+   column sums and the Gram within 1e-12 relative, bit-symmetric and
+   deterministic, ms, bound, plain and ``torch.matmul(xc.T, xc)`` in f64;
+   (c) ``KMeans(k=1000, max_iter=20, seed=0)`` on the 2^20 x 256 f64
+   table (resident: the planner's route in-memory or chunked at 8 bytes
+   an element): K1 num_iter + 1 times, all float64, centers
+   within 1e-9 of the same fit through the plain version with equal
+   iterations; ``PCA(k=16)`` at 2^20 x 128: K2 twice, components within
+   1e-9 of a float64 numpy eigh of the host covariance; each fit's wall
+   beside the f32 fit of the same rows and their distance; (d) at 2^18
+   rows in 8 chunks: the streamed Lloyd loop against the in-memory
+   kernel loop from the same centers (1e-9, K1 = chunks x (iterations +
+   1)), a streamed K-Means fit, a streamed PCA against the in-memory
+   one (1e-9, K2 = 16), ``partial_fit`` of 2^16 rows in 4 chunks against
+   the CPU's plain fold (1e-9, K1 = 4), ``IncrementalPCA`` in 4 deltas
+   (raw moments 1e-12 of numpy's, the commit 1e-9 of the batch fit, K2 =
+   4), and a data-parallel (4, 1) and a model-sharded (2, 2) f64 fit
+   against the one-card fit (1e-9, equal iterations, K5 = 0: the ring
+   packs f32); (e) a short implicit ALS fit with the flag on and off:
+   K3 and K4 launch as before, the factors bit-equal.
+
 The last three lines are the kernels JSON, the card from nvidia-smi and
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs every phase on
 the CPU at tiny sizes and never prints the ok line.
@@ -482,7 +513,9 @@ import time
 import numpy as np
 import torch
 
-from oap_mllib_tpu_torch import ALS, PCA, ALSModel, KMeans, config, get_mesh, set_config
+from oap_mllib_tpu_torch import (ALS, PCA, ALSModel, KMeans, KMeansModel, config, get_mesh,
+                                 set_config)
+from oap_mllib_tpu_torch.online import IncrementalPCA
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
 from oap_mllib_tpu_torch.data.table import ShardedTable
@@ -1949,7 +1982,7 @@ def staged_ends(src, dev, stage_dtype=torch.float32):
     with stream_ops._staged_chunks(src, None, dev, PrefetchStats(), stage_dtype) as pf:
         for i, ((_, n_valid, _), (x, w)) in enumerate(pf):
             if i in (0, last):
-                ends.append((stream_ops._f32(x).clone(), w.clone(), n_valid))
+                ends.append((stream_ops._operand(x).clone(), w.clone(), n_valid))
     return ends
 
 
@@ -7635,6 +7668,396 @@ def phase_ingest(cfg, dev, smi):
 
 
 
+# -- 34. the float64 parity lane ------------------------------------------------
+
+# phase 34 (x64): K1 at the main path's shape, K2 at the PCA table's, the
+# two full-width fits, the streamed, online and mesh routes at 2^18 rows
+# (8 chunks), and a short ALS fit
+X64_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "pca": (1 << 20, 128),
+            "pca_k": 16, "small_n": 1 << 18, "chunks": 8, "small_iter": 5,
+            "delta_rows": 1 << 16, "als": {"n_users": 20_000, "n_items": 5_000,
+                                          "nnz": 400_000, "rank": 10, "max_iter": 3}}
+X64_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "pca": (3001, 37), "pca_k": 5,
+            "small_n": 2048, "chunks": 8, "small_iter": 3, "delta_rows": 1024,
+            "als": {"n_users": 300, "n_items": 120, "nnz": 5_000, "rank": 10, "max_iter": 2}}
+# H100 SXM data sheet: FP64 on the tensor cores (DMMA) and on the CUDA
+# cores; the bound takes the tensor cores' rate, the least time
+PEAK_FP64_TC = 67e12
+PEAK_FP64 = 34e12
+# f64 kernels against their plain versions: the same f64 values summed
+# in other orders
+X64_RTOL = 1e-12
+X64_FIT_TOL = 1e-9
+# the card's nvidia-smi line, printed with every phase-34 payload
+_SMI = [None]
+
+
+def blobs64(n, d, k, dev, seed, spread=2.0):
+    """:func:`blobs` drawn in float64 on the device."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f64 = torch.float64
+    true = torch.randn((k, d), generator=g, device=dev, dtype=f64) * spread
+    lab = torch.randint(0, k, (n,), generator=g, device=dev)
+    x = true[lab] + torch.randn((n, d), generator=g, device=dev, dtype=f64)
+    w = 0.5 + torch.rand((n,), generator=g, device=dev, dtype=f64)
+    c = true + 0.5 * torch.randn((k, d), generator=g, device=dev, dtype=f64)
+    return x.contiguous(), w, c.contiguous()
+
+
+def pca_data64(n, d, dev, seed):
+    """:func:`pca_data` drawn in float64 on the device."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f64 = torch.float64
+    q, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev, dtype=f64))
+    scale = 10.0 * 0.85 ** torch.arange(d, device=dev, dtype=f64)
+    z = torch.randn((n, d), generator=g, device=dev, dtype=f64) * scale
+    return (z @ q.T + 3.0).contiguous()
+
+
+def _x64_k1(x, w, c, dev, reps):
+    """(a) K1's float64 form against its plain version on the card, both
+    modes: labels, sums and counts on the kernel's labels, cost, two
+    launches' bits; ms, bound, plain and library times."""
+    n, d = x.shape
+    k = c.shape[0]
+    out = []
+    for need_cost in (False, True):
+        tag = f"x64 K1 cost={need_cost}"
+        sums, counts, cost, labels = run_kernel(x, w, c, "highest", need_cost)
+        again = run_kernel(x, w, c, "highest", need_cost)
+        same = all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip((sums, counts, cost, labels), again))
+        check(same, f"{tag}: two launches differ")
+        check(sums.dtype == torch.float64 and counts.dtype == torch.float64,
+              f"{tag}: outputs {sums.dtype}, {counts.dtype}")
+        ref_labels, _ = kmeans_kernel.assign_plain(x, c, "highest", need_cost)
+        agree = float((labels.long() == ref_labels).float().mean())
+        check(agree >= MIN_AGREEMENT, f"{tag}: labels agree on {agree:.6f} of rows")
+        ref_sums, ref_counts = kmeans_kernel.sums_for_labels(x, w, labels, k)
+        err_s, err_c = _rel_err(sums, ref_sums), _rel_err(counts, ref_counts)
+        check(err_s <= X64_RTOL and err_c <= X64_RTOL,
+              f"{tag}: sums rel err {err_s:.3g}, counts {err_c:.3g}")
+        v = {"need_cost": need_cost, "shape": [n, d], "k": k, "label_agreement": agree,
+             "sums_rel_err": err_s, "counts_rel_err": err_c, "deterministic": same,
+             "max_abs_err": float(torch.max(torch.abs(sums - ref_sums)))}
+        if need_cost:
+            _, _, ref_cost = kmeans_kernel.lloyd_accumulate_plain(x, w, c, "highest", True)
+            v["cost_rel_err"] = abs(float(cost) - float(ref_cost)) / abs(float(ref_cost))
+            check(v["cost_rel_err"] <= X64_RTOL, f"{tag}: cost rel err {v['cost_rel_err']:.3g}")
+        v["ms"] = time_ms(lambda: run_kernel(x, w, c, "highest", need_cost), dev, reps)
+        v["plain_ms"] = time_ms(
+            lambda: kmeans_kernel.lloyd_accumulate_plain(x, w, c, "highest", need_cost),
+            dev, max(1, reps // 4))
+        ops = 2.0 * n * k * d + 2.0 * n * d
+        nbytes = 8.0 * (n * d + n + 2 * k * d)
+        v["bound_ms"], v["bound_by"] = _bound(ops / PEAK_FP64_TC, nbytes / PEAK_BYTES)
+        v["fp64_pipe_ms"] = ops / PEAK_FP64 * 1e3
+        v["library_ms"] = time_ms(lambda: torch.matmul(x, c.T), dev, reps)
+        v["library_call"] = "torch.matmul(x, c.T) in float64: the cross product only"
+        emit("x64_k1", {**v, "card": _SMI[0]})
+        out.append(v)
+    return out
+
+
+def _x64_k2(x, dev, reps):
+    """(b) K2's float64 form against its plain version on the card: the
+    mean pass and the Gram pass."""
+    n, d = x.shape
+    mask = torch.ones(n, dtype=torch.float64, device=dev)
+    k, plain = pca_kernel.pca_moments, pca_kernel.pca_moments_plain
+    _, cs, cnt = k(x, mask, None, "highest", need_gram=False)
+    _, cs_p, cnt_p = plain(x, mask, None, "highest", need_gram=False)
+    mean = cs / float(n)
+    g, _, _ = k(x, mask, mean, "highest", need_sums=False)
+    g2, _, _ = k(x, mask, mean, "highest", need_sums=False)
+    g_p, _, _ = plain(x, mask, mean, "highest", need_sums=False)
+    check(g.dtype == cs.dtype == torch.float64, f"x64 K2: outputs {g.dtype}, {cs.dtype}")
+    check(torch.equal(g, g2), "x64 K2 Gram pass: two launches differ")
+    check(dev.type != "cuda" or torch.equal(g, g.T), "x64 K2 Gram pass: not bit-symmetric")
+    v = {"shape": [n, d], "colsum_rel_err": _rel_err(cs, cs_p),
+         "count_err": abs(float(cnt) - float(cnt_p)), "gram_rel_err": _rel_err(g, g_p),
+         "max_abs_err": float(torch.max(torch.abs(g - g_p))), "deterministic": True}
+    check(v["colsum_rel_err"] <= X64_RTOL and v["count_err"] == 0.0
+          and v["gram_rel_err"] <= X64_RTOL,
+          f"x64 K2: colsum {v['colsum_rel_err']:.3g}, count {v['count_err']}, "
+          f"Gram {v['gram_rel_err']:.3g}")
+    v["mean_ms"] = time_ms(lambda: k(x, mask, None, "highest", need_gram=False), dev, reps)
+    v["ms"] = time_ms(lambda: k(x, mask, mean, "highest", need_sums=False), dev, reps)
+    v["plain_ms"] = time_ms(lambda: plain(x, mask, mean, "highest", need_sums=False), dev, reps)
+    ops = float(n) * d * (d + 1)
+    nbytes = 8.0 * (n * d + n + d + d * d)
+    v["bound_ms"], v["bound_by"] = _bound(ops / PEAK_FP64_TC, nbytes / PEAK_BYTES)
+    v["fp64_pipe_ms"] = ops / PEAK_FP64 * 1e3
+    xc = x - mean
+    v["library_ms"] = time_ms(lambda: torch.matmul(xc.T, xc), dev, reps)
+    v["library_call"] = "torch.matmul(xc.T, xc) in float64"
+    emit("x64_k2", {**v, "card": _SMI[0]})
+    return v
+
+
+def _plain_k1(x, w, c, mode="highest", need_cost=True, geometry=None):
+    return kmeans_kernel.lloyd_accumulate_plain(x, w, c, mode, need_cost)
+
+
+def _x64_kmeans_fit(cfg, dev):
+    """(c) the full-width f64 K-Means fit, counts zeroed just before: K1's
+    float64 form num_iter + 1 times, the centers within 1e-9 of the same
+    fit through the plain version with equal iterations; its distance
+    from the f32 fit of the same rows."""
+    n, d, k, it = cfg["n"], cfg["d"], cfg["k"], cfg["max_iter"]
+    x, _, _ = blobs64(n, d, k, dev, seed=34)
+
+    def fit():
+        return KMeans(k=k, max_iter=it, tol=1e-4, seed=0, device=str(dev)).fit(x)
+
+    sync(dev)
+    kmeans_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model, launches = counted_fit(fit, kmeans_kernel.LAUNCHES)
+    wall = time.perf_counter() - t0
+    f64_launches = kmeans_kernel.LAUNCHES_BY_DTYPE["float64"]
+    s = model.summary
+    expect = s.num_iter + 1 if dev.type == "cuda" else 0
+    check(model.cluster_centers_.dtype == np.float64, "x64 fit: centers not float64")
+    check(launches[kmeans_kernel.KERNEL] == expect == f64_launches,
+          f"x64 fit: K1 launched {launches[kmeans_kernel.KERNEL]} times "
+          f"({f64_launches} float64), expected num_iter + 1 = {expect}")
+    # 8 bytes an element: the planner must still keep the table resident
+    check(s.route["route"] in ("in-memory", "chunked") and not s.streamed,
+          f"x64 fit: route {s.route['route']}")
+    real = kmeans_kernel.lloyd_accumulate
+    kmeans_kernel.lloyd_accumulate = _plain_k1
+    try:
+        ref = fit()
+    finally:
+        kmeans_kernel.lloyd_accumulate = real
+    err = float(np.max(np.abs(model.cluster_centers_ - ref.cluster_centers_)))
+    check(s.num_iter == ref.summary.num_iter and err <= X64_FIT_TOL,
+          f"x64 fit vs the plain-version fit: {s.num_iter} vs {ref.summary.num_iter} "
+          f"iterations, centers {err:.3g}")
+    set_config(enable_x64=False)
+    try:
+        t0 = time.perf_counter()
+        f32 = KMeans(k=k, max_iter=it, tol=1e-4, seed=0, device=str(dev)).fit(x.float())
+        wall32 = time.perf_counter() - t0
+    finally:
+        set_config(enable_x64=True)
+    out = {"shape": [n, d], "k": k, "num_iter": s.num_iter, "wall_s": wall,
+           "phases_s": s.timings.as_dict(), "launches": launches,
+           "launches_float64": f64_launches, "route": s.route["route"],
+           "vs_plain_centers_max_abs": err, "training_cost": s.training_cost,
+           "f32_wall_s": wall32, "f32_num_iter": f32.summary.num_iter,
+           "vs_f32_centers_max_abs": float(np.max(np.abs(
+               model.cluster_centers_ - f32.cluster_centers_))),
+           "tuning": [dd["decision"] for dd in s.tuning["decisions"]]}
+    emit("x64_kmeans_fit", {**out, "card": _SMI[0]})
+    return out
+
+
+def _x64_pca_fit(cfg, dev):
+    """(c) the full-width f64 PCA fit, counts zeroed just before: K2's
+    float64 form twice; the components within 1e-9 (sign-insensitive) of
+    a float64 numpy eigh of the host covariance."""
+    (n, d), k = cfg["pca"], cfg["pca_k"]
+    x = pca_data64(n, d, dev, seed=d)
+    sync(dev)
+    pca_kernel.reset_launches()
+    t0 = time.perf_counter()
+    model, launches = counted_fit(lambda: PCA(k=k, device=str(dev)).fit(x),
+                                  pca_kernel.LAUNCHES)
+    wall = time.perf_counter() - t0
+    expect = 2 if dev.type == "cuda" else 0
+    check(launches[pca_kernel.KERNEL] == expect == pca_kernel.LAUNCHES_BY_DTYPE["float64"],
+          f"x64 PCA fit: K2 launched {launches[pca_kernel.KERNEL]} times, expected {expect}")
+    check(model.components_.dtype == model.explained_variance_.dtype == np.float64,
+          "x64 PCA fit: outputs not float64")
+    host = x.cpu().numpy()
+    xc = host - host.mean(axis=0)
+    vals, vecs = np.linalg.eigh(xc.T @ xc / (n - 1))
+    vals, vecs = vals[::-1], vecs[:, ::-1]
+    comp_err = sign_err(model.components_, vecs[:, :k])
+    ratio_err = float(np.max(np.abs(model.explained_variance_ - vals[:k] / vals.sum())))
+    check(comp_err <= X64_FIT_TOL and ratio_err <= 1e-12,
+          f"x64 PCA fit vs numpy f64 eigh: components {comp_err:.3g}, ratios {ratio_err:.3g}")
+    set_config(enable_x64=False)
+    try:
+        t0 = time.perf_counter()
+        f32 = PCA(k=k, device=str(dev)).fit(x.float())
+        wall32 = time.perf_counter() - t0
+    finally:
+        set_config(enable_x64=True)
+    out = {"shape": [n, d], "k": k, "wall_s": wall, "launches": launches,
+           "components_err_vs_numpy": comp_err, "ratio_err_vs_numpy": ratio_err,
+           "f32_wall_s": wall32,
+           "vs_f32_components": sign_err(model.components_, f32.components_.astype(np.float64)),
+           "route": model.summary["route"]["route"]}
+    emit("x64_pca_fit", {**out, "card": _SMI[0]})
+    return out
+
+
+def _x64_routes(cfg, dev):
+    """(d) the streamed, online and mesh routes at ``small_n`` rows."""
+    n, d, k, it, chunks = cfg["small_n"], cfg["d"], cfg["k"], cfg["small_iter"], cfg["chunks"]
+    rows = n // chunks
+    x, _, c0 = blobs64(n, d, k, dev, seed=35)
+    host = x.cpu().numpy()
+    out = {}
+    # the streamed Lloyd loop against the in-memory kernel loop from the
+    # same centers, then the streamed estimator fits
+    ones = torch.ones(n, dtype=torch.float64, device=dev)
+    c1, it1, cost1, _ = kmeans_kernel.lloyd_run_kernel(x, ones, c0, it, 1e-4)
+    src = ChunkSource.from_array(host, chunk_rows=rows)
+    kmeans_kernel.reset_launches()
+    c2, it2, cost2, _ = stream_ops.lloyd_run_streamed(src, c0, it, 1e-4, device=dev)
+    loop_launches = kmeans_kernel.LAUNCHES_BY_DTYPE["float64"]
+    err = float(torch.max(torch.abs(c2 - c1)))
+    check(c2.dtype == torch.float64 and it1 == it2 and err <= X64_FIT_TOL
+          and abs(float(cost2) - float(cost1)) <= X64_RTOL * float(cost1),
+          f"x64 streamed loop: {it2} vs {it1} iterations, centers {err:.3g}")
+    check(loop_launches == (chunks * (it2 + 1) if dev.type == "cuda" else 0),
+          f"x64 streamed loop: K1 launched {loop_launches} times")
+    out["stream_loop"] = {"n_iter": it2, "centers_max_abs": err, "launches": loop_launches}
+    km, launches = counted_fit(
+        lambda: KMeans(k=k, max_iter=it, seed=0, init_mode="random", device=str(dev)).fit(src),
+        kmeans_kernel.LAUNCHES)
+    check(km.cluster_centers_.dtype == np.float64 and km.summary.streamed,
+          "x64 streamed K-Means: not a float64 streamed fit")
+    out["stream_kmeans"] = {"n_iter": km.summary.num_iter, "launches": launches}
+    pca_x = pca_data64(n, cfg["pca"][1], dev, seed=36)
+    pca_host = pca_x.cpu().numpy()
+    mem = PCA(k=cfg["pca_k"], device=str(dev)).fit(pca_x)
+    pm, launches = counted_fit(
+        lambda: PCA(k=cfg["pca_k"], device=str(dev)).fit(
+            ChunkSource.from_array(pca_host, chunk_rows=rows)), pca_kernel.LAUNCHES)
+    comp_err = sign_err(pm.components_, mem.components_)
+    check(pm.components_.dtype == np.float64 and comp_err <= X64_FIT_TOL
+          and launches[pca_kernel.KERNEL] == (2 * chunks if dev.type == "cuda" else 0),
+          f"x64 streamed PCA: components {comp_err:.3g}, launches {launches}")
+    out["stream_pca"] = {"components_err": comp_err, "launches": launches}
+    # partial_fit: the kernel's fold against the plain version's on the
+    # CPU, from the same centers and counts
+    delta = host[: cfg["delta_rows"]]
+    models = []
+    for where in (str(dev), "cpu"):
+        m = KMeansModel(c0.cpu().numpy(), device=where)
+        m._online_counts = np.full(k, 100.0)
+        models.append(m)
+    kmeans_kernel.reset_launches()
+    models[0].partial_fit(ChunkSource.from_array(delta, chunk_rows=delta.shape[0] // 4))
+    pf_launches = dict(kmeans_kernel.LAUNCHES)
+    models[1].partial_fit(ChunkSource.from_array(delta, chunk_rows=delta.shape[0] // 4))
+    err = float(np.max(np.abs(models[0].cluster_centers_ - models[1].cluster_centers_)))
+    check(models[0].cluster_centers_.dtype == np.float64 and err <= X64_FIT_TOL
+          and pf_launches[kmeans_kernel.KERNEL] == (4 if dev.type == "cuda" else 0),
+          f"x64 partial_fit: centers {err:.3g} from the CPU fold, launches {pf_launches}")
+    out["partial_fit"] = {"centers_max_abs": err, "launches": pf_launches}
+    # IncrementalPCA: the raw moments against numpy's, the commit against
+    # the batch f64 fit
+    ipca = IncrementalPCA(cfg["pca_k"], device=str(dev))
+    pca_kernel.reset_launches()
+    for lo in range(0, n, n // 4):
+        ipca.partial_fit(pca_host[lo:lo + n // 4])
+    ip_launches = dict(pca_kernel.LAUNCHES)
+    gram_err = (np.max(np.abs(ipca._gram - pca_host.T @ pca_host))
+                / np.max(np.abs(ipca._gram)))
+    comp_err = sign_err(ipca.commit().components_, mem.components_)
+    check(ipca._gram.dtype == np.float64 and gram_err <= X64_RTOL and comp_err <= X64_FIT_TOL
+          and ip_launches[pca_kernel.KERNEL] == (4 if dev.type == "cuda" else 0),
+          f"x64 IncrementalPCA: moments {gram_err:.3g}, components {comp_err:.3g}, "
+          f"launches {ip_launches}")
+    out["incremental_pca"] = {"gram_rel_err": float(gram_err), "components_err": comp_err,
+                              "launches": ip_launches}
+    # the mesh: data-parallel (4, 1) and model-sharded (2, 2) f64 fits
+    # against the one-card fit from the same random rows; the ring packs
+    # f32, so K5 launches 0 times
+    one = KMeans(k=k, max_iter=it, tol=1e-4, seed=0, init_mode="random",
+                 device=str(dev)).fit(x)
+    for mp in (1, 2):
+        devs = mesh_devices(dev, 4)
+        set_config(model_parallel=mp)
+        try:
+            mesh_m, launches = counted_fit(
+                lambda: KMeans(k=k, max_iter=it, tol=1e-4, seed=0, init_mode="random",
+                               device=",".join(str(q) for q in devs)).fit(x),
+                kmeans_kernel.LAUNCHES, ring_kernel.LAUNCHES)
+        finally:
+            set_config(model_parallel=1)
+        err = float(np.max(np.abs(mesh_m.cluster_centers_ - one.cluster_centers_)))
+        s = mesh_m.summary
+        want_k1 = (s.num_iter + 1) * 4 if (mp == 1 and dev.type == "cuda") else 0
+        check(launches[ring_kernel.KERNEL] == 0 and s.ring is False
+              and launches[kmeans_kernel.KERNEL] == want_k1,
+              f"x64 mesh ({4 // mp}, {mp}): launches {launches}, ring {s.ring}")
+        check(mesh_m.cluster_centers_.dtype == np.float64 and s.num_iter == one.summary.num_iter
+              and err <= X64_FIT_TOL,
+              f"x64 mesh ({4 // mp}, {mp}): {s.num_iter} vs {one.summary.num_iter} "
+              f"iterations, centers {err:.3g}")
+        out[f"mesh_{4 // mp}x{mp}"] = {"devices": [str(q) for q in devs], "launches": launches,
+                                       "centers_max_abs": err, "num_iter": s.num_iter}
+    emit("x64_routes", {**out, "card": _SMI[0]})
+    return out
+
+
+def _x64_als(cfg, dev):
+    """(e) a short implicit ALS fit with the flag on and off: K3 and K4
+    launch as before and the factors are bit-equal (ALS reads no x64)."""
+    u, i, r = als_data(cfg)
+    kw = dict(rank=cfg["rank"], max_iter=cfg["max_iter"], implicit_prefs=True, alpha=40.0,
+              reg_param=0.1, seed=0, device=str(dev))
+    on, launches_on = counted_fit(lambda: ALS(**kw).fit(u, i, r), als_kernel.LAUNCHES)
+    set_config(enable_x64=False)
+    try:
+        off, launches_off = counted_fit(lambda: ALS(**kw).fit(u, i, r), als_kernel.LAUNCHES)
+    finally:
+        set_config(enable_x64=True)
+    want = 2 * cfg["max_iter"] if dev.type == "cuda" else 0
+    same = (on.user_factors_.tobytes() == off.user_factors_.tobytes()
+            and on.item_factors_.tobytes() == off.item_factors_.tobytes())
+    check(same and launches_on == launches_off
+          and launches_on[als_kernel.SOLVE] == launches_on[als_kernel.GRAM] == want
+          and on.user_factors_.dtype == np.float32,
+          f"x64 ALS: bit-equal {same}, launches {launches_on} vs {launches_off}")
+    out = {"launches": launches_on, "bit_equal": same}
+    emit("x64_als", {**out, "card": _SMI[0]})
+    return out
+
+
+def phase_x64(cfg, dev, smi):
+    """Phase 34 (module docstring): the float64 parity lane under
+    ``enable_x64=True``, launch counts zeroed before each fit."""
+    t_phase = time.perf_counter()
+    reps = 10 if dev.type == "cuda" else 1
+    _SMI[0] = smi
+    set_config(enable_x64=True)
+    try:
+        x, w, c = blobs64(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)
+        k1 = _x64_k1(x, w, c, dev, reps)
+        del x, w, c
+        k2 = _x64_k2(pca_data64(*cfg["pca"], dev, seed=cfg["pca"][1]), dev, reps)
+        km = _x64_kmeans_fit(cfg, dev)
+        pca = _x64_pca_fit(cfg, dev)
+        routes = _x64_routes(cfg, dev)
+        als = _x64_als(cfg["als"], dev)
+    finally:
+        set_config(enable_x64=False)
+    res = {"k1": k1, "k2": k2, "kmeans_fit": km, "pca_fit": pca, "routes": routes, "als": als,
+           "wall_s": time.perf_counter() - t_phase, "card": smi}
+    main = k1[0]
+    print(f"x64 K1 f64 {main['ms']:.3f} ms a loop pass (bound {main['bound_ms']:.3f} ms by "
+          f"{main['bound_by']}, FP64 pipe {main['fp64_pipe_ms']:.3f} ms, plain "
+          f"{main['plain_ms']:.3f} ms, torch.matmul f64 {main['library_ms']:.3f} ms); K2 f64 Gram "
+          f"{k2['ms']:.3f} ms (bound {k2['bound_ms']:.3f} ms by {k2['bound_by']}, plain "
+          f"{k2['plain_ms']:.3f} ms, torch.matmul f64 {k2['library_ms']:.3f} ms); K-Means fit "
+          f"{km['wall_s']:.3f} s ({km['num_iter']} iterations, K1 {km['launches_float64']}; "
+          f"f32 {km['f32_wall_s']:.3f} s, centers {km['vs_f32_centers_max_abs']:.3g} apart); "
+          f"PCA fit {pca['wall_s']:.3f} s (K2 {pca['launches'][pca_kernel.KERNEL]}; f32 "
+          f"{pca['f32_wall_s']:.3f} s); phase {res['wall_s']:.1f} s | {smi}", flush=True)
+    emit("x64", {k: res[k] for k in ("wall_s", "card")})
+    return res
+
+
 def phase_build(dev):
     """Every kernel built from the sources; ptxas's registers and spills;
     the HGMMA (tensor-core wgmma) instructions of the libraries that must
@@ -7704,6 +8127,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ingest", action="store_true",
                     help="only the build and the native host layer's phase (33); prints no "
                          "ok line")
+    ap.add_argument("--x64", action="store_true",
+                    help="only the build and the float64 parity lane's phase (34); prints no "
+                         "ok line")
     ap.add_argument("--tuning", action="store_true",
                     help="only the build and the kernel-geometry autotuner's phase (32; its "
                          "world \"a\" runs alone, and this process's armed fits stand in "
@@ -7741,6 +8167,10 @@ def main(argv=None) -> int:
         if args.ingest:
             phase_ingest(INGEST_TINY if args.rehearse else INGEST_FULL, dev, smi)
             print(f"ingest phase passed: {smi}", flush=True)
+            return 0
+        if args.x64:
+            phase_x64(X64_TINY if args.rehearse else X64_FULL, dev, smi)
+            print(f"x64 phase passed: {smi}", flush=True)
             return 0
         if args.tuning:
             phase_tuning(TUNE_TINY if args.rehearse else TUNE_FULL, dev, args.rehearse)
@@ -7855,6 +8285,8 @@ def main(argv=None) -> int:
                               world_a=mp["a"], tel_sink=tel_sink_path())
         # the native host layer (33): fits from the example formats' files
         ingest = phase_ingest(INGEST_TINY if args.rehearse else INGEST_FULL, dev, smi)
+        # the float64 parity lane (34)
+        x64 = phase_x64(X64_TINY if args.rehearse else X64_FULL, dev, smi)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -8011,6 +8443,34 @@ def main(argv=None) -> int:
     for fit in ("kmeans", "pca", "als", "sharded"):
         for name, n in telemetry[fit]["launches"].items():
             by_path[name][f"telemetry {fit} (off and armed alike)"] = n
+    # the float64 forms of K1 and K2 (34): their launches on the f64 fits
+    for name, src, replaces, v, launches, shape in (
+            (kmeans_kernel.KERNEL, "kmeans_accumulate.cu", REPLACES, x64["k1"][0],
+             x64["kmeans_fit"]["launches_float64"],
+             {"n": cfg["n"], "d": cfg["d"], "k": cfg["k"], "dtype": "float64"}),
+            (pca_kernel.KERNEL, "pca_moments.cu", PCA_REPLACES, x64["k2"],
+             x64["pca_fit"]["launches"][pca_kernel.KERNEL],
+             {"n": X64_FULL["pca"][0], "d": X64_FULL["pca"][1], "pass": "gram",
+              "dtype": "float64"})):
+        entries.append({
+            "name": f"{name}_f64", "route": "cuda", "source": f"oap_mllib_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches, "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+            "library_call": v["library_call"], "fp64_pipe_ms": v["fp64_pipe_ms"],
+            "shape": shape, "x64": {k: x64[k] for k in ("routes", "als", "wall_s")}})
+    by_path[f"{kmeans_kernel.KERNEL}_f64"] = {
+        "x64 fit": x64["kmeans_fit"]["launches_float64"],
+        "x64 streamed loop": x64["routes"]["stream_loop"]["launches"],
+        "x64 streamed fit": x64["routes"]["stream_kmeans"]["launches"][kmeans_kernel.KERNEL],
+        "x64 partial_fit": x64["routes"]["partial_fit"]["launches"][kmeans_kernel.KERNEL],
+        "x64 mesh 4x1": x64["routes"]["mesh_4x1"]["launches"][kmeans_kernel.KERNEL]}
+    by_path[f"{pca_kernel.KERNEL}_f64"] = {
+        "x64 fit": x64["pca_fit"]["launches"][pca_kernel.KERNEL],
+        "x64 streamed fit": x64["routes"]["stream_pca"]["launches"][pca_kernel.KERNEL],
+        "x64 IncrementalPCA": x64["routes"]["incremental_pca"]["launches"][pca_kernel.KERNEL]}
+    by_path[ring_kernel.KERNEL]["x64 mesh 2x2 (f64: psums)"] = \
+        x64["routes"]["mesh_2x2"]["launches"][ring_kernel.KERNEL]
     for entry in entries:
         entry["launches_by_path"] = by_path[entry["name"]]
     if args.rehearse:

@@ -20,6 +20,16 @@ Env mapping, as in the JAX package: field ``foo_bar`` <- env
   over the data axis with one ring (ops/cuda/ring_kernel.ring_allreduce)
   when that axis has two ranks or more; "off" keeps three psums.
 - ``seed``: the seed of estimators that do not set one.
+- ``enable_x64``: the float64 parity lane (False by default; env
+  ``OAP_MLLIB_TPU_ENABLE_X64=1``).  K-Means and PCA fit in float64 on
+  every route (in memory, on a mesh, streamed, across processes, and
+  ``partial_fit`` / ``IncrementalPCA``): tables, moments, centers and
+  covariance are f64, K1 and K2 run their float64 forms on the card,
+  the policy pins to ``f32`` at the ``highest`` tier
+  (utils/precision.py), the ring gives way to psums, the planner prices
+  8 bytes an element, and the checkpoint signature carries ``"x64":
+  True``.  ALS reads no x64 and stays float32, and scoring after an x64
+  fit stays f32, as in the JAX package.
 - ``matmul_precision``: the f32 policy's kernel tier ("highest", "high",
   "default").
 - ``compute_precision`` / ``kmeans_precision`` / ``pca_precision`` /
@@ -214,14 +224,22 @@ import threading
 from typing import Optional
 
 _ENV_PREFIX = "OAP_MLLIB_TPU_"
+
+
+def _env_bool(raw: str) -> bool:
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
 # env values read as the field's type (the annotations are strings here)
-_COERCE = {"int": int, int: int, "float": float, float: float}
+_COERCE = {"int": int, int: int, "float": float, float: float, "bool": _env_bool,
+           bool: _env_bool}
 
 
 @dataclasses.dataclass
 class Config:
     device: str = "cuda"
     seed: int = 0
+    enable_x64: bool = False
     matmul_precision: str = "highest"
     compute_precision: str = "f32"
     kmeans_precision: str = ""

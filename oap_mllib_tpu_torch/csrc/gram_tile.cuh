@@ -8,7 +8,7 @@
 //   tiles (or micro-tiles), and only those on and above the diagonal
 //   are computed, numbered row by row;
 // - sum_slices_kernel: K2's second launch, which adds the row slices'
-//   (d, d) partials in slice order.  No float atomics, so two launches
+//   (d, d) partials in slice order (f32, or f64 for K2's float64 form).  No float atomics, so two launches
 //   give the same bits.
 
 #pragma once
@@ -35,13 +35,18 @@ __device__ __forceinline__ void tile_of(int t, int m, int& ti, int& tj) {
   tj = i + t;
 }
 
-// out[e] = sum over slices of part[slice][e], in slice order.
-__global__ void sum_slices_kernel(const float* __restrict__ part, int slices,
-                                  long long elems, float* __restrict__ out) {
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// out[e] = sum over slices of part[slice][e], in slice order (f32, or
+// f64 for the float64 form of K2).
+template <typename T>
+__global__ void sum_slices_kernel(const T* __restrict__ part, int slices,
+                                  long long elems, T* __restrict__ out) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= elems) return;
-  float s = 0.f;
-  for (int k = 0; k < slices; ++k) s = __fadd_rn(s, part[k * elems + e]);
+  T s = 0;
+  for (int k = 0; k < slices; ++k) s = add_rn(s, part[k * elems + e]);
   out[e] = s;
 }
 

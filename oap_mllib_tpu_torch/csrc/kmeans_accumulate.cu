@@ -54,6 +54,19 @@
 // No float atomics anywhere: two launches on the same inputs give the
 // same bits.
 //
+// The float64 form (`kmeans_accumulate_f64`, the x64 parity lane,
+// Config.enable_x64): the same function at the highest tier on double
+// operands, passes 1-8 as above with every float a double.  Its
+// assignment is assign_f64_kernel, a 64x64 SIMT register tile of FP64
+// FMAs that ranks on the plain version's rounding order
+// ((|x|^2 + |c|^2) - 2 x.c); the sort, scan and scatter passes are the
+// f32 form's, and sums, counts and cost add in f64 in the same fixed
+// orders, so two launches give the same bits here too.  Its bound on an
+// H100 SXM: the same 2 n k d operations at 67 TFLOP/s on the FP64 tensor
+// cores (34 on the FP64 pipe this tile runs on); at n = 2^20, d = 256,
+// k = 1000 that is 8.0 ms (15.8 ms on the FP64 pipe) against 0.64 ms of
+// bytes.  A DMMA tile (mma.sync m8n8k4 f64) is the later design.
+//
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every
 // launch goes on the caller's stream; no synchronisation, no allocation.
@@ -81,19 +94,32 @@ __device__ __forceinline__ float bf16_round(float v) {
 
 using assign_wg::better;
 
+// Round-to-nearest adds and products of either scalar type: the f32
+// passes' intrinsics, and their f64 counterparts for the float64 form.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T inf_of() {
+  if constexpr (sizeof(T) == 8) return CUDART_INF; else return CUDART_INF_F;
+}
+
 // |c|^2 of centers [0, k), +inf for the padding [k, kpad) of the wgmma
 // route's last center tile.
-__global__ void csq_kernel(const float* __restrict__ c, int k, int kpad, int d,
-                           float* __restrict__ csq) {
+template <typename T>
+__global__ void csq_kernel(const T* __restrict__ c, int k, int kpad, int d,
+                           T* __restrict__ csq) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= kpad) return;
   if (j >= k) {
-    csq[j] = CUDART_INF_F;
+    csq[j] = inf_of<T>();
     return;
   }
-  const float* cj = c + (size_t)j * d;
-  float s = 0.f;
-  for (int t = 0; t < d; ++t) s = __fadd_rn(s, __fmul_rn(cj[t], cj[t]));
+  const T* cj = c + (size_t)j * d;
+  T s = 0;
+  for (int t = 0; t < d; ++t) s = add_rn(s, mul_rn(cj[t], cj[t]));
   csq[j] = s;
 }
 
@@ -232,6 +258,149 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// The float64 form's assignment: the nearest of k centers of every row
+// in double, a 64x64 register tile (4 x 4 a thread) of FP64 FMAs over
+// 16-deep shared stages, read as double2.  Scores as the plain version
+// forms them: cost mode d2 = max((|x|^2 + |c|^2) - 2 x.c, 0), ranked by
+// the least; loop mode x.c - |c|^2 / 2, ranked by the greatest; ties to
+// the lowest index.  Shared memory ~30 KB, under the static 48 KB.
+constexpr int PAD64 = 2;  // keeps double2 alignment, breaks bank stride
+
+__device__ __forceinline__ bool better64(double s, int i, double bs, int bi) {
+  return s > bs || (s == bs && i < bi);
+}
+
+template <bool NEED_COST>
+__global__ void __launch_bounds__(THREADS)
+assign_f64_kernel(const double* __restrict__ x, const double* __restrict__ w,
+                  const double* __restrict__ c, const double* __restrict__ csq,
+                  int n, int d, int k, int* __restrict__ labels,
+                  double* __restrict__ cost_part) {
+  __shared__ __align__(16) double As[BK][BM + PAD64];
+  __shared__ __align__(16) double Bs[BK][BN + PAD64];
+  __shared__ double xsq_s[BM];
+  __shared__ double red_s[BM][THREADS / (BM / TM)];
+  __shared__ int redi_s[BM][THREADS / (BM / TM)];
+  __shared__ double rowcost_s[BM];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % (BN / TN);  // center group
+  const int ty = tid / (BN / TN);  // row group
+  const int row0 = blockIdx.x * BM;
+
+  if (NEED_COST) {
+    // |x|^2 of each row in feature order, one thread a row
+    for (int r = tid; r < BM; r += THREADS) {
+      const int row = row0 + r;
+      double s = 0.0;
+      if (row < n) {
+        const double* xr = x + (size_t)row * d;
+        for (int t = 0; t < d; ++t) s = __dadd_rn(s, __dmul_rn(xr[t], xr[t]));
+      }
+      xsq_s[r] = s;
+    }
+    __syncthreads();
+  }
+
+  double best[TM];
+  int bidx[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    best[i] = -CUDART_INF;
+    bidx[i] = 0;
+  }
+
+  for (int n0 = 0; n0 < k; n0 += BN) {
+    double acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0;
+
+    for (int k0 = 0; k0 < d; k0 += BK) {
+#pragma unroll
+      for (int e0 = 0; e0 < BM * BK; e0 += THREADS) {
+        const int e = e0 + tid;
+        const int r = e / BK, cc = e % BK;
+        const int row = row0 + r, col = k0 + cc;
+        As[cc][r] = (row < n && col < d) ? x[(size_t)row * d + col] : 0.0;
+      }
+#pragma unroll
+      for (int e0 = 0; e0 < BN * BK; e0 += THREADS) {
+        const int e = e0 + tid;
+        const int r = e / BK, cc = e % BK;
+        const int cen = n0 + r, col = k0 + cc;
+        Bs[cc][r] = (cen < k && col < d) ? c[(size_t)cen * d + col] : 0.0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        const double2 a0 = *reinterpret_cast<const double2*>(&As[kk][ty * TM]);
+        const double2 a1 = *reinterpret_cast<const double2*>(&As[kk][ty * TM + 2]);
+        const double2 b0 = *reinterpret_cast<const double2*>(&Bs[kk][tx * TN]);
+        const double2 b1 = *reinterpret_cast<const double2*>(&Bs[kk][tx * TN + 2]);
+        const double av[TM] = {a0.x, a0.y, a1.x, a1.y};
+        const double bv[TN] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx * TN + j;
+      if (col >= k) continue;
+      const double cs = csq[col];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        double s;
+        if (NEED_COST) {
+          const double d2 = __dsub_rn(__dadd_rn(xsq_s[ty * TM + i], cs),
+                                      __dmul_rn(2.0, acc[i][j]));
+          s = -fmax(d2, 0.0);
+        } else {
+          s = __dsub_rn(acc[i][j], __dmul_rn(0.5, cs));
+        }
+        if (s > best[i]) {
+          best[i] = s;
+          bidx[i] = col;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    red_s[ty * TM + i][tx] = best[i];
+    redi_s[ty * TM + i][tx] = bidx[i];
+  }
+  __syncthreads();
+  if (tid < BM) {
+    double bs = red_s[tid][0];
+    int bi = redi_s[tid][0];
+    for (int t = 1; t < BN / TN; ++t) {
+      if (better64(red_s[tid][t], redi_s[tid][t], bs, bi)) {
+        bs = red_s[tid][t];
+        bi = redi_s[tid][t];
+      }
+    }
+    const int row = row0 + tid;
+    if (row < n) labels[row] = bi;
+    if (NEED_COST) rowcost_s[tid] = row < n ? __dmul_rn(-bs, w[row]) : 0.0;
+  }
+  if (NEED_COST) {
+    __syncthreads();
+    if (tid == 0) {
+      double s = 0.0;
+      for (int r = 0; r < BM; ++r) s = __dadd_rn(s, rowcost_s[r]);
+      cost_part[blockIdx.x] = s;
+    }
+  }
+}
+
 // One warp per range of `range_rows` rows: counts[label][range] and each
 // row's rank among the range's rows of the same label, in row order.
 __global__ void rank_kernel(const int* __restrict__ labels, int n,
@@ -346,30 +515,30 @@ __global__ void scatter_kernel(const int* __restrict__ labels,
   perm[offsets[(size_t)l * ranges + row / range_rows] + rank[row]] = row;
 }
 
-template <int MODE>
-__global__ void segsum_kernel(const float* __restrict__ x,
-                              const float* __restrict__ w,
+template <int MODE, typename T>
+__global__ void segsum_kernel(const T* __restrict__ x,
+                              const T* __restrict__ w,
                               const int* __restrict__ perm,
                               const int* __restrict__ offsets, int n, int d,
                               int k, int ranges, int parts,
-                              float* __restrict__ psums,
-                              float* __restrict__ pcounts) {
+                              T* __restrict__ psums,
+                              T* __restrict__ pcounts) {
   const int cl = blockIdx.x, j = blockIdx.y;
   const int start = offsets[(size_t)cl * ranges];
   const int end = cl + 1 < k ? offsets[(size_t)(cl + 1) * ranges] : n;
   const long long size = end - start;
   const int lo = start + (int)(size * j / parts);
   const int hi = start + (int)(size * (j + 1) / parts);
-  float* out = psums + ((size_t)cl * parts + j) * d;
+  T* out = psums + ((size_t)cl * parts + j) * d;
   for (int col = threadIdx.x; col < d; col += blockDim.x) {
-    float a0 = 0.f, a1 = 0.f;
+    T a0 = 0, a1 = 0;
 #pragma unroll 4
     for (int t = lo; t < hi; ++t) {
       const int row = perm[t];
-      const float wx = __fmul_rn(w[row], x[(size_t)row * d + col]);
-      if (MODE == 0) {
-        a0 = __fadd_rn(a0, wx);
-      } else if (MODE == 2) {
+      const T wx = mul_rn(w[row], x[(size_t)row * d + col]);
+      if constexpr (MODE == 0) {
+        a0 = add_rn(a0, wx);
+      } else if constexpr (MODE == 2) {
         a0 = __fadd_rn(a0, bf16_round(wx));
       } else {
         const float h = bf16_round(wx);
@@ -377,57 +546,82 @@ __global__ void segsum_kernel(const float* __restrict__ x,
         a1 = __fadd_rn(a1, bf16_round(__fsub_rn(wx, h)));
       }
     }
-    out[col] = MODE == 1 ? __fadd_rn(a0, a1) : a0;
+    out[col] = MODE == 1 ? add_rn(a0, a1) : a0;
   }
   if (threadIdx.x == 0) {
-    float a0 = 0.f, a1 = 0.f;
+    T a0 = 0, a1 = 0;
     for (int t = lo; t < hi; ++t) {
-      const float wv = w[perm[t]];
-      if (MODE == 0) {
-        a0 = __fadd_rn(a0, wv);
+      const T wv = w[perm[t]];
+      if constexpr (MODE == 0) {
+        a0 = add_rn(a0, wv);
       } else {
         const float h = bf16_round(wv);
         a0 = __fadd_rn(a0, h);
         a1 = __fadd_rn(a1, bf16_round(__fsub_rn(wv, h)));
       }
     }
-    pcounts[(size_t)cl * parts + j] = MODE == 0 ? a0 : __fadd_rn(a0, a1);
+    pcounts[(size_t)cl * parts + j] = MODE == 0 ? a0 : add_rn(a0, a1);
   }
 }
 
-__global__ void finalize_kernel(const float* __restrict__ psums,
-                                const float* __restrict__ pcounts, int d,
-                                int parts, float* __restrict__ sums,
-                                float* __restrict__ counts) {
+template <typename T>
+__global__ void finalize_kernel(const T* __restrict__ psums,
+                                const T* __restrict__ pcounts, int d,
+                                int parts, T* __restrict__ sums,
+                                T* __restrict__ counts) {
   const int cl = blockIdx.x;
   for (int col = threadIdx.x; col < d; col += blockDim.x) {
-    float s = 0.f;
+    T s = 0;
     for (int j = 0; j < parts; ++j)
-      s = __fadd_rn(s, psums[((size_t)cl * parts + j) * d + col]);
+      s = add_rn(s, psums[((size_t)cl * parts + j) * d + col]);
     sums[(size_t)cl * d + col] = s;
   }
   if (threadIdx.x == 0) {
-    float s = 0.f;
+    T s = 0;
     for (int j = 0; j < parts; ++j)
-      s = __fadd_rn(s, pcounts[(size_t)cl * parts + j]);
+      s = add_rn(s, pcounts[(size_t)cl * parts + j]);
     counts[cl] = s;
   }
 }
 
 // Sum of m partials by one block of 1024 threads in a fixed tree.
-__global__ void cost_kernel(const float* __restrict__ part, int m,
-                            float* __restrict__ cost) {
-  __shared__ float s[1024];
+template <typename T>
+__global__ void cost_kernel(const T* __restrict__ part, int m,
+                            T* __restrict__ cost) {
+  __shared__ T s[1024];
   const int tid = threadIdx.x;
-  float a = 0.f;
-  for (int i = tid; i < m; i += 1024) a = __fadd_rn(a, part[i]);
+  T a = 0;
+  for (int i = tid; i < m; i += 1024) a = add_rn(a, part[i]);
   s[tid] = a;
   __syncthreads();
   for (int off = 512; off > 0; off >>= 1) {
-    if (tid < off) s[tid] = __fadd_rn(s[tid], s[tid + off]);
+    if (tid < off) s[tid] = add_rn(s[tid], s[tid + off]);
     __syncthreads();
   }
   if (tid == 0) cost[0] = s[0];
+}
+
+// Passes 3-8 (rank, scan, scatter, segsum, finalize, cost) of either
+// form, after the assignment wrote `labels` (and `cost_part`).
+template <int MODE, typename T>
+void launch_sums(cudaStream_t st, const T* x, const T* w, const int* labels, int n, int d,
+                 int k, int range_rows, int ranges, int parts, int need_cost,
+                 int cost_parts, const T* cost_part, int* counts_i, int* scan_part,
+                 int* rank, int* perm, T* psums, T* pcounts, T* sums, T* counts,
+                 T* cost) {
+  rank_kernel<<<ranges, 32, 0, st>>>(labels, n, range_rows, ranges, counts_i,
+                                     rank);
+  const int m = k * ranges, tiles = (m + SCAN_TILE - 1) / SCAN_TILE;
+  scan_sums_kernel<<<tiles, SCAN_THREADS, 0, st>>>(counts_i, m, scan_part);
+  scan_apply_kernel<<<tiles, SCAN_THREADS, 0, st>>>(counts_i, m, scan_part);
+  scatter_kernel<<<(n + 255) / 256, 256, 0, st>>>(labels, counts_i, rank, n,
+                                                  range_rows, ranges, perm);
+  const int cols = d < 256 ? ((d + 31) / 32) * 32 : 256;
+  const dim3 grid(k, parts);
+  segsum_kernel<MODE, T><<<grid, cols, 0, st>>>(x, w, perm, counts_i, n, d, k,
+                                                ranges, parts, psums, pcounts);
+  finalize_kernel<T><<<k, cols, 0, st>>>(psums, pcounts, d, parts, sums, counts);
+  if (need_cost) cost_kernel<T><<<1, 1024, 0, st>>>(cost_part, cost_parts, cost);
 }
 
 template <bool BF16, bool NEED_COST>
@@ -502,29 +696,53 @@ int kmeans_accumulate(int dev, const float* x, const float* w, const float* c, i
       launch_assign<false, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
   }
 
-  rank_kernel<<<ranges, 32, 0, st>>>(labels, n, range_rows, ranges, counts_i,
-                                     rank);
-  const int m = k * ranges, tiles = kmeans_scan_tiles(m);
-  scan_sums_kernel<<<tiles, SCAN_THREADS, 0, st>>>(counts_i, m, scan_part);
-  scan_apply_kernel<<<tiles, SCAN_THREADS, 0, st>>>(counts_i, m, scan_part);
-  scatter_kernel<<<(n + 255) / 256, 256, 0, st>>>(labels, counts_i, rank, n,
-                                                  range_rows, ranges, perm);
-
-  const int cols = d < 256 ? ((d + 31) / 32) * 32 : 256;
-  const dim3 grid(k, parts);
+  const int cost_parts = (n + kmeans_assign_rows(route) - 1) / kmeans_assign_rows(route);
   if (mode == 0)
-    segsum_kernel<0><<<grid, cols, 0, st>>>(x, w, perm, counts_i, n, d, k,
-                                            ranges, parts, psums, pcounts);
+    launch_sums<0, float>(st, x, w, labels, n, d, k, range_rows, ranges, parts, need_cost,
+                          cost_parts, cost_part, counts_i, scan_part, rank, perm, psums,
+                          pcounts, sums, counts, cost);
   else if (mode == 1)
-    segsum_kernel<1><<<grid, cols, 0, st>>>(x, w, perm, counts_i, n, d, k,
-                                            ranges, parts, psums, pcounts);
+    launch_sums<1, float>(st, x, w, labels, n, d, k, range_rows, ranges, parts, need_cost,
+                          cost_parts, cost_part, counts_i, scan_part, rank, perm, psums,
+                          pcounts, sums, counts, cost);
   else
-    segsum_kernel<2><<<grid, cols, 0, st>>>(x, w, perm, counts_i, n, d, k,
-                                            ranges, parts, psums, pcounts);
-  finalize_kernel<<<k, cols, 0, st>>>(psums, pcounts, d, parts, sums, counts);
+    launch_sums<2, float>(st, x, w, labels, n, d, k, range_rows, ranges, parts, need_cost,
+                          cost_parts, cost_part, counts_i, scan_part, rank, perm, psums,
+                          pcounts, sums, counts, cost);
+  return (int)cudaGetLastError();
+}
+
+// The float64 form: one fused pass at the highest tier on double
+// operands x (n, d), w (n), c (k, d), contiguous on device `dev`.
+// Scratch as kmeans_accumulate's at route 0 (no prep), each float a
+// double: csq kmeans_csq_size(k), labels n, cost_part
+// ceil(n / kmeans_assign_rows(0)), counts_i k * ranges, scan_part
+// kmeans_scan_tiles(k * ranges), rank n, perm n, psums k * parts * d,
+// pcounts k * parts.  Outputs sums (k, d), counts (k), cost (1; written
+// only when need_cost).  Returns a cudaError_t.
+int kmeans_accumulate_f64(int dev, const double* x, const double* w, const double* c,
+                          int n, int d, int k, int need_cost, int range_rows, int ranges,
+                          int parts, double* csq, int* labels, double* cost_part,
+                          int* counts_i, int* scan_part, int* rank, int* perm,
+                          double* psums, double* pcounts, double* sums, double* counts,
+                          double* cost, void* stream) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(counts_i, 0, sizeof(int) * (size_t)k * (size_t)ranges, st);
+  if (err != cudaSuccess) return (int)err;
+  const int kpad = kmeans_csq_size(k);
+  csq_kernel<<<(kpad + 255) / 256, 256, 0, st>>>(c, k, kpad, d, csq);
+  const int blocks = (n + BM - 1) / BM;
   if (need_cost)
-    cost_kernel<<<1, 1024, 0, st>>>(cost_part, (n + kmeans_assign_rows(route) - 1) /
-                                                   kmeans_assign_rows(route), cost);
+    assign_f64_kernel<true><<<blocks, THREADS, 0, st>>>(x, w, c, csq, n, d, k, labels,
+                                                        cost_part);
+  else
+    assign_f64_kernel<false><<<blocks, THREADS, 0, st>>>(x, w, c, csq, n, d, k, labels,
+                                                         cost_part);
+  launch_sums<0, double>(st, x, w, labels, n, d, k, range_rows, ranges, parts, need_cost,
+                         blocks, cost_part, counts_i, scan_part, rank, perm, psums, pcounts,
+                         sums, counts, cost);
   return (int)cudaGetLastError();
 }
 

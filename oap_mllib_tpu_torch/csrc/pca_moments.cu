@@ -42,6 +42,15 @@
 // Both routes take their tile order, and this kernel its slice sum,
 // from gram_tile.cuh.
 //
+// The float64 form (`pca_moments_f64`, the x64 parity lane,
+// Config.enable_x64): both passes on double rows, the sums Kahan-added
+// in f64, the Gram on the FP64 pipe (gram_simt.cuh's 64-wide f64 tile)
+// with no tier, no split and no accumulator restart.  Its bound on an
+// H100 SXM: n d (d + 1) operations at 67 TFLOP/s on the FP64 tensor
+// cores (34 on the FP64 pipe the tile runs on), or the 8-byte read of x,
+// whichever is longer: at n = 2^20, d = 128, 17.3 GFLOP (0.26 ms; 0.51
+// ms at 34) against 1.07 GB (0.32 ms).
+//
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every
 // launch goes on the caller's stream; no synchronisation, no allocation.
@@ -62,52 +71,76 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
   sum = t;
 }
 
+__device__ __forceinline__ void kahan_add(double& sum, double& comp, double v) {
+  const double y = __dsub_rn(v, comp);
+  const double t = __dadd_rn(sum, y);
+  comp = __dsub_rn(__dsub_rn(t, sum), y);
+  sum = t;
+}
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
 // grid (ceil(d / blockDim), slices): thread = one column of one slice.
 // Block column 0, thread 0 also sums the slice's mask (the row count).
-__global__ void colsum_kernel(const float* __restrict__ x,
-                              const float* __restrict__ mask, int n, int d,
-                              int slice_rows, float* __restrict__ psum,
-                              float* __restrict__ pcount) {
+template <typename T>
+__global__ void colsum_kernel(const T* __restrict__ x,
+                              const T* __restrict__ mask, int n, int d,
+                              int slice_rows, T* __restrict__ psum,
+                              T* __restrict__ pcount) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = blockIdx.y;
   const int lo = s * slice_rows;
   const int hi = min(n, lo + slice_rows);
   if (col < d) {
-    float sum = 0.f, comp = 0.f;
+    T sum = 0, comp = 0;
 #pragma unroll 4
     for (int row = lo; row < hi; ++row) {
-      float v = x[(size_t)row * d + col];
-      if (mask != nullptr) v = __fmul_rn(v, mask[row]);
+      T v = x[(size_t)row * d + col];
+      if (mask != nullptr) v = mul_rn(v, mask[row]);
       kahan_add(sum, comp, v);
     }
     psum[(size_t)s * d + col] = sum;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float sum = 0.f, comp = 0.f;
+    T sum = 0, comp = 0;
     for (int row = lo; row < hi; ++row)
-      kahan_add(sum, comp, mask != nullptr ? mask[row] : 1.f);
+      kahan_add(sum, comp, mask != nullptr ? mask[row] : T(1));
     pcount[s] = sum;
   }
 }
 
 // colsum[c] = slice partials summed in slice order; count likewise.
-__global__ void colsum_finish_kernel(const float* __restrict__ psum,
-                                     const float* __restrict__ pcount,
+template <typename T>
+__global__ void colsum_finish_kernel(const T* __restrict__ psum,
+                                     const T* __restrict__ pcount,
                                      int d, int slices,
-                                     float* __restrict__ colsum,
-                                     float* __restrict__ count) {
+                                     T* __restrict__ colsum,
+                                     T* __restrict__ count) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col < d) {
-    float sum = 0.f, comp = 0.f;
+    T sum = 0, comp = 0;
     for (int s = 0; s < slices; ++s)
       kahan_add(sum, comp, psum[(size_t)s * d + col]);
     colsum[col] = sum;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    float sum = 0.f, comp = 0.f;
+    T sum = 0, comp = 0;
     for (int s = 0; s < slices; ++s) kahan_add(sum, comp, pcount[s]);
     count[0] = sum;
   }
+}
+
+// The mean pass of either form: slice partials, then their sum.
+template <typename T>
+void launch_sums(const T* x, const T* mask, int n, int d, int sum_slices,
+                 int sum_slice_rows, T* psum, T* pcount, T* colsum, T* count,
+                 cudaStream_t st) {
+  const int threads = d < 256 ? ((d + 31) / 32) * 32 : 256;
+  const dim3 grid((d + threads - 1) / threads, sum_slices);
+  colsum_kernel<T><<<grid, threads, 0, st>>>(x, mask, n, d, sum_slice_rows, psum, pcount);
+  colsum_finish_kernel<T><<<(d + 255) / 256, 256, 0, st>>>(psum, pcount, d, sum_slices,
+                                                           colsum, count);
 }
 
 }  // namespace
@@ -137,14 +170,9 @@ int pca_moments(int dev, const float* x, const float* mask,
   const cudaError_t set = cudaSetDevice(dev);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (need_sums) {
-    const int threads = d < 256 ? ((d + 31) / 32) * 32 : 256;
-    const dim3 grid((d + threads - 1) / threads, sum_slices);
-    colsum_kernel<<<grid, threads, 0, st>>>(x, mask, n, d, sum_slice_rows,
-                                            psum, pcount);
-    colsum_finish_kernel<<<(d + 255) / 256, 256, 0, st>>>(
-        psum, pcount, d, sum_slices, colsum, count);
-  }
+  if (need_sums)
+    launch_sums<float>(x, mask, n, d, sum_slices, sum_slice_rows, psum, pcount, colsum,
+                       count, st);
   if (need_gram) {
     const int err =
         route == 1
@@ -154,7 +182,32 @@ int pca_moments(int dev, const float* x, const float* mask,
                                 gram_slices, gram_slice_rows, gram_part, st);
     if (err != 0) return err;
     const long long elems = (long long)d * d;
-    gram::sum_slices_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(
+    gram::sum_slices_kernel<float><<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(
+        gram_part, gram_slices, elems, gram);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The float64 form (the x64 parity lane): the same two passes on double
+// x (n, d), mask (n) or null, mean (d), every scratch and output a
+// double, sized as pca_moments' at route 0; the Gram from
+// gram_simt::launch_f64 (64-wide tiles, `m` per side), no tier.
+int pca_moments_f64(int dev, const double* x, const double* mask, const double* mean,
+                    int n, int d, int need_sums, int need_gram, int sum_slices,
+                    int sum_slice_rows, double* psum, double* pcount, double* colsum,
+                    double* count, int m, int gram_slices, int gram_slice_rows,
+                    double* gram_part, double* gram, void* stream) {
+  const cudaError_t set = cudaSetDevice(dev);
+  if (set != cudaSuccess) return (int)set;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (need_sums)
+    launch_sums<double>(x, mask, n, d, sum_slices, sum_slice_rows, psum, pcount, colsum,
+                        count, st);
+  if (need_gram) {
+    gram_simt::launch_f64(x, mask, mean, n, d, m, gram_slices, gram_slice_rows, gram_part,
+                          st);
+    const long long elems = (long long)d * d;
+    gram::sum_slices_kernel<double><<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(
         gram_part, gram_slices, elems, gram);
   }
   return (int)cudaGetLastError();

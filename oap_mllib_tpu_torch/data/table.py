@@ -39,12 +39,18 @@ from oap_mllib_tpu_torch.parallel.mesh import Mesh, Rank, row_mask
 _ROW_MULTIPLE = 256
 
 
-def as_float_tensor(x, device) -> torch.Tensor:
-    """``x`` (an ndarray, array-like or tensor) as a float32 tensor on
-    ``device``."""
+def np_dtype(dtype: torch.dtype):
+    """The numpy twin of a fit's torch dtype (float32 or float64)."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def as_float_tensor(x, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` (an ndarray, array-like or tensor) as a tensor of ``dtype``
+    (a fit's compute dtype, utils/precision.compute_dtype; the scoring
+    paths keep float32) on ``device``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
-    a = np.asarray(x, dtype=np.float32)
+        return x.to(device=device, dtype=dtype)
+    a = np.asarray(x, dtype=np_dtype(dtype))
     if not a.flags.writeable:  # torch.from_numpy needs a writable array
         a = a.copy()
     return torch.from_numpy(a).to(device)
@@ -68,8 +74,8 @@ def _host_rows(x) -> np.ndarray:
 
 @dataclasses.dataclass
 class DenseTable:
-    data: torch.Tensor  # (n, d) float32
-    mask: torch.Tensor  # (n,) float32 row weights
+    data: torch.Tensor  # (n, d) at the fit's dtype (float32, or float64 on the x64 lane)
+    mask: torch.Tensor  # (n,) row weights, the data's dtype
     n_rows: int
     # several processes: this process's valid rows and every process's
     # (None for a table of one process)
@@ -91,7 +97,7 @@ class DenseTable:
             raise ValueError(f"expected 2-D data, got shape {tuple(x_local.shape)}")
         target, counts, n = _local_layout(x_local, _ROW_MULTIPLE)
         data = torch.zeros((target, x_local.shape[1]), dtype=dtype, device=device)
-        data[:n].copy_(torch.as_tensor(np.asarray(x_local, np.float32)))
+        data[:n].copy_(torch.as_tensor(np.asarray(x_local, np_dtype(dtype))))
         mask = torch.zeros((target,), dtype=dtype, device=device)
         mask[:n] = 1.0
         return cls(data=data, mask=mask, n_rows=int(counts.sum()), local_valid=n,
@@ -120,10 +126,10 @@ class DenseTable:
         local_padded = self.data.shape[0]
         lo = bootstrap.process_index() * local_padded
         mine = (idx >= lo) & (idx < lo + local_padded)
-        rows = np.zeros((len(idx), self.data.shape[1]), np.float32)
+        rows = np.zeros((len(idx), self.data.shape[1]), np_dtype(self.data.dtype))
         if mine.any():
             sel = torch.as_tensor(idx[mine] - lo, device=self.data.device)
-            rows[mine] = self.data[sel].float().cpu().numpy()
+            rows[mine] = self.data[sel].cpu().numpy()
         gathered, owned = collective.process_allgather([rows, mine])
         return gathered[np.argmax(owned, axis=0), np.arange(len(idx))]
 
@@ -135,7 +141,7 @@ class DenseTable:
         from oap_mllib_tpu_torch.data import sparse as _sparse
 
         if _sparse.is_sparse(x):
-            host = np.zeros(x.shape, np.float32)
+            host = np.zeros(x.shape, np_dtype(dtype))
             _sparse.densify_into(host, x, x.shape[0])
             x = host
         t = torch.as_tensor(x) if not isinstance(x, torch.Tensor) else x
@@ -179,8 +185,8 @@ class DenseTable:
 
 @dataclasses.dataclass
 class ShardedTable:
-    tiles: Dict[Rank, torch.Tensor]  # (n_padded / data, d / model) float32
-    mask: Dict[Rank, torch.Tensor]  # (n_padded / data,) float32, 0 on padding
+    tiles: Dict[Rank, torch.Tensor]  # (n_padded / data, d / model), the fit's dtype
+    mask: Dict[Rank, torch.Tensor]  # (n_padded / data,), the tiles' dtype, 0 on padding
     n_rows: int
     n_padded: int
     mesh: Mesh
@@ -188,14 +194,15 @@ class ShardedTable:
     per_process_valid: Optional[np.ndarray] = None
 
     @classmethod
-    def from_process_local(cls, x_local, mesh: Mesh) -> "ShardedTable":
+    def from_process_local(cls, x_local, mesh: Mesh,
+                           dtype: torch.dtype = torch.float32) -> "ShardedTable":
         """This process's rows split over its own ranks (a collective
         across processes): the shard pads to a multiple of ``local data
         ranks * 256`` and then to the world's largest padded shard, and
         local data rank ``l`` holds its ``l``-th row block.  In a mesh of
         one process it is :meth:`from_numpy`."""
         if mesh.processes == 1:
-            return cls.from_numpy(x_local, mesh)
+            return cls.from_numpy(x_local, mesh, dtype)
         x_local = _host_rows(x_local)
         if x_local.ndim != 2:
             raise ValueError(f"expected 2-D data, got shape {tuple(x_local.shape)}")
@@ -206,14 +213,14 @@ class ShardedTable:
         rows = sorted({i for i, _ in mesh.local_ranks})
         target, counts, n = _local_layout(x_local, len(rows) * _ROW_MULTIPLE)
         n_loc, d_loc = target // len(rows), d // n_model
-        valid = torch.from_numpy(row_mask(n, target).astype(np.float32))
-        t = torch.as_tensor(np.asarray(x_local, np.float32))
+        valid = torch.from_numpy(row_mask(n, target).astype(np_dtype(dtype)))
+        t = torch.as_tensor(np.asarray(x_local, np_dtype(dtype)))
         tiles, mask = {}, {}
         for i, j in mesh.local_ranks:
             dev = mesh.device((i, j))
             lo = rows.index(i) * n_loc
             hi = min(lo + n_loc, n)
-            tile = torch.zeros((n_loc, d_loc), dtype=torch.float32, device=dev)
+            tile = torch.zeros((n_loc, d_loc), dtype=dtype, device=dev)
             if hi > lo:
                 tile[:hi - lo].copy_(t[lo:hi, j * d_loc:(j + 1) * d_loc])
             tiles[(i, j)] = tile
@@ -223,10 +230,10 @@ class ShardedTable:
                    per_process_valid=counts)
 
     @classmethod
-    def from_numpy(cls, x, mesh: Mesh) -> "ShardedTable":
+    def from_numpy(cls, x, mesh: Mesh, dtype: torch.dtype = torch.float32) -> "ShardedTable":
         """Table of ``x`` (an ndarray or a tensor, ``d`` a multiple of the
-        model axis) on ``mesh``: each tile is made on its rank's device
-        from the valid rows it holds, zeros below them."""
+        model axis) on ``mesh`` at ``dtype``: each tile is made on its
+        rank's device from the valid rows it holds, zeros below them."""
         t = torch.as_tensor(x) if not isinstance(x, torch.Tensor) else x
         if t.dim() != 2:
             raise ValueError(f"expected 2-D data, got shape {tuple(t.shape)}")
@@ -237,12 +244,12 @@ class ShardedTable:
         multiple = n_data * _ROW_MULTIPLE
         n_padded = -(-max(n, 1) // multiple) * multiple
         n_loc, d_loc = n_padded // n_data, d // n_model
-        valid = torch.from_numpy(row_mask(n, n_padded).astype(np.float32))
+        valid = torch.from_numpy(row_mask(n, n_padded).astype(np_dtype(dtype)))
         tiles, mask = {}, {}
         for i, j in mesh.local_ranks:
             dev = mesh.device((i, j))
             lo, hi = i * n_loc, min((i + 1) * n_loc, n)
-            tile = torch.zeros((n_loc, d_loc), dtype=torch.float32, device=dev)
+            tile = torch.zeros((n_loc, d_loc), dtype=dtype, device=dev)
             if hi > lo:
                 tile[:hi - lo].copy_(t[lo:hi, j * d_loc:(j + 1) * d_loc])
             tiles[(i, j)] = tile
@@ -266,7 +273,8 @@ class ShardedTable:
         rows = sorted({i for i, _ in self.mesh.local_ranks})
         out = {}
         for i, j in self.mesh.local_ranks:
-            shard = torch.zeros((n_loc,), dtype=torch.float32, device=self.mesh.device((i, j)))
+            shard = torch.zeros((n_loc,), dtype=self.mask[(i, j)].dtype,
+                                device=self.mesh.device((i, j)))
             lo = (rows.index(i) if self.local_valid is not None else i) * n_loc
             hi = min(lo + n_loc, n_all)
             if hi > lo:

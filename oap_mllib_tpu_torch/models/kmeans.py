@@ -77,6 +77,15 @@ last rung ``ResilienceError``, never a CPU fit.  Mesh fits and worlds
 of processes run one attempt.  The summary's ``resilience`` holds the
 counters and its ``kernels`` the launches of every attempt.
 ``KMeansModel.to_pmml`` writes the JAX package's PMML 4.3 document.
+
+``Config.enable_x64`` (the x64 parity lane, utils/precision.py) fits
+every route in float64: the table, the init, the Lloyd loop (K1's
+float64 form), the tolerance (squared in f64) and the checkpoint
+(signature ``"x64": True``, centers restored in f64); the model keeps
+float64 ``cluster_centers_``.  A mesh fit keeps its psums (the ring
+packs f32).  Scoring stays f32: ``predict`` and ``compute_cost`` pin
+the centers as float32, as the JAX package's scoring does after an x64
+fit.
 """
 
 from __future__ import annotations
@@ -504,8 +513,9 @@ class KMeans:
     def _fit_stream_inner(self, source: ChunkSource, sample_weight, dev) -> KMeansModel:
         cfg = get_config()
         pol = psn.resolve("kmeans")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "kmeans")
         psn.apply_matmul_flags(tier)
+        dtype = psn.compute_dtype("kmeans", cfg)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
         cache_before = progcache.stats()
@@ -516,7 +526,7 @@ class KMeans:
         with phase_timer(timings, "init_centers", dev):
             if resume is not None and resume.found:
                 # the restored centers are the iterate: no init pass
-                centers0 = np.asarray(resume.arrays["centers"], np.float32)
+                centers0 = resume.arrays["centers"]
             elif self.init_mode == INIT_RANDOM:
                 centers0 = stream_ops.reservoir_sample(source, self.k, self.seed, timings)
             else:
@@ -525,7 +535,7 @@ class KMeans:
                     validated=True, timings=timings, policy=pol, device=dev)
         with phase_timer(timings, "lloyd_loop", dev):
             centers, n_iter, cost, counts = stream_ops.lloyd_run_streamed(
-                source, as_float_tensor(centers0, dev), self.max_iter, self.tol, tier,
+                source, as_float_tensor(centers0, dev, dtype), self.max_iter, self.tol, tier,
                 weights=sample_weight, validated=True, timings=timings, policy=pol,
                 checkpoint=ckpt, resume=resume)
             centers = centers.cpu().numpy()
@@ -550,11 +560,13 @@ class KMeans:
         package's dict key for key: the parameters that define which
         optimisation the centers belong to.  The world, the chunking and
         the precision policy may change across a preemption and stay
-        out; ``x64`` is False (the port has no float64 mode)."""
+        out; ``x64`` is ``Config.enable_x64``, so an f64 fit and an f32
+        one never take each other's state."""
         return {
             "k": self.k, "d": int(d), "init_mode": self.init_mode,
             "init_steps": self.init_steps, "seed": int(self.seed),
-            "tol": float(self.tol), "distance": self.distance_measure, "x64": False,
+            "tol": float(self.tol), "distance": self.distance_measure,
+            "x64": bool(get_config().enable_x64),
         }
 
     def _open_checkpoint(self, d: int, timings, dev):
@@ -566,8 +578,8 @@ class KMeans:
         resume = ckpt.restore()
         if not resume.found:
             return ckpt, resume, None
-        return ckpt, resume, as_float_tensor(np.asarray(resume.arrays["centers"], np.float32),
-                                             dev).contiguous()
+        return ckpt, resume, as_float_tensor(resume.arrays["centers"], dev,
+                                             psn.compute_dtype("kmeans")).contiguous()
 
     def _run_lloyd_segmented(self, run_iters, centers0, ckpt, resume, d_orig: int):
         """The checkpoint-armed Lloyd loop (the JAX package's): segments of
@@ -610,21 +622,21 @@ class KMeans:
                 table, weights, table.n_rows, self.k, self.seed,
                 self.init_steps, index_map=table.valid_to_padded,
             )
-        return as_float_tensor(centers0, dev).contiguous()
+        return as_float_tensor(centers0, dev, table.data.dtype).contiguous()
 
     def _fit_device(self, x, sample_weight, dev: torch.device, level: int = 0) -> KMeansModel:
         """The in-memory fit on one device; ``level`` (the halving rung)
         runs the Lloyd loop on 2^level row ranges a pass."""
         cfg = get_config()
         pol = psn.resolve("kmeans")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "kmeans")
         psn.apply_matmul_flags(tier)
         timings = Timings("kmeans.fit")
         before = dict(kmeans_kernel.LAUNCHES)
         cache_before = progcache.stats()
         tune_before = autotune.mark()
         with phase_timer(timings, "table_convert", dev):
-            table = DenseTable.from_numpy(x, dev)
+            table = DenseTable.from_numpy(x, dev, psn.compute_dtype("kmeans", cfg))
             weights = table.mask
             if sample_weight is not None:
                 weights = table.align_weights(sample_weight)
@@ -672,7 +684,7 @@ class KMeans:
         a model axis of 1, the model-sharded one above it."""
         cfg = get_config()
         pol = psn.resolve("kmeans")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "kmeans")
         psn.apply_matmul_flags(tier)
         kmeans_ops.ring_mode_cfg(cfg)  # a typo raises on every mesh fit
         mesh = get_mesh(devices=devices)
@@ -683,6 +695,7 @@ class KMeans:
         cache_before = progcache.stats()
         tune_before = autotune.mark()
         d_orig = x.shape[1]
+        dtype = psn.compute_dtype("kmeans", cfg)
         with phase_timer(timings, "table_convert", mesh.distinct_devices()):
             if d_orig % n_model:
                 # zero feature columns add nothing to distances or moves,
@@ -693,11 +706,11 @@ class KMeans:
             if mesh.processes > 1:
                 # this process's rows: its part of the init's table and
                 # its ranks' tiles; weights are its rows' own
-                table = DenseTable.from_process_local(x, first)
-                sharded = ShardedTable.from_process_local(x, mesh)
+                table = DenseTable.from_process_local(x, first, dtype)
+                sharded = ShardedTable.from_process_local(x, mesh, dtype)
             else:
-                table = DenseTable.from_numpy(x, first)
-                sharded = ShardedTable.from_numpy(table.data, mesh)
+                table = DenseTable.from_numpy(x, first, dtype)
+                sharded = ShardedTable.from_numpy(table.data, mesh, dtype)
             weights, tile_weights = table.mask, sharded.mask
             if sample_weight is not None:
                 weights = table.align_weights(sample_weight)
@@ -745,7 +758,7 @@ class KMeans:
             cost, int(n_iter), timings, accelerated=True, cluster_sizes=counts,
             kernels={name: after[name] - before.get(name, 0) for name in after},
             precision=pol, mesh=dict(mesh.shape),
-            ring=n_model > 1 and kmeans_ops.ring_enabled(mesh, cfg.data_axis),
+            ring=n_model > 1 and kmeans_ops.ring_enabled(mesh, cfg.data_axis, dtype),
         )
         summary.progcache = progcache.delta(cache_before)
         summary.tuning = autotune.delta(tune_before)

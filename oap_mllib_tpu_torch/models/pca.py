@@ -56,6 +56,15 @@ in-memory covariance runs again), a host OOM spills the table and
 streams the two passes from disk; past the last rung
 ``ResilienceError``.  Mesh fits and worlds of processes run one
 attempt; the summary's ``resilience`` holds the counters.
+
+``Config.enable_x64`` (the x64 parity lane, utils/precision.py) fits
+every route in float64: the table or the staged chunks, both moment
+passes (K2's float64 form on one device and on a (data, 1) mesh; the
+model-sharded product in f64), the covariance, ``torch.linalg.eigh`` or
+the randomized solver, and the checkpoint (signature ``"x64": True``,
+restored in f64); ``components_`` and ``explained_variance_`` come back
+float64.  ``transform`` stays f32 (its pin is float32), as the JAX
+package's scoring after an x64 fit.
 """
 
 from __future__ import annotations
@@ -298,7 +307,7 @@ class PCA:
         d = source.n_features
         cfg = get_config()
         pol = psn.resolve("pca")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "pca")
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
@@ -322,8 +331,10 @@ class PCA:
         """The checkpoint identity, the JAX package's dict key for key.
         ``moments`` names the state, "colsum" (the streamed first pass)
         or "cov" (the in-memory covariance), so neither route takes the
-        other's; ``k`` is absent (the moments do not depend on it)."""
-        return {"d": int(d), "moments": moments, "x64": False}
+        other's; ``k`` is absent (the moments do not depend on it);
+        ``x64`` is ``Config.enable_x64``, so an f64 fit and an f32 one
+        never take each other's state."""
+        return {"d": int(d), "moments": moments, "x64": bool(get_config().enable_x64)}
 
     def _restore_cov(self, d: int, timings, dev):
         """``(checkpointer, restored covariance or None)`` for the
@@ -333,7 +344,7 @@ class PCA:
             return None, None
         resume = ckpt.restore()
         if resume.found and resume.extra.get("stage") == "cov":
-            return ckpt, torch.as_tensor(np.asarray(resume.arrays["cov"], np.float32)).to(dev)
+            return ckpt, torch.as_tensor(resume.arrays["cov"]).to(dev, psn.compute_dtype("pca"))
         return ckpt, None
 
     @staticmethod
@@ -345,7 +356,7 @@ class PCA:
     def _fit_device(self, x, dev: torch.device, solver: str) -> PCAModel:
         cfg = get_config()
         pol = psn.resolve("pca")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "pca")
         psn.apply_matmul_flags(tier)
         timings = Timings("pca.fit")
         before = dict(pca_kernel.LAUNCHES)
@@ -354,7 +365,7 @@ class PCA:
         ckpt, cov = self._restore_cov(x.shape[1], timings, dev)
         if cov is None:
             with phase_timer(timings, "table_convert", dev):
-                table = DenseTable.from_numpy(x, dev)
+                table = DenseTable.from_numpy(x, dev, psn.compute_dtype("pca", cfg))
             with phase_timer(timings, "covariance", dev):
                 cov, _ = pca_ops.covariance(table.data, table.mask, table.n_rows, tier)
             self._write_cov(ckpt, cov, x.shape[1])
@@ -413,7 +424,7 @@ class PCA:
         the eigensolve on the first device."""
         cfg = get_config()
         pol = psn.resolve("pca")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "pca")
         psn.apply_matmul_flags(tier)
         mesh = get_mesh(devices=devices)
         mp = mesh.shape[cfg.model_axis]
@@ -433,7 +444,7 @@ class PCA:
                     pad = (-d) % mp
                     x = (torch.nn.functional.pad(x, (0, pad)) if isinstance(x, torch.Tensor)
                          else np.pad(x, ((0, 0), (0, pad))))
-                table = ShardedTable.from_process_local(x, mesh)
+                table = ShardedTable.from_process_local(x, mesh, psn.compute_dtype("pca", cfg))
             with phase_timer(timings, "covariance", mesh.distinct_devices()):
                 if mp > 1:
                     cov, _ = pca_ops.covariance_model_sharded(

@@ -27,6 +27,12 @@ delta succeeded (the ``delta.ingest`` fault site fires before any of
 it), and ``commit`` replaces the published :class:`PCAModel`'s arrays
 only after the solve; later commits replace them on the SAME model
 object, so a served handle re-pins in place.
+
+On the x64 parity lane (``Config.enable_x64``) the chunks stage at
+float64, K2 runs its float64 form, the running moments are float64 and
+the commit solves the f64 covariance (a stated departure: the JAX
+package's commit solves in f32, and its moments, built outside an x64
+scope, are f32 too).
 """
 
 from __future__ import annotations
@@ -83,13 +89,17 @@ class IncrementalPCA:
                 f"partial_fit chunk width {d} != accumulated dimensionality {self._d}")
         cfg = get_config()
         pol = psn.resolve("pca")
-        tier = psn.kernel_tier(pol, cfg.matmul_precision)
+        tier = psn.kernel_tier(pol, cfg.matmul_precision, "pca")
         dev = resolve_device(self.device)
+
+        # the running moments in the fit's dtype (float64 on the x64 lane,
+        # the JAX package's ipca.py)
+        dtype = psn.compute_dtype("pca", cfg)
 
         def fresh(host, shape):
             if host is None:
-                return torch.zeros(shape, dtype=torch.float32, device=dev)
-            return torch.tensor(host, dtype=torch.float32, device=dev)
+                return torch.zeros(shape, dtype=dtype, device=dev)
+            return torch.tensor(host, dtype=dtype, device=dev)
 
         g, gc = fresh(self._gram, (d, d)), fresh(self._gcomp, (d, d))
         cs, cc = fresh(self._colsum, (d,)), fresh(self._ccomp, (d,))
@@ -98,7 +108,7 @@ class IncrementalPCA:
                                        psn.staging_dtype(pol)) as pf:
             for (_, n_valid, _), (xc, w) in pf:
                 # the raw moments: mean zero, centring at commit
-                gram, colsum, _ = pca_kernel.pca_moments(stream_ops._f32(xc), w, None, tier)
+                gram, colsum, _ = pca_kernel.pca_moments(stream_ops._operand(xc), w, None, tier)
                 stream_ops._kahan_add(cs, cc, colsum)
                 stream_ops._kahan_add(g, gc, gram)
                 rows += n_valid
@@ -138,7 +148,10 @@ class IncrementalPCA:
         solver = _pca_solver_cfg()
         dev = resolve_device(self.device)
         timings = Timings("pca.commit")
-        cov = torch.as_tensor(self._covariance().astype(np.float32)).to(dev)
+        # solved in the fit's dtype: float64 on the x64 lane (the JAX
+        # package solves its commit in f32 even there; the port keeps the
+        # f64 covariance through the eigensolve)
+        cov = torch.as_tensor(self._covariance()).to(dev, psn.compute_dtype("pca"))
         solved = PCA(self.k, device=self.device)._finish(
             cov, d, timings, dev, solver, psn.resolve("pca"), dict(pca_kernel.LAUNCHES),
             self.device)

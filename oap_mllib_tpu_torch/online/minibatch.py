@@ -66,7 +66,10 @@ def partial_fit_kmeans(model, x, sample_weight=None):
         )
     cfg = get_config()
     dev = resolve_device(model.device)
-    centers_old = np.asarray(model.cluster_centers_, np.float32)
+    # the fit's dtype: float64 on the x64 lane (the JAX package's
+    # minibatch.py), the centers cast to it and the fold's result too
+    dtype = np.float64 if psn.compute_dtype("kmeans", cfg) == torch.float64 else np.float32
+    centers_old = np.asarray(model.cluster_centers_, dtype)
     k, d = centers_old.shape
     if not isinstance(x, ChunkSource):
         x = ChunkSource.from_array(np.atleast_2d(np.asarray(x)))
@@ -74,11 +77,11 @@ def partial_fit_kmeans(model, x, sample_weight=None):
         raise ValueError(f"partial_fit chunk width {x.n_features} != model dimensionality {d}")
     if sample_weight is not None and not isinstance(sample_weight, ChunkSource):
         sample_weight = ChunkSource.from_array(
-            np.asarray(sample_weight, np.float32).reshape(-1, 1), chunk_rows=x.chunk_rows)
+            np.asarray(sample_weight, dtype).reshape(-1, 1), chunk_rows=x.chunk_rows)
     if sample_weight is not None:
         stream_ops._checked_entry(lambda: stream_ops._check_weight_source(x, sample_weight))
     pol = psn.resolve("kmeans")
-    tier = psn.kernel_tier(pol, cfg.matmul_precision)
+    tier = psn.kernel_tier(pol, cfg.matmul_precision, "kmeans")
     sums, counts, _ = stream_ops.streamed_accumulate(
         x, torch.as_tensor(centers_old).to(dev), tier, need_cost=False,
         weights=sample_weight, phase="partial_fit", policy=pol)
@@ -93,7 +96,7 @@ def partial_fit_kmeans(model, x, sample_weight=None):
         (centers_old.astype(np.float64) * n_eff[:, None] + sums)
         / np.maximum(denom[:, None], 1e-300),
         centers_old,
-    ).astype(np.float32)
+    ).astype(dtype)
     check_finite(torch.from_numpy(new_centers), "K-Means centroids (partial_fit delta)")
     rows = float(counts.sum())
     # compute-then-swap: nothing above touched the model

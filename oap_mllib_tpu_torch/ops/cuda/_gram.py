@@ -11,7 +11,9 @@ kernel (the ALS factor Gram sizes its own one-launch grid,
 - ``csrc/gram_wgmma.cuh`` (the PCA moments kernel at the bf16 tiers for
   d >= :data:`WGMMA_MIN_D`): 128-wide tensor-core tiles, one block per
   SM, sized by :func:`wgmma_geometry` so the grid fills the card in
-  whole waves.  :func:`pca_gram_route` picks the route.
+  whole waves.  :func:`pca_gram_route` picks the route;
+- the float64 form of K2 (``gram_simt.cuh``'s f64 tile, the x64 parity
+  lane): 64-wide FP64 tiles, sized by :func:`f64_gram_geometry`.
 """
 
 from __future__ import annotations
@@ -48,6 +50,24 @@ def gram_geometry(n: int, d: int, target_blocks: int = _TARGET_BLOCKS
                         _PARTIAL_ELEMS // (d * d)))
     slice_rows = -(-(-(-n // slices)) // _BK) * _BK
     return tm, m, -(-n // slice_rows), slice_rows
+
+
+_F64_TILE = 64
+
+
+def f64_gram_geometry(n: int, d: int, target_blocks: int = _TARGET_BLOCKS
+                      ) -> Tuple[int, int, int]:
+    """``(m, slices, slice_rows)`` of the float64 Gram of an (n, d)
+    table: m 64-wide tiles per side, row slices by :func:`gram_geometry`'s
+    rule (about ``target_blocks`` blocks, slices of at least 256 rows,
+    partials of at most 2^25 doubles)."""
+    m = -(-d // _F64_TILE)
+    tiles = m * (m + 1) // 2
+    slices = max(1, min(-(-target_blocks // tiles),
+                        -(-n // _MIN_SLICE_ROWS),
+                        _PARTIAL_ELEMS // (d * d)))
+    slice_rows = -(-(-(-n // slices)) // _BK) * _BK
+    return m, -(-n // slice_rows), slice_rows
 
 
 def pca_gram_route(mode: str, d: int) -> str:

@@ -58,6 +58,13 @@ to rank; it still counts as a sweep, as the reference's ``ring`` branch
 does), and the sweep's operands are sized to fill the card's 132 SMs
 several times over instead of the reference's 2048 rows.
 
+On the x64 parity lane (``Config.enable_x64``) the K-Means and PCA fits
+launch K1's and K2's float64 forms, which the sweep does not time: their
+geometry is fixed at :data:`DEFAULTS` whatever the mode, a pin or a
+cached f32 winner, recorded as the decision ``"fixed-f64"`` at tier
+``"f64"`` (so a pin of an f32 knob never reaches the f64 kernel, and a
+summary's ``tuning`` says why the defaults ran).
+
 Every resolution is recorded: ``oap_tuning_{hits,misses,sweeps}_total``
 counters by kernel, a ``tuning`` node on the active span (its
 ``decisions``, and each sweep's wall, candidates and winner under
@@ -386,6 +393,20 @@ def _sweep_and_store(kernel, bucket, tier, device, key) -> Dict[str, int]:
     return _record(kernel, bucket, tier, "sweep", geometry)
 
 
+# the kernels whose float64 forms the x64 lane launches at fixed geometry
+F64_FIXED = ("kmeans", "pca")
+
+
+def _fixed_f64(kernel: str, bucket) -> Optional[Dict[str, int]]:
+    """The x64 lane's fixed geometry of ``kernel`` (recorded), or None
+    off the lane or for a kernel that has no float64 form."""
+    from oap_mllib_tpu_torch.config import get_config
+
+    if kernel not in F64_FIXED or not get_config().enable_x64:
+        return None
+    return _record(kernel, bucket, "f64", "fixed-f64", dict(DEFAULTS[kernel]))
+
+
 def resolve(kernel: str, bucket, tier: str = "f32", device=None) -> Dict[str, int]:
     """Tuned geometry for one kernel launch site on ``device`` (None: the
     CPU).
@@ -396,11 +417,15 @@ def resolve(kernel: str, bucket, tier: str = "f32", device=None) -> Dict[str, in
     the tuned winner with zero sweeps; a miss in ``auto`` the
     ``default`` (never a sweep); a miss in ``on`` one ``sweep``,
     persisted, a hit ever after; a miss in ``on`` in a world of several
-    processes ``default-multiproc`` (see :func:`resolve_world`)."""
+    processes ``default-multiproc`` (see :func:`resolve_world`).  On the
+    x64 lane K1 and K2 take ``fixed-f64`` before all of it."""
     if kernel not in KNOBS:
         raise ValueError(f"unknown tunable kernel {kernel!r}")
     bucket = tuple(int(b) for b in bucket)
     mode, pins = _mode()
+    fixed = _fixed_f64(kernel, bucket)
+    if fixed is not None:
+        return fixed
     if mode == "off":
         return _record(kernel, bucket, tier, "off", dict(DEFAULTS[kernel]))
     if mode == "pin" and kernel in (pins or {}):
@@ -425,9 +450,14 @@ def resolve_world(kernel: str, bucket, tier: str = "f32", device=None) -> Dict[s
     resolves (sweeping on a miss under ``tuning="on"``) and its geometry
     reaches every process through ``stream_ops._allgather_host``; the
     others record it as a ``hit``.  Every process must call it at the
-    same point.  In one process this is :func:`resolve`."""
+    same point.  In one process this is :func:`resolve`; on the x64 lane
+    K1 and K2 take ``fixed-f64`` on every process without a gather (a
+    function of the config alone)."""
     if _world() < 2:
         return resolve(kernel, bucket, tier, device)
+    fixed = _fixed_f64(kernel, tuple(int(b) for b in bucket))
+    if fixed is not None:
+        return fixed
     from oap_mllib_tpu_torch.ops import stream_ops
     from oap_mllib_tpu_torch.parallel import bootstrap
 
@@ -544,7 +574,8 @@ def _measure(kernel: str, operands, geometry: Dict[str, int], tier: str) -> floa
 
 
 def _launch_tables():
-    return (kmeans_kernel.LAUNCHES, kmeans_kernel.LAUNCHES_BY_MODE, pca_kernel.LAUNCHES,
+    return (kmeans_kernel.LAUNCHES, kmeans_kernel.LAUNCHES_BY_MODE,
+            kmeans_kernel.LAUNCHES_BY_DTYPE, pca_kernel.LAUNCHES, pca_kernel.LAUNCHES_BY_DTYPE,
             als_kernel.LAUNCHES)
 
 

@@ -17,6 +17,14 @@
 - :func:`lloyd_run_kernel` is ``_lloyd_loop_padded`` / ``lloyd_run_pallas``:
   the Lloyd loop over the wrapper, then one cost pass at ``highest``.
 
+float64 operands (the x64 parity lane, ``Config.enable_x64``) take the
+kernel's float64 form, ``kmeans_accumulate_f64``, at ``highest`` only (a
+bf16 tier on f64 raises): a SIMT tile of FP64 FMAs for the assignment at
+every depth, the sums, counts and cost in f64.  The plain version runs
+in its operands' dtype.  Every operand has one dtype: a mixed f32 / f64
+call raises.  The f64 form takes :data:`DEFAULT_GEOMETRY`'s knobs like
+the f32 one (the autotuner pins it there, ops/cuda/autotune.py).
+
 Launch geometry (the autotuner's ``kmeans`` knobs, ops/cuda/autotune.py):
 ``range_rows``, the rows a warp of the counting sort ranks (a multiple
 of 32; the sort is stable, so it moves no bit), and ``parts``, the most
@@ -52,6 +60,8 @@ LAUNCHES = {KERNEL: 0}
 # the same launches by tier (the precision rung's witness: a bf16 fit
 # launches at "default", its f32 retry at "highest")
 LAUNCHES_BY_MODE = {"highest": 0, "high": 0, "default": 0}
+# the same launches by operand dtype (the float64 form's witness)
+LAUNCHES_BY_DTYPE = {"float32": 0, "float64": 0}
 
 # the kernel's stable counting sort keeps (k, ranges) integer counts;
 # ranges shrink as k grows so the table stays under this many entries
@@ -76,7 +86,7 @@ _SCAN_TILE = 4096
 
 
 def reset_launches() -> None:
-    for table in (LAUNCHES, LAUNCHES_BY_MODE):
+    for table in (LAUNCHES, LAUNCHES_BY_MODE, LAUNCHES_BY_DTYPE):
         for name in table:
             table[name] = 0
 
@@ -132,9 +142,9 @@ def _add_sums(acc, x, w, assign, mode):
     counts_lo.index_add_(0, assign, w_lo)
 
 
-def _new_acc(k, d, device):
-    z = torch.zeros((k, d), dtype=torch.float32, device=device)
-    zc = torch.zeros((k,), dtype=torch.float32, device=device)
+def _new_acc(k, d, device, dtype=torch.float32):
+    z = torch.zeros((k, d), dtype=dtype, device=device)
+    zc = torch.zeros((k,), dtype=dtype, device=device)
     return [z, z.clone(), zc, zc.clone()]
 
 
@@ -149,7 +159,7 @@ def sums_for_labels(x, w, labels, k: int, mode: str = "highest"):
     """``(sums, counts)`` of the plain version for given labels: the
     kernel's sums pass alone, held against the kernel on its own labels."""
     mode = check_mode(mode)
-    acc = _new_acc(k, x.shape[1], x.device)
+    acc = _new_acc(k, x.shape[1], x.device, x.dtype)
     rows = rows_per_chunk(x.shape[1])
     for lo in range(0, x.shape[0], rows):
         _add_sums(acc, x[lo:lo + rows], w[lo:lo + rows],
@@ -163,8 +173,8 @@ def lloyd_accumulate_plain(x, w, c, mode: str = "highest",
     with ``cost`` a 0-d tensor in cost mode and None in loop mode."""
     mode = check_mode(mode)
     k, d = c.shape
-    acc = _new_acc(k, d, x.device)
-    cost = torch.zeros((), dtype=torch.float32, device=x.device)
+    acc = _new_acc(k, d, x.device, x.dtype)
+    cost = torch.zeros((), dtype=x.dtype, device=x.device)
     rows = rows_per_chunk(k, d)
     for lo in range(0, x.shape[0], rows):
         xc, wc = x[lo:lo + rows], w[lo:lo + rows]
@@ -176,12 +186,15 @@ def lloyd_accumulate_plain(x, w, c, mode: str = "highest",
     return sums, counts, (cost if need_cost else None)
 
 
+DTYPES = (torch.float32, torch.float64)
+
+
 def _check_operands(x, w, c):
     for name, t, ndim in (("x", x, 2), ("w", w, 1), ("centers", c, 2)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != x.dtype or t.dtype not in DTYPES:
+            raise TypeError(f"{name} is {t.dtype}, x {x.dtype}: one dtype, float32 or float64")
         if t.dim() != ndim:
             raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
         if t.device != x.device:
@@ -289,6 +302,8 @@ def _bind(lib):
     lib.kmeans_scan_tiles.restype = i32
     lib.kmeans_csq_size.argtypes = [i32]
     lib.kmeans_csq_size.restype = i32
+    lib.kmeans_accumulate_f64.argtypes = [i32, ptr, ptr, ptr] + [i32] * 7 + [ptr] * 13
+    lib.kmeans_accumulate_f64.restype = i32
     # the wrapper sizes every buffer from its own geometry: it must be the
     # library's
     for route, rows in _ROWS.items():
@@ -324,6 +339,8 @@ def _launch(x, w, c, mode: str, need_cost: bool, geometry=None):
     n, d = x.shape
     k = c.shape[0]
     range_rows, ranges, parts = _geometry(n, k, d, *check_geometry(geometry))
+    if x.dtype == torch.float64:
+        return _launch_f64(lib, x, w, c, need_cost, range_rows, ranges, parts)
     geo = assign_geometry(n, k, d, mode)
     dev = x.device
     f32, i32 = torch.float32, torch.int32
@@ -354,6 +371,42 @@ def _launch(x, w, c, mode: str, need_cost: bool, geometry=None):
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += 1
     LAUNCHES_BY_MODE[mode] += 1
+    LAUNCHES_BY_DTYPE["float32"] += 1
+    book_launch(LABELS[KERNEL], time.perf_counter() - t0)
+    return sums, counts, (cost if need_cost else None), labels
+
+
+def _launch_f64(lib, x, w, c, need_cost: bool, range_rows: int, ranges: int, parts: int):
+    """The float64 form's launch (highest, SIMT assignment): the same
+    outputs as :func:`_launch`, every float buffer a double."""
+    n, d = x.shape
+    k = c.shape[0]
+    dev = x.device
+    f64, i32 = torch.float64, torch.int32
+
+    def empty(size, dtype=f64):
+        return torch.empty(size, dtype=dtype, device=dev)
+
+    csq, labels = empty(csq_size(k)), empty(n, i32)
+    cost_part = empty(-(-n // _ROWS["simt"]))
+    counts_i, scan_part = empty(k * ranges, i32), empty(scan_tiles(k * ranges), i32)
+    rank, perm = empty(n, i32), empty(n, i32)
+    psums, pcounts = empty(k * parts * d), empty(k * parts)
+    sums, counts, cost = empty((k, d)), empty(k), empty(())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    t0 = time.perf_counter()
+    err = lib.kmeans_accumulate_f64(
+        dev.index, x.data_ptr(), w.data_ptr(), c.data_ptr(), n, d, k, int(need_cost),
+        range_rows, ranges, parts, csq.data_ptr(), labels.data_ptr(), cost_part.data_ptr(),
+        counts_i.data_ptr(), scan_part.data_ptr(), rank.data_ptr(), perm.data_ptr(),
+        psums.data_ptr(), pcounts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        cost.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} (float64): CUDA launch failed with error {err}")
+    LAUNCHES[KERNEL] += 1
+    LAUNCHES_BY_MODE["highest"] += 1
+    LAUNCHES_BY_DTYPE["float64"] += 1
     book_launch(LABELS[KERNEL], time.perf_counter() - t0)
     return sums, counts, (cost if need_cost else None), labels
 
@@ -362,10 +415,13 @@ def lloyd_accumulate(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
                      mode: str = "highest", need_cost: bool = True, geometry=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One fused pass: ``(sums (k, d), counts (k,), cost)`` with ``cost``
-    None in loop mode.  f32 contiguous operands on one device: CPU takes
-    the plain version, CUDA the Hopper kernel at ``geometry``."""
+    None in loop mode.  Contiguous operands of one dtype (f32, or f64 at
+    ``highest``) on one device: CPU takes the plain version, CUDA the
+    Hopper kernel (its float64 form for f64) at ``geometry``."""
     mode = check_mode(mode)
     _check_operands(x, w, c)
+    if x.dtype == torch.float64 and mode != "highest":
+        raise ValueError(f"float64 operands run at the highest tier only, got {mode!r}")
     check_geometry(geometry)
     if x.device.type == "cpu":
         return lloyd_accumulate_plain(x, w, c, mode, need_cost)

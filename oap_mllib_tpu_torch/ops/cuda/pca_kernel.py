@@ -27,6 +27,13 @@ for (the tensor-core route fills the SMs by its own rule), and
 ``sum_rows``, the least rows of a mean-pass slice.  Both cut the rows
 into other slices, so they change the fold.  ``geometry=None`` launches
 :data:`DEFAULT_GEOMETRY`.
+
+float64 operands (the x64 parity lane, ``Config.enable_x64``) take the
+kernel's float64 form, ``pca_moments_f64``, at ``highest`` only (a bf16
+tier on f64 raises): the sums and count Kahan-added in f64, the Gram on
+the FP64 pipe in 64-wide tiles (:func:`f64_gram_geometry`), no tier.
+The plain version runs in its operands' dtype; a mixed f32 / f64 call
+raises.  The f64 form takes the same knobs.
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._gram import (_TARGET_BLOCKS, gram_geometry, pca_gram_route,
-                                                wgmma_geometry)
+from oap_mllib_tpu_torch.ops.cuda._gram import (_TARGET_BLOCKS, f64_gram_geometry,
+                                                gram_geometry, pca_gram_route, wgmma_geometry)
 from oap_mllib_tpu_torch.ops.cuda._tiers import (LABELS, MODE_CODE, book_launch, check_mode,
                                                  tiered_dot)
 
@@ -47,6 +54,8 @@ KERNEL = "pca_moments"
 # launches of the CUDA kernel, by kernel name; the wrapper adds one per
 # launch and nowhere else (the plain version on CPU tensors counts none)
 LAUNCHES = {KERNEL: 0}
+# the same launches by operand dtype (the float64 form's witness)
+LAUNCHES_BY_DTYPE = {"float32": 0, "float64": 0}
 
 # mean pass: rows per slice, and at most this many slices
 _SUM_SLICE_ROWS = 1024
@@ -59,8 +68,9 @@ _MAX_SUM_ROWS = 1 << 20
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for table in (LAUNCHES, LAUNCHES_BY_DTYPE):
+        for name in table:
+            table[name] = 0
 
 
 def check_geometry(geometry) -> Tuple[int, int]:
@@ -107,16 +117,18 @@ def pca_moments_plain(x: torch.Tensor, mask: torch.Tensor,
 
 
 def _check_operands(x, mask, mean):
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or x.dim() != 2:
-        raise TypeError("x must be a 2-D float32 torch.Tensor")
+    if (not isinstance(x, torch.Tensor) or x.dtype not in (torch.float32, torch.float64)
+            or x.dim() != 2):
+        raise TypeError("x must be a 2-D float32 or float64 torch.Tensor")
     n, d = x.shape
     if n < 1 or d < 1:
         raise ValueError(f"empty operand: x {tuple(x.shape)}")
     for name, t, size in (("x", x, None), ("mask", mask, n), ("mean", mean, d)):
         if t is None:
             continue
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
-            raise TypeError(f"{name} must be a float32 torch.Tensor")
+        if not isinstance(t, torch.Tensor) or t.dtype != x.dtype:
+            raise TypeError(f"{name} must be a torch.Tensor of x's dtype {x.dtype}: "
+                            "one dtype only")
         if size is not None and tuple(t.shape) != (size,):
             raise ValueError(f"{name} must have shape ({size},), got {tuple(t.shape)}")
         if t.device != x.device:
@@ -133,6 +145,9 @@ def _bind(lib):
     fn.argtypes = ([i32, ptr, ptr, ptr] + [i32] * 7 + [ptr] * 4 + [i32] * 5
                    + [ptr, ptr, ptr])
     fn.restype = i32
+    lib.pca_moments_f64.argtypes = [i32, ptr, ptr, ptr] + [i32] * 6 + [ptr] * 4 + [i32] * 3 \
+        + [ptr, ptr, ptr]
+    lib.pca_moments_f64.restype = i32
     return lib
 
 
@@ -159,10 +174,13 @@ def _launch(x, mask, mean, mode, need_gram, need_sums, geometry=None):
     dev = x.device
 
     def empty(*size):
-        return torch.empty(size, dtype=torch.float32, device=dev)
+        return torch.empty(size, dtype=x.dtype, device=dev)
 
     target_blocks, least_rows = check_geometry(geometry)
     sum_slices, sum_rows = sums_geometry(n, least_rows)
+    if x.dtype == torch.float64:
+        return _launch_f64(lib, x, mask, mean, need_gram, need_sums, empty, target_blocks,
+                           sum_slices, sum_rows)
     route = pca_gram_route(mode, d)
     if route == "wgmma":
         tm = 0
@@ -188,6 +206,37 @@ def _launch(x, mask, mean, mode, need_gram, need_sums, geometry=None):
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += 1
+    LAUNCHES_BY_DTYPE["float32"] += 1
+    book_launch(LABELS[KERNEL], time.perf_counter() - t0)
+    return gram, colsum, count
+
+
+def _launch_f64(lib, x, mask, mean, need_gram, need_sums, empty, target_blocks, sum_slices,
+                sum_rows):
+    """The float64 form's launch: the outputs of :func:`_launch`, every
+    float buffer a double, the Gram in 64-wide f64 tiles."""
+    n, d = x.shape
+    dev = x.device
+    m, g_slices, g_rows = f64_gram_geometry(n, d, target_blocks)
+    psum = pcount = colsum = count = part = gram = None
+    if need_sums:
+        psum, pcount, colsum, count = empty(sum_slices, d), empty(sum_slices), empty(d), empty()
+    if need_gram:
+        part, gram = empty(g_slices, d, d), empty(d, d)
+        if mean is None:
+            mean = torch.zeros(d, dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        t0 = time.perf_counter()
+        err = lib.pca_moments_f64(
+            dev.index, x.data_ptr(), _ptr(mask), _ptr(mean), n, d, int(need_sums),
+            int(need_gram), sum_slices, sum_rows, _ptr(psum), _ptr(pcount), _ptr(colsum),
+            _ptr(count), m, g_slices, g_rows, _ptr(part), _ptr(gram), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} (float64): CUDA launch failed with error {err}")
+    LAUNCHES[KERNEL] += 1
+    LAUNCHES_BY_DTYPE["float64"] += 1
     book_launch(LABELS[KERNEL], time.perf_counter() - t0)
     return gram, colsum, count
 
@@ -197,15 +246,18 @@ def pca_moments(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 need_gram: bool = True, need_sums: bool = True, geometry=None):
     """One moments pass: ``(gram (d, d), colsum (d,), count ())``, each
     None when not asked for (``need_gram`` / ``need_sums``).  ``mask``
-    None weighs every row 1; ``mean`` None is zero.  f32 contiguous
-    operands on one device: CPU takes the plain version, CUDA the Hopper
-    kernel at ``geometry``."""
+    None weighs every row 1; ``mean`` None is zero.  Contiguous operands
+    of one dtype (f32, or f64 at ``highest``) on one device: CPU takes
+    the plain version, CUDA the Hopper kernel (its float64 form for f64)
+    at ``geometry``."""
     mode = check_mode(mode)
     _check_operands(x, mask, mean)
+    if x.dtype == torch.float64 and mode != "highest":
+        raise ValueError(f"float64 operands run at the highest tier only, got {mode!r}")
     check_geometry(geometry)
     if x.device.type == "cpu":
         if mask is None:
-            mask = torch.ones(x.shape[0], dtype=torch.float32)
+            mask = torch.ones(x.shape[0], dtype=x.dtype)
         return pca_moments_plain(x, mask, mean, mode, need_gram, need_sums)
     if x.device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {x.device}")

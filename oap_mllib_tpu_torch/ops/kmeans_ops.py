@@ -141,13 +141,28 @@ def _moved_sq(new_centers, centers):
     return torch.sum((new_centers - centers) ** 2, dim=1)
 
 
+def _first(value):
+    """A tensor, or the first rank's of a ``{rank: tensor}`` dictionary."""
+    return value[min(value)] if isinstance(value, dict) else value
+
+
+def tol_sq(tol: float, dtype: torch.dtype) -> float:
+    """``tol ** 2`` in the fit's dtype, as the JAX package squares
+    ``jnp.asarray(tol, dtype)``: the f32 product on the f32 lane, the f64
+    one on the x64 lane (an f32 threshold moves the iteration count of an
+    f64 fit that converges near it)."""
+    if dtype == torch.float64:
+        return float(tol) * float(tol)
+    return float(np.float32(tol) * np.float32(tol))
+
+
 def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
                 max_iter: int, tol: float, program: Tuple[str, tuple] = ("kmeans.lloyd", ())):
     """Lloyd loop skeleton shared by the kernel route, the plain route and
     the model-sharded route.
 
-    Stop when every center's squared move is <= tol^2 (f32), or at
-    ``max_iter``.  Empty clusters keep their previous center.
+    Stop when every center's squared move is <= tol^2 (in the centers'
+    dtype, :func:`tol_sq`), or at ``max_iter``.  Empty clusters keep their previous center.
     ``accum(centers, final)`` returns ``(sums, counts, cost)``: loop passes
     have ``final=False``; one pass with ``final=True`` after the loop
     computes cost and counts against the returned centers at full
@@ -160,7 +175,7 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
     where every rank updates its own block.  Returns
     ``(centers, n_iter, cost, counts)``."""
     centers = init_centers
-    tol_sq = float(np.float32(tol) * np.float32(tol))
+    limit = tol_sq(tol, _first(init_centers).dtype)
     n_iter = 0
     algo, key = program[0], (program[1], progcache.array_key(init_centers))
     while n_iter < max_iter:
@@ -173,7 +188,7 @@ def _lloyd_loop(accum: Callable, moved_reduce: Callable, init_centers,
         # the loop's one host read per iteration (per rank on a mesh,
         # where every rank holds the same flag)
         moves = moved_sq.values() if isinstance(moved_sq, dict) else [moved_sq]
-        if all(bool(torch.all(m <= tol_sq)) for m in moves):
+        if all(bool(torch.all(m <= limit)) for m in moves):
             break
     progcache.count_launch(algo + ".cost", key)
     _, counts, cost = accum(centers, True)
@@ -216,7 +231,8 @@ def ring_mode_cfg(cfg=None) -> str:
 def ring_enabled(mesh: Mesh, data_axis: str, dtype=torch.float32, cfg=None) -> bool:
     """Whether the moments reduce with the ring: "auto" and "on" run it
     when the data axis has two ranks or more and the table is f32 (the
-    ring packs f32); below that, or with "off", three psums."""
+    ring packs f32: an f64 fit of the x64 lane keeps the psums, as the
+    JAX package does); below that, or with "off", three psums."""
     return (ring_mode_cfg(cfg) != "off" and mesh.shape[data_axis] >= 2
             and dtype == torch.float32)
 
@@ -273,7 +289,7 @@ def _sharded_accumulate(x, w, c, mesh: Mesh, dax: str, max_: str, final: bool,
     # zero elsewhere so the sum is exact)
     packed = {}
     for r in mesh.local_ranks:
-        extra = torch.zeros((counts[r].shape[0], 2), dtype=torch.float32,
+        extra = torch.zeros((counts[r].shape[0], 2), dtype=counts[r].dtype,
                             device=counts[r].device)
         extra[:, 0] = counts[r]
         if final:
@@ -310,10 +326,11 @@ def lloyd_run_model_sharded(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     the model axis.  The JAX package's ``_build_lloyd_model_sharded``,
     step for step."""
     precision = check_mode(precision)
-    ring = ring_enabled(mesh, data_axis)
+    dtype = _first(x).dtype
+    ring = ring_enabled(mesh, data_axis, dtype)
     ring_segments = ring_kernel.check_segments(ring_segments) if ring else 1
     n_model = mesh.shape[model_axis]
-    c0 = torch.as_tensor(init_centers, dtype=torch.float32)
+    c0 = torch.as_tensor(init_centers, dtype=dtype)
     d_loc = c0.shape[1] // n_model
     centers = {(i, j): c0[:, j * d_loc:(j + 1) * d_loc].to(mesh.device((i, j))).contiguous()
                for i, j in mesh.local_ranks}
@@ -359,7 +376,7 @@ def lloyd_run_data_parallel(x: Dict[Rank, torch.Tensor], weights: Dict[Rank, tor
     mode = check_mode(mode)
     if mesh.shape[mesh.axis_names[1]] != 1:
         raise ValueError(f"the data-parallel Lloyd runs on a model axis of 1, got {mesh.shape}")
-    c0 = torch.as_tensor(init_centers, dtype=torch.float32)
+    c0 = torch.as_tensor(init_centers, dtype=_first(x).dtype)
     centers = {r: c0.to(mesh.device(r)).contiguous() for r in mesh.local_ranks}
 
     def accum(c, final):
@@ -432,15 +449,17 @@ def _slot_chunk_size(cap: int, target: int = 1024) -> int:
     return best
 
 
-def _world_sum_f32(value: torch.Tensor, cross: bool) -> torch.Tensor:
-    """A scalar summed over the processes in process order, in f32 (the
-    same bits on every process); itself in one process."""
+def _world_sum(value: torch.Tensor, cross: bool) -> torch.Tensor:
+    """A scalar summed over the processes in process order, in its own
+    dtype (f32, or f64 on the x64 lane; the same bits on every process);
+    itself in one process."""
     if not cross:
         return value
     (vals,) = collective.process_allgather([value.reshape(1)])
-    acc = np.float32(0.0)
+    scalar = np.dtype(vals.dtype).type
+    acc = scalar(0.0)
     for v in vals[:, 0]:
-        acc = np.float32(acc + v)
+        acc = scalar(acc + v)
     return torch.tensor(float(acc), dtype=value.dtype, device=value.device)
 
 
@@ -457,7 +476,7 @@ def _pll_round(x, w, dmin, amin, base_id: int, draws, l: float,
     Returns ``(slots, slot_valid, dmin, amin, phi)``."""
     n, d = x.shape
     cost = dmin * w
-    phi = _world_sum_f32(torch.sum(cost), cross)
+    phi = _world_sum(torch.sum(cost), cross)
     prob = torch.clamp_max(l * cost / torch.clamp_min(phi, 1e-30), 1.0)
     picked = draws < prob
     pos = torch.cumsum(picked.to(torch.int64), dim=0) - 1
@@ -515,8 +534,10 @@ def _candidate_weights(w, amin, n_cand: int, cross: bool = False) -> np.ndarray:
 def _row_draws(generator, n_valid: int, offset: int, n_local: int, n: int, like):
     """One round's uniforms of this process's ``n`` rows: the slice
     ``[offset, offset + n_local)`` of one stream over the world's
-    ``n_valid`` rows, 1 (never picked) on the padding rows."""
-    draws = torch.rand((n_valid,), generator=generator, dtype=like.dtype, device=like.device)
+    ``n_valid`` rows, 1 (never picked) on the padding rows.  Drawn in f32
+    and widened on the x64 lane, so both lanes draw the same numbers."""
+    draws = torch.rand((n_valid,), generator=generator, dtype=torch.float32,
+                       device=like.device).to(like.dtype)
     out = torch.ones((n,), dtype=like.dtype, device=like.device)
     out[:n_local] = draws[offset:offset + n_local]
     return out
@@ -552,7 +573,7 @@ def init_kmeans_parallel(x, weights, n_valid: int, k: int, seed: int,
     amin = torch.zeros((n,), dtype=torch.int64, device=data.device)
 
     all_slots = [c0]
-    all_valid = [np.ones((1,), np.float32)]
+    all_valid = [np.ones((1,), c0.dtype)]
     base = 1
     for _ in range(init_steps):
         draws = _row_draws(generator, n_valid, offset, n_local, n, dmin)

@@ -26,6 +26,12 @@ records its stage / transfer / compute split in the fit's timings.
 
 Padded tail rows carry weight 0 through K1 and K2, cost included.
 
+On the x64 parity lane (``Config.enable_x64``) every pass stages its
+chunks and their weights at float64 (utils/precision.staging_dtype),
+the accumulators, centers and candidates are float64 and K1 and K2 run
+their float64 forms; across processes the f64 moments take the host
+gather (the ring packs f32), which carries their bytes unchanged.
+
 Each Lloyd pass and each PCA moment pass is the ``fit.execute`` fault
 site before its kernels launch (utils/faults.py).  After every Lloyd
 pass the centroids, after the PCA passes the column sums and the Gram
@@ -65,6 +71,7 @@ import torch
 
 from oap_mllib_tpu_torch.data.prefetch import Prefetcher, PrefetchStats
 from oap_mllib_tpu_torch.data.stream import ChunkSource
+from oap_mllib_tpu_torch.data.table import np_dtype
 from oap_mllib_tpu_torch.ops import kmeans_ops
 from oap_mllib_tpu_torch.ops.cuda import autotune, kmeans_kernel, pca_kernel, ring_kernel
 from oap_mllib_tpu_torch.parallel import balance, bootstrap, collective
@@ -76,19 +83,20 @@ from oap_mllib_tpu_torch.utils.dispatch import resolve_device
 from oap_mllib_tpu_torch.utils.timing import tick
 
 
-def _chunk_weights(n_valid: int, chunk_rows: int) -> np.ndarray:
-    w = np.zeros((chunk_rows,), np.float32)
+def _chunk_weights(n_valid: int, chunk_rows: int, dtype=np.float32) -> np.ndarray:
+    w = np.zeros((chunk_rows,), dtype)
     w[:n_valid] = 1.0
     return w
 
 
-def _iter_weighted(source: ChunkSource, weights):
-    """``(chunk, n_valid, w)`` with ``w`` the (chunk_rows,) f32 row
-    weights, 0 on the padding.  ``weights`` is None (all ones) or a
-    width-1 source walked in lockstep, whose valid counts must match."""
+def _iter_weighted(source: ChunkSource, weights, dtype=np.float32):
+    """``(chunk, n_valid, w)`` with ``w`` the (chunk_rows,) row weights
+    at ``dtype`` (f32, or f64 on the x64 lane), 0 on the padding.
+    ``weights`` is None (all ones) or a width-1 source walked in
+    lockstep, whose valid counts must match."""
     if weights is None:
         for chunk, n_valid in source:
-            yield chunk, n_valid, _chunk_weights(n_valid, source.chunk_rows)
+            yield chunk, n_valid, _chunk_weights(n_valid, source.chunk_rows, dtype)
         return
     wit = iter(weights)
     for chunk, n_valid in source:
@@ -104,7 +112,7 @@ def _iter_weighted(source: ChunkSource, weights):
                 f"sample_weight source yielded {wn} valid rows where the data source "
                 f"yielded {n_valid}; the two must be chunked identically"
             )
-        w = np.asarray(wchunk, np.float32).reshape(-1)[:source.chunk_rows].copy()
+        w = np.asarray(wchunk, dtype).reshape(-1)[:source.chunk_rows].copy()
         w[n_valid:] = 0.0
         yield chunk, n_valid, w
     if next(wit, None) is not None:
@@ -149,15 +157,17 @@ def _stage(stage_dtype: torch.dtype):
 def _staged_chunks(source, weights, device, stats: PrefetchStats,
                    stage_dtype: torch.dtype = torch.float32) -> Prefetcher:
     """``((host chunk, n_valid, host w), (x, w))`` over a (weighted)
-    source, ``x`` and ``w`` on ``device``."""
-    return Prefetcher(_iter_weighted(source, weights), stage=_stage(stage_dtype),
+    source, ``x`` and ``w`` on ``device``; the weights are f64 when the
+    chunks stage at f64, else f32."""
+    w_dtype = np.float64 if stage_dtype == torch.float64 else np.float32
+    return Prefetcher(_iter_weighted(source, weights, w_dtype), stage=_stage(stage_dtype),
                       device=device, stats=stats)
 
 
-def _f32(x: torch.Tensor) -> torch.Tensor:
-    """A staged chunk as the f32 operand the kernels take (bfloat16 chunks
-    widen exactly)."""
-    return x if x.dtype == torch.float32 else x.float()
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """A staged chunk as the operand the kernels take: bfloat16 chunks
+    widen exactly to f32; f32 and f64 chunks as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 # -- across processes ----------------------------------------------------------------
@@ -229,7 +239,7 @@ def _materialize(arrays, guard):
         return fetch()
     with guard:
         return fetch()
-    return [np.zeros(tuple(a.shape), np.float32 if isinstance(a, torch.Tensor)
+    return [np.zeros(tuple(a.shape), np_dtype(a.dtype) if isinstance(a, torch.Tensor)
                      else np.asarray(a).dtype) for a in arrays]
 
 
@@ -397,10 +407,10 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
     centers' device, K1 launched on every chunk at ``geometry`` (``cost``
     None in loop mode).  The split lands in ``timings`` under ``phase``."""
     k, d = centers.shape
-    dev = centers.device
-    sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
-    counts = torch.zeros((k,), dtype=torch.float32, device=dev)
-    cost = torch.zeros((), dtype=torch.float32, device=dev) if need_cost else None
+    dev, dtype = centers.device, centers.dtype
+    sums = torch.zeros((k, d), dtype=dtype, device=dev)
+    counts = torch.zeros((k,), dtype=dtype, device=dev)
+    cost = torch.zeros((), dtype=dtype, device=dev) if need_cost else None
     stats = PrefetchStats()
     elapsed = tick()
     guard = _PassGuard()
@@ -410,7 +420,7 @@ def streamed_accumulate(source: ChunkSource, centers: torch.Tensor, precision: s
                                 need_cost, weights is not None))
         with _staged_chunks(source, weights, dev, stats, psn.staging_dtype(policy)) as pf:
             for _, (x, w) in pf:
-                s, c, t = kmeans_kernel.lloyd_accumulate(_f32(x), w, centers, precision,
+                s, c, t = kmeans_kernel.lloyd_accumulate(_operand(x), w, centers, precision,
                                                          need_cost, geometry)
                 sums += s
                 counts += c
@@ -435,7 +445,8 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
     """The streamed Lloyd loop: ``(centers, n_iter, cost, counts)``, as
     ``kmeans_kernel.lloyd_run_kernel`` returns them, on ``device``
     (None: the device of ``init_centers`` if a tensor, else
-    ``Config.device``).  Stops when every center moved at most ``tol``
+    ``Config.device``), in the fit's dtype (utils/precision.compute_dtype:
+    float64 on the x64 lane).  Stops when every center moved at most ``tol``
     (squared moves against ``tol ** 2`` in f64, the JAX streamed loop's
     test) or at ``max_iter``; empty clusters keep their center.  ``weights`` is an
     optional width-1 source walked in lockstep; ``validated`` skips its
@@ -453,9 +464,10 @@ def lloyd_run_streamed(source: ChunkSource, init_centers, max_iter: int, tol: fl
         device = init_centers.device
     else:
         device = resolve_device(device)
-    centers = torch.as_tensor(np.asarray(init_centers, np.float32)
+    dtype = psn.compute_dtype("kmeans")
+    centers = torch.as_tensor(np.asarray(init_centers, np_dtype(dtype))
                               if not isinstance(init_centers, torch.Tensor) else init_centers,
-                              dtype=torch.float32).to(device).contiguous()
+                              dtype=dtype).to(device).contiguous()
     # K1's geometry, resolved once for the loop (every process alike)
     geometry = autotune.resolve_world("kmeans", autotune.shape_bucket(*centers.shape),
                                       precision, device)
@@ -583,6 +595,7 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
     d = source.n_features
     cap = 4 * k  # a process's picks a round gathered across processes
     stage_dtype = psn.staging_dtype(policy)
+    cand_dtype = np_dtype(psn.compute_dtype("kmeans"))
     # the sampling stream of this process's rows (seed + 31 x its process
     # index, as in the JAX package) and the final k-means++ stream, the
     # same on every process
@@ -598,7 +611,7 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
         sampling = rnd > 0
         if sampling and phi <= 0.0:
             break
-        cands_dev = (torch.as_tensor(np.asarray(new_block, np.float32), device=dev)
+        cands_dev = (torch.as_tensor(np.asarray(new_block, cand_dtype), device=dev)
                      if len(new_block) else None)
         picks: List[np.ndarray] = []
         new_phi = 0.0
@@ -613,8 +626,9 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
                     # are one audited host round trip a chunk
                     with sanitizers.allow_transfers():
                         prev = (torch.as_tensor(dmin_chunks[ci], device=dev) if rnd > 0
-                                else torch.full((source.chunk_rows,), torch.inf, device=dev))
-                        h = _chunk_min_d2(_f32(x), prev, cands_dev).cpu().numpy()
+                                else torch.full((source.chunk_rows,), torch.inf,
+                                                dtype=cands_dev.dtype, device=dev))
+                        h = _chunk_min_d2(_operand(x), prev, cands_dev).cpu().numpy()
                     h[n_valid:] = 0.0  # padded rows carry no cost
                     if rnd > 0:
                         dmin_chunks[ci] = h
@@ -651,7 +665,7 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
     if cand_arr.shape[0] <= k:
         extra = reservoir_sample(source, k - cand_arr.shape[0] + 1, seed + 1, timings=timings)
         return np.concatenate([cand_arr, extra], axis=0)[:k]
-    cands_dev = torch.as_tensor(cand_arr.astype(np.float32), device=dev)
+    cands_dev = torch.as_tensor(cand_arr.astype(cand_dtype), device=dev)
     own = np.zeros((cand_arr.shape[0],), np.float64)
     stats = PrefetchStats()
     elapsed = tick()
@@ -659,7 +673,7 @@ def init_kmeans_parallel_streamed(source: ChunkSource, k: int, seed: int, init_s
     with guard, _staged_chunks(source, weights, dev, stats, stage_dtype) as pf:
         for _, (x, w) in pf:
             with sanitizers.allow_transfers():  # the audited host accumulation
-                own += _chunk_ownership(_f32(x), w, cands_dev).cpu().numpy()
+                own += _chunk_ownership(_operand(x), w, cands_dev).cpu().numpy()
     stats.finalize(timings, "init_centers", elapsed())
     (own,) = _psum_host([own], guard=guard)
     return kmeans_ops._weighted_kmeans_pp(cand_arr, own, k, final_rng)
@@ -682,7 +696,7 @@ def _colsum_pass(source: ChunkSource, precision: str, timings, dev, stage_dtype,
     """The streamed covariance's first pass: the column sums and the row
     count, reduced across the processes."""
     d = source.n_features
-    total = torch.zeros((d,), dtype=torch.float32, device=dev)
+    total = torch.zeros((d,), dtype=psn.compute_dtype("pca"), device=dev)
     comp = torch.zeros_like(total)
     n = 0
     stats = PrefetchStats()
@@ -693,7 +707,7 @@ def _colsum_pass(source: ChunkSource, precision: str, timings, dev, stage_dtype,
                                (str(dev), d, source.chunk_rows, precision, compensated))
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for (_, n_valid, _), (x, w) in pf:
-                _, s, _ = pca_kernel.pca_moments(_f32(x), w, None, precision, need_gram=False,
+                _, s, _ = pca_kernel.pca_moments(_operand(x), w, None, precision, need_gram=False,
                                                  geometry=geometry)
                 if compensated:
                     _kahan_add(total, comp, s)
@@ -723,8 +737,8 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     (the mean), pass 2 the centred Gram at ``precision``, K2 on every
     chunk of each; the two-pass form of ``pca_ops.covariance``.  Under
     the ``bf16`` policy the chunks stage at bfloat16 and both
-    cross-chunk sums are Kahan-compensated; f32 adds plainly, in chunk
-    order.
+    cross-chunk sums are Kahan-compensated; f32 (and f64 on the x64
+    lane) adds plainly, in chunk order.
 
     ``checkpoint`` (utils/checkpoint.py): after the column-sum pass the
     reduced sums and the row count are written (step 1), and a fit that
@@ -733,12 +747,13 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     dev = resolve_device(device)
     d = source.n_features
     stage_dtype = psn.staging_dtype(policy)
+    dtype = psn.compute_dtype("pca")
     compensated = policy == "bf16"
     # K2's geometry, resolved once for both passes (every process alike)
     geometry = autotune.resolve_world("pca", autotune.shape_bucket(d), precision, dev)
     resume = checkpoint.restore() if checkpoint is not None else None
     if resume is not None and resume.found and resume.extra.get("stage") == "colsum":
-        total = torch.as_tensor(np.asarray(resume.arrays["colsum"], np.float32)).to(dev)
+        total = torch.as_tensor(np.asarray(resume.arrays["colsum"], np_dtype(dtype))).to(dev)
         n = int(resume.extra["n_rows"])
     else:
         total, n = _colsum_pass(source, precision, timings, dev, stage_dtype, compensated,
@@ -749,7 +764,7 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
     if n < 1:
         raise ValueError("empty source")
     mean = total / n
-    gram = torch.zeros((d, d), dtype=torch.float32, device=dev)
+    gram = torch.zeros((d, d), dtype=dtype, device=dev)
     gcomp = torch.zeros_like(gram)
     stats = PrefetchStats()
     elapsed = tick()
@@ -759,7 +774,7 @@ def covariance_streamed(source: ChunkSource, precision: str = "highest", timings
                                (str(dev), d, source.chunk_rows, precision, compensated))
         with _staged_chunks(source, None, dev, stats, stage_dtype) as pf:
             for _, (x, w) in pf:
-                g, _, _ = pca_kernel.pca_moments(_f32(x), w, mean, precision, need_sums=False,
+                g, _, _ = pca_kernel.pca_moments(_operand(x), w, mean, precision, need_sums=False,
                                                  geometry=geometry)
                 if compensated:
                     _kahan_add(gram, gcomp, g)

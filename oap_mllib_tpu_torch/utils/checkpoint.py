@@ -19,9 +19,12 @@ for byte::
         step00000003.rank1.npz         # ...
 
 ``sig12`` hashes the fit's signature dict, which the estimators build
-key for key as the JAX package does (``"x64": False`` included: the port
-has no ``enable_x64``), so both packages name the same directory and a
-checkpoint written by either restores in the other.
+key for key as the JAX package does (``"x64"`` included, from
+``Config.enable_x64``), so both packages name the same directory and a
+checkpoint written by either restores in the other, on either lane; an
+f64 fit's and an f32 fit's signatures differ, so neither consumes the
+other's state.  Replicated arrays keep their dtype on disk (float64 on
+the x64 lane) and the routes restore them in the fit's dtype.
 
 Write protocol (the torn-write contract):
 

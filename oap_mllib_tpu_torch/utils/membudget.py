@@ -69,8 +69,6 @@ _PROGRAM_BYTES = 64 << 20
 # the narrowest chunk the planner suggests (the JAX package's
 # resilience.OOM_CHUNK_FLOOR_ROWS)
 OOM_CHUNK_FLOOR_ROWS = 64
-# f32 everywhere: the port has no 64-bit mode
-_DTYPE_BYTES = 4
 # what the detected card budget is
 HBM_DETECTED_AS = "torch.cuda.get_device_properties().total_memory"
 
@@ -362,6 +360,13 @@ def choose(algo: str, estimates: List[RouteEstimate], natural: Optional[str] = N
 # -- per-algorithm pricing ------------------------------------------------------------
 
 
+def _dtype_bytes() -> int:
+    """Bytes an element of a K-Means or PCA fit: 8 on the x64 lane
+    (``Config.enable_x64``), else 4, as the JAX package's
+    ``_dtype_bytes``."""
+    return 8 if get_config().enable_x64 else 4
+
+
 def _padded_rows(n: int) -> int:
     """Rows of the port's ``DenseTable`` of ``n`` rows: no padding."""
     return max(int(n), 1)
@@ -383,7 +388,7 @@ def suggest_chunk_rows(d: int, extra_width: int, budgets: Budgets, default_rows:
     :data:`OOM_CHUNK_FLOOR_ROWS`."""
     if budgets.hbm <= 0:
         return default_rows
-    per_row = (d + extra_width + 1) * _DTYPE_BYTES * _depth()
+    per_row = (d + extra_width + 1) * _dtype_bytes() * _depth()
     fit_rows = max(int(budgets.hbm // (2 * max(per_row, 1))), OOM_CHUNK_FLOOR_ROWS)
     return max(min(default_rows, fit_rows), 1)
 
@@ -403,7 +408,7 @@ def plan_kmeans(n: Optional[int], d: int, k: int, *, source_backing: Optional[st
     from oap_mllib_tpu_torch.data.stream import DEFAULT_CHUNK_ROWS
     from oap_mllib_tpu_torch.ops.kmeans_ops import SCORE_BUDGET_ELEMS
 
-    b = _DTYPE_BYTES
+    b = _dtype_bytes()
     budgets = Budgets.resolve(device)
     centroids = 3 * k * d * b + _PROGRAM_BYTES
     rows = chunk_rows or suggest_chunk_rows(d, k, budgets, DEFAULT_CHUNK_ROWS)
@@ -439,7 +444,7 @@ def plan_pca(n: Optional[int], d: int, *, source_backing: Optional[str] = None,
     streamed moment passes."""
     from oap_mllib_tpu_torch.data.stream import DEFAULT_CHUNK_ROWS
 
-    b = _DTYPE_BYTES
+    b = _dtype_bytes()
     budgets = Budgets.resolve(device)
     gram = 2 * d * d * b + _PROGRAM_BYTES
     rows = chunk_rows or suggest_chunk_rows(d, 0, budgets, DEFAULT_CHUNK_ROWS)

@@ -15,6 +15,14 @@ JAX package's ``utils/precision.py``: f32 accumulation under every
 policy, bf16 operands under ``bf16``, hi/lo splits under ``tf32``.  Grams
 and solves stay f32 whatever the policy (their callers pin ``highest``).
 
+The x64 parity lane (``Config.enable_x64``, the JAX package's pins):
+K-Means and PCA fits run in float64 (:func:`compute_dtype`), their
+kernels run at ``highest`` (:func:`kernel_tier`) and streamed chunks
+stage at float64 (:func:`staging_dtype`); every policy resolves to
+``f32`` whatever is requested (ALS's too, as in the JAX package), but
+ALS reads no x64 otherwise and keeps float32, and the serving plane's
+scoring stays f32 (its pins are f32 arrays).
+
 The resilience ladder's precision rung (utils/resilience.resilient_fit)
 reads :func:`reduced_active`, whether the failed attempt resolved a
 reduced policy, and retries once inside :func:`force_f32`, where
@@ -80,11 +88,26 @@ def force_f32():
         _tls.force_f32 = prev
 
 
+def x64_active(algo: str = "kmeans", cfg=None) -> bool:
+    """Whether ``algo`` runs on the x64 parity lane: ``enable_x64`` set
+    and a K-Means or PCA fit (ALS reads no x64, as in the JAX package)."""
+    return bool((cfg or get_config()).enable_x64) and algo in ("kmeans", "pca")
+
+
+def compute_dtype(algo: str = "kmeans", cfg=None) -> torch.dtype:
+    """The dtype ``algo``'s fit computes in: float64 on the x64 lane,
+    else float32.  Every route takes its dtype here, so none tests the
+    flag itself."""
+    return torch.float64 if x64_active(algo, cfg) else torch.float32
+
+
 def resolve(algo: str = "kmeans", cfg=None, record: bool = True) -> str:
     """The resolved policy name of ``algo``'s next fit (``f32`` inside
-    :func:`force_f32`), recorded for :func:`reduced_active` unless
-    ``record`` is False (the serving plane's per-request resolution,
-    which belongs to no fit attempt)."""
+    :func:`force_f32`, and on the x64 lane whatever is requested, as the
+    JAX package pins every algorithm there: reduced precision under f64
+    would break the parity contract), recorded for
+    :func:`reduced_active` unless ``record`` is False (the serving
+    plane's per-request resolution, which belongs to no fit attempt)."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algorithm {algo!r}; expected one of {ALGOS}")
     cfg = cfg or get_config()
@@ -93,7 +116,8 @@ def resolve(algo: str = "kmeans", cfg=None, record: bool = True) -> str:
     field = f"{algo}_precision"
     if getattr(cfg, field):
         requested = _check(field, getattr(cfg, field), CHOICES)
-    name = "f32" if requested == "auto" or getattr(_tls, "force_f32", False) else requested
+    name = ("f32" if requested == "auto" or getattr(_tls, "force_f32", False)
+            or cfg.enable_x64 else requested)
     if not record:
         return name
     resolved = getattr(_tls, "resolved", None)
@@ -103,19 +127,24 @@ def resolve(algo: str = "kmeans", cfg=None, record: bool = True) -> str:
     return name
 
 
-def kernel_tier(name: str, matmul_tier: str) -> str:
-    """The kernel tier a policy runs at."""
+def kernel_tier(name: str, matmul_tier: str, algo: str = None) -> str:
+    """The kernel tier a policy runs at; ``highest`` for a K-Means or PCA
+    fit (``algo``) on the x64 lane, whose kernels' float64 forms have no
+    other tier.  Without ``algo`` (scoring, ALS) the x64 lane moves
+    nothing."""
     _check("compute precision tier", name, TIERS)
+    if algo is not None and x64_active(algo):
+        return "highest"
     return {"f32": matmul_tier, "tf32": "high", "bf16": "default"}[name]
 
 
 def staging_dtype(name: str) -> torch.dtype:
-    """The dtype a streamed pass stages its data chunks at: bfloat16
-    under the ``bf16`` policy (half the bytes copied to the card; the
-    kernels read them back as f32), float32 otherwise, as the JAX
-    package's ``staging_dtype``."""
+    """The dtype a streamed K-Means or PCA pass stages its data chunks
+    at: bfloat16 under the ``bf16`` policy (half the bytes copied to the
+    card; the kernels read them back as f32), else the fit's dtype
+    (float64 on the x64 lane), as the JAX package's ``staging_dtype``."""
     _check("compute precision tier", name, TIERS)
-    return torch.bfloat16 if name == "bf16" else torch.float32
+    return torch.bfloat16 if name == "bf16" else compute_dtype()
 
 
 def apply_matmul_flags(tier: str) -> None:
