@@ -462,16 +462,24 @@ machine has four, else on the one card.
 
 34. x64 (last; the float64 parity lane, ``set_config(enable_x64=True)``
    for the phase and off after it), launch counts zeroed before each
-   fit and read after: (a) K1's float64 form at the main path's shape
+   fit and read after: the registers, static shared bytes and spills
+   that ptxas reported for the float64 forms' DMMA kernels; (a0) both
+   float64 forms at ragged shapes (depths 1, 29, 37, 128, 129, 300)
+   against their plain versions: K1 both modes to 1e-12 with labels >=
+   99.99 %, K2's masked mean and Gram passes to 1e-12, the Gram
+   bit-symmetric, two launches bit-equal; (a) K1's float64 form at the main path's shape
    (2^20 x 256 f64 blobs, k = 1000), loop and cost mode, against its
    plain version on the card: labels >= 99.99 %, sums and counts on the
    kernel's labels and the cost within 1e-12 relative, two launches
    bit-equal; ms a launch, the bound (2 n k d operations at the FP64
    tensor cores' 67 TFLOP/s, 8 bytes an element), the FP64 pipe's 34
    TFLOP/s time beside it, the plain version's ms and
-   ``torch.matmul(x, c.T)`` in f64; (b) K2's float64 form at 2^20 x 128:
+   ``torch.matmul(x, c.T)`` in f64, and the device ms of each of the
+   pass's kernels (torch.profiler: the DMMA assignment beside the whole
+   pass); (b) K2's float64 form at 2^20 x 128 and at 2^18 x 1024:
    column sums and the Gram within 1e-12 relative, bit-symmetric and
-   deterministic, ms, bound, plain and ``torch.matmul(xc.T, xc)`` in f64;
+   deterministic, ms, bound, plain and ``torch.matmul(xc.T, xc)`` in
+   f64, the Gram kernel's device ms;
    (c) ``KMeans(k=1000, max_iter=20, seed=0)`` on the 2^20 x 256 f64
    table (resident: the planner's route in-memory or chunked at 8 bytes
    an element): K1 num_iter + 1 times, all float64, centers
@@ -7674,10 +7682,12 @@ def phase_ingest(cfg, dev, smi):
 # two full-width fits, the streamed, online and mesh routes at 2^18 rows
 # (8 chunks), and a short ALS fit
 X64_FULL = {"n": 1 << 20, "d": 256, "k": 1000, "max_iter": 20, "pca": (1 << 20, 128),
+            "pca_wide": (1 << 18, 1024),
             "pca_k": 16, "small_n": 1 << 18, "chunks": 8, "small_iter": 5,
             "delta_rows": 1 << 16, "als": {"n_users": 20_000, "n_items": 5_000,
                                           "nnz": 400_000, "rank": 10, "max_iter": 3}}
-X64_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "pca": (3001, 37), "pca_k": 5,
+X64_TINY = {"n": 4133, "d": 29, "k": 11, "max_iter": 5, "pca": (3001, 37), "pca_wide": (513, 129),
+            "pca_k": 5,
             "small_n": 2048, "chunks": 8, "small_iter": 3, "delta_rows": 1024,
             "als": {"n_users": 300, "n_items": 120, "nnz": 5_000, "rank": 10, "max_iter": 2}}
 # H100 SXM data sheet: FP64 on the tensor cores (DMMA) and on the CUDA
@@ -7714,6 +7724,119 @@ def pca_data64(n, d, dev, seed):
     scale = 10.0 * 0.85 ** torch.arange(d, device=dev, dtype=f64)
     z = torch.randn((n, d), generator=g, device=dev, dtype=f64) * scale
     return (z @ q.T + 3.0).contiguous()
+
+
+# ragged shapes of phase 34's small leg: K1 (n, d, k) and K2 (n, d), the
+# depths either side of the tiles' edges (16, 128) and an odd one (8-byte
+# copies)
+X64_SMALL_K1 = ((1000, 1, 3), (3001, 29, 13), (4133, 37, 130), (2000, 128, 257),
+                (1025, 129, 64), (777, 300, 70))
+X64_SMALL_K2 = ((1000, 1), (3001, 29), (4133, 37), (2000, 128), (1025, 129), (777, 300))
+
+
+def _x64_small(dev):
+    """(a0) both float64 kernels at ragged shapes against their plain
+    versions: K1 both modes (labels, sums and counts on the kernel's
+    labels, cost, two launches' bits), K2's mean and Gram passes with a
+    mask (the Gram bit-symmetric, two launches' bits)."""
+    out = {"k1": [], "k2": []}
+    for n, d, k in X64_SMALL_K1:
+        x, w, c = blobs64(n, d, k, dev, seed=n + d)
+        for need_cost in (False, True):
+            tag = f"x64 small K1 {n}x{d} k={k} cost={need_cost}"
+            sums, counts, cost, labels = run_kernel(x, w, c, "highest", need_cost)
+            again = run_kernel(x, w, c, "highest", need_cost)
+            check(all((a is None and b is None) or torch.equal(a, b)
+                      for a, b in zip((sums, counts, cost, labels), again)),
+                  f"{tag}: two launches differ")
+            ref_labels, _ = kmeans_kernel.assign_plain(x, c, "highest", need_cost)
+            agree = float((labels.long() == ref_labels).float().mean())
+            ref_sums, ref_counts = kmeans_kernel.sums_for_labels(x, w, labels, k)
+            err_s, err_c = _rel_err(sums, ref_sums), _rel_err(counts, ref_counts)
+            v = {"shape": [n, d], "k": k, "need_cost": need_cost, "label_agreement": agree,
+                 "sums_rel_err": err_s, "counts_rel_err": err_c}
+            if need_cost:
+                _, _, ref_cost = kmeans_kernel.lloyd_accumulate_plain(x, w, c, "highest", True)
+                v["cost_rel_err"] = abs(float(cost) - float(ref_cost)) / abs(float(ref_cost))
+            check(agree >= MIN_AGREEMENT and err_s <= X64_RTOL and err_c <= X64_RTOL
+                  and v.get("cost_rel_err", 0.0) <= X64_RTOL, f"{tag}: {v}")
+            out["k1"].append(v)
+    for n, d in X64_SMALL_K2:
+        x = pca_data64(n, d, dev, seed=n + d)
+        g = torch.Generator(device="cpu")
+        g.manual_seed(n)
+        mask = (torch.rand(n, generator=g, dtype=torch.float64) > 0.2).to(dev, torch.float64)
+        k, plain = pca_kernel.pca_moments, pca_kernel.pca_moments_plain
+        _, cs, cnt = k(x, mask, None, "highest", need_gram=False)
+        _, cs_p, cnt_p = plain(x, mask, None, "highest", need_gram=False)
+        mean = cs / cnt
+        gram, _, _ = k(x, mask, mean, "highest", need_sums=False)
+        again, _, _ = k(x, mask, mean, "highest", need_sums=False)
+        ref, _, _ = plain(x, mask, mean, "highest", need_sums=False)
+        v = {"shape": [n, d], "colsum_rel_err": _rel_err(cs, cs_p),
+             "count_err": abs(float(cnt) - float(cnt_p)), "gram_rel_err": _rel_err(gram, ref)}
+        check(torch.equal(gram, again) and (dev.type != "cuda" or torch.equal(gram, gram.T))
+              and v["colsum_rel_err"] <= X64_RTOL and v["count_err"] == 0.0
+              and v["gram_rel_err"] <= X64_RTOL, f"x64 small K2 {n}x{d}: {v}")
+        out["k2"].append(v)
+    emit("x64_small", {**out, "card": _SMI[0]})
+    return out
+
+
+def _x64_split(fn, dev):
+    """Device ms by kernel of one call of ``fn`` (torch.profiler over three
+    calls, each kernel's mean over the launches recorded: the tracer can
+    drop one) and their sum; None where the profiler records no device
+    time."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        sync(dev)
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        m = re.search(r"(\w+_kernel)(<[^>]*>)?|Memset", ev.key)
+        if us and m:
+            by[m.group(0)] = by.get(m.group(0), 0.0) + us / max(1, ev.count) / 1e3
+    return {"kernels_ms": by, "device_ms": sum(by.values())} if by else None
+
+
+def _x64_ptxas():
+    """Registers, shared bytes and spills that ``-Xptxas -v`` reported for
+    the float64 forms' kernels (their mangled names hold ``dmma``)."""
+    out = {}
+    for name in (kmeans_kernel.KERNEL, pca_kernel.KERNEL):
+        log = _build.build_dir() / f"{name}.ptxas.log"
+        if not log.exists():
+            continue
+        fn = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1) if "dmma" in m.group(1) else None
+                continue
+            if fn is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
+                                              spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                out.setdefault(fn, {}).update(registers=int(m.group(1)),
+                                              static_smem=int(smem.group(1)) if smem else 0)
+    for fn, v in out.items():
+        print(f"ptxas x64 {fn}: {v}", flush=True)
+    return out
 
 
 def _x64_k1(x, w, c, dev, reps):
@@ -7756,6 +7879,11 @@ def _x64_k1(x, w, c, dev, reps):
         v["fp64_pipe_ms"] = ops / PEAK_FP64 * 1e3
         v["library_ms"] = time_ms(lambda: torch.matmul(x, c.T), dev, reps)
         v["library_call"] = "torch.matmul(x, c.T) in float64: the cross product only"
+        # the assignment's device time beside the whole pass's
+        split = _x64_split(lambda: run_kernel(x, w, c, "highest", need_cost), dev)
+        v["split"] = split
+        v["assign_ms"] = (None if split is None else
+                          sum(t for name, t in split["kernels_ms"].items() if "assign" in name))
         emit("x64_k1", {**v, "card": _SMI[0]})
         out.append(v)
     return out
@@ -7793,6 +7921,10 @@ def _x64_k2(x, dev, reps):
     xc = x - mean
     v["library_ms"] = time_ms(lambda: torch.matmul(xc.T, xc), dev, reps)
     v["library_call"] = "torch.matmul(xc.T, xc) in float64"
+    split = _x64_split(lambda: k(x, mask, mean, "highest", need_sums=False), dev)
+    v["split"] = split
+    v["gram_ms"] = (None if split is None else
+                    sum(t for name, t in split["kernels_ms"].items() if "gram_dmma" in name))
     emit("x64_k2", {**v, "card": _SMI[0]})
     return v
 
@@ -8032,24 +8164,38 @@ def phase_x64(cfg, dev, smi):
     _SMI[0] = smi
     set_config(enable_x64=True)
     try:
+        ptxas = _x64_ptxas() if dev.type == "cuda" else {}
+        small = _x64_small(dev)
         x, w, c = blobs64(cfg["n"], cfg["d"], cfg["k"], dev, seed=0)
         k1 = _x64_k1(x, w, c, dev, reps)
         del x, w, c
         k2 = _x64_k2(pca_data64(*cfg["pca"], dev, seed=cfg["pca"][1]), dev, reps)
+        k2_wide = _x64_k2(pca_data64(*cfg["pca_wide"], dev, seed=cfg["pca_wide"][1]), dev,
+                          max(1, reps // 2))
         km = _x64_kmeans_fit(cfg, dev)
         pca = _x64_pca_fit(cfg, dev)
         routes = _x64_routes(cfg, dev)
         als = _x64_als(cfg["als"], dev)
     finally:
         set_config(enable_x64=False)
-    res = {"k1": k1, "k2": k2, "kmeans_fit": km, "pca_fit": pca, "routes": routes, "als": als,
+    res = {"k1": k1, "k2": k2, "k2_wide": k2_wide, "small": small, "ptxas": ptxas,
+           "kmeans_fit": km, "pca_fit": pca, "routes": routes, "als": als,
            "wall_s": time.perf_counter() - t_phase, "card": smi}
     main = k1[0]
-    print(f"x64 K1 f64 {main['ms']:.3f} ms a loop pass (bound {main['bound_ms']:.3f} ms by "
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f} ms"
+
+    print(f"x64 K1 f64 {main['ms']:.3f} ms a loop pass, its assignment {ms(main['assign_ms'])} "
+          f"(bound {main['bound_ms']:.3f} ms by "
           f"{main['bound_by']}, FP64 pipe {main['fp64_pipe_ms']:.3f} ms, plain "
-          f"{main['plain_ms']:.3f} ms, torch.matmul f64 {main['library_ms']:.3f} ms); K2 f64 Gram "
+          f"{main['plain_ms']:.3f} ms, torch.matmul f64 {main['library_ms']:.3f} ms); cost pass "
+          f"{k1[1]['ms']:.3f} ms, its assignment {ms(k1[1]['assign_ms'])}; K2 f64 Gram "
           f"{k2['ms']:.3f} ms (bound {k2['bound_ms']:.3f} ms by {k2['bound_by']}, plain "
-          f"{k2['plain_ms']:.3f} ms, torch.matmul f64 {k2['library_ms']:.3f} ms); K-Means fit "
+          f"{k2['plain_ms']:.3f} ms, torch.matmul f64 {k2['library_ms']:.3f} ms), at "
+          f"{k2_wide['shape'][0]} x {k2_wide['shape'][1]} {k2_wide['ms']:.3f} ms (bound "
+          f"{k2_wide['bound_ms']:.3f} ms, torch.matmul f64 {k2_wide['library_ms']:.3f} ms); "
+          f"K-Means fit "
           f"{km['wall_s']:.3f} s ({km['num_iter']} iterations, K1 {km['launches_float64']}; "
           f"f32 {km['f32_wall_s']:.3f} s, centers {km['vs_f32_centers_max_abs']:.3g} apart); "
           f"PCA fit {pca['wall_s']:.3f} s (K2 {pca['launches'][pca_kernel.KERNEL]}; f32 "
@@ -8444,12 +8590,12 @@ def main(argv=None) -> int:
         for name, n in telemetry[fit]["launches"].items():
             by_path[name][f"telemetry {fit} (off and armed alike)"] = n
     # the float64 forms of K1 and K2 (34): their launches on the f64 fits
-    for name, src, replaces, v, launches, shape in (
-            (kmeans_kernel.KERNEL, "kmeans_accumulate.cu", REPLACES, x64["k1"][0],
+    for name, src, replaces, v, variants, launches, shape in (
+            (kmeans_kernel.KERNEL, "kmeans_accumulate.cu", REPLACES, x64["k1"][0], x64["k1"],
              x64["kmeans_fit"]["launches_float64"],
              {"n": cfg["n"], "d": cfg["d"], "k": cfg["k"], "dtype": "float64"}),
             (pca_kernel.KERNEL, "pca_moments.cu", PCA_REPLACES, x64["k2"],
-             x64["pca_fit"]["launches"][pca_kernel.KERNEL],
+             [x64["k2"], x64["k2_wide"]], x64["pca_fit"]["launches"][pca_kernel.KERNEL],
              {"n": X64_FULL["pca"][0], "d": X64_FULL["pca"][1], "pass": "gram",
               "dtype": "float64"})):
         entries.append({
@@ -8458,7 +8604,8 @@ def main(argv=None) -> int:
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "library_ms": v["library_ms"],
             "library_call": v["library_call"], "fp64_pipe_ms": v["fp64_pipe_ms"],
-            "shape": shape, "x64": {k: x64[k] for k in ("routes", "als", "wall_s")}})
+            "shape": shape, "variants": variants,
+            "x64": {k: x64[k] for k in ("routes", "als", "small", "ptxas", "wall_s")}})
     by_path[f"{kmeans_kernel.KERNEL}_f64"] = {
         "x64 fit": x64["kmeans_fit"]["launches_float64"],
         "x64 streamed loop": x64["routes"]["stream_loop"]["launches"],

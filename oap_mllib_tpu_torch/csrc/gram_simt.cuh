@@ -370,111 +370,4 @@ inline int launch(const float* x, const float* mask, const float* mean,
   return 0;
 }
 
-// -- the float64 form (K2 in double, the x64 parity lane) ---------------
-//
-// The centered masked Gram of double rows, FP64 FMAs on the FP64 pipe:
-// 64-wide output tiles (T64), upper-triangle tiles only, one block a
-// (tile, row slice), a 4 x 4 register tile a thread at rows
-// ty + 16 i and columns tx + 16 j (the narrow tiers' layout above), one
-// 16-row shared stage loaded, centered and masked per step (plain loads:
-// no restart of the accumulator, no split, no rounding but the FMA's).
-// Each entry a <= b is computed once and mirrored, so the partial is
-// bit-symmetric; gram::sum_slices_kernel<double> adds the slices.
-// Shared memory 16.6 KB.
-constexpr int T64 = 64;
-constexpr int TM64 = T64 / SIDE;
-
-template <bool DIAG>
-__device__ __forceinline__ void f64_tile(const double* __restrict__ x,
-                                         const double* __restrict__ mask,
-                                         const double* __restrict__ mean, int d, int ti,
-                                         int tj, int row_lo, int row_hi,
-                                         double* __restrict__ out, double (*sa)[T64],
-                                         double (*sb)[T64]) {
-  const int tx = threadIdx.x % SIDE, ty = threadIdx.x / SIDE;
-  double acc[TM64][TM64];
-#pragma unroll
-  for (int i = 0; i < TM64; ++i)
-#pragma unroll
-    for (int j = 0; j < TM64; ++j) acc[i][j] = 0.0;
-  for (int r0 = row_lo; r0 < row_hi; r0 += BK) {
-    // stage BK rows of the tiles' columns: (x - mean) * mask, zeros past
-    // the slice and past d
-    for (int e = threadIdx.x; e < BK * T64; e += THREADS) {
-      const int rr = e / T64, cc = e % T64;
-      const int row = r0 + rr;
-      const int ca = ti * T64 + cc, cb = tj * T64 + cc;
-      double va = 0.0, vb = 0.0;
-      if (row < row_hi) {
-        const double m = mask != nullptr ? mask[row] : 1.0;
-        if (ca < d) {
-          va = __dsub_rn(x[(size_t)row * d + ca], mean[ca]);
-          if (mask != nullptr) va = __dmul_rn(va, m);
-        }
-        if (!DIAG && cb < d) {
-          vb = __dsub_rn(x[(size_t)row * d + cb], mean[cb]);
-          if (mask != nullptr) vb = __dmul_rn(vb, m);
-        }
-      }
-      sa[rr][cc] = va;
-      if (!DIAG) sb[rr][cc] = vb;
-    }
-    __syncthreads();
-    const double (*bs)[T64] = DIAG ? sa : sb;
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      double a[TM64], b[TM64];
-#pragma unroll
-      for (int i = 0; i < TM64; ++i) {
-        a[i] = sa[kk][ty + SIDE * i];
-        b[i] = bs[kk][tx + SIDE * i];
-      }
-#pragma unroll
-      for (int i = 0; i < TM64; ++i)
-#pragma unroll
-        for (int j = 0; j < TM64; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM64; ++i) {
-    const int a = ti * T64 + ty + SIDE * i;
-    if (a >= d) continue;
-#pragma unroll
-    for (int j = 0; j < TM64; ++j) {
-      const int b = tj * T64 + tx + SIDE * j;
-      if (b >= d || (DIAG && a > b)) continue;
-      out[(size_t)a * d + b] = acc[i][j];
-      out[(size_t)b * d + a] = acc[i][j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-gram_f64_kernel(const double* __restrict__ x, const double* __restrict__ mask,
-                const double* __restrict__ mean, int n, int d, int m, int slice_rows,
-                double* __restrict__ part) {
-  __shared__ __align__(16) double sa[BK][T64];
-  __shared__ __align__(16) double sb[BK][T64];
-  int ti, tj;
-  gram::tile_of(blockIdx.x, m, ti, tj);
-  const int row_lo = blockIdx.y * slice_rows;
-  const int row_hi = min(n, row_lo + slice_rows);
-  double* out = part + (size_t)blockIdx.y * d * d;
-  if (ti == tj)
-    f64_tile<true>(x, mask, mean, d, ti, tj, row_lo, row_hi, out, sa, sb);
-  else
-    f64_tile<false>(x, mask, mean, d, ti, tj, row_lo, row_hi, out, sa, sb);
-}
-
-// The float64 tile kernel over (tiles, slices) into `part` (slices, d,
-// d): `m` 64-wide tiles per side; the caller sums the slices.
-inline int launch_f64(const double* x, const double* mask, const double* mean, int n,
-                      int d, int m, int slices, int slice_rows, double* part,
-                      cudaStream_t st) {
-  const dim3 grid(m * (m + 1) / 2, slices);
-  gram_f64_kernel<<<grid, THREADS, 0, st>>>(x, mask, mean, n, d, m, slice_rows, part);
-  return 0;
-}
-
 }  // namespace gram_simt

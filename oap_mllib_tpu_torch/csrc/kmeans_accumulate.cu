@@ -57,15 +57,14 @@
 // The float64 form (`kmeans_accumulate_f64`, the x64 parity lane,
 // Config.enable_x64): the same function at the highest tier on double
 // operands, passes 1-8 as above with every float a double.  Its
-// assignment is assign_f64_kernel, a 64x64 SIMT register tile of FP64
-// FMAs that ranks on the plain version's rounding order
-// ((|x|^2 + |c|^2) - 2 x.c); the sort, scan and scatter passes are the
-// f32 form's, and sums, counts and cost add in f64 in the same fixed
-// orders, so two launches give the same bits here too.  Its bound on an
-// H100 SXM: the same 2 n k d operations at 67 TFLOP/s on the FP64 tensor
-// cores (34 on the FP64 pipe this tile runs on); at n = 2^20, d = 256,
-// k = 1000 that is 8.0 ms (15.8 ms on the FP64 pipe) against 0.64 ms of
-// bytes.  A DMMA tile (mma.sync m8n8k4 f64) is the later design.
+// assignment is assign_dmma.cuh: the cross term on the FP64 tensor
+// cores (DMMA mma.sync, 128 rows by 128 centers a block, cp.async
+// stages), ranked on the plain version's rounding order ((|x|^2 +
+// |c|^2) - 2 x.c); the sort, scan and scatter passes are the f32 form's,
+// and sums, counts and cost add in f64 in the same fixed orders, so two
+// launches give the same bits here too.  Its bound on an H100 SXM: the
+// same 2 n k d operations at 67 TFLOP/s on the FP64 tensor cores; at
+// n = 2^20, d = 256, k = 1000 that is 8.0 ms against 0.64 ms of bytes.
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every
@@ -76,6 +75,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "assign_dmma.cuh"
 #include "assign_wgmma.cuh"
 
 namespace {
@@ -253,149 +253,6 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (tid == 0) {
       float s = 0.f;
       for (int r = 0; r < BM; ++r) s = __fadd_rn(s, rowcost_s[r]);
-      cost_part[blockIdx.x] = s;
-    }
-  }
-}
-
-// The float64 form's assignment: the nearest of k centers of every row
-// in double, a 64x64 register tile (4 x 4 a thread) of FP64 FMAs over
-// 16-deep shared stages, read as double2.  Scores as the plain version
-// forms them: cost mode d2 = max((|x|^2 + |c|^2) - 2 x.c, 0), ranked by
-// the least; loop mode x.c - |c|^2 / 2, ranked by the greatest; ties to
-// the lowest index.  Shared memory ~30 KB, under the static 48 KB.
-constexpr int PAD64 = 2;  // keeps double2 alignment, breaks bank stride
-
-__device__ __forceinline__ bool better64(double s, int i, double bs, int bi) {
-  return s > bs || (s == bs && i < bi);
-}
-
-template <bool NEED_COST>
-__global__ void __launch_bounds__(THREADS)
-assign_f64_kernel(const double* __restrict__ x, const double* __restrict__ w,
-                  const double* __restrict__ c, const double* __restrict__ csq,
-                  int n, int d, int k, int* __restrict__ labels,
-                  double* __restrict__ cost_part) {
-  __shared__ __align__(16) double As[BK][BM + PAD64];
-  __shared__ __align__(16) double Bs[BK][BN + PAD64];
-  __shared__ double xsq_s[BM];
-  __shared__ double red_s[BM][THREADS / (BM / TM)];
-  __shared__ int redi_s[BM][THREADS / (BM / TM)];
-  __shared__ double rowcost_s[BM];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // center group
-  const int ty = tid / (BN / TN);  // row group
-  const int row0 = blockIdx.x * BM;
-
-  if (NEED_COST) {
-    // |x|^2 of each row in feature order, one thread a row
-    for (int r = tid; r < BM; r += THREADS) {
-      const int row = row0 + r;
-      double s = 0.0;
-      if (row < n) {
-        const double* xr = x + (size_t)row * d;
-        for (int t = 0; t < d; ++t) s = __dadd_rn(s, __dmul_rn(xr[t], xr[t]));
-      }
-      xsq_s[r] = s;
-    }
-    __syncthreads();
-  }
-
-  double best[TM];
-  int bidx[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best[i] = -CUDART_INF;
-    bidx[i] = 0;
-  }
-
-  for (int n0 = 0; n0 < k; n0 += BN) {
-    double acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-      for (int e0 = 0; e0 < BM * BK; e0 += THREADS) {
-        const int e = e0 + tid;
-        const int r = e / BK, cc = e % BK;
-        const int row = row0 + r, col = k0 + cc;
-        As[cc][r] = (row < n && col < d) ? x[(size_t)row * d + col] : 0.0;
-      }
-#pragma unroll
-      for (int e0 = 0; e0 < BN * BK; e0 += THREADS) {
-        const int e = e0 + tid;
-        const int r = e / BK, cc = e % BK;
-        const int cen = n0 + r, col = k0 + cc;
-        Bs[cc][r] = (cen < k && col < d) ? c[(size_t)cen * d + col] : 0.0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const double2 a0 = *reinterpret_cast<const double2*>(&As[kk][ty * TM]);
-        const double2 a1 = *reinterpret_cast<const double2*>(&As[kk][ty * TM + 2]);
-        const double2 b0 = *reinterpret_cast<const double2*>(&Bs[kk][tx * TN]);
-        const double2 b1 = *reinterpret_cast<const double2*>(&Bs[kk][tx * TN + 2]);
-        const double av[TM] = {a0.x, a0.y, a1.x, a1.y};
-        const double bv[TN] = {b0.x, b0.y, b1.x, b1.y};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col >= k) continue;
-      const double cs = csq[col];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        double s;
-        if (NEED_COST) {
-          const double d2 = __dsub_rn(__dadd_rn(xsq_s[ty * TM + i], cs),
-                                      __dmul_rn(2.0, acc[i][j]));
-          s = -fmax(d2, 0.0);
-        } else {
-          s = __dsub_rn(acc[i][j], __dmul_rn(0.5, cs));
-        }
-        if (s > best[i]) {
-          best[i] = s;
-          bidx[i] = col;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    red_s[ty * TM + i][tx] = best[i];
-    redi_s[ty * TM + i][tx] = bidx[i];
-  }
-  __syncthreads();
-  if (tid < BM) {
-    double bs = red_s[tid][0];
-    int bi = redi_s[tid][0];
-    for (int t = 1; t < BN / TN; ++t) {
-      if (better64(red_s[tid][t], redi_s[tid][t], bs, bi)) {
-        bs = red_s[tid][t];
-        bi = redi_s[tid][t];
-      }
-    }
-    const int row = row0 + tid;
-    if (row < n) labels[row] = bi;
-    if (NEED_COST) rowcost_s[tid] = row < n ? __dmul_rn(-bs, w[row]) : 0.0;
-  }
-  if (NEED_COST) {
-    __syncthreads();
-    if (tid == 0) {
-      double s = 0.0;
-      for (int r = 0; r < BM; ++r) s = __dadd_rn(s, rowcost_s[r]);
       cost_part[blockIdx.x] = s;
     }
   }
@@ -636,9 +493,18 @@ void launch_assign(int blocks, cudaStream_t st, const float* x,
 
 extern "C" {
 
-// Rows per assign block of a route (0 SIMT, 1 wgmma): the size of
-// `cost_part` is ceil(n / this).
-int kmeans_assign_rows(int route) { return route == 1 ? assign_wg::BM : BM; }
+// Rows per assign block of a route (0 SIMT, 1 wgmma, 2 the float64
+// form's DMMA tile): the size of `cost_part` is ceil(n / this).
+int kmeans_assign_rows(int route) {
+  return route == 2 ? assign_dmma::BM : route == 1 ? assign_wg::BM : BM;
+}
+
+// The float64 form's DMMA tile: centers a tile, its dynamic shared
+// memory in bytes.
+int kmeans_f64_center_tile() { return assign_dmma::BN; }
+int kmeans_f64_smem_bytes() { return assign_dmma::SMEM_BYTES; }
+// A warp's tile: rows (side 0) and centers (side 1).
+int kmeans_f64_warp_tile(int side) { return side == 0 ? assign_dmma::WM : assign_dmma::WN; }
 
 // Bytes of the wgmma route's prepared centers at a tier, or -1 where
 // the route does not take d.
@@ -714,12 +580,12 @@ int kmeans_accumulate(int dev, const float* x, const float* w, const float* c, i
 
 // The float64 form: one fused pass at the highest tier on double
 // operands x (n, d), w (n), c (k, d), contiguous on device `dev`.
-// Scratch as kmeans_accumulate's at route 0 (no prep), each float a
-// double: csq kmeans_csq_size(k), labels n, cost_part
-// ceil(n / kmeans_assign_rows(0)), counts_i k * ranges, scan_part
-// kmeans_scan_tiles(k * ranges), rank n, perm n, psums k * parts * d,
-// pcounts k * parts.  Outputs sums (k, d), counts (k), cost (1; written
-// only when need_cost).  Returns a cudaError_t.
+// Scratch as kmeans_accumulate's (no prep), each float a double: csq
+// kmeans_csq_size(k), labels n, cost_part ceil(n / kmeans_assign_rows(2)),
+// counts_i k * ranges, scan_part kmeans_scan_tiles(k * ranges), rank n,
+// perm n, psums k * parts * d, pcounts k * parts.  Outputs sums (k, d),
+// counts (k), cost (1; written only when need_cost).  Returns a
+// cudaError_t.
 int kmeans_accumulate_f64(int dev, const double* x, const double* w, const double* c,
                           int n, int d, int k, int need_cost, int range_rows, int ranges,
                           int parts, double* csq, int* labels, double* cost_part,
@@ -733,13 +599,9 @@ int kmeans_accumulate_f64(int dev, const double* x, const double* w, const doubl
   if (err != cudaSuccess) return (int)err;
   const int kpad = kmeans_csq_size(k);
   csq_kernel<<<(kpad + 255) / 256, 256, 0, st>>>(c, k, kpad, d, csq);
-  const int blocks = (n + BM - 1) / BM;
-  if (need_cost)
-    assign_f64_kernel<true><<<blocks, THREADS, 0, st>>>(x, w, c, csq, n, d, k, labels,
-                                                        cost_part);
-  else
-    assign_f64_kernel<false><<<blocks, THREADS, 0, st>>>(x, w, c, csq, n, d, k, labels,
-                                                         cost_part);
+  err = assign_dmma::launch(dev, st, need_cost != 0, x, w, c, csq, n, d, k, labels, cost_part);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + assign_dmma::BM - 1) / assign_dmma::BM;
   launch_sums<0, double>(st, x, w, labels, n, d, k, range_rows, ranges, parts, need_cost,
                          blocks, cost_part, counts_i, scan_part, rank, perm, psums, pcounts,
                          sums, counts, cost);

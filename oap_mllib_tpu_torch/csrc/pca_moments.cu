@@ -44,12 +44,13 @@
 //
 // The float64 form (`pca_moments_f64`, the x64 parity lane,
 // Config.enable_x64): both passes on double rows, the sums Kahan-added
-// in f64, the Gram on the FP64 pipe (gram_simt.cuh's 64-wide f64 tile)
-// with no tier, no split and no accumulator restart.  Its bound on an
-// H100 SXM: n d (d + 1) operations at 67 TFLOP/s on the FP64 tensor
-// cores (34 on the FP64 pipe the tile runs on), or the 8-byte read of x,
-// whichever is longer: at n = 2^20, d = 128, 17.3 GFLOP (0.26 ms; 0.51
-// ms at 34) against 1.07 GB (0.32 ms).
+// in f64, the Gram on the FP64 tensor cores (gram_dmma.cuh: DMMA
+// mma.sync on 128-wide tiles fed by cp.async stages, one tile holding
+// the whole upper triangle at d <= 128) with no tier, no split and no
+// accumulator restart.  Its bound on an H100 SXM: n d (d + 1)
+// operations at 67 TFLOP/s on the FP64 tensor cores, or the 8-byte read
+// of x, whichever is longer: at n = 2^20, d = 128, 17.3 GFLOP (0.26 ms)
+// against 1.07 GB (0.32 ms).
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).  Every
@@ -58,6 +59,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gram_dmma.cuh"
 #include "gram_simt.cuh"
 #include "gram_tile.cuh"
 #include "gram_wgmma.cuh"
@@ -188,10 +190,20 @@ int pca_moments(int dev, const float* x, const float* mask,
   return (int)cudaGetLastError();
 }
 
+// The float64 Gram's tile edge, rows a stage, the dynamic shared memory
+// of a launch with one (`two` 0) or two staged column strips, and the
+// job of a diagonal tile's warp (side 0 its row block, 1 its column
+// block, 2 its part: gram_dmma::diag_job).
+int pca_f64_gram_tile() { return gram_dmma::T; }
+int pca_f64_gram_rows() { return gram_dmma::BK; }
+int pca_f64_gram_smem(int two) { return gram_dmma::smem_bytes(two != 0); }
+int pca_f64_gram_job(int warp, int side) { return gram_dmma::diag_job(warp, side); }
+
 // The float64 form (the x64 parity lane): the same two passes on double
 // x (n, d), mask (n) or null, mean (d), every scratch and output a
 // double, sized as pca_moments' at route 0; the Gram from
-// gram_simt::launch_f64 (64-wide tiles, `m` per side), no tier.
+// gram_dmma::launch (128-wide tiles, `m` per side, slice_rows a multiple
+// of pca_f64_gram_rows()), no tier.
 int pca_moments_f64(int dev, const double* x, const double* mask, const double* mean,
                     int n, int d, int need_sums, int need_gram, int sum_slices,
                     int sum_slice_rows, double* psum, double* pcount, double* colsum,
@@ -204,8 +216,9 @@ int pca_moments_f64(int dev, const double* x, const double* mask, const double* 
     launch_sums<double>(x, mask, n, d, sum_slices, sum_slice_rows, psum, pcount, colsum,
                         count, st);
   if (need_gram) {
-    gram_simt::launch_f64(x, mask, mean, n, d, m, gram_slices, gram_slice_rows, gram_part,
-                          st);
+    const int err =
+        gram_dmma::launch(x, mask, mean, n, d, m, gram_slices, gram_slice_rows, gram_part, st);
+    if (err != 0) return err;
     const long long elems = (long long)d * d;
     gram::sum_slices_kernel<double><<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(
         gram_part, gram_slices, elems, gram);

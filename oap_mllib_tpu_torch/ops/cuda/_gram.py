@@ -12,8 +12,10 @@ kernel (the ALS factor Gram sizes its own one-launch grid,
   d >= :data:`WGMMA_MIN_D`): 128-wide tensor-core tiles, one block per
   SM, sized by :func:`wgmma_geometry` so the grid fills the card in
   whole waves.  :func:`pca_gram_route` picks the route;
-- the float64 form of K2 (``gram_simt.cuh``'s f64 tile, the x64 parity
-  lane): 64-wide FP64 tiles, sized by :func:`f64_gram_geometry`.
+- the float64 form of K2 (``csrc/gram_dmma.cuh``, the x64 parity lane):
+  128-wide tiles on the FP64 tensor cores (DMMA), so at d <= 128 one
+  block holds the whole upper triangle of its row slice; sized by
+  :func:`f64_gram_geometry`, its shared memory :func:`f64_gram_smem`.
 """
 
 from __future__ import annotations
@@ -52,22 +54,51 @@ def gram_geometry(n: int, d: int, target_blocks: int = _TARGET_BLOCKS
     return tm, m, -(-n // slice_rows), slice_rows
 
 
-_F64_TILE = 64
+# the float64 Gram (csrc/gram_dmma.cuh): tile edge, rows a stage, the
+# padded slot of a staged row, stages, and the jobs of a diagonal tile's
+# sixteen warps: (row block, column block, part) in 32 x 32 blocks, part
+# 0 / 1 the left / right 16 columns of an off-diagonal block, 2 a whole
+# diagonal block
+_F64_TILE = 128
+_F64_BK = 16
+_F64_LD = _F64_TILE + 4
+_F64_STAGES = 4
+_OFF_BLOCKS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+F64_DIAG_JOBS = (tuple((i, j, 0) for i, j in _OFF_BLOCKS) + tuple((i, j, 1) for i, j in _OFF_BLOCKS)
+                 + tuple((b, b, 2) for b in range(4)))
 
 
 def f64_gram_geometry(n: int, d: int, target_blocks: int = _TARGET_BLOCKS
                       ) -> Tuple[int, int, int]:
     """``(m, slices, slice_rows)`` of the float64 Gram of an (n, d)
-    table: m 64-wide tiles per side, row slices by :func:`gram_geometry`'s
-    rule (about ``target_blocks`` blocks, slices of at least 256 rows,
-    partials of at most 2^25 doubles)."""
+    table: m 128-wide tiles per side (one at d <= 128: the whole upper
+    triangle a block) and the row slices.  At most about
+    ``target_blocks`` (tile, slice) blocks, slices of at least 256 rows,
+    partials of at most 2^25 doubles; from a quarter of that count up,
+    the slice count whose blocks (one an SM) fill the 132 SMs in the
+    fullest waves, the fewest slices among equals, so fewer partials
+    are written and summed (132 slices of one tile at d <= 128, 11 of
+    36 at d = 1024).  slice_rows is a multiple of the 16-row stage."""
     m = -(-d // _F64_TILE)
     tiles = m * (m + 1) // 2
-    slices = max(1, min(-(-target_blocks // tiles),
-                        -(-n // _MIN_SLICE_ROWS),
-                        _PARTIAL_ELEMS // (d * d)))
-    slice_rows = -(-(-(-n // slices)) // _BK) * _BK
+    want = max(1, min(-(-target_blocks // tiles),
+                      -(-n // _MIN_SLICE_ROWS),
+                      _PARTIAL_ELEMS // (d * d)))
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (_SMS * -(-blocks // _SMS))
+
+    slices = max(range(-(-want // 4), want + 1), key=lambda s: (fill(s), -s))
+    slice_rows = -(-(-(-n // slices)) // _F64_BK) * _F64_BK
     return m, -(-n // slice_rows), slice_rows
+
+
+def f64_gram_smem(d: int) -> int:
+    """Dynamic shared-memory bytes of a float64 Gram block: one staged
+    column strip at d <= 128, two above, and each stage's mask values."""
+    strips = 1 if d <= _F64_TILE else 2
+    return _F64_STAGES * (strips * _F64_BK * _F64_LD + _F64_BK) * 8
 
 
 def pca_gram_route(mode: str, d: int) -> str:

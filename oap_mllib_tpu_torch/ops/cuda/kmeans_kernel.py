@@ -19,8 +19,10 @@
 
 float64 operands (the x64 parity lane, ``Config.enable_x64``) take the
 kernel's float64 form, ``kmeans_accumulate_f64``, at ``highest`` only (a
-bf16 tier on f64 raises): a SIMT tile of FP64 FMAs for the assignment at
-every depth, the sums, counts and cost in f64.  The plain version runs
+bf16 tier on f64 raises): the assignment's cross term on the FP64 tensor
+cores at every depth (``csrc/assign_dmma.cuh``: DMMA ``mma.sync``, 128
+rows by 128 centers a block, ``cp.async`` stages; sized by
+:func:`f64_assign_geometry`), the sums, counts and cost in f64.  The plain version runs
 in its operands' dtype.  Every operand has one dtype: a mixed f32 / f64
 call raises.  The f64 form takes :data:`DEFAULT_GEOMETRY`'s knobs like
 the f32 one (the autotuner pins it there, ops/cuda/autotune.py).
@@ -76,9 +78,19 @@ DEFAULT_GEOMETRY = {"range_rows": _RANGE_ROWS, "parts": _MAX_PARTS}
 # wgmma keeps each row's operand parts in registers and shared memory
 # for the whole pass, which bounds its depth; wider rows take the SIMT
 # tile
-ROUTE_CODE = {"simt": 0, "wgmma": 1}
+ROUTE_CODE = {"simt": 0, "wgmma": 1, "dmma": 2}
 WGMMA_MAX_D = 256
-_ROWS = {"simt": 64, "wgmma": 128}
+_ROWS = {"simt": 64, "wgmma": 128, "dmma": 128}
+# the float64 form's DMMA tile (csrc/assign_dmma.cuh): centers a tile,
+# depth a stage, a staged row's padded slot, stages, and the static
+# shared memory beside the stages (|x|^2, the warps' bests, row costs)
+_F64_TILE = 128
+_F64_BK = 32
+_F64_LD = _F64_BK + 4
+_F64_STAGES = 3
+_F64_STATIC_SMEM = 128 * 8 + 2 * 128 * (8 + 4) + 128 * 8
+# a warp's tile of (rows, centers): 4 x 2 warps cover a block's 128 x 128
+F64_WARP_TILE = (32, 64)
 # the wgmma route's prepared centers: tiles of BN centers by 64-deep
 # chunks, in PARTS bf16 parts of 128-byte rows (three parts at highest)
 _CHUNK = 64
@@ -245,6 +257,34 @@ def assign_geometry(n: int, k: int, d: int, mode: str) -> AssignGeometry:
     return AssignGeometry(route, rows, blocks, parts, tile, prep)
 
 
+class F64AssignGeometry(NamedTuple):
+    rows: int        # rows per block
+    blocks: int      # blocks: the cost partials
+    tile: int        # centers per tile
+    tiles: int       # center tiles a block walks
+    stages: int      # depth stages per center tile
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def f64_assign_geometry(n: int, k: int, d: int) -> F64AssignGeometry:
+    """The float64 form's assignment launch: blocks of 128 rows, each
+    walking the k centers in tiles of 128 and the depth in stages of 32,
+    its staged rows and centers in dynamic shared memory."""
+    rows = _ROWS["dmma"]
+    smem = _F64_STAGES * (rows + _F64_TILE) * _F64_LD * 8
+    return F64AssignGeometry(rows, -(-n // rows), _F64_TILE, -(-k // _F64_TILE),
+                             -(-d // _F64_BK), smem)
+
+
+def f64_scratch(n: int, k: int, d: int, ranges: int, parts: int) -> dict:
+    """Elements of each scratch buffer of the float64 form's launch (the
+    library's contract, ``kmeans_accumulate_f64``): ``cost_part`` holds
+    one partial per assignment block."""
+    return {"csq": csq_size(k), "labels": n, "cost_part": f64_assign_geometry(n, k, d).blocks,
+            "counts_i": k * ranges, "scan_part": scan_tiles(k * ranges), "rank": n, "perm": n,
+            "psums": k * parts * d, "pcounts": k * parts}
+
+
 def csq_size(k: int) -> int:
     """Floats of the kernel's |c|^2 buffer: k rounded up to whole tiles of
     the widest wgmma center tile (the padding holds +inf)."""
@@ -304,6 +344,11 @@ def _bind(lib):
     lib.kmeans_csq_size.restype = i32
     lib.kmeans_accumulate_f64.argtypes = [i32, ptr, ptr, ptr] + [i32] * 7 + [ptr] * 13
     lib.kmeans_accumulate_f64.restype = i32
+    for name in ("kmeans_f64_center_tile", "kmeans_f64_smem_bytes"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.kmeans_f64_warp_tile.argtypes = [i32]
+    lib.kmeans_f64_warp_tile.restype = i32
     # the wrapper sizes every buffer from its own geometry: it must be the
     # library's
     for route, rows in _ROWS.items():
@@ -313,6 +358,11 @@ def _bind(lib):
         for d, k in ((1, 1), (29, 13), (256, 1000)):
             if lib.kmeans_prep_bytes(MODE_CODE[mode], d, k) != assign_geometry(1, k, d, mode).prep_bytes:
                 raise RuntimeError(f"{KERNEL}: prepared-center bytes disagree at {mode}")
+    f64 = f64_assign_geometry(1, 1, 1)
+    if (lib.kmeans_f64_center_tile() != f64.tile
+            or lib.kmeans_f64_smem_bytes() != f64.smem_bytes
+            or (lib.kmeans_f64_warp_tile(0), lib.kmeans_f64_warp_tile(1)) != F64_WARP_TILE):
+        raise RuntimeError(f"{KERNEL}: the float64 tile's centers or shared memory disagree")
     if lib.kmeans_scan_tiles(512_000) != scan_tiles(512_000):
         raise RuntimeError(f"{KERNEL}: scan tiles disagree")
     if lib.kmeans_csq_size(1000) != csq_size(1000):
@@ -377,8 +427,8 @@ def _launch(x, w, c, mode: str, need_cost: bool, geometry=None):
 
 
 def _launch_f64(lib, x, w, c, need_cost: bool, range_rows: int, ranges: int, parts: int):
-    """The float64 form's launch (highest, SIMT assignment): the same
-    outputs as :func:`_launch`, every float buffer a double."""
+    """The float64 form's launch (highest, the DMMA assignment): the
+    same outputs as :func:`_launch`, every float buffer a double."""
     n, d = x.shape
     k = c.shape[0]
     dev = x.device
@@ -387,11 +437,12 @@ def _launch_f64(lib, x, w, c, need_cost: bool, range_rows: int, ranges: int, par
     def empty(size, dtype=f64):
         return torch.empty(size, dtype=dtype, device=dev)
 
-    csq, labels = empty(csq_size(k)), empty(n, i32)
-    cost_part = empty(-(-n // _ROWS["simt"]))
-    counts_i, scan_part = empty(k * ranges, i32), empty(scan_tiles(k * ranges), i32)
-    rank, perm = empty(n, i32), empty(n, i32)
-    psums, pcounts = empty(k * parts * d), empty(k * parts)
+    size = f64_scratch(n, k, d, ranges, parts)
+    csq, labels = empty(size["csq"]), empty(size["labels"], i32)
+    cost_part = empty(size["cost_part"])
+    counts_i, scan_part = empty(size["counts_i"], i32), empty(size["scan_part"], i32)
+    rank, perm = empty(size["rank"], i32), empty(size["perm"], i32)
+    psums, pcounts = empty(size["psums"]), empty(size["pcounts"])
     sums, counts, cost = empty((k, d)), empty(k), empty(())
     stream = torch.cuda.current_stream(dev).cuda_stream
     t0 = time.perf_counter()

@@ -31,7 +31,9 @@ into other slices, so they change the fold.  ``geometry=None`` launches
 float64 operands (the x64 parity lane, ``Config.enable_x64``) take the
 kernel's float64 form, ``pca_moments_f64``, at ``highest`` only (a bf16
 tier on f64 raises): the sums and count Kahan-added in f64, the Gram on
-the FP64 pipe in 64-wide tiles (:func:`f64_gram_geometry`), no tier.
+the FP64 tensor cores (``csrc/gram_dmma.cuh``: DMMA ``mma.sync`` in
+128-wide tiles fed by ``cp.async`` stages, the whole upper triangle one
+block's at d <= 128, sized by :func:`f64_gram_geometry`), no tier.
 The plain version runs in its operands' dtype; a mixed f32 / f64 call
 raises.  The f64 form takes the same knobs.
 """
@@ -44,7 +46,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from oap_mllib_tpu_torch.ops.cuda._gram import (_TARGET_BLOCKS, f64_gram_geometry,
+from oap_mllib_tpu_torch.ops.cuda._gram import (_F64_BK, _F64_TILE, _TARGET_BLOCKS,
+                                                F64_DIAG_JOBS, f64_gram_geometry, f64_gram_smem,
                                                 gram_geometry, pca_gram_route, wgmma_geometry)
 from oap_mllib_tpu_torch.ops.cuda._tiers import (LABELS, MODE_CODE, book_launch, check_mode,
                                                  tiered_dot)
@@ -148,6 +151,22 @@ def _bind(lib):
     lib.pca_moments_f64.argtypes = [i32, ptr, ptr, ptr] + [i32] * 6 + [ptr] * 4 + [i32] * 3 \
         + [ptr, ptr, ptr]
     lib.pca_moments_f64.restype = i32
+    for name in ("pca_f64_gram_tile", "pca_f64_gram_rows"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.pca_f64_gram_smem.argtypes = [i32]
+    lib.pca_f64_gram_smem.restype = i32
+    lib.pca_f64_gram_job.argtypes = [i32, i32]
+    lib.pca_f64_gram_job.restype = i32
+    # the wrapper sizes the float64 Gram's slices and the tests emulate
+    # its blocks from the figures in _gram: they must be the library's
+    jobs = tuple(tuple(lib.pca_f64_gram_job(w, side) for side in range(3))
+                 for w in range(len(F64_DIAG_JOBS)))
+    if (lib.pca_f64_gram_tile() != _F64_TILE or lib.pca_f64_gram_rows() != _F64_BK
+            or lib.pca_f64_gram_smem(0) != f64_gram_smem(_F64_TILE)
+            or lib.pca_f64_gram_smem(1) != f64_gram_smem(_F64_TILE + 1)
+            or jobs != F64_DIAG_JOBS):
+        raise RuntimeError(f"{KERNEL}: the float64 Gram's tile geometry disagrees")
     return lib
 
 
@@ -214,7 +233,7 @@ def _launch(x, mask, mean, mode, need_gram, need_sums, geometry=None):
 def _launch_f64(lib, x, mask, mean, need_gram, need_sums, empty, target_blocks, sum_slices,
                 sum_rows):
     """The float64 form's launch: the outputs of :func:`_launch`, every
-    float buffer a double, the Gram in 64-wide f64 tiles."""
+    float buffer a double, the Gram in 128-wide DMMA tiles."""
     n, d = x.shape
     dev = x.device
     m, g_slices, g_rows = f64_gram_geometry(n, d, target_blocks)

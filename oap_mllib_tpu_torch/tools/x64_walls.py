@@ -1,0 +1,128 @@
+"""Times of the float64 forms of K1 and K2 on the card, for comparing
+checkouts on one card in one run.
+
+    python oap_mllib_tpu_torch/tools/x64_walls.py --root DIR [--reps 10]
+
+imports ``oap_mllib_tpu_torch`` from the checkout at ``DIR`` (only the
+wrappers ``kmeans_kernel.lloyd_accumulate`` and ``pca_kernel.pca_moments``
+on float64 operands, which every checkout since the float64 lane has),
+builds its kernels, and times at the main paths' shapes: K1 f64 at 2^20
+x 256, k = 1000, in loop and cost mode, and K2 f64's Gram pass at 2^20 x
+128 and 2^18 x 1024.  Each time is a mean over ``--reps`` calls between
+CUDA events after a warm call; beside it, the device ms of the kernels
+of one call from torch.profiler (the assignment's and the Gram's own
+kernel).  Prints ``X64_WALLS <json>`` with the card's name and power
+limit.  Run two checkouts as parent, change, change, parent in one
+command to compare them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def _data(dev, seed, n, d, k=None):
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f64 = torch.float64
+    if k is None:
+        q, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev, dtype=f64))
+        scale = 10.0 * 0.85 ** torch.arange(d, device=dev, dtype=f64)
+        z = torch.randn((n, d), generator=g, device=dev, dtype=f64) * scale
+        return (z @ q.T + 3.0).contiguous()
+    true = torch.randn((k, d), generator=g, device=dev, dtype=f64) * 2.0
+    lab = torch.randint(0, k, (n,), generator=g, device=dev)
+    x = (true[lab] + torch.randn((n, d), generator=g, device=dev, dtype=f64)).contiguous()
+    w = 0.5 + torch.rand((n,), generator=g, device=dev, dtype=f64)
+    c = (true + 0.5 * torch.randn((k, d), generator=g, device=dev, dtype=f64)).contiguous()
+    return x, w, c
+
+
+def _ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _split(fn):
+    """Device ms by kernel name of one call (torch.profiler over three
+    calls, each kernel's mean over the launches recorded: the tracer can
+    drop one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            out[ev.key[:60]] = out.get(ev.key[:60], 0.0) + us / max(1, ev.count) / 1e3
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    from oap_mllib_tpu_torch.ops.cuda import kmeans_kernel, pca_kernel
+
+    assert Path(kmeans_kernel.__file__).resolve().is_relative_to(root), kmeans_kernel.__file__
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    out = {"root": str(root), "card": smi.strip().splitlines()[0] if smi.strip() else None}
+    x, w, c = _data(dev, 0, 1 << 20, 256, 1000)
+    for need_cost in (False, True):
+        def run():
+            return kmeans_kernel.lloyd_accumulate(x, w, c, "highest", need_cost)
+
+        split = _split(run)
+        out[f"k1_{'cost' if need_cost else 'loop'}"] = {
+            "ms": _ms(run, args.reps), "split_ms": split,
+            "assign_ms": sum(t for k, t in split.items() if "assign" in k)}
+    del x, w, c
+    for n, d in ((1 << 20, 128), (1 << 18, 1024)):
+        x = _data(dev, d, n, d)
+        mask = torch.ones(n, dtype=torch.float64, device=dev)
+        mean = x.mean(dim=0)
+
+        def gram():
+            return pca_kernel.pca_moments(x, mask, mean, "highest", need_sums=False)
+
+        split = _split(gram)
+        out[f"k2_{n}x{d}"] = {"ms": _ms(gram, args.reps), "split_ms": split,
+                              "gram_ms": sum(t for k, t in split.items() if "gram" in k
+                                             and "sum_slices" not in k)}
+        del x
+    print("X64_WALLS " + json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
