@@ -16,6 +16,7 @@
     python3 chip_smoke.py --tuning     # only the build and 32
     python3 chip_smoke.py --ingest     # only the build and 33
     python3 chip_smoke.py --x64        # only the build and 34
+    python3 chip_smoke.py --wide       # only the build and 35
 
 Phases, each a hard check (any failure exits non-zero):
 
@@ -23,8 +24,10 @@ Phases, each a hard check (any failure exits non-zero):
 2. build: every kernel under ``oap_mllib_tpu_torch/csrc`` with nvcc, one
    process per source, all started together.
 3. small: each kernel against its plain version at small ragged shapes,
-   every tier and mode (the ALS solve bit for bit); the kernel Lloyd
-   loop against the numpy reference, and small PCA and ALS fits against
+   every tier and mode (the ALS solve bit for bit; K1 at depths either
+   side of 256 and ragged wide ones, 257, 300, 513, 1000, and at 2,100
+   centers, several center tiles a group of the wide route); the kernel
+   Lloyd loop against the numpy reference, and small PCA and ALS fits against
    their numpy oracles; a nonnegative ALS fit (factors >= 0, within 1e-6
    of the numpy NNLS oracle); the host library's grouped edges bit-equal
    to numpy's at ragged shapes.
@@ -498,6 +501,30 @@ machine has four, else on the one card.
    packs f32); (e) a short implicit ALS fit with the flag on and off:
    K3 and K4 launch as before, the factors bit-equal.
 
+35. kmeans_wide (run after phase 5's fit and loop parity; K1 on rows
+   wider than 256 features, the ``wgmma_wide`` route of
+   ``csrc/assign_wide.cuh``): the HGMMA instructions of the built
+   ``libkmeans_accumulate`` in each route's kernels (``cuobjdump
+   -sass``; fails when the wide route has none); at 2^20 x 512 and 2^20 x
+   960 (GIST1M's width) f32 blobs, k = 1000, every tier and both modes,
+   K1 against its plain version (labels >= 99.99 %, sums, counts and cost
+   within the ``compare`` bounds, two launches bit-equal), its route, ms
+   a launch, the plain version's ms, the bound (one bf16 product or six
+   at the tensor-core peak) and ``torch.matmul(x, c.T)`` at the tier's
+   operand type (f32 at highest, bf16 else) as yardstick; then
+   ``KMeans(k=1000, max_iter=20, init_mode="k-means||", seed=0).fit(x)``
+   on the 2^20 x 960 table with the counts zeroed just before: K1 =
+   num_iter + 1, every launch on the wide route; the same fit with its
+   Lloyd loop on the plain version (the same k-means|| init: cost within
+   1e-4; iterations and centers recorded, as two centers seeded in one
+   blob split its rows at near-ties); the kernel Lloyd loop against the
+   plain-version loop from centers near the blob centers (equal
+   iterations, centers within 1e-4 of their scale, cost within 1e-4, as
+   phase 5 holds its loop);
+   ``predict`` (int32 labels in range) and ``compute_cost`` (within 1e-4
+   of the training cost) on the model.  Phase 3 holds the route at
+   ragged wide shapes first.
+
 The last three lines are the kernels JSON, the card from nvidia-smi and
 ``{"ok": true, "device": {...}}``.  ``--rehearse`` runs every phase on
 the CPU at tiny sizes and never prints the ok line.
@@ -545,6 +572,12 @@ from oap_mllib_tpu_torch.utils.timing import Timings
 
 FULL = {"n": 1 << 20, "d": 256, "k": 1000}
 TINY = {"n": 4133, "d": 29, "k": 11}
+# K1 above d = 256 (phase 35): 2^20 rows at 512 and at GIST1M's 960
+# features, k = 1000; the fit on the 960-wide table
+WIDE_FULL = {"shapes": [(1 << 20, 512), (1 << 20, 960)], "k": 1000, "fit": (1 << 20, 960),
+             "max_iter": 20}
+WIDE_TINY = {"shapes": [(3001, 300), (2000, 520)], "k": 13, "fit": (3001, 300),
+             "max_iter": 3}
 TIERS = ("highest", "high", "default")
 # sums/counts tolerance on the same labels: highest/high sum f32 values
 # (exact bf16 parts for high) in another order; default sums
@@ -646,13 +679,8 @@ def nvidia_smi():
 
 
 def count_sass(lib, opcode):
-    """Instructions of ``opcode`` in a built library's SASS, from the
-    toolkit's ``cuobjdump`` beside nvcc."""
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                         timeout=300)
-    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr.strip()[:500]}")
-    return sum(1 for line in out.stdout.splitlines() if re.search(rf"\b{opcode}\b", line))
+    """Instructions of ``opcode`` in a built library's SASS."""
+    return sum(count_sass_by_function(lib, opcode).values())
 
 
 def sync(dev):
@@ -761,9 +789,12 @@ def phase_small(dev):
     kernel loop against the numpy reference."""
     results = []
     # wgmma at d <= 256 (one and many center tiles, ragged rows, 4-byte
-    # copies where d is no multiple of 4), SIMT at d = 300
+    # copies where d is no multiple of 4), wgmma_wide above (depths no
+    # multiple of 4 or of 64, one and several groups, several center
+    # tiles a group at k = 2100)
     for n, d, k in ((5000, 16, 8), (3001, 37, 13), (4099, 256, 1000), (2000, 64, 300),
-                    (777, 300, 70)):
+                    (777, 300, 70), (777, 257, 70), (1025, 300, 64), (513, 513, 129),
+                    (300, 1000, 9), (1500, 300, 2100)):
         x, w, c = blobs(n, d, k, dev, seed=n)
         for mode in TIERS:
             for need_cost in (True, False):
@@ -777,6 +808,155 @@ def phase_small(dev):
     check(abs(float(cost1) - cost2) <= 1e-4 * cost2, "small loop: cost off")
     emit("small", {"variants": len(results), "loop_iters": it1,
                    "worst_sums_rel_err": max(r["sums_rel_err"] for r in results)})
+
+
+def count_sass_by_function(lib, opcode):
+    """Instructions of ``opcode`` in each kernel function of a built
+    library's SASS, by mangled name, from the toolkit's ``cuobjdump``
+    beside nvcc."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts.setdefault(fn, 0)
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def wide_hgmma():
+    """HGMMA instructions of K1's library by assignment route: the d <= 256
+    route's kernels, the wide route's; fails when the wide route has
+    none."""
+    lib = _build.library_path(kmeans_kernel.KERNEL)
+    by_fn = count_sass_by_function(lib, "HGMMA")
+    out = {"wgmma": sum(v for f, v in by_fn.items() if "assign_wgmma_kernel" in f),
+           "wgmma_wide": sum(v for f, v in by_fn.items() if "assign_wide_kernel" in f)}
+    print(f"sass {lib.name} HGMMA by route: {out}", flush=True)
+    check(out["wgmma_wide"] > 0, "the wide route's kernels hold no HGMMA instruction")
+    return out
+
+
+def wide_fit(cfg, dev):
+    """The wide table's K-Means fit through the entry point, counts zeroed
+    just before (K1 = num_iter + 1 on the wide route), held against the
+    same fit with its Lloyd loop on the plain version (the same k-means||
+    init); the kernel loop against the plain-version loop from centers
+    near the blob centers; predict and compute_cost on the model."""
+    n, d = cfg["fit"]
+    k, max_iter = cfg["k"], cfg["max_iter"]
+    x, _, c_near = blobs(n, d, k, dev, seed=35)
+
+    def fit():
+        return KMeans(k=k, max_iter=max_iter, tol=1e-4, init_mode="k-means||", seed=0,
+                      device=str(dev)).fit(x)
+
+    sync(dev)
+    t0 = time.perf_counter()
+    model, launches = counted_fit(fit, kmeans_kernel.LAUNCHES)
+    wall = time.perf_counter() - t0
+    s = model.summary
+    expect = s.num_iter + 1 if dev.type == "cuda" else 0
+    check(launches[kmeans_kernel.KERNEL] == expect,
+          f"wide fit: K1 launched {launches[kmeans_kernel.KERNEL]} times, expected "
+          f"num_iter + 1 = {expect}")
+    check(kmeans_kernel.assign_route(d) == "wgmma_wide", f"wide fit: route at d = {d}")
+    check(np.isfinite(s.training_cost) and model.cluster_centers_.shape == (k, d)
+          and np.all(np.isfinite(model.cluster_centers_)), "wide fit: non-finite or misshapen")
+    labels = model.predict(x)
+    check(labels.dtype == np.int32 and labels.shape == (n,) and labels.min() >= 0
+          and labels.max() < k, f"wide predict: {labels.dtype}, {labels.shape}")
+    cost = model.compute_cost(x)
+    check(abs(cost - s.training_cost) <= 1e-4 * s.training_cost,
+          f"wide compute_cost {cost} vs training cost {s.training_cost}")
+    # the same fit (the same k-means|| init: it launches no K1) with the
+    # Lloyd loop on the plain version
+    real = kmeans_kernel.lloyd_accumulate
+    kmeans_kernel.lloyd_accumulate = _plain_k1
+    try:
+        ref = fit()
+    finally:
+        kmeans_kernel.lloyd_accumulate = real
+    # from k-means|| seeds some blobs hold two centers, whose rows split at
+    # near-ties: the two fits may stop an iteration apart (the move test
+    # passes when no label changes), so the fits are held by their cost and
+    # the loops from one center a blob by iterations, centers and cost
+    cost_err = abs(s.training_cost - ref.summary.training_cost) / ref.summary.training_cost
+    center_err = float(np.max(np.abs(model.cluster_centers_ - ref.cluster_centers_))
+                       / np.max(np.abs(ref.cluster_centers_)))
+    check(cost_err <= 1e-4, f"wide fit vs the plain-version fit: cost {cost_err:.3g} "
+          f"({s.num_iter} vs {ref.summary.num_iter} iterations)")
+    ones = torch.ones(n, device=dev)
+    c1, it1, cost1, _ = kmeans_kernel.lloyd_run_kernel(x, ones, c_near, max_iter, 1e-4)
+
+    def plain(centers, final):
+        return kmeans_kernel.lloyd_accumulate_plain(x, ones, centers, "highest", final)
+
+    c2, it2, cost2, _ = kmeans_ops._lloyd_loop(plain, lambda m: m, c_near, max_iter, 1e-4)
+    loop_cost_err = abs(float(cost1) - float(cost2)) / float(cost2)
+    loop_center_err = _rel_err(c1, c2)
+    check(it1 == it2 and loop_cost_err <= 1e-4 and loop_center_err <= 1e-4,
+          f"wide loop parity: {it1} vs {it2} iterations, cost {loop_cost_err:.3g}, "
+          f"centers {loop_center_err:.3g}")
+    return {"shape": [n, d], "k": k, "num_iter": s.num_iter, "wall_s": wall,
+            "phases_s": s.timings.as_dict(), "launches": launches,
+            "iters_per_s": s.num_iter / max(s.timings.as_dict()["lloyd_loop"], 1e-12),
+            "training_cost": s.training_cost, "compute_cost": cost,
+            "predict_dtype": str(labels.dtype),
+            "vs_plain_fit": {"num_iter": ref.summary.num_iter, "cost_rel_err": cost_err,
+                             "centers_rel_err": center_err},
+            "loop_parity": {"n_iter": it1, "plain_n_iter": it2, "cost_rel_err": loop_cost_err,
+                            "centers_rel_err": loop_center_err}}
+
+
+def phase_kmeans_wide(cfg, dev, smi):
+    """Phase 35 (module docstring): K1 above d = 256."""
+    t_phase = time.perf_counter()
+    reps = 5 if dev.type == "cuda" else 1
+    hgmma = wide_hgmma() if dev.type == "cuda" else None
+    k = cfg["k"]
+    variants = []
+    for n, d in cfg["shapes"]:
+        x, w, c = blobs(n, d, k, dev, seed=d)
+        route = kmeans_kernel.assign_route(d)
+        check(route == "wgmma_wide", f"d = {d} takes the {route} route")
+        for mode in TIERS:
+            if mode == "highest":
+                a, b = x, c.T
+            else:
+                a, b = x.to(torch.bfloat16), c.T.contiguous().to(torch.bfloat16)
+            for need_cost in (False, True):
+                v = compare(x, w, c, mode, need_cost)
+                v.update(shape=[n, d], k=k, route=route)
+                v["ms"] = time_ms(lambda: run_kernel(x, w, c, mode, need_cost), dev, reps)
+                v["plain_ms"] = time_ms(
+                    lambda: kmeans_kernel.lloyd_accumulate_plain(x, w, c, mode, need_cost),
+                    dev, 1)
+                v["bound_ms"], v["bound_by"] = bound(n, d, k, mode)
+                v["library_ms"] = time_ms(lambda: torch.matmul(a, b), dev, reps)
+                v["library_call"] = (f"torch.matmul(x, c.T) in "
+                                     f"{'f32' if mode == 'highest' else 'bf16'}: the cross term")
+                variants.append(v)
+                emit("wide_variant", {**v, "card": smi})
+            del a, b
+        del x, w, c
+    fit = wide_fit(cfg, dev)
+    res = {"variants": variants, "fit": fit, "hgmma": hgmma,
+           "wall_s": time.perf_counter() - t_phase, "card": smi}
+    emit("kmeans_wide", {key: res[key] for key in ("fit", "hgmma", "wall_s", "card")})
+    last = cfg["shapes"][-1]
+    loop = [v for v in variants if v["shape"] == list(last) and not v["need_cost"]]
+    print(f"kmeans_wide loop pass at {last[0]} x {last[1]}: " + "; ".join(
+        f"{v['mode']} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f}, matmul {v['library_ms']:.3f})"
+        for v in loop) + f"; fit {fit['wall_s']:.2f} s, {fit['num_iter']} iterations, K1 "
+        f"{fit['launches'][kmeans_kernel.KERNEL]}; phase {res['wall_s']:.1f} s | {smi}",
+        flush=True)
+    return res
 
 
 def phase_kernels(x, w, c, dev, reps):
@@ -8276,6 +8456,8 @@ def main(argv=None) -> int:
     ap.add_argument("--x64", action="store_true",
                     help="only the build and the float64 parity lane's phase (34); prints no "
                          "ok line")
+    ap.add_argument("--wide", action="store_true",
+                    help="only the build and K1 above d = 256 (35); prints no ok line")
     ap.add_argument("--tuning", action="store_true",
                     help="only the build and the kernel-geometry autotuner's phase (32; its "
                          "world \"a\" runs alone, and this process's armed fits stand in "
@@ -8317,6 +8499,10 @@ def main(argv=None) -> int:
         if args.x64:
             phase_x64(X64_TINY if args.rehearse else X64_FULL, dev, smi)
             print(f"x64 phase passed: {smi}", flush=True)
+            return 0
+        if args.wide:
+            phase_kmeans_wide(WIDE_TINY if args.rehearse else WIDE_FULL, dev, smi)
+            print(f"kmeans_wide phase passed: {smi}", flush=True)
             return 0
         if args.tuning:
             phase_tuning(TUNE_TINY if args.rehearse else TUNE_FULL, dev, args.rehearse)
@@ -8379,6 +8565,8 @@ def main(argv=None) -> int:
         # copy, so the table frees here, before the phases between
         km_slab = x[: serve_cfg["slab"]].cpu().numpy()
         del x
+        # K1 above d = 256 (35)
+        wide = phase_kmeans_wide(WIDE_TINY if args.rehearse else WIDE_FULL, dev, smi)
         pca_cfg = PCA_TINY if args.rehearse else PCA_FULL
         als_cfg = ALS_TINY if args.rehearse else ALS_FULL
         pca_vars = phase_pca_kernels(pca_cfg, dev, reps)
@@ -8447,8 +8635,12 @@ def main(argv=None) -> int:
         "bound_by": main_v["bound_by"], "library_ms": main_v["library_ms"],
         "library_call": "torch.matmul(x, c.T): the cross product only",
         "assign_route": main_v["route"],
+        # the assignment's routes by depth: the main path's, and the wide
+        # rows' at phase 35's shapes
+        "assign_routes": {"wgmma": "d <= 256", "wgmma_wide": "d > 256"},
         "shape": cfg, "variants": variants, "breakdown_ms": breakdown,
         "last_card": last_card,
+        "wide": {"variants": wide["variants"], "fit": wide["fit"], "hgmma": wide["hgmma"]},
     }]
     # each kernel's headline: the variant its path's fit runs most
     headline = [
@@ -8505,6 +8697,8 @@ def main(argv=None) -> int:
                                "stream_kmeans fit":
                                    stream_km["fit"]["launches"][kmeans_kernel.KERNEL],
                                "stream_route": route["launches"][kmeans_kernel.KERNEL],
+                               "kmeans_wide fit (2^20 x 960)":
+                                   wide["fit"]["launches"][kmeans_kernel.KERNEL],
                                "sparse_input (two fits)":
                                    sparse["launches"][kmeans_kernel.KERNEL],
                                **{f"ladder {leg}": ladder[leg]["launches"][kmeans_kernel.KERNEL]

@@ -50,7 +50,7 @@
 //     stride byte offset 1024 (eight 128-byte rows), a k-step of 16
 //     values advances the start by 32 bytes; every part starts on 1024.
 //   - After a tile's last chunk the epilogue turns the accumulators into
-//     scores with the __f*_rn forms of the SIMT route.  A thread's
+//     scores with round-to-nearest adds and products (__f*_rn).  A thread's
 //     columns rise with the register index, so a strict > keeps the
 //     tile's lowest index; tiles merge by (score desc, index asc), so they
 //     may come in any order: block b starts at tile b % tiles, spreading
@@ -104,11 +104,11 @@ __host__ __device__ constexpr int smem_bytes(int dpad) {
          BM * 4 + 2 * Cfg<PARTS>::STAGES * 8;
 }
 
-// Bytes of the prepared centers: whole tiles, whole chunks, PARTS parts.
-template <int PARTS>
+// Bytes of the prepared centers: whole tiles of BN centers, whole
+// chunks, PARTS parts.
+template <int PARTS, int BN = Cfg<PARTS>::BN>
 __host__ __device__ constexpr long long prep_bytes(int k, int dpad) {
-  return (long long)((k + Cfg<PARTS>::BN - 1) / Cfg<PARTS>::BN) *
-         (dpad / CHUNK) * Cfg<PARTS>::STAGE_BYTES;
+  return (long long)((k + BN - 1) / BN) * (dpad / CHUNK) * PARTS * BN * 128;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -275,20 +275,21 @@ __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
 }
 
-// The centers (k, d) into their operand form at `prep` (prep_bytes) and
-// nothing else: one thread per 16-byte chunk (8 values) of a padded
-// center row and part.  Rows past k and columns past d are zeros.
-template <int PARTS>
+// The centers (k, d) into their operand form at `prep` (prep_bytes, in
+// tiles of BN centers) and nothing else: one thread per 16-byte chunk (8
+// values) of a padded center row and part.  Rows past k and columns past
+// d are zeros.  assign_wide.cuh takes the same form in its own tiles.
+template <int PARTS, int BN = Cfg<PARTS>::BN>
 __global__ void prep_kernel(const float* __restrict__ c, int k, int d, int dpad,
                             uint8_t* __restrict__ prep) {
-  using C = Cfg<PARTS>;
+  constexpr int PART_BYTES = BN * 128, STAGE_BYTES = PARTS * PART_BYTES;
   const int per_row = dpad / 8;
-  const long long rows = (long long)((k + C::BN - 1) / C::BN) * C::BN;
+  const long long rows = (long long)((k + BN - 1) / BN) * BN;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * per_row) return;
   const int j = (int)(i / per_row), c8 = (int)(i % per_row);
   const int q = c8 / 8, ch = c8 % 8;
-  const int tile = j / C::BN, r = j % C::BN;
+  const int tile = j / BN, r = j % BN;
   float v[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
@@ -307,7 +308,7 @@ __global__ void prep_kernel(const float* __restrict__ c, int k, int d, int dpad,
   const long long stage = (long long)tile * (dpad / CHUNK) + q;
 #pragma unroll
   for (int p = 0; p < PARTS; ++p) {
-    uint8_t* dst = prep + stage * C::STAGE_BYTES + p * C::PART_BYTES + r * 128 +
+    uint8_t* dst = prep + stage * STAGE_BYTES + p * PART_BYTES + r * 128 +
                    ((ch ^ (r & 7)) << 4);
     *reinterpret_cast<uint4*>(dst) = make_uint4(h[p][0], h[p][1], h[p][2], h[p][3]);
   }

@@ -16,13 +16,14 @@
 // + sum(bf16_lo(w x)), counts likewise on w; 2 default = the same cross
 // term, sums as sum(bf16(w x)), counts split like "high".
 //
-// What bounds it on an H100 SXM (data sheet: 67 TFLOP/s FP32, 989 TFLOP/s
-// bf16 dense, 3.35 TB/s): per pass 2 n k d + 2 n d operations and
+// What bounds it on an H100 SXM (data sheet: 989 TFLOP/s bf16 dense,
+// 3.35 TB/s): per pass 2 n k d + 2 n d operations and
 // n d 4 + n 4 + 2 k d 4 bytes.  At n = 2^20, d = 256, k = 1000 that is
 // ~537 GFLOP against ~1.08 GB, so the pass is bound by operations:
 // ~0.55 ms at the bf16 tensor-core peak for the bf16 tiers, and ~3.26 ms
 // for highest, whose f32-accurate cross term is six bf16 products on the
-// tensor cores (8.0 ms if it ran on the FP32 pipe).
+// tensor cores (8.0 ms if it ran on the FP32 pipe).  At d = 960 the
+// same pass is 2.04 ms (bf16 tiers) and 12.2 ms (highest).
 //
 // Design.  The TPU kernel adds into one resident (k, d) accumulator
 // across a sequential grid; Hopper blocks run in parallel and in no
@@ -30,15 +31,15 @@
 //   1. csq      |c|^2 per center (sequential IEEE adds).
 //   2. assign   the nearest center of every row, carrying a running
 //               (best score, lowest index) per row; writes labels and,
-//               in cost mode, one cost partial per block.  Route by
-//               depth: d <= 256 runs assign_wgmma.cuh (a prep kernel
-//               puts the centers in operand form, then wgmma on the
-//               tensor cores at every tier: one bf16 product for high
-//               and default, a three-part bf16 split at highest); wider
-//               rows run assign_kernel below (a 64x64 SIMT register tile
-//               on the FP32 pipe): the wgmma route keeps each row's
-//               operand parts in registers and shared memory for the
-//               whole pass, which bounds its depth.
+//               in cost mode, one cost partial per 128 rows.  Both
+//               routes prepare the centers in operand form and run the
+//               cross term on wgmma at every tier (one bf16 product for
+//               high and default, a three-part bf16 split at highest).
+//               By depth: d <= 256 runs assign_wgmma.cuh, which forms
+//               each row's operand parts once a pass and keeps them for
+//               the whole pass; wider rows run assign_wide.cuh, which
+//               streams the depth in 64-deep chunks, the rows' parts
+//               formed per stage in shared memory.
 //   3. rank     a stable counting sort of the rows by label: one warp per
 //               row range counts labels (integers, so order-free) and
 //               gives each row its rank among equal labels in row order.
@@ -77,22 +78,13 @@
 
 #include "assign_dmma.cuh"
 #include "assign_wgmma.cuh"
+#include "assign_wide.cuh"
 
 namespace {
-
-constexpr int BM = 64;        // rows per assign block
-constexpr int BN = 64;        // centers per tile
-constexpr int BK = 16;        // feature depth per shared-memory stage
-constexpr int TM = 4;         // rows per thread
-constexpr int TN = 4;         // centers per thread
-constexpr int THREADS = 256;  // (BM / TM) * (BN / TN)
-constexpr int PAD = 4;        // keeps float4 alignment, breaks bank stride
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
-
-using assign_wg::better;
 
 // Round-to-nearest adds and products of either scalar type: the f32
 // passes' intrinsics, and their f64 counterparts for the float64 form.
@@ -121,141 +113,6 @@ __global__ void csq_kernel(const T* __restrict__ c, int k, int kpad, int d,
   T s = 0;
   for (int t = 0; t < d; ++t) s = add_rn(s, mul_rn(cj[t], cj[t]));
   csq[j] = s;
-}
-
-template <bool BF16, bool NEED_COST>
-__global__ void __launch_bounds__(THREADS)
-assign_kernel(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ c, const float* __restrict__ csq,
-              int n, int d, int k, int* __restrict__ labels,
-              float* __restrict__ cost_part) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
-  __shared__ float xsq_s[BM];
-  __shared__ float red_s[BM][THREADS / (BM / TM)];
-  __shared__ int redi_s[BM][THREADS / (BM / TM)];
-  __shared__ float rowcost_s[BM];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // center group
-  const int ty = tid / (BN / TN);  // row group
-  const int row0 = blockIdx.x * BM;
-
-  if (NEED_COST) {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      const int row = row0 + r;
-      float s = 0.f;
-      if (row < n) {
-        const float* xr = x + (size_t)row * d;
-        for (int t = lane; t < d; t += 32) s = fmaf(xr[t], xr[t], s);
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) xsq_s[r] = s;
-    }
-    __syncthreads();
-  }
-
-  float best[TM];
-  int bidx[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best[i] = -CUDART_INF_F;
-    bidx[i] = 0;
-  }
-
-  for (int n0 = 0; n0 < k; n0 += BN) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-#pragma unroll
-      for (int e0 = 0; e0 < BM * BK; e0 += THREADS) {
-        const int e = e0 + tid;
-        const int r = e / BK, cc = e % BK;
-        const int row = row0 + r, col = k0 + cc;
-        float v = (row < n && col < d) ? x[(size_t)row * d + col] : 0.f;
-        As[cc][r] = BF16 ? bf16_round(v) : v;
-      }
-#pragma unroll
-      for (int e0 = 0; e0 < BN * BK; e0 += THREADS) {
-        const int e = e0 + tid;
-        const int r = e / BK, cc = e % BK;
-        const int cen = n0 + r, col = k0 + cc;
-        float v = (cen < k && col < d) ? c[(size_t)cen * d + col] : 0.f;
-        Bs[cc][r] = BF16 ? bf16_round(v) : v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-    // this thread's columns rise with n0 and j, so a strict > keeps the
-    // lowest index among its own ties
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col >= k) continue;
-      const float cs = csq[col];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        float s;
-        if (NEED_COST) {
-          const float d2 = __fsub_rn(__fadd_rn(xsq_s[ty * TM + i], cs),
-                                     __fmul_rn(2.f, acc[i][j]));
-          s = -fmaxf(d2, 0.f);
-        } else {
-          s = __fsub_rn(acc[i][j], __fmul_rn(0.5f, cs));
-        }
-        if (s > best[i]) {
-          best[i] = s;
-          bidx[i] = col;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    red_s[ty * TM + i][tx] = best[i];
-    redi_s[ty * TM + i][tx] = bidx[i];
-  }
-  __syncthreads();
-  if (tid < BM) {
-    float bs = red_s[tid][0];
-    int bi = redi_s[tid][0];
-    for (int t = 1; t < BN / TN; ++t) {
-      if (better(red_s[tid][t], redi_s[tid][t], bs, bi)) {
-        bs = red_s[tid][t];
-        bi = redi_s[tid][t];
-      }
-    }
-    const int row = row0 + tid;
-    if (row < n) labels[row] = bi;
-    if (NEED_COST) rowcost_s[tid] = row < n ? __fmul_rn(-bs, w[row]) : 0.f;
-  }
-  if (NEED_COST) {
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r) s = __fadd_rn(s, rowcost_s[r]);
-      cost_part[blockIdx.x] = s;
-    }
-  }
 }
 
 // One warp per range of `range_rows` rows: counts[label][range] and each
@@ -481,22 +338,16 @@ void launch_sums(cudaStream_t st, const T* x, const T* w, const int* labels, int
   if (need_cost) cost_kernel<T><<<1, 1024, 0, st>>>(cost_part, cost_parts, cost);
 }
 
-template <bool BF16, bool NEED_COST>
-void launch_assign(int blocks, cudaStream_t st, const float* x,
-                   const float* w, const float* c, const float* csq, int n,
-                   int d, int k, int* labels, float* cost_part) {
-  assign_kernel<BF16, NEED_COST><<<blocks, THREADS, 0, st>>>(
-      x, w, c, csq, n, d, k, labels, cost_part);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Rows per assign block of a route (0 SIMT, 1 wgmma, 2 the float64
-// form's DMMA tile): the size of `cost_part` is ceil(n / this).
+// Rows per cost partial of a route (1 wgmma, 2 the float64 form's DMMA
+// tile, 3 the wide rows' wgmma): the size of `cost_part` is
+// ceil(n / this); 0 for no route.
 int kmeans_assign_rows(int route) {
-  return route == 2 ? assign_dmma::BM : route == 1 ? assign_wg::BM : BM;
+  return route == 1 ? assign_wg::BM : route == 2 ? assign_dmma::BM
+                                    : route == 3 ? assign_wide::BM : 0;
 }
 
 // The float64 form's DMMA tile: centers a tile, its dynamic shared
@@ -506,24 +357,36 @@ int kmeans_f64_smem_bytes() { return assign_dmma::SMEM_BYTES; }
 // A warp's tile: rows (side 0) and centers (side 1).
 int kmeans_f64_warp_tile(int side) { return side == 0 ? assign_dmma::WM : assign_dmma::WN; }
 
-// Bytes of the wgmma route's prepared centers at a tier, or -1 where
-// the route does not take d.
-long long kmeans_prep_bytes(int mode, int d, int k) {
-  if (d < 1 || d > assign_wg::MAX_D) return -1;
+// Bytes of the f32 form's `prep` scratch at a tier: the wgmma route's
+// prepared centers (d <= 256), or the wide route's prepared centers and
+// (groups, n) bests (d > 256); -1 for d < 1.
+long long kmeans_prep_bytes(int mode, int n, int d, int k) {
+  if (d < 1) return -1;
+  if (d > assign_wg::MAX_D) return assign_wide::scratch_bytes(mode, n, d, k);
   const int dpad = (d + assign_wg::CHUNK - 1) / assign_wg::CHUNK * assign_wg::CHUNK;
   return mode == 0 ? assign_wg::prep_bytes<3>(k, dpad) : assign_wg::prep_bytes<1>(k, dpad);
 }
 
-// Floats of `csq`: k rounded up to whole tiles of the widest wgmma tile.
-int kmeans_csq_size(int k) { return (k + 127) / 128 * 128; }
+// The wide route at a tier: centers a tile (side 0), groups of center
+// tiles (side 1) at k centers, and its shared memory in bytes (side 2).
+int kmeans_wide_figure(int mode, int side, int k) {
+  if (side == 0) return mode == 0 ? assign_wide::Cfg<3>::BN : assign_wide::Cfg<1>::BN;
+  if (side == 1) return mode == 0 ? assign_wide::groups<3>(k) : assign_wide::groups<1>(k);
+  return mode == 0 ? assign_wide::smem_bytes<3>() : assign_wide::smem_bytes<1>();
+}
+
+// Floats of `csq`: k rounded up to whole tiles of the widest center tile
+// (the wide route's 256 at the bf16 tiers).
+int kmeans_csq_size(int k) { return (k + 255) / 256 * 256; }
 
 // Integers of the scan's tile totals for m counts.
 int kmeans_scan_tiles(int m) { return (m + SCAN_TILE - 1) / SCAN_TILE; }
 
 // One fused accumulate pass on device `dev`.  Inputs: x (n, d), w (n),
 // c (k, d), all f32 contiguous on the device.  `route` 1 assigns on the
-// tensor cores (d <= 256), 0 on the FP32 pipe.  Scratch (sizes in
-// elements): csq kmeans_csq_size(k), prep kmeans_prep_bytes bytes (route 1 only), labels
+// tensor cores with the d <= 256 route, 3 with the wide rows' route (d >
+// 256).  Scratch (sizes in elements): csq kmeans_csq_size(k), prep
+// kmeans_prep_bytes bytes, labels
 // n, cost_part ceil(n / kmeans_assign_rows(route)), counts_i k * ranges,
 // scan_part kmeans_scan_tiles(k * ranges), rank n, perm n, psums
 // k * parts * d, pcounts k * parts.  Outputs: sums (k, d), counts (k),
@@ -545,22 +408,15 @@ int kmeans_accumulate(int dev, const float* x, const float* w, const float* c, i
   const int kpad = kmeans_csq_size(k);
   csq_kernel<<<(kpad + 255) / 256, 256, 0, st>>>(c, k, kpad, d, csq);
 
-  if (route == 1) {
+  if (route == 1)
     err = assign_wg::launch(dev, st, mode, need_cost != 0, x, w, c, csq, n, d, k, prep,
                             labels, cost_part);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    const int blocks = (n + BM - 1) / BM;
-    const bool bf16 = mode != 0;
-    if (bf16 && need_cost)
-      launch_assign<true, true>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-    else if (bf16)
-      launch_assign<true, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-    else if (need_cost)
-      launch_assign<false, true>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-    else
-      launch_assign<false, false>(blocks, st, x, w, c, csq, n, d, k, labels, cost_part);
-  }
+  else if (route == 3)
+    err = assign_wide::launch(dev, st, mode, need_cost != 0, x, w, c, csq, n, d, k, prep,
+                              labels, cost_part);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
 
   const int cost_parts = (n + kmeans_assign_rows(route) - 1) / kmeans_assign_rows(route);
   if (mode == 0)

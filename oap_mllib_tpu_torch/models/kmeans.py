@@ -222,7 +222,9 @@ class KMeansModel:
     def predict(self, x) -> np.ndarray:
         """Nearest-center label of every row; a ``ChunkSource`` is scored
         chunk by chunk through the same program (the labels are O(n)
-        host memory)."""
+        host memory).  The labels' dtype is the JAX package's on each
+        path: int32 from the euclidean program (an array or a source),
+        int64 from the host path (cosine, or no rows)."""
         if isinstance(x, ChunkSource):
             parts = [self.predict(np.asarray(c[:v], self.cluster_centers_.dtype))
                      for c, v in x]

@@ -8,10 +8,12 @@
 - :func:`lloyd_accumulate` is the wrapper of the hand-written Hopper
   kernel ``csrc/kmeans_accumulate.cu``.  A CPU tensor takes the plain
   version; a CUDA tensor launches the kernel or raises.  There is no
-  fallback from one to the other.  The assignment's route is fixed by
-  the depth (:func:`assign_route`): up to 256 features it runs on the
-  tensor cores at every tier (``csrc/assign_wgmma.cuh``; highest as a
-  three-part bf16 split, six products), wider rows on the FP32 pipe.
+  fallback from one to the other.  The assignment runs on the tensor
+  cores at every tier and depth (highest as a three-part bf16 split, six
+  products); its route is fixed by the depth (:func:`assign_route`): up
+  to 256 features ``csrc/assign_wgmma.cuh``, whose rows' operand parts
+  stay in registers and shared memory for the whole pass, wider rows
+  ``csrc/assign_wide.cuh``, which streams the depth in 64-deep chunks.
   :func:`assign_geometry` sizes the launch and its scratch; the wrapper
   checks it against the library's own figures when it loads it.
 - :func:`lloyd_run_kernel` is ``_lloyd_loop_padded`` / ``lloyd_run_pallas``:
@@ -74,13 +76,21 @@ _RANGE_ROWS = 2048
 _PARTIAL_ELEMS = 1 << 25
 _MAX_PARTS = 8
 DEFAULT_GEOMETRY = {"range_rows": _RANGE_ROWS, "parts": _MAX_PARTS}
-# the assignment's routes (csrc/kmeans_accumulate.cu, assign_wgmma.cuh):
-# wgmma keeps each row's operand parts in registers and shared memory
-# for the whole pass, which bounds its depth; wider rows take the SIMT
-# tile
-ROUTE_CODE = {"simt": 0, "wgmma": 1, "dmma": 2}
+# the assignment's routes (csrc/kmeans_accumulate.cu): wgmma
+# (assign_wgmma.cuh) keeps each row's operand parts in registers and
+# shared memory for the whole pass, which bounds its depth; wider rows
+# take wgmma_wide (assign_wide.cuh), which streams the depth; dmma is the
+# float64 form's.  Rows: a cost partial's.
+ROUTE_CODE = {"wgmma": 1, "dmma": 2, "wgmma_wide": 3}
 WGMMA_MAX_D = 256
-_ROWS = {"simt": 64, "wgmma": 128, "dmma": 128}
+_ROWS = {"wgmma": 128, "dmma": 128, "wgmma_wide": 128}
+# the wide route (assign_wide.cuh) by parts: centers a tile, and the
+# dynamic shared memory of its block (center stages, formed rows, raw
+# rows, |x|^2); its center tiles are cut into at most _WIDE_GROUPS groups
+_WIDE_TILE = {3: 128, 1: 256}
+_WIDE_SMEM = {3: 1024 + 2 * 3 * 128 * 128 + 1 * 3 * 128 * 128 + 1 * 128 * 64 * 4 + 128 * 4,
+              1: 1024 + 4 * 256 * 128 + 2 * 128 * 128 + 2 * 128 * 64 * 4 + 128 * 4}
+_WIDE_GROUPS = 8
 # the float64 form's DMMA tile (csrc/assign_dmma.cuh): centers a tile,
 # depth a stage, a staged row's padded slot, stages, and the static
 # shared memory beside the stages (|x|^2, the warps' bests, row costs)
@@ -227,34 +237,48 @@ def _check_operands(x, w, c):
 
 
 def assign_route(d: int) -> str:
-    """The assignment's route at depth ``d``: ``wgmma`` (tensor cores,
-    every tier) up to :data:`WGMMA_MAX_D`, else ``simt`` (FP32 pipe)."""
-    return "wgmma" if d <= WGMMA_MAX_D else "simt"
+    """The assignment's route at depth ``d``, both on the tensor cores at
+    every tier: ``wgmma`` up to :data:`WGMMA_MAX_D`, ``wgmma_wide`` for
+    every wider row (no depth limit)."""
+    return "wgmma" if d <= WGMMA_MAX_D else "wgmma_wide"
 
 
 class AssignGeometry(NamedTuple):
     route: str
-    rows: int        # rows per assign block
-    blocks: int      # assign blocks: the cost partials
-    parts: int       # bf16 parts of each operand (wgmma)
-    tile: int        # centers per tile (wgmma)
-    prep_bytes: int  # the prepared centers (wgmma), 0 for simt
+    rows: int           # rows a cost partial (an assign block, or a merge block)
+    blocks: int         # the cost partials
+    parts: int          # bf16 parts of each operand
+    tile: int           # centers a tile
+    prep_bytes: int     # the prepared centers (whole tiles and 64-deep chunks)
+    groups: int         # wgmma_wide: groups of center tiles (1 for wgmma)
+    per_group: int      # wgmma_wide: center tiles a group (the last may have fewer)
+    scratch_bytes: int  # the library's `prep` scratch: the prepared centers and,
+    #                     for wgmma_wide, the (groups, n) best scores and indices
 
 
 def assign_geometry(n: int, k: int, d: int, mode: str) -> AssignGeometry:
-    """The assignment's launch: route, rows per block, blocks, and the
-    wgmma route's operand parts, center tile and prepared-center bytes
-    (whole tiles, whole 64-deep chunks, 128 bytes a part's row)."""
+    """The assignment's launch: route, rows a cost partial, partials, the
+    operand parts, the center tile, the prepared-center bytes (whole
+    tiles, whole 64-deep chunks, 128 bytes a part's row) and, for the
+    wide route, its groups of center tiles: at most :data:`_WIDE_GROUPS`
+    of equal size, each item of the route a block of 128 rows and one
+    group, each row's best of a group kept in 8 bytes of scratch."""
     route = assign_route(d)
     rows = _ROWS[route]
     blocks = -(-n // rows)
-    if route == "simt":
-        return AssignGeometry(route, rows, blocks, 1, 64, 0)
     parts = 3 if check_mode(mode) == "highest" else 1
-    tile = 64 if parts == 3 else 128
     dpad = -(-d // _CHUNK) * _CHUNK
-    prep = -(-k // tile) * (dpad // _CHUNK) * parts * tile * 128
-    return AssignGeometry(route, rows, blocks, parts, tile, prep)
+    if route == "wgmma":
+        tile = 64 if parts == 3 else 128
+        prep = -(-k // tile) * (dpad // _CHUNK) * parts * tile * 128
+        return AssignGeometry(route, rows, blocks, parts, tile, prep, 1, -(-k // tile), prep)
+    tile = _WIDE_TILE[parts]
+    tiles = -(-k // tile)
+    per_group = -(-tiles // _WIDE_GROUPS)
+    groups = -(-tiles // per_group)
+    prep = tiles * (dpad // _CHUNK) * parts * tile * 128
+    return AssignGeometry(route, rows, blocks, parts, tile, prep, groups, per_group,
+                          prep + groups * n * 8)
 
 
 class F64AssignGeometry(NamedTuple):
@@ -287,8 +311,9 @@ def f64_scratch(n: int, k: int, d: int, ranges: int, parts: int) -> dict:
 
 def csq_size(k: int) -> int:
     """Floats of the kernel's |c|^2 buffer: k rounded up to whole tiles of
-    the widest wgmma center tile (the padding holds +inf)."""
-    return -(-k // 128) * 128
+    the widest center tile (the wide route's 256; the padding holds
+    +inf)."""
+    return -(-k // 256) * 256
 
 
 def scan_tiles(m: int) -> int:
@@ -336,8 +361,10 @@ def _bind(lib):
     fn.restype = i32
     lib.kmeans_assign_rows.argtypes = [i32]
     lib.kmeans_assign_rows.restype = i32
-    lib.kmeans_prep_bytes.argtypes = [i32, i32, i32]
+    lib.kmeans_prep_bytes.argtypes = [i32, i32, i32, i32]
     lib.kmeans_prep_bytes.restype = ctypes.c_longlong
+    lib.kmeans_wide_figure.argtypes = [i32, i32, i32]
+    lib.kmeans_wide_figure.restype = i32
     lib.kmeans_scan_tiles.argtypes = [i32]
     lib.kmeans_scan_tiles.restype = i32
     lib.kmeans_csq_size.argtypes = [i32]
@@ -355,9 +382,18 @@ def _bind(lib):
         if lib.kmeans_assign_rows(ROUTE_CODE[route]) != rows:
             raise RuntimeError(f"{KERNEL}: rows per block of the {route} route disagree")
     for mode in MODE_CODE:
-        for d, k in ((1, 1), (29, 13), (256, 1000)):
-            if lib.kmeans_prep_bytes(MODE_CODE[mode], d, k) != assign_geometry(1, k, d, mode).prep_bytes:
-                raise RuntimeError(f"{KERNEL}: prepared-center bytes disagree at {mode}")
+        code, parts = MODE_CODE[mode], 3 if mode == "highest" else 1
+        for n, d, k in ((1, 1, 1), (7, 29, 13), (5, 256, 1000), (777, 257, 70),
+                        (1 << 20, 960, 1000), (3, 300, 5000)):
+            geo = assign_geometry(n, k, d, mode)
+            if lib.kmeans_prep_bytes(code, n, d, k) != geo.scratch_bytes:
+                raise RuntimeError(f"{KERNEL}: scratch bytes disagree at {mode}, {(n, d, k)}")
+            if geo.route == "wgmma_wide" and (
+                    lib.kmeans_wide_figure(code, 0, k) != geo.tile
+                    or lib.kmeans_wide_figure(code, 1, k) != geo.groups
+                    or lib.kmeans_wide_figure(code, 2, k) != _WIDE_SMEM[parts]):
+                raise RuntimeError(f"{KERNEL}: the wide route's tile, groups or shared "
+                                   f"memory disagree at {mode}, k = {k}")
     f64 = f64_assign_geometry(1, 1, 1)
     if (lib.kmeans_f64_center_tile() != f64.tile
             or lib.kmeans_f64_smem_bytes() != f64.smem_bytes
@@ -399,7 +435,7 @@ def _launch(x, w, c, mode: str, need_cost: bool, geometry=None):
         return torch.empty(size, dtype=dtype, device=dev)
 
     csq, labels = empty(csq_size(k)), empty(n, i32)
-    prep = empty(max(1, geo.prep_bytes), torch.uint8)
+    prep = empty(max(1, geo.scratch_bytes), torch.uint8)
     cost_part = empty(geo.blocks)
     counts_i, scan_part = empty(k * ranges, i32), empty(scan_tiles(k * ranges), i32)
     rank, perm = empty(n, i32), empty(n, i32)

@@ -161,7 +161,7 @@ def _build_assign(tier: str):
 def assign_kmeans(centers_dev: torch.Tensor, x, kind: str = "kmeans") -> np.ndarray:
     """Nearest pinned center of every row of ``x``: padded to its row
     bucket, staged, the registered assignment program, labels sliced
-    back (int64, as the models have always returned them)."""
+    back as int32, the JAX package's program's dtype."""
     pol = resolve_policy("kmeans")
     xb, n = bucket_batch(x)
     _book(kind, xb.shape[0] - n)
@@ -169,7 +169,7 @@ def assign_kmeans(centers_dev: torch.Tensor, x, kind: str = "kmeans") -> np.ndar
     staged = stage(xb, centers_dev.device)
     progcache.note("serve.assign",
                    (pol.name, pol.dot_tier, progcache.array_key(staged, centers_dev)))
-    return fn(staged, centers_dev).cpu().numpy()[:n]
+    return fn(staged, centers_dev).to(torch.int32).cpu().numpy()[:n]
 
 
 def _build_project(policy: str, tier: str):

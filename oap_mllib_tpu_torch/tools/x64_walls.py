@@ -1,19 +1,26 @@
-"""Times of the float64 forms of K1 and K2 on the card, for comparing
-checkouts on one card in one run.
+"""Times of K1 and K2 forms on the card, for comparing checkouts on one
+card in one run.
 
     python oap_mllib_tpu_torch/tools/x64_walls.py --root DIR [--reps 10]
+        [--lanes x64,wide]
 
 imports ``oap_mllib_tpu_torch`` from the checkout at ``DIR`` (only the
-wrappers ``kmeans_kernel.lloyd_accumulate`` and ``pca_kernel.pca_moments``
-on float64 operands, which every checkout since the float64 lane has),
-builds its kernels, and times at the main paths' shapes: K1 f64 at 2^20
-x 256, k = 1000, in loop and cost mode, and K2 f64's Gram pass at 2^20 x
-128 and 2^18 x 1024.  Each time is a mean over ``--reps`` calls between
-CUDA events after a warm call; beside it, the device ms of the kernels
-of one call from torch.profiler (the assignment's and the Gram's own
-kernel).  Prints ``X64_WALLS <json>`` with the card's name and power
-limit.  Run two checkouts as parent, change, change, parent in one
-command to compare them.
+wrappers ``kmeans_kernel.lloyd_accumulate`` and ``pca_kernel.pca_moments``,
+which every checkout since the float64 lane has), builds its kernels,
+and times, by lane:
+
+- ``x64``: the float64 forms at the main paths' shapes: K1 f64 at 2^20
+  x 256, k = 1000, in loop and cost mode, and K2 f64's Gram pass at 2^20
+  x 128 and 2^18 x 1024;
+- ``wide``: K1 on f32 rows wider than 256 features, 2^20 x 512 and 2^20
+  x 960 (GIST1M's width), k = 1000, every tier, loop and cost mode.
+
+Each time is a mean over ``--reps`` calls between CUDA events after a
+warm call; beside it, the device ms of the kernels of one call from
+torch.profiler (the assignment's and the Gram's own kernels).  Prints
+``X64_WALLS <json>`` with the card's name and power limit.  Run two
+checkouts as parent, change, change, parent in one command to compare
+them.
 """
 
 from __future__ import annotations
@@ -25,12 +32,16 @@ import sys
 from pathlib import Path
 
 
-def _data(dev, seed, n, d, k=None):
+WIDE_SHAPES = ((1 << 20, 512), (1 << 20, 960))
+WIDE_K = 1000
+
+
+def _data(dev, seed, n, d, k=None, dtype=None):
     import torch
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    f64 = torch.float64
+    f64 = torch.float64 if dtype is None else dtype
     if k is None:
         q, _ = torch.linalg.qr(torch.randn((d, d), generator=g, device=dev, dtype=f64))
         scale = 10.0 * 0.85 ** torch.arange(d, device=dev, dtype=f64)
@@ -85,7 +96,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--lanes", default="x64,wide",
+                    help="comma-separated: x64 (the float64 forms), wide (K1 f32 at d > 256)")
     args = ap.parse_args(argv)
+    lanes = set(args.lanes.split(","))
+    if not lanes <= {"x64", "wide"}:
+        ap.error(f"unknown lanes {sorted(lanes - {'x64', 'wide'})}")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -97,6 +113,37 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     out = {"root": str(root), "card": smi.strip().splitlines()[0] if smi.strip() else None}
+    if "wide" in lanes:
+        _wide(out, kmeans_kernel, dev, args.reps)
+    if "x64" in lanes:
+        _x64(out, kmeans_kernel, pca_kernel, dev, args.reps)
+    print("X64_WALLS " + json.dumps(out), flush=True)
+    return 0
+
+
+def _wide(out, kmeans_kernel, dev, reps):
+    """K1 f32 at the wide shapes, every tier and mode, with the checkout's
+    assignment route."""
+    import torch
+
+    for n, d in WIDE_SHAPES:
+        x, w, c = _data(dev, d, n, d, WIDE_K, torch.float32)
+        route = kmeans_kernel.assign_route(d)
+        for mode in ("highest", "high", "default"):
+            for need_cost in (False, True):
+                def run():
+                    return kmeans_kernel.lloyd_accumulate(x, w, c, mode, need_cost)
+
+                split = _split(run)
+                out[f"wide_{n}x{d}_{mode}_{'cost' if need_cost else 'loop'}"] = {
+                    "ms": _ms(run, reps), "route": route, "split_ms": split,
+                    "assign_ms": sum(t for k, t in split.items() if "assign" in k)}
+        del x, w, c
+
+
+def _x64(out, kmeans_kernel, pca_kernel, dev, reps):
+    import torch
+
     x, w, c = _data(dev, 0, 1 << 20, 256, 1000)
     for need_cost in (False, True):
         def run():
@@ -104,7 +151,7 @@ def main(argv=None) -> int:
 
         split = _split(run)
         out[f"k1_{'cost' if need_cost else 'loop'}"] = {
-            "ms": _ms(run, args.reps), "split_ms": split,
+            "ms": _ms(run, reps), "split_ms": split,
             "assign_ms": sum(t for k, t in split.items() if "assign" in k)}
     del x, w, c
     for n, d in ((1 << 20, 128), (1 << 18, 1024)):
@@ -116,12 +163,10 @@ def main(argv=None) -> int:
             return pca_kernel.pca_moments(x, mask, mean, "highest", need_sums=False)
 
         split = _split(gram)
-        out[f"k2_{n}x{d}"] = {"ms": _ms(gram, args.reps), "split_ms": split,
+        out[f"k2_{n}x{d}"] = {"ms": _ms(gram, reps), "split_ms": split,
                               "gram_ms": sum(t for k, t in split.items() if "gram" in k
                                              and "sum_slices" not in k)}
         del x
-    print("X64_WALLS " + json.dumps(out), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -68,6 +68,22 @@ class TestFitParity:
         assert port.summary.accelerated and ref.summary.accelerated
         assert port.summary.kernels == {"kmeans_accumulate": 0}
 
+    @pytest.mark.parametrize("d", [300, 512])
+    def test_wide_rows_match_exactly(self, d):
+        """Rows wider than 256 features (the wide route's depths on the
+        card): from the same random rows, equal iterations, centers within
+        1e-5, cost within 1e-5."""
+        x, _ = _blobs(23 + d, n=2000, d=d, k=8, spread=3.0)
+        kw = dict(k=8, max_iter=30, tol=1e-4, seed=5, init_mode="random")
+        port = KMeans(device="cpu", **kw).fit(x)
+        ref = JaxKMeans(**kw).fit(x)
+        assert port.summary.num_iter == ref.summary.num_iter
+        np.testing.assert_allclose(port.cluster_centers_, ref.cluster_centers_, atol=1e-5)
+        np.testing.assert_allclose(
+            port.summary.training_cost, ref.summary.training_cost, rtol=1e-5
+        )
+        np.testing.assert_array_equal(port.predict(x), ref.predict(x))
+
     @pytest.mark.parametrize("weighted", [False, True])
     def test_kmeans_parallel_reaches_the_same_cost(self, weighted):
         """k-means|| draws from torch in the port and jax.random in the
@@ -230,6 +246,8 @@ class TestIsolation:
         # the native sources include nothing of the JAX package's tree
         native = sorted(PKG.glob("csrc/**/*.c*"))
         assert any(p.name == "grouped_prep.cpp" for p in native)
+        assert {"assign_wgmma.cuh", "assign_wide.cuh", "assign_dmma.cuh",
+                "kmeans_accumulate.cu"} <= {p.name for p in native}
         includes = [line for p in native for line in p.read_text().splitlines()
                     if line.lstrip().startswith("#include")]
         assert includes and [line for line in includes if "oap_mllib_tpu" in line] == []

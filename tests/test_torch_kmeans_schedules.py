@@ -121,8 +121,8 @@ class TestSelection:
             assert int(labels.max()) < 3
 
     def test_a_row_of_minus_infinity_takes_center_zero(self):
-        """Every score -inf (cost mode with d2 = inf): label 0, as the SIMT
-        route's strict > from -inf gives."""
+        """Every score -inf (cost mode with d2 = inf): label 0, as argmax
+        over all -inf gives."""
         sc = torch.full((5, 128), float("-inf"))
         labels, _ = sched.select(sc, 128)
         assert torch.equal(labels, torch.zeros(5, dtype=torch.int64))
@@ -149,20 +149,26 @@ class TestPreparedCenters:
 class TestGeometry:
     def test_routes_and_tiles(self):
         assert kmeans_kernel.assign_route(256) == "wgmma"
-        assert kmeans_kernel.assign_route(257) == "simt"
+        assert kmeans_kernel.assign_route(257) == "wgmma_wide"
         g = kmeans_kernel.assign_geometry(1 << 20, 1000, 256, "highest")
         assert (g.route, g.rows, g.blocks, g.parts, g.tile) == ("wgmma", 128, 8192, 3, 64)
         assert g.prep_bytes == 16 * 4 * 3 * 64 * 128  # 1.5 MB
         g = kmeans_kernel.assign_geometry(1 << 20, 1000, 256, "default")
         assert (g.parts, g.tile, g.prep_bytes) == (1, 128, 8 * 4 * 128 * 128)
         g = kmeans_kernel.assign_geometry(777, 70, 300, "high")
-        assert (g.route, g.rows, g.blocks, g.prep_bytes) == ("simt", 64, 13, 0)
+        assert (g.route, g.rows, g.blocks, g.parts, g.tile) == ("wgmma_wide", 128, 7, 1, 256)
+        assert g.prep_bytes == 1 * 5 * 256 * 128 and g.scratch_bytes == g.prep_bytes + 777 * 8
+        g = kmeans_kernel.assign_geometry(1 << 20, 1000, 960, "highest")
+        assert (g.parts, g.tile, g.groups, g.per_group) == (3, 128, 8, 1)
+        assert g.prep_bytes == 8 * 15 * 3 * 128 * 128  # 5.9 MB
 
     @pytest.mark.parametrize("k", [1, 127, 128, 129, 1000])
     def test_csq_covers_whole_tiles(self, k):
         size = kmeans_kernel.csq_size(k)
         for mode in ("highest", "default"):
-            assert size % sched.tile_width(mode) == 0 and size >= k
+            for d in (256, 257):
+                tile = kmeans_kernel.assign_geometry(1, k, d, mode).tile
+                assert size % tile == 0 and size >= k
 
 
 class TestScan:

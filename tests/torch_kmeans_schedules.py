@@ -212,3 +212,163 @@ def scan(a):
             out[b, :, j] = run
             run = run + per_thread[b, :, j]
     return out.reshape(-1)[:m]
+
+
+# -- the wide route (csrc/assign_wide.cuh, d > 256) ---------------------------
+
+WIDE_BM = 128  # rows an item of the wide route
+
+
+def form_stage(xs, mode):
+    """A stage's rows (BM, 64) f32 formed into their bf16 parts as the
+    block forms them: rounded to nearest at the bf16 tiers, the exact
+    truncation split at highest."""
+    return split_round(xs, 1) if mode != "highest" else list(split_trunc(xs))
+
+
+def form_layout(xs, mode):
+    """The formed parts' bytes as the block writes them: [part][row][128
+    bytes], 16-byte chunk c of row r at c ^ (r % 8)."""
+    parts = form_stage(xs, mode)
+    rows = xs.shape[0]
+    out = np.zeros(len(parts) * rows * 128, np.uint8)
+    for p, part in enumerate(parts):
+        raw = part.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint8).reshape(rows, 128)
+        for r in range(rows):
+            for ch in range(8):
+                dst = p * rows * 128 + r * 128 + ((ch ^ (r & 7)) << 4)
+                out[dst:dst + 16] = raw[r, ch * 16:ch * 16 + 16]
+    return out
+
+
+def read_formed(buf, rows, part):
+    """Part ``part`` of a formed stage (rows, 64) as a K-major,
+    128-byte-swizzled wgmma descriptor reads it (k-step ks at 32 ks bytes,
+    value kk at 2 kk, the chunk index XOR-ed by r % 8)."""
+    out = np.zeros((rows, CHUNK), np.float32)
+    base = part * rows * 128
+    for r in range(rows):
+        for col in range(CHUNK):
+            byte = 32 * (col // 16) + 2 * (col % 16)
+            addr = base + r * 128 + ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15))
+            bits = int(buf[addr]) | (int(buf[addr + 1]) << 8)
+            out[r, col] = np.array([bits << 16], np.uint32).view(np.float32)[0]
+    return torch.from_numpy(out)
+
+
+def _chunks(a, dpad):
+    padded = torch.zeros((a.shape[0], dpad))
+    padded[:, :a.shape[1]] = a
+    return [padded[:, q:q + CHUNK] for q in range(0, dpad, CHUNK)]
+
+
+def wide_cross(x, c, mode):
+    """x . c^T (n, k) f32 as the wide route's products form it: the depth
+    in 64-deep chunks (zeros past d) in chunk order, each chunk's product
+    an f32 sum of exact bf16 products added into the running sums; at
+    highest x0 c0 in one accumulator and the five smaller products in a
+    second, added once at the end.  Returns (acc, lo) with lo None at the
+    bf16 tiers."""
+    dpad = -(-x.shape[1] // CHUNK) * CHUNK
+    cp = split_round(c, 1 if mode != "highest" else 3)
+    xc = [_chunks(a, dpad) for a in form_stage(x, mode)]
+    cc = [_chunks(b, dpad) for b in cp]
+    acc = torch.zeros((x.shape[0], c.shape[0]))
+    lo = None if mode != "highest" else torch.zeros_like(acc)
+    for q in range(dpad // CHUNK):
+        acc = acc + xc[0][q] @ cc[0][q].T
+        if lo is not None:
+            for a, b in ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0)):
+                lo = lo + xc[a][q] @ cc[b][q].T
+    return acc, lo
+
+
+def wide_xsq(x):
+    """|x|^2 as the block sums it: each of a row's 8 threads runs one sum
+    over its 8 values of every stage, chunk after chunk (a fused
+    multiply-add each, emulated in f64), then an xor tree over the 8
+    threads."""
+    dpad = -(-x.shape[1] // CHUNK) * CHUNK
+    s = torch.zeros((x.shape[0], 8))
+    for xs in _chunks(x, dpad):
+        # thread ch holds the stage's values 8 ch .. 8 ch + 7
+        for e in range(8):
+            v = xs[:, torch.arange(8) * 8 + e].double()
+            s = (s.double() + v * v).float()
+    # the xor tree: 1, then 2, then 4 (every lane ends with one sum)
+    s = s[:, 0::2] + s[:, 1::2]
+    s = s[:, 0::2] + s[:, 1::2]
+    return s[:, 0] + s[:, 1]
+
+
+def wide_scores(x, c, mode, need_cost):
+    """(n, kpad) scores of the wide route, kpad = k in whole tiles of its
+    width, the padded centers at -inf (|c|^2 = +inf)."""
+    geo = kmeans_kernel.assign_geometry(x.shape[0], c.shape[0], x.shape[1], mode)
+    n, k = x.shape[0], c.shape[0]
+    kpad = -(-k // geo.tile) * geo.tile
+    acc, lo = wide_cross(x, c, mode)
+    v = torch.zeros((n, kpad))
+    v[:, :k] = acc if lo is None else acc + lo
+    csq = torch.full((kpad,), float("inf"))
+    csq[:k] = torch.sum(c * c, dim=1)
+    if need_cost:
+        return -torch.clamp_min(wide_xsq(x)[:, None] + csq[None, :] - 2.0 * v, 0.0)
+    return v - 0.5 * csq[None, :]
+
+
+def wide_items(n, k, d, mode):
+    """The wide route's items in launch order (``Walk`` in
+    assign_wide.cuh): ``(row block, group, center tiles)`` for every block
+    of 128 rows and every group, the groups of a row block consecutive."""
+    geo = kmeans_kernel.assign_geometry(n, k, d, mode)
+    tiles = -(-k // geo.tile)
+    return [(rb, g, list(range(g * geo.per_group, min(tiles, (g + 1) * geo.per_group))))
+            for rb in range(geo.blocks) for g in range(geo.groups)]
+
+
+def wide_select(sc, n, k, d, mode):
+    """The wide route's (label, best score) per row from (n, kpad) scores:
+    per item (a block of 128 rows and a group of center tiles) each thread
+    of a row's quad keeps its columns' best in rising order with a strict
+    > (tile by tile, merged into its running best by (score desc, index
+    asc)), the quad reduces over lane distances 1 and 2, and the merge
+    pass reduces the groups in order."""
+    geo = kmeans_kernel.assign_geometry(n, k, d, mode)
+    bn = geo.tile
+    part_s = torch.full((geo.groups, n), float("-inf"))
+    part_i = torch.zeros((geo.groups, n), dtype=torch.int64)
+    for rb, g, tiles in wide_items(n, k, d, mode):
+        rows = torch.arange(rb * WIDE_BM, min(n, (rb + 1) * WIDE_BM))
+        best = torch.full((len(rows), 4), float("-inf"))
+        bidx = torch.zeros((len(rows), 4), dtype=torch.int64)
+        for tile in tiles:
+            for tq in range(4):
+                cols = torch.tensor([tile * bn + 8 * j + 2 * tq + e
+                                     for j in range(bn // 8) for e in (0, 1)])
+                s = sc[rows][:, cols]
+                tb, arg = s.max(dim=1)  # the first of equal maxima: a strict >
+                tbi = torch.where(tb > float("-inf"), cols[arg], INT_MAX)
+                up = _better(tb, tbi, best[:, tq], bidx[:, tq])
+                best[:, tq] = torch.where(up, tb, best[:, tq])
+                bidx[:, tq] = torch.where(up, tbi, bidx[:, tq])
+        for off in (1, 2):
+            other = torch.tensor([t ^ off for t in range(4)])
+            os, oi = best[:, other], bidx[:, other]
+            up = _better(os, oi, best, bidx)
+            best, bidx = torch.where(up, os, best), torch.where(up, oi, bidx)
+        part_s[g, rows], part_i[g, rows] = best[:, 0], bidx[:, 0]
+    bs = torch.full((n,), float("-inf"))
+    bi = torch.zeros(n, dtype=torch.int64)
+    for g in range(geo.groups):
+        up = _better(part_s[g], part_i[g], bs, bi)
+        bs, bi = torch.where(up, part_s[g], bs), torch.where(up, part_i[g], bi)
+    return bi, bs
+
+
+def wide_assign(x, c, mode, need_cost):
+    """Labels and (cost mode) min d2 of every row as the wide route forms
+    and selects them."""
+    n, d = x.shape
+    labels, best = wide_select(wide_scores(x, c, mode, need_cost), n, c.shape[0], d, mode)
+    return labels, (-best if need_cost else None)
