@@ -48,12 +48,19 @@ Phases, each a hard check (any failure exits non-zero):
    and the kernel Lloyd loop against the plain-version loop from the
    same initial centers.
 6. pca_kernels: the PCA moments kernel at 2^20 x 128 and 2^18 x 1024,
-   every tier, both passes, against its plain version; two launches
-   bit-equal, the Gram bit-symmetric; the Gram's route (``wgmma`` for
-   the bf16 tiers, ``simt`` at highest); times, bounds,
-   ``torch.matmul(xc.T, xc)`` as yardstick.  The build phase prints how
-   many HGMMA (tensor-core wgmma) instructions the built
-   ``libpca_moments`` holds (``cuobjdump -sass``) and fails on none.
+   every tier, both passes, against its plain version (highest's Gram
+   within PCA_GRAM_HIGHEST_RTOL at these shapes, and within
+   PCA_GRAM_F64_RTOL of the float64 Gram of its formed values, as at
+   every small shape of phase 3, ``PCA_SMALL``); two launches
+   bit-equal, the Gram bit-symmetric; the Gram's route (``wgmma``, the
+   tensor cores, at every tier for d >= 64); times, bounds (highest
+   counted as six bf16 products; its FP32-pipe time on the
+   ``pca_variant`` line only), ``torch.matmul(xc.T, xc)`` as yardstick.
+   The build phase prints how many HGMMA (tensor-core wgmma)
+   instructions the built ``libpca_moments`` holds (``cuobjdump -sass``)
+   and fails on none, and fails unless every highest-tier Gram instance
+   (``gram_wgmma_kernel<0, VEC>``) holds HGMMA and ptxas reports it with
+   no spill.
 7. pca_fit (the PCA path): ``PCA(k=16).fit(x)`` at 2^20 x 128 with the
    counts zeroed just before: 2 launches (mean pass, Gram pass); the
    components and ratios against a fit through the plain version.
@@ -610,10 +617,11 @@ PEAK_NVLINK = 450e9
 # output; ALS: the JAX bench's ML-25M scale (bench.py bench_als_large)
 PCA_FULL = {"shapes": [(1 << 20, 128), (1 << 18, 1024)], "k": 16}
 PCA_TINY = {"shapes": [(3001, 37), (777, 140)], "k": 5}
-# small ragged tables over both Gram routes: SIMT below d = 64 and at
-# highest, wgmma at the bf16 tiers from d = 64 (4-byte copies where d is
-# not a multiple of 4), one and several output tiles
-PCA_SMALL = ((1000, 5), (3001, 37), (4099, 64), (2000, 67), (777, 140), (513, 300))
+# small ragged tables over both Gram routes: SIMT below d = 64, wgmma at
+# every tier from d = 64 (4-byte copies where d is not a multiple of 4),
+# one and several output tiles, and a ragged last tile of many (1030)
+PCA_SMALL = ((1000, 5), (3001, 37), (4099, 64), (2000, 67), (777, 140), (513, 300),
+             (1000, 1030))
 ALS_FULL = {"n_users": 162_541, "n_items": 59_047, "nnz": 25_000_000,
             "rank": 10, "alpha": 40.0, "reg": 0.1, "max_iter": 10,
             "explicit_iter": 3, "ranks": (10, 32), "wide_rank": 32, "layout_2d": "auto"}
@@ -639,6 +647,20 @@ SPARSE_TINY = {"n": 2000, "d": 40, "k": 6, "pca_k": 4}
 # against the array scale (default sums bf16-rounded products)
 PCA_SUM_RTOL = 1e-6
 PCA_GRAM_RTOL = {"highest": 1e-4, "high": 1e-4, "default": 1e-2}
+# highest's Gram at the main shapes (pca_data), tighter: between the
+# sound kernel's reading and the high tier's, which drops the products
+# a1 b1, a0 b2 and a2 b0 (on an H100: 6.33e-7 and 4.64e-6 at 2^20 x 128,
+# 3.53e-6 and 2.15e-5 at 2^18 x 1024)
+PCA_GRAM_HIGHEST_RTOL = {(1 << 20, 128): 2e-6, (1 << 18, 1024): 1e-5}
+# highest's Gram against the float64 Gram of the f32 values it forms,
+# (x - mean) * mask, at every shape: the plain f32 Gram errs by as much
+# as a dropped small product does (3.7e-6 at 2^18 x 1024 on an H100),
+# the sound kernel by 3.6e-7 and 2.7e-7 at the main shapes, one with
+# a1 b1 dropped by 3.0e-6 and 3.1e-6
+PCA_GRAM_F64_RTOL = 1e-6
+# kernels-line keys derived from a shape and a peak rate, not measured:
+# kept on their phase's own lines
+PIPE_KEYS = ("fp32_pipe_ms", "fp64_pipe_ms")
 # components (sign-insensitive, ratio > 1e-5) and ratios of the kernel
 # fit against the plain-version fit
 PCA_FIT_TOL = 1e-4
@@ -734,6 +756,27 @@ def run_kernel(x, w, c, mode, need_cost):
 
 def _rel_err(a, b):
     return float(torch.max(torch.abs(a - b)) / torch.clamp_min(torch.max(torch.abs(b)), 1e-30))
+
+
+def pca_gram_rtol(mode, n, d):
+    """The Gram pass's limit against its plain version at one tier and
+    shape: PCA_GRAM_HIGHEST_RTOL at highest's main shapes, else the
+    tier's PCA_GRAM_RTOL."""
+    if mode == "highest":
+        return PCA_GRAM_HIGHEST_RTOL.get((n, d), PCA_GRAM_RTOL[mode])
+    return PCA_GRAM_RTOL[mode]
+
+
+def gram_f64(x, mask, mean):
+    """The float64 Gram of the f32 values the kernel forms, (x - mean) *
+    mask."""
+    xc = ((x - mean[None, :]) * mask[:, None]).double()
+    return xc.T @ xc
+
+
+def measured(v):
+    """A variant as the kernels line carries it: without PIPE_KEYS."""
+    return {k: x for k, x in v.items() if k not in PIPE_KEYS}
 
 
 def compare(x, w, c, mode, need_cost):
@@ -1234,16 +1277,21 @@ def pca_data(n, d, dev, seed):
 def pca_bound(n, d, mode, need_gram):
     """Least time of one moments pass: x, mask and mean read once, the
     outputs written once; the symmetric Gram's n d (d + 1) operations
-    (its d (d + 1) / 2 distinct entries, 2 n each) at the tier's rate
-    (high: three bf16 products), the sums' 2 n d on FP32."""
+    (its d (d + 1) / 2 distinct entries, 2 n each) at the tensor-core
+    peak, as bf16 products: highest six (an f32-accurate split, the
+    fastest f32-accurate product on this card, as K1's bound counts it),
+    high three, default one; the sums' 2 n d on FP32."""
     nbytes = 4.0 * (n * d + n + d + (d * d if need_gram else d + 1))
     if not need_gram:
         return _bound(2.0 * n * d / PEAK_FP32, nbytes / PEAK_BYTES)
-    ops = float(n) * d * (d + 1)
-    if mode == "highest":
-        return _bound(ops / PEAK_FP32, nbytes / PEAK_BYTES)
-    passes = 3 if mode == "high" else 1
-    return _bound(passes * ops / PEAK_BF16, nbytes / PEAK_BYTES)
+    passes = {"highest": 6, "high": 3, "default": 1}[mode]
+    return _bound(passes * float(n) * d * (d + 1) / PEAK_BF16, nbytes / PEAK_BYTES)
+
+
+def pca_fp32_pipe_ms(n, d):
+    """The Gram's n d (d + 1) operations on the FP32 pipe (67 TFLOP/s):
+    highest's bound while its products were f32 FMAs."""
+    return float(n) * d * (d + 1) / PEAK_FP32 * 1e3
 
 
 def pca_variants(x, mask, mode, dev, reps):
@@ -1279,12 +1327,18 @@ def pca_variants(x, mask, mode, dev, reps):
     err = _rel_err(g, g_p)
     check(same, f"{tag} Gram pass: two launches differ")
     check(dev.type != "cuda" or torch.equal(g, g.T), f"{tag} Gram pass: not bit-symmetric")
-    check(err <= PCA_GRAM_RTOL[mode], f"{tag} Gram pass: rel err {err:.3g}")
+    rtol = pca_gram_rtol(mode, n, d)
+    check(err <= rtol, f"{tag} Gram pass: rel err {err:.3g} over {rtol:.3g}")
+    err64 = _rel_err(g.double(), gram_f64(x, mask, mean)) if mode == "highest" else None
+    check(err64 is None or err64 <= PCA_GRAM_F64_RTOL,
+          f"{tag} Gram pass: rel err {err64} against the float64 Gram")
+    route = _gram.pca_gram_route(mode, d)
+    check(d < _gram.WGMMA_MIN_D or route == "wgmma", f"{tag} Gram pass: route {route}")
     xc = x - mean
     a = xc if mode == "highest" else xc.to(torch.bfloat16)
     gram_v = {
-        "pass": "gram", "mode": mode, "shape": [n, d], "rel_err": err,
-        "route": _gram.pca_gram_route(mode, d),
+        "pass": "gram", "mode": mode, "shape": [n, d], "rel_err": err, "rtol": rtol,
+        "rel_err_f64": err64, "route": route,
         "max_abs_err": float(torch.max(torch.abs(g - g_p))), "deterministic": same,
         "ms": time_ms(lambda: k(x, mask, mean, mode, need_sums=False), dev, reps),
         "plain_ms": time_ms(lambda: plain(x, mask, mean, mode, need_sums=False), dev, reps),
@@ -1292,6 +1346,8 @@ def pca_variants(x, mask, mode, dev, reps):
         "library_call": "torch.matmul(xc.T, xc), " + ("f32, TF32 off" if mode == "highest" else "bf16"),
     }
     gram_v["bound_ms"], gram_v["bound_by"] = pca_bound(n, d, mode, True)
+    if mode == "highest":
+        gram_v["fp32_pipe_ms"] = pca_fp32_pipe_ms(n, d)
     emit("pca_variant", gram_v)
     return [mean_v, gram_v]
 
@@ -1587,7 +1643,7 @@ def phase_small_slices(dev):
     every tier, and small fits against their numpy oracles."""
     g = torch.Generator(device=dev)
     g.manual_seed(11)
-    routes = set()
+    routes, gram_errs = set(), {}
     for n, d in PCA_SMALL:
         x = torch.randn((n, d), generator=g, device=dev) * 2.0 + 1.5
         mask = (torch.rand((n,), generator=g, device=dev) > 0.1).float()
@@ -1602,6 +1658,12 @@ def phase_small_slices(dev):
             gp, _, _ = pca_kernel.pca_moments_plain(x, mask, mean, mode, need_sums=False)
             route = _gram.pca_gram_route(mode, d)
             routes.add(route)
+            gram_errs[f"{n}x{d} {mode}"] = _rel_err(gk, gp)
+            if mode == "highest":
+                err64 = _rel_err(gk.double(), gram_f64(x, mask, mean))
+                gram_errs[f"{n}x{d} highest f64"] = err64
+                check(err64 <= PCA_GRAM_F64_RTOL,
+                      f"small pca gram {n}x{d} highest: {err64:.3g} from the float64 Gram")
             # the kernel's Gram is bit-symmetric (the plain one need not be)
             check(_rel_err(gk, gp) <= PCA_GRAM_RTOL[mode] and torch.equal(gk, gk2)
                   and (dev.type != "cuda" or torch.equal(gk, gk.T)),
@@ -1670,7 +1732,8 @@ def phase_small_slices(dev):
             check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(native, plain)),
                   f"grouped edges n_dst={n_dst} p={p}: the host library differs from numpy")
     emit("small_slices", {"pca_shapes": [list(sh) for sh in PCA_SMALL],
-                          "pca_routes": sorted(routes), "gram_ranks": [1, 7, 32, 70],
+                          "pca_routes": sorted(routes), "pca_gram_rel_err": gram_errs,
+                          "gram_ranks": [1, 7, 32, 70],
                           "solve_ranks": [1, 10, 32], "fits": ["pca", "als implicit",
                                                                "als explicit"],
                           "als_wide_rank": wide, "nonnegative_err": nn_err,
@@ -7989,11 +8052,12 @@ def _x64_split(fn, dev):
     return {"kernels_ms": by, "device_ms": sum(by.values())} if by else None
 
 
-def _x64_ptxas():
+def ptxas_by_function(names, part):
     """Registers, shared bytes and spills that ``-Xptxas -v`` reported for
-    the float64 forms' kernels (their mangled names hold ``dmma``)."""
+    the kernels of the libraries ``names`` whose mangled names hold
+    ``part``."""
     out = {}
-    for name in (kmeans_kernel.KERNEL, pca_kernel.KERNEL):
+    for name in names:
         log = _build.build_dir() / f"{name}.ptxas.log"
         if not log.exists():
             continue
@@ -8001,7 +8065,7 @@ def _x64_ptxas():
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if "dmma" in m.group(1) else None
+                fn = m.group(1) if part in m.group(1) else None
                 continue
             if fn is None:
                 continue
@@ -8014,8 +8078,34 @@ def _x64_ptxas():
                 smem = re.search(r"(\d+) bytes smem", line)
                 out.setdefault(fn, {}).update(registers=int(m.group(1)),
                                               static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def _x64_ptxas():
+    """ptxas's figures for the float64 forms' kernels (their mangled
+    names hold ``dmma``)."""
+    out = ptxas_by_function((kmeans_kernel.KERNEL, pca_kernel.KERNEL), "dmma")
     for fn, v in out.items():
         print(f"ptxas x64 {fn}: {v}", flush=True)
+    return out
+
+
+def gram_highest_build(lib):
+    """The highest tier's tensor-core Gram instances in the built
+    library (``gram_wgmma_kernel<0, VEC>``, mangled ``...ILi0E...``): each
+    holds HGMMA instructions in its SASS, and ptxas reports each with no
+    spill; fails otherwise."""
+    part = "gram_wgmma_kernelILi0E"
+    hgmma = {f: v for f, v in count_sass_by_function(lib, "HGMMA").items() if part in f}
+    ptxas = ptxas_by_function((pca_kernel.KERNEL,), part)
+    out = {f: {"hgmma": hgmma.get(f), **ptxas.get(f, {})} for f in sorted({*hgmma, *ptxas})}
+    print(f"sass/ptxas {lib.name} highest Gram: {out}", flush=True)
+    check(hgmma and all(v > 0 for v in hgmma.values()),
+          f"a highest-tier Gram instance holds no HGMMA instruction: {hgmma}")
+    check(ptxas.keys() == hgmma.keys()
+          and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+                  for v in ptxas.values()),
+          f"highest-tier Gram instances: ptxas reports a spill or none: {out}")
     return out
 
 
@@ -8401,12 +8491,13 @@ def phase_build(dev):
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
-    for name, what in ((pca_kernel.KERNEL, "the bf16 Gram tiers"),
+    for name, what in ((pca_kernel.KERNEL, "the Gram at every tier for d >= 64"),
                        (kmeans_kernel.KERNEL, "the Lloyd assignment, every tier")):
         hgmma = count_sass(paths[name], "HGMMA")
         print(f"sass {paths[name].name}: {hgmma} HGMMA instructions "
               f"({what} on the tensor cores)", flush=True)
         check(hgmma > 0, f"the {name} library holds no HGMMA instruction")
+    gram_highest_build(paths[pca_kernel.KERNEL])
     return smi
 
 
@@ -8662,7 +8753,7 @@ def main(argv=None) -> int:
             "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": v["library_ms"], "library_call": v["library_call"],
-            "shape": shape, "variants": all_v,
+            "shape": shape, "variants": [measured(u) for u in all_v],
         })
     # the ring at the shape, world and layout the sharded fit gives it
     main_ring = next(v for v in rings if v["shape"] == list(ring_cfg["shapes"][0])
@@ -8797,8 +8888,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches, "max_abs_err": v["max_abs_err"],
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "bound_by": v["bound_by"], "library_ms": v["library_ms"],
-            "library_call": v["library_call"], "fp64_pipe_ms": v["fp64_pipe_ms"],
-            "shape": shape, "variants": variants,
+            "library_call": v["library_call"],
+            "shape": shape, "variants": [measured(u) for u in variants],
             "x64": {k: x64[k] for k in ("routes", "als", "small", "ptxas", "wall_s")}})
     by_path[f"{kmeans_kernel.KERNEL}_f64"] = {
         "x64 fit": x64["kmeans_fit"]["launches_float64"],

@@ -1,6 +1,6 @@
 // Deterministic SIMT Gram  G = Xc^T Xc  for Hopper (sm_90a): the route of
-// pca_moments.cu (K2) at the highest tier, and at every tier below the
-// width where gram_wgmma.cuh takes over.
+// pca_moments.cu (K2) at every tier below the width (d = 64) where
+// gram_wgmma.cuh takes over.
 //
 // Xc is the (n, d) input, centered and masked in f32 (xc = (x -
 // mean[col]) * mask[row], as `_tile_moments` computes it).  Rows past
@@ -20,13 +20,9 @@
 //
 // What it adds to a plain tiled Gram.  (1) A diagonal tile skips
 // the register pairs that hold only entries below its diagonal, and
-// writes each entry a <= b once, with its mirror.  Below TM = 8 the
-// thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j, and keeps
-// the pairs j >= i (10 of 16 products at TM = 4); at TM = 8 (the
-// highest tier's 128-wide tiles) it holds rows 4 ty + {0..3} and
-// 64 + 4 ty + {0..3}, columns likewise, read as four float4s per row of
-// the stage instead of 16 words, and a diagonal tile keeps 3 of its 4
-// 64 x 64 quarters.  At d <= 128 the one tile is diagonal.  (2) The raw f32
+// writes each entry a <= b once, with its mirror: the thread (ty, tx)
+// holds rows ty + 16 i and columns tx + 16 j, and keeps the pairs j >= i
+// (10 of 16 products at TM = 4).  (2) The raw f32
 // rows (and their mask values) are staged with cp.async into two
 // shared-memory stages, 16 bytes a copy where d is a multiple of 4 (else
 // 4), zero-filled past the edges; the next stage's copies fly while the
@@ -150,20 +146,13 @@ struct Stager {
   }
 };
 
-// Row (or column) of a thread's register i in a 16 * TM tile: at TM = 8
-// two contiguous runs of 4 (t * 4 + i % 4 + 64 * (i / 4)), read as
-// float4s; below that interleaved at stride 16 (t + 16 i).
-template <int TM>
-__device__ __forceinline__ int reg_line(int t, int i) {
-  return TM == 8 ? t * 4 + (i & 3) + 64 * (i >> 2) : t + SIDE * i;
-}
+// Row (or column) of a thread's register i in a 16 * TM tile:
+// interleaved at stride 16.
+__device__ __forceinline__ int reg_line(int t, int i) { return t + SIDE * i; }
 
 // Whether register pair (i, j) of a diagonal tile can hold an entry on
-// or above the diagonal: the block below it never does.
-template <int TM>
-__device__ __forceinline__ constexpr bool upper_pair(int i, int j) {
-  return TM == 8 ? (j >> 2) >= (i >> 2) : j >= i;
-}
+// or above the diagonal: the pairs below it never do.
+__device__ __forceinline__ constexpr bool upper_pair(int i, int j) { return j >= i; }
 
 template <int TM, int MODE, bool DIAG>
 __device__ __forceinline__ void compute_stage(const float (*ah)[SIDE * TM],
@@ -172,28 +161,6 @@ __device__ __forceinline__ void compute_stage(const float (*ah)[SIDE * TM],
                                               const float (*bl)[SIDE * TM],
                                               int tx, int ty,
                                               float (&acc)[TM][TM]) {
-  if constexpr (TM == 8) {  // highest only: four float4 reads per row
-    static_assert(MODE == 0, "128-wide SIMT tiles run the highest tier");
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[8];
-      *reinterpret_cast<float4*>(a) =
-          *reinterpret_cast<const float4*>(&ah[kk][4 * ty]);
-      *reinterpret_cast<float4*>(a + 4) =
-          *reinterpret_cast<const float4*>(&ah[kk][64 + 4 * ty]);
-      *reinterpret_cast<float4*>(b) =
-          *reinterpret_cast<const float4*>(&bh[kk][4 * tx]);
-      *reinterpret_cast<float4*>(b + 4) =
-          *reinterpret_cast<const float4*>(&bh[kk][64 + 4 * tx]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (!DIAG || upper_pair<8>(i, j))
-            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    return;
-  }
 #pragma unroll 4
   for (int kk = 0; kk < BK; ++kk) {
     float a[TM], b[TM], alo[TM], blo[TM];
@@ -210,7 +177,7 @@ __device__ __forceinline__ void compute_stage(const float (*ah)[SIDE * TM],
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TM; ++j) {
-        if (DIAG && !upper_pair<TM>(i, j)) continue;
+        if (DIAG && !upper_pair(i, j)) continue;
         if (MODE == 1) {
           const float cross = fmaf(a[i], blo[j], __fmul_rn(alo[i], b[j]));
           acc[i][j] = __fadd_rn(fmaf(a[i], b[j], acc[i][j]), cross);
@@ -270,12 +237,12 @@ __device__ __forceinline__ void tile_body(
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int a = ti * T + reg_line<TM>(ty, i);
+    const int a = ti * T + reg_line(ty, i);
     if (a >= d) continue;
 #pragma unroll
     for (int j = 0; j < TM; ++j) {
-      const int b = tj * T + reg_line<TM>(tx, j);
-      if (DIAG && (!upper_pair<TM>(i, j) || a > b)) continue;
+      const int b = tj * T + reg_line(tx, j);
+      if (DIAG && (!upper_pair(i, j) || a > b)) continue;
       if (b >= d) continue;
       out[(size_t)a * d + b] = acc[i][j];
       out[(size_t)b * d + a] = acc[i][j];
@@ -312,10 +279,7 @@ template <int TM, int VEC>
 inline void launch_mode(int mode, dim3 grid, cudaStream_t st, const float* x,
                         const float* mask, const float* mean, int n, int d,
                         int m, int slice_rows, float* part) {
-  if constexpr (TM == 8) {  // 128-wide tiles: highest only (see launch)
-    gram_simt_kernel<TM, 0, VEC><<<grid, THREADS, 0, st>>>(
-        x, mask, mean, n, d, m, slice_rows, part);
-  } else if (mode == 0) {
+  if (mode == 0) {
     gram_simt_kernel<TM, 0, VEC><<<grid, THREADS, 0, st>>>(
         x, mask, mean, n, d, m, slice_rows, part);
   } else if (mode == 1) {
@@ -340,14 +304,12 @@ inline void launch_tm(int mode, bool vec, dim3 grid, cudaStream_t st,
 }
 
 // The tile kernel over (tiles, slices) into `part` (slices, d, d); the
-// caller sums the slices.  `tm` is 1, 2, 4 or 8, `m` tiles per side; the
-// bf16 tiers take tm <= 4 (wider tables go to gram_wgmma.cuh, and a
-// 128-wide high-tier tile would pass the 48 KB of static shared memory).
-// Returns cudaErrorInvalidValue for a bf16 tier at tm 8.
+// caller sums the slices.  `tm` is 1, 2 or 4 (wider tables go to
+// gram_wgmma.cuh), `m` tiles per side.  Returns cudaErrorInvalidValue
+// for another tm.
 inline int launch(const float* x, const float* mask, const float* mean,
                   int n, int d, int mode, int tm, int m, int slices,
                   int slice_rows, float* part, cudaStream_t st) {
-  if (tm == 8 && mode != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(m * (m + 1) / 2, slices);
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   switch (tm) {
@@ -364,8 +326,7 @@ inline int launch(const float* x, const float* mask, const float* mean,
                    part);
       break;
     default:
-      launch_tm<8>(mode, vec, grid, st, x, mask, mean, n, d, m, slice_rows,
-                   part);
+      return (int)cudaErrorInvalidValue;
   }
   return 0;
 }

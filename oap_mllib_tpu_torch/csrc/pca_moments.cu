@@ -16,9 +16,10 @@
 // TFLOP/s bf16 dense, 3.35 TB/s).  The mean pass reads x once: at
 // n = 2^20, d = 128 that is 537 MB, ~0.16 ms.  The Gram pass needs the
 // symmetric Gram's n d (d + 1) operations (its distinct entries): 17.3
-// GFLOP at d = 128, ~0.26 ms on FP32 at highest, far less on the tensor
-// cores, where the one read of x (0.16 ms) bounds it; 275 GFLOP at
-// n = 2^18, d = 1024, ~4.1 ms on FP32, ~0.28 ms per bf16 product.  Both
+// GFLOP at d = 128, where on the tensor cores the one read of x (0.16
+// ms) bounds it at every tier (six bf16 products at highest: 0.10 ms);
+// 275 GFLOP at n = 2^18, d = 1024, ~0.28 ms per bf16 product (1.67 ms
+// for highest's six; ~4.1 ms on the FP32 pipe).  Both
 // passes on the TPU accumulated into one resident block across a
 // sequential grid; here blocks run in parallel and in no order, so both
 // are split into fixed row slices whose partials a second kernel sums
@@ -32,13 +33,13 @@
 // only the output tiles on and above the diagonal, mirrored into a
 // bit-symmetric result, with the masked, centered operand formed in
 // shared memory and never written to device memory:
-//   - gram_wgmma.cuh, the default and high tiers at d >= 64: bf16
-//     operands on the tensor cores (wgmma, f32 accumulators), raw rows
+//   - gram_wgmma.cuh, every tier at d >= 64: bf16 operands on the
+//     tensor cores (wgmma, f32 accumulators; highest as a three-part
+//     bf16 split and six products, the TPU's HIGHEST scheme), raw rows
 //     staged with cp.async three stages ahead;
-//   - gram_simt.cuh, the highest tier (f32 products on the FP32 pipe,
-//     as the plain version computes them) and the bf16 tiers below
-//     d = 64: register tiles, upper triangle only inside diagonal
-//     tiles, cp.async double-buffered staging.
+//   - gram_simt.cuh, every tier below d = 64 (highest as f32 products
+//     on the FP32 pipe): register tiles, upper triangle only inside
+//     diagonal tiles, cp.async double-buffered staging.
 // Both routes take their tile order, and this kernel its slice sum,
 // from gram_tile.cuh.
 //
@@ -156,8 +157,8 @@ extern "C" {
 //     `sum_slice_rows` rows; scratch psum (sum_slices * d), pcount
 //     (sum_slices).
 //   need_gram: gram (d, d) of (x - mean) * mask, mean (d); `route` 0
-//     (SIMT: `tm` in {1, 2, 4, 8} sets the 16 * tm output tile) or 1
-//     (wgmma, 128-wide tiles, bf16 tiers only), `m` tiles per side,
+//     (SIMT: `tm` in {1, 2, 4} sets the 16 * tm output tile) or 1
+//     (wgmma, 128-wide tiles), `m` tiles per side,
 //     `gram_slices` slices of `gram_slice_rows` rows; scratch gram_part
 //     (gram_slices * d * d).
 // Returns a cudaError_t: cudaGetLastError() after the launches, or the

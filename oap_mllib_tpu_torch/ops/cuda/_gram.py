@@ -6,9 +6,9 @@ slice of rows, and sums the slice partials in slice order with a second
 kernel (the ALS factor Gram sizes its own one-launch grid,
 ``als_kernel.factor_gram_geometry``):
 
-- ``csrc/gram_simt.cuh`` (the highest tier and narrow tables): SIMT
+- ``csrc/gram_simt.cuh`` (narrow tables, d < :data:`WGMMA_MIN_D`): SIMT
   tiles of 16 * tm, sized by :func:`gram_geometry`;
-- ``csrc/gram_wgmma.cuh`` (the PCA moments kernel at the bf16 tiers for
+- ``csrc/gram_wgmma.cuh`` (the PCA moments kernel at every tier for
   d >= :data:`WGMMA_MIN_D`): 128-wide tensor-core tiles, one block per
   SM, sized by :func:`wgmma_geometry` so the grid fills the card in
   whole waves.  :func:`pca_gram_route` picks the route;
@@ -40,11 +40,12 @@ WGMMA_MIN_D = 64
 
 def gram_geometry(n: int, d: int, target_blocks: int = _TARGET_BLOCKS
                   ) -> Tuple[int, int, int, int]:
-    """``(tm, m, slices, slice_rows)`` of the Gram of an (n, d) table:
-    16 * tm output tiles, m tiles per side (m (m + 1) / 2 computed), row
-    slices enough for about ``target_blocks`` (tile, slice) blocks (the
-    autotuner's ``pca`` knob of that name)."""
-    tm = 8 if d > 64 else 4 if d > 32 else 2 if d > 16 else 1
+    """``(tm, m, slices, slice_rows)`` of the SIMT Gram of an (n, d)
+    table: 16 * tm output tiles (at most 64 wide), m tiles per side
+    (m (m + 1) / 2 computed), row slices enough for about
+    ``target_blocks`` (tile, slice) blocks (the autotuner's ``pca`` knob
+    of that name)."""
+    tm = 4 if d > 32 else 2 if d > 16 else 1
     m = -(-d // (16 * tm))
     tiles = m * (m + 1) // 2
     slices = max(1, min(-(-target_blocks // tiles),
@@ -102,10 +103,10 @@ def f64_gram_smem(d: int) -> int:
 
 
 def pca_gram_route(mode: str, d: int) -> str:
-    """``"wgmma"`` for the bf16 tiers (``high``, ``default``) at
-    d >= :data:`WGMMA_MIN_D`, else ``"simt"`` (``highest`` keeps f32
-    products on the FP32 pipe)."""
-    return "wgmma" if mode != "highest" and d >= WGMMA_MIN_D else "simt"
+    """``"wgmma"`` at every tier for d >= :data:`WGMMA_MIN_D` (``highest``
+    as a three-part bf16 split and six products), else ``"simt"``.
+    ``mode`` is checked by the caller; no tier changes the route."""
+    return "wgmma" if d >= WGMMA_MIN_D else "simt"
 
 
 @lru_cache(maxsize=256)

@@ -40,7 +40,8 @@ each launched with before the autotuner existed):
 
 - ``kmeans`` (K1): ``range_rows``, rows of a counting-sort range, and
   ``parts``, the most parts of a cluster's sums (``kmeans_kernel``);
-- ``pca`` (K2): ``target_blocks``, the FP32 Gram route's blocks, and
+- ``pca`` (K2): ``target_blocks``, the blocks of the SIMT Gram route
+  (d < 64) and of the float64 form's Gram, and
   ``sum_rows``, the least rows of a mean-pass slice (``pca_kernel``);
 - ``als_solve`` (K3): ``group``, as steps above ``solve_group(r)`` lanes
   a system in powers of two (0 = ``solve_group(r)``, 1 = the next power

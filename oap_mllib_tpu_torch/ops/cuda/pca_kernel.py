@@ -16,14 +16,16 @@ centered masked Gram ``((x - mean) * mask)^T ((x - mean) * mask)`` at a
 precision tier, centering in f32 before any rounding.  The kernel masks
 ragged rows itself, so the JAX package's 512-row and 128-lane padding
 is not needed.  The Gram pass takes one of two hand-written routes,
-chosen by ``_gram.pca_gram_route`` from the tier and the width: the
-tensor cores (``csrc/gram_wgmma.cuh``, sized by ``_gram.wgmma_geometry``)
-for the bf16 tiers at d >= 64, else the FP32 pipe
-(``csrc/gram_simt.cuh``, sized by ``_gram.gram_geometry``).
+chosen by ``_gram.pca_gram_route`` from the width: the tensor cores
+(``csrc/gram_wgmma.cuh``, sized by ``_gram.wgmma_geometry``) at every
+tier for d >= 64 (``highest`` as a three-part bf16 split of each f32
+value and six products, the TPU's own ``HIGHEST`` scheme), else SIMT
+tiles (``csrc/gram_simt.cuh``, sized by ``_gram.gram_geometry``).
 
 Launch geometry (the autotuner's ``pca`` knobs, ops/cuda/autotune.py):
-``target_blocks``, the (tile, slice) blocks the FP32 Gram route aims
-for (the tensor-core route fills the SMs by its own rule), and
+``target_blocks``, the (tile, slice) blocks the SIMT Gram route (d < 64)
+and the float64 form aim for (the tensor-core route fills the SMs by
+its own rule), and
 ``sum_rows``, the least rows of a mean-pass slice.  Both cut the rows
 into other slices, so they change the fold.  ``geometry=None`` launches
 :data:`DEFAULT_GEOMETRY`.

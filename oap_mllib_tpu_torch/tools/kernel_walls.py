@@ -1,8 +1,8 @@
-"""Times of K1 and K2 forms on the card, for comparing checkouts on one
-card in one run.
+"""Times of K1's and K2's kernel forms on the card, for comparing
+checkouts on one card in one run.
 
-    python oap_mllib_tpu_torch/tools/x64_walls.py --root DIR [--reps 10]
-        [--lanes x64,wide]
+    python oap_mllib_tpu_torch/tools/kernel_walls.py --root DIR [--reps 10]
+        [--lanes x64,wide,gram]
 
 imports ``oap_mllib_tpu_torch`` from the checkout at ``DIR`` (only the
 wrappers ``kmeans_kernel.lloyd_accumulate`` and ``pca_kernel.pca_moments``,
@@ -13,12 +13,18 @@ and times, by lane:
   x 256, k = 1000, in loop and cost mode, and K2 f64's Gram pass at 2^20
   x 128 and 2^18 x 1024;
 - ``wide``: K1 on f32 rows wider than 256 features, 2^20 x 512 and 2^20
-  x 960 (GIST1M's width), k = 1000, every tier, loop and cost mode.
+  x 960 (GIST1M's width), k = 1000, every tier, loop and cost mode;
+- ``gram``: K2's f32 Gram pass at 2^20 x 128 and 2^18 x 1024, every
+  tier, with its largest difference (relative to the Gram's largest
+  entry) from the plain version and from the float64 Gram of the same
+  formed f32 values (the plain version's own beside it), and
+  ``torch.matmul(xc.T, xc)`` (f32 with TF32 off at highest, bf16 at the
+  bf16 tiers).
 
 Each time is a mean over ``--reps`` calls between CUDA events after a
 warm call; beside it, the device ms of the kernels of one call from
 torch.profiler (the assignment's and the Gram's own kernels).  Prints
-``X64_WALLS <json>`` with the card's name and power limit.  Run two
+``KERNEL_WALLS <json>`` with the card's name and power limit.  Run two
 checkouts as parent, change, change, parent in one command to compare
 them.
 """
@@ -33,6 +39,8 @@ from pathlib import Path
 
 
 WIDE_SHAPES = ((1 << 20, 512), (1 << 20, 960))
+GRAM_SHAPES = ((1 << 20, 128), (1 << 18, 1024))
+LANES = ("x64", "wide", "gram")
 WIDE_K = 1000
 
 
@@ -97,11 +105,12 @@ def main(argv=None) -> int:
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--lanes", default="x64,wide",
-                    help="comma-separated: x64 (the float64 forms), wide (K1 f32 at d > 256)")
+                    help="comma-separated: x64 (the float64 forms), wide (K1 f32 at d > 256), "
+                         "gram (K2's f32 Gram pass, every tier)")
     args = ap.parse_args(argv)
     lanes = set(args.lanes.split(","))
-    if not lanes <= {"x64", "wide"}:
-        ap.error(f"unknown lanes {sorted(lanes - {'x64', 'wide'})}")
+    if not lanes <= set(LANES):
+        ap.error(f"unknown lanes {sorted(lanes - set(LANES))}")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -117,7 +126,9 @@ def main(argv=None) -> int:
         _wide(out, kmeans_kernel, dev, args.reps)
     if "x64" in lanes:
         _x64(out, kmeans_kernel, pca_kernel, dev, args.reps)
-    print("X64_WALLS " + json.dumps(out), flush=True)
+    if "gram" in lanes:
+        _gram_lane(out, pca_kernel, dev, args.reps)
+    print("KERNEL_WALLS " + json.dumps(out), flush=True)
     return 0
 
 
@@ -167,6 +178,40 @@ def _x64(out, kmeans_kernel, pca_kernel, dev, reps):
                               "gram_ms": sum(t for k, t in split.items() if "gram" in k
                                              and "sum_slices" not in k)}
         del x
+
+
+def _gram_lane(out, pca_kernel, dev, reps):
+    """K2's f32 Gram pass at every tier, with the library call beside it."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for n, d in GRAM_SHAPES:
+        x = _data(dev, d, n, d, dtype=torch.float32)
+        mask = torch.ones(n, device=dev)
+        mean = x.mean(dim=0)
+        xc = x - mean
+        ref64 = xc.double().T @ xc.double()
+        for mode in ("highest", "high", "default"):
+            def gram():
+                return pca_kernel.pca_moments(x, mask, mean, mode, need_sums=False)
+
+            g = gram()[0]
+            ref = pca_kernel.pca_moments_plain(x, mask, mean, mode, need_sums=False)[0]
+            a = xc if mode == "highest" else xc.to(torch.bfloat16)
+            split = _split(gram)
+            out[f"k2_gram_{n}x{d}_{mode}"] = {
+                "ms": _ms(gram, reps), "split_ms": split,
+                "gram_ms": sum(t for k, t in split.items() if "gram" in k
+                               and "sum_slices" not in k),
+                "rel_err": float((g - ref).abs().max() / ref.abs().max()),
+                "rel_err_f64": float((g - ref64).abs().max() / ref64.abs().max()),
+                "plain_rel_err_f64": float((ref - ref64).abs().max() / ref64.abs().max()),
+                "symmetric": bool(torch.equal(g, g.T)),
+                "library_ms": _ms(lambda: torch.matmul(a.T, a), reps),
+                "library_call": "torch.matmul(xc.T, xc), "
+                                + ("f32, TF32 off" if mode == "highest" else "bf16")}
+            del g, ref, a
+        del x, xc, ref64
 
 
 if __name__ == "__main__":

@@ -127,7 +127,7 @@ class TestWrapperRules:
                                      (5000, 20000), (162541, 10)])
     def test_gram_geometry_covers_rows_and_bounds_scratch(self, n, d):
         tm, m, slices, slice_rows = _gram.gram_geometry(n, d)
-        assert tm in (1, 2, 4, 8) and m * 16 * tm >= d > (m - 1) * 16 * tm
+        assert tm in (1, 2, 4) and m * 16 * tm >= d > (m - 1) * 16 * tm
         assert slice_rows % 16 == 0 and slices * slice_rows >= n > (slices - 1) * slice_rows
         assert slices == 1 or slices * d * d <= _gram._PARTIAL_ELEMS
         s_slices, s_rows = pca_kernel.sums_geometry(n)
@@ -139,19 +139,21 @@ class TestWrapperRules:
         assert 'extern "C"' in src and "cudaGetLastError" in src
         assert '#include "gram_tile.cuh"' in src
         assert '#include "gram_simt.cuh"' in src and '#include "gram_wgmma.cuh"' in src
-        assert "wgmma.mma_async" in (_build.CSRC / "gram_wgmma.cuh").read_text()
+        wg = (_build.CSRC / "gram_wgmma.cuh").read_text()
+        assert "wgmma.mma_async" in wg
+        # the tensor-core route takes every tier, highest (mode 0) too
+        assert "if (mode == 0)" in wg and "launch_one<0, 4>" in wg and "launch_one<0, 1>" in wg
 
 
 class TestGramRoutes:
     """The Gram pass's two hand-written routes: ``wgmma`` (tensor cores)
-    for the bf16 tiers from d = 64, ``simt`` (FP32 pipe) below that and
-    at highest at every width."""
+    at every tier from d = 64, ``simt`` below that."""
 
     @pytest.mark.parametrize("d", [1, 37, 63, 64, 67, 128, 140, 1024])
     @pytest.mark.parametrize("mode", ["highest", "high", "default", "f32", "bf16"])
     def test_route_by_tier_and_width(self, mode, d):
         tier = check_mode(mode)
-        want = "wgmma" if tier != "highest" and d >= _gram.WGMMA_MIN_D else "simt"
+        want = "wgmma" if d >= _gram.WGMMA_MIN_D else "simt"
         assert _gram.pca_gram_route(tier, d) == want
 
     @pytest.mark.parametrize("n,d", [(1, 64), (4099, 64), (2000, 67), (777, 140), (513, 300),
@@ -174,7 +176,7 @@ class TestGramRoutes:
         tiles = [_tile_of(t, m) for t in range(m * (m + 1) // 2)]
         assert sorted(tiles) == [(i, j) for i in range(m) for j in range(i, m)]
 
-    @pytest.mark.parametrize("tm", [1, 2, 4, 8])
+    @pytest.mark.parametrize("tm", [1, 2, 4])
     def test_simt_diagonal_tile_writes_each_entry_once(self, tm):
         """Thread (ty, tx) of a diagonal SIMT tile (gram_simt.cuh
         ``reg_line``, ``upper_pair``) keeps only the register pairs that
@@ -183,10 +185,10 @@ class TestGramRoutes:
         side = 16 * tm
 
         def line(t, i):
-            return t * 4 + (i & 3) + 64 * (i >> 2) if tm == 8 else t + 16 * i
+            return t + 16 * i
 
         def upper(i, j):
-            return (j >> 2) >= (i >> 2) if tm == 8 else j >= i
+            return j >= i
 
         hits = np.zeros((side, side), int)
         for ty in range(16):
