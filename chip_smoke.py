@@ -68,7 +68,9 @@ Phases, each a hard check (any failure exits non-zero):
    user side (162,541 systems), r = 10 and r = 32, from moments built on
    the card, against their plain versions: the solve bit-equal on the
    valid rows, the Gram deterministic and bit-symmetric and one CUDA
-   kernel per call (counted by torch.profiler); times, bounds,
+   kernel per call (counted by torch.profiler in a child process,
+   ``--k4-worker``: this process's sessions stop recording kernels after
+   the earlier phases'); times, bounds,
    yardsticks ``torch.linalg.solve`` and ``torch.matmul(F.T, F)``.
 9. als_fit (the ALS path): implicit ``ALS(rank=10, max_iter=10,
    alpha=40, reg_param=0.1)`` on ML-25M-scale synthetic ratings (162,541
@@ -168,8 +170,18 @@ Phases, each a hard check (any failure exits non-zero):
    K5 across the processes over CUDA IPC at the ring shapes, bit-equal
    to the plain version across processes and to the one-process plain
    ring, two launches bit-equal, one launch a process a ring, timed
-   against the plain version and the gloo host path; world "b" rings
-   with two members a process.  mp_kmeans: the headline fit on (2, 1)
+   against the plain version and the gloo host path; no host collective
+   across the timed calls (the collective facade's dispatches, the host
+   exchanges and the census's host ops read before and after them), the
+   card's waits for the peers (``device_wait_ms``); then the failure
+   leg: the last process fails its copy into the workspace on one call,
+   every process must raise the agreed RuntimeError naming it within
+   10 s, and the next call (a fresh workspace) is bit-equal again.
+   World "k" (two processes, on the card only): the second SIGKILLs
+   itself inside a K5 call, before it signals; the survivor must raise
+   PeerAbortError or CollectiveTimeoutError within 10 s, its stream must
+   drain, and it leaves (the world must end within 180 s).  World "b": rings with two members a
+   process.  mp_kmeans: the headline fit on (2, 1)
    (k-means||, K1 (iterations + 1) a local rank) and (2, 2) (random,
    K5 one launch a process a ring), iterations/s and the host
    collectives' seconds.  mp_pca: 2^20 x 128 on (2, 1) and (2, 2).
@@ -1437,11 +1449,51 @@ def gram_bound(n, r):
     return _bound(float(n) * r * (r + 1) / PEAK_FP32, 4.0 * (n * r + r * r) / PEAK_BYTES)
 
 
+def k4_worker(argv) -> int:
+    """``--k4-worker N R1,R2,...``: K4's kernels a call and device ms
+    (torch.profiler, :func:`profile_calls`) on random (N, r) factors, and
+    its device ms on the same grid over 8 rows a block (the launch and the
+    in-kernel grid sum, next to no rows to read), in a fresh process: this
+    process's torch.profiler sessions stop recording kernels after the
+    earlier phases' sessions (the kernels it launches are its own, the
+    build it loads is this run's; K4's launches and time follow the shape,
+    not the values).  Prints one ``K4_RESULT`` line."""
+    n, ranks = int(argv[0]), [int(r) for r in argv[1].split(",")]
+    dev = resolve_device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    out = {}
+    for r in ranks:
+        xf = torch.randn((n, r), generator=g, device=dev) / r ** 0.5
+        launched, device = profile_calls(lambda: als_kernel.factor_gram(xf), dev)
+        few = xf[:8 * als_kernel.factor_gram_geometry(n, r).blocks].contiguous()
+        out[str(r)] = {"launched": launched, "device_ms": device,
+                       "fixed_ms": profile_calls(lambda: als_kernel.factor_gram(few), dev)[1]}
+    print("K4_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def k4_profiles(n, ranks):
+    """:func:`k4_worker`'s results, run in a child process."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), "--k4-worker", str(n),
+                        ",".join(str(r) for r in ranks)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                       timeout=MP_TIMEOUT_S)
+    for line in p.stdout.splitlines():
+        if not line.startswith("K4_RESULT "):
+            print(line, flush=True)
+    check(p.returncode == 0, f"als_factor_gram: the profiling child exited {p.returncode}")
+    got = [ln for ln in p.stdout.splitlines() if ln.startswith("K4_RESULT ")]
+    check(bool(got), "als_factor_gram: the profiling child printed no result")
+    return json.loads(got[-1][len("K4_RESULT "):])
+
+
 def phase_als_kernels(cfg, data, dev, reps):
     """The solve and factor-Gram kernels on the user side's moments,
     built on the device from random item factors."""
     users, items, ratings = data
     n_users, n_items, reg = cfg["n_users"], cfg["n_items"], cfg["reg"]
+    k4 = k4_profiles(n_users, cfg["ranks"]) if dev.type == "cuda" else {}
     by_user = als_ops.build_grouped_edges(users, items, ratings, n_users)
     g = torch.Generator(device=dev)
     g.manual_seed(5)
@@ -1490,20 +1542,17 @@ def phase_als_kernels(cfg, data, dev, reps):
         check(same and (dev.type != "cuda" or torch.equal(gk, gk.T)),
               f"als_factor_gram r={r}: not deterministic or not bit-symmetric")
         check(err <= 1e-5, f"als_factor_gram r={r}: rel err {err:.3g}")
-        launched, device = profile_calls(lambda: als_kernel.factor_gram(xf), dev) or (None, None)
+        prof = k4.get(str(r), {})
+        launched, device, fixed = prof.get("launched"), prof.get("device_ms"), prof.get("fixed_ms")
         check(launched is None or len(launched) == 1,
               f"als_factor_gram r={r}: one call launched {launched}, expected one kernel")
-        # the same grid over 8 rows a block: the launch and the in-kernel
-        # grid sum, with next to no rows to read
-        blocks = als_kernel.factor_gram_geometry(n_users, r).blocks
-        few = xf[:8 * blocks].contiguous()
-        fixed = (profile_calls(lambda: als_kernel.factor_gram(few), dev) or (None, None))[1]
         v = {
             "r": r, "n": n_users, "rel_err": err, "deterministic": same,
             "geometry": als_kernel.factor_gram_geometry(n_users, r)._asdict(),
             "kernels_per_call": None if launched is None else len(launched),
             "kernel_names": launched, "device_ms": device,
-            "fixed_device_ms": fixed, "fixed_rows": int(few.shape[0]),
+            "fixed_device_ms": fixed,
+            "fixed_rows": min(n_users, 8 * als_kernel.factor_gram_geometry(n_users, r).blocks),
             "max_abs_err": float(torch.max(torch.abs(gk - gp))),
             "ms": time_ms(lambda: als_kernel.factor_gram(xf), dev, reps),
             "plain_ms": time_ms(lambda: als_kernel.factor_gram_plain(xf), dev, reps),
@@ -3014,7 +3063,7 @@ def mp_ring(cfg, dev, rank, nproc):
         # the wrapper steps round by using its own pointer
         lib = ring_kernel._library()
         ptr, handle = ctypes.c_void_p(), (ctypes.c_ubyte * 64)()
-        check(lib.ring_ws_alloc(dev.index, 1 << 20, ctypes.byref(ptr), handle) == 0,
+        check(lib.ring_ws_alloc(dev.index, 1 << 20, 256, ctypes.byref(ptr), handle) == 0,
               "mp_ring: a test workspace")
         mapped = ctypes.c_void_p()
         own_err = lib.ring_ipc_open(dev.index, bytes(handle), ctypes.byref(mapped))
@@ -3041,9 +3090,24 @@ def mp_ring(cfg, dev, rank, nproc):
         check(launches == want, f"{tag}: {launches} launches in this process, expected {want}")
         mp_same(tag, got.cpu().numpy().tobytes())
         reps = cfg["reps"]
+        # the timed calls after a warm one (which grew the workspace): no
+        # host collective among them, the host's one wait a call
+        ring = lambda: ring_kernel.ring_allreduce_groups(mine, groups, owner)  # noqa: E731
+        ring()
+        sync(dev)
+        collective.barrier()
         ring_kernel.reset_ipc_stats()
-        ms = mp_timed(lambda: ring_kernel.ring_allreduce_groups(mine, groups, owner), reps, dev)
+        before = host_collectives()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ring()
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        after = host_collectives()
         stats = dict(ring_kernel.IPC_STATS)
+        made = {key: after[key] - before[key] for key in after}
+        check(dev.type != "cuda" or not any(made.values()),
+              f"{tag}: {made} host collectives across {reps} timed calls, expected none")
         n_gloo = max(1, reps // 2)
 
         def gloo_host():
@@ -3093,11 +3157,112 @@ def mp_ring(cfg, dev, rank, nproc):
              "gloo_host_exchange_ms": 1e3 * host["seconds"] / max(1, host["calls"]),
              "payload_mb": rows * cols * 4 / 1e6, "bound_ms": bound_ms,
              "bound_by": bound_by,
+             # the host's one wait a call (the gloo barriers' key before
+             # K5 signalled on the card) and the card's waits for the peers
              "barrier_ms_per_call": 1e3 * stats["barrier_s"] / max(1, stats["calls"]),
+             "device_wait_ms": 1e3 * stats["device_wait_s"] / max(1, stats["calls"]),
+             "host_collectives_timed": made, "timed_calls": reps,
              "host_ms_per_call": 1e3 * stats["total_s"] / max(1, stats["calls"])}
         emit("mp_ring_variant", v)
         out.append(v)
+    if dev.type == "cuda":
+        out.append(mp_ring_failure(dev, rank, nproc))
     return out
+
+
+def host_collectives():
+    """This process's host collectives so far: every dispatch of the
+    collective facade (``oap_collective_ops_total``: gathers, all_to_all,
+    barriers, agreements), the host exchanges (``HOST_STATS``) and the
+    census's host ops."""
+    series = tel_metrics.snapshot().get("oap_collective_ops_total", {})
+    return {"dispatches": int(sum(series.values())),
+            "host_exchanges": collective.HOST_STATS["calls"],
+            "census": sum(collective.emitted(op) for op in ("process_allgather", "all_to_all"))}
+
+
+def mp_ring_failure(dev, rank, nproc):
+    """One process (the last) fails its copy into the workspace on one
+    call: every process must raise the agreed RuntimeError naming it
+    within seconds, and the next call, on a fresh workspace, must be
+    bit-equal to the plain version again."""
+    rows, cols = 1000, 130
+    g = torch.Generator()
+    g.manual_seed(rows * cols + 7 * rank)
+    mine = {rank: (torch.randn((rows, cols), generator=g) * 10.0).to(dev)}
+    groups, owner = [list(range(nproc))], (lambda m: m)
+    want = ring_kernel.ring_allreduce_groups_plain(mine, groups, owner)[rank]
+    bad = nproc - 1
+    real = ring_kernel._copy_in
+
+    def planted(*args):
+        raise RuntimeError("mp_ring_failure: a copy in failed on purpose")
+
+    if rank == bad:
+        ring_kernel._copy_in = planted
+    err = None
+    t0 = time.perf_counter()
+    try:
+        ring_kernel.ring_allreduce_groups(mine, groups, owner)
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        ring_kernel._copy_in = real
+    seconds = time.perf_counter() - t0
+    tag = f"mp_ring_failure world={nproc}"
+    check(err is not None and f"failed on process(es) [{bad}]" in err,
+          f"{tag}: process {rank} raised {err!r}, expected the agreed error naming [{bad}]")
+    check(seconds < 10.0, f"{tag}: the failed call took {seconds:.1f} s")
+    before = dict(ring_kernel._ipc)
+    ring_kernel.reset_launches()
+    got = ring_kernel.ring_allreduce_groups(mine, groups, owner)[rank]
+    sync(dev)
+    check(torch.equal(got, want), f"{tag}: the call after the failure differs from the plain "
+                                  "version")
+    check(ring_kernel.LAUNCHES[ring_kernel.KERNEL] == 1 and ring_kernel._ipc["epoch"] == 1
+          and ring_kernel._ipc["ptr"] is not None and not ring_kernel._ipc["stale"],
+          f"{tag}: the next call ran {ring_kernel.LAUNCHES[ring_kernel.KERNEL]} launches at "
+          f"epoch {ring_kernel._ipc['epoch']} (before it: stale {before['stale']})")
+    v = {"world": nproc, "failed_process": bad, "seconds": seconds, "error": err[:300],
+         "stale_before_next": before["stale"], "next_bit_equal": True}
+    emit("mp_ring_failure", v)
+    return v
+
+
+def mp_ring_kill(dev, rank, nproc):
+    """World "k": the last process SIGKILLs itself inside a K5 call, before
+    it signals; every survivor must raise PeerAbortError (the process
+    gone) or CollectiveTimeoutError within 10 s, its card's stream must
+    drain (a synchronise returns), and it leaves at once."""
+    import signal
+
+    from oap_mllib_tpu_torch.utils import recovery
+
+    rows, cols = 1000, 130
+    g = torch.Generator()
+    g.manual_seed(rows * cols + 7 * rank)
+    mine = {rank: (torch.randn((rows, cols), generator=g) * 10.0).to(dev)}
+    groups, owner = [list(range(nproc))], (lambda m: m)
+    ring_kernel.ring_allreduce_groups(mine, groups, owner)
+    sync(dev)
+    if rank == nproc - 1:
+        ring_kernel._copy_in = lambda *args: os.kill(os.getpid(), signal.SIGKILL)
+    err = None
+    t0 = time.perf_counter()
+    try:
+        ring_kernel.ring_allreduce_groups(mine, groups, owner)
+    except (recovery.PeerAbortError, recovery.CollectiveTimeoutError) as e:
+        err = e
+    seconds = time.perf_counter() - t0
+    check(err is not None, f"mp_ring_kill: process {rank} raised nothing after its peer died")
+    check(seconds < 10.0, f"mp_ring_kill: the survivor took {seconds:.1f} s to raise")
+    # the survivor released its own waits: its stream drains
+    sync(dev)
+    v = {"world": nproc, "killed_process": nproc - 1, "error_class": type(err).__name__,
+         "seconds": seconds, "drained_s": time.perf_counter() - t0, "error": str(err)[:300],
+         "recovery_stats": recovery.stats()}
+    emit("mp_ring_kill", v)
+    return v
 
 
 def mp_ring_members(dev, rank, nproc):
@@ -3713,6 +3878,13 @@ def mp_worker(argv) -> int:
             res["mp_tuning"] = mp_tuning(cfg, dev, rank, nproc, out)
         elif world == "c":
             res["mp_divergence"] = mp_divergence(cfg, dev, rank)
+        elif world == "k":
+            # the survivor leaves at once (its peer is gone: no teardown)
+            from oap_mllib_tpu_torch.utils import recovery
+
+            res["mp_ring_kill"] = mp_ring_kill(dev, rank, nproc)
+            print("MP_RESULT " + json.dumps(res), flush=True)
+            recovery.exit_now(0)
         else:
             res["mp_ring_members"] = mp_ring_members(dev, rank, nproc)
             res["mp_kmeans"] = [mp_kmeans(cfg, dev, rank, nproc, 2, out, "random")]
@@ -3728,17 +3900,19 @@ def mp_worker(argv) -> int:
     return 0
 
 
-def run_world(world, nproc, out, flags):
+def run_world(world, nproc, out, flags, killed=(), timeout_s=MP_TIMEOUT_S):
     """Spawn a world of ``nproc`` worker processes and collect their
     results; every process is stopped before this returns.  This process
     hosts the world's store on a port the kernel assigns and holds it
-    until the workers end, so two runs on one machine never meet."""
+    until the workers end, so two runs on one machine never meet.  The
+    ranks in ``killed`` must end by SIGKILL and print no result; the
+    world must end within ``timeout_s``."""
     import datetime
 
     import torch.distributed as dist
 
     store = dist.TCPStore("127.0.0.1", 0, nproc, True, wait_for_workers=False,
-                          timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+                          timeout=datetime.timedelta(seconds=timeout_s))
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mp-worker",
                                str(r), str(nproc), str(store.port), world, out, *flags],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -3747,10 +3921,10 @@ def run_world(world, nproc, out, flags):
     outs = []
     try:
         for p in procs:
-            left = max(1.0, MP_TIMEOUT_S - (time.perf_counter() - t0))
+            left = max(1.0, timeout_s - (time.perf_counter() - t0))
             outs.append(p.communicate(timeout=left)[0])
     except subprocess.TimeoutExpired:
-        raise Failed(f"world {world}: the workers did not end within {MP_TIMEOUT_S} s")
+        raise Failed(f"world {world}: the workers did not end within {timeout_s} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3762,6 +3936,10 @@ def run_world(world, nproc, out, flags):
         for line in text.splitlines():
             if not line.startswith("MP_RESULT "):
                 print(f"[{world}{r}] {line}", flush=True)
+        if r in killed:
+            check(p.returncode == -9, f"world {world}: worker {r} exited {p.returncode}, "
+                                      "expected its SIGKILL")
+            continue
         if p.returncode != 0:
             raise Failed(f"world {world}: worker {r} exited {p.returncode}")
         got = [ln for ln in text.splitlines() if ln.startswith("MP_RESULT ")]
@@ -3858,6 +4036,11 @@ def phase_mp(dev, mesh, rehearse):
     a, wall_a = run_world("a", n_a, out, flags)
     b, wall_b = run_world("b", 2, out, flags)
     c, wall_c = run_world("c", 2, out, flags)
+    if dev.type == "cuda":
+        # a peer SIGKILLed inside a K5 call: the survivor raises and leaves
+        k, wall_k = run_world("k", 2, out, flags, killed=(1,), timeout_s=180)
+        emit("mp_ring_kill_world", {"world_wall_s": wall_k,
+                                    "survivors": [r["mp_ring_kill"] for r in k]})
     div = [r["mp_divergence"] for r in c]
     for r, v in enumerate(div):
         check("op:process_allgather" in v["error"] and "op:barrier" in v["error"]
@@ -8517,6 +8700,8 @@ def main(argv=None) -> int:
         return sweep_worker(argv[1:])
     if argv[:1] == ["--tune-worker"]:
         return tune_worker(argv[1:])
+    if argv[:1] == ["--k4-worker"]:
+        return k4_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the phases on the CPU at a tiny size, plain versions only")

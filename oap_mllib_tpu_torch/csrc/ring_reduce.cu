@@ -51,11 +51,23 @@
 // to the peers, which open it with cudaIpcMemLazyEnablePeerAccess.  The
 // table then holds every rank's IPC-mapped input and output; each
 // process folds its share of the elements and stores the sums into every
-// rank's output, its own and the peers'.  The host orders the processes
-// (ring_kernel.py: copy in, synchronise, barrier, launch, synchronise,
-// barrier), so no event crosses a process.  The entries below make, map
-// and release the workspace; this library links cudart statically, so
-// each entry selects its device itself.
+// rank's output, its own and the peers'.  The processes order themselves
+// on the device, as the TPU kernel does with its barrier semaphores
+// (ring_reduce.py's get_barrier_semaphore, semaphore_signal,
+// semaphore_wait): the first bytes of each workspace hold a signal area,
+// a "ready" and a "folded" word for every process of the world, and a
+// call is one run of stream-ordered work on each process with no host
+// round trip: copy in; write (epoch << 1 | failed) into this process's
+// "ready" word in every workspace (ring_handshake, stream memory
+// operations through stream_memops.cuh, each write after a memory
+// barrier so the copied inputs are visible before the word); wait until
+// every "ready" word of its own area holds the epoch; the fold launches,
+// whose blocks read those words first and, when one carries an error
+// bit or another epoch, fold nothing and store a status word; "folded"
+// the same way; then the copies out.  The host reads the signal area
+// once, at the end of the call (ring_kernel.py).  The entries below make,
+// map and release the workspace; this library links cudart statically,
+// so each entry selects its device itself.
 //
 // Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (oap_mllib_tpu_torch/ops/cuda/_build.py).
@@ -63,6 +75,8 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+
+#include "stream_memops.cuh"
 
 namespace {
 
@@ -74,6 +88,13 @@ struct RingArgs {
   const long long* table;  // pointers and fold order, laid out as above
   int world, cols, half, seg_rows, seg;
   int lo, hi;  // this launch's share of the flat elements, [lo, hi)
+  // across processes: the `nready` "ready" words of this process's
+  // signal area, the value each must hold (epoch << 1) and the status
+  // word; `ready` is null within one process
+  const unsigned* ready;
+  int nready;
+  unsigned want;
+  unsigned* status;
 };
 
 __device__ __forceinline__ const float* in_ptr(const RingArgs& a, int r) {
@@ -103,6 +124,20 @@ __device__ __forceinline__ float fold_one(int e, const RingArgs& a) {
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 ring_fold_kernel(const __grid_constant__ RingArgs a) {
+  if (a.ready != nullptr) {
+    // a process that failed its copy or signalled another call: fold
+    // nothing, and say so (the status carries this call's epoch)
+    __shared__ int bad;
+    if (threadIdx.x == 0) {
+      int b = 0;
+      for (int q = 0; q < a.nready; ++q)
+        b |= *reinterpret_cast<const volatile unsigned*>(a.ready + q) != a.want;
+      bad = b;
+      if (b && blockIdx.x == 0) *a.status = a.want | 1u;
+    }
+    __syncthreads();
+    if (bad) return;
+  }
   const int W = a.world;
   const int stride = gridDim.x * blockDim.x * 4;
   for (int e = a.lo + 4 * (blockIdx.x * blockDim.x + threadIdx.x); e < a.hi;
@@ -207,18 +242,28 @@ int ring_enable_peer(int dev, int peer) {
 // pointer 16-byte aligned, every los[c] a multiple of 4).  With more
 // than one card, every card's launch waits for every card's stream as it
 // stands, and afterwards every card's stream waits for every launch.
+// Across processes (one card) `ready` points at this process's `nready`
+// "ready" words, each of which must hold `want`, else the launch folds
+// nothing and writes want | 1 to `*status`; null within one process.
 // Returns a cudaError_t (invalid value for an empty world or a card
 // count out of range).
 int ring_fold(int cards, const int* devs, void* const* streams,
               const int* los, const int* his, const long long* const* tables,
-              int world, int cols, int half, int seg_rows, int seg, int vec) {
+              int world, int cols, int half, int seg_rows, int seg, int vec,
+              const unsigned* ready, int nready, unsigned want, unsigned* status) {
   if (world < 1 || cards < 1 || cards > kMaxCards) return cudaErrorInvalidValue;
+  if (ready != nullptr && (cards != 1 || nready < 1 || status == nullptr))
+    return cudaErrorInvalidValue;
   RingArgs a = {};
   a.world = world;
   a.cols = cols;
   a.half = half;
   a.seg_rows = seg_rows;
   a.seg = seg;
+  a.ready = ready;
+  a.nready = nready;
+  a.want = want;
+  a.status = status;
   cudaError_t err = cudaSuccess;
   if (cards > 1 && (err = cross_wait(cards, devs, streams, 0)) != cudaSuccess)
     return err;
@@ -242,8 +287,9 @@ int ring_fold(int cards, const int* devs, void* const* streams,
   return err;
 }
 
-// A workspace of `bytes` on `dev` for peers to map: its pointer and its
-// 64-byte IPC handle.  Returns a cudaError_t.
+// A workspace of `bytes` on `dev` for peers to map, its first `zeroed`
+// bytes zero: its pointer and its 64-byte IPC handle.  Returns a
+// cudaError_t.
 // A failed call also leaves its error as the runtime's last error, which
 // ring_fold's launch check (cudaGetLastError) would report as its own:
 // the entries below clear it before they return it.
@@ -252,9 +298,12 @@ static int cleared(cudaError_t err) {
   return err;
 }
 
-int ring_ws_alloc(int dev, long long bytes, void** ptr, void* handle) {
+int ring_ws_alloc(int dev, long long bytes, long long zeroed, void** ptr, void* handle) {
   cudaError_t err = cudaSetDevice(dev);
   if (err == cudaSuccess) err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  // the signal area starts at zero, before any peer can map it
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, static_cast<size_t>(zeroed));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
   if (err == cudaSuccess)
     err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
   return cleared(err);
@@ -281,6 +330,44 @@ int ring_ipc_open(int dev, const void* handle, void** ptr) {
 int ring_ipc_close(int dev, void* ptr) {
   cudaError_t err = cudaSetDevice(dev);
   return cleared(err == cudaSuccess ? cudaIpcCloseMemHandle(ptr) : err);
+}
+
+// One signal of a cross-process call on `stream` (device `dev`):
+// `value` written into the `nsig` words at sig[i] (this process's word
+// in every process's signal area, mapped), each after a memory barrier,
+// then the stream held until each of the `nown` words at own[i] (this
+// process's own area) is >= `least`; then, when `bytes` > 0, `bytes` of
+// `area` (this process's signal area) copied to the pinned host buffer
+// `host`.  Returns 0, a CUresult, or a cudaError_t (the driver's stream
+// memory operations missing).
+int ring_handshake(int dev, void* stream, int nsig, const unsigned long long* sig,
+                   unsigned value, int nown, const unsigned long long* own,
+                   unsigned least, void* host, const void* area, long long bytes) {
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return cleared(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = memops::write_all(st, nsig, sig, value);
+  if (rc == 0) rc = memops::wait_all(st, nown, own, least);
+  if (rc == 0 && bytes > 0)
+    rc = cleared(cudaMemcpyAsync(host, area, static_cast<size_t>(bytes),
+                                 cudaMemcpyDeviceToHost, st));
+  return rc;
+}
+
+// After an abort (a peer gone mid-call): `value` written from the host
+// into each of the `n` words at words[i] of this process's own area, on
+// a stream of its own, so the waits queued on the call's stream end and
+// it drains.  Returns a cudaError_t.
+int ring_release(int dev, int n, const unsigned long long* words, unsigned value) {
+  cudaError_t err = cudaSetDevice(dev);
+  cudaStream_t side = nullptr;
+  if (err == cudaSuccess) err = cudaStreamCreateWithFlags(&side, cudaStreamNonBlocking);
+  for (int i = 0; i < n && err == cudaSuccess; ++i)
+    err = cudaMemcpyAsync(reinterpret_cast<void*>(words[i]), &value, sizeof(value),
+                          cudaMemcpyHostToDevice, side);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(side);
+  if (side != nullptr) cudaStreamDestroy(side);
+  return cleared(err);
 }
 
 }  // extern "C"

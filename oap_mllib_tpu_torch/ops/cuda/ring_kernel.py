@@ -41,26 +41,58 @@ largest call so far and never carved from torch's caching allocator,
 whose ``cudaIpcMemHandle_t`` every peer maps once per size
 (``cudaIpcMemLazyEnablePeerAccess``; the process's own ranks use its
 own pointer, as a handle does not open in the process that made it).
-A call copies the local ranks' buffers into the workspace, synchronises,
-passes a gloo barrier, launches the kernel once per ring it holds a
-rank of, with a table of every rank's mapped input and output, folding
-its share of the elements (one share per process of the ring, in
-``fold_order``'s order) and storing it into every rank's output,
-synchronises, passes a second barrier (after which the workspace may be
-written again) and copies its ranks' outputs out.  Both barriers carry
-an error flag (``collective.agree``), and so does the handle exchange
-of a new workspace: a copy, launch or allocation that fails on one
-process raises on every process.  The mappings stay
-open until :func:`close_ipc` (parallel/bootstrap.shutdown).  The plain
-version across processes is ``collective.process_allgather`` of the
-parts, then :func:`ring_allreduce_plain` of each ring on the gathered
-list: the bits of the one-process plain ring.  CPU tensors take it, CUDA
-tensors the kernel, or raise.
+Its first bytes are a signal area (:func:`signal_area`): a "ready" and
+a "folded" word for every process of the world, and a status word.  The
+processes order themselves on the card, as the TPU kernel does with its
+barrier semaphores, and a call makes no host round trip.  On the
+workspace card's current stream, with no synchronisation in between, a
+process
+
+1. copies its ranks' buffers into its workspace slots;
+2. writes this call's epoch (:func:`signal_word`, with an error bit
+   when a copy failed) into its "ready" word in every process's area;
+3. waits until every "ready" word of its own area holds the epoch;
+4. launches the kernel once per ring it holds a rank of, with a table
+   of every rank's mapped input and output, folding its share of the
+   elements (one share per process of the ring, in ``fold_order``'s
+   order) and storing it into every rank's output; the kernel's blocks
+   read the "ready" words first and, when one carries the error bit or
+   another epoch, fold nothing and set the status word;
+5. writes its "folded" word in every area (the error bit when a launch
+   failed) and 6. waits for every peer's;
+7. copies its ranks' outputs out, and its signal area to the host.
+
+The writes and waits are stream memory operations (``cuStreamWriteValue32``
+after a memory barrier, ``cuStreamWaitValue32``; csrc/stream_memops.cuh):
+a waiting stream holds no SM, so two processes that share a card by time
+slices make progress (tools/ipc_signal_probe.py: a round trip of 12.5
+µs on one H100, where a spinning kernel took 4.5 ms, a time slice).
+Every process counts the calls alike (they are collective, in one
+order), and the count restarts on a new workspace (:func:`next_epoch`).
+The host then waits once for the call's last event: it polls for up to
+a millisecond, then waits under the recovery plane's watcher
+(utils/recovery.guarded_dispatch, op ``ring_allreduce``), which also
+ends the wait when a peer's process has ended (:func:`process_alive`):
+a dead or silent peer raises ``PeerAbortError`` or
+``CollectiveTimeoutError`` within the deadline, and the process's own
+waits are released so its stream drains.  It then reads its signal
+area: when any process failed (:func:`failed_processes`), every process
+raises ``RuntimeError`` naming them (:func:`call_error`, the rule of
+``collective.agree``), and the next call makes the workspace anew.
+Only the workspace's growth, renewal and release (:func:`_workspace`,
+:func:`close_ipc`) are host collectives.  The mappings stay open until
+:func:`close_ipc`
+(parallel/bootstrap.shutdown).  The plain version across processes is
+``collective.process_allgather`` of the parts, then
+:func:`ring_allreduce_plain` of each ring on the gathered list: the bits
+of the one-process plain ring.  CPU tensors take it, CUDA tensors the
+kernel, or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import time
 from collections import OrderedDict
 from functools import lru_cache
@@ -260,13 +292,18 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ring_enable_peer.argtypes = [i32, i32]
         lib.ring_enable_peer.restype = i32
-        lib.ring_fold.argtypes = [i32] + [ptr] * 5 + [i32] * 6
-        lib.ring_fold.restype = i32
-        lib.ring_ws_alloc.argtypes = [i32, ctypes.c_longlong, ctypes.POINTER(ptr), ptr]
+        u32, i64 = ctypes.c_uint, ctypes.c_longlong
+        words = ctypes.POINTER(ctypes.c_ulonglong)
+        lib.ring_fold.argtypes = [i32] + [ptr] * 5 + [i32] * 6 + [ptr, i32, u32, ptr]
+        lib.ring_ws_alloc.argtypes = [i32, i64, i64, ctypes.POINTER(ptr), ptr]
         lib.ring_ws_free.argtypes = [i32, ptr]
         lib.ring_ipc_open.argtypes = [i32, ptr, ctypes.POINTER(ptr)]
         lib.ring_ipc_close.argtypes = [i32, ptr]
-        for fn in (lib.ring_ws_alloc, lib.ring_ws_free, lib.ring_ipc_open, lib.ring_ipc_close):
+        lib.ring_handshake.argtypes = [i32, ptr, i32, words, u32, i32, words, u32, ptr, ptr,
+                                       i64]
+        lib.ring_release.argtypes = [i32, i32, words, u32]
+        for fn in (lib.ring_fold, lib.ring_ws_alloc, lib.ring_ws_free, lib.ring_ipc_open,
+                   lib.ring_ipc_close, lib.ring_handshake, lib.ring_release):
             fn.restype = i32
         _lib = lib
     return _lib
@@ -365,7 +402,7 @@ def _ring_launch(parts, segments: int) -> List[torch.Tensor]:
     err = lib.ring_fold(
         n, ints(*(c.index for c in cards)), (ctypes.c_void_p * n)(*streams),
         ints(*los), ints(*his), (ctypes.c_void_p * n)(*(t.data_ptr() for t in tables)),
-        world, cols, half, seg_rows, seg, vec)
+        world, cols, half, seg_rows, seg, vec, None, 0, 0, None)
     if err != 0:
         raise RuntimeError(f"{KERNEL}: CUDA launch failed with error {err}")
     LAUNCHES[KERNEL] += n  # one launch per card
@@ -392,21 +429,147 @@ def ring_allreduce(parts: Sequence[torch.Tensor], segments: int = 1,
 # -- across processes -------------------------------------------------------------
 
 # this process's workspace and its peers' mapped ones: card index, own
-# pointer, bytes (equal on every process), {process: mapped pointer}
-_ipc = {"card": None, "ptr": None, "bytes": 0, "peers": {}}
-# the host cost of the cross-process rings: calls, seconds in the two
-# barriers, seconds of the whole call (copies and launches included)
-IPC_STATS = {"calls": 0, "barrier_s": 0.0, "total_s": 0.0}
+# pointer, bytes (equal on every process), {process: mapped pointer},
+# the peers' pids, the last call's epoch, whether the
+# next call makes the workspace anew (after a failed call), the pinned
+# host copy of this process's signal area, the call's CUDA events and
+# tensors over the workspace's slots
+_ipc = {"card": None, "ptr": None, "bytes": 0, "peers": {}, "pids": {},
+        "epoch": 0, "stale": False, "words": None, "events": None, "views": {}}
+_MAX_VIEWS = 256
+# the host cost of the cross-process rings: calls, seconds of the whole
+# call (copies and launches included), seconds the host waited at the
+# end of the call (``barrier_s``), and seconds the card's stream waited
+# for the peers' signals (``device_wait_s``, from CUDA events around the
+# two waits)
+IPC_STATS = {"calls": 0, "barrier_s": 0.0, "device_wait_s": 0.0, "total_s": 0.0}
 _SLOT_ALIGN = 256
+# a signal word holds (epoch << 1) | failed in 32 bits
+EPOCH_LIMIT = 2 ** 31 - 1
+# the host's wait at the end of a call: how long it polls before it
+# moves under the recovery plane's watcher, how often the watched wait
+# looks for peers that ended, and how long it spins before it sleeps
+# between polls
+_INLINE_S = 0.001
+_LIVENESS_S = 0.05
+_SPIN_S = 0.002
 
 
 def reset_ipc_stats() -> None:
-    IPC_STATS.update(calls=0, barrier_s=0.0, total_s=0.0)
+    IPC_STATS.update(calls=0, barrier_s=0.0, device_wait_s=0.0, total_s=0.0)
 
 
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{KERNEL}: {what} failed with CUDA error {err}")
+
+
+def signal_area(processes: int) -> Dict[str, int]:
+    """Byte offsets of the signal area at the start of every workspace of
+    a world of ``processes``: a ``ready`` and a ``folded`` 32-bit word for
+    each process (process q writes word q of every area), one ``status``
+    word (the fold's), ``words`` in all, and the area's ``bytes``, padded
+    to the slots' alignment so every slot after it keeps its own."""
+    if processes < 1:
+        raise ValueError(f"{KERNEL}: a world of {processes} processes")
+    words = 2 * processes + 1
+    return {"ready": 0, "folded": 4 * processes, "status": 8 * processes, "words": words,
+            "bytes": _pad_to(4 * words, _SLOT_ALIGN)}
+
+
+def workspace_layout(rows: int, cols: int, members: int, processes: int) -> Dict:
+    """Where everything lies in one process's workspace for a call of
+    (rows, cols) buffers with ``members`` ring members a process:
+    ``signal`` (:func:`signal_area`), ``slot`` (the bytes of one buffer,
+    aligned), ``inputs`` and ``outputs`` (each member slot's offset: a
+    member's input, then its output) and ``bytes`` in all.  Every process
+    lays its workspace out alike (each passes the largest member count of
+    any process)."""
+    area = signal_area(processes)
+    slot = _pad_to(4 * rows * cols, _SLOT_ALIGN)
+    return {"signal": area, "slot": slot,
+            "inputs": [area["bytes"] + 2 * s * slot for s in range(members)],
+            "outputs": [area["bytes"] + (2 * s + 1) * slot for s in range(members)],
+            "bytes": area["bytes"] + 2 * slot * members}
+
+
+def next_epoch(epoch: int, limit: int = EPOCH_LIMIT) -> Optional[int]:
+    """The epoch of the call after one at ``epoch`` (0: a workspace no
+    call has used), or None when it would pass ``limit``: the workspace is
+    then made anew (its signal area zeroed) before the call, and the count
+    restarts at 1.  Every process counts every call, in one order, so all
+    count alike and renew at the same call."""
+    return epoch + 1 if epoch < limit else None
+
+
+def signal_word(epoch: int, failed: bool) -> int:
+    """The value a process signals for a call: its epoch, and an error
+    bit when its copy in or its launch failed."""
+    return (epoch << 1) | int(bool(failed))
+
+
+def failed_processes(words: Sequence[int], processes: int, epoch: int) -> List[int]:
+    """The processes that failed the call at ``epoch``, read from this
+    process's signal area at the end of the call (``words``: the ready
+    words, the folded words, the status): each whose folded word is not
+    this call's clean value, or whose ready word is neither this call's
+    clean value nor the next call's (a peer that has seen every folded
+    word may already be in the next call, and its ready word then says
+    nothing of this one; its folded word cannot move on before this
+    process signals the next call).  A failed call stops every process
+    from signalling again before all have read it (the next call renews
+    the workspace, a host collective), so every process names the same
+    processes."""
+    want = epoch << 1
+    ready, folded = words[:processes], words[processes:2 * processes]
+    return [q for q in range(processes)
+            if (folded[q] & 0xFFFFFFFF) != want
+            or ((ready[q] & 0xFFFFFFFF) != want and (ready[q] & 0xFFFFFFFF) >> 1 != epoch + 1)]
+
+
+def call_error(failed: Sequence[int], words: Sequence[int], processes: int, epoch: int,
+               error: Optional[BaseException]) -> RuntimeError:
+    """The error every process raises for a failed call: the processes
+    that failed (as ``collective.agree`` names them), whether the fold
+    saw it (the status word) and this process's own error."""
+    folded = "the fold folded nothing" if (words[2 * processes] & 0xFFFFFFFF) == \
+        signal_word(epoch, True) else "the fold ran"
+    return RuntimeError(f"{KERNEL}: the cross-process call failed on process(es) "
+                        f"{list(failed)} ({folded}; here: {error!r})")
+
+
+def process_alive(pid: int) -> bool:
+    """Whether process ``pid`` of this machine still runs (a zombie, dead
+    but not reaped, does not)."""
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+    except (OSError, IndexError):
+        return True
+    return state not in ("Z", "X")
+
+
+def _await_call(done, pids: Dict[int, int]) -> None:
+    """Wait for ``done`` (the call's last CUDA event); a peer process
+    that has ended raises ConnectionError, which the recovery plane maps
+    to PeerAbortError.  CUDA IPC maps memory only between processes of one
+    machine, so every peer's pid is this machine's."""
+    t0 = last = time.monotonic()
+    while not done.query():
+        now = time.monotonic()
+        if now - last >= _LIVENESS_S:
+            last = now
+            gone = [q for q, pid in pids.items() if not process_alive(pid)]
+            if gone:
+                raise ConnectionError(f"{KERNEL}: process(es) {gone} ended during the call "
+                                      "(connection closed by peer)")
+        time.sleep(0 if now - t0 < _SPIN_S else 1e-4)
 
 
 def close_ipc() -> None:
@@ -425,35 +588,43 @@ def close_ipc() -> None:
     collective.agree(RuntimeError("; ".join(errors)) if errors else None,
                      f"{KERNEL}: cudaIpcCloseMemHandle")
     _check(lib.ring_ws_free(_ipc["card"], _ipc["ptr"]), "cudaFree of the workspace")
-    _ipc.update(ptr=None, bytes=0, peers={})
+    _ipc.update(ptr=None, bytes=0, peers={}, pids={}, epoch=0, stale=False,
+                words=None, events=None, views={})
 
 
-def _workspace(card: int, nbytes: int) -> Dict[int, int]:
+def _workspace(card: int, nbytes: int, processes: int, renew: bool) -> Dict[int, int]:
     """Every process's workspace address in this process (its own and the
-    mapped peers'), at least ``nbytes`` each: grown collectively (every
-    process passes the same ``nbytes``), the handles exchanged through
-    the host and opened here.  A workspace that does not allocate, or a
-    handle that does not open, raises on every process."""
+    mapped peers'), at least ``nbytes`` each, its signal area zeroed:
+    grown (or, with ``renew``, made anew) collectively (every process
+    passes the same arguments), the handles and pids exchanged through
+    the host and the handles opened here.  A workspace that does not
+    allocate, or a handle that does not open, raises on every process.
+    A new workspace restarts the epoch."""
     from oap_mllib_tpu_torch.parallel import bootstrap, collective
 
     me = bootstrap.process_index()
-    if _ipc["ptr"] is not None and _ipc["bytes"] >= nbytes:
+    if _ipc["ptr"] is not None and _ipc["bytes"] >= nbytes and not renew:
         return {me: _ipc["ptr"], **_ipc["peers"]}
     close_ipc()
     lib = _library()
+    area = signal_area(processes)
     ptr, handle = ctypes.c_void_p(), (ctypes.c_ubyte * 64)()
-    err = lib.ring_ws_alloc(card, nbytes, ctypes.byref(ptr), handle)
+    err = lib.ring_ws_alloc(card, nbytes, area["bytes"], ctypes.byref(ptr), handle)
     # the allocation's outcome travels with the handle: a process whose
     # allocation failed does not leave its peers in the exchange
     handles, alloc = collective.process_allgather(
-        [np.frombuffer(bytes(handle), np.uint8), np.asarray([err], np.int64)])
-    if alloc.any():
+        [np.frombuffer(bytes(handle), np.uint8), np.asarray([err, os.getpid()], np.int64)])
+    if alloc[:, 0].any():
         if err == 0:
             lib.ring_ws_free(card, ptr)
         raise RuntimeError(
             f"{KERNEL}: the workspace of {nbytes} bytes did not allocate "
             f"(CUDA errors by process: {alloc[:, 0].tolist()})")
-    _ipc.update(card=card, ptr=ptr.value, bytes=nbytes, peers={})
+    _ipc.update(card=card, ptr=ptr.value, bytes=nbytes, peers={},
+                pids={q: int(pid) for q, pid in enumerate(alloc[:, 1]) if q != me},
+                epoch=0, stale=False, views={},
+                words=torch.empty((area["words"],), dtype=torch.int32).pin_memory(),
+                events=[torch.cuda.Event(enable_timing=True) for _ in range(5)])
     errors = []
     for q, h in enumerate(handles):
         if q == me:
@@ -571,11 +742,33 @@ def ring_allreduce_groups(parts: Dict[Hashable, torch.Tensor],
         return ring_allreduce_groups_plain(parts, groups, owner, segments, axis)
     if device.type != "cuda":
         raise ValueError(f"{KERNEL}: unsupported device {device}")
-    return _ring_launch_ipc(parts, groups, owner, segments, me)
+    return _ring_launch_ipc(parts, groups, owner, segments, me, axis)
 
 
-def _ring_launch_ipc(parts, groups, owner, segments: int, me: int):
-    from oap_mllib_tpu_torch.parallel import collective
+def _view(ws_dev, addr: int, shape) -> torch.Tensor:
+    """A (rows, cols) f32 tensor over the workspace at ``addr``, made once
+    per workspace."""
+    key = (addr, tuple(shape))
+    t = _ipc["views"].get(key)
+    if t is None:
+        if len(_ipc["views"]) >= _MAX_VIEWS:
+            _ipc["views"].clear()
+        t = _ipc["views"][key] = torch.as_tensor(_Raw(addr, shape), device=ws_dev)
+    return t
+
+
+def _copy_in(slot: torch.Tensor, t: torch.Tensor) -> None:
+    """One member's buffer into its input slot, on the workspace card's
+    current stream."""
+    slot.copy_(t)
+
+
+def _ring_launch_ipc(parts, groups, owner, segments: int, me: int, axis: Optional[str]):
+    """One cross-process call: stream-ordered work on the workspace card's
+    current stream, then one host wait (module docstring)."""
+    from oap_mllib_tpu_torch.parallel import bootstrap
+    from oap_mllib_tpu_torch.telemetry import flightrec
+    from oap_mllib_tpu_torch.utils import recovery
 
     t_call = time.perf_counter()
     rows, cols = next(iter(parts.values())).shape
@@ -587,64 +780,122 @@ def _ring_launch_ipc(parts, groups, owner, segments: int, me: int):
     per_process: Dict[int, int] = {}
     for p, _ in layout.values():
         per_process[p] = per_process.get(p, 0) + 1
-    slot = _pad_to(4 * total, _SLOT_ALIGN)
+    nproc = bootstrap.world_size()
+    plan = workspace_layout(rows, cols, max(per_process.values()), nproc)
+    area = plan["signal"]
     card = next(iter(parts.values())).device
-    bases = _workspace(card.index if _ipc["card"] is None else _ipc["card"],
-                       2 * slot * max(per_process.values()))
+    renew = _ipc["stale"] or next_epoch(_ipc["epoch"]) is None
+    bases = _workspace(card.index if _ipc["card"] is None else _ipc["card"], plan["bytes"],
+                       nproc, renew)
+    epoch = _ipc["epoch"] = next_epoch(_ipc["epoch"])
     ws_dev = torch.device("cuda", _ipc["card"])
+    if flightrec.enabled():
+        flightrec.record("collective", "ring_allreduce", f"{axis}|({rows}, {cols})|float32")
 
     def addr(m, out):
         p, s = layout[m]
-        return bases[p] + (2 * s + out) * slot
+        return bases[p] + (plan["outputs"] if out else plan["inputs"])[s]
+
+    def theirs(kind):  # this process's word ``kind`` in every process's area
+        return [bases[p] + area[kind] + 4 * me for p in range(nproc)]
+
+    def mine(kind):  # every process's word ``kind`` in this process's area
+        return [bases[me] + area[kind] + 4 * p for p in range(nproc)]
+
+    host_words = _ipc["words"]
+
+    def handshake(kind, failed, read=False):
+        """Signal ``kind``, wait for every peer's; with ``read``, then
+        copy this process's signal area to ``host_words``."""
+        sig, own = theirs(kind), mine(kind)
+        n = ctypes.c_ulonglong * nproc
+        err = lib.ring_handshake(ws_dev.index, stream.cuda_stream, nproc, n(*sig),
+                                 signal_word(epoch, failed), nproc, n(*own), epoch << 1,
+                                 host_words.data_ptr(), bases[me], 4 * area["words"] * read)
+        if err != 0:
+            _ipc["stale"] = True
+            _check(err, f"the {kind} signal (stream memory operations)")
 
     stream = torch.cuda.current_stream(ws_dev)
-    # the barriers carry an error flag (collective.agree): a process whose
-    # copy, launch or synchronisation fails raises together with its peers
+    events = _ipc["events"]
+    # a process whose copy or launch fails still signals, with the error
+    # bit, so its peers' waits end and every process raises together
     error = None
     try:
-        for m, t in parts.items():  # copy in
-            torch.as_tensor(_Raw(addr(m, 0), (rows, cols)), device=ws_dev).copy_(t)
-        stream.synchronize()
-    except Exception as e:  # noqa: BLE001 - every process raises at the barrier
+        for m, t in parts.items():
+            _copy_in(_view(ws_dev, addr(m, 0), (rows, cols)), t)
+    except Exception as e:  # noqa: BLE001 - every process raises at the end of the call
         error = e
-    t0 = time.perf_counter()
-    collective.agree(error, f"{KERNEL}: the copy into the workspace")
-    waited = time.perf_counter() - t0
-    launched = 0
+    events[0].record(stream)
+    handshake("ready", error is not None)
+    events[1].record(stream)
+    launched, launch_error = 0, None
     t_launch = time.perf_counter()
-    try:
-        for g in groups:
-            procs = list(dict.fromkeys(owner(m) for m in g))
-            if me not in procs:
-                continue
-            world = len(g)
-            order, half, seg_rows, seg = _geometry(rows, cols, world, segments)
-            ins = [addr(m, 0) for m in g]
-            outs = [addr(m, 1) for m in g]
-            vec = int(all(a % 16 == 0 for a in ins + outs))
-            table = _device_table(ws_dev, stream.cuda_stream, fold_table(ins, outs, order))
-            lo, hi = _shares(total, len(procs))[procs.index(me)]
-            one = ctypes.c_int * 1
-            err = lib.ring_fold(
-                1, one(ws_dev.index), (ctypes.c_void_p * 1)(stream.cuda_stream), one(lo),
-                one(hi), (ctypes.c_void_p * 1)(table.data_ptr()), world, cols, half,
-                seg_rows, seg, vec)
-            _check(err, "the cross-process launch")
-            launched += 1
-        stream.synchronize()
-    except Exception as e:  # noqa: BLE001 - every process raises at the barrier
-        error = e
+    ready = ctypes.c_void_p(bases[me] + area["ready"])
+    status = ctypes.c_void_p(bases[me] + area["status"])
+    for g in groups:
+        procs = list(dict.fromkeys(owner(m) for m in g))
+        if me not in procs:
+            continue
+        world = len(g)
+        order, half, seg_rows, seg = _geometry(rows, cols, world, segments)
+        ins = [addr(m, 0) for m in g]
+        outs = [addr(m, 1) for m in g]
+        vec = int(all(a % 16 == 0 for a in ins + outs))
+        table = _device_table(ws_dev, stream.cuda_stream, fold_table(ins, outs, order))
+        lo, hi = _shares(total, len(procs))[procs.index(me)]
+        one = ctypes.c_int * 1
+        err = lib.ring_fold(
+            1, one(ws_dev.index), (ctypes.c_void_p * 1)(stream.cuda_stream), one(lo),
+            one(hi), (ctypes.c_void_p * 1)(table.data_ptr()), world, cols, half,
+            seg_rows, seg, vec, ready, nproc, epoch << 1, status)
+        if err != 0:
+            launch_error = launch_error or RuntimeError(
+                f"{KERNEL}: the cross-process launch failed with CUDA error {err}")
+            continue
+        launched += 1
     LAUNCHES[KERNEL] += launched  # one launch per process per ring
     if launched:
         book_launch(LABELS[KERNEL], time.perf_counter() - t_launch, launched)
+    error = error or launch_error
+    events[2].record(stream)
+    handshake("folded", launch_error is not None, read=True)
+    events[3].record(stream)
+    out = {m: _view(ws_dev, addr(m, 1), (rows, cols)).to(parts[m].device, copy=True)
+           for m in parts}
+    done = events[4]
+    done.record(stream)
+    # the call's one host wait: a short poll here (a watched wait starts a
+    # thread, which costs more than a small call), then, under the
+    # recovery plane's watcher, the rest: a peer that ended or never
+    # signals raises PeerAbortError or CollectiveTimeoutError within the
+    # deadline
     t0 = time.perf_counter()
-    collective.agree(error, f"{KERNEL}: the cross-process launch")
-    waited += time.perf_counter() - t0
-    out = {m: torch.as_tensor(_Raw(addr(m, 1), (rows, cols)), device=ws_dev).to(
-        parts[m].device, copy=True) for m in parts}
+    while not done.query() and time.perf_counter() - t0 < _INLINE_S:
+        pass
+    try:
+        if not done.query():
+            recovery.guarded_dispatch("ring_allreduce", axis or "host",
+                                      lambda: _await_call(done, _ipc["pids"]))
+    except recovery.RecoveryError:
+        # this process's waits end on its own words (the error bit set),
+        # so its stream drains; the next call makes the workspace anew
+        _ipc["stale"] = True
+        n = ctypes.c_ulonglong * (2 * nproc)
+        lib.ring_release(ws_dev.index, 2 * nproc,
+                         n(*mine("ready"), *mine("folded")), signal_word(epoch, True))
+        raise
+    waited = time.perf_counter() - t0
+    got = host_words.tolist()
     IPC_STATS["calls"] += 1
     IPC_STATS["barrier_s"] += waited
+    IPC_STATS["device_wait_s"] += 1e-3 * (events[0].elapsed_time(events[1])
+                                          + events[2].elapsed_time(events[3]))
     IPC_STATS["total_s"] += time.perf_counter() - t_call
+    failed = failed_processes(got, nproc, epoch)
+    if failed or error is not None:
+        _ipc["stale"] = True
+        raise call_error(failed, got, nproc, epoch, error) from error
     return out
 
 

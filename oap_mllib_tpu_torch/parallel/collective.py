@@ -36,7 +36,8 @@ Every host exchange across processes (``_all_gather_host``, which every
 cross-process collective and the streamed passes' host reductions go
 through, and :func:`all_to_all`) is the ``collective.dispatch`` fault
 site (utils/faults.py).  Those two, :func:`barrier` and :func:`agree`
-(which K5's cross-process launches go through) run their gloo call
+(which the growth and release of K5's cross-process workspace go
+through; a K5 call itself signals on the card) run their gloo call
 under the recovery plane's watcher (utils/recovery.guarded_dispatch): a
 peer that died or never arrives raises ``PeerAbortError`` or
 ``CollectiveTimeoutError`` on every survivor.

@@ -9,10 +9,11 @@ hang until gloo's own timeout.  Two mechanisms:
   several processes): every host collective across processes
   (parallel/collective.py: ``_all_gather_host``, ``all_to_all``,
   ``barrier``, ``agree``; the shuffles, the streamed passes' reductions,
-  K5's IPC handshakes and the checkpoint agreements all go through
-  them) runs under :func:`guarded_dispatch`: the blocking call moves to
-  a daemon thread and the caller waits with a deadline, polling the
-  crash sideband.  Expiry raises :class:`CollectiveTimeoutError` naming
+  K5's workspace exchange and the checkpoint agreements all go through
+  them), and the host's wait at the end of a K5 call across processes
+  (ops/cuda/ring_kernel.py), run under :func:`guarded_dispatch`: the
+  blocking call moves to a daemon thread and the caller waits with a
+  deadline, polling the crash sideband.  Expiry raises :class:`CollectiveTimeoutError` naming
   the op, axis, elapsed wall and the last completed dispatch.
 - **Coordinated abort** (``Config.crash_dir`` non-empty): a process's
   fatal fault writes a crash record (``crash.rank<r>.json``: rank,
